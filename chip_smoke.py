@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and check them.
 
 Usage (from the root of a checkout, on a machine with a CUDA card):
 
@@ -9,18 +10,29 @@ Phases, each of which fails the run with a non-zero exit:
 
 1. print the card (nvidia-smi name and power limit) and the torch/CUDA
    versions; build the kernels from ``mxnet_tpu_torch/csrc`` with nvcc;
-2. hold each kernel against its plain PyTorch version on the card at the
-   serving path's shapes, with the tolerance stated beside each check,
-   and time the kernel, the plain version and one PyTorch library call
-   that computes the same function (a yardstick the port never calls)
-   with CUDA events, beside the least time the card could take;
+2. hold each kernel against its plain PyTorch version on the card, the
+   forward kernels at the serving path's shapes and every kernel, forward
+   and backward, at the training path's, with the tolerance stated beside
+   each check, and time the kernel, the plain version and one PyTorch
+   library call that computes the same function (a yardstick the port
+   never calls) with CUDA events, beside the least time the card could
+   take;
 3. serve 16 requests at GPT-2-small widths through the default (paged)
    `ServingEngine`, count each kernel's launches, and check the logits
    of two finished requests against the plain float32 path;
 4. serve 4 long-prompt requests through the slot-cache engine, whose
    prefill runs the flash-attention kernel;
 5. profile a few decode steps, and one long slot-cache prefill, to see
-   where the eager loop's time goes.
+   where the eager loop's time goes;
+6. train the GPT-2-small parity configuration of
+   ``tools/benchmark_transformer.py`` (bhsd attention, bf16 compute,
+   Adam) at full width for 7 steps through `SPMDTrainer`, counting each
+   kernel's launches per step, timing and profiling the steps, and
+   checking that the loss falls;
+7. check one step's float32 gradients of the same model (batch 2) through
+   the kernels against the same step through their plain versions;
+8. train the transposeless configuration (6 heads of 128, 'bsd'
+   attention, no biases) at full width for 3 steps.
 
 It prints a ``kernels`` JSON line (launches, errors, times, bounds), the
 card's name and power limit, and as its last line
@@ -34,6 +46,7 @@ import contextlib
 import copy
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -44,11 +57,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch.ops import attention as attention_mod
 from mxnet_tpu_torch.ops.pallas_kernels import _build
 from mxnet_tpu_torch.ops.pallas_kernels.flash_attention import (
-    flash_attention, flash_attention_plain)
+    _flash_bwd_cuda, _flash_bwd_plain, flash_attention, flash_attention_bsd,
+    flash_attention_bsd_plain, flash_attention_plain)
 from mxnet_tpu_torch.ops.pallas_kernels.layer_norm import (
-    _fwd_plain as layer_norm_fwd_plain, layer_norm_fwd, layer_norm_plain)
+    _bwd_plain as layer_norm_bwd_plain, _fwd_plain as layer_norm_fwd_plain,
+    layer_norm_bwd, layer_norm_fwd, layer_norm_plain)
 from mxnet_tpu_torch.serving import (ServingEngine, TransformerKVModel,
                                      pool_bytes)
 from mxnet_tpu_torch.serving import decode as decode_mod
@@ -87,13 +104,61 @@ TOL = {("layer_norm", torch.float32): (1e-5, 1e-5),
 # fails it (printed beside it).
 LOGIT_TOL = 1e-3
 
-SOURCES = {
-    "layer_norm": ("mxnet_tpu_torch/csrc/layer_norm.cu",
-                   "mxnet_tpu/ops/pallas_kernels/layer_norm.py:93"),
-    "flash_attention": ("mxnet_tpu_torch/csrc/flash_attention.cu",
-                        "mxnet_tpu/ops/pallas_kernels/flash_attention.py:155"),
+# Tolerances of the training-shape checks (phase 2), as a bound on
+# max |kernel - plain| over max |plain|, per output:
+# * float32: the same float32 arithmetic summed in another order (over up
+#   to 1024 keys or 32768 rows), ~1e-6 of the largest value; 1e-4 leaves
+#   100x headroom;
+# * bfloat16: the 7e-3 bar the JAX package's Pallas kernels held against
+#   their jnp twins (BENCH_r05.json pallas_parity, flash_bwd_bsd_full_dq
+#   0.007143).
+REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 7e-3}
+
+# Gradient check (phase 7): one step's float32 gradients through the
+# kernels against the plain versions, max |dg| / max |g| per parameter.
+# The two differ in summation order only (LayerNorm reductions, attention
+# blocks, and the embedding's scatter-add, whose atomics add in another
+# order on every run): ~1e-6.  The key-projection biases' true gradient is
+# exactly zero (q.b_k is the same for every key of a query, and the
+# softmax cancels it), so theirs is rounding noise in both paths; they are
+# held to the same bound against the largest gradient of the model
+# instead of their own.  The bf16 kernel path's error (8 mantissa bits) is
+# printed beside the bound and must exceed it.
+GRAD_TOL = 1e-4
+
+# H100 dense bf16 tensor-core peak (NVIDIA data sheet), the MFU yardstick
+MFU_PEAK = PEAK_FLOPS[torch.bfloat16]
+
+# The kernels line: one entry per TPU function ported, with the counters
+# whose launches it reports (the first is its ``launches``).
+TPU = "mxnet_tpu/ops/pallas_kernels/"
+KERNEL_ROWS = [
+    ("layer_norm", "layer_norm.cu", TPU + "layer_norm.py:93",
+     ["layer_norm"]),
+    ("layer_norm_bwd", "layer_norm.cu", TPU + "layer_norm.py:119",
+     ["layer_norm_bwd"]),
+    ("flash_attention", "flash_attention.cu", TPU + "flash_attention.py:155",
+     ["flash_attention"]),
+    ("flash_attention_bwd", "flash_attention.cu",
+     TPU + "flash_attention.py:372",
+     ["flash_attention_dq", "flash_attention_dkv"]),
+    ("flash_attention_bsd", "flash_attention.cu",
+     TPU + "flash_attention.py:988", ["flash_attention_bsd"]),
+    ("flash_attention_bsd_bwd", "flash_attention.cu",
+     TPU + "flash_attention.py:1158",
+     ["flash_attention_bsd_dq", "flash_attention_bsd_dkv"]),
+]
+# every launch counter, by name: (wrapper, attribute)
+COUNTERS = {
+    "layer_norm": (layer_norm_fwd, "launches"),
+    "layer_norm_bwd": (layer_norm_bwd, "launches"),
+    "flash_attention": (flash_attention, "launches"),
+    "flash_attention_dq": (flash_attention, "dq_launches"),
+    "flash_attention_dkv": (flash_attention, "dkv_launches"),
+    "flash_attention_bsd": (flash_attention_bsd, "launches"),
+    "flash_attention_bsd_dq": (flash_attention_bsd, "dq_launches"),
+    "flash_attention_bsd_dkv": (flash_attention_bsd, "dkv_launches"),
 }
-WRAPPERS = {"layer_norm": layer_norm_fwd, "flash_attention": flash_attention}
 
 
 def log(*args):
@@ -178,11 +243,39 @@ def bound_ms(nbytes, flops, dtype):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def time_auto(fn, budget_ms=600.0):
+    """`time_ms` with its sample count fitted to the call's length: 10
+    calls a sample below half a millisecond, else one, and as many
+    samples (3 to 25) as fit ``budget_ms``."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = 1e3 * (time.perf_counter() - t0)
+    per = 10 if one < 0.5 else 1
+    reps = int(min(25, max(3, budget_ms / (one * per))))
+    return time_ms(fn, reps=reps, per=per, warm=1)
+
+
 def check(name, dtype, got, ref):
     rtol, atol = TOL[(name, dtype)]
     err = (got.float() - ref.float()).abs()
     ok = bool((err <= atol + rtol * ref.float().abs()).all())
     return float(err.max()), ok, (rtol, atol)
+
+
+def rel_check(dtype, pairs):
+    """(max abs error, its share of the largest reference value, ok) over
+    the (got, ref) pairs, each held to ``REL_TOL[dtype]`` of its own
+    reference's largest magnitude."""
+    err, rel, ok = 0.0, 0.0, True
+    for got, ref in pairs:
+        got, ref = got.detach(), ref.detach()
+        e = float((got.float() - ref.float()).abs().max())
+        r = e / max(float(ref.float().abs().max()), 1e-30)
+        err, rel, ok = max(err, e), max(rel, r), ok and r <= REL_TOL[dtype]
+    return err, rel, ok
 
 
 # -- phase 2: kernel checks ------------------------------------------------
@@ -288,13 +381,7 @@ def kernel_checks():
     for rows, n in ((64, 1000), (16, 8192)):
         cases.append(layer_norm_case(rows, torch.float32, gen, n=n))
     for c in cases:
-        log("check %-15s %-22s %-14s err %.3e (rtol %.1e atol %.1e) %s | "
-            "kernel %.4f ms  plain %.4f ms  library %.4f ms  bound %.5f ms "
-            "(%s); kernel with launch %.4f ms"
-            % (c["kernel"], c["shape"], c["dtype"], c["max_abs_err"],
-               c["rtol"], c["atol"], "ok" if c["ok"] else "FAIL", c["ms"],
-               c["plain_ms"], c["library_ms"], c["bound_ms"], c["bound_by"],
-               c["ms_with_launch"]))
+        log(describe(c))
     log("card after the kernel checks (sm clock, mem clock, power, temp): "
         "%s" % card_state())
     bad = [c for c in cases if not c["ok"]]
@@ -303,29 +390,234 @@ def kernel_checks():
     return cases
 
 
+def _record(kernel, shape, dtype, err, timed, **times):
+    """One training-shape check: its error against ``REL_TOL`` and, when
+    timed, the kernel, plain, library and bound times."""
+    e, rel, ok = err
+    rec = {"kernel": kernel, "shape": shape, "dtype": str(dtype),
+           "max_abs_err": e, "rel_err": rel, "rel_tol": REL_TOL[dtype],
+           "ok": ok}
+    if timed:
+        rec.update(times)
+    return rec
+
+
+def _library_bwd_ms(fwd, leaves, cot):
+    """Time of a library call's backward: its forward and backward through
+    autograd, minus its forward."""
+    def both():
+        torch.autograd.grad(fwd(), leaves, cot)
+    with torch.enable_grad():
+        return time_auto(both) - time_auto(fwd)
+
+
+def layer_norm_train_case(rows, dtype, gen, n=768, timed=True):
+    """LayerNorm forward and backward at (rows, n): kernels against plain
+    versions (the backward from the same statistics), and, when timed,
+    both passes' times beside `F.layer_norm`'s."""
+    def rnd(*shape, scale=1.0, shift=0.0):
+        t = torch.randn(*shape, device="cuda", generator=gen)
+        return (t * scale + shift).to(dtype)
+    x, dy = rnd(rows, n), rnd(rows, n)
+    gamma, beta = rnd(n, scale=0.1, shift=1.0), rnd(n, scale=0.1)
+    y, mean, rstd = layer_norm_fwd(x, gamma, beta, 1e-5)
+    dx, dg, db = layer_norm_bwd(x, gamma, mean, rstd, dy)
+    torch.cuda.synchronize()
+    ry, rmean, rrstd = layer_norm_fwd_plain(x, gamma, beta, 1e-5)
+    rdx, rdg, rdb = layer_norm_bwd_plain(x, gamma, mean, rstd, dy)
+    f_err = rel_check(dtype, [(y, ry)])
+    stats = rel_check(torch.float32, [(mean, rmean), (rstd, rrstd)])
+    f_err = (max(f_err[0], stats[0]), max(f_err[1], stats[1]),
+             f_err[2] and stats[2])
+    b_err = rel_check(dtype, [(dx, rdx), (dg, rdg), (db, rdb)])
+    if not timed:
+        return [_record("layer_norm", [rows, n], dtype, f_err, False),
+                _record("layer_norm_bwd", [rows, n], dtype, b_err, False)]
+    isz = x.element_size()
+    fb = bound_ms(2 * rows * n * isz + 2 * n * isz + 2 * rows * 4,
+                  8 * rows * n, dtype)
+    bb = bound_ms(3 * rows * n * isz + 3 * n * isz + 2 * rows * 4,
+                  13 * rows * n, dtype)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, gamma, beta)]
+    lib_fwd = lambda: F.layer_norm(leaves[0], (n,), leaves[1], leaves[2],
+                                   1e-5)
+    return [
+        _record("layer_norm", [rows, n], dtype, f_err, True,
+                ms=time_auto(lambda: layer_norm_fwd(x, gamma, beta, 1e-5)),
+                plain_ms=time_auto(
+                    lambda: layer_norm_fwd_plain(x, gamma, beta, 1e-5)),
+                library_ms=time_auto(
+                    lambda: F.layer_norm(x, (n,), gamma, beta, 1e-5)),
+                bound_ms=fb[0], bound_by=fb[1]),
+        _record("layer_norm_bwd", [rows, n], dtype, b_err, True,
+                ms=time_auto(
+                    lambda: layer_norm_bwd(x, gamma, mean, rstd, dy)),
+                plain_ms=time_auto(
+                    lambda: layer_norm_bwd_plain(x, gamma, mean, rstd, dy)),
+                library_ms=_library_bwd_ms(lib_fwd, leaves, dy),
+                bound_ms=bb[0], bound_by=bb[1])]
+
+
+def flash_train_case(layout, batch, heads, d, dtype, gen, sq=1024,
+                     skv=1024, causal=True, q_off=0, k_off=0, timed=True):
+    """Flash attention forward and backward as training runs it: (B, H, S,
+    D) views of (B, S, H, D) projections ('bhsd', the graph's transposes)
+    or (B, S, E) operands through `flash_attention_bsd` ('bsd').  Out,
+    lse, dq, dk and dv of the kernels (lse cotangent included) against
+    the plain versions; when timed, each pass's time beside
+    `scaled_dot_product_attention`'s."""
+    bsd = layout == "bsd"
+    fn = flash_attention_bsd if bsd else flash_attention
+    plain = flash_attention_bsd_plain if bsd else flash_attention_plain
+    extra = (heads,) if bsd else ()
+    kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
+
+    def make(s):
+        t = torch.randn(batch, s, heads, d, device="cuda", generator=gen)
+        t = t.to(dtype)
+        return t.reshape(batch, s, heads * d) if bsd else t.transpose(1, 2)
+
+    def heads_view(t):
+        return t.reshape(batch, t.shape[1], heads, d).transpose(1, 2) \
+            if bsd else t
+
+    q, k, v = make(sq), make(skv), make(skv)
+    g = make(sq)
+    glse = torch.randn(batch, heads, sq, device="cuda", generator=gen)
+
+    def through(f):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out, lse = f(*leaves, *extra, with_lse=True, **kw)
+        torch.autograd.backward((out, lse), (g, glse))
+        return out, lse, [t.grad for t in leaves]
+
+    out, lse, grads = through(fn)
+    torch.cuda.synchronize()
+    rout, rlse, rgrads = through(plain)
+    f_err = rel_check(dtype, [(out, rout)])
+    lse_err = rel_check(torch.float32, [(lse, rlse)])
+    f_err = (max(f_err[0], lse_err[0]), max(f_err[1], lse_err[1]),
+             f_err[2] and lse_err[2])
+    b_err = rel_check(dtype, list(zip(grads, rgrads)))
+    name = "flash_attention_bsd" if bsd else "flash_attention"
+    shape = [batch, heads, sq, skv, d]
+    if not timed:
+        return [_record(name, shape, dtype, f_err, False),
+                _record(name + "_bwd", shape, dtype, b_err, False)]
+    q4, k4, v4, g4, o4 = (heads_view(t.detach()) for t in (q, k, v, g, out))
+    lse = lse.detach()
+    scale = 1.0 / math.sqrt(d)
+    args = (q_off, k_off, scale, causal)
+    isz = q.element_size()
+    pairs = visible_pairs(sq, skv, causal, q_off, k_off) * batch * heads
+    fb = bound_ms(batch * heads * d * (2 * sq + 2 * skv) * isz
+                  + batch * heads * sq * 4, 4 * d * pairs, dtype)
+    bb = bound_ms(batch * heads * d * (4 * sq + 4 * skv) * isz
+                  + 2 * batch * heads * sq * 4, 14 * d * pairs, dtype)
+    leaves = [t.clone().requires_grad_() for t in (q4, k4, v4)]
+    sdpa = lambda: F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    return [
+        _record(name, shape, dtype, f_err, True,
+                ms=time_auto(lambda: fn(q, k, v, *extra, with_lse=True,
+                                        **kw)),
+                plain_ms=time_auto(lambda: plain(q, k, v, *extra,
+                                                 with_lse=True, **kw)),
+                library_ms=time_auto(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=causal)),
+                bound_ms=fb[0], bound_by=fb[1]),
+        _record(name + "_bwd", shape, dtype, b_err, True,
+                ms=time_auto(lambda: _flash_bwd_cuda(
+                    q4, k4, v4, o4, lse, g4, glse, *args, fn)),
+                plain_ms=time_auto(lambda: _flash_bwd_plain(
+                    q4, k4, v4, o4, lse, g4, glse, *args)),
+                library_ms=_library_bwd_ms(sdpa, leaves, g4),
+                bound_ms=bb[0], bound_by=bb[1])]
+
+
+def describe(c):
+    """One check's line: its error against its tolerance and its times."""
+    if "rel_tol" in c:
+        tol = "rel err %.2e (tol %.0e of max|ref|)" % (c["rel_err"],
+                                                        c["rel_tol"])
+    else:
+        tol = "(rtol %.1e atol %.1e)" % (c["rtol"], c["atol"])
+    line = "check %-23s %-26s %-14s err %.3e %s %s" % (
+        c["kernel"], c["shape"], c["dtype"], c["max_abs_err"], tol,
+        "ok" if c["ok"] else "FAIL")
+    if "ms" in c:
+        line += (" | kernel %.4f ms  plain %.4f ms  library %.4f ms  bound "
+                 "%.5f ms (%s)" % (c["ms"], c["plain_ms"], c["library_ms"],
+                                   c["bound_ms"], c["bound_by"]))
+    if "ms_with_launch" in c:
+        line += "; kernel with launch %.4f ms" % c["ms_with_launch"]
+    return line
+
+
+def training_kernel_checks():
+    """Every kernel of the training path against its plain version, forward
+    and backward, at the shapes the training phases give them (timed) and
+    at the smaller and odd shapes of the backward's own checks."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += layer_norm_train_case(32768, dtype, gen)
+        cases += layer_norm_train_case(8, dtype, gen, timed=False)
+        cases += flash_train_case("bhsd", 4, 12, 64, dtype, gen, timed=False)
+        cases += flash_train_case("bsd", 4, 6, 128, dtype, gen, timed=False)
+        # not causal, Sq != Skv, offsets: the lse cotangent reaches every row
+        cases += flash_train_case("bhsd", 2, 4, 64, dtype, gen, sq=300,
+                                  skv=700, causal=False, q_off=400,
+                                  k_off=100, timed=False)
+        # the training shapes, timed
+        cases += flash_train_case("bhsd", 32, 12, 64, dtype, gen)
+        cases += flash_train_case("bsd", 32, 6, 128, dtype, gen)
+    # causal with offsets: the dk/dv loop's first query tile moves
+    cases += flash_train_case("bsd", 1, 2, 128, torch.float32, gen, sq=256,
+                              skv=768, q_off=512, timed=False)
+    for c in cases:
+        log(describe(c))
+    log("card after the training kernel checks (sm clock, mem clock, power, "
+        "temp): %s" % card_state())
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise SystemExit("training kernel checks failed: %s" % bad)
+    return cases
+
+
 # -- phases 3 and 4: the serving path --------------------------------------
 
 
 def reset_counts():
-    for w in WRAPPERS.values():
-        w.launches = 0
+    for w, attr in COUNTERS.values():
+        setattr(w, attr, 0)
 
 
 def read_counts():
-    return {k: w.launches for k, w in WRAPPERS.items()}
+    return {k: getattr(w, attr) for k, (w, attr) in COUNTERS.items()}
+
+
+# the module globals through which the serving programs and the training
+# ops call the kernels, and the plain version of each
+_PLAIN = [(decode_mod, "layer_norm", layer_norm_plain),
+          (decode_mod, "flash_attention", flash_attention_plain),
+          (attention_mod, "layer_norm", layer_norm_plain),
+          (attention_mod, "flash_attention", flash_attention_plain),
+          (attention_mod, "flash_attention_bsd", flash_attention_bsd_plain)]
 
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Run the model's programs through the kernels' plain versions: the
-    reference the served logits are held against."""
-    saved = decode_mod.layer_norm, decode_mod.flash_attention
-    decode_mod.layer_norm = layer_norm_plain
-    decode_mod.flash_attention = flash_attention_plain
+    """Run the model's programs and ops through the kernels' plain
+    versions: the reference the served logits and the training gradients
+    are held against."""
+    saved = [getattr(mod, name) for mod, name, _ in _PLAIN]
+    for mod, name, plain in _PLAIN:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        decode_mod.layer_norm, decode_mod.flash_attention = saved
+        for (mod, name, _), fn in zip(_PLAIN, saved):
+            setattr(mod, name, fn)
 
 
 def serve(engine, requests):
@@ -601,6 +893,229 @@ def prefill_profile(engine, model, n=1000):
     return res
 
 
+# -- phases 6 to 8: the training path --------------------------------------
+
+# `tools/benchmark_transformer.py`'s defaults: vocab 32768, context 1024,
+# 12 layers, embed 768, batch 32
+TRAIN = dict(vocab_size=32768, seq_len=1024, num_layers=12, num_embed=768)
+TRAIN_BATCH = 32
+# the GPT-2-small parity configuration: 12 heads of 64, biases on, dense
+# head, head-split ('bhsd') attention
+PARITY = dict(TRAIN, num_heads=12, use_bias=True, attn_layout="bhsd")
+# bench.py's tpu_geom_fast_ configuration: 6 heads of 128, no biases,
+# transposeless ('bsd') attention
+GEOM_FAST = dict(TRAIN, num_heads=6, use_bias=False, attn_layout="bsd")
+
+
+def lm_trainer(cfg, batch, dtype, seed=0):
+    """`SPMDTrainer` over `get_transformer_lm(**cfg)` as the benchmark
+    builds it: Adam at lr 1e-3, wd 0, on the card, from `random.seed`."""
+    mx.random.seed(seed)
+    net = mx.models.get_transformer_lm(**cfg)
+    shape = (batch, cfg["seq_len"])
+    return mx.SPMDTrainer(net, data_shapes={"data": shape,
+                                            "softmax_label": shape},
+                          optimizer="adam", lr=1e-3, wd=0.0, dtype=dtype)
+
+
+def lm_batch(batch, cfg):
+    """The benchmark's batch: tokens and next-token labels from
+    `RandomState(0)`."""
+    rng = np.random.RandomState(0)
+    shape = (batch, cfg["seq_len"])
+    return {"data": rng.randint(0, cfg["vocab_size"], shape).astype(np.int32),
+            "softmax_label": rng.randint(0, cfg["vocab_size"],
+                                         shape).astype(np.float32)}
+
+
+def mean_nll(probs, labels):
+    """Mean negative log-likelihood of the labels under the softmax head's
+    output rows."""
+    p = probs.gather(1, labels.reshape(-1, 1).long()).float()
+    return float(-torch.log(p).mean())
+
+
+def flops_per_token(cfg):
+    """`tools/benchmark_transformer.py`'s count: 6 per matmul parameter
+    (the embedding lookup is a gather, not a matmul) plus causal
+    attention's 12 * L * D * S / 2."""
+    l, d = cfg["num_layers"], cfg["num_embed"]
+    n_matmul = l * (4 * d * d + 2 * d * 4 * d) + d * cfg["vocab_size"]
+    return 6 * n_matmul + 12 * l * d * cfg["seq_len"] // 2
+
+
+def train_path(label, cfg, steps, expect):
+    """Train ``cfg`` at full width, batch 32, in bf16: ``steps`` steps (the
+    first a warm-up, left out of the timing) with the counts set to 0
+    before and read after, then one profiled step.  ``expect`` maps each
+    counter to the launches it must show per step."""
+    trainer = lm_trainer(cfg, TRAIN_BATCH, "bfloat16")
+    dev = trainer.shard_batch(lm_batch(TRAIN_BATCH, cfg))
+    labels = dev["softmax_label"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, step_ms, wall_ms = [], [], []
+    for _ in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        outs = trainer.step(dev)
+        b.record()
+        b.synchronize()
+        wall_ms.append(1e3 * (time.perf_counter() - t0))
+        step_ms.append(a.elapsed_time(b))
+        losses.append(mean_nll(outs[0], labels))
+        del outs
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    state = card_state()
+    wall, busy, device, host = profiled(lambda: trainer.step(dev))
+    del trainer, dev, labels
+    torch.cuda.empty_cache()
+
+    timed = step_ms[1:]
+    step = statistics.median(timed)
+    tokens = TRAIN_BATCH * cfg["seq_len"]
+    fpt = flops_per_token(cfg)
+    res = {
+        "config": cfg, "batch": TRAIN_BATCH, "dtype": "bfloat16",
+        "optimizer": "adam lr 1e-3 wd 0", "steps": steps,
+        "losses": losses, "step_ms": step_ms, "wall_ms": wall_ms,
+        "step_ms_median": step, "tokens_per_s": tokens / (step / 1e3),
+        "flops_per_token": fpt,
+        "mfu": fpt * tokens / (step / 1e3) / MFU_PEAK,
+        "launches": launches,
+        "launches_per_step": {k: n / steps for k, n in launches.items()},
+        "max_memory_allocated": peak, "card_after": state,
+        "profiled_step_ms": 1e3 * wall, "device_busy_ms": 1e3 * busy,
+        "device_idle_share": 1 - busy / wall,
+        "kernel_ms": {k: kernel_ms(device, k) for k in (
+            "ln_fwd_kernel", "ln_bwd_kernel", "ln_bwd_reduce_kernel",
+            "flash_fwd_kernel", "flash_bwd_dq_kernel",
+            "flash_bwd_dkv_kernel")},
+        "top_device_ops_ms": device[:10], "top_host_ops_ms": host}
+    log("%s: %d steps of batch %d x %d tokens, bf16, Adam; step ms (CUDA "
+        "events) %s; median of the last %d %.2f ms = %.1f tokens/s, MFU "
+        "%.4f (%.4g flops/token over the %.0f TFLOP/s dense bf16 peak); "
+        "host wall ms %s"
+        % (label, steps, TRAIN_BATCH, cfg["seq_len"],
+           ["%.2f" % t for t in step_ms], len(timed), step,
+           res["tokens_per_s"], res["mfu"], fpt, MFU_PEAK / 1e12,
+           ["%.1f" % t for t in wall_ms]))
+    log("%s: mean NLL per step %s" % (label, ["%.4f" % x for x in losses]))
+    log("%s: launches per step %s; max_memory_allocated %d B; card after "
+        "(sm clock, mem clock, power, temp): %s"
+        % (label, {k: v for k, v in res["launches_per_step"].items() if v},
+           peak, state))
+    log("%s: profiled step %.2f ms wall, device busy %.2f ms (idle share "
+        "%.4f); kernel ms %s; top device ops (name, count, ms): %s"
+        % (label, res["profiled_step_ms"], res["device_busy_ms"],
+           res["device_idle_share"],
+           {k: round(v, 3) for k, v in res["kernel_ms"].items()},
+           device[:10]))
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit("%s: a loss is not finite: %s" % (label, losses))
+    if not losses[-1] < losses[0]:
+        raise SystemExit("%s: the loss did not fall: %s" % (label, losses))
+    off = {k: n for k, n in launches.items()
+           if n != expect.get(k, 0) * steps}
+    if off:
+        raise SystemExit("%s: launches %s in %d steps, expected %s a step"
+                         % (label, off, steps, expect))
+    return res
+
+
+def grad_check(cfg):
+    """One step's float32 gradients of ``cfg`` at batch 2 through the kernels
+    against the same step through their plain versions, and the bf16
+    kernel path's distance from the same reference."""
+    batch = lm_batch(2, cfg)
+    trainer = lm_trainer(cfg, 2, "float32")
+    reset_counts()
+    got = trainer.gradients(batch)
+    launched = read_counts()
+    with plain_kernels():
+        reset_counts()
+        ref = trainer.gradients(batch)
+        if any(read_counts().values()):
+            raise SystemExit("the plain path launched a kernel")
+    trainer16 = lm_trainer(cfg, 2, "bfloat16")
+    mx.load_params(trainer16, *trainer.get_params())
+    got16 = trainer16.gradients(batch)
+    del trainer, trainer16
+    gmax = max(float(g.abs().max()) for g in ref.values())
+
+    def worst(grads):
+        out = {}
+        for n, r in ref.items():
+            scale = gmax if n.endswith("_k_bias") else \
+                max(float(r.abs().max()), 1e-30)
+            out[n] = float((grads[n].float() - r).abs().max()) / scale
+        return out
+
+    f32, bf16 = worst(got), worst(got16)
+    name32 = max(f32, key=f32.get)
+    res = {"batch": 2, "params": len(ref), "max_abs_grad": gmax,
+           "worst_f32": f32[name32], "worst_f32_param": name32,
+           "worst_bf16": max(bf16.values()), "tol": GRAD_TOL,
+           "launches": launched, "per_param_f32": f32}
+    log("gradients (parity config, batch 2, %d parameters): f32 kernel path "
+        "vs plain max |dg|/max |g| %.3e at %s (tol %.0e); bf16 kernel path "
+        "%.3e; kernel launches %s"
+        % (len(ref), res["worst_f32"], name32, GRAD_TOL, res["worst_bf16"],
+           {k: v for k, v in launched.items() if v}))
+    if not res["worst_f32"] <= GRAD_TOL:
+        raise SystemExit("gradients through the kernels disagree with the "
+                         "plain path")
+    if not res["worst_bf16"] > GRAD_TOL:
+        raise SystemExit("gradient tolerance does not separate bf16 from f32")
+    for k in ("layer_norm_bwd", "flash_attention_dq", "flash_attention_dkv"):
+        if not launched[k]:
+            raise SystemExit("the gradient step launched no %s kernel" % k)
+    return res
+
+
+def kernels_line(cases, paths):
+    """One entry per ported TPU function: launches on each path, and the
+    error and times of its check at the training shape, in bf16."""
+    train = {"layer_norm": [32768, 768], "layer_norm_bwd": [32768, 768],
+             "flash_attention": [32, 12, 1024, 1024, 64],
+             "flash_attention_bwd": [32, 12, 1024, 1024, 64],
+             "flash_attention_bsd": [32, 6, 1024, 1024, 128],
+             "flash_attention_bsd_bwd": [32, 6, 1024, 1024, 128]}
+    serving = {"layer_norm": [8, 768],
+               "flash_attention": [1, 12, 1024, 1024, 64]}
+    out = []
+    for name, src, replaces, counters in KERNEL_ROWS:
+        at = next(c for c in cases if c["kernel"] == name
+                  and c["shape"] == train[name] and "ms" in c
+                  and c["dtype"] == "torch.bfloat16")
+        by_path = {p: {k: launches[k] for k in counters}
+                   for p, launches in paths.items()}
+        entry = {
+            "name": name, "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/" + src, "replaces": replaces,
+            "launches": sum(v[counters[0]] for v in by_path.values()),
+            "launches_by_path": by_path, "shape": at["shape"],
+            "dtype": at["dtype"], "max_abs_err": at["max_abs_err"],
+            "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"],
+            "checks": [{k: c.get(k) for k in (
+                "shape", "dtype", "max_abs_err", "rel_err", "rel_tol",
+                "rtol", "atol")} for c in cases if c["kernel"] == name]}
+        if name in serving:
+            s = next(c for c in cases if c["kernel"] == name
+                     and c["shape"] == serving[name]
+                     and c["dtype"] == "torch.float32" and "rtol" in c)
+            entry["serving_shape_ms"] = {"shape": s["shape"],
+                                         "dtype": s["dtype"], "ms": s["ms"]}
+        out.append(entry)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -626,7 +1141,7 @@ def main():
                 if "registers" in ln]
         log("ptxas %s: %s" % (name, regs))
 
-    cases = kernel_checks()
+    cases = kernel_checks() + training_kernel_checks()
 
     model = TransformerKVModel(**GPT2)
     t0 = time.perf_counter()
@@ -640,35 +1155,31 @@ def main():
     torch.cuda.empty_cache()
     engine, slot = slot_path(model, params)
     prefill_prof = prefill_profile(engine, model)
-    del engine
+    del engine, params
+    torch.cuda.empty_cache()
 
-    kernels = []
-    main_case = {"layer_norm": ([8, 768], "torch.float32"),
-                 "flash_attention": ([1, 12, 1024, 1024, 64],
-                                     "torch.float32")}
-    for name, (src, replaces) in SOURCES.items():
-        mine = [c for c in cases if c["kernel"] == name]
-        at = next(c for c in mine if c["shape"] == main_case[name][0]
-                  and c["dtype"] == main_case[name][1])
-        kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces,
-            "launches": paged["launches"][name] + slot["launches"][name],
-            "launches_by_path": {"paged": paged["launches"][name],
-                                 "slot": slot["launches"][name]},
-            "shape": at["shape"], "dtype": at["dtype"],
-            "max_abs_err": at["max_abs_err"], "ms": at["ms"],
-            "ms_with_launch": at["ms_with_launch"],
-            "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
-            "bound_by": at["bound_by"], "library_ms": at["library_ms"],
-            "checks": [{k: c[k] for k in ("shape", "dtype", "max_abs_err",
-                                          "rtol", "atol")} for c in mine]})
+    per_layer = {"layer_norm": 2 * TRAIN["num_layers"] + 1,
+                 "layer_norm_bwd": 2 * TRAIN["num_layers"] + 1}
+    hsd = train_path("train bhsd (parity)", PARITY, 7, dict(
+        per_layer, **{k: TRAIN["num_layers"] for k in (
+            "flash_attention", "flash_attention_dq",
+            "flash_attention_dkv")}))
+    grads = grad_check(PARITY)
+    bsd = train_path("train bsd (geom fast)", GEOM_FAST, 3, dict(
+        per_layer, **{k: TRAIN["num_layers"] for k in (
+            "flash_attention_bsd", "flash_attention_bsd_dq",
+            "flash_attention_bsd_dkv")}))
+
+    kernels = kernels_line(cases, {
+        "paged": paged["launches"], "slot": slot["launches"],
+        "train_bhsd": hsd["launches"], "train_bsd": bsd["launches"]})
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
          "build_s": took, "cases": cases, "paged": paged, "slot": slot,
          "decode_profile": profile, "prefill_profile": prefill_prof,
+         "train_bhsd": hsd, "gradients": grads, "train_bsd": bsd,
          "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

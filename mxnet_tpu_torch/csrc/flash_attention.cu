@@ -1,8 +1,11 @@
-// Flash-attention forward on Hopper.
+// Flash-attention forward and backward on Hopper.
 //
+// FORWARD.
 // Replaces mxnet_tpu/ops/pallas_kernels/flash_attention.py
-// `_flash_fwd_pallas` / `_fwd_kernel`: softmax(scale * Q K^T) V over
-// (B, H, S, D) operands with the online-softmax recurrence (m, l, acc)
+// `_flash_fwd_pallas` / `_fwd_kernel` and, through strides,
+// `_flash_fwd_pallas_bsd`: softmax(scale * Q K^T) V over (B, H, S, D)
+// operands (a (B, S, E) tensor is read as the (B, H, S, D) view of its
+// heads) with the online-softmax recurrence (m, l, acc)
 // in float32, so the S x S score matrix never reaches device memory.
 // Under causal masking query i (global position q_off + i) sees key j
 // (global position k_off + j) iff q_off + i >= k_off + j, and each
@@ -30,6 +33,33 @@
 // V and out are read and written through their batch/head/sequence
 // strides (the last axis must be contiguous), so the serving prefill's
 // (b, s, h, d) -> (b, h, s, d) transpose costs no copy.
+
+// BACKWARD.  Replaces `_flash_bwd_pallas` (`_bwd_dq_kernel`,
+// `_bwd_dkv_kernel`) and, through strides, `_flash_bwd_pallas_bsd`: two
+// kernels, as the TPU has.  Both recompute p = exp(s - lse) from the
+// forward's lse, masked to an exact 0, and read delta_i = sum_d dO_id
+// O_id - glse_i (computed by the caller; the lse cotangent folds in
+// there).  With ds = p * (dO V^T - delta):
+//   dq kernel:    dq = scale * ds K, one block per (batch, head, 64-query
+//                 tile), looping over 64-key tiles up to the causal
+//                 diagonal, as the forward;
+//   dk/dv kernel: dv = p^T dO and dk = scale * ds^T Q, one block per
+//                 (batch, head, 64-key tile), looping over 64-query tiles
+//                 from the first one whose last query reaches the tile's
+//                 first key (computed from the offsets).
+// Every sum is float32 whatever the input dtype (operands are staged to
+// shared memory as float32); dq, dk, dv are written in the input dtype.
+// Ragged tails are masked, not padded; every operand is read and written
+// through its batch/head/sequence strides.
+//
+// Bound on the H100: operations.  The TPU cost estimates count 6 + 8 =
+// 14 * B * H * Sq * Skv * D flops for the two passes (half of it under
+// causal masking) against a few reads of Q, K, V, dO.  Like the forward,
+// these first kernels compute in float32 on the CUDA cores (no mma, no
+// wgmma, no TMA), so they reach neither bound.  The dk/dv block holds
+// its K and V tiles plus the Q, dO, P^T and dS^T tiles in shared memory
+// (166 KB at D = 128, one block per SM; 100 KB at D = 64) and its dK and
+// dV rows in registers (2 * D / 4 floats a thread).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -209,6 +239,301 @@ int launch(const Args& a, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// -- backward ---------------------------------------------------------------
+
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;    // (batch, heads, sq) float32 contiguous
+  const float* delta;  // (batch, heads, sq) float32 contiguous
+  void* out0;          // dq (dq kernel) or dk (dk/dv kernel)
+  void* out1;          // unused (dq kernel) or dv (dk/dv kernel)
+  long long q_sb, q_sh, q_ss;
+  long long k_sb, k_sh, k_ss;
+  long long v_sb, v_sh, v_ss;
+  long long d_sb, d_sh, d_ss;
+  long long o0_sb, o0_sh, o0_ss;
+  long long o1_sb, o1_sh, o1_ss;
+  int heads, sq, skv, q_off, k_off, causal;
+  float scale;
+};
+
+template <int D>
+constexpr int dq_smem_floats() {
+  return 2 * kBlockQ * (D + 1) + 2 * kBlockK * (D + 1) +
+         kBlockQ * (kBlockK + 1);
+}
+
+template <int D>
+constexpr int dkv_smem_floats() {
+  return 2 * kBlockK * (D + 1) + 2 * kBlockQ * (D + 1) +
+         2 * kBlockK * (kBlockQ + 1) + 2 * kBlockQ;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
+  extern __shared__ float smem[];
+  float* qs = smem;                    // kBlockQ x (D + 1), pre-scaled
+  float* dos = qs + kBlockQ * (D + 1);  // kBlockQ x (D + 1)
+  float* ks = dos + kBlockQ * (D + 1);  // kBlockK x (D + 1)
+  float* vs = ks + kBlockK * (D + 1);   // kBlockK x (D + 1)
+  float* dss = vs + kBlockK * (D + 1);  // kBlockQ x (kBlockK + 1)
+
+  const int tid = threadIdx.x;
+  const int r = tid >> 2;   // query row of the tile this thread owns
+  const int sub = tid & 3;  // its quarter of the row's keys and columns
+  const int q0 = blockIdx.x * kBlockQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+
+  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const T* dout = static_cast<const T*>(a.dout) + b * a.d_sb + h * a.d_sh;
+  T* dq = static_cast<T*>(a.out0) + b * a.o0_sb + h * a.o0_sh;
+
+  for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
+    const int i = idx / D, d = idx % D;
+    const int qi = q0 + i;
+    const bool in = qi < a.sq;
+    qs[i * (D + 1) + d] = in ? to_float(q[qi * a.q_ss + d]) * a.scale : 0.f;
+    dos[i * (D + 1) + d] = in ? to_float(dout[qi * a.d_ss + d]) : 0.f;
+  }
+
+  const int qi = q0 + r;
+  const long long row = ((long long)b * a.heads + h) * a.sq + qi;
+  const float lse = qi < a.sq ? a.lse[row] : 0.f;
+  const float delta = qi < a.sq ? a.delta[row] : 0.f;
+
+  int nkb = (a.skv + kBlockK - 1) / kBlockK;
+  if (a.causal) {
+    const long long last_q = (long long)a.q_off + min(q0 + kBlockQ, a.sq) - 1;
+    const long long hi = last_q - a.k_off;
+    nkb = hi < 0 ? 0 : min(nkb, (int)(hi / kBlockK) + 1);
+  }
+  const long long qpos = (long long)a.q_off + qi;
+
+  float acc[D / 4];
+#pragma unroll
+  for (int c = 0; c < D / 4; ++c) acc[c] = 0.f;
+
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int k0 = kb * kBlockK;
+    __syncthreads();  // last step's readers of ks/vs/dss are done
+    for (int idx = tid; idx < kBlockK * D; idx += kThreads) {
+      const int j = idx / D, d = idx % D;
+      const int kj = k0 + j;
+      const bool in = kj < a.skv;
+      ks[j * (D + 1) + d] = in ? to_float(k[kj * a.k_ss + d]) : 0.f;
+      vs[j * (D + 1) + d] = in ? to_float(v[kj * a.v_ss + d]) : 0.f;
+    }
+    __syncthreads();
+
+    float s[kBlockK / 4], dp[kBlockK / 4];
+#pragma unroll
+    for (int jj = 0; jj < kBlockK / 4; ++jj) {
+      s[jj] = 0.f;
+      dp[jj] = 0.f;
+    }
+    const float* qrow = qs + r * (D + 1);
+    const float* drow = dos + r * (D + 1);
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      const float qv = qrow[d], dv = drow[d];
+#pragma unroll
+      for (int jj = 0; jj < kBlockK / 4; ++jj) {
+        const int off = (sub + 4 * jj) * (D + 1) + d;
+        s[jj] += qv * ks[off];
+        dp[jj] += dv * vs[off];
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < kBlockK / 4; ++jj) {
+      const int j = sub + 4 * jj;
+      const int kj = k0 + j;
+      const bool ok = qi < a.sq && kj < a.skv &&
+                      (!a.causal || qpos >= (long long)a.k_off + kj);
+      const float p = ok ? expf(s[jj] - lse) : 0.f;
+      dss[r * (kBlockK + 1) + j] = p * (dp[jj] - delta);
+    }
+    __syncthreads();  // the whole dS tile is written
+
+    const float* dsrow = dss + r * (kBlockK + 1);
+    for (int j = 0; j < kBlockK; ++j) {
+      const float ds = dsrow[j];
+      const float* krow = ks + j * (D + 1) + sub;
+#pragma unroll
+      for (int c = 0; c < D / 4; ++c) acc[c] += ds * krow[4 * c];
+    }
+  }
+
+  if (qi < a.sq) {
+    T* row_out = dq + qi * a.o0_ss + sub;
+#pragma unroll
+    for (int c = 0; c < D / 4; ++c) {
+      row_out[4 * c] = from_float<T>(acc[c] * a.scale);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
+  extern __shared__ float smem[];
+  float* ks = smem;                          // kBlockK x (D + 1)
+  float* vs = ks + kBlockK * (D + 1);        // kBlockK x (D + 1)
+  float* qs = vs + kBlockK * (D + 1);        // kBlockQ x (D + 1), scaled
+  float* dos = qs + kBlockQ * (D + 1);       // kBlockQ x (D + 1)
+  float* pts = dos + kBlockQ * (D + 1);      // kBlockK x (kBlockQ + 1)
+  float* dsts = pts + kBlockK * (kBlockQ + 1);  // kBlockK x (kBlockQ + 1)
+  float* lses = dsts + kBlockK * (kBlockQ + 1);  // kBlockQ
+  float* deltas = lses + kBlockQ;                 // kBlockQ
+
+  const int tid = threadIdx.x;
+  const int j = tid >> 2;   // key row of the tile this thread owns
+  const int sub = tid & 3;  // its quarter of the tile's queries and columns
+  const int k0 = blockIdx.x * kBlockK;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+
+  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const T* dout = static_cast<const T*>(a.dout) + b * a.d_sb + h * a.d_sh;
+  T* dk = static_cast<T*>(a.out0) + b * a.o0_sb + h * a.o0_sh;
+  T* dv = static_cast<T*>(a.out1) + b * a.o1_sb + h * a.o1_sh;
+  const float* lse = a.lse + ((long long)b * a.heads + h) * a.sq;
+  const float* delta = a.delta + ((long long)b * a.heads + h) * a.sq;
+
+  for (int idx = tid; idx < kBlockK * D; idx += kThreads) {
+    const int jj = idx / D, d = idx % D;
+    const int kj = k0 + jj;
+    const bool in = kj < a.skv;
+    ks[jj * (D + 1) + d] = in ? to_float(k[kj * a.k_ss + d]) : 0.f;
+    vs[jj * (D + 1) + d] = in ? to_float(v[kj * a.v_ss + d]) : 0.f;
+  }
+
+  const int nqb = (a.sq + kBlockQ - 1) / kBlockQ;
+  int lo = 0;
+  if (a.causal) {
+    // query tile qb reaches this key tile iff its last query position
+    // q_off + qb * kBlockQ + kBlockQ - 1 >= k_off + k0
+    const long long need =
+        (long long)a.k_off + k0 - a.q_off - (kBlockQ - 1);
+    lo = need <= 0 ? 0
+                   : (int)min((long long)nqb, (need + kBlockQ - 1) / kBlockQ);
+  }
+  const int kj = k0 + j;
+  const long long kpos = (long long)a.k_off + kj;
+
+  float dka[D / 4], dva[D / 4];
+#pragma unroll
+  for (int c = 0; c < D / 4; ++c) {
+    dka[c] = 0.f;
+    dva[c] = 0.f;
+  }
+
+  for (int qb = lo; qb < nqb; ++qb) {
+    const int q0 = qb * kBlockQ;
+    __syncthreads();  // last step's readers of qs/dos/lses/deltas are done
+    for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
+      const int i = idx / D, d = idx % D;
+      const int qi = q0 + i;
+      const bool in = qi < a.sq;
+      qs[i * (D + 1) + d] = in ? to_float(q[qi * a.q_ss + d]) * a.scale : 0.f;
+      dos[i * (D + 1) + d] = in ? to_float(dout[qi * a.d_ss + d]) : 0.f;
+    }
+    if (tid < kBlockQ) {
+      const int qi = q0 + tid;
+      lses[tid] = qi < a.sq ? lse[qi] : 0.f;
+      deltas[tid] = qi < a.sq ? delta[qi] : 0.f;
+    }
+    __syncthreads();
+
+    float s[kBlockQ / 4], dp[kBlockQ / 4];
+#pragma unroll
+    for (int ii = 0; ii < kBlockQ / 4; ++ii) {
+      s[ii] = 0.f;
+      dp[ii] = 0.f;
+    }
+    const float* krow = ks + j * (D + 1);
+    const float* vrow = vs + j * (D + 1);
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      const float kv = krow[d], vv = vrow[d];
+#pragma unroll
+      for (int ii = 0; ii < kBlockQ / 4; ++ii) {
+        const int off = (sub + 4 * ii) * (D + 1) + d;
+        s[ii] += qs[off] * kv;
+        dp[ii] += dos[off] * vv;
+      }
+    }
+#pragma unroll
+    for (int ii = 0; ii < kBlockQ / 4; ++ii) {
+      const int i = sub + 4 * ii;
+      const int qi = q0 + i;
+      const bool ok = qi < a.sq && kj < a.skv &&
+                      (!a.causal || (long long)a.q_off + qi >= kpos);
+      const float p = ok ? expf(s[ii] - lses[i]) : 0.f;
+      pts[j * (kBlockQ + 1) + i] = p;
+      dsts[j * (kBlockQ + 1) + i] = p * (dp[ii] - deltas[i]);
+    }
+    // row j of P^T and dS^T was written by this thread's own group of 4
+    // lanes
+    __syncwarp();
+
+    const float* prow = pts + j * (kBlockQ + 1);
+    const float* dsrow = dsts + j * (kBlockQ + 1);
+    for (int i = 0; i < kBlockQ; ++i) {
+      const float p = prow[i], ds = dsrow[i];
+      const float* dorow = dos + i * (D + 1) + sub;
+      const float* qrow = qs + i * (D + 1) + sub;
+#pragma unroll
+      for (int c = 0; c < D / 4; ++c) {
+        dva[c] += p * dorow[4 * c];
+        dka[c] += ds * qrow[4 * c];
+      }
+    }
+  }
+
+  if (kj < a.skv) {
+    T* dkrow = dk + kj * a.o0_ss + sub;
+    T* dvrow = dv + kj * a.o1_ss + sub;
+#pragma unroll
+    for (int c = 0; c < D / 4; ++c) {
+      dkrow[4 * c] = from_float<T>(dka[c]);
+      dvrow[4 * c] = from_float<T>(dva[c]);
+    }
+  }
+}
+
+template <typename T, int D, bool DKV>
+int launch_bwd(const BwdArgs& a, int batch, cudaStream_t stream) {
+  const int bytes =
+      (DKV ? dkv_smem_floats<D>() : dq_smem_floats<D>()) * (int)sizeof(float);
+  auto kernel = DKV ? flash_bwd_dkv_kernel<T, D> : flash_bwd_dq_kernel<T, D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int len = DKV ? a.skv : a.sq;
+  const int tile = DKV ? kBlockK : kBlockQ;
+  dim3 grid((len + tile - 1) / tile, a.heads, batch);
+  kernel<<<grid, kThreads, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool DKV>
+int bwd_entry(int dtype, int head_dim, const BwdArgs& a, int batch,
+              cudaStream_t s) {
+  if (dtype == 0) {
+    return head_dim == 64 ? launch_bwd<float, 64, DKV>(a, batch, s)
+                          : launch_bwd<float, 128, DKV>(a, batch, s);
+  }
+  return head_dim == 64 ? launch_bwd<__nv_bfloat16, 64, DKV>(a, batch, s)
+                        : launch_bwd<__nv_bfloat16, 128, DKV>(a, batch, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -242,6 +567,42 @@ int mxt_flash_attention_fwd(int dtype, int head_dim, const void* q,
   }
   return head_dim == 64 ? launch<__nv_bfloat16, 64>(a, batch, s)
                         : launch<__nv_bfloat16, 128>(a, batch, s);
+}
+
+// The two backward passes.  dtype, head_dim and strides as the forward;
+// dout is the cotangent of out; lse and delta are (batch, heads, sq)
+// float32 contiguous.  which = 0 launches the dq kernel (out0 = dq, out1
+// unused), which = 1 the dk/dv kernel (out0 = dk, out1 = dv).  Strides
+// are given for q, k, v, dout, out0 and out1.
+int mxt_flash_attention_bwd(int which, int dtype, int head_dim,
+                            const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, void* out0, void* out1,
+                            int batch, int heads, int sq, int skv,
+                            long long q_sb, long long q_sh, long long q_ss,
+                            long long k_sb, long long k_sh, long long k_ss,
+                            long long v_sb, long long v_sh, long long v_ss,
+                            long long d_sb, long long d_sh, long long d_ss,
+                            long long o0_sb, long long o0_sh, long long o0_ss,
+                            long long o1_sb, long long o1_sh, long long o1_ss,
+                            int q_off, int k_off, int causal, float scale,
+                            void* stream) {
+  if ((which != 0 && which != 1) || (head_dim != 64 && head_dim != 128) ||
+      dtype < 0 || dtype > 1 || batch < 0 || heads < 0 || sq < 0 ||
+      skv < 0 || batch > 65535 || heads > 65535 ||
+      (which == 1 && out1 == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int len = which == 0 ? sq : skv;
+  if (batch == 0 || heads == 0 || len == 0) return 0;
+  BwdArgs a{q,     k,     v,     dout,  lse,   delta, out0,  out1,
+            q_sb,  q_sh,  q_ss,  k_sb,  k_sh,  k_ss,  v_sb,  v_sh,
+            v_ss,  d_sb,  d_sh,  d_ss,  o0_sb, o0_sh, o0_ss, o1_sb,
+            o1_sh, o1_ss, heads, sq,    skv,   q_off, k_off, causal,
+            scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return which == 0 ? bwd_entry<false>(dtype, head_dim, a, batch, s)
+                    : bwd_entry<true>(dtype, head_dim, a, batch, s);
 }
 
 const char* mxt_error_string(int err) {

@@ -1,20 +1,139 @@
-"""Serving attention over a K/V cache, in plain torch.
+"""Attention-family ops: the training ops and the serving helpers.
 
-Ports of `mxnet_tpu/ops/attention.py` `decode_attention`,
-`gather_paged_kv`, `paged_decode_attention` and `chunk_attention`.  The
-JAX package wrote no Pallas kernel for these (XLA fuses them), so they
-stay torch ops here.  Softmax statistics are float32 whatever the cache
-dtype, and cache rows no query may attend have their V zeroed explicitly,
-so a softmax weight of 0 multiplies an exact 0 and never stale garbage.
+Ports of `mxnet_tpu/ops/attention.py`:
+
+* the `DotProductAttention` op in both layouts, over the flash-attention
+  kernels (`flash_attention` on (B, H, S, D) operands, `flash_attention_bsd`
+  on (B, S, E) ones), and the `LayerNorm` op over the LayerNorm kernels;
+  both differentiate through the kernels' backward passes;
+* the serving helpers `decode_attention`, `gather_paged_kv`,
+  `paged_decode_attention` and `chunk_attention`.  The JAX package wrote
+  no Pallas kernel for these (XLA fuses them), so they stay torch ops.
+
+The ops call the kernel functions through this module's globals, so a
+caller can swap in their plain versions (`chip_smoke.py` does, for its
+gradient check).  In the serving helpers, softmax statistics are float32
+whatever the cache dtype, and cache rows no query may attend have their V
+zeroed explicitly, so a softmax weight of 0 multiplies an exact 0 and
+never stale garbage.
 """
 from __future__ import annotations
 
 import torch
 
 from ..base import MXNetError
+from .pallas_kernels.flash_attention import (flash_attention,
+                                             flash_attention_bsd)
+from .pallas_kernels.layer_norm import layer_norm
+from .registry import OpDef, Param, register
 
 __all__ = ["decode_attention", "gather_paged_kv", "paged_decode_attention",
            "chunk_attention"]
+
+
+class DotProductAttention(OpDef):
+    """Fused scaled-dot-product attention, (batch, heads, seq, head_dim)
+    operands or, with ``layout='bsd'``, (batch, seq, embed) ones with
+    ``num_heads``.
+
+    softmax(Q K^T * scale) V without materializing the score matrix.
+    ``scale`` defaults to 1/sqrt(head_dim); ``causal=True`` applies a lower
+    triangular mask.  ``block_q``/``block_k`` are the JAX package's TPU
+    tile knobs: accepted so a symbol's JSON loads, and not used (the CUDA
+    kernels have fixed 64-row tiles).
+    """
+
+    name = "DotProductAttention"
+    params = {
+        "causal": Param(bool, default=False),
+        "scale": Param(float, default=None),
+        "block_q": Param(int, default=0),
+        "block_k": Param(int, default=0),
+        "layout": Param(str, default="bhsd"),
+        "num_heads": Param(int, default=0),
+    }
+
+    def list_arguments(self, params):
+        return ["query", "key", "value"]
+
+    def infer_shape(self, params, in_shapes):
+        q, k, v = in_shapes
+        if k is None and v is not None:
+            k = v
+        if v is None and k is not None:
+            v = k
+        if params["layout"] == "bsd":
+            if params["num_heads"] < 1:
+                raise MXNetError(
+                    "DotProductAttention(layout='bsd') requires num_heads")
+            for name, s in (("query", q), ("key", k), ("value", v)):
+                if s is not None and len(s) != 3:
+                    raise MXNetError(
+                        "DotProductAttention(layout='bsd'): %s must be "
+                        "(batch, seq, embed), got %s" % (name, s))
+                if s is not None and s[-1] % params["num_heads"] != 0:
+                    raise MXNetError(
+                        "DotProductAttention: embed %d not divisible by "
+                        "num_heads %d" % (s[-1], params["num_heads"]))
+        else:
+            for name, s in (("query", q), ("key", k), ("value", v)):
+                if s is not None and len(s) != 4:
+                    raise MXNetError(
+                        "DotProductAttention: %s must be (batch, heads, "
+                        "seq, head_dim), got %s" % (name, s))
+        if k is not None and v is not None and k != v:
+            raise MXNetError(
+                "DotProductAttention: key %s and value %s must match"
+                % (k, v))
+        if q is not None and k is not None and (
+                q[0] != k[0] or q[-1] != k[-1] or
+                (len(q) == 4 and q[1] != k[1])):
+            raise MXNetError(
+                "DotProductAttention: query %s and key %s must agree on "
+                "(batch, heads, head_dim)" % (q, k))
+        out = None
+        if q is not None:
+            out = tuple(q)
+        return [q, k, v], [out], []
+
+    def apply(self, octx, params, inputs, aux):
+        q, k, v = inputs
+        if params["layout"] == "bsd":
+            out = flash_attention_bsd(q, k, v, params["num_heads"],
+                                      causal=params["causal"],
+                                      scale=params["scale"])
+        else:
+            out = flash_attention(q, k, v, causal=params["causal"],
+                                  scale=params["scale"])
+        return [out], []
+
+
+register(DotProductAttention, aliases=("Attention",))
+
+
+class LayerNorm(OpDef):
+    """Layer normalization over the last axis (transformer-era counterpart
+    of `src/operator/batch_norm-inl.h`; no running stats)."""
+
+    name = "LayerNorm"
+    params = {"eps": Param(float, default=1e-5)}
+
+    def list_arguments(self, params):
+        return ["data", "gamma", "beta"]
+
+    def infer_shape(self, params, in_shapes):
+        d = in_shapes[0]
+        if d is None:
+            return in_shapes, [None], []
+        c = (d[-1],)
+        return [d, c, c], [d], []
+
+    def apply(self, octx, params, inputs, aux):
+        x, gamma, beta = inputs
+        return [layer_norm(x, gamma, beta, params["eps"])], []
+
+
+register(LayerNorm)
 
 
 def _head_dim(e, num_heads, what):

@@ -18,58 +18,34 @@ of the JAX version this was written against) that is:
   ``max(tiny, u * (1 - tiny) + tiny)`` in float32;
 * token = argmax(-log(-log(uniform)) + masked logits).
 
-Threefry runs in int64 tensors masked to 32 bits, so it runs wherever
-the logits are.  It is not a kernel: the JAX sampler has no Pallas.
+Threefry (`mxnet_tpu_torch.random`) runs in int64 tensors masked to 32
+bits, so it runs wherever the logits are.  It is not a kernel: the JAX
+sampler has no Pallas.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import random as _random
+from ..random import threefry2x32
+
 __all__ = ["sample_tokens", "threefry2x32", "random_bits", "uniform"]
 
-_MASK = 0xFFFFFFFF
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _TINY = float(torch.finfo(torch.float32).tiny)
-
-
-def _rotl(x, r):
-    return ((x << r) | (x >> (32 - r))) & _MASK
-
-
-def threefry2x32(k1, k2, x1, x2):
-    """The Threefry-2x32 hash (20 rounds), as `jax.random`'s.  All four
-    arguments are int64 tensors (or ints) holding uint32 values and
-    broadcast together; returns the two output words likewise."""
-    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
-    x1 = (x1 + ks[0]) & _MASK
-    x2 = (x2 + ks[1]) & _MASK
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x1 = (x1 + x2) & _MASK
-            x2 = _rotl(x2, r) ^ x1
-        x1 = (x1 + ks[(i + 1) % 3]) & _MASK
-        x2 = (x2 + ks[(i + 2) % 3] + i + 1) & _MASK
-    return x1, x2
 
 
 def random_bits(seed, pos, n):
     """(b, n) uint32 words (as int64) of ``random.bits(fold_in(
     PRNGKey(seed), pos), (n,))`` for int tensors seed, pos of shape (b,)."""
-    seed = seed.long()[:, None] & _MASK
-    pos = pos.long()[:, None] & _MASK
-    k1, k2 = threefry2x32(0, seed, 0, pos)
-    iota = torch.arange(n, dtype=torch.int64, device=seed.device)[None, :]
-    y1, y2 = threefry2x32(k1, k2, 0, iota)
-    return y1 ^ y2
+    seed = seed.long()[:, None] & 0xFFFFFFFF
+    pos = pos.long()[:, None]
+    return _random.random_bits(_random.fold_in((0, seed), pos), (n,))
 
 
 def uniform(seed, pos, n):
     """(b, n) float32 ``random.uniform(key, (n,), minval=tiny, maxval=1)``
     for the same key as `random_bits`."""
-    bits = (random_bits(seed, pos, n) >> 9) | 0x3F800000
-    floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.full((), _TINY, dtype=torch.float32, device=floats.device)
-    return torch.maximum(floats * (1.0 - lo) + lo, lo)
+    return _random.uniform_from_bits(random_bits(seed, pos, n), _TINY, 1.0)
 
 
 def _mask_top_k_top_p(scaled, top_k, top_p):

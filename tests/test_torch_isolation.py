@@ -46,7 +46,11 @@ def test_every_module_imports_with_jax_blocked():
                 "serving.paged", "ops.attention",
                 "ops.pallas_kernels.layer_norm",
                 "ops.pallas_kernels.flash_attention",
-                "ops.pallas_kernels._build"):
+                "ops.pallas_kernels._build", "base", "name", "attribute",
+                "ops.registry", "ops.nn", "ops.tensor", "ops.elementwise",
+                "ops.loss", "symbol", "models", "models.transformer",
+                "executor", "random", "initializer", "parallel",
+                "parallel.trainer"):
         assert "mxnet_tpu_torch." + mod in names
 
 

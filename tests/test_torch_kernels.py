@@ -1,19 +1,21 @@
 """The port's kernel modules against the JAX package's functions, on the CPU.
 
 `mxnet_tpu_torch.ops.pallas_kernels` holds, for each Pallas kernel of
-the serving path, a CUDA kernel and a plain PyTorch version beside it; a
-CPU tensor takes the plain version.  These tests feed the same numpy
-inputs (made from a seed) to the plain versions and to the JAX package:
-its public functions (which take their jnp bodies on the CPU) and the
-Pallas kernel bodies themselves, run in interpret mode the way
-`tests/test_pallas_interpret.py` runs them.  The CUDA kernels are held
-against the same plain versions on the card by `chip_smoke.py`.
+the serving and training paths, a CUDA kernel and a plain PyTorch version
+beside it; a CPU tensor takes the plain version.  These tests feed the
+same numpy inputs (made from a seed) to the plain versions and to the JAX
+package: its public functions (which take their jnp bodies on the CPU),
+their gradients under `jax.vjp`, and the Pallas kernel bodies themselves,
+run in interpret mode the way `tests/test_pallas_interpret.py` runs them.
+The CUDA kernels are held against the same plain versions on the card by
+`chip_smoke.py`.
 
 Tolerances: everything compares float32 against float32 with the same
 formulas, so the only difference is the order of the sums (torch's
 reductions vs XLA's, 256-key vs the JAX block size); 1e-5 absolute on
 values of magnitude ~1 is ~100 float32 ulp and still catches any wrong
-mask, offset or statistic.
+mask, offset or statistic.  Gradients sum over up to 70 keys or 300 rows
+of products of such values, so they are held at 1e-4 (`GRAD_ATOL`).
 """
 import functools
 import math
@@ -25,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from mxnet_tpu.ops.pallas_kernels import flash_attention_mod as jfa
@@ -34,6 +37,7 @@ from mxnet_tpu_torch.ops.pallas_kernels import flash_attention as tfa
 from mxnet_tpu_torch.ops.pallas_kernels import layer_norm as tln
 
 ATOL = 1e-5
+GRAD_ATOL = 1e-4
 
 
 def _t(a):
@@ -108,7 +112,7 @@ def ln_interpret(monkeypatch):
     pl = jln.pl
     monkeypatch.setattr(jln, "pl", types.SimpleNamespace(
         pallas_call=functools.partial(pl.pallas_call, interpret=True),
-        BlockSpec=pl.BlockSpec))
+        BlockSpec=pl.BlockSpec, program_id=pl.program_id, when=pl.when))
 
 
 @pytest.mark.parametrize("rows,n", [(5, 128), (300, 256)])
@@ -146,6 +150,86 @@ def test_layer_norm_kernel_arguments_checked_before_launch():
         tln._fwd_cuda(wide, one, one, 1e-5)
     with pytest.raises(MXNetError, match="rows, N"):
         tln.layer_norm_fwd(_t(x)[None], _t(g), _t(b))
+
+
+def _ln_bwd_inputs(rows, n, seed):
+    x, g, b = _ln_inputs(rows, n, seed)
+    dy = np.random.RandomState(seed + 100).randn(rows, n).astype(np.float32)
+    _, mean, rstd = jln._fwd_jnp(jnp.asarray(x), jnp.asarray(g),
+                                 jnp.asarray(b), 1e-5)
+    return x, g, np.array(mean), np.array(rstd), dy
+
+
+def _assert_ln_bwd(got, want):
+    # row 0 of `_ln_inputs` is nearly constant, so its rstd, and its dx,
+    # reach ~1e3: held relatively there (1e-5, ~100 float32 ulp)
+    for name, a, b in zip(("dx", "dgamma", "dbeta"), got, want):
+        np.testing.assert_allclose(_np(a), np.asarray(b), atol=GRAD_ATOL,
+                                   rtol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("rows,n", [(8, 32), (37, 96), (300, 768)])
+def test_layer_norm_bwd_plain_matches_jax(rows, n):
+    args = _ln_bwd_inputs(rows, n, seed=rows)
+    want = jln._bwd_jnp(*(jnp.asarray(a) for a in args))
+    got = tln.layer_norm_bwd(*(_t(a) for a in args))
+    assert got[0].dtype == torch.float32 and got[1].shape == (n,)
+    _assert_ln_bwd(got, want)
+
+
+@pytest.mark.parametrize("rows,n", [(5, 128), (300, 256)])
+def test_layer_norm_bwd_plain_matches_pallas_body(ln_interpret, rows, n):
+    """The TPU kernel carries dgamma/dbeta across its sequential grid (two
+    256-row blocks at 300 rows); the sums agree with the plain version's
+    one reduction."""
+    args = _ln_bwd_inputs(rows, n, seed=3)
+    want = jln._bwd_pallas(*(jnp.asarray(a) for a in args))
+    got = tln.layer_norm_bwd(*(_t(a) for a in args))
+    _assert_ln_bwd(got, want)
+
+
+def test_layer_norm_grads_match_jax_vjp():
+    """The autograd `Function` against `jax.vjp` of the public function,
+    leading axes included."""
+    x, g, b = _ln_inputs(2 * 7, 48, seed=4)
+    x = x.reshape(2, 7, 48)
+    dy = np.random.RandomState(5).randn(2, 7, 48).astype(np.float32)
+    y_j, vjp = jax.vjp(lambda *a: jln.layer_norm(*a, 1e-5),
+                       *(jnp.asarray(a) for a in (x, g, b)))
+    want = vjp(jnp.asarray(dy))
+    xt, gt, bt = (_t(a).requires_grad_() for a in (x, g, b))
+    y = tln.layer_norm(xt, gt, bt, 1e-5)
+    y.backward(_t(dy))
+    np.testing.assert_allclose(_np(y.detach()), np.asarray(y_j), atol=ATOL,
+                               rtol=0)
+    _assert_ln_bwd((xt.grad, gt.grad, bt.grad), want)
+
+
+def test_layer_norm_bf16_grads_take_the_parameters_dtype():
+    """As `_ln_bwd_vjp`: dx in x's dtype, dgamma and dbeta cast to gamma's;
+    under `no_grad` the forward records nothing."""
+    x, g, b = (_t(a).to(torch.bfloat16) for a in _ln_inputs(6, 64, seed=6))
+    xt, gt, bt = (a.clone().requires_grad_() for a in (x, g, b))
+    tln.layer_norm(xt, gt, bt).float().sum().backward()
+    assert {t.grad.dtype for t in (xt, gt, bt)} == {torch.bfloat16}
+    with torch.no_grad():
+        assert tln.layer_norm(xt, gt, bt).grad_fn is None
+
+
+def test_layer_norm_bwd_cpu_takes_plain_version_and_counts_nothing():
+    args = _ln_bwd_inputs(4, 32, seed=7)
+    before = tln.layer_norm_bwd.launches
+    tln.layer_norm_bwd(*(_t(a) for a in args))
+    assert tln.layer_norm_bwd.launches == before
+
+
+def test_layer_norm_bwd_chunks_cover_every_row_once():
+    """The backward's row split: at most `_MAX_CHUNKS` chunks of
+    consecutive rows, none empty, covering every row."""
+    for rows in (1, 7, 511, 512, 513, 32768, 100003):
+        chunks, per = tln._bwd_chunks(rows)
+        assert 1 <= chunks <= min(rows, tln._MAX_CHUNKS)
+        assert (chunks - 1) * per < rows <= chunks * per
 
 
 # -- flash attention ----------------------------------------------------------
@@ -277,6 +361,156 @@ def test_flash_kernel_arguments_checked_before_launch():
         tfa.flash_attention(q, k, v, causal=True, q_offset=1.5)
     with pytest.raises(MXNetError, match="B, H, S, D"):
         tfa.flash_attention(q[0], k, v)
+
+
+def _cotangents(shape, seed):
+    """Random cotangents of (out, lse) for an out of ``shape``."""
+    rng = np.random.RandomState(seed)
+    g = (rng.randn(*shape) * 0.5).astype(np.float32)
+    glse = (rng.randn(*shape[:-1]) * 0.5).astype(np.float32)
+    return g, glse
+
+
+def _torch_grads(fn, q, k, v, g, glse, *args, **kw):
+    """out, lse and (dq, dk, dv) of ``fn`` through autograd, with both
+    cotangents."""
+    qt, kt, vt = (_t(a).requires_grad_() for a in (q, k, v))
+    o, lse = fn(qt, kt, vt, *args, with_lse=True, **kw)
+    torch.autograd.backward((o, lse), (_t(g), _t(glse)))
+    return o.detach(), lse.detach(), (qt.grad, kt.grad, vt.grad)
+
+
+def _assert_grads(got, want, what=""):
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(_np(a), np.asarray(b), atol=GRAD_ATOL,
+                                   rtol=0, err_msg=what + name)
+
+
+@pytest.mark.parametrize("sq,skv,causal,q_off,k_off", FLASH_CASES)
+def test_flash_bwd_plain_matches_jax_vjp(sq, skv, causal, q_off, k_off):
+    """Gradients through (out, lse), the lse cotangent included, against
+    `jax.vjp` of the JAX function (its `_flash_bwd` on the CPU).  JAX's
+    recurrence weights a row that sees no key as the forward test says, so
+    such rows get zero cotangents here; the Pallas-body test below covers
+    them."""
+    q, k, v = _qkv(2, 2, sq, skv, 16, seed=sq + skv + 1)
+    g, glse = _cotangents(q.shape, seed=sq)
+    seen = _visible(sq, skv, causal, q_off, k_off)
+    g[:, :, ~seen] = 0
+    glse[:, :, ~seen] = 0
+    kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
+    _, vjp = jax.vjp(
+        lambda *a: jfa.flash_attention(*a, with_lse=True, **kw),
+        *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp((jnp.asarray(g), jnp.asarray(glse)))
+    _, _, got = _torch_grads(tfa.flash_attention, q, k, v, g, glse, **kw)
+    _assert_grads(got, want)
+
+
+@pytest.mark.parametrize("sq,skv,causal,q_off,k_off", [
+    (45, 45, True, 0, 0),
+    (24, 70, True, 46, 0),
+    (48, 40, True, 0, 16),
+])
+def test_flash_bwd_plain_matches_pallas_body(flash_interpret, sq, skv,
+                                             causal, q_off, k_off):
+    """`_flash_bwd_pallas` itself (interpret mode, blocks of 16), every row
+    with a cotangent: rows that see no key get zero gradients in both."""
+    q, k, v = _qkv(1, 2, sq, skv, 64, seed=sq + 1)
+    g, glse = _cotangents(q.shape, seed=skv)
+    scale = 1.0 / math.sqrt(64)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    qo, ko = jnp.asarray(q_off, jnp.int32), jnp.asarray(k_off, jnp.int32)
+    jo, jl = jfa._flash_fwd_pallas(jq, jk, jv, qo, ko, scale, causal, 16, 16)
+    want = jfa._flash_bwd_pallas(scale, causal, 16, 16,
+                                 (jq, jk, jv, jo, jl, qo, ko),
+                                 (jnp.asarray(g), jnp.asarray(glse)))[:3]
+    _, _, got = _torch_grads(tfa.flash_attention, q, k, v, g, glse,
+                             causal=causal, q_offset=q_off, k_offset=k_off)
+    _assert_grads(got, want)
+
+
+def _bsd_qkv(b, sq, skv, e, seed):
+    rng = np.random.RandomState(seed)
+    return tuple((rng.randn(b, s, e) * 0.5).astype(np.float32)
+                 for s in (sq, skv, skv))
+
+
+@pytest.mark.parametrize("e,heads,sq,skv,causal,q_off,k_off", [
+    (32, 2, 24, 24, True, 0, 0),
+    (128, 2, 20, 36, False, 5, 2),
+    (128, 2, 30, 30, True, 0, 0),
+])
+def test_flash_bsd_matches_jax(e, heads, sq, skv, causal, q_off, k_off):
+    """`flash_attention_bsd` (a (B, H, S, D) view of (B, S, E) operands into
+    the same Function) against the JAX function's head-split jnp path:
+    out (B, S, E), lse (B, H, S) and the gradients of both."""
+    q, k, v = _bsd_qkv(2, sq, skv, e, seed=e + sq)
+    g, _ = _cotangents(q.shape, seed=sq)
+    glse = _cotangents((2, heads, sq, 1), seed=skv)[1]
+    kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
+    (jo, jl), vjp = jax.vjp(
+        lambda *a: jfa.flash_attention_bsd(*a, heads, with_lse=True, **kw),
+        *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp((jnp.asarray(g), jnp.asarray(glse)))
+    o, lse, got = _torch_grads(tfa.flash_attention_bsd, q, k, v, g, glse,
+                               heads, **kw)
+    assert o.shape == q.shape and lse.shape == (2, heads, sq)
+    np.testing.assert_allclose(_np(o), np.asarray(jo), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(_np(lse), np.asarray(jl), atol=ATOL, rtol=0)
+    _assert_grads(got, want)
+
+
+def test_flash_bsd_matches_pallas_body(flash_interpret):
+    """Rows 7 and 8 of the kernel table, `_flash_fwd_pallas_bsd` and
+    `_flash_bwd_pallas_bsd` (interpret mode, head width 128, blocks of
+    128), against `flash_attention_bsd`."""
+    heads, d, s = 2, 128, 128
+    q, k, v = _bsd_qkv(1, s, s, heads * d, seed=11)
+    g, _ = _cotangents(q.shape, seed=12)
+    glse = _cotangents((1, heads, s, 1), seed=13)[1]
+    scale = 1.0 / math.sqrt(d)
+    zero = jnp.asarray(0, jnp.int32)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    jo, jl = jfa._flash_fwd_pallas_bsd(jq, jk, jv, zero, zero, scale, True,
+                                       128, 128, heads)
+    want = jfa._flash_bwd_pallas_bsd(
+        scale, True, 128, 128, heads, (jq, jk, jv, jo, jl, zero, zero),
+        (jnp.asarray(g), jnp.asarray(glse)))[:3]
+    o, lse, got = _torch_grads(tfa.flash_attention_bsd, q, k, v, g, glse,
+                               heads, causal=True)
+    np.testing.assert_allclose(_np(o), np.asarray(jo), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(_np(lse), np.asarray(jl), atol=ATOL, rtol=0)
+    _assert_grads(got, want)
+
+
+def test_flash_bwd_strided_views_match_contiguous():
+    """Gradients through transposed (b, s, h, d) -> (b, h, s, d) views, as
+    the bhsd training graph hands them over, equal those of contiguous
+    copies."""
+    rng = np.random.RandomState(4)
+    x = rng.randn(3, 2, 20, 4, 16).astype(np.float32)  # (qkv, b, s, h, d)
+    g = _t(rng.randn(2, 4, 20, 16).astype(np.float32))
+    grads = []
+    for contiguous in (False, True):
+        leaf = _t(x).requires_grad_()
+        q, k, v = (t.transpose(1, 2) for t in leaf)
+        if contiguous:
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        tfa.flash_attention(q, k, v, causal=True).backward(g)
+        grads.append(leaf.grad)
+    torch.testing.assert_close(grads[0], grads[1], atol=1e-6, rtol=0)
+
+
+def test_flash_bwd_cpu_takes_plain_version_and_counts_nothing():
+    q, k, v = (_t(a).requires_grad_() for a in _qkv(1, 1, 8, 8, 64))
+    counts = lambda: [getattr(f, c) for f in (tfa.flash_attention,  # noqa
+                                              tfa.flash_attention_bsd)
+                      for c in ("launches", "dq_launches", "dkv_launches")]
+    before = counts()
+    tfa.flash_attention(q, k, v, causal=True).sum().backward()
+    tfa.flash_attention_bsd(q[0], k[0], v[0], 1).sum().backward()
+    assert counts() == before
 
 
 # -- the kernel build ---------------------------------------------------------
