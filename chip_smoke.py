@@ -32,7 +32,20 @@ Phases, each of which fails the run with a non-zero exit:
 7. check one step's float32 gradients of the same model (batch 2) through
    the kernels against the same step through their plain versions;
 8. train the transposeless configuration (6 heads of 128, 'bsd'
-   attention, no biases) at full width for 3 steps.
+   attention, no biases) at full width for 3 steps;
+9. hold the four fused CE kernels (stats forward, single-pass forward,
+   dW/db, dx) and the 5-pass backward against their plain versions, in
+   float32 and bf16, at the training head's shape (32768 tokens, 768,
+   vocab 32768; timed beside `F.linear` + `F.cross_entropy`) and at a
+   ragged one (1000 tokens, vocab 50257, ignored and out-of-range labels,
+   no bias, grad_scale 1.7);
+10. train bench.py's ``fused_`` configuration (the parity configuration
+   with the fused CE head, Adam's second moment in bf16 with stochastic
+   rounding) at full width for 5 steps, with exact launches per step and
+   the rounding's cost; then 2 steps of the 5-pass structure
+   (``MXNET_CE_SINGLE_PASS=0``) and one `SPMDTrainer.forward`, each with
+   its launches; and one f32 step's gradients of the fused configuration
+   through the kernels against their plain versions.
 
 It prints a ``kernels`` JSON line (launches, errors, times, bounds), the
 card's name and power limit, and as its last line
@@ -47,6 +60,7 @@ import copy
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -59,7 +73,9 @@ import torch.nn.functional as F
 
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch.ops import attention as attention_mod
+from mxnet_tpu_torch.ops import loss as loss_mod
 from mxnet_tpu_torch.ops.pallas_kernels import _build
+from mxnet_tpu_torch.ops.pallas_kernels import fused_ce as fce
 from mxnet_tpu_torch.ops.pallas_kernels.flash_attention import (
     _flash_bwd_cuda, _flash_bwd_plain, flash_attention, flash_attention_bsd,
     flash_attention_bsd_plain, flash_attention_plain)
@@ -147,6 +163,18 @@ KERNEL_ROWS = [
     ("flash_attention_bsd_bwd", "flash_attention.cu",
      TPU + "flash_attention.py:1158",
      ["flash_attention_bsd_dq", "flash_attention_bsd_dkv"]),
+    # the 5-pass backward (row 12) is kernels D and C; its launches are
+    # D's, on the 5-pass run
+    ("fused_ce_fwd", "fused_ce.cu", TPU + "fused_ce.py:155",
+     ["fused_ce_fwd"]),
+    ("fused_ce_bwd", "fused_ce.cu", TPU + "fused_ce.py:289",
+     ["fused_ce_bwd_dx", "fused_ce_bwd_dw"]),
+    ("fused_ce_fwd_sp", "fused_ce.cu", TPU + "fused_ce.py:520",
+     ["fused_ce_fwd_sp"]),
+    ("fused_ce_bwd_dw_rs", "fused_ce.cu", TPU + "fused_ce.py:700",
+     ["fused_ce_bwd_dw"]),
+    ("fused_ce_bwd_dx_rs", "fused_ce.cu", TPU + "fused_ce.py:744",
+     ["fused_ce_bwd_dx"]),
 ]
 # every launch counter, by name: (wrapper, attribute)
 COUNTERS = {
@@ -158,6 +186,10 @@ COUNTERS = {
     "flash_attention_bsd": (flash_attention_bsd, "launches"),
     "flash_attention_bsd_dq": (flash_attention_bsd, "dq_launches"),
     "flash_attention_bsd_dkv": (flash_attention_bsd, "dkv_launches"),
+    "fused_ce_fwd": (fce.fused_ce_fwd, "launches"),
+    "fused_ce_fwd_sp": (fce.fused_ce_fwd_sp, "launches"),
+    "fused_ce_bwd_dw": (fce.fused_ce_bwd_dw, "launches"),
+    "fused_ce_bwd_dx": (fce.fused_ce_bwd_dx, "launches"),
 }
 
 
@@ -584,6 +616,157 @@ def training_kernel_checks():
     return cases
 
 
+# -- phase 9: the fused CE head's kernels ---------------------------------
+
+# the training head's shape: 32 x 1024 tokens, embed 768, vocab 32768
+CE_TRAIN = (32768, 768, 32768)
+# a ragged one: no multiple of the tiles in tokens or vocabulary (GPT-2's)
+CE_RAGGED = (1000, 768, 50257)
+# the op's default tiles: a pin the kernels take (multiples of 32); the
+# plain versions tile the vocabulary by block_v as the jnp twins do
+CE_BLOCKS = (512, 2048)
+
+
+def ce_operands(n, d, v, dtype, gen, ragged):
+    """x, W, b, int32 labels, the loss-head arguments and r = grad_scale *
+    valid.  ``ragged``: no bias (zeros), every 7th label -1 and every 11th
+    past V (out of range), every 5th the ignore label 5 under use_ignore,
+    grad_scale 1.7."""
+    x = torch.randn(n, d, device="cuda", generator=gen).to(dtype)
+    w = (0.05 * torch.randn(v, d, device="cuda", generator=gen)).to(dtype)
+    b = torch.zeros(v, device="cuda", dtype=dtype) if ragged else \
+        (0.1 * torch.randn(v, device="cuda", generator=gen)).to(dtype)
+    label = torch.randint(0, v, (n,), device="cuda", generator=gen,
+                          dtype=torch.int32)
+    head = (1.0, -1.0, False)
+    if ragged:
+        label[::7] = -1
+        label[3::11] = v + 5
+        label[1::5] = 5
+        head = (1.7, 5.0, True)
+    r, _ = fce._valid_coef(label, *head)
+    return x, w, b, label, head, r
+
+
+def combine(*errs):
+    """One (max abs error, max rel error, ok) over several `rel_check`s."""
+    return (max(e[0] for e in errs), max(e[1] for e in errs),
+            all(e[2] for e in errs))
+
+
+def ce_case(shape, dtype, gen, ragged=False, timed=False):
+    """Kernels A, B, C, D and the 5-pass backward (D + C) against their
+    plain versions on the same inputs.  Outputs that are float32 by
+    contract (nll, lse, the picked logit) are held to the float32
+    tolerance; dxp (p rounded to W's dtype before p @ W), dx, dW and db to
+    the dtype's.  When timed: each beside its bound and the library's
+    `F.linear` + `F.cross_entropy`, forward for A and B, backward for the
+    rest."""
+    n, d, v = shape
+    x, w, b, label, head, r = ce_operands(n, d, v, dtype, gen, ragged)
+    gs, ign, use = head
+    bv = CE_BLOCKS[1]
+    got = {
+        "fused_ce_fwd": fce.fused_ce_fwd(x, w, b, label, ign, use,
+                                         *CE_BLOCKS),
+        "fused_ce_fwd_sp": fce.fused_ce_fwd_sp(x, w, b, label, *CE_BLOCKS)}
+    torch.cuda.synchronize()
+    ref = {"fused_ce_fwd": fce._fwd_plain(x, w, b, label, ign, use, bv),
+           "fused_ce_fwd_sp": fce._fwd_sp_plain(x, w, b, label, bv)}
+    lse = ref["fused_ce_fwd"][1]
+    got.update({
+        "fused_ce_bwd_dw_rs": fce.fused_ce_bwd_dw(x, w, b, label, lse, r,
+                                                  *CE_BLOCKS),
+        "fused_ce_bwd_dx_rs": (fce.fused_ce_bwd_dx(x, w, b, label, lse, r,
+                                                   *CE_BLOCKS),),
+        "fused_ce_bwd": fce.fused_ce_bwd(x, w, b, label, lse, *head,
+                                         *CE_BLOCKS)})
+    torch.cuda.synchronize()
+    ref.update({
+        "fused_ce_bwd_dw_rs": fce._bwd_dw_rs_plain(x, w, b, label, lse, r,
+                                                   bv),
+        "fused_ce_bwd_dx_rs": (fce._bwd_dx_rs_plain(x, w, b, label, lse, r,
+                                                    bv),),
+        "fused_ce_bwd": fce._bwd_plain(x, w, b, label, lse, *head, bv)})
+    f32_outputs = {"fused_ce_fwd": 2, "fused_ce_fwd_sp": 2}
+    recs = []
+    for name, outs in got.items():
+        k = f32_outputs.get(name, 0)
+        pairs = list(zip(outs, ref[name]))
+        err = combine(rel_check(torch.float32, pairs[:k]),
+                      rel_check(dtype, pairs[k:]))
+        recs.append(_record(name, list(shape), dtype, err, False))
+    if not timed:
+        return recs
+    isz = x.element_size()
+    # one pass over the logit tiles; each kernel recomputes its scores, but
+    # the 5-pass backward as a function needs them once, then dl @ W and
+    # dl^T @ x: 3 passes, not D's 2 plus C's 2
+    ops = 2 * n * v * d
+    operands = (n * d + v * d + v) * isz + 4 * n
+    bounds = {
+        "fused_ce_fwd": bound_ms(operands + 8 * n, ops, dtype),
+        "fused_ce_fwd_sp": bound_ms(operands + 8 * n + 4 * n * d, 2 * ops,
+                                    dtype),
+        "fused_ce_bwd_dw_rs": bound_ms(operands + 8 * n + (v * d + v) * isz,
+                                       2 * ops, dtype),
+        "fused_ce_bwd_dx_rs": bound_ms(operands + 8 * n + n * d * isz,
+                                       2 * ops, dtype),
+        "fused_ce_bwd": bound_ms(operands + 4 * n + (n * d + v * d + v)
+                                 * isz, 3 * ops, dtype)}
+    calls = {
+        "fused_ce_fwd": (lambda: fce.fused_ce_fwd(x, w, b, label, ign, use,
+                                                  *CE_BLOCKS),
+                         lambda: fce._fwd_plain(x, w, b, label, ign, use,
+                                                bv)),
+        "fused_ce_fwd_sp": (lambda: fce.fused_ce_fwd_sp(x, w, b, label,
+                                                        *CE_BLOCKS),
+                            lambda: fce._fwd_sp_plain(x, w, b, label, bv)),
+        "fused_ce_bwd_dw_rs": (
+            lambda: fce.fused_ce_bwd_dw(x, w, b, label, lse, r, *CE_BLOCKS),
+            lambda: fce._bwd_dw_rs_plain(x, w, b, label, lse, r, bv)),
+        "fused_ce_bwd_dx_rs": (
+            lambda: fce.fused_ce_bwd_dx(x, w, b, label, lse, r, *CE_BLOCKS),
+            lambda: fce._bwd_dx_rs_plain(x, w, b, label, lse, r, bv)),
+        "fused_ce_bwd": (
+            lambda: fce.fused_ce_bwd(x, w, b, label, lse, *head, *CE_BLOCKS),
+            lambda: fce._bwd_plain(x, w, b, label, lse, *head, bv))}
+    leaves = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+    lab64 = label.long()
+    lib_fwd = lambda: F.cross_entropy(F.linear(*leaves), lab64,  # noqa
+                                      reduction="none")
+    with torch.no_grad():
+        lib = {"fwd": time_auto(lib_fwd)}
+    lib["bwd"] = _library_bwd_ms(lib_fwd, leaves,
+                                 torch.ones(n, device="cuda", dtype=dtype))
+    del leaves
+    for rec in recs:
+        name = rec["kernel"]
+        kern, plain = calls[name]
+        bnd, by = bounds[name]
+        rec.update(ms=time_auto(kern), plain_ms=time_auto(plain),
+                   library_ms=lib["fwd" if "fwd" in name else "bwd"],
+                   bound_ms=bnd, bound_by=by)
+    return recs
+
+
+def fused_ce_checks():
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += ce_case(CE_RAGGED, dtype, gen, ragged=True)
+        cases += ce_case(CE_TRAIN, dtype, gen, timed=True)
+        torch.cuda.empty_cache()
+    for c in cases:
+        log(describe(c))
+    log("card after the fused CE checks (sm clock, mem clock, power, temp): "
+        "%s" % card_state())
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise SystemExit("fused CE kernel checks failed: %s" % bad)
+    return cases
+
+
 # -- phases 3 and 4: the serving path --------------------------------------
 
 
@@ -602,7 +785,8 @@ _PLAIN = [(decode_mod, "layer_norm", layer_norm_plain),
           (decode_mod, "flash_attention", flash_attention_plain),
           (attention_mod, "layer_norm", layer_norm_plain),
           (attention_mod, "flash_attention", flash_attention_plain),
-          (attention_mod, "flash_attention_bsd", flash_attention_bsd_plain)]
+          (attention_mod, "flash_attention_bsd", flash_attention_bsd_plain),
+          (loss_mod, "fused_softmax_ce", fce.fused_softmax_ce_plain)]
 
 
 @contextlib.contextmanager
@@ -905,9 +1089,14 @@ PARITY = dict(TRAIN, num_heads=12, use_bias=True, attn_layout="bhsd")
 # bench.py's tpu_geom_fast_ configuration: 6 heads of 128, no biases,
 # transposeless ('bsd') attention
 GEOM_FAST = dict(TRAIN, num_heads=6, use_bias=False, attn_layout="bsd")
+# bench.py's fused_ configuration (`TBENCH_FUSED_HEAD=1`): the parity
+# configuration with the fused CE head; its Adam keeps v in bf16 with
+# stochastic rounding (`tools/benchmark_transformer.py:76`)
+FUSED = dict(PARITY, fused_head=True)
+FUSED_TRAINER = dict(adam_v_dtype="bfloat16")
 
 
-def lm_trainer(cfg, batch, dtype, seed=0):
+def lm_trainer(cfg, batch, dtype, seed=0, **kw):
     """`SPMDTrainer` over `get_transformer_lm(**cfg)` as the benchmark
     builds it: Adam at lr 1e-3, wd 0, on the card, from `random.seed`."""
     mx.random.seed(seed)
@@ -915,7 +1104,8 @@ def lm_trainer(cfg, batch, dtype, seed=0):
     shape = (batch, cfg["seq_len"])
     return mx.SPMDTrainer(net, data_shapes={"data": shape,
                                             "softmax_label": shape},
-                          optimizer="adam", lr=1e-3, wd=0.0, dtype=dtype)
+                          optimizer="adam", lr=1e-3, wd=0.0, dtype=dtype,
+                          **kw)
 
 
 def lm_batch(batch, cfg):
@@ -928,10 +1118,12 @@ def lm_batch(batch, cfg):
                                          shape).astype(np.float32)}
 
 
-def mean_nll(probs, labels):
-    """Mean negative log-likelihood of the labels under the softmax head's
-    output rows."""
-    p = probs.gather(1, labels.reshape(-1, 1).long()).float()
+def mean_nll(out, labels):
+    """Mean negative log-likelihood of the labels: under the softmax
+    head's output rows, or the fused head's per-token NLL itself."""
+    if out.dim() == 1:
+        return float(out.float().mean())
+    p = out.gather(1, labels.reshape(-1, 1).long()).float()
     return float(-torch.log(p).mean())
 
 
@@ -944,12 +1136,15 @@ def flops_per_token(cfg):
     return 6 * n_matmul + 12 * l * d * cfg["seq_len"] // 2
 
 
-def train_path(label, cfg, steps, expect):
+def train_path(label, cfg, steps, expect, trainer_kw=None, falls=True,
+               after=None):
     """Train ``cfg`` at full width, batch 32, in bf16: ``steps`` steps (the
     first a warm-up, left out of the timing) with the counts set to 0
     before and read after, then one profiled step.  ``expect`` maps each
-    counter to the launches it must show per step."""
-    trainer = lm_trainer(cfg, TRAIN_BATCH, "bfloat16")
+    counter to the launches it must show per step; ``falls`` asks for the
+    last loss below the first.  ``after(trainer, batch)`` runs last, on
+    the trained model, and its result joins the record."""
+    trainer = lm_trainer(cfg, TRAIN_BATCH, "bfloat16", **(trainer_kw or {}))
     dev = trainer.shard_batch(lm_batch(TRAIN_BATCH, cfg))
     labels = dev["softmax_label"]
     torch.cuda.synchronize()
@@ -972,6 +1167,7 @@ def train_path(label, cfg, steps, expect):
     peak = torch.cuda.max_memory_allocated()
     state = card_state()
     wall, busy, device, host = profiled(lambda: trainer.step(dev))
+    extra = after(trainer, dev) if after else {}
     del trainer, dev, labels
     torch.cuda.empty_cache()
 
@@ -981,7 +1177,8 @@ def train_path(label, cfg, steps, expect):
     fpt = flops_per_token(cfg)
     res = {
         "config": cfg, "batch": TRAIN_BATCH, "dtype": "bfloat16",
-        "optimizer": "adam lr 1e-3 wd 0", "steps": steps,
+        "optimizer": "adam lr 1e-3 wd 0", "trainer_kw": trainer_kw or {},
+        "steps": steps,
         "losses": losses, "step_ms": step_ms, "wall_ms": wall_ms,
         "step_ms_median": step, "tokens_per_s": tokens / (step / 1e3),
         "flops_per_token": fpt,
@@ -994,8 +1191,9 @@ def train_path(label, cfg, steps, expect):
         "kernel_ms": {k: kernel_ms(device, k) for k in (
             "ln_fwd_kernel", "ln_bwd_kernel", "ln_bwd_reduce_kernel",
             "flash_fwd_kernel", "flash_bwd_dq_kernel",
-            "flash_bwd_dkv_kernel")},
+            "flash_bwd_dkv_kernel", "fused_ce_kernel")},
         "top_device_ops_ms": device[:10], "top_host_ops_ms": host}
+    res.update(extra)
     log("%s: %d steps of batch %d x %d tokens, bf16, Adam; step ms (CUDA "
         "events) %s; median of the last %d %.2f ms = %.1f tokens/s, MFU "
         "%.4f (%.4g flops/token over the %.0f TFLOP/s dense bf16 peak); "
@@ -1017,7 +1215,7 @@ def train_path(label, cfg, steps, expect):
            device[:10]))
     if not all(math.isfinite(x) for x in losses):
         raise SystemExit("%s: a loss is not finite: %s" % (label, losses))
-    if not losses[-1] < losses[0]:
+    if falls and not losses[-1] < losses[0]:
         raise SystemExit("%s: the loss did not fall: %s" % (label, losses))
     off = {k: n for k, n in launches.items()
            if n != expect.get(k, 0) * steps}
@@ -1027,10 +1225,11 @@ def train_path(label, cfg, steps, expect):
     return res
 
 
-def grad_check(cfg):
+def grad_check(cfg, required, label="parity config"):
     """One step's float32 gradients of ``cfg`` at batch 2 through the kernels
     against the same step through their plain versions, and the bf16
-    kernel path's distance from the same reference."""
+    kernel path's distance from the same reference.  Each counter of
+    ``required`` must show a launch."""
     batch = lm_batch(2, cfg)
     trainer = lm_trainer(cfg, 2, "float32")
     reset_counts()
@@ -1057,24 +1256,94 @@ def grad_check(cfg):
 
     f32, bf16 = worst(got), worst(got16)
     name32 = max(f32, key=f32.get)
-    res = {"batch": 2, "params": len(ref), "max_abs_grad": gmax,
+    res = {"config": label, "batch": 2, "params": len(ref),
+           "max_abs_grad": gmax,
            "worst_f32": f32[name32], "worst_f32_param": name32,
            "worst_bf16": max(bf16.values()), "tol": GRAD_TOL,
            "launches": launched, "per_param_f32": f32}
-    log("gradients (parity config, batch 2, %d parameters): f32 kernel path "
-        "vs plain max |dg|/max |g| %.3e at %s (tol %.0e); bf16 kernel path "
-        "%.3e; kernel launches %s"
-        % (len(ref), res["worst_f32"], name32, GRAD_TOL, res["worst_bf16"],
-           {k: v for k, v in launched.items() if v}))
+    log("gradients (%s, batch 2, %d parameters): f32 kernel path vs plain "
+        "max |dg|/max |g| %.3e at %s (tol %.0e); bf16 kernel path %.3e; "
+        "kernel launches %s"
+        % (label, len(ref), res["worst_f32"], name32, GRAD_TOL,
+           res["worst_bf16"], {k: v for k, v in launched.items() if v}))
     if not res["worst_f32"] <= GRAD_TOL:
         raise SystemExit("gradients through the kernels disagree with the "
                          "plain path")
     if not res["worst_bf16"] > GRAD_TOL:
         raise SystemExit("gradient tolerance does not separate bf16 from f32")
-    for k in ("layer_norm_bwd", "flash_attention_dq", "flash_attention_dkv"):
+    for k in required:
         if not launched[k]:
             raise SystemExit("the gradient step launched no %s kernel" % k)
     return res
+
+
+# the fused CE kernels: counters and their launches per training step
+CE_COUNTERS = ("fused_ce_fwd", "fused_ce_fwd_sp", "fused_ce_bwd_dw",
+               "fused_ce_bwd_dx")
+
+
+def rounding_cost(trainer):
+    """The bf16 second moment's stochastic rounding alone: one
+    `_store_v_bf16` over every parameter's float32 v (copies made first;
+    rounding a bf16 value again leaves it as it is), as device ms (CUDA
+    events) and host wall ms to the end of its work."""
+    v32 = [t.float() for t in trainer._adam_v]
+    dev_ms = time_auto(lambda: trainer._store_v_bf16(v32), budget_ms=2000)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer._store_v_bf16(v32)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    n = sum(t.numel() for t in v32)
+    return {"elements": n, "device_ms": dev_ms, "wall_ms": wall_ms,
+            "groups": len({tuple(t.shape) for t in v32})}
+
+
+def forward_check(trainer, dev):
+    """One `SPMDTrainer.forward` (no gradient, labels zeros): the fused
+    head runs the statistics kernel alone."""
+    torch.cuda.synchronize()
+    reset_counts()
+    out = trainer.forward({"data": dev["data"]})[0]
+    torch.cuda.synchronize()
+    launched = read_counts()
+    tokens = TRAIN_BATCH * TRAIN["seq_len"]
+    ok = tuple(out.shape) == (tokens,) and bool(torch.isfinite(out).all())
+    want = {k: 0 for k in CE_COUNTERS}
+    want["fused_ce_fwd"] = 1
+    log("forward (fused config, no gradient): output %s finite %s, launches "
+        "%s" % (tuple(out.shape), ok, {k: v for k, v in launched.items()
+                                       if v}))
+    if not ok:
+        raise SystemExit("forward: the fused head's NLL is not finite or "
+                         "not one per token")
+    off = {k: launched[k] for k in want if launched[k] != want[k]}
+    if off or not launched["layer_norm"]:
+        raise SystemExit("forward: launches %s, expected %s and LayerNorm"
+                         % (launched, want))
+    return {"launches": launched, "shape": list(out.shape)}
+
+
+def fused_extras(trainer, dev):
+    res = {"rounding": rounding_cost(trainer),
+           "forward": forward_check(trainer, dev)}
+    log("bf16 second moment's stochastic rounding: %s" % res["rounding"])
+    return res
+
+
+def five_pass_path(expect):
+    """2 steps of the fused configuration in the 5-pass structure,
+    ``MXNET_CE_SINGLE_PASS=0`` set for them and restored after."""
+    saved = os.environ.get("MXNET_CE_SINGLE_PASS")
+    os.environ["MXNET_CE_SINGLE_PASS"] = "0"
+    try:
+        return train_path("train fused, 5-pass", FUSED, 2, expect,
+                          FUSED_TRAINER, falls=False)
+    finally:
+        if saved is None:
+            del os.environ["MXNET_CE_SINGLE_PASS"]
+        else:
+            os.environ["MXNET_CE_SINGLE_PASS"] = saved
 
 
 def kernels_line(cases, paths):
@@ -1085,6 +1354,8 @@ def kernels_line(cases, paths):
              "flash_attention_bwd": [32, 12, 1024, 1024, 64],
              "flash_attention_bsd": [32, 6, 1024, 1024, 128],
              "flash_attention_bsd_bwd": [32, 6, 1024, 1024, 128]}
+    train.update({name: list(CE_TRAIN) for name, src, _, _ in KERNEL_ROWS
+                  if src == "fused_ce.cu"})
     serving = {"layer_norm": [8, 768],
                "flash_attention": [1, 12, 1024, 1024, 64]}
     out = []
@@ -1164,15 +1435,34 @@ def main():
         per_layer, **{k: TRAIN["num_layers"] for k in (
             "flash_attention", "flash_attention_dq",
             "flash_attention_dkv")}))
-    grads = grad_check(PARITY)
+    grads = grad_check(PARITY, ("layer_norm_bwd", "flash_attention_dq",
+                                "flash_attention_dkv"))
     bsd = train_path("train bsd (geom fast)", GEOM_FAST, 3, dict(
         per_layer, **{k: TRAIN["num_layers"] for k in (
             "flash_attention_bsd", "flash_attention_bsd_dq",
             "flash_attention_bsd_dkv")}))
 
+    ce_cases = fused_ce_checks()
+    cases += ce_cases
+    hsd_flash = {k: TRAIN["num_layers"] for k in (
+        "flash_attention", "flash_attention_dq", "flash_attention_dkv")}
+    fused = train_path(
+        "train fused (bench fused_)", FUSED, 5,
+        dict(per_layer, **hsd_flash, fused_ce_fwd_sp=1, fused_ce_bwd_dw=1),
+        FUSED_TRAINER, after=fused_extras)
+    five = five_pass_path(dict(per_layer, **hsd_flash, fused_ce_fwd=1,
+                               fused_ce_bwd_dx=1, fused_ce_bwd_dw=1))
+    fused_grads = grad_check(
+        FUSED, ("layer_norm_bwd", "flash_attention_dq",
+                "flash_attention_dkv", "fused_ce_fwd_sp", "fused_ce_bwd_dw"),
+        "fused config")
+
     kernels = kernels_line(cases, {
         "paged": paged["launches"], "slot": slot["launches"],
-        "train_bhsd": hsd["launches"], "train_bsd": bsd["launches"]})
+        "train_bhsd": hsd["launches"], "train_bsd": bsd["launches"],
+        "train_fused": fused["launches"],
+        "train_fused_5pass": five["launches"],
+        "forward_fused": fused["forward"]["launches"]})
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
@@ -1180,7 +1470,8 @@ def main():
          "build_s": took, "cases": cases, "paged": paged, "slot": slot,
          "decode_profile": profile, "prefill_profile": prefill_prof,
          "train_bhsd": hsd, "gradients": grads, "train_bsd": bsd,
-         "kernels": kernels}, indent=1))
+         "train_fused": fused, "train_fused_5pass": five,
+         "gradients_fused": fused_grads, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,11 @@ neither JAX nor anything of `mxnet_tpu`.  Two slices exist:
   package's initial parameters bit for bit.
 
 Hand-written CUDA kernels for Hopper carry both paths: LayerNorm forward
-and backward, and flash attention forward, dq and dk/dv
-(`ops/pallas_kernels/`, sources under `csrc/`).
+and backward, flash attention forward, dq and dk/dv, and the fused
+projection + softmax-CE head of ``fused_head=True`` (statistics forward,
+single-pass forward, dW/db, dx) (`ops/pallas_kernels/`, sources under
+`csrc/`).  `optimizer.stochastic_round_bf16` stores Adam's second moment
+in bf16 for ``SPMDTrainer(adam_v_dtype='bfloat16')``.
 
 Entry points run on ``cuda:0`` unless given ``ctx="cpu"``; without a
 GPU and without that argument they raise (`context.resolve`).
@@ -31,7 +34,8 @@ GPU and without that argument they raise (`context.resolve`).
 """
 from __future__ import annotations
 
-from . import attribute, initializer, models, name, ops, parallel, random
+from . import attribute, initializer, models, name, ops, optimizer
+from . import parallel, random
 from . import symbol
 from . import symbol as sym
 from .attribute import AttrScope
@@ -44,4 +48,4 @@ init = initializer
 
 __all__ = ["AttrScope", "MXNetError", "SPMDTrainer", "Symbol", "attribute",
            "init", "initializer", "load_params", "models", "name", "ops",
-           "parallel", "random", "resolve", "sym", "symbol"]
+           "optimizer", "parallel", "random", "resolve", "sym", "symbol"]

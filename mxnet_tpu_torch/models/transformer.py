@@ -4,11 +4,11 @@ A port of `mxnet_tpu/models/transformer.py`, unchanged in what it builds:
 pre-LN GPT-style blocks whose projections run as (batch*seq, embed)
 matrix products, the `DotProductAttention` op in the 'bhsd' (head split
 and merge transposes) or 'bsd' (transposeless) layout, and a dense
-FullyConnected + SoftmaxOutput head.  Both packages build the same graph,
-the same parameter names and the same JSON from the same arguments,
-including the ``attn_layout='auto'`` rule ('bsd' where the head width is
-a multiple of 128).  The fused CE head (``fused_head=True``) waits for its
-kernels and raises.
+FullyConnected + SoftmaxOutput head, or with ``fused_head=True`` the
+`FusedSoftmaxCE` head.  Both packages build the same graph, the same
+parameter names and the same JSON from the same arguments, including the
+``attn_layout='auto'`` rule ('bsd' where the head width is a multiple of
+128).
 """
 from __future__ import annotations
 
@@ -108,8 +108,10 @@ def get_transformer_lm(vocab_size, seq_len, num_layers=2, num_heads=4,
     batch-major — here rows stay (batch*seq, vocab) with labels reshaped to
     match.
 
-    ``fused_head=True`` (the JAX package's `FusedSoftmaxCE` head) is not
-    ported yet and raises.
+    ``fused_head=True`` ends in `FusedSoftmaxCE` (projection and softmax
+    CE fused, the logits never materialized; the graph's output is then
+    the per-token NLL) instead of FullyConnected + SoftmaxOutput, with
+    the same ``pred_weight``/``pred_bias`` parameters.
 
     ``use_bias=False`` drops every projection bias (the PaLM-style LM
     convention); GPT-2 parity keeps biases (the default).
@@ -120,9 +122,6 @@ def get_transformer_lm(vocab_size, seq_len, num_layers=2, num_heads=4,
     picks 'bsd' whenever the head width is a multiple of 128, the JAX
     package's rule, kept so both packages build the same graph.  The
     parameter set is the same in both layouts."""
-    if fused_head:
-        raise ValueError("fused_head=True needs the fused CE kernels, "
-                         "which the port does not have yet")
     if num_embed % num_heads != 0:
         raise ValueError("num_embed must be divisible by num_heads")
     if attn_layout not in ("auto", "bsd", "bhsd"):
@@ -154,6 +153,11 @@ def get_transformer_lm(vocab_size, seq_len, num_layers=2, num_heads=4,
     xf = sym.Reshape(data=x, shape=(-1, num_embed), name="final_flat")
     label = sym.Variable("softmax_label")
     label_flat = sym.Reshape(data=label, shape=(-1,), name="label_flat")
+    if fused_head:
+        # no_bias follows use_bias, as for every other projection
+        return sym.FusedSoftmaxCE(data=xf, label=label_flat,
+                                  num_hidden=vocab_size, name="pred",
+                                  no_bias=not use_bias)
     logits = sym.FullyConnected(data=xf, num_hidden=vocab_size,
                                 name="pred", no_bias=not use_bias)
     return sym.SoftmaxOutput(data=logits, label=label_flat, name="softmax")

@@ -1,6 +1,7 @@
 """Loss heads with the reference's backward.
 
-A port of `mxnet_tpu/ops/loss.py` `SoftmaxOutput`.  Its training gradient
+A port of `mxnet_tpu/ops/loss.py` `SoftmaxOutput` and `FusedSoftmaxCE`.
+`SoftmaxOutput`'s training gradient
 is not the autodiff of its forward: like the reference
 (`src/operator/softmax_output-inl.h`) its backward ignores the incoming
 head gradient and returns ``(softmax - onehot(label)) * grad_scale``, with
@@ -12,11 +13,21 @@ subtracts 1 at each row's label (``scatter_add_``), in the softmax's
 dtype.  At the GPT-2 training shape a (32768, 32768) one-hot would be
 4.3 GB in float32.  A label outside [0, classes) subtracts nothing, as
 `jax.nn.one_hot` gives it an all-zero row.
+
+`FusedSoftmaxCE` is the dense head's FullyConnected + SoftmaxOutput in
+one op whose logits never reach device memory: it returns the per-token
+NLL and has the same loss-head gradient, through the fused CE kernels
+(`pallas_kernels/fused_ce.py`).  The vocab-sharded form
+(``MXNET_CE_SHARD=1``) needs more than one card and is refused by the
+trainer; without a mesh the JAX op takes the replicated path too.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..base import MXNetError
+from .pallas_kernels.fused_ce import fused_softmax_ce
 from .registry import OpDef, Param, register
 
 
@@ -78,3 +89,62 @@ class SoftmaxOutput(OpDef):
 
 
 register(SoftmaxOutput, aliases=["Softmax"])
+
+
+class FusedSoftmaxCE(OpDef):
+    """Fused FullyConnected + SoftmaxOutput head; the logits never reach
+    device memory.
+
+    Forward: the float32 (tokens,) negative log-likelihood of
+    ``softmax(data @ weight.T + bias)`` at ``label``.  Backward: the
+    loss-head rule ``(softmax - onehot(label)) * grad_scale`` with the
+    incoming cotangent ignored, as `SoftmaxOutput`, so every parameter
+    gradient equals the dense head's.  Weight and bias are named and
+    shaped as FullyConnected's, so checkpoints carry across heads.
+    """
+
+    name = "FusedSoftmaxCE"
+    params = {
+        "num_hidden": Param(int, required=True),
+        "grad_scale": Param(float, default=1.0),
+        "ignore_label": Param(float, default=-1.0),
+        "use_ignore": Param(bool, default=False),
+        "no_bias": Param(bool, default=False),
+        "block_n": Param(int, default=512),
+        "block_v": Param(int, default=2048),
+    }
+
+    def list_arguments(self, params):
+        args = ["data", "weight"]
+        if not params["no_bias"]:
+            args.append("bias")
+        return args + ["label"]
+
+    def infer_shape(self, params, in_shapes):
+        nh = params["num_hidden"]
+        d = in_shapes[0]
+        if d is None:
+            return in_shapes, [None], []
+        if len(d) < 2:
+            raise MXNetError(
+                "FusedSoftmaxCE: data must be (batch, ...) with at least "
+                "2 dims, got %s" % (d,))
+        flat = int(np.prod(d[1:]))
+        shapes = [d, (nh, flat)]
+        if not params["no_bias"]:
+            shapes.append((nh,))
+        shapes.append((d[0],))
+        return shapes, [(d[0],)], []
+
+    def apply(self, octx, params, inputs, aux):
+        x = inputs[0].reshape(inputs[0].shape[0], -1)
+        bias = None if params["no_bias"] else inputs[2]
+        nll = fused_softmax_ce(
+            x, inputs[1], bias, inputs[-1], grad_scale=params["grad_scale"],
+            ignore_label=params["ignore_label"],
+            use_ignore=params["use_ignore"], block_n=params["block_n"],
+            block_v=params["block_v"])
+        return [nll], []
+
+
+register(FusedSoftmaxCE)

@@ -38,7 +38,7 @@ __all__ = ["KERNELS", "build", "build_log", "load", "check",
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("layer_norm", "flash_attention")
+KERNELS = ("layer_norm", "flash_attention", "fused_ce")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -65,10 +65,16 @@ def build(names=KERNELS):
     """Compile every source in ``names`` whose library is missing, one nvcc
     per source, all started together.  Returns ``{name: seconds}`` (0.0
     for a library already built).  Raises `MXNetError` with the end of
-    nvcc's log when a build fails."""
+    nvcc's log when a build fails; a missing source fails the same way,
+    after the other sources have built."""
     BUILD_DIR.mkdir(exist_ok=True)
-    todo, took = {}, {}
+    todo, took, failed = {}, {}, []
     for name in names:
+        if not (CSRC / ("%s.cu" % name)).exists():
+            (BUILD_DIR / ("%s.log" % name)).write_text(
+                "source %s not found\n" % (CSRC / ("%s.cu" % name)))
+            failed.append(name)
+            continue
         src, lib = _target(name)
         if lib.exists():
             took[name] = 0.0
@@ -79,7 +85,6 @@ def build(names=KERNELS):
         todo[name] = (subprocess.Popen(cmd, stdout=log,
                                        stderr=subprocess.STDOUT),
                       log, tmp, lib, time.perf_counter())
-    failed = []
     for name, (proc, log, tmp, lib, t0) in todo.items():
         rc = proc.wait()
         log.close()
@@ -130,7 +135,8 @@ def check(err, what):
 
 
 def _cuda_error_name(err):
-    lib = _libs.get("layer_norm") or _libs.get("flash_attention")
+    # every source exports the same mxt_error_string
+    lib = next(iter(_libs.values()), None)
     if lib is None:
         return "unknown"
     fn = lib.mxt_error_string

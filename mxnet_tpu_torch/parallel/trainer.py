@@ -19,11 +19,20 @@ parameters, in place on the master tensors and the optimizer state (the
 JAX step donates them).  PyTorch runs eagerly, so `run_steps` is a Python
 loop of steps; CUDA-graph capture is later work.
 
+``adam_v_dtype='bfloat16'`` stores Adam's second moment in bfloat16, as
+`_adam_update` does: the moment math runs in float32 (v32 = b2 *
+v.float() + (1 - b2) * g**2), the parameter update reads v32, and v is
+stored as `optimizer.stochastic_round_bf16(v32, fold_in(step_key, i))`
+with ``step_key = fold_in(prng_key(0x51ca57), t)`` and i the parameter's
+position among the sorted parameter names (the order in which `jax.jit`
+hands the JAX step its parameter dict).  Parameters of one shape are
+rounded together, one draw of random bits for each group.
+
 Refused with an error, never accepted and ignored: a mesh of more than
 one device, ``param_sharding``, ``abstract=True``, an ``adam_v_dtype``
-other than float32 (the bfloat16 table's stochastic rounding waits), and
-``MXNET_CE_SHARD=1``.  `get_params` returns numpy arrays; `load_params`
-carries the JAX trainer's parameters across.
+other than float32 or bfloat16, and ``MXNET_CE_SHARD=1`` (the
+vocab-sharded CE head needs more than one card).  `get_params` returns
+numpy arrays; `load_params` carries the JAX trainer's parameters across.
 """
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ from ..base import MXNetError
 from ..context import resolve
 from ..executor import _build_graph_fn
 from ..initializer import Uniform
+from ..optimizer import stochastic_round_bf16
 
 __all__ = ["SPMDTrainer", "load_params"]
 
@@ -44,7 +54,12 @@ __all__ = ["SPMDTrainer", "load_params"]
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _torch_dtype(dtype):
+# the key of the bfloat16 second moment's stochastic rounding
+# (`_adam_update`)
+_SR_SEED = 0x51CA57
+
+
+def _torch_dtype(dtype, what="compute dtype"):
     """A torch dtype from a torch dtype, a numpy dtype-like or a name
     (bfloat16 included, with or without ml_dtypes)."""
     if isinstance(dtype, torch.dtype):
@@ -52,8 +67,8 @@ def _torch_dtype(dtype):
     name = dtype if isinstance(dtype, str) else \
         getattr(dtype, "name", None) or np.dtype(dtype).name
     if name not in _DTYPES:
-        raise MXNetError("SPMDTrainer: compute dtype must be one of %s, got "
-                         "%r" % (sorted(_DTYPES), dtype))
+        raise MXNetError("SPMDTrainer: %s must be one of %s, got %r"
+                         % (what, sorted(_DTYPES), dtype))
     return _DTYPES[name]
 
 
@@ -119,14 +134,16 @@ class SPMDTrainer:
         if abstract:
             raise MXNetError("SPMDTrainer: abstract=True (AOT lowering for a "
                              "TPU topology) has no counterpart in the port")
-        if adam_v_dtype is not None and \
-                _torch_dtype(adam_v_dtype) != torch.float32:
-            raise MXNetError(
-                "SPMDTrainer: adam_v_dtype=%r is not ported yet (its "
-                "stochastic rounding); use None or float32" % (adam_v_dtype,))
+        # the stored second moment's dtype (see `_store_v_bf16`)
+        self._adam_v_dtype = torch.float32 if adam_v_dtype is None else \
+            _torch_dtype(adam_v_dtype, "adam_v_dtype")
+        if self._adam_v_dtype not in _DTYPES.values():
+            raise MXNetError("SPMDTrainer: adam_v_dtype must be float32 or "
+                             "bfloat16, got %r" % (adam_v_dtype,))
         if os.environ.get("MXNET_CE_SHARD", "0") == "1":
             raise MXNetError("SPMDTrainer: MXNET_CE_SHARD=1 (the vocab-sharded "
-                             "CE head) is not ported yet")
+                             "CE head) needs more than one card and is not "
+                             "ported yet")
         if optimizer not in ("sgd", "ccsgd", "adam"):
             raise MXNetError(
                 "SPMDTrainer fuses the optimizer; sgd and adam are "
@@ -172,11 +189,13 @@ class SPMDTrainer:
     def reset_optimizer(self):
         """Zero the optimizer state: SGD momenta, or Adam's moments and its
         step count."""
-        zeros = lambda: [torch.zeros_like(self.params[n])  # noqa: E731
-                         for n in self.param_names]
+        zeros = lambda dtype: [  # noqa: E731
+            torch.zeros_like(self.params[n], dtype=dtype)
+            for n in self.param_names]
         self._t = 0
-        self.momenta = zeros()
-        self._adam_v = zeros() if self.optimizer == "adam" else None
+        self.momenta = zeros(torch.float32)
+        self._adam_v = zeros(self._adam_v_dtype) \
+            if self.optimizer == "adam" else None
 
     def get_params(self):
         """(arg, aux) dicts of float32 numpy arrays (the checkpoint path;
@@ -254,7 +273,10 @@ class SPMDTrainer:
             coef1 = np.float32(1) - np.float32(b1) ** t
             coef2 = np.float32(1) - np.float32(b2) ** t
             lr_t = np.float32(self.lr) * np.sqrt(coef2) / coef1
-            m, v = self.momenta, self._adam_v
+            m = self.momenta
+            bf16_v = self._adam_v_dtype == torch.bfloat16
+            # the moment math runs in float32 whatever v is stored in
+            v = [t.float() for t in self._adam_v] if bf16_v else self._adam_v
             torch._foreach_mul_(m, b1)
             torch._foreach_add_(m, grads, alpha=1 - b1)
             torch._foreach_mul_(v, b2)
@@ -262,12 +284,33 @@ class SPMDTrainer:
             denom = torch._foreach_sqrt(v)
             torch._foreach_add_(denom, eps)
             torch._foreach_addcdiv_(params, m, denom, value=-float(lr_t))
+            if bf16_v:
+                self._store_v_bf16(v)
         elif self.momentum:
             torch._foreach_mul_(self.momenta, self.momentum)
             torch._foreach_add_(self.momenta, grads, alpha=-self.lr)
             torch._foreach_add_(params, self.momenta)
         else:
             torch._foreach_add_(params, grads, alpha=-self.lr)
+
+    def _store_v_bf16(self, v32):
+        """Store the float32 second moments ``v32`` (param_names order) in
+        the bfloat16 table, stochastically rounded with the JAX step's
+        keys: parameter i of the sorted names takes fold_in(step_key, i).
+        Parameters of one shape share one draw of random bits."""
+        step_key = _random.fold_in(_random.prng_key(_SR_SEED), self._t)
+        rank = {n: i for i, n in enumerate(sorted(self.param_names))}
+        groups = {}
+        for pos, n in enumerate(self.param_names):
+            groups.setdefault(tuple(v32[pos].shape), []).append(pos)
+        for pos in groups.values():
+            idx = torch.tensor([rank[self.param_names[p]] for p in pos],
+                               dtype=torch.int64, device=self.device)
+            k1, k2 = _random.fold_in(step_key, idx)
+            rounded = stochastic_round_bf16(
+                torch.stack([v32[p] for p in pos]), (k1[:, None], k2[:, None]))
+            for row, p in enumerate(pos):
+                self._adam_v[p].copy_(rounded[row])
 
     def _train_step(self, batch, rng):
         outs, grads = self._grads(batch, rng)

@@ -39,6 +39,9 @@ def _both(**kw):
 
 CONFIGS = [dict(attn_layout=layout, use_bias=bias)
            for layout in ("bhsd", "bsd") for bias in (True, False)]
+# the fused CE head (`FusedSoftmaxCE`), with and without its bias
+CONFIGS += [dict(attn_layout="bhsd", use_bias=bias, fused_head=True)
+            for bias in (True, False)]
 
 
 @pytest.mark.parametrize("kw", CONFIGS)
@@ -50,6 +53,7 @@ def test_transformer_lm_graph_equals_jax(kw):
     assert tnet.infer_shape(**SHAPES) == jnet.infer_shape(**SHAPES)
     assert tnet.tojson() == jnet.tojson()
     assert ("layer0_q_bias" in tnet.list_arguments()) == kw["use_bias"]
+    assert ("pred_bias" in tnet.list_arguments()) == kw["use_bias"]
 
 
 @pytest.mark.parametrize("kw", CONFIGS)
@@ -104,8 +108,8 @@ def test_symbol_errors_are_readable():
                                bogus=1)
     with pytest.raises(MXNetError, match="not an argument"):
         tmx.sym.Variable("x").infer_shape(y=(2,))
-    with pytest.raises(ValueError, match="fused CE"):
-        tmx.models.get_transformer_lm(V, S, fused_head=True)
+    with pytest.raises(ValueError, match="attn_layout must be"):
+        tmx.models.get_transformer_lm(V, S, attn_layout="ds")
     _, tnet = _both()
     assert tnet.infer_shape(data=(4, S)) == (None, None, None)
 
@@ -120,3 +124,16 @@ def test_infer_shape_gives_the_parameter_shapes():
     assert shapes["pred_weight"] == (V, E) and shapes["pred_bias"] == (V,)
     assert out == [(4 * S, V)] and aux == []
     assert np.prod(shapes["final_ln_gamma"]) == E
+
+
+def test_fused_head_outputs_the_per_token_nll():
+    """``fused_head=True`` ends in `FusedSoftmaxCE`: one float32 NLL per
+    token, over the dense head's ``pred_weight``/``pred_bias``."""
+    jnet, tnet = _both(fused_head=True)
+    arg, out, _ = tnet.infer_shape(**SHAPES)
+    shapes = dict(zip(tnet.list_arguments(), arg))
+    assert out == [(4 * S,)] == jnet.infer_shape(**SHAPES)[1]
+    assert shapes["pred_weight"] == (V, E) and shapes["pred_bias"] == (V,)
+    assert tnet.list_outputs() == ["pred_output"]
+    _, dense = _both()
+    assert sorted(dense.list_arguments()) == sorted(tnet.list_arguments())

@@ -5,7 +5,12 @@
   for bit; `initializer.Uniform` therefore draws the JAX parameters.
 * `parallel.SPMDTrainer(ctx="cpu")` walks the JAX `SPMDTrainer`'s
   parameter trajectory (one-device CPU mesh) for 5 SGD and 5 Adam steps
-  in both attention layouts, from the same seed, in float32.
+  in both attention layouts, from the same seed, in float32; and with the
+  fused CE head for 5 Adam steps in both of its backward structures,
+  with the second moment stored in float32 or in bfloat16.
+* `optimizer.stochastic_round_bf16` rounds as the JAX package's does, bit
+  for bit, and the bfloat16 second-moment table after 5 steps is the JAX
+  trainer's.
 
 Tolerance of the trajectories: rtol 1e-4 / atol 1e-5, as
 `tests/test_fused_ce.py` holds two trainers' trajectories: float32 on
@@ -18,6 +23,16 @@ it by a square root of the same size: each step moves such an element by
 up to ``lr * g / (sqrt(v) + eps)``, whatever the noise's sign.  Under
 Adam those elements are held to that bound (5 steps of lr), not to each
 other; SGD moves them by ~lr * noise and keeps the common tolerance.
+
+The bfloat16 second moment: both packages round the same float32 v with
+the same 16 random bits, so the stored tables are equal except where the
+two float32 v (equal to ~1e-6 relative) fall on either side of a
+rounding step, which moves that element by one bfloat16 ulp (2**-8 to
+2**-7 of it).  `_assert_same_v` holds the tables to that: at most 1% of
+the elements one ulp apart, none further (the key biases' v, the square
+of noise, left out).  Keys in another parameter order leave about half
+the elements apart.  The parameters move by lr * m / sqrt(v32) from the
+float32 v, so they keep the common tolerance.
 """
 import numpy as np
 import pytest
@@ -108,20 +123,21 @@ def _batch(seed=0):
             "softmax_label": rng.randint(0, V, (B, S)).astype(np.float32)}
 
 
-def _jax_trainer(layout, opt, seed=0):
+def _jax_trainer(layout, opt, seed=0, net_kw=None, **kw):
     jmx.random.seed(seed)
     net = jmodels.get_transformer_lm(vocab_size=V, seq_len=S, num_layers=L,
                                      num_heads=H, num_embed=E,
-                                     attn_layout=layout)
+                                     attn_layout=layout, **(net_kw or {}))
     return JaxTrainer(net, make_mesh(shape=(1,), axis_names=("data",)),
-                      data_shapes=SHAPES, **OPTIMIZERS[opt])
+                      data_shapes=SHAPES, **OPTIMIZERS[opt], **kw)
 
 
-def _port_trainer(layout, opt, seed=0, **kw):
+def _port_trainer(layout, opt, seed=0, net_kw=None, **kw):
     tmx.random.seed(seed)
     net = tmx.models.get_transformer_lm(vocab_size=V, seq_len=S,
                                         num_layers=L, num_heads=H,
-                                        num_embed=E, attn_layout=layout)
+                                        num_embed=E, attn_layout=layout,
+                                        **(net_kw or {}))
     return tmx.SPMDTrainer(net, data_shapes=SHAPES, ctx="cpu",
                            **OPTIMIZERS[opt], **kw)
 
@@ -240,7 +256,7 @@ def test_trainer_runs_on_the_card_unless_asked():
     (dict(mesh={"data": 2, "model": 1}), "one device"),
     (dict(param_sharding={"pred_weight": None}), "param_sharding"),
     (dict(abstract=True), "abstract"),
-    (dict(optimizer="adam", adam_v_dtype="bfloat16"), "adam_v_dtype"),
+    (dict(optimizer="adam", adam_v_dtype="float16"), "adam_v_dtype"),
     (dict(optimizer="rmsprop"), "sgd and adam"),
     (dict(dtype="int8"), "compute dtype"),
 ])
@@ -257,3 +273,88 @@ def test_vocab_sharded_head_is_refused(monkeypatch):
                                         num_embed=E)
     with pytest.raises(MXNetError, match="CE_SHARD"):
         tmx.SPMDTrainer(net, data_shapes=SHAPES, ctx="cpu")
+
+
+# -- the fused CE head and the bfloat16 second moment --------------------------
+
+
+def _assert_same_v(tt, jt):
+    """The port's stored second moments against the JAX trainer's: equal,
+    or one bfloat16 ulp (at most 2**-7 of the value) apart on at most 1%
+    of the elements.  The key biases' v is the square of rounding noise
+    in both packages (see the module's note), so it is left out."""
+    apart = total = 0
+    for pos, n in enumerate(tt.param_names):
+        assert tt._adam_v[pos].dtype == torch.bfloat16
+        if n.endswith("_k_bias"):
+            continue
+        got = tt._adam_v[pos].float().numpy()
+        want = np.asarray(jt.momenta[n][1]).astype(np.float32)
+        diff = np.abs(got - want)
+        assert (diff <= 2.0 ** -7 * np.maximum(np.abs(got), np.abs(want))
+                ).all(), n
+        apart += int((diff > 0).sum())
+        total += got.size
+    assert apart <= 0.01 * total, (apart, total)
+
+
+@pytest.mark.parametrize("v_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("single_pass", ["1", "0"])
+def test_fused_head_trainer_walks_the_jax_trajectory(monkeypatch,
+                                                     single_pass, v_dtype):
+    """``fused_head=True`` under Adam, in the single-pass ('1') and 5-pass
+    ('0') structures, with v stored in float32 (None) or bfloat16."""
+    monkeypatch.setenv("MXNET_CE_SINGLE_PASS", single_pass)
+    kw = dict(net_kw=dict(fused_head=True), adam_v_dtype=v_dtype)
+    jt = _jax_trainer("bhsd", "adam", **kw)
+    tt = _port_trainer("bhsd", "adam", **kw)
+    batch = _batch()
+    for i in range(STEPS):
+        jout = jt.step(batch)
+        tout = tt.step(batch)
+        if i == 0:
+            # the head's output is the per-token NLL
+            assert tout[0].shape == (B * S,)
+            np.testing.assert_allclose(tout[0].numpy(), np.asarray(jout[0]),
+                                       rtol=1e-4, atol=1e-5)
+    _assert_same_params(tt.get_params()[0], jt.get_params()[0], "adam")
+    if v_dtype:
+        _assert_same_v(tt, jt)
+    data = {"data": batch["data"]}
+    np.testing.assert_allclose(tt.forward(data)[0].numpy(),
+                               np.asarray(jt.forward(data)[0]), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_stochastic_round_bf16_equals_jax_bit_for_bit():
+    """The same float32 input and key give the same bfloat16 bits: values
+    on and between bfloat16 steps, of both signs, tiny and huge, zeros;
+    and the batched form (one key a row) equals the row-by-row calls."""
+    from mxnet_tpu.optimizer import stochastic_round_bf16 as jround
+    from mxnet_tpu_torch.optimizer import stochastic_round_bf16 as tround
+    rng = np.random.RandomState(11)
+    x = (rng.randn(3, 257) * np.exp(rng.randn(3, 257) * 8)).astype(
+        np.float32)
+    x[0, :4] = [0.0, -0.0, 1.0, -3.0]
+    x[1, :2] = [np.float32(1 + 2 ** -8), np.float32(2 ** -126)]
+    for seed in (7, 0x51CA57):
+        jkey = jax.random.fold_in(jax.random.PRNGKey(seed), 3)
+        tkey = tmx.random.fold_in(tmx.random.prng_key(seed), 3)
+        want = np.asarray(jround(jax.numpy.asarray(x), jkey)).view(np.uint16)
+        got = tround(torch.from_numpy(x), tkey)
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(
+            got.view(torch.int16).numpy().view(np.uint16), want)
+        keys = [tmx.random.fold_in(tkey, i) for i in range(3)]
+        k1 = torch.tensor([[k[0]] for k in keys])
+        k2 = torch.tensor([[k[1]] for k in keys])
+        batched = tround(torch.from_numpy(x), (k1, k2))
+        for i, k in enumerate(keys):
+            assert torch.equal(batched[i].view(torch.int16),
+                               tround(torch.from_numpy(x[i]), k).view(
+                                   torch.int16))
+    # rounding is unbiased: the mean of many draws is the value
+    y = torch.full((20000,), 1.0 + 2 ** -10)
+    drawn = tround(y, tmx.random.prng_key(5)).float()
+    assert set(np.unique(drawn.numpy())) == {1.0, np.float32(1 + 2 ** -7)}
+    assert abs(float(drawn.mean()) - (1 + 2 ** -10)) < 2e-4
