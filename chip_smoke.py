@@ -45,10 +45,24 @@ Phases, each of which fails the run with a non-zero exit:
    the rounding's cost; then 2 steps of the 5-pass structure
    (``MXNET_CE_SINGLE_PASS=0``) and one `SPMDTrainer.forward`, each with
    its launches; and one f32 step's gradients of the fused configuration
-   through the kernels against their plain versions.
+   through the kernels against their plain versions;
+11. hold the dS route's kernels and the grid-streamed bsd route's against
+   their plain versions, in float32 and bf16, at the long-context
+   training shapes ((8, 6, 4096, 128) and (4, 6, 8192, 128), causal,
+   timed beside SDPA) and at ragged ones with offsets and head 64, and
+   check the plain pins (``MXNET_FLASH_IMPL=jnp``,
+   ``MXNET_FLASH_BWD=jnp``) and a mistyped ``MXNET_FLASH_BSD_KERNEL``;
+12. train `scripts/diag_round5.py`'s long-context configurations (6
+   heads of 128, biases, bf16 Adam v) at full width for 5 steps each:
+   S=4096 B=8 under ``MXNET_FLASH_LAYOUT=ds`` and S=8192 B=4 under
+   ``MXNET_FLASH_BSD_KERNEL=stream``, with exact launches on the route's
+   own counters; and one f32 step's gradients of the S=8192
+   configuration at batch 1 through the kernels against their plain
+   versions.
 
-It prints a ``kernels`` JSON line (launches, errors, times, bounds), the
-card's name and power limit, and as its last line
+It prints each phase's seconds, a ``kernels`` JSON line (launches,
+errors, times, bounds), the card's name and power limit, and as its last
+line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  It writes the full
 results to ``chiprun_out/chip_smoke.json``.  It exits non-zero without a
 result when no CUDA device is present or the package is missing.
@@ -77,8 +91,9 @@ from mxnet_tpu_torch.ops import loss as loss_mod
 from mxnet_tpu_torch.ops.pallas_kernels import _build
 from mxnet_tpu_torch.ops.pallas_kernels import fused_ce as fce
 from mxnet_tpu_torch.ops.pallas_kernels.flash_attention import (
-    _flash_bwd_cuda, _flash_bwd_plain, flash_attention, flash_attention_bsd,
-    flash_attention_bsd_plain, flash_attention_plain)
+    _flash_bwd_cuda, _flash_bwd_plain, _flash_fwd_cuda, _to_ds,
+    flash_attention, flash_attention_bsd, flash_attention_bsd_plain,
+    flash_attention_plain)
 from mxnet_tpu_torch.ops.pallas_kernels.layer_norm import (
     _bwd_plain as layer_norm_bwd_plain, _fwd_plain as layer_norm_fwd_plain,
     layer_norm_bwd, layer_norm_fwd, layer_norm_plain)
@@ -163,6 +178,19 @@ KERNEL_ROWS = [
     ("flash_attention_bsd_bwd", "flash_attention.cu",
      TPU + "flash_attention.py:1158",
      ["flash_attention_bsd_dq", "flash_attention_bsd_dkv"]),
+    # the dS layout: the kernels' S-contiguous orientation
+    ("flash_attention_ds", "flash_attention.cu",
+     TPU + "flash_attention.py:623", ["flash_attention_ds"]),
+    ("flash_attention_ds_bwd", "flash_attention.cu",
+     TPU + "flash_attention.py:794",
+     ["flash_attention_ds_dq", "flash_attention_ds_dkv"]),
+    # the grid-streamed bsd structure: rows 7 and 8's kernels on their
+    # own counters
+    ("flash_attention_bsd_stream", "flash_attention.cu",
+     TPU + "flash_attention.py:1342", ["flash_attention_bsd_stream"]),
+    ("flash_attention_bsd_stream_bwd", "flash_attention.cu",
+     TPU + "flash_attention.py:1510",
+     ["flash_attention_bsd_stream_dq", "flash_attention_bsd_stream_dkv"]),
     # the 5-pass backward (row 12) is kernels D and C; its launches are
     # D's, on the 5-pass run
     ("fused_ce_fwd", "fused_ce.cu", TPU + "fused_ce.py:155",
@@ -186,6 +214,14 @@ COUNTERS = {
     "flash_attention_bsd": (flash_attention_bsd, "launches"),
     "flash_attention_bsd_dq": (flash_attention_bsd, "dq_launches"),
     "flash_attention_bsd_dkv": (flash_attention_bsd, "dkv_launches"),
+    "flash_attention_ds": (flash_attention, "ds_launches"),
+    "flash_attention_ds_dq": (flash_attention, "ds_dq_launches"),
+    "flash_attention_ds_dkv": (flash_attention, "ds_dkv_launches"),
+    "flash_attention_bsd_stream": (flash_attention_bsd, "stream_launches"),
+    "flash_attention_bsd_stream_dq": (flash_attention_bsd,
+                                      "stream_dq_launches"),
+    "flash_attention_bsd_stream_dkv": (flash_attention_bsd,
+                                       "stream_dkv_launches"),
     "fused_ce_fwd": (fce.fused_ce_fwd, "launches"),
     "fused_ce_fwd_sp": (fce.fused_ce_fwd_sp, "launches"),
     "fused_ce_bwd_dw": (fce.fused_ce_bwd_dw, "launches"),
@@ -195,6 +231,34 @@ COUNTERS = {
 
 def log(*args):
     print(*args, flush=True)
+
+
+@contextlib.contextmanager
+def pinned(**env):
+    """Set the ``MXNET_*`` pins in ``env`` for the block and restore each
+    as it was after it, as `scripts/diag_round5.py` does around a
+    configuration."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, old in saved.items():
+            if old is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = old
+
+
+# each flash layout of the training checks: its route's pins, its name in
+# the checks and the kernels line, and the route its kernels count on
+FLASH_LAYOUTS = {
+    "bhsd": ({}, "flash_attention", "hsd"),
+    "bsd": ({}, "flash_attention_bsd", "bsd_loop"),
+    "ds": ({"MXNET_FLASH_LAYOUT": "ds"}, "flash_attention_ds", "ds"),
+    "stream": ({"MXNET_FLASH_BSD_KERNEL": "stream"},
+               "flash_attention_bsd_stream", "bsd_stream"),
+}
 
 
 def card_state():
@@ -493,77 +557,105 @@ def layer_norm_train_case(rows, dtype, gen, n=768, timed=True):
 def flash_train_case(layout, batch, heads, d, dtype, gen, sq=1024,
                      skv=1024, causal=True, q_off=0, k_off=0, timed=True):
     """Flash attention forward and backward as training runs it: (B, H, S,
-    D) views of (B, S, H, D) projections ('bhsd', the graph's transposes)
-    or (B, S, E) operands through `flash_attention_bsd` ('bsd').  Out,
-    lse, dq, dk and dv of the kernels (lse cotangent included) against
-    the plain versions; when timed, each pass's time beside
-    `scaled_dot_product_attention`'s."""
-    bsd = layout == "bsd"
-    fn = flash_attention_bsd if bsd else flash_attention
-    plain = flash_attention_bsd_plain if bsd else flash_attention_plain
-    extra = (heads,) if bsd else ()
-    kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
+    D) views of (B, S, H, D) projections ('bhsd', the graph's transposes;
+    'ds', the same through the dS route) or (B, S, E) operands through
+    `flash_attention_bsd` ('bsd'; 'stream', the grid-streamed route's
+    pin).  Out, lse, dq, dk and dv of the kernels (lse cotangent
+    included) against the plain versions, with the launches counted on
+    the layout's route alone; when timed, each pass's time beside
+    `scaled_dot_product_attention`'s.  On 'ds' the kernels' times are
+    those of the kernels on the dS operands; ``route_ms`` adds the
+    route's boundary copies."""
+    pins, name, route = FLASH_LAYOUTS[layout]
+    with pinned(**pins):
+        bsd = layout in ("bsd", "stream")
+        fn = flash_attention_bsd if bsd else flash_attention
+        plain = flash_attention_bsd_plain if bsd else flash_attention_plain
+        extra = (heads,) if bsd else ()
+        kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
 
-    def make(s):
-        t = torch.randn(batch, s, heads, d, device="cuda", generator=gen)
-        t = t.to(dtype)
-        return t.reshape(batch, s, heads * d) if bsd else t.transpose(1, 2)
+        def make(s):
+            t = torch.randn(batch, s, heads, d, device="cuda", generator=gen)
+            t = t.to(dtype)
+            return t.reshape(batch, s, heads * d) if bsd else t.transpose(1, 2)
 
-    def heads_view(t):
-        return t.reshape(batch, t.shape[1], heads, d).transpose(1, 2) \
-            if bsd else t
+        def heads_view(t):
+            return t.reshape(batch, t.shape[1], heads, d).transpose(1, 2) \
+                if bsd else t
 
-    q, k, v = make(sq), make(skv), make(skv)
-    g = make(sq)
-    glse = torch.randn(batch, heads, sq, device="cuda", generator=gen)
+        q, k, v = make(sq), make(skv), make(skv)
+        g = make(sq)
+        glse = torch.randn(batch, heads, sq, device="cuda", generator=gen)
 
-    def through(f):
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        out, lse = f(*leaves, *extra, with_lse=True, **kw)
-        torch.autograd.backward((out, lse), (g, glse))
-        return out, lse, [t.grad for t in leaves]
+        def through(f):
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out, lse = f(*leaves, *extra, with_lse=True, **kw)
+            torch.autograd.backward((out, lse), (g, glse))
+            return out, lse, [t.grad for t in leaves]
 
-    out, lse, grads = through(fn)
-    torch.cuda.synchronize()
-    rout, rlse, rgrads = through(plain)
-    f_err = rel_check(dtype, [(out, rout)])
-    lse_err = rel_check(torch.float32, [(lse, rlse)])
-    f_err = (max(f_err[0], lse_err[0]), max(f_err[1], lse_err[1]),
-             f_err[2] and lse_err[2])
-    b_err = rel_check(dtype, list(zip(grads, rgrads)))
-    name = "flash_attention_bsd" if bsd else "flash_attention"
-    shape = [batch, heads, sq, skv, d]
-    if not timed:
-        return [_record(name, shape, dtype, f_err, False),
-                _record(name + "_bwd", shape, dtype, b_err, False)]
-    q4, k4, v4, g4, o4 = (heads_view(t.detach()) for t in (q, k, v, g, out))
-    lse = lse.detach()
-    scale = 1.0 / math.sqrt(d)
-    args = (q_off, k_off, scale, causal)
-    isz = q.element_size()
-    pairs = visible_pairs(sq, skv, causal, q_off, k_off) * batch * heads
-    fb = bound_ms(batch * heads * d * (2 * sq + 2 * skv) * isz
-                  + batch * heads * sq * 4, 4 * d * pairs, dtype)
-    bb = bound_ms(batch * heads * d * (4 * sq + 4 * skv) * isz
-                  + 2 * batch * heads * sq * 4, 14 * d * pairs, dtype)
-    leaves = [t.clone().requires_grad_() for t in (q4, k4, v4)]
-    sdpa = lambda: F.scaled_dot_product_attention(*leaves, is_causal=causal)
-    return [
-        _record(name, shape, dtype, f_err, True,
-                ms=time_auto(lambda: fn(q, k, v, *extra, with_lse=True,
-                                        **kw)),
-                plain_ms=time_auto(lambda: plain(q, k, v, *extra,
-                                                 with_lse=True, **kw)),
-                library_ms=time_auto(lambda: F.scaled_dot_product_attention(
-                    q4, k4, v4, is_causal=causal)),
-                bound_ms=fb[0], bound_by=fb[1]),
-        _record(name + "_bwd", shape, dtype, b_err, True,
-                ms=time_auto(lambda: _flash_bwd_cuda(
-                    q4, k4, v4, o4, lse, g4, glse, *args, fn)),
-                plain_ms=time_auto(lambda: _flash_bwd_plain(
-                    q4, k4, v4, o4, lse, g4, glse, *args)),
-                library_ms=_library_bwd_ms(sdpa, leaves, g4),
-                bound_ms=bb[0], bound_by=bb[1])]
+        reset_counts()
+        out, lse, grads = through(fn)
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in read_counts().items() if n}
+        want = {k: 1 for k in (name, name + "_dq", name + "_dkv")}
+        if launched != want:
+            raise SystemExit("%s %s: launches %s, expected %s"
+                             % (name, dtype, launched, want))
+        rout, rlse, rgrads = through(plain)
+        f_err = rel_check(dtype, [(out, rout)])
+        lse_err = rel_check(torch.float32, [(lse, rlse)])
+        f_err = (max(f_err[0], lse_err[0]), max(f_err[1], lse_err[1]),
+                 f_err[2] and lse_err[2])
+        b_err = rel_check(dtype, list(zip(grads, rgrads)))
+        shape = [batch, heads, sq, skv, d]
+        if not timed:
+            return [_record(name, shape, dtype, f_err, False),
+                    _record(name + "_bwd", shape, dtype, b_err, False)]
+        q4, k4, v4, g4, o4 = (heads_view(t.detach())
+                              for t in (q, k, v, g, out))
+        lse = lse.detach()
+        scale = 1.0 / math.sqrt(d)
+        args = (q_off, k_off, scale, causal)
+        isz = q.element_size()
+        pairs = visible_pairs(sq, skv, causal, q_off, k_off) * batch * heads
+        # operations per visible pair: 2·d for each product the function
+        # needs, Q Kᵀ and P V forward; Q Kᵀ once, dO Vᵀ, dV, dQ and dK
+        # backward (the two-pass kernels' recompute of Q Kᵀ and dO Vᵀ is
+        # not work the function needs)
+        fb = bound_ms(batch * heads * d * (2 * sq + 2 * skv) * isz
+                      + batch * heads * sq * 4, 4 * d * pairs, dtype)
+        bb = bound_ms(batch * heads * d * (4 * sq + 4 * skv) * isz
+                      + 2 * batch * heads * sq * 4, 10 * d * pairs, dtype)
+        leaves = [t.clone().requires_grad_() for t in (q4, k4, v4)]
+        sdpa = lambda: F.scaled_dot_product_attention(*leaves,
+                                                      is_causal=causal)
+        route_fwd = lambda: fn(q, k, v, *extra, with_lse=True, **kw)
+        if layout == "ds":
+            kq, kk, kv, ko, kg = (_to_ds(t) for t in (q4, k4, v4, o4, g4))
+            kernel_fwd = lambda: _flash_fwd_cuda(kq, kk, kv, *args, True,
+                                                 route)
+        else:
+            kq, kk, kv, ko, kg = q4, k4, v4, o4, g4
+            kernel_fwd = route_fwd
+        fwd = _record(name, shape, dtype, f_err, True,
+                      ms=time_auto(kernel_fwd),
+                      plain_ms=time_auto(lambda: plain(q, k, v, *extra,
+                                                       with_lse=True, **kw)),
+                      library_ms=time_auto(
+                          lambda: F.scaled_dot_product_attention(
+                              q4, k4, v4, is_causal=causal)),
+                      bound_ms=fb[0], bound_by=fb[1])
+        if layout == "ds":
+            fwd["route_ms"] = time_auto(route_fwd)
+        return [
+            fwd,
+            _record(name + "_bwd", shape, dtype, b_err, True,
+                    ms=time_auto(lambda: _flash_bwd_cuda(
+                        kq, kk, kv, ko, lse, kg, glse, *args, route)),
+                    plain_ms=time_auto(lambda: _flash_bwd_plain(
+                        q4, k4, v4, o4, lse, g4, glse, *args)),
+                    library_ms=_library_bwd_ms(sdpa, leaves, g4),
+                    bound_ms=bb[0], bound_by=bb[1])]
 
 
 def describe(c):
@@ -582,6 +674,8 @@ def describe(c):
                                    c["bound_ms"], c["bound_by"]))
     if "ms_with_launch" in c:
         line += "; kernel with launch %.4f ms" % c["ms_with_launch"]
+    if "route_ms" in c:
+        line += "; route with its boundary copies %.4f ms" % c["route_ms"]
     return line
 
 
@@ -613,6 +707,95 @@ def training_kernel_checks():
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise SystemExit("training kernel checks failed: %s" % bad)
+    return cases
+
+
+def longctx_kernel_checks():
+    """The dS route's kernels (rows 5 and 6) and the grid-streamed bsd
+    route's (rows 9 and 10) against the plain versions, in float32 and
+    bf16: at the long-context training shapes, timed, and at ragged ones
+    with offsets and at head 64."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += flash_train_case("ds", 1, 2, 128, dtype, gen, sq=1000,
+                                  skv=1000, q_off=24, timed=False)
+        cases += flash_train_case("ds", 2, 4, 64, dtype, gen, sq=520,
+                                  skv=520, timed=False)
+        cases += flash_train_case("ds", 2, 4, 64, dtype, gen, sq=300,
+                                  skv=700, causal=False, q_off=400,
+                                  k_off=100, timed=False)
+        cases += flash_train_case("stream", 1, 2, 128, dtype, gen, sq=1000,
+                                  skv=1000, q_off=24, timed=False)
+        cases += flash_train_case("stream", 2, 4, 64, dtype, gen, sq=520,
+                                  skv=520, timed=False)
+        # the training shapes, timed
+        cases += flash_train_case("ds", 8, 6, 128, dtype, gen, sq=4096,
+                                  skv=4096)
+        cases += flash_train_case("stream", 4, 6, 128, dtype, gen, sq=8192,
+                                  skv=8192)
+    cases += route_pin_checks(gen)
+    for c in cases:
+        log(describe(c))
+    log("card after the long-context kernel checks (sm clock, mem clock, "
+        "power, temp): %s" % card_state())
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise SystemExit("long-context kernel checks failed: %s" % bad)
+    return cases
+
+
+def route_pin_checks(gen):
+    """The plain pins on the card: ``MXNET_FLASH_IMPL=jnp`` launches no
+    kernel in either layout and gives the plain versions' result bit for
+    bit; ``MXNET_FLASH_BWD=jnp`` launches the forward kernel alone and
+    agrees with the plain versions to the float32 tolerance; a mistyped
+    ``MXNET_FLASH_BSD_KERNEL`` raises."""
+    x = torch.randn(2, 256, 4, 128, device="cuda", generator=gen)
+    g = torch.randn(2, 256, 4, 128, device="cuda", generator=gen)
+    cases = []
+    for label, pins, fn, want, exact in (
+            ("jnp", {"MXNET_FLASH_IMPL": "jnp"}, flash_attention, {}, True),
+            ("jnp", {"MXNET_FLASH_IMPL": "jnp"}, flash_attention_bsd, {},
+             True),
+            ("bwd jnp", {"MXNET_FLASH_BWD": "jnp",
+                         "MXNET_FLASH_LAYOUT": "ds"}, flash_attention,
+             {"flash_attention_ds": 1}, False)):
+        bsd = fn is flash_attention_bsd
+        args = [t.reshape(2, 256, 512) if bsd else t.transpose(1, 2)
+                for t in (x, x, x)]
+        cot = g.reshape(2, 256, 512) if bsd else g.transpose(1, 2)
+        extra = (4,) if bsd else ()
+        plain = flash_attention_bsd_plain if bsd else flash_attention_plain
+
+        def through(f):
+            leaves = [t.detach().clone().requires_grad_() for t in args]
+            out = f(*leaves, *extra, causal=True)
+            out.backward(cot)
+            return [out] + [t.grad for t in leaves]
+
+        with pinned(**pins):
+            reset_counts()
+            got = through(fn)
+            torch.cuda.synchronize()
+            launched = {k: n for k, n in read_counts().items() if n}
+        ref = through(plain)
+        err, rel, ok = rel_check(torch.float32, list(zip(got, ref)))
+        if exact:
+            ok = all(torch.equal(a, b) for a, b in zip(got, ref))
+        cases.append(_record("pin %s, %s" % (label, fn.__name__),
+                             [2, 4, 256, 256, 128], torch.float32,
+                             (err, rel, ok and launched == want), False))
+        cases[-1]["launches"] = launched
+    with pinned(MXNET_FLASH_BSD_KERNEL="streamed"):
+        y = x.reshape(2, 256, 512)
+        try:
+            flash_attention_bsd(y, y, y, 4, causal=True)
+            raised = False
+        except mx.MXNetError:
+            raised = True
+    cases.append(_record("pin streamed raises", [2, 4, 256, 256, 128],
+                         torch.float32, (0.0, 0.0, raised), False))
     return cases
 
 
@@ -1094,6 +1277,18 @@ GEOM_FAST = dict(TRAIN, num_heads=6, use_bias=False, attn_layout="bsd")
 # stochastic rounding (`tools/benchmark_transformer.py:76`)
 FUSED = dict(PARITY, fused_head=True)
 FUSED_TRAINER = dict(adam_v_dtype="bfloat16")
+# scripts/diag_round5.py's stage_longctx (`_make_lm_trainer(H=6, S, B)`,
+# :73-101 and :393-403): 12 layers, embed 768, 6 heads of 128, vocab
+# 32768, biases, dense head; bf16, Adam lr 1e-3 wd 0, v in bf16 (the
+# ``FUSED_TRAINER`` keyword); S=4096 B=8 through the dS route ('bhsd'
+# under MXNET_FLASH_LAYOUT=ds) and S=8192 B=4 through the grid-streamed
+# route ('bsd' under MXNET_FLASH_BSD_KERNEL=stream): 32768 tokens a step,
+# as the parity configuration
+LONGCTX_DS = dict(TRAIN, seq_len=4096, num_heads=6, use_bias=True,
+                  attn_layout="bhsd")
+LONGCTX_DS_BATCH = 8
+LONGCTX_STREAM = dict(LONGCTX_DS, seq_len=8192, attn_layout="bsd")
+LONGCTX_STREAM_BATCH = 4
 
 
 def lm_trainer(cfg, batch, dtype, seed=0, **kw):
@@ -1137,144 +1332,149 @@ def flops_per_token(cfg):
 
 
 def train_path(label, cfg, steps, expect, trainer_kw=None, falls=True,
-               after=None):
-    """Train ``cfg`` at full width, batch 32, in bf16: ``steps`` steps (the
-    first a warm-up, left out of the timing) with the counts set to 0
-    before and read after, then one profiled step.  ``expect`` maps each
-    counter to the launches it must show per step; ``falls`` asks for the
+               after=None, batch=TRAIN_BATCH, pins=None):
+    """Train ``cfg`` at full width, in bf16, at ``batch`` (32 unless
+    given) under the ``MXNET_*`` ``pins`` (set for the path and restored
+    after): ``steps`` steps (the first a warm-up, left out of the timing)
+    with the counts set to 0 before and read after, then one profiled
+    step.  ``expect`` maps each counter to the launches it must show per
+    step (every other counter must show none); ``falls`` asks for the
     last loss below the first.  ``after(trainer, batch)`` runs last, on
     the trained model, and its result joins the record."""
-    trainer = lm_trainer(cfg, TRAIN_BATCH, "bfloat16", **(trainer_kw or {}))
-    dev = trainer.shard_batch(lm_batch(TRAIN_BATCH, cfg))
-    labels = dev["softmax_label"]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    losses, step_ms, wall_ms = [], [], []
-    for _ in range(steps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        a.record()
-        outs = trainer.step(dev)
-        b.record()
-        b.synchronize()
-        wall_ms.append(1e3 * (time.perf_counter() - t0))
-        step_ms.append(a.elapsed_time(b))
-        losses.append(mean_nll(outs[0], labels))
-        del outs
-    launches = read_counts()
-    peak = torch.cuda.max_memory_allocated()
-    state = card_state()
-    wall, busy, device, host = profiled(lambda: trainer.step(dev))
-    extra = after(trainer, dev) if after else {}
-    del trainer, dev, labels
-    torch.cuda.empty_cache()
-
-    timed = step_ms[1:]
-    step = statistics.median(timed)
-    tokens = TRAIN_BATCH * cfg["seq_len"]
-    fpt = flops_per_token(cfg)
-    res = {
-        "config": cfg, "batch": TRAIN_BATCH, "dtype": "bfloat16",
-        "optimizer": "adam lr 1e-3 wd 0", "trainer_kw": trainer_kw or {},
-        "steps": steps,
-        "losses": losses, "step_ms": step_ms, "wall_ms": wall_ms,
-        "step_ms_median": step, "tokens_per_s": tokens / (step / 1e3),
-        "flops_per_token": fpt,
-        "mfu": fpt * tokens / (step / 1e3) / MFU_PEAK,
-        "launches": launches,
-        "launches_per_step": {k: n / steps for k, n in launches.items()},
-        "max_memory_allocated": peak, "card_after": state,
-        "profiled_step_ms": 1e3 * wall, "device_busy_ms": 1e3 * busy,
-        "device_idle_share": 1 - busy / wall,
-        "kernel_ms": {k: kernel_ms(device, k) for k in (
-            "ln_fwd_kernel", "ln_bwd_kernel", "ln_bwd_reduce_kernel",
-            "flash_fwd_kernel", "flash_bwd_dq_kernel",
-            "flash_bwd_dkv_kernel", "fused_ce_kernel")},
-        "top_device_ops_ms": device[:10], "top_host_ops_ms": host}
-    res.update(extra)
-    log("%s: %d steps of batch %d x %d tokens, bf16, Adam; step ms (CUDA "
-        "events) %s; median of the last %d %.2f ms = %.1f tokens/s, MFU "
-        "%.4f (%.4g flops/token over the %.0f TFLOP/s dense bf16 peak); "
-        "host wall ms %s"
-        % (label, steps, TRAIN_BATCH, cfg["seq_len"],
-           ["%.2f" % t for t in step_ms], len(timed), step,
-           res["tokens_per_s"], res["mfu"], fpt, MFU_PEAK / 1e12,
-           ["%.1f" % t for t in wall_ms]))
-    log("%s: mean NLL per step %s" % (label, ["%.4f" % x for x in losses]))
-    log("%s: launches per step %s; max_memory_allocated %d B; card after "
-        "(sm clock, mem clock, power, temp): %s"
-        % (label, {k: v for k, v in res["launches_per_step"].items() if v},
-           peak, state))
-    log("%s: profiled step %.2f ms wall, device busy %.2f ms (idle share "
-        "%.4f); kernel ms %s; top device ops (name, count, ms): %s"
-        % (label, res["profiled_step_ms"], res["device_busy_ms"],
-           res["device_idle_share"],
-           {k: round(v, 3) for k, v in res["kernel_ms"].items()},
-           device[:10]))
-    if not all(math.isfinite(x) for x in losses):
-        raise SystemExit("%s: a loss is not finite: %s" % (label, losses))
-    if falls and not losses[-1] < losses[0]:
-        raise SystemExit("%s: the loss did not fall: %s" % (label, losses))
-    off = {k: n for k, n in launches.items()
-           if n != expect.get(k, 0) * steps}
-    if off:
-        raise SystemExit("%s: launches %s in %d steps, expected %s a step"
-                         % (label, off, steps, expect))
-    return res
-
-
-def grad_check(cfg, required, label="parity config"):
-    """One step's float32 gradients of ``cfg`` at batch 2 through the kernels
-    against the same step through their plain versions, and the bf16
-    kernel path's distance from the same reference.  Each counter of
-    ``required`` must show a launch."""
-    batch = lm_batch(2, cfg)
-    trainer = lm_trainer(cfg, 2, "float32")
-    reset_counts()
-    got = trainer.gradients(batch)
-    launched = read_counts()
-    with plain_kernels():
+    with pinned(**(pins or {})):
+        trainer = lm_trainer(cfg, batch, "bfloat16", **(trainer_kw or {}))
+        dev = trainer.shard_batch(lm_batch(batch, cfg))
+        labels = dev["softmax_label"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        ref = trainer.gradients(batch)
-        if any(read_counts().values()):
-            raise SystemExit("the plain path launched a kernel")
-    trainer16 = lm_trainer(cfg, 2, "bfloat16")
-    mx.load_params(trainer16, *trainer.get_params())
-    got16 = trainer16.gradients(batch)
-    del trainer, trainer16
-    gmax = max(float(g.abs().max()) for g in ref.values())
+        losses, step_ms, wall_ms = [], [], []
+        for _ in range(steps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            outs = trainer.step(dev)
+            b.record()
+            b.synchronize()
+            wall_ms.append(1e3 * (time.perf_counter() - t0))
+            step_ms.append(a.elapsed_time(b))
+            losses.append(mean_nll(outs[0], labels))
+            del outs
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        state = card_state()
+        wall, busy, device, host = profiled(lambda: trainer.step(dev))
+        extra = after(trainer, dev) if after else {}
+        del trainer, dev, labels
+        torch.cuda.empty_cache()
 
-    def worst(grads):
-        out = {}
-        for n, r in ref.items():
-            scale = gmax if n.endswith("_k_bias") else \
-                max(float(r.abs().max()), 1e-30)
-            out[n] = float((grads[n].float() - r).abs().max()) / scale
-        return out
+        timed = step_ms[1:]
+        step = statistics.median(timed)
+        tokens = batch * cfg["seq_len"]
+        fpt = flops_per_token(cfg)
+        res = {
+            "config": cfg, "batch": batch, "dtype": "bfloat16",
+            "optimizer": "adam lr 1e-3 wd 0", "trainer_kw": trainer_kw or {},
+            "pins": pins or {}, "steps": steps,
+            "losses": losses, "step_ms": step_ms, "wall_ms": wall_ms,
+            "step_ms_median": step, "tokens_per_s": tokens / (step / 1e3),
+            "flops_per_token": fpt,
+            "mfu": fpt * tokens / (step / 1e3) / MFU_PEAK,
+            "launches": launches,
+            "launches_per_step": {k: n / steps for k, n in launches.items()},
+            "max_memory_allocated": peak, "card_after": state,
+            "profiled_step_ms": 1e3 * wall, "device_busy_ms": 1e3 * busy,
+            "device_idle_share": 1 - busy / wall,
+            "kernel_ms": {k: kernel_ms(device, k) for k in (
+                "ln_fwd_kernel", "ln_bwd_kernel", "ln_bwd_reduce_kernel",
+                "flash_fwd_kernel", "flash_bwd_dq_kernel",
+                "flash_bwd_dkv_kernel", "fused_ce_kernel")},
+            "top_device_ops_ms": device[:10], "top_host_ops_ms": host}
+        res.update(extra)
+        log("%s: %d steps of batch %d x %d tokens, bf16, Adam; step ms (CUDA "
+            "events) %s; median of the last %d %.2f ms = %.1f tokens/s, MFU "
+            "%.4f (%.4g flops/token over the %.0f TFLOP/s dense bf16 peak); "
+            "host wall ms %s"
+            % (label, steps, batch, cfg["seq_len"],
+               ["%.2f" % t for t in step_ms], len(timed), step,
+               res["tokens_per_s"], res["mfu"], fpt, MFU_PEAK / 1e12,
+               ["%.1f" % t for t in wall_ms]))
+        log("%s: mean NLL per step %s" % (label, ["%.4f" % x for x in losses]))
+        log("%s: launches per step %s; max_memory_allocated %d B; card after "
+            "(sm clock, mem clock, power, temp): %s"
+            % (label, {k: v for k, v in res["launches_per_step"].items() if v},
+               peak, state))
+        log("%s: profiled step %.2f ms wall, device busy %.2f ms (idle share "
+            "%.4f); kernel ms %s; top device ops (name, count, ms): %s"
+            % (label, res["profiled_step_ms"], res["device_busy_ms"],
+               res["device_idle_share"],
+               {k: round(v, 3) for k, v in res["kernel_ms"].items()},
+               device[:10]))
+        if not all(math.isfinite(x) for x in losses):
+            raise SystemExit("%s: a loss is not finite: %s" % (label, losses))
+        if falls and not losses[-1] < losses[0]:
+            raise SystemExit("%s: the loss did not fall: %s" % (label, losses))
+        off = {k: n for k, n in launches.items()
+               if n != expect.get(k, 0) * steps}
+        if off:
+            raise SystemExit("%s: launches %s in %d steps, expected %s a step"
+                             % (label, off, steps, expect))
+        return res
 
-    f32, bf16 = worst(got), worst(got16)
-    name32 = max(f32, key=f32.get)
-    res = {"config": label, "batch": 2, "params": len(ref),
-           "max_abs_grad": gmax,
-           "worst_f32": f32[name32], "worst_f32_param": name32,
-           "worst_bf16": max(bf16.values()), "tol": GRAD_TOL,
-           "launches": launched, "per_param_f32": f32}
-    log("gradients (%s, batch 2, %d parameters): f32 kernel path vs plain "
-        "max |dg|/max |g| %.3e at %s (tol %.0e); bf16 kernel path %.3e; "
-        "kernel launches %s"
-        % (label, len(ref), res["worst_f32"], name32, GRAD_TOL,
-           res["worst_bf16"], {k: v for k, v in launched.items() if v}))
-    if not res["worst_f32"] <= GRAD_TOL:
-        raise SystemExit("gradients through the kernels disagree with the "
-                         "plain path")
-    if not res["worst_bf16"] > GRAD_TOL:
-        raise SystemExit("gradient tolerance does not separate bf16 from f32")
-    for k in required:
-        if not launched[k]:
-            raise SystemExit("the gradient step launched no %s kernel" % k)
-    return res
+
+def grad_check(cfg, required, label="parity config", size=2, pins=None):
+    """One step's float32 gradients of ``cfg`` at batch ``size`` through the
+    kernels, under the ``MXNET_*`` ``pins``, against the same step through
+    their plain versions, and the bf16 kernel path's distance from the
+    same reference.  Each counter of ``required`` must show a launch."""
+    with pinned(**(pins or {})):
+        batch = lm_batch(size, cfg)
+        trainer = lm_trainer(cfg, size, "float32")
+        reset_counts()
+        got = trainer.gradients(batch)
+        launched = read_counts()
+        with plain_kernels():
+            reset_counts()
+            ref = trainer.gradients(batch)
+            if any(read_counts().values()):
+                raise SystemExit("the plain path launched a kernel")
+        trainer16 = lm_trainer(cfg, size, "bfloat16")
+        mx.load_params(trainer16, *trainer.get_params())
+        got16 = trainer16.gradients(batch)
+        del trainer, trainer16
+        gmax = max(float(g.abs().max()) for g in ref.values())
+
+        def worst(grads):
+            out = {}
+            for n, r in ref.items():
+                scale = gmax if n.endswith("_k_bias") else \
+                    max(float(r.abs().max()), 1e-30)
+                out[n] = float((grads[n].float() - r).abs().max()) / scale
+            return out
+
+        f32, bf16 = worst(got), worst(got16)
+        name32 = max(f32, key=f32.get)
+        res = {"config": label, "batch": size, "params": len(ref),
+               "max_abs_grad": gmax,
+               "worst_f32": f32[name32], "worst_f32_param": name32,
+               "worst_bf16": max(bf16.values()), "tol": GRAD_TOL,
+               "launches": launched, "per_param_f32": f32}
+        log("gradients (%s, batch %d, %d parameters): f32 kernel path vs "
+            "plain max |dg|/max |g| %.3e at %s (tol %.0e); bf16 kernel path "
+            "%.3e; kernel launches %s"
+            % (label, size, len(ref), res["worst_f32"], name32, GRAD_TOL,
+               res["worst_bf16"], {k: v for k, v in launched.items() if v}))
+        if not res["worst_f32"] <= GRAD_TOL:
+            raise SystemExit("gradients through the kernels disagree with the "
+                             "plain path")
+        if not res["worst_bf16"] > GRAD_TOL:
+            raise SystemExit("gradient tolerance does not separate bf16 "
+                             "from f32")
+        for k in required:
+            if not launched[k]:
+                raise SystemExit("the gradient step launched no %s kernel" % k)
+        return res
 
 
 # the fused CE kernels: counters and their launches per training step
@@ -1334,16 +1534,9 @@ def fused_extras(trainer, dev):
 def five_pass_path(expect):
     """2 steps of the fused configuration in the 5-pass structure,
     ``MXNET_CE_SINGLE_PASS=0`` set for them and restored after."""
-    saved = os.environ.get("MXNET_CE_SINGLE_PASS")
-    os.environ["MXNET_CE_SINGLE_PASS"] = "0"
-    try:
-        return train_path("train fused, 5-pass", FUSED, 2, expect,
-                          FUSED_TRAINER, falls=False)
-    finally:
-        if saved is None:
-            del os.environ["MXNET_CE_SINGLE_PASS"]
-        else:
-            os.environ["MXNET_CE_SINGLE_PASS"] = saved
+    return train_path("train fused, 5-pass", FUSED, 2, expect,
+                      FUSED_TRAINER, falls=False,
+                      pins={"MXNET_CE_SINGLE_PASS": "0"})
 
 
 def kernels_line(cases, paths):
@@ -1353,7 +1546,11 @@ def kernels_line(cases, paths):
              "flash_attention": [32, 12, 1024, 1024, 64],
              "flash_attention_bwd": [32, 12, 1024, 1024, 64],
              "flash_attention_bsd": [32, 6, 1024, 1024, 128],
-             "flash_attention_bsd_bwd": [32, 6, 1024, 1024, 128]}
+             "flash_attention_bsd_bwd": [32, 6, 1024, 1024, 128],
+             "flash_attention_ds": [8, 6, 4096, 4096, 128],
+             "flash_attention_ds_bwd": [8, 6, 4096, 4096, 128],
+             "flash_attention_bsd_stream": [4, 6, 8192, 8192, 128],
+             "flash_attention_bsd_stream_bwd": [4, 6, 8192, 8192, 128]}
     train.update({name: list(CE_TRAIN) for name, src, _, _ in KERNEL_ROWS
                   if src == "fused_ce.cu"})
     serving = {"layer_norm": [8, 768],
@@ -1374,6 +1571,7 @@ def kernels_line(cases, paths):
             "ms": at["ms"], "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
             "library_ms": at["library_ms"],
+            "route_ms": at.get("route_ms"),
             "checks": [{k: c.get(k) for k in (
                 "shape", "dtype", "max_abs_err", "rel_err", "rel_tol",
                 "rtol", "atol")} for c in cases if c["kernel"] == name]}
@@ -1402,76 +1600,113 @@ def main():
     log("python %s, torch %s, CUDA %s, devices %d"
         % (sys.version.split()[0], torch.__version__, torch.version.cuda,
            torch.cuda.device_count()))
-    t0 = time.perf_counter()
-    took = _build.build()
-    log("kernel build: %.2f s wall, per source %s"
-        % (time.perf_counter() - t0, {k: round(v, 2) for k, v in took.items()}))
+    phases = {}
+
+    @contextlib.contextmanager
+    def phase(name):
+        t0 = time.perf_counter()
+        yield
+        phases[name] = time.perf_counter() - t0
+        log("phase %s: %.2f s" % (name, phases[name]))
+
+    with phase("build"):
+        took = _build.build()
+    log("kernel build: per source %s"
+        % {k: round(v, 2) for k, v in took.items()})
     for name in _build.KERNELS:
         regs = [ln.split(":", 1)[1].strip()
                 for ln in _build.build_log(name).splitlines()
                 if "registers" in ln]
         log("ptxas %s: %s" % (name, regs))
 
-    cases = kernel_checks() + training_kernel_checks()
+    with phase("kernel checks"):
+        cases = kernel_checks() + training_kernel_checks()
 
-    model = TransformerKVModel(**GPT2)
-    t0 = time.perf_counter()
-    params = model.params_from_jax(
-        model.init_params(np.random.RandomState(0)), "cuda")
-    log("GPT-2 small weights (seed 0) on the card in %.2f s"
-        % (time.perf_counter() - t0))
-    engine, paged = paged_path(model, params)
-    profile = decode_profile(engine, model)
-    del engine
-    torch.cuda.empty_cache()
-    engine, slot = slot_path(model, params)
-    prefill_prof = prefill_profile(engine, model)
-    del engine, params
-    torch.cuda.empty_cache()
+    with phase("serving"):
+        model = TransformerKVModel(**GPT2)
+        t0 = time.perf_counter()
+        params = model.params_from_jax(
+            model.init_params(np.random.RandomState(0)), "cuda")
+        log("GPT-2 small weights (seed 0) on the card in %.2f s"
+            % (time.perf_counter() - t0))
+        engine, paged = paged_path(model, params)
+        profile = decode_profile(engine, model)
+        del engine
+        torch.cuda.empty_cache()
+        engine, slot = slot_path(model, params)
+        prefill_prof = prefill_profile(engine, model)
+        del engine, params
+        torch.cuda.empty_cache()
 
     per_layer = {"layer_norm": 2 * TRAIN["num_layers"] + 1,
                  "layer_norm_bwd": 2 * TRAIN["num_layers"] + 1}
-    hsd = train_path("train bhsd (parity)", PARITY, 7, dict(
-        per_layer, **{k: TRAIN["num_layers"] for k in (
-            "flash_attention", "flash_attention_dq",
-            "flash_attention_dkv")}))
-    grads = grad_check(PARITY, ("layer_norm_bwd", "flash_attention_dq",
-                                "flash_attention_dkv"))
-    bsd = train_path("train bsd (geom fast)", GEOM_FAST, 3, dict(
-        per_layer, **{k: TRAIN["num_layers"] for k in (
-            "flash_attention_bsd", "flash_attention_bsd_dq",
-            "flash_attention_bsd_dkv")}))
 
-    ce_cases = fused_ce_checks()
-    cases += ce_cases
-    hsd_flash = {k: TRAIN["num_layers"] for k in (
-        "flash_attention", "flash_attention_dq", "flash_attention_dkv")}
-    fused = train_path(
-        "train fused (bench fused_)", FUSED, 5,
-        dict(per_layer, **hsd_flash, fused_ce_fwd_sp=1, fused_ce_bwd_dw=1),
-        FUSED_TRAINER, after=fused_extras)
-    five = five_pass_path(dict(per_layer, **hsd_flash, fused_ce_fwd=1,
-                               fused_ce_bwd_dx=1, fused_ce_bwd_dw=1))
-    fused_grads = grad_check(
-        FUSED, ("layer_norm_bwd", "flash_attention_dq",
-                "flash_attention_dkv", "fused_ce_fwd_sp", "fused_ce_bwd_dw"),
-        "fused config")
+    def flash(prefix):
+        return {prefix + k: TRAIN["num_layers"] for k in ("", "_dq", "_dkv")}
+
+    with phase("train bhsd and bsd"):
+        hsd = train_path("train bhsd (parity)", PARITY, 7,
+                         dict(per_layer, **flash("flash_attention")))
+        grads = grad_check(PARITY, ("layer_norm_bwd", "flash_attention_dq",
+                                    "flash_attention_dkv"))
+        bsd = train_path("train bsd (geom fast)", GEOM_FAST, 3,
+                         dict(per_layer, **flash("flash_attention_bsd")))
+
+    with phase("fused CE"):
+        ce_cases = fused_ce_checks()
+        cases += ce_cases
+        hsd_flash = flash("flash_attention")
+        fused = train_path(
+            "train fused (bench fused_)", FUSED, 5,
+            dict(per_layer, **hsd_flash, fused_ce_fwd_sp=1,
+                 fused_ce_bwd_dw=1), FUSED_TRAINER, after=fused_extras)
+        five = five_pass_path(dict(per_layer, **hsd_flash, fused_ce_fwd=1,
+                                   fused_ce_bwd_dx=1, fused_ce_bwd_dw=1))
+        fused_grads = grad_check(
+            FUSED, ("layer_norm_bwd", "flash_attention_dq",
+                    "flash_attention_dkv", "fused_ce_fwd_sp",
+                    "fused_ce_bwd_dw"), "fused config")
+
+    with phase("long-context kernel checks"):
+        cases += longctx_kernel_checks()
+    with phase("train longctx"):
+        ds = train_path(
+            "train longctx ds", LONGCTX_DS, 5,
+            dict(per_layer, **flash("flash_attention_ds")), FUSED_TRAINER,
+            batch=LONGCTX_DS_BATCH, pins={"MXNET_FLASH_LAYOUT": "ds"})
+        stream = train_path(
+            "train longctx stream", LONGCTX_STREAM, 5,
+            dict(per_layer, **flash("flash_attention_bsd_stream")),
+            FUSED_TRAINER, batch=LONGCTX_STREAM_BATCH,
+            pins={"MXNET_FLASH_BSD_KERNEL": "stream"})
+        stream_grads = grad_check(
+            LONGCTX_STREAM, ("layer_norm_bwd",
+                             "flash_attention_bsd_stream_dq",
+                             "flash_attention_bsd_stream_dkv"),
+            "longctx stream config", size=1,
+            pins={"MXNET_FLASH_BSD_KERNEL": "stream"})
 
     kernels = kernels_line(cases, {
         "paged": paged["launches"], "slot": slot["launches"],
         "train_bhsd": hsd["launches"], "train_bsd": bsd["launches"],
         "train_fused": fused["launches"],
         "train_fused_5pass": five["launches"],
-        "forward_fused": fused["forward"]["launches"]})
+        "forward_fused": fused["forward"]["launches"],
+        "train_longctx_ds": ds["launches"],
+        "train_longctx_stream": stream["launches"]})
+    log("phase seconds: %s" % {k: round(v, 2) for k, v in phases.items()})
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "build_s": took, "cases": cases, "paged": paged, "slot": slot,
-         "decode_profile": profile, "prefill_profile": prefill_prof,
-         "train_bhsd": hsd, "gradients": grads, "train_bsd": bsd,
-         "train_fused": fused, "train_fused_5pass": five,
-         "gradients_fused": fused_grads, "kernels": kernels}, indent=1))
+         "build_s": took, "phase_s": phases, "cases": cases, "paged": paged,
+         "slot": slot, "decode_profile": profile,
+         "prefill_profile": prefill_prof, "train_bhsd": hsd,
+         "gradients": grads, "train_bsd": bsd, "train_fused": fused,
+         "train_fused_5pass": five, "gradients_fused": fused_grads,
+         "train_longctx_ds": ds, "train_longctx_stream": stream,
+         "gradients_longctx_stream": stream_grads, "kernels": kernels},
+        indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

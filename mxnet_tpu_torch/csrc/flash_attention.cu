@@ -61,6 +61,34 @@
 // (166 KB at D = 128, one block per SM; 100 KB at D = 64) and its dK and
 // dV rows in registers (2 * D / 4 floats a thread).
 
+// THE dS ORIENTATION (layout 1).  Replaces `_flash_fwd_pallas_ds`
+// (`_fwd_kernel_ds`) and `_flash_bwd_pallas_ds` (`_bwd_dq_kernel_ds`,
+// `_bwd_dkv_kernel_ds`): the same recurrence and the same two backward
+// passes over operands shaped (B, H, D, S), the sequence axis
+// contiguous.  On the TPU that orientation exists for the tile layout:
+// a (.., S, 64) bf16 operand pads every (8, 128) tile 2x, a (.., 64, S)
+// one tiles exactly, so the dS kernels hold the saved residuals and the
+// boundary copies at half the memory; their scores stay (block_q,
+// block_k) and only the operands' orientation changes.  Here no tile
+// pads, and every kernel stages its operand tiles into float shared
+// memory before any arithmetic, so only the staging changes: in layout
+// 1 a (64, D) tile is read along S (consecutive threads take consecutive
+// positions of one column, coalesced) and written transposed into the
+// same padded (row, D + 1) shared tile as layout 0 fills; outputs (out,
+// dq, dk, dv) are staged back through a shared tile and stored along S.
+// The score, softmax and accumulate loops are those of layout 0.  In
+// layout 1 the forward's V tile is padded too (pitch D + 1), since its
+// columns are then written along its rows.  The third stride given for
+// each operand is that of the axis that is not contiguous: the sequence
+// axis in layout 0, the head_dim axis in layout 1.
+//
+// Sizes: every element offset is computed in 64 bits (the batch, head
+// and third strides are long long; positions and offsets widen before
+// they multiply), so a (4, 8192, 768) bsd operand, or any tensor past
+// 2**31 elements, indexes right.  The grid is (ceil(S / 64), H, B) with
+// H and B at most 65535 (checked); lse and delta rows are addressed as
+// ((b * H + h) * Sq + i) in 64 bits.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -87,33 +115,78 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// Offset of element (row i, column d) of an operand: in layout 0 (SC
+// false) st is the row (sequence) stride and columns are contiguous; in
+// layout 1 (SC true) rows are contiguous and st is the column stride.
+template <bool SC>
+__device__ __forceinline__ long long at(long long i, int d, long long st) {
+  return SC ? i + d * st : i * st + d;
+}
+
+// The (row, column) of the idx-th element of a cooperative load of a
+// (ROWS, D) tile: column fastest in layout 0, row fastest (along S) in
+// layout 1, so that a warp reads consecutive addresses in both.
+template <bool SC, int ROWS, int D>
+__device__ __forceinline__ void tile_pos(int idx, int& i, int& d) {
+  if (SC) {
+    i = idx % ROWS;
+    d = idx / ROWS;
+  } else {
+    i = idx / D;
+    d = idx % D;
+  }
+}
+
+// Layout 1's store: a (ROWS, D) float tile staged in shared memory with
+// pitch D + 1 goes to rows row0 .. row0 + ROWS - 1 of dst (those below
+// nrows), along S.
+template <typename T, int ROWS, int D>
+__device__ __forceinline__ void store_tile_sc(T* dst, const float* tile,
+                                              int row0, int nrows,
+                                              long long st) {
+  for (int idx = threadIdx.x; idx < ROWS * D; idx += kThreads) {
+    const int i = idx % ROWS, d = idx / ROWS;
+    if (row0 + i < nrows) {
+      dst[at<true>(row0 + i, d, st)] = from_float<T>(tile[i * (D + 1) + d]);
+    }
+  }
+}
+
 struct Args {
   const void* q;
   const void* k;
   const void* v;
   void* o;
   float* lse;
-  long long q_sb, q_sh, q_ss;
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
-  long long o_sb, o_sh, o_ss;
+  long long q_sb, q_sh, q_st;
+  long long k_sb, k_sh, k_st;
+  long long v_sb, v_sh, v_st;
+  long long o_sb, o_sh, o_st;
   int heads, sq, skv, q_off, k_off, causal;
   float scale;
 };
 
-template <int D>
+// the V tile's row pitch: padded in layout 1, whose loads write its
+// columns along its rows
+template <int D, bool SC>
+__host__ __device__ constexpr int v_pitch() {
+  return SC ? D + 1 : D;
+}
+
+template <int D, bool SC>
 constexpr int smem_floats() {
-  return kBlockQ * (D + 1) + kBlockK * (D + 1) + kBlockK * D +
+  return kBlockQ * (D + 1) + kBlockK * (D + 1) + kBlockK * v_pitch<D, SC>() +
          kBlockQ * (kBlockK + 1);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SC>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
+  constexpr int VP = v_pitch<D, SC>();
   extern __shared__ float smem[];
   float* qs = smem;                          // kBlockQ x (D + 1)
   float* ks = qs + kBlockQ * (D + 1);        // kBlockK x (D + 1)
-  float* vs = ks + kBlockK * (D + 1);        // kBlockK x D
-  float* ps = vs + kBlockK * D;              // kBlockQ x (kBlockK + 1)
+  float* vs = ks + kBlockK * (D + 1);        // kBlockK x VP
+  float* ps = vs + kBlockK * VP;             // kBlockQ x (kBlockK + 1)
 
   const int tid = threadIdx.x;
   const int r = tid >> 2;   // query row of the tile this thread owns
@@ -128,10 +201,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   T* o = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
 
   for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
-    const int i = idx / D, d = idx % D;
+    int i, d;
+    tile_pos<SC, kBlockQ, D>(idx, i, d);
     const int qi = q0 + i;
     qs[i * (D + 1) + d] =
-        qi < a.sq ? to_float(q[qi * a.q_ss + d]) * a.scale : 0.f;
+        qi < a.sq ? to_float(q[at<SC>(qi, d, a.q_st)]) * a.scale : 0.f;
   }
 
   int nkb = (a.skv + kBlockK - 1) / kBlockK;
@@ -152,11 +226,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
     const int k0 = kb * kBlockK;
     __syncthreads();  // last step's readers of ks/vs/ps are done
     for (int idx = tid; idx < kBlockK * D; idx += kThreads) {
-      const int j = idx / D, d = idx % D;
+      int j, d;
+      tile_pos<SC, kBlockK, D>(idx, j, d);
       const int kj = k0 + j;
       const bool in = kj < a.skv;
-      ks[j * (D + 1) + d] = in ? to_float(k[kj * a.k_ss + d]) : 0.f;
-      vs[j * D + d] = in ? to_float(v[kj * a.v_ss + d]) : 0.f;
+      ks[j * (D + 1) + d] = in ? to_float(k[at<SC>(kj, d, a.k_st)]) : 0.f;
+      vs[j * VP + d] = in ? to_float(v[at<SC>(kj, d, a.v_st)]) : 0.f;
     }
     __syncthreads();
 
@@ -206,37 +281,49 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
     for (int c = 0; c < D / 4; ++c) acc[c] *= corr;
     for (int j = 0; j < kBlockK; ++j) {
       const float p = prow[j];
-      const float* vrow = vs + j * D + sub;
+      const float* vrow = vs + j * VP + sub;
 #pragma unroll
       for (int c = 0; c < D / 4; ++c) acc[c] += p * vrow[4 * c];
     }
   }
 
   const int qi = q0 + r;
-  if (qi < a.sq) {
-    const float l_safe = l == 0.f ? 1.f : l;
-    const float inv = 1.f / l_safe;
-    T* orow = o + qi * a.o_ss + sub;
+  const float l_safe = l == 0.f ? 1.f : l;
+  const float inv = 1.f / l_safe;
+  if constexpr (SC) {
+    __syncthreads();  // every reader of qs is done
+#pragma unroll
+    for (int c = 0; c < D / 4; ++c) qs[r * (D + 1) + sub + 4 * c] = acc[c] * inv;
+    __syncthreads();
+    store_tile_sc<T, kBlockQ, D>(o, qs, q0, a.sq, a.o_st);
+  } else if (qi < a.sq) {
+    T* orow = o + qi * a.o_st + sub;
 #pragma unroll
     for (int c = 0; c < D / 4; ++c) orow[4 * c] = from_float<T>(acc[c] * inv);
-    if (a.lse != nullptr && sub == 0) {
-      a.lse[((long long)b * a.heads + h) * a.sq + qi] = m + logf(l_safe);
-    }
+  }
+  if (qi < a.sq && a.lse != nullptr && sub == 0) {
+    a.lse[((long long)b * a.heads + h) * a.sq + qi] = m + logf(l_safe);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SC>
 int launch(const Args& a, int batch, cudaStream_t stream) {
-  const int bytes = smem_floats<D>() * (int)sizeof(float);
+  const int bytes = smem_floats<D, SC>() * (int)sizeof(float);
   // above 48 KB only by opt-in; set on every launch, as it holds for the
   // current device only
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<T, D, SC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((a.sq + kBlockQ - 1) / kBlockQ, a.heads, batch);
-  flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(a);
+  flash_fwd_kernel<T, D, SC><<<grid, kThreads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_layout(const Args& a, int layout, int batch, cudaStream_t s) {
+  return layout ? launch<T, D, true>(a, batch, s)
+                : launch<T, D, false>(a, batch, s);
 }
 
 // -- backward ---------------------------------------------------------------
@@ -250,12 +337,12 @@ struct BwdArgs {
   const float* delta;  // (batch, heads, sq) float32 contiguous
   void* out0;          // dq (dq kernel) or dk (dk/dv kernel)
   void* out1;          // unused (dq kernel) or dv (dk/dv kernel)
-  long long q_sb, q_sh, q_ss;
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
-  long long d_sb, d_sh, d_ss;
-  long long o0_sb, o0_sh, o0_ss;
-  long long o1_sb, o1_sh, o1_ss;
+  long long q_sb, q_sh, q_st;
+  long long k_sb, k_sh, k_st;
+  long long v_sb, v_sh, v_st;
+  long long d_sb, d_sh, d_st;
+  long long o0_sb, o0_sh, o0_st;
+  long long o1_sb, o1_sh, o1_st;
   int heads, sq, skv, q_off, k_off, causal;
   float scale;
 };
@@ -272,7 +359,7 @@ constexpr int dkv_smem_floats() {
          2 * kBlockK * (kBlockQ + 1) + 2 * kBlockQ;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SC>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
   extern __shared__ float smem[];
   float* qs = smem;                    // kBlockQ x (D + 1), pre-scaled
@@ -295,11 +382,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
   T* dq = static_cast<T*>(a.out0) + b * a.o0_sb + h * a.o0_sh;
 
   for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
-    const int i = idx / D, d = idx % D;
+    int i, d;
+    tile_pos<SC, kBlockQ, D>(idx, i, d);
     const int qi = q0 + i;
     const bool in = qi < a.sq;
-    qs[i * (D + 1) + d] = in ? to_float(q[qi * a.q_ss + d]) * a.scale : 0.f;
-    dos[i * (D + 1) + d] = in ? to_float(dout[qi * a.d_ss + d]) : 0.f;
+    qs[i * (D + 1) + d] =
+        in ? to_float(q[at<SC>(qi, d, a.q_st)]) * a.scale : 0.f;
+    dos[i * (D + 1) + d] = in ? to_float(dout[at<SC>(qi, d, a.d_st)]) : 0.f;
   }
 
   const int qi = q0 + r;
@@ -323,11 +412,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
     const int k0 = kb * kBlockK;
     __syncthreads();  // last step's readers of ks/vs/dss are done
     for (int idx = tid; idx < kBlockK * D; idx += kThreads) {
-      const int j = idx / D, d = idx % D;
+      int j, d;
+      tile_pos<SC, kBlockK, D>(idx, j, d);
       const int kj = k0 + j;
       const bool in = kj < a.skv;
-      ks[j * (D + 1) + d] = in ? to_float(k[kj * a.k_ss + d]) : 0.f;
-      vs[j * (D + 1) + d] = in ? to_float(v[kj * a.v_ss + d]) : 0.f;
+      ks[j * (D + 1) + d] = in ? to_float(k[at<SC>(kj, d, a.k_st)]) : 0.f;
+      vs[j * (D + 1) + d] = in ? to_float(v[at<SC>(kj, d, a.v_st)]) : 0.f;
     }
     __syncthreads();
 
@@ -369,8 +459,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
     }
   }
 
-  if (qi < a.sq) {
-    T* row_out = dq + qi * a.o0_ss + sub;
+  if constexpr (SC) {
+    __syncthreads();  // every reader of qs is done
+#pragma unroll
+    for (int c = 0; c < D / 4; ++c) {
+      qs[r * (D + 1) + sub + 4 * c] = acc[c] * a.scale;
+    }
+    __syncthreads();
+    store_tile_sc<T, kBlockQ, D>(dq, qs, q0, a.sq, a.o0_st);
+  } else if (qi < a.sq) {
+    T* row_out = dq + qi * a.o0_st + sub;
 #pragma unroll
     for (int c = 0; c < D / 4; ++c) {
       row_out[4 * c] = from_float<T>(acc[c] * a.scale);
@@ -378,7 +476,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SC>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
   extern __shared__ float smem[];
   float* ks = smem;                          // kBlockK x (D + 1)
@@ -407,11 +505,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
   const float* delta = a.delta + ((long long)b * a.heads + h) * a.sq;
 
   for (int idx = tid; idx < kBlockK * D; idx += kThreads) {
-    const int jj = idx / D, d = idx % D;
+    int jj, d;
+    tile_pos<SC, kBlockK, D>(idx, jj, d);
     const int kj = k0 + jj;
     const bool in = kj < a.skv;
-    ks[jj * (D + 1) + d] = in ? to_float(k[kj * a.k_ss + d]) : 0.f;
-    vs[jj * (D + 1) + d] = in ? to_float(v[kj * a.v_ss + d]) : 0.f;
+    ks[jj * (D + 1) + d] = in ? to_float(k[at<SC>(kj, d, a.k_st)]) : 0.f;
+    vs[jj * (D + 1) + d] = in ? to_float(v[at<SC>(kj, d, a.v_st)]) : 0.f;
   }
 
   const int nqb = (a.sq + kBlockQ - 1) / kBlockQ;
@@ -438,11 +537,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
     const int q0 = qb * kBlockQ;
     __syncthreads();  // last step's readers of qs/dos/lses/deltas are done
     for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
-      const int i = idx / D, d = idx % D;
+      int i, d;
+      tile_pos<SC, kBlockQ, D>(idx, i, d);
       const int qi = q0 + i;
       const bool in = qi < a.sq;
-      qs[i * (D + 1) + d] = in ? to_float(q[qi * a.q_ss + d]) * a.scale : 0.f;
-      dos[i * (D + 1) + d] = in ? to_float(dout[qi * a.d_ss + d]) : 0.f;
+      qs[i * (D + 1) + d] =
+          in ? to_float(q[at<SC>(qi, d, a.q_st)]) * a.scale : 0.f;
+      dos[i * (D + 1) + d] = in ? to_float(dout[at<SC>(qi, d, a.d_st)]) : 0.f;
     }
     if (tid < kBlockQ) {
       const int qi = q0 + tid;
@@ -497,9 +598,19 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
     }
   }
 
-  if (kj < a.skv) {
-    T* dkrow = dk + kj * a.o0_ss + sub;
-    T* dvrow = dv + kj * a.o1_ss + sub;
+  if constexpr (SC) {
+    __syncthreads();  // every reader of ks and vs is done
+#pragma unroll
+    for (int c = 0; c < D / 4; ++c) {
+      ks[j * (D + 1) + sub + 4 * c] = dka[c];
+      vs[j * (D + 1) + sub + 4 * c] = dva[c];
+    }
+    __syncthreads();
+    store_tile_sc<T, kBlockK, D>(dk, ks, k0, a.skv, a.o0_st);
+    store_tile_sc<T, kBlockK, D>(dv, vs, k0, a.skv, a.o1_st);
+  } else if (kj < a.skv) {
+    T* dkrow = dk + kj * a.o0_st + sub;
+    T* dvrow = dv + kj * a.o1_st + sub;
 #pragma unroll
     for (int c = 0; c < D / 4; ++c) {
       dkrow[4 * c] = from_float<T>(dka[c]);
@@ -508,11 +619,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
   }
 }
 
-template <typename T, int D, bool DKV>
+template <typename T, int D, bool DKV, bool SC>
 int launch_bwd(const BwdArgs& a, int batch, cudaStream_t stream) {
   const int bytes =
       (DKV ? dkv_smem_floats<D>() : dq_smem_floats<D>()) * (int)sizeof(float);
-  auto kernel = DKV ? flash_bwd_dkv_kernel<T, D> : flash_bwd_dq_kernel<T, D>;
+  auto kernel =
+      DKV ? flash_bwd_dkv_kernel<T, D, SC> : flash_bwd_dq_kernel<T, D, SC>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -523,72 +635,83 @@ int launch_bwd(const BwdArgs& a, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int D, bool DKV>
+int bwd_layout(int layout, const BwdArgs& a, int batch, cudaStream_t s) {
+  return layout ? launch_bwd<T, D, DKV, true>(a, batch, s)
+                : launch_bwd<T, D, DKV, false>(a, batch, s);
+}
+
 template <bool DKV>
-int bwd_entry(int dtype, int head_dim, const BwdArgs& a, int batch,
-              cudaStream_t s) {
+int bwd_entry(int dtype, int head_dim, int layout, const BwdArgs& a,
+              int batch, cudaStream_t s) {
   if (dtype == 0) {
-    return head_dim == 64 ? launch_bwd<float, 64, DKV>(a, batch, s)
-                          : launch_bwd<float, 128, DKV>(a, batch, s);
+    return head_dim == 64 ? bwd_layout<float, 64, DKV>(layout, a, batch, s)
+                          : bwd_layout<float, 128, DKV>(layout, a, batch, s);
   }
-  return head_dim == 64 ? launch_bwd<__nv_bfloat16, 64, DKV>(a, batch, s)
-                        : launch_bwd<__nv_bfloat16, 128, DKV>(a, batch, s);
+  return head_dim == 64
+             ? bwd_layout<__nv_bfloat16, 64, DKV>(layout, a, batch, s)
+             : bwd_layout<__nv_bfloat16, 128, DKV>(layout, a, batch, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16.  head_dim: 64 or 128.  Strides are in
-// elements for the batch, head and sequence axes; the head_dim axis is
-// contiguous.  lse may be null; otherwise it is (batch, heads, sq)
-// float32 contiguous.
-int mxt_flash_attention_fwd(int dtype, int head_dim, const void* q,
+// dtype: 0 float32, 1 bfloat16.  head_dim: 64 or 128.  layout 0: operands
+// (batch, heads, seq, head_dim), the head_dim axis contiguous, strides
+// given in elements for the batch, head and sequence axes; layout 1 (the
+// dS layout): operands (batch, heads, head_dim, seq), the sequence axis
+// contiguous, strides given for the batch, head and head_dim axes.  lse
+// may be null; otherwise it is (batch, heads, sq) float32 contiguous.
+int mxt_flash_attention_fwd(int dtype, int head_dim, int layout,
+                            const void* q,
                             const void* k, const void* v, void* o, float* lse,
                             int batch, int heads, int sq, int skv,
-                            long long q_sb, long long q_sh, long long q_ss,
-                            long long k_sb, long long k_sh, long long k_ss,
-                            long long v_sb, long long v_sh, long long v_ss,
-                            long long o_sb, long long o_sh, long long o_ss,
+                            long long q_sb, long long q_sh, long long q_st,
+                            long long k_sb, long long k_sh, long long k_st,
+                            long long v_sb, long long v_sh, long long v_st,
+                            long long o_sb, long long o_sh, long long o_st,
                             int q_off, int k_off, int causal, float scale,
                             void* stream) {
   if ((head_dim != 64 && head_dim != 128) || dtype < 0 || dtype > 1 ||
-      batch < 0 || heads < 0 || sq < 0 || skv < 0 || batch > 65535 ||
-      heads > 65535) {
+      (layout != 0 && layout != 1) || batch < 0 || heads < 0 || sq < 0 ||
+      skv < 0 || batch > 65535 || heads > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0 || heads == 0 || sq == 0) return 0;
-  Args a{q,    k,    v,    o,    lse,  q_sb, q_sh,  q_ss,  k_sb,  k_sh,
-         k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,  heads, sq,    skv,
+  Args a{q,    k,    v,    o,    lse,  q_sb, q_sh,  q_st,  k_sb,  k_sh,
+         k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st,  heads, sq,    skv,
          q_off, k_off, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return head_dim == 64 ? launch<float, 64>(a, batch, s)
-                          : launch<float, 128>(a, batch, s);
+    return head_dim == 64 ? launch_layout<float, 64>(a, layout, batch, s)
+                          : launch_layout<float, 128>(a, layout, batch, s);
   }
-  return head_dim == 64 ? launch<__nv_bfloat16, 64>(a, batch, s)
-                        : launch<__nv_bfloat16, 128>(a, batch, s);
+  return head_dim == 64
+             ? launch_layout<__nv_bfloat16, 64>(a, layout, batch, s)
+             : launch_layout<__nv_bfloat16, 128>(a, layout, batch, s);
 }
 
-// The two backward passes.  dtype, head_dim and strides as the forward;
-// dout is the cotangent of out; lse and delta are (batch, heads, sq)
-// float32 contiguous.  which = 0 launches the dq kernel (out0 = dq, out1
+// The two backward passes.  dtype, head_dim, layout and strides as the
+// forward; dout is the cotangent of out; lse and delta are (batch, heads,
+// sq) float32 contiguous.  which = 0 launches the dq kernel (out0 = dq, out1
 // unused), which = 1 the dk/dv kernel (out0 = dk, out1 = dv).  Strides
 // are given for q, k, v, dout, out0 and out1.
-int mxt_flash_attention_bwd(int which, int dtype, int head_dim,
+int mxt_flash_attention_bwd(int which, int dtype, int head_dim, int layout,
                             const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* out0, void* out1,
                             int batch, int heads, int sq, int skv,
-                            long long q_sb, long long q_sh, long long q_ss,
-                            long long k_sb, long long k_sh, long long k_ss,
-                            long long v_sb, long long v_sh, long long v_ss,
-                            long long d_sb, long long d_sh, long long d_ss,
-                            long long o0_sb, long long o0_sh, long long o0_ss,
-                            long long o1_sb, long long o1_sh, long long o1_ss,
+                            long long q_sb, long long q_sh, long long q_st,
+                            long long k_sb, long long k_sh, long long k_st,
+                            long long v_sb, long long v_sh, long long v_st,
+                            long long d_sb, long long d_sh, long long d_st,
+                            long long o0_sb, long long o0_sh, long long o0_st,
+                            long long o1_sb, long long o1_sh, long long o1_st,
                             int q_off, int k_off, int causal, float scale,
                             void* stream) {
   if ((which != 0 && which != 1) || (head_dim != 64 && head_dim != 128) ||
-      dtype < 0 || dtype > 1 || batch < 0 || heads < 0 || sq < 0 ||
+      (layout != 0 && layout != 1) || dtype < 0 || dtype > 1 || batch < 0 || heads < 0 || sq < 0 ||
       skv < 0 || batch > 65535 || heads > 65535 ||
       (which == 1 && out1 == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -596,13 +719,13 @@ int mxt_flash_attention_bwd(int which, int dtype, int head_dim,
   const int len = which == 0 ? sq : skv;
   if (batch == 0 || heads == 0 || len == 0) return 0;
   BwdArgs a{q,     k,     v,     dout,  lse,   delta, out0,  out1,
-            q_sb,  q_sh,  q_ss,  k_sb,  k_sh,  k_ss,  v_sb,  v_sh,
-            v_ss,  d_sb,  d_sh,  d_ss,  o0_sb, o0_sh, o0_ss, o1_sb,
-            o1_sh, o1_ss, heads, sq,    skv,   q_off, k_off, causal,
+            q_sb,  q_sh,  q_st,  k_sb,  k_sh,  k_st,  v_sb,  v_sh,
+            v_st,  d_sb,  d_sh,  d_st,  o0_sb, o0_sh, o0_st, o1_sb,
+            o1_sh, o1_st, heads, sq,    skv,   q_off, k_off, causal,
             scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return which == 0 ? bwd_entry<false>(dtype, head_dim, a, batch, s)
-                    : bwd_entry<true>(dtype, head_dim, a, batch, s);
+  return which == 0 ? bwd_entry<false>(dtype, head_dim, layout, a, batch, s)
+                    : bwd_entry<true>(dtype, head_dim, layout, a, batch, s);
 }
 
 const char* mxt_error_string(int err) {

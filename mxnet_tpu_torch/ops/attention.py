@@ -38,9 +38,11 @@ class DotProductAttention(OpDef):
 
     softmax(Q K^T * scale) V without materializing the score matrix.
     ``scale`` defaults to 1/sqrt(head_dim); ``causal=True`` applies a lower
-    triangular mask.  ``block_q``/``block_k`` are the JAX package's TPU
-    tile knobs: accepted so a symbol's JSON loads, and not used (the CUDA
-    kernels have fixed 64-row tiles).
+    triangular mask.  ``block_q``/``block_k`` are the JAX package's tile
+    knobs: ``block_k`` is passed on and sets the plain versions' K block
+    (<= 0: the default); ``block_q`` is accepted, so the JAX package's
+    symbol JSON loads, and has no effect (the plain versions have no Q
+    block); the CUDA kernels keep their fixed 64-row tiles.
     """
 
     name = "DotProductAttention"
@@ -101,10 +103,12 @@ class DotProductAttention(OpDef):
         if params["layout"] == "bsd":
             out = flash_attention_bsd(q, k, v, params["num_heads"],
                                       causal=params["causal"],
-                                      scale=params["scale"])
+                                      scale=params["scale"],
+                                      block_k=params["block_k"])
         else:
             out = flash_attention(q, k, v, causal=params["causal"],
-                                  scale=params["scale"])
+                                  scale=params["scale"],
+                                  block_k=params["block_k"])
         return [out], []
 
 

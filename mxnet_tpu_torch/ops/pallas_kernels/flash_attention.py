@@ -1,11 +1,13 @@
 """Flash attention, forward and backward: CUDA kernels for the card, plain
-versions beside them.
+versions beside them, and the router that picks a kernel route.
 
 Replaces `mxnet_tpu/ops/pallas_kernels/flash_attention.py`
 `_flash_fwd_pallas` (the TPU kernel `_fwd_kernel`, hsd layout) and
-`_flash_bwd_pallas` (`_bwd_dq_kernel`, `_bwd_dkv_kernel`), and, through
-strides, their bsd twins `_flash_fwd_pallas_bsd` and
-`_flash_bwd_pallas_bsd`.  The plain versions mirror `_flash_fwd_jnp`
+`_flash_bwd_pallas` (`_bwd_dq_kernel`, `_bwd_dkv_kernel`); their dS-layout
+twins `_flash_fwd_pallas_ds` and `_flash_bwd_pallas_ds`; and, through
+strides, the bsd families: the loop kernels `_flash_fwd_pallas_bsd` and
+`_flash_bwd_pallas_bsd` and the grid-streamed `_flash_fwd_pallas_bsd_gs`
+and `_flash_bwd_pallas_bsd_gs`.  The plain versions mirror `_flash_fwd_jnp`
 (the online-softmax recurrence over K blocks) and `_flash_bwd` (the
 recompute from the saved lse over K blocks).  The kernels
 (`csrc/flash_attention.cu`) run their sums in float32: the forward and
@@ -22,6 +24,47 @@ last axis must be contiguous.  Outputs and gradients are allocated with
 q's (k's, v's) strides (``empty_like``), so the transposes around them
 are free too.  `flash_attention_bsd` takes (B, S, E) operands and hands
 the (B, H, S, D) view of their heads to the same kernels: no copy.
+
+Routes.  Each call resolves its route from the environment, read at
+every call as the JAX package reads it at every trace, and counts its
+launches on that route's own counters:
+
+* ``hsd`` (`flash_attention`'s default): the kernels on (B, H, S, D)
+  operands; counters ``flash_attention.launches``, ``.dq_launches``,
+  ``.dkv_launches``.
+* ``ds`` (``MXNET_FLASH_LAYOUT=ds`` or ``MXNET_FLASH_IMPL=pallas_ds``):
+  the JAX function's boundary swap, then the kernels' S-contiguous
+  orientation.  q, k and v are copied to contiguous (B, H, D, S); the
+  forward writes out in that layout and returns its transposed view; the
+  residuals stay in dS layout, as `_flash_fwd_rule` keeps them; the
+  backward takes the out cotangent to dS layout and returns the
+  gradients as (B, H, S, D) views.  Counters ``.ds_launches``,
+  ``.ds_dq_launches``, ``.ds_dkv_launches``.
+* ``bsd_loop`` (`flash_attention_bsd`'s default at every length): the
+  kernels on the (B, H, S, D) view of (B, S, E) heads; counters
+  ``flash_attention_bsd.launches``, ``.dq_launches``, ``.dkv_launches``.
+* ``bsd_stream`` (``MXNET_FLASH_BSD_KERNEL=stream``): the same kernels,
+  counted on ``flash_attention_bsd.stream_launches``,
+  ``.stream_dq_launches``, ``.stream_dkv_launches``.  On the TPU the
+  grid-streamed structure exists because the loop kernels hold a head's
+  whole K/V (or Q/dO) in VMEM under a ~12 MB model, which S=8192 at head
+  128 in bf16 exceeds; it computes the loop kernels' function (the two
+  TPU families even cast ds and p to the input dtype at the same
+  points).  The CUDA kernels have no such cap (they stream 64-key and
+  64-query tiles through shared memory at every length), so they are
+  that route's counterpart as well.
+* ``jnp`` (``MXNET_FLASH_IMPL=jnp``): the plain versions, asked for by
+  name; no kernel runs.  ``MXNET_FLASH_BWD=jnp`` takes the plain backward
+  after a kernel route's forward.
+
+An unrecognized ``MXNET_FLASH_BSD_KERNEL`` raises `MXNetError`, as in
+the JAX package.  Two JAX gates are TPU facts and are not ported: the
+whole-K/V VMEM model `_stream_residency_fits` (unpinned, bsd is
+``bsd_loop`` at every length) and the 512 x 512 size gate to the jnp
+path.  ``MXNET_FLASH_BLOCK_K`` and the ``block_k`` argument set the plain
+versions' K block; the plain versions have no Q block, so there is no
+``block_q`` (``MXNET_FLASH_BLOCK_Q`` is not read), and the kernels keep
+their 64-row tiles.
 
 `flash_attention` and `flash_attention_bsd` are `torch.autograd.Function`s
 over (out, lse): the backward folds the lse cotangent into delta_i =
@@ -42,6 +85,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 
 import torch
 
@@ -52,18 +96,19 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bsd",
            "flash_attention_bsd_plain"]
 
 _NEG_INF = -1e30
-_BLOCK_K = 256  # the plain versions' K block: the JAX default on the CPU
+_BLOCK_K = 256  # the plain versions' default K block: the JAX one on the CPU
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 
 
-def _flash_fwd_plain(q, k, v, q_off, k_off, scale, causal):
+def _flash_fwd_plain(q, k, v, q_off, k_off, scale, causal,
+                     block_k=_BLOCK_K):
     """The plain version: `_flash_fwd_jnp`'s recurrence over K blocks of
-    `_BLOCK_K` keys, with masked scores contributing an exact 0.
+    ``block_k`` keys, with masked scores contributing an exact 0.
     Returns (out in q's dtype, lse float32)."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
-    block_k = max(1, min(_BLOCK_K, skv))
+    block_k = max(1, min(block_k, skv))
     qf = q.float() * scale
     q_pos = q_off + torch.arange(sq, device=q.device)[:, None]
     m = torch.full((b, h, sq), _NEG_INF, dtype=torch.float32, device=q.device)
@@ -90,19 +135,21 @@ def _flash_fwd_plain(q, k, v, q_off, k_off, scale, causal):
     return out, m + torch.log(l_safe)
 
 
-def _delta(o, g, glse):
-    """delta_i = sum_d dO_id O_id - glse_i, float32 (B, H, Sq)."""
-    delta = (g.float() * o.float()).sum(dim=-1)
+def _delta(o, g, glse, dim=3):
+    """delta_i = sum_d dO_id O_id - glse_i, float32 (B, H, Sq); ``dim`` is
+    the head_dim axis (2 in dS layout)."""
+    delta = (g.float() * o.float()).sum(dim=dim)
     return delta if glse is None else delta - glse.float()
 
 
-def _flash_bwd_plain(q, k, v, o, lse, g, glse, q_off, k_off, scale, causal):
+def _flash_bwd_plain(q, k, v, o, lse, g, glse, q_off, k_off, scale, causal,
+                     block_k=_BLOCK_K):
     """The plain backward: `_flash_bwd`'s recompute over K blocks of
-    `_BLOCK_K` keys, with p exactly 0 wherever the mask hides a key (so a
+    ``block_k`` keys, with p exactly 0 wherever the mask hides a key (so a
     row that sees no key gets a zero gradient).  ``glse`` may be None (no
     lse cotangent).  Returns (dq, dk, dv) in the inputs' dtypes."""
     sq, skv = q.shape[2], k.shape[2]
-    block_k = max(1, min(_BLOCK_K, skv))
+    block_k = max(1, min(block_k, skv))
     qf, gf = q.float(), g.float()
     delta = _delta(o, g, glse)[..., None]
     lse = lse[..., None]
@@ -124,23 +171,91 @@ def _flash_bwd_plain(q, k, v, o, lse, g, glse, q_off, k_off, scale, causal):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# -- the router ---------------------------------------------------------------
+
+
+def _hsd_route():
+    """`flash_attention`'s route: `_pick_impl`'s pins, without its TPU
+    gates."""
+    forced = os.environ.get("MXNET_FLASH_IMPL")
+    if forced == "jnp":
+        return "jnp"
+    if forced in ("pallas_ds", "pallas_hsd"):
+        return forced[len("pallas_"):]
+    if os.environ.get("MXNET_FLASH_LAYOUT", "hsd") == "ds":
+        return "ds"
+    return "hsd"
+
+
+def _bsd_structure():
+    """`_bsd_structure`'s pin: 'loop' or 'stream'; unset (or 'auto') is
+    'loop' at every length, the VMEM model being a TPU fact."""
+    raw = os.environ.get("MXNET_FLASH_BSD_KERNEL")
+    if raw in ("loop", "stream"):
+        return raw
+    if raw not in (None, "", "auto"):
+        raise MXNetError(
+            "MXNET_FLASH_BSD_KERNEL must be 'loop', 'stream' or "
+            "unset/'auto', got %r" % raw)
+    return "loop"
+
+
+def _bsd_route():
+    """`flash_attention_bsd`'s route: the plain versions under
+    ``MXNET_FLASH_IMPL=jnp``, else the pinned (or loop) structure."""
+    if os.environ.get("MXNET_FLASH_IMPL") == "jnp":
+        return "jnp"
+    return "bsd_" + _bsd_structure()
+
+
+def _plain_block(block_k):
+    """The plain versions' K block: ``MXNET_FLASH_BLOCK_K`` over the
+    caller's ``block_k``; `_BLOCK_K` where neither is positive."""
+    raw = os.environ.get("MXNET_FLASH_BLOCK_K")
+    if raw is not None:
+        try:
+            block_k = int(raw)
+        except ValueError:
+            raise MXNetError("MXNET_FLASH_BLOCK_K must be an integer, got %r"
+                             % raw) from None
+    return int(block_k) if int(block_k) > 0 else _BLOCK_K
+
+
+def _count(route, kind):
+    fn, prefix = _COUNTERS[route]
+    name = prefix + kind
+    setattr(fn, name, getattr(fn, name) + 1)
+
+
+# -- the CUDA kernels ---------------------------------------------------------
+
+
 def _lib():
     lib = _build.load("flash_attention")
     fwd, bwd = lib.mxt_flash_attention_fwd, lib.mxt_flash_attention_bwd
     if fwd.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fwd.argtypes = ([i, i, p, p, p, p, p, i, i, i, i] + [ll] * 12
+        fwd.argtypes = ([i, i, i, p, p, p, p, p, i, i, i, i] + [ll] * 12
                         + [i, i, i, ctypes.c_float, p])
         fwd.restype = i
-        bwd.argtypes = ([i, i, i] + [p] * 8 + [i, i, i, i] + [ll] * 18
+        bwd.argtypes = ([i, i, i, i] + [p] * 8 + [i, i, i, i] + [ll] * 18
                         + [i, i, i, ctypes.c_float, p])
         bwd.restype = i
     return lib
 
 
-def _check_cuda_args(q, k, v):
-    """What the CUDA kernels take; raises `MXNetError` on anything else."""
-    b, h, sq, d = q.shape
+def _dims(q, k, ds):
+    """(batch, heads, Sq, Skv, head_dim) of (B, H, S, D) operands or, with
+    ``ds``, of (B, H, D, S) ones."""
+    if ds:
+        return q.shape[0], q.shape[1], q.shape[3], k.shape[3], q.shape[2]
+    return q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3]
+
+
+def _check_cuda_args(q, k, v, ds=False):
+    """What the CUDA kernels take; raises `MXNetError` on anything else.
+    ``ds``: operands in dS layout (B, H, D, S)."""
+    b, h, _, _, d = _dims(q, k, ds)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise MXNetError("flash_attention: CUDA kernel takes q, k, v all "
                          "float32 or all bfloat16, got %s %s %s"
@@ -148,13 +263,15 @@ def _check_cuda_args(q, k, v):
     if d not in _HEAD_DIMS:
         raise MXNetError("flash_attention: CUDA kernel takes head_dim in %s, "
                          "got %d" % (_HEAD_DIMS, d))
-    if k.shape[:2] != (b, h) or v.shape != k.shape or k.shape[3] != d:
-        raise MXNetError("flash_attention: k and v must be (%d, %d, Skv, %d),"
-                         " got %s and %s" % (b, h, d, tuple(k.shape),
-                                             tuple(v.shape)))
+    d_axis = 2 if ds else 3
+    if k.shape[:2] != (b, h) or v.shape != k.shape or k.shape[d_axis] != d:
+        raise MXNetError("flash_attention: k and v must be (%d, %d, %s),"
+                         " got %s and %s" % (
+                             b, h, "%d, Skv" % d if ds else "Skv, %d" % d,
+                             tuple(k.shape), tuple(v.shape)))
     if any(t.stride(3) != 1 for t in (q, k, v)):
-        raise MXNetError("flash_attention: the head_dim axis of q, k and v "
-                         "must be contiguous")
+        raise MXNetError("flash_attention: the %s axis of q, k and v must be "
+                         "contiguous" % ("sequence" if ds else "head_dim"))
     if b > 65535 or h > 65535:
         raise MXNetError("flash_attention: batch and heads must be <= 65535")
     if k.device != q.device or v.device != q.device:
@@ -175,51 +292,61 @@ def _strides(*ts):
     return [s for t in ts for s in t.stride()[:3]]
 
 
-def _flash_fwd_cuda(q, k, v, q_off, k_off, scale, causal, with_lse, entry):
-    _check_cuda_args(q, k, v)
-    b, h, sq, d = q.shape
+def _flash_fwd_cuda(q, k, v, q_off, k_off, scale, causal, with_lse, route):
+    """The forward kernel on ``route``'s layout: (B, H, S, D) operands, or
+    (B, H, D, S) ones on 'ds' (out in the same layout)."""
+    ds = route == "ds"
+    _check_cuda_args(q, k, v, ds)
+    b, h, sq, skv, d = _dims(q, k, ds)
     out = _like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
     err = _lib().mxt_flash_attention_fwd(
-        _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), None if lse is None else lse.data_ptr(), b, h, sq,
-        k.shape[2], *_strides(q, k, v, out), q_off, k_off, int(causal),
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        _DTYPES[q.dtype], d, int(ds), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, h, sq, skv,
+        *_strides(q, k, v, out), q_off, k_off, int(causal), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention launch")
-    entry.launches += 1
+    _count(route, "launches")
     return out, lse
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, g, glse, q_off, k_off, scale, causal,
-                    entry):
-    _check_cuda_args(q, k, v)
-    b, h, sq, d = q.shape
+                    route):
+    """The dq and dk/dv kernels on ``route``'s layout: every operand and
+    gradient, ``g`` included, in (B, H, D, S) on 'ds'."""
+    ds = route == "ds"
+    _check_cuda_args(q, k, v, ds)
+    b, h, sq, skv, d = _dims(q, k, ds)
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
         raise MXNetError("flash_attention backward: the out cotangent must "
                          "be %s %s, got %s %s" % (tuple(q.shape), q.dtype,
                                                   tuple(g.shape), g.dtype))
     if g.stride(3) != 1:
         g = g.contiguous()
-    delta = _delta(o, g, glse).contiguous()
+    delta = _delta(o, g, glse, 2 if ds else 3).contiguous()
     lse = lse.contiguous()
     dq, dk, dv = _like(q), _like(k), _like(v)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    common = (_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-              g.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    common = (_DTYPES[q.dtype], d, int(ds), q.data_ptr(), k.data_ptr(),
+              v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr())
     tail = (q_off, k_off, int(causal), float(scale), stream)
     err = lib.mxt_flash_attention_bwd(
-        0, *common, dq.data_ptr(), None, b, h, sq, k.shape[2],
+        0, *common, dq.data_ptr(), None, b, h, sq, skv,
         *_strides(q, k, v, g, dq, dq), *tail)
     _build.check(err, "flash_attention dq launch")
-    entry.dq_launches += 1
+    _count(route, "dq_launches")
     err = lib.mxt_flash_attention_bwd(
-        1, *common, dk.data_ptr(), dv.data_ptr(), b, h, sq, k.shape[2],
+        1, *common, dk.data_ptr(), dv.data_ptr(), b, h, sq, skv,
         *_strides(q, k, v, g, dk, dv), *tail)
     _build.check(err, "flash_attention dk/dv launch")
-    entry.dkv_launches += 1
+    _count(route, "dkv_launches")
     return dq, dk, dv
+
+
+# -- the two passes on a route ------------------------------------------------
 
 
 def _device(q):
@@ -228,87 +355,130 @@ def _device(q):
     return q.device.type
 
 
-def _fwd(q, k, v, q_off, k_off, scale, causal, with_lse, entry):
-    """The forward on q's device: the kernel on the card (its launches
-    counted on ``entry``), the plain version on the CPU or where ``entry``
-    is None."""
-    if _device(q) == "cpu" or entry is None:
-        return _flash_fwd_plain(q, k, v, q_off, k_off, scale, causal)
-    return _flash_fwd_cuda(q, k, v, q_off, k_off, scale, causal, with_lse,
-                           entry)
+def _plain(q, route):
+    """Whether the plain versions run: on the CPU, or asked for by name."""
+    return _device(q) == "cpu" or route == "jnp"
+
+
+def _to_ds(t):
+    """The contiguous (B, H, D, S) copy of a (B, H, S, D) tensor: the JAX
+    function's boundary swap."""
+    return t.transpose(2, 3).contiguous()
+
+
+def _forward(q, k, v, args, with_lse, route, block):
+    """The forward of (B, H, S, D) operands on ``route``: the kernel on the
+    card, the plain version on the CPU or on 'jnp'.  Returns (out, lse,
+    residuals (q, k, v, out)); on 'ds' the residuals are (B, H, D, S) and
+    out is the transposed view of the residual out."""
+    ds = route == "ds"
+    if ds:
+        q, k, v = (_to_ds(t) for t in (q, k, v))
+    if _plain(q, route):
+        if ds:
+            o, lse = _flash_fwd_plain(*(t.transpose(2, 3) for t in (q, k, v)),
+                                      *args, block)
+            o = o.transpose(2, 3)
+        else:
+            o, lse = _flash_fwd_plain(q, k, v, *args, block)
+    else:
+        o, lse = _flash_fwd_cuda(q, k, v, *args, with_lse, route)
+    return (o.transpose(2, 3) if ds else o), lse, (q, k, v, o)
+
+
+def _backward(res, lse, g, glse, args, route, block):
+    """dq, dk, dv in (B, H, S, D) from `_forward`'s residuals and the out
+    cotangent ``g`` (B, H, S, D): the kernels on the card, the plain
+    backward on the CPU, on 'jnp' or under ``MXNET_FLASH_BWD=jnp``."""
+    q, k, v, o = res
+    ds = route == "ds"
+    if _plain(q, route) or os.environ.get("MXNET_FLASH_BWD",
+                                          "pallas") == "jnp":
+        if ds:
+            q, k, v, o = (t.transpose(2, 3) for t in res)
+        return _flash_bwd_plain(q, k, v, o, lse, g, glse, *args, block)
+    if ds:
+        grads = _flash_bwd_cuda(q, k, v, o, lse, _to_ds(g), glse, *args,
+                                route)
+        return tuple(t.transpose(2, 3) for t in grads)
+    return _flash_bwd_cuda(q, k, v, o, lse, g, glse, *args, route)
 
 
 class _FlashFn(torch.autograd.Function):
-    """Attention over (out, lse) with the backward of `_flash_bwd_pallas`:
-    dq, dk, dv from the two backward passes; no gradient for the offsets.
-    ``entry`` is the public function whose counters take the launches, or
-    None for the plain versions."""
+    """Attention over (out, lse) with the backward of `_flash_bwd_pallas`
+    (`_flash_bwd_pallas_ds` on 'ds'): dq, dk, dv from the two backward
+    passes; no gradient for the offsets.  ``route`` is the route resolved
+    for this call, ``block`` the plain versions' K block."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_off, k_off, scale, causal, entry):
-        out, lse = _fwd(q, k, v, q_off, k_off, scale, causal, True, entry)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (q_off, k_off, scale, causal, entry)
+    def forward(ctx, q, k, v, q_off, k_off, scale, causal, route, block):
+        args = (q_off, k_off, scale, causal)
+        out, lse, res = _forward(q, k, v, args, True, route, block)
+        ctx.save_for_backward(*res, lse)
+        ctx.args, ctx.route, ctx.block = args, route, block
         ctx.set_materialize_grads(False)
         return out, lse
 
     @staticmethod
     def backward(ctx, g, glse):
-        q, k, v, out, lse = ctx.saved_tensors
-        q_off, k_off, scale, causal, entry = ctx.args
+        *res, lse = ctx.saved_tensors
         if g is None:
-            g = torch.zeros_like(out)
-        if _device(q) == "cpu" or entry is None:
-            grads = _flash_bwd_plain(q, k, v, out, lse, g, glse, q_off,
-                                     k_off, scale, causal)
-        else:
-            grads = _flash_bwd_cuda(q, k, v, out, lse, g, glse, q_off, k_off,
-                                    scale, causal, entry)
-        return grads + (None,) * 5
+            o = res[3]
+            g = torch.zeros_like(o.transpose(2, 3) if ctx.route == "ds"
+                                 else o)
+        grads = _backward(res, lse, g, glse, ctx.args, ctx.route, ctx.block)
+        return tuple(grads) + (None,) * 6
 
 
 def _offset(x, what):
     if int(x) != x:
         raise MXNetError("flash_attention: %s must be a whole number, got %r"
                          % (what, x))
+    if not -2 ** 31 <= int(x) < 2 ** 31:
+        raise MXNetError("flash_attention: %s must fit in 32 bits, got %r"
+                         % (what, x))
     return int(x)
 
 
-def _attend(q, k, v, causal, scale, q_offset, k_offset, with_lse, entry):
+def _attend(q, k, v, causal, scale, q_offset, k_offset, with_lse, route,
+            block_k):
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     args = (_offset(q_offset, "q_offset"), _offset(k_offset, "k_offset"),
             float(scale), bool(causal))
+    block = _plain_block(block_k)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        out, lse = _FlashFn.apply(q, k, v, *args, entry)
+        out, lse = _FlashFn.apply(q, k, v, *args, route, block)
     else:
-        out, lse = _fwd(q, k, v, *args, with_lse, entry)
+        out, lse, _ = _forward(q, k, v, args, with_lse, route, block)
     return (out, lse) if with_lse else out
 
 
 def flash_attention(q, k, v, *, causal=False, scale=None, q_offset=0,
-                    k_offset=0, with_lse=False):
+                    k_offset=0, block_k=0, with_lse=False):
     """Fused attention over (batch, heads, seq, head_dim) tensors.
 
     ``scale`` defaults to 1/sqrt(head_dim).  ``q_offset``/``k_offset`` are
     the global positions of row/column 0 for causal masking.  Returns the
     output in q's dtype; with ``with_lse=True`` also the per-row logsumexp
     of the scaled scores, (batch, heads, seq) float32.  Differentiable in
-    q, k and v through out and lse.  A CPU tensor takes the plain
-    versions; a CUDA tensor launches the kernels or raises."""
+    q, k and v through out and lse.  The route ('hsd', 'ds' or 'jnp') is
+    read from the environment (see the module's note); ``block_k`` is the
+    plain versions' K block.  A CPU tensor takes the plain versions; a
+    CUDA tensor launches the kernels or raises."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise MXNetError("flash_attention expects (B, H, S, D) inputs")
     return _attend(q, k, v, causal, scale, q_offset, k_offset, with_lse,
-                   flash_attention)
+                   _hsd_route(), block_k)
 
 
 def flash_attention_plain(q, k, v, *, causal=False, scale=None, q_offset=0,
-                          k_offset=0, with_lse=False):
+                          k_offset=0, block_k=0, with_lse=False):
     """`flash_attention` through the plain versions on any device, gradient
     included: the reference that `chip_smoke.py` holds the kernels against
     on the card."""
     return _attend(q, k, v, causal, scale, q_offset, k_offset, with_lse,
-                   None)
+                   "jnp", block_k)
 
 
 def _bsd_to_heads(t, num_heads):
@@ -319,7 +489,7 @@ def _bsd_to_heads(t, num_heads):
 
 
 def _bsd(q, k, v, num_heads, causal, scale, q_offset, k_offset, with_lse,
-         entry):
+         route, block_k):
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise MXNetError("flash_attention_bsd expects (B, S, E) inputs")
     b, s, e = q.shape
@@ -327,35 +497,41 @@ def _bsd(q, k, v, num_heads, causal, scale, q_offset, k_offset, with_lse,
         raise MXNetError("flash_attention_bsd: embed dim %d not divisible by "
                          "num_heads %d" % (e, num_heads))
     out = _attend(*(_bsd_to_heads(t, num_heads) for t in (q, k, v)), causal,
-                  scale, q_offset, k_offset, with_lse, entry)
+                  scale, q_offset, k_offset, with_lse, route, block_k)
     out, lse = out if with_lse else (out, None)
     out = out.transpose(1, 2).reshape(b, s, e)
     return (out, lse) if with_lse else out
 
 
 def flash_attention_bsd(q, k, v, num_heads, *, causal=False, scale=None,
-                        q_offset=0, k_offset=0, with_lse=False):
+                        q_offset=0, k_offset=0, block_k=0, with_lse=False):
     """Fused attention over (batch, seq, embed) tensors with ``num_heads``
     heads on the embed axis: the same kernels as `flash_attention`, on the
     (B, H, S, D) view of each operand's heads.  Returns out (B, S, E) and,
     with ``with_lse=True``, lse (B, H, S) float32.  Head widths 64 and 128
     both reach the kernels (the JAX package's 128-lane gate is a TPU
-    fact).  Its launches are counted on this function."""
+    fact).  The route ('bsd_loop', 'bsd_stream' or 'jnp') is read from the
+    environment and its launches are counted on this function (see the
+    module's note)."""
     return _bsd(q, k, v, num_heads, causal, scale, q_offset, k_offset,
-                with_lse, flash_attention_bsd)
+                with_lse, _bsd_route(), block_k)
 
 
 def flash_attention_bsd_plain(q, k, v, num_heads, *, causal=False,
-                              scale=None, q_offset=0, k_offset=0,
+                              scale=None, q_offset=0, k_offset=0, block_k=0,
                               with_lse=False):
     """`flash_attention_bsd` through the plain versions on any device."""
     return _bsd(q, k, v, num_heads, causal, scale, q_offset, k_offset,
-                with_lse, None)
+                with_lse, "jnp", block_k)
 
 
-# kernel launches since the counts were last set to 0 (CUDA path only), by
-# the public entry that led to them: the forward, the dq pass and the
-# dk/dv pass
-for _entry in (flash_attention, flash_attention_bsd):
-    _entry.launches = _entry.dq_launches = _entry.dkv_launches = 0
-del _entry
+# each route's launch counters: (public function, prefix of its counters).
+# A counter counts the kernel launches since it was last set to 0 (CUDA
+# path only): the forward, the dq pass and the dk/dv pass.
+_COUNTERS = {"hsd": (flash_attention, ""), "ds": (flash_attention, "ds_"),
+             "bsd_loop": (flash_attention_bsd, ""),
+             "bsd_stream": (flash_attention_bsd, "stream_")}
+for _fn, _prefix in _COUNTERS.values():
+    for _kind in ("launches", "dq_launches", "dkv_launches"):
+        setattr(_fn, _prefix + _kind, 0)
+del _fn, _prefix, _kind
