@@ -16,7 +16,10 @@ Phases, each of which fails the run with a non-zero exit:
    each check, and time the kernel, the plain version and one PyTorch
    library call that computes the same function (a yardstick the port
    never calls) with CUDA events, beside the least time the card could
-   take;
+   take; the bf16 flash backward (tensor cores) is held against the plain
+   backward in float32 on the same bf16 operands, must give bit-identical
+   gradients twice, and reports its TFLOP/s, its share of the bound and
+   ptxas's spill bytes;
 3. serve 16 requests at GPT-2-small widths through the default (paged)
    `ServingEngine`, count each kernel's launches, and check the logits
    of two finished requests against the plain float32 path;
@@ -91,7 +94,7 @@ from mxnet_tpu_torch.ops import loss as loss_mod
 from mxnet_tpu_torch.ops.pallas_kernels import _build
 from mxnet_tpu_torch.ops.pallas_kernels import fused_ce as fce
 from mxnet_tpu_torch.ops.pallas_kernels.flash_attention import (
-    _flash_bwd_cuda, _flash_bwd_plain, _flash_fwd_cuda, _to_ds,
+    _delta, _flash_bwd_cuda, _flash_bwd_plain, _flash_fwd_cuda, _to_ds,
     flash_attention, flash_attention_bsd, flash_attention_bsd_plain,
     flash_attention_plain)
 from mxnet_tpu_torch.ops.pallas_kernels.layer_norm import (
@@ -121,6 +124,12 @@ GPT2 = dict(vocab_size=50257, seq_len=1024, num_layers=12, num_heads=12,
 #   element may land one bf16 ulp apart, at most 2**-7 of its value;
 # * bfloat16 flash attention: the 7e-3 bar the JAX package's Pallas
 #   kernels held against their jnp twins (pallas_parity).
+# The bf16 flash backward (phases 2 and 11) is held to ``REL_TOL`` against
+# the plain backward run in float32 on float32 copies of the same bf16
+# operands and residuals: the tensor-core kernels round p and ds to bf16
+# where the Pallas kernels do, the plain version does not, and the plain
+# version's own bf16 output rounding (~2.8e-3 of max|ref|) would take
+# most of the bar; the bf16 plain comparison is printed beside it.
 TOL = {("layer_norm", torch.float32): (1e-5, 1e-5),
        ("layer_norm", torch.bfloat16): (2 ** -7, 1e-5),
        ("flash_attention", torch.float32): (1e-5, 1e-5),
@@ -161,7 +170,9 @@ GRAD_TOL = 1e-4
 MFU_PEAK = PEAK_FLOPS[torch.bfloat16]
 
 # The kernels line: one entry per TPU function ported, with the counters
-# whose launches it reports (the first is its ``launches``).
+# whose launches it reports (the first is its ``launches``).  The line
+# reports bf16, so the backward rows name the tensor-core source; their
+# float32 launches run flash_attention.cu's kernels.
 TPU = "mxnet_tpu/ops/pallas_kernels/"
 KERNEL_ROWS = [
     ("layer_norm", "layer_norm.cu", TPU + "layer_norm.py:93",
@@ -170,25 +181,25 @@ KERNEL_ROWS = [
      ["layer_norm_bwd"]),
     ("flash_attention", "flash_attention.cu", TPU + "flash_attention.py:155",
      ["flash_attention"]),
-    ("flash_attention_bwd", "flash_attention.cu",
+    ("flash_attention_bwd", "flash_attention_bwd.cu",
      TPU + "flash_attention.py:372",
      ["flash_attention_dq", "flash_attention_dkv"]),
     ("flash_attention_bsd", "flash_attention.cu",
      TPU + "flash_attention.py:988", ["flash_attention_bsd"]),
-    ("flash_attention_bsd_bwd", "flash_attention.cu",
+    ("flash_attention_bsd_bwd", "flash_attention_bwd.cu",
      TPU + "flash_attention.py:1158",
      ["flash_attention_bsd_dq", "flash_attention_bsd_dkv"]),
     # the dS layout: the kernels' S-contiguous orientation
     ("flash_attention_ds", "flash_attention.cu",
      TPU + "flash_attention.py:623", ["flash_attention_ds"]),
-    ("flash_attention_ds_bwd", "flash_attention.cu",
+    ("flash_attention_ds_bwd", "flash_attention_bwd.cu",
      TPU + "flash_attention.py:794",
      ["flash_attention_ds_dq", "flash_attention_ds_dkv"]),
     # the grid-streamed bsd structure: rows 7 and 8's kernels on their
     # own counters
     ("flash_attention_bsd_stream", "flash_attention.cu",
      TPU + "flash_attention.py:1342", ["flash_attention_bsd_stream"]),
-    ("flash_attention_bsd_stream_bwd", "flash_attention.cu",
+    ("flash_attention_bsd_stream_bwd", "flash_attention_bwd.cu",
      TPU + "flash_attention.py:1510",
      ["flash_attention_bsd_stream_dq", "flash_attention_bsd_stream_dkv"]),
     # the 5-pass backward (row 12) is kernels D and C; its launches are
@@ -352,6 +363,29 @@ def time_auto(fn, budget_ms=600.0):
     per = 10 if one < 0.5 else 1
     reps = int(min(25, max(3, budget_ms / (one * per))))
     return time_ms(fn, reps=reps, per=per, warm=1)
+
+
+def spill_bytes(name):
+    """ptxas's spill stores and loads per kernel of source ``name``, from
+    its build log: {mangled kernel name: (store bytes, load bytes)}."""
+    out, kernel = {}, None
+    for ln in _build.build_log(name).splitlines():
+        if "Compiling entry function" in ln:
+            kernel = ln.split("'")[1]
+        elif "spill stores" in ln and kernel is not None:
+            words = ln.split()
+            out[kernel] = (int(words[words.index("spill") - 2]),
+                           int(words[words.index("loads") - 3]))
+    return out
+
+
+def bwd_spills(d, layout):
+    """Spill bytes (stores, loads) of the bf16 backward's dq and dk/dv
+    kernels at head_dim ``d`` in ``layout`` (0 or 1)."""
+    tag = "ILi%dELb%dE" % (d, layout)
+    return {k.split("flash_bwd_")[1].split("_mma")[0]: v
+            for k, v in spill_bytes("flash_attention_bwd").items()
+            if tag in k}
 
 
 def check(name, dtype, got, ref):
@@ -606,16 +640,45 @@ def flash_train_case(layout, batch, heads, d, dtype, gen, sq=1024,
         lse_err = rel_check(torch.float32, [(lse, rlse)])
         f_err = (max(f_err[0], lse_err[0]), max(f_err[1], lse_err[1]),
                  f_err[2] and lse_err[2])
-        b_err = rel_check(dtype, list(zip(grads, rgrads)))
         shape = [batch, heads, sq, skv, d]
-        if not timed:
-            return [_record(name, shape, dtype, f_err, False),
-                    _record(name + "_bwd", shape, dtype, b_err, False)]
+        # the kernel path's own residuals, (B, H, S, D) and in the
+        # kernels' layout
         q4, k4, v4, g4, o4 = (heads_view(t.detach())
                               for t in (q, k, v, g, out))
         lse = lse.detach()
         scale = 1.0 / math.sqrt(d)
         args = (q_off, k_off, scale, causal)
+        if layout == "ds":
+            kq, kk, kv, ko, kg = (_to_ds(t) for t in (q4, k4, v4, o4, g4))
+        else:
+            kq, kk, kv, ko, kg = q4, k4, v4, o4, g4
+        extra_bwd = {}
+        if dtype == torch.bfloat16:
+            # held against the plain backward in float32 on float32 copies
+            # of the same operands (see REL_TOL); the bf16 plain one printed
+            ref32 = _flash_bwd_plain(*(t.float() for t in (q4, k4, v4, o4)),
+                                     lse, g4.float(), glse, *args)
+            b_err = rel_check(dtype, [(heads_view(a), r)
+                                      for a, r in zip(grads, ref32)])
+            del ref32
+            plain16 = rel_check(dtype, list(zip(grads, rgrads)))
+            # two launches on the same inputs: bit-identical gradients
+            once = _flash_bwd_cuda(kq, kk, kv, ko, lse, kg, glse, *args,
+                                   route)
+            again = _flash_bwd_cuda(kq, kk, kv, ko, lse, kg, glse, *args,
+                                    route)
+            same = all(torch.equal(a, b) for a, b in zip(once, again))
+            del once, again
+            b_err = (b_err[0], b_err[1], b_err[2] and same)
+            extra_bwd = {"reference": "plain float32 on the bf16 operands",
+                         "bf16_plain_rel_err": plain16[1],
+                         "bit_identical": same}
+        else:
+            b_err = rel_check(dtype, list(zip(grads, rgrads)))
+        if not timed:
+            return [_record(name, shape, dtype, f_err, False),
+                    dict(_record(name + "_bwd", shape, dtype, b_err, False),
+                         **extra_bwd)]
         isz = q.element_size()
         pairs = visible_pairs(sq, skv, causal, q_off, k_off) * batch * heads
         # operations per visible pair: 2·d for each product the function
@@ -631,11 +694,9 @@ def flash_train_case(layout, batch, heads, d, dtype, gen, sq=1024,
                                                       is_causal=causal)
         route_fwd = lambda: fn(q, k, v, *extra, with_lse=True, **kw)
         if layout == "ds":
-            kq, kk, kv, ko, kg = (_to_ds(t) for t in (q4, k4, v4, o4, g4))
             kernel_fwd = lambda: _flash_fwd_cuda(kq, kk, kv, *args, True,
                                                  route)
         else:
-            kq, kk, kv, ko, kg = q4, k4, v4, o4, g4
             kernel_fwd = route_fwd
         fwd = _record(name, shape, dtype, f_err, True,
                       ms=time_auto(kernel_fwd),
@@ -647,15 +708,23 @@ def flash_train_case(layout, batch, heads, d, dtype, gen, sq=1024,
                       bound_ms=fb[0], bound_by=fb[1])
         if layout == "ds":
             fwd["route_ms"] = time_auto(route_fwd)
-        return [
-            fwd,
-            _record(name + "_bwd", shape, dtype, b_err, True,
-                    ms=time_auto(lambda: _flash_bwd_cuda(
-                        kq, kk, kv, ko, lse, kg, glse, *args, route)),
-                    plain_ms=time_auto(lambda: _flash_bwd_plain(
-                        q4, k4, v4, o4, lse, g4, glse, *args)),
-                    library_ms=_library_bwd_ms(sdpa, leaves, g4),
-                    bound_ms=bb[0], bound_by=bb[1])]
+        bwd = _record(name + "_bwd", shape, dtype, b_err, True,
+                      ms=time_auto(lambda: _flash_bwd_cuda(
+                          kq, kk, kv, ko, lse, kg, glse, *args, route)),
+                      plain_ms=time_auto(lambda: _flash_bwd_plain(
+                          q4, k4, v4, o4, lse, g4, glse, *args)),
+                      library_ms=_library_bwd_ms(sdpa, leaves, g4),
+                      bound_ms=bb[0], bound_by=bb[1], **extra_bwd)
+        # the part of ``ms`` spent on delta = rowsum(dO * O) - glse, which
+        # the wrapper computes in torch before the kernels
+        bwd["delta_ms"] = time_auto(lambda: _delta(ko, kg, glse,
+                                                   2 if layout == "ds" else 3))
+        # the rate the function's 10·d operations a visible pair reach
+        bwd["tflops"] = 10 * d * pairs / (bwd["ms"] * 1e-3) / 1e12
+        bwd["bound_share"] = bwd["bound_ms"] / bwd["ms"]
+        if dtype == torch.bfloat16:
+            bwd["spill_bytes"] = bwd_spills(d, int(layout == "ds"))
+        return [fwd, bwd]
 
 
 def describe(c):
@@ -676,6 +745,16 @@ def describe(c):
         line += "; kernel with launch %.4f ms" % c["ms_with_launch"]
     if "route_ms" in c:
         line += "; route with its boundary copies %.4f ms" % c["route_ms"]
+    if "tflops" in c:
+        line += ("; %.1f TFLOP/s (10·d a visible pair), %.3f of the bound; "
+                 "the wrapper's delta %.4f ms of it"
+                 % (c["tflops"], c["bound_share"], c["delta_ms"]))
+    if "bf16_plain_rel_err" in c:
+        line += ("; vs the plain f32 backward of the bf16 operands, beside "
+                 "it the bf16 plain one %.2e; bit-identical twice: %s"
+                 % (c["bf16_plain_rel_err"], c["bit_identical"]))
+    if "spill_bytes" in c:
+        line += "; ptxas spill (stores, loads) bytes %s" % c["spill_bytes"]
     return line
 
 
@@ -700,6 +779,15 @@ def training_kernel_checks():
     # causal with offsets: the dk/dv loop's first query tile moves
     cases += flash_train_case("bsd", 1, 2, 128, torch.float32, gen, sq=256,
                               skv=768, q_off=512, timed=False)
+    # the bf16 backward's ragged tiles at head 128, in both layouts: the
+    # causal diagonal 37 positions into a 64-position tile, a 13-position
+    # tail (333 = 5 * 64 + 13, not a multiple of 8: the dS copies pad their
+    # rows), and rows that see no key (k_off 50)
+    for layout in ("bhsd", "ds"):
+        cases += flash_train_case(layout, 2, 3, 128, torch.bfloat16, gen,
+                                  sq=333, skv=333, q_off=37, timed=False)
+        cases += flash_train_case(layout, 2, 2, 128, torch.bfloat16, gen,
+                                  sq=200, skv=333, k_off=50, timed=False)
     for c in cases:
         log(describe(c))
     log("card after the training kernel checks (sm clock, mem clock, power, "
@@ -1389,7 +1477,8 @@ def train_path(label, cfg, steps, expect, trainer_kw=None, falls=True,
             "kernel_ms": {k: kernel_ms(device, k) for k in (
                 "ln_fwd_kernel", "ln_bwd_kernel", "ln_bwd_reduce_kernel",
                 "flash_fwd_kernel", "flash_bwd_dq_kernel",
-                "flash_bwd_dkv_kernel", "fused_ce_kernel")},
+                "flash_bwd_dkv_kernel", "flash_bwd_dq_mma_kernel",
+                "flash_bwd_dkv_mma_kernel", "fused_ce_kernel")},
             "top_device_ops_ms": device[:10], "top_host_ops_ms": host}
         res.update(extra)
         log("%s: %d steps of batch %d x %d tokens, bf16, Adam; step ms (CUDA "
@@ -1618,6 +1707,8 @@ def main():
                 for ln in _build.build_log(name).splitlines()
                 if "registers" in ln]
         log("ptxas %s: %s" % (name, regs))
+    log("ptxas spill (stores, loads) bytes, flash_attention_bwd: %s"
+        % spill_bytes("flash_attention_bwd"))
 
     with phase("kernel checks"):
         cases = kernel_checks() + training_kernel_checks()

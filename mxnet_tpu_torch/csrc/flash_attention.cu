@@ -34,12 +34,13 @@
 // strides (the last axis must be contiguous), so the serving prefill's
 // (b, s, h, d) -> (b, h, s, d) transpose costs no copy.
 
-// BACKWARD.  Replaces `_flash_bwd_pallas` (`_bwd_dq_kernel`,
-// `_bwd_dkv_kernel`) and, through strides, `_flash_bwd_pallas_bsd`: two
-// kernels, as the TPU has.  Both recompute p = exp(s - lse) from the
-// forward's lse, masked to an exact 0, and read delta_i = sum_d dO_id
-// O_id - glse_i (computed by the caller; the lse cotangent folds in
-// there).  With ds = p * (dO V^T - delta):
+// BACKWARD, float32.  In bfloat16 the backward runs on the tensor cores,
+// in flash_attention_bwd.cu.  Replaces `_flash_bwd_pallas`
+// (`_bwd_dq_kernel`, `_bwd_dkv_kernel`) and, through strides,
+// `_flash_bwd_pallas_bsd`: two kernels, as the TPU has.  Both recompute
+// p = exp(s - lse) from the forward's lse, masked to an exact 0, and read
+// delta_i = sum_d dO_id O_id - glse_i (computed by the caller; the lse
+// cotangent folds in there).  With ds = p * (dO V^T - delta):
 //   dq kernel:    dq = scale * ds K, one block per (batch, head, 64-query
 //                 tile), looping over 64-key tiles up to the causal
 //                 diagonal, as the forward;
@@ -47,8 +48,8 @@
 //                 (batch, head, 64-key tile), looping over 64-query tiles
 //                 from the first one whose last query reaches the tile's
 //                 first key (computed from the offsets).
-// Every sum is float32 whatever the input dtype (operands are staged to
-// shared memory as float32); dq, dk, dv are written in the input dtype.
+// Operands are staged to shared memory as float32 and every sum is
+// float32.
 // Ragged tails are masked, not padded; every operand is read and written
 // through its batch/head/sequence strides.
 //
@@ -642,15 +643,10 @@ int bwd_layout(int layout, const BwdArgs& a, int batch, cudaStream_t s) {
 }
 
 template <bool DKV>
-int bwd_entry(int dtype, int head_dim, int layout, const BwdArgs& a,
-              int batch, cudaStream_t s) {
-  if (dtype == 0) {
-    return head_dim == 64 ? bwd_layout<float, 64, DKV>(layout, a, batch, s)
-                          : bwd_layout<float, 128, DKV>(layout, a, batch, s);
-  }
-  return head_dim == 64
-             ? bwd_layout<__nv_bfloat16, 64, DKV>(layout, a, batch, s)
-             : bwd_layout<__nv_bfloat16, 128, DKV>(layout, a, batch, s);
+int bwd_entry(int head_dim, int layout, const BwdArgs& a, int batch,
+              cudaStream_t s) {
+  return head_dim == 64 ? bwd_layout<float, 64, DKV>(layout, a, batch, s)
+                        : bwd_layout<float, 128, DKV>(layout, a, batch, s);
 }
 
 }  // namespace
@@ -692,7 +688,8 @@ int mxt_flash_attention_fwd(int dtype, int head_dim, int layout,
              : launch_layout<__nv_bfloat16, 128>(a, layout, batch, s);
 }
 
-// The two backward passes.  dtype, head_dim, layout and strides as the
+// The two backward passes in float32 (dtype must be 0; bf16 has
+// flash_attention_bwd.cu's entry).  head_dim, layout and strides as the
 // forward; dout is the cotangent of out; lse and delta are (batch, heads,
 // sq) float32 contiguous.  which = 0 launches the dq kernel (out0 = dq, out1
 // unused), which = 1 the dk/dv kernel (out0 = dk, out1 = dv).  Strides
@@ -711,7 +708,7 @@ int mxt_flash_attention_bwd(int which, int dtype, int head_dim, int layout,
                             int q_off, int k_off, int causal, float scale,
                             void* stream) {
   if ((which != 0 && which != 1) || (head_dim != 64 && head_dim != 128) ||
-      (layout != 0 && layout != 1) || dtype < 0 || dtype > 1 || batch < 0 || heads < 0 || sq < 0 ||
+      (layout != 0 && layout != 1) || dtype != 0 || batch < 0 || heads < 0 || sq < 0 ||
       skv < 0 || batch > 65535 || heads > 65535 ||
       (which == 1 && out1 == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -724,8 +721,8 @@ int mxt_flash_attention_bwd(int which, int dtype, int head_dim, int layout,
             o1_sh, o1_st, heads, sq,    skv,   q_off, k_off, causal,
             scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return which == 0 ? bwd_entry<false>(dtype, head_dim, layout, a, batch, s)
-                    : bwd_entry<true>(dtype, head_dim, layout, a, batch, s);
+  return which == 0 ? bwd_entry<false>(head_dim, layout, a, batch, s)
+                    : bwd_entry<true>(head_dim, layout, a, batch, s);
 }
 
 const char* mxt_error_string(int err) {

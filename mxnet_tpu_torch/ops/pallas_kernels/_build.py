@@ -38,7 +38,8 @@ __all__ = ["KERNELS", "build", "build_log", "load", "check",
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("layer_norm", "flash_attention", "fused_ce")
+KERNELS = ("layer_norm", "flash_attention", "flash_attention_bwd",
+           "fused_ce")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

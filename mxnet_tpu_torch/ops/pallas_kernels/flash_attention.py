@@ -9,21 +9,29 @@ strides, the bsd families: the loop kernels `_flash_fwd_pallas_bsd` and
 `_flash_bwd_pallas_bsd` and the grid-streamed `_flash_fwd_pallas_bsd_gs`
 and `_flash_bwd_pallas_bsd_gs`.  The plain versions mirror `_flash_fwd_jnp`
 (the online-softmax recurrence over K blocks) and `_flash_bwd` (the
-recompute from the saved lse over K blocks).  The kernels
-(`csrc/flash_attention.cu`) run their sums in float32: the forward and
-the dq pass take one block per (batch, head, 64-query tile) and cut the
-K loop at the causal diagonal; the dk/dv pass takes one block per
-(batch, head, 64-key tile) and starts its Q loop at the first query tile
-that reaches it.  The source's note gives the H100 bound and what the
-design does about it.
+recompute from the saved lse over K blocks).  The kernels run their sums
+in float32: the forward and the dq pass take one block per (batch, head,
+64-query tile) and cut the K loop at the causal diagonal; the dk/dv pass
+takes one block per (batch, head, 64-key tile) and starts its Q loop at
+the first query tile that reaches it.  `csrc/flash_attention.cu` holds
+the forward and the float32 backward (CUDA cores);
+`csrc/flash_attention_bwd.cu` the bfloat16 backward on the tensor cores
+(`wgmma`, p and ds rounded to bf16 where the Pallas kernels round
+them).  Each source's note gives the H100 bound and what the design does
+about it.
 
 Operands are (B, H, S, D) in float32 or bfloat16.  The kernels take D in
 {64, 128} and raise on others; they read and write through the batch,
 head and sequence strides, so a transposed view costs no copy, but the
-last axis must be contiguous.  Outputs and gradients are allocated with
-q's (k's, v's) strides (``empty_like``), so the transposes around them
-are free too.  `flash_attention_bsd` takes (B, S, E) operands and hands
-the (B, H, S, D) view of their heads to the same kernels: no copy.
+last axis must be contiguous.  The bf16 backward copies 16-byte rows, so
+its operands must also be 16-byte aligned with strides that are multiples
+of 8 elements (it raises on others; the out cotangent is copied).
+Outputs and gradients are allocated with q's (k's, v's) strides
+(``empty_like``) where those are aligned, so the transposes around them
+are free too; the 'ds' route's copies and outputs pad the storage of
+their sequence axis to a multiple of 16 bytes.  `flash_attention_bsd`
+takes (B, S, E) operands and hands the (B, H, S, D) view of their heads
+to the same kernels: no copy.
 
 Routes.  Each call resolves its route from the environment, read at
 every call as the JAX package reads it at every trace, and counts its
@@ -64,7 +72,7 @@ whole-K/V VMEM model `_stream_residency_fits` (unpinned, bsd is
 path.  ``MXNET_FLASH_BLOCK_K`` and the ``block_k`` argument set the plain
 versions' K block; the plain versions have no Q block, so there is no
 ``block_q`` (``MXNET_FLASH_BLOCK_Q`` is not read), and the kernels keep
-their 64-row tiles.
+their 64-position tiles.
 
 `flash_attention` and `flash_attention_bsd` are `torch.autograd.Function`s
 over (out, lse): the backward folds the lse cotangent into delta_i =
@@ -138,7 +146,7 @@ def _flash_fwd_plain(q, k, v, q_off, k_off, scale, causal,
 def _delta(o, g, glse, dim=3):
     """delta_i = sum_d dO_id O_id - glse_i, float32 (B, H, Sq); ``dim`` is
     the head_dim axis (2 in dS layout)."""
-    delta = (g.float() * o.float()).sum(dim=dim)
+    delta = (g.float() * o).sum(dim=dim)
     return delta if glse is None else delta - glse.float()
 
 
@@ -230,17 +238,27 @@ def _count(route, kind):
 # -- the CUDA kernels ---------------------------------------------------------
 
 
-def _lib():
-    lib = _build.load("flash_attention")
-    fwd, bwd = lib.mxt_flash_attention_fwd, lib.mxt_flash_attention_bwd
-    if fwd.argtypes is None:
+# the backward's C entry for each dtype: (source, function), both with
+# `mxt_flash_attention_bwd`'s argument list
+_BWD_ENTRIES = {
+    torch.float32: ("flash_attention", "mxt_flash_attention_bwd"),
+    torch.bfloat16: ("flash_attention_bwd", "mxt_flash_attention_bwd_bf16")}
+
+
+def _lib(name="flash_attention"):
+    """The loaded library of source ``name``, its entries typed."""
+    lib = _build.load(name)
+    bwd = getattr(lib, dict(_BWD_ENTRIES.values())[name])
+    if bwd.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fwd.argtypes = ([i, i, i, p, p, p, p, p, i, i, i, i] + [ll] * 12
-                        + [i, i, i, ctypes.c_float, p])
-        fwd.restype = i
         bwd.argtypes = ([i, i, i, i] + [p] * 8 + [i, i, i, i] + [ll] * 18
                         + [i, i, i, ctypes.c_float, p])
         bwd.restype = i
+        if name == "flash_attention":
+            fwd = lib.mxt_flash_attention_fwd
+            fwd.argtypes = ([i, i, i, p, p, p, p, p, i, i, i, i] + [ll] * 12
+                            + [i, i, i, ctypes.c_float, p])
+            fwd.restype = i
     return lib
 
 
@@ -279,12 +297,29 @@ def _check_cuda_args(q, k, v, ds=False):
     _build.check_current_device(q.device, "flash_attention")
 
 
+def _aligned(t):
+    """Whether the bf16 backward can copy t's rows: 16-byte aligned, the
+    batch, head and third strides multiples of 16 bytes."""
+    return t.data_ptr() % 16 == 0 and all(
+        s * t.element_size() % 16 == 0 for s in t.stride()[:3])
+
+
+def _empty_aligned(shape, dtype, device):
+    """An empty 4-D tensor whose last axis is contiguous and whose storage
+    pads that axis to a multiple of 16 bytes, so `_aligned` holds."""
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    padded = -(-shape[3] // per) * per
+    return torch.empty((*shape[:3], padded), dtype=dtype,
+                       device=device)[..., :shape[3]]
+
+
 def _like(t):
     """An empty tensor shaped as t, with t's strides where its last axis is
-    contiguous (so a transposed view's gradient is the same view)."""
+    contiguous and they are aligned (so a transposed view's gradient is the
+    same view), else `_empty_aligned`."""
     out = torch.empty_like(t)
-    if out.stride(3) != 1:
-        out = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+    if out.stride(3) != 1 or not _aligned(out):
+        out = _empty_aligned(t.shape, t.dtype, t.device)
     return out
 
 
@@ -323,24 +358,31 @@ def _flash_bwd_cuda(q, k, v, o, lse, g, glse, q_off, k_off, scale, causal,
         raise MXNetError("flash_attention backward: the out cotangent must "
                          "be %s %s, got %s %s" % (tuple(q.shape), q.dtype,
                                                   tuple(g.shape), g.dtype))
-    if g.stride(3) != 1:
-        g = g.contiguous()
+    if q.dtype == torch.bfloat16 and not all(
+            _aligned(t) for t in (q, k, v)):
+        raise MXNetError("flash_attention backward: the bf16 kernels copy "
+                         "16-byte rows, so q, k and v must be 16-byte "
+                         "aligned with batch, head and %s strides that are "
+                         "multiples of 8 elements, got strides %s %s %s"
+                         % ("head_dim" if ds else "sequence", q.stride(),
+                            k.stride(), v.stride()))
+    if g.stride(3) != 1 or not _aligned(g):
+        g = _like(g).copy_(g)
     delta = _delta(o, g, glse, 2 if ds else 3).contiguous()
     lse = lse.contiguous()
     dq, dk, dv = _like(q), _like(k), _like(v)
-    lib = _lib()
+    source, entry = _BWD_ENTRIES[q.dtype]
+    launch = getattr(_lib(source), entry)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     common = (_DTYPES[q.dtype], d, int(ds), q.data_ptr(), k.data_ptr(),
               v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr())
     tail = (q_off, k_off, int(causal), float(scale), stream)
-    err = lib.mxt_flash_attention_bwd(
-        0, *common, dq.data_ptr(), None, b, h, sq, skv,
-        *_strides(q, k, v, g, dq, dq), *tail)
+    err = launch(0, *common, dq.data_ptr(), None, b, h, sq, skv,
+                 *_strides(q, k, v, g, dq, dq), *tail)
     _build.check(err, "flash_attention dq launch")
     _count(route, "dq_launches")
-    err = lib.mxt_flash_attention_bwd(
-        1, *common, dk.data_ptr(), dv.data_ptr(), b, h, sq, skv,
-        *_strides(q, k, v, g, dk, dv), *tail)
+    err = launch(1, *common, dk.data_ptr(), dv.data_ptr(), b, h, sq, skv,
+                 *_strides(q, k, v, g, dk, dv), *tail)
     _build.check(err, "flash_attention dk/dv launch")
     _count(route, "dkv_launches")
     return dq, dk, dv
@@ -361,9 +403,12 @@ def _plain(q, route):
 
 
 def _to_ds(t):
-    """The contiguous (B, H, D, S) copy of a (B, H, S, D) tensor: the JAX
-    function's boundary swap."""
-    return t.transpose(2, 3).contiguous()
+    """The (B, H, D, S) copy of a (B, H, S, D) tensor, the JAX function's
+    boundary swap: S contiguous, its storage padded to a multiple of 16
+    bytes (`_empty_aligned`)."""
+    b, h, s, d = t.shape
+    return _empty_aligned((b, h, d, s), t.dtype, t.device).copy_(
+        t.transpose(2, 3))
 
 
 def _forward(q, k, v, args, with_lse, route, block):
