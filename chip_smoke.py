@@ -16,10 +16,15 @@ Phases, each of which fails the run with a non-zero exit:
    each check, and time the kernel, the plain version and one PyTorch
    library call that computes the same function (a yardstick the port
    never calls) with CUDA events, beside the least time the card could
-   take; the bf16 flash backward (tensor cores) is held against the plain
-   backward in float32 on the same bf16 operands, must give bit-identical
-   gradients twice, and reports its TFLOP/s, its share of the bound and
-   ptxas's spill bytes;
+   take; the bf16 flash forward and backward (tensor cores) are held
+   against the plain versions in float32 on the same bf16 operands, must
+   give bit-identical results twice, and report their TFLOP/s, their
+   share of the bound and ptxas's spill bytes; flash attention at head
+   widths 16 (the plain route), 32, 48, 80 and 96 (zero-padded to the
+   kernels' widths) and 160 (refused), forward and backward, float32 and
+   bf16, on all four kernel routes, each on its route's counters; and
+   LayerNorm over rows wider than its register kernels hold (16384 and
+   12300);
 3. serve 16 requests at GPT-2-small widths through the default (paged)
    `ServingEngine`, count each kernel's launches, and check the logits
    of two finished requests against the plain float32 path;
@@ -50,10 +55,10 @@ Phases, each of which fails the run with a non-zero exit:
    its launches; and one f32 step's gradients of the fused configuration
    through the kernels against their plain versions;
 11. hold the dS route's kernels and the grid-streamed bsd route's against
-   their plain versions, in float32 and bf16, at the long-context
-   training shapes ((8, 6, 4096, 128) and (4, 6, 8192, 128), causal,
-   timed beside SDPA) and at ragged ones with offsets and head 64, and
-   check the plain pins (``MXNET_FLASH_IMPL=jnp``,
+   their plain versions (bf16 as in phase 2), in float32 and bf16, at the
+   long-context training shapes ((8, 6, 4096, 128) and (4, 6, 8192,
+   128), causal, timed beside SDPA) and at ragged ones with offsets and
+   head 64, and check the plain pins (``MXNET_FLASH_IMPL=jnp``,
    ``MXNET_FLASH_BWD=jnp``) and a mistyped ``MXNET_FLASH_BSD_KERNEL``;
 12. train `scripts/diag_round5.py`'s long-context configurations (6
    heads of 128, biases, bf16 Adam v) at full width for 5 steps each:
@@ -78,6 +83,7 @@ import functools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -94,9 +100,9 @@ from mxnet_tpu_torch.ops import loss as loss_mod
 from mxnet_tpu_torch.ops.pallas_kernels import _build
 from mxnet_tpu_torch.ops.pallas_kernels import fused_ce as fce
 from mxnet_tpu_torch.ops.pallas_kernels.flash_attention import (
-    _delta, _flash_bwd_cuda, _flash_bwd_plain, _flash_fwd_cuda, _to_ds,
-    flash_attention, flash_attention_bsd, flash_attention_bsd_plain,
-    flash_attention_plain)
+    _delta, _flash_bwd_cuda, _flash_bwd_plain, _flash_fwd_cuda,
+    _flash_fwd_plain, _to_ds, flash_attention, flash_attention_bsd,
+    flash_attention_bsd_plain, flash_attention_plain)
 from mxnet_tpu_torch.ops.pallas_kernels.layer_norm import (
     _bwd_plain as layer_norm_bwd_plain, _fwd_plain as layer_norm_fwd_plain,
     layer_norm_bwd, layer_norm_fwd, layer_norm_plain)
@@ -122,18 +128,18 @@ GPT2 = dict(vocab_size=50257, seq_len=1024, num_layers=12, num_heads=12,
 #   wrong formula, mask or offset;
 # * bfloat16 LayerNorm: both round the same float32 result to bf16, so an
 #   element may land one bf16 ulp apart, at most 2**-7 of its value;
-# * bfloat16 flash attention: the 7e-3 bar the JAX package's Pallas
-#   kernels held against their jnp twins (pallas_parity).
-# The bf16 flash backward (phases 2 and 11) is held to ``REL_TOL`` against
-# the plain backward run in float32 on float32 copies of the same bf16
-# operands and residuals: the tensor-core kernels round p and ds to bf16
-# where the Pallas kernels do, the plain version does not, and the plain
-# version's own bf16 output rounding (~2.8e-3 of max|ref|) would take
-# most of the bar; the bf16 plain comparison is printed beside it.
+# * bfloat16 flash attention: ``REL_TOL`` below.
+# The bf16 flash forward and backward (phases 2 and 11) are held to
+# ``REL_TOL`` (7e-3 of max|ref|) against the plain versions run in
+# float32 on float32 copies of the same bf16 operands and residuals: the
+# tensor-core kernels round p (and ds) to bf16 as the mma's operand where
+# the plain version does not, and the plain version's own bf16 output
+# rounding (~2.8e-3 of max|ref|) would take most of the bar; the bf16
+# plain comparison is printed beside it.  lse is float32 in both and held
+# at the float32 tolerance.
 TOL = {("layer_norm", torch.float32): (1e-5, 1e-5),
        ("layer_norm", torch.bfloat16): (2 ** -7, 1e-5),
-       ("flash_attention", torch.float32): (1e-5, 1e-5),
-       ("flash_attention", torch.bfloat16): (0.0, 7e-3)}
+       ("flash_attention", torch.float32): (1e-5, 1e-5)}
 
 # Logit check of the served requests (phase 3): the engine's kernel path
 # in float32 against the plain versions in float32.  The two differ only
@@ -171,7 +177,7 @@ MFU_PEAK = PEAK_FLOPS[torch.bfloat16]
 
 # The kernels line: one entry per TPU function ported, with the counters
 # whose launches it reports (the first is its ``launches``).  The line
-# reports bf16, so the backward rows name the tensor-core source; their
+# reports bf16, so the flash rows name the tensor-core sources; their
 # float32 launches run flash_attention.cu's kernels.
 TPU = "mxnet_tpu/ops/pallas_kernels/"
 KERNEL_ROWS = [
@@ -179,25 +185,26 @@ KERNEL_ROWS = [
      ["layer_norm"]),
     ("layer_norm_bwd", "layer_norm.cu", TPU + "layer_norm.py:119",
      ["layer_norm_bwd"]),
-    ("flash_attention", "flash_attention.cu", TPU + "flash_attention.py:155",
+    ("flash_attention", "flash_attention_fwd.cu",
+     TPU + "flash_attention.py:155",
      ["flash_attention"]),
     ("flash_attention_bwd", "flash_attention_bwd.cu",
      TPU + "flash_attention.py:372",
      ["flash_attention_dq", "flash_attention_dkv"]),
-    ("flash_attention_bsd", "flash_attention.cu",
+    ("flash_attention_bsd", "flash_attention_fwd.cu",
      TPU + "flash_attention.py:988", ["flash_attention_bsd"]),
     ("flash_attention_bsd_bwd", "flash_attention_bwd.cu",
      TPU + "flash_attention.py:1158",
      ["flash_attention_bsd_dq", "flash_attention_bsd_dkv"]),
     # the dS layout: the kernels' S-contiguous orientation
-    ("flash_attention_ds", "flash_attention.cu",
+    ("flash_attention_ds", "flash_attention_fwd.cu",
      TPU + "flash_attention.py:623", ["flash_attention_ds"]),
     ("flash_attention_ds_bwd", "flash_attention_bwd.cu",
      TPU + "flash_attention.py:794",
      ["flash_attention_ds_dq", "flash_attention_ds_dkv"]),
     # the grid-streamed bsd structure: rows 7 and 8's kernels on their
     # own counters
-    ("flash_attention_bsd_stream", "flash_attention.cu",
+    ("flash_attention_bsd_stream", "flash_attention_fwd.cu",
      TPU + "flash_attention.py:1342", ["flash_attention_bsd_stream"]),
     ("flash_attention_bsd_stream_bwd", "flash_attention_bwd.cu",
      TPU + "flash_attention.py:1510",
@@ -238,6 +245,16 @@ COUNTERS = {
     "fused_ce_bwd_dw": (fce.fused_ce_bwd_dw, "launches"),
     "fused_ce_bwd_dx": (fce.fused_ce_bwd_dx, "launches"),
 }
+# each flash route's calls whose head width was zero-padded to the
+# kernels' or sent to the plain versions (below 32)
+for _name, _fn, _prefix in (
+        ("flash_attention", flash_attention, ""),
+        ("flash_attention_ds", flash_attention, "ds_"),
+        ("flash_attention_bsd", flash_attention_bsd, ""),
+        ("flash_attention_bsd_stream", flash_attention_bsd, "stream_")):
+    COUNTERS[_name + "_padded"] = (_fn, _prefix + "padded_calls")
+    COUNTERS[_name + "_narrow"] = (_fn, _prefix + "narrow_calls")
+del _name, _fn, _prefix
 
 
 def log(*args):
@@ -365,27 +382,32 @@ def time_auto(fn, budget_ms=600.0):
     return time_ms(fn, reps=reps, per=per, warm=1)
 
 
-def spill_bytes(name):
-    """ptxas's spill stores and loads per kernel of source ``name``, from
-    its build log: {mangled kernel name: (store bytes, load bytes)}."""
+def ptxas_info(name):
+    """ptxas's registers and spill bytes per kernel of source ``name``, from
+    its build log: {mangled kernel name: {"registers": n, "spill_bytes":
+    (stores, loads)}}."""
     out, kernel = {}, None
     for ln in _build.build_log(name).splitlines():
         if "Compiling entry function" in ln:
             kernel = ln.split("'")[1]
+            out[kernel] = {}
         elif "spill stores" in ln and kernel is not None:
             words = ln.split()
-            out[kernel] = (int(words[words.index("spill") - 2]),
-                           int(words[words.index("loads") - 3]))
+            out[kernel]["spill_bytes"] = (
+                int(words[words.index("spill") - 2]),
+                int(words[words.index("loads") - 3]))
+        elif "Used" in ln and "registers" in ln and kernel is not None:
+            out[kernel]["registers"] = int(ln.split("Used")[1].split()[0])
     return out
 
 
-def bwd_spills(d, layout):
-    """Spill bytes (stores, loads) of the bf16 backward's dq and dk/dv
-    kernels at head_dim ``d`` in ``layout`` (0 or 1)."""
+def mma_ptxas(source, d, layout):
+    """ptxas's registers and spill bytes of the bf16 tensor-core kernels of
+    ``source`` at head_dim ``d`` in ``layout`` (0 or 1), by kernel: 'fwd',
+    or the backward's 'bwd_dq' and 'bwd_dkv'."""
     tag = "ILi%dELb%dE" % (d, layout)
-    return {k.split("flash_bwd_")[1].split("_mma")[0]: v
-            for k, v in spill_bytes("flash_attention_bwd").items()
-            if tag in k}
+    return {re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_mma_kernel", k).group(1):
+            v for k, v in ptxas_info(source).items() if tag in k}
 
 
 def check(name, dtype, got, ref):
@@ -460,9 +482,25 @@ def flash_case(sq, skv, causal, q_off, k_off, dtype, gen, heads=12, d=64,
     q, k, v = make(sq), make(skv), make(skv)
     kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
     out, lse = flash_attention(q, k, v, with_lse=True, **kw)
+    again = flash_attention(q, k, v, with_lse=True, **kw)
     torch.cuda.synchronize()
     rout, rlse = flash_attention_plain(q, k, v, with_lse=True, **kw)
-    err, ok, tol = check("flash_attention", dtype, out, rout)
+    extra = {}
+    if dtype == torch.bfloat16:
+        # held against the plain version in float32 on the same operands
+        # (see REL_TOL); the bf16 plain one printed beside it
+        r32, rlse = flash_attention_plain(q.float(), k.float(), v.float(),
+                                          with_lse=True, **kw)
+        err, rel, ok = rel_check(dtype, [(out, r32)])
+        same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        extra = {"rel_err": rel, "rel_tol": REL_TOL[dtype],
+                 "reference": "plain float32 on the bf16 operands",
+                 "bf16_plain_rel_err": rel_check(dtype, [(out, rout)])[1],
+                 "bit_identical": same}
+        ok = ok and same
+    else:
+        err, ok, tol = check("flash_attention", dtype, out, rout)
+        extra = {"rtol": tol[0], "atol": tol[1]}
     e2, ok2, _ = check("flash_attention", torch.float32, lse, rlse)
     err, ok = max(err, e2), ok and ok2
     if causal and (q_off, k_off) == (0, 0) and sq == skv:
@@ -482,8 +520,7 @@ def flash_case(sq, skv, causal, q_off, k_off, dtype, gen, heads=12, d=64,
         "kernel": "flash_attention", "shape": [batch, heads, sq, skv, d],
         "causal": causal, "q_offset": q_off, "k_offset": k_off,
         "strided": strided,
-        "dtype": str(dtype), "max_abs_err": err, "ok": ok, "rtol": tol[0],
-        "atol": tol[1],
+        "dtype": str(dtype), "max_abs_err": err, "ok": ok, **extra,
         "ms": time_ms(lambda: flash_attention(q, k, v, **kw)),
         "ms_with_launch": time_with_launch_ms(
             lambda: flash_attention(q, k, v, **kw)),
@@ -507,7 +544,7 @@ def kernel_checks():
     # batch and head strides of transposed views
     cases.append(flash_case(150, 150, True, 0, 0, torch.float32, gen,
                             batch=3, strided=True))
-    # row widths off the 256-thread grid, up to the kernel's widest
+    # row widths off the 256-thread grid, up to the register kernels' widest
     for rows, n in ((64, 1000), (16, 8192)):
         cases.append(layer_norm_case(rows, torch.float32, gen, n=n))
     for c in cases:
@@ -636,10 +673,6 @@ def flash_train_case(layout, batch, heads, d, dtype, gen, sq=1024,
             raise SystemExit("%s %s: launches %s, expected %s"
                              % (name, dtype, launched, want))
         rout, rlse, rgrads = through(plain)
-        f_err = rel_check(dtype, [(out, rout)])
-        lse_err = rel_check(torch.float32, [(lse, rlse)])
-        f_err = (max(f_err[0], lse_err[0]), max(f_err[1], lse_err[1]),
-                 f_err[2] and lse_err[2])
         shape = [batch, heads, sq, skv, d]
         # the kernel path's own residuals, (B, H, S, D) and in the
         # kernels' layout
@@ -652,7 +685,28 @@ def flash_train_case(layout, batch, heads, d, dtype, gen, sq=1024,
             kq, kk, kv, ko, kg = (_to_ds(t) for t in (q4, k4, v4, o4, g4))
         else:
             kq, kk, kv, ko, kg = q4, k4, v4, o4, g4
-        extra_bwd = {}
+        extra_fwd, extra_bwd = {}, {}
+        if dtype == torch.bfloat16:
+            # held against the plain forward in float32 on float32 copies
+            # of the same operands (see REL_TOL); the bf16 plain one printed
+            out32, lse32 = _flash_fwd_plain(
+                *(t.float() for t in (q4, k4, v4)), *args)
+            f_err = combine(rel_check(dtype, [(o4, out32)]),
+                            rel_check(torch.float32, [(lse, lse32)]))
+            del out32, lse32
+            # two launches on the same inputs: bit-identical out and lse
+            once = _flash_fwd_cuda(kq, kk, kv, *args, True, route)
+            again = _flash_fwd_cuda(kq, kk, kv, *args, True, route)
+            same = all(torch.equal(a, b) for a, b in zip(once, again))
+            del once, again
+            f_err = (f_err[0], f_err[1], f_err[2] and same)
+            extra_fwd = {"reference": "plain float32 on the bf16 operands",
+                         "bf16_plain_rel_err": rel_check(
+                             dtype, [(out, rout)])[1],
+                         "bit_identical": same}
+        else:
+            f_err = combine(rel_check(dtype, [(out, rout)]),
+                            rel_check(torch.float32, [(lse, rlse)]))
         if dtype == torch.bfloat16:
             # held against the plain backward in float32 on float32 copies
             # of the same operands (see REL_TOL); the bf16 plain one printed
@@ -676,7 +730,8 @@ def flash_train_case(layout, batch, heads, d, dtype, gen, sq=1024,
         else:
             b_err = rel_check(dtype, list(zip(grads, rgrads)))
         if not timed:
-            return [_record(name, shape, dtype, f_err, False),
+            return [dict(_record(name, shape, dtype, f_err, False),
+                         **extra_fwd),
                     dict(_record(name + "_bwd", shape, dtype, b_err, False),
                          **extra_bwd)]
         isz = q.element_size()
@@ -705,9 +760,15 @@ def flash_train_case(layout, batch, heads, d, dtype, gen, sq=1024,
                       library_ms=time_auto(
                           lambda: F.scaled_dot_product_attention(
                               q4, k4, v4, is_causal=causal)),
-                      bound_ms=fb[0], bound_by=fb[1])
+                      bound_ms=fb[0], bound_by=fb[1], **extra_fwd)
         if layout == "ds":
             fwd["route_ms"] = time_auto(route_fwd)
+        # the rate the function's 4·d operations a visible pair reach
+        fwd["tflops"] = 4 * d * pairs / (fwd["ms"] * 1e-3) / 1e12
+        fwd["bound_share"] = fwd["bound_ms"] / fwd["ms"]
+        if dtype == torch.bfloat16:
+            fwd["ptxas"] = mma_ptxas("flash_attention_fwd", d,
+                                     int(layout == "ds"))
         bwd = _record(name + "_bwd", shape, dtype, b_err, True,
                       ms=time_auto(lambda: _flash_bwd_cuda(
                           kq, kk, kv, ko, lse, kg, glse, *args, route)),
@@ -723,7 +784,8 @@ def flash_train_case(layout, batch, heads, d, dtype, gen, sq=1024,
         bwd["tflops"] = 10 * d * pairs / (bwd["ms"] * 1e-3) / 1e12
         bwd["bound_share"] = bwd["bound_ms"] / bwd["ms"]
         if dtype == torch.bfloat16:
-            bwd["spill_bytes"] = bwd_spills(d, int(layout == "ds"))
+            bwd["ptxas"] = mma_ptxas("flash_attention_bwd", d,
+                                     int(layout == "ds"))
         return [fwd, bwd]
 
 
@@ -746,16 +808,87 @@ def describe(c):
     if "route_ms" in c:
         line += "; route with its boundary copies %.4f ms" % c["route_ms"]
     if "tflops" in c:
-        line += ("; %.1f TFLOP/s (10·d a visible pair), %.3f of the bound; "
-                 "the wrapper's delta %.4f ms of it"
-                 % (c["tflops"], c["bound_share"], c["delta_ms"]))
+        line += ("; %.1f TFLOP/s (%s·d a visible pair), %.3f of the bound"
+                 % (c["tflops"], 10 if "delta_ms" in c else 4,
+                    c["bound_share"]))
+    if "delta_ms" in c:
+        line += "; the wrapper's delta %.4f ms of it" % c["delta_ms"]
     if "bf16_plain_rel_err" in c:
-        line += ("; vs the plain f32 backward of the bf16 operands, beside "
+        line += ("; vs the plain f32 version on the bf16 operands, beside "
                  "it the bf16 plain one %.2e; bit-identical twice: %s"
                  % (c["bf16_plain_rel_err"], c["bit_identical"]))
-    if "spill_bytes" in c:
-        line += "; ptxas spill (stores, loads) bytes %s" % c["spill_bytes"]
+    if "ptxas" in c:
+        line += "; ptxas registers, spill (stores, loads) bytes %s" % c[
+            "ptxas"]
     return line
+
+
+def width_case(d, dtype, layout, gen, batch=2, heads=3, s=200, q_off=24):
+    """Flash attention at head_dim ``d`` through the public function and
+    route of ``layout`` (a key of `FLASH_LAYOUTS`), forward and backward
+    (lse cotangent included), against the plain versions: float32 against
+    float32 at ``REL_TOL``; bf16 against the plain versions in float32 on
+    the same bf16 operands, as the kernels' own checks.  The call must
+    count on its route: below 32 one plain-route call and no launch; 32
+    to 127 one padded call and one forward, dq and dk/dv launch."""
+    pins, name, route = FLASH_LAYOUTS[layout]
+    bsd = layout in ("bsd", "stream")
+    fn = flash_attention_bsd if bsd else flash_attention
+    plain = flash_attention_bsd_plain if bsd else flash_attention_plain
+    extra = (heads,) if bsd else ()
+
+    def make():
+        t = torch.randn(batch, s, heads, d, device="cuda", generator=gen)
+        t = t.to(dtype)
+        return t.reshape(batch, s, heads * d) if bsd else t.transpose(1, 2)
+
+    q, k, v, g = make(), make(), make(), make()
+    glse = torch.randn(batch, heads, s, device="cuda", generator=gen)
+
+    def through(f, ts):
+        leaves = [t.detach().clone().requires_grad_() for t in ts]
+        out, lse = f(*leaves, *extra, causal=True, q_offset=q_off,
+                     with_lse=True)
+        torch.autograd.backward((out, lse), (g.to(out.dtype), glse))
+        return [out, lse] + [t.grad for t in leaves]
+
+    with pinned(**pins):
+        reset_counts()
+        got = through(fn, (q, k, v))
+        torch.cuda.synchronize()
+        launched = {c: n for c, n in read_counts().items() if n}
+    want = ({name + "_narrow": 1} if d < 32 else
+            {name: 1, name + "_dq": 1, name + "_dkv": 1, name + "_padded": 1})
+    ref = through(plain, [t.float() for t in (q, k, v)])
+    err = combine(rel_check(dtype, [(got[0], ref[0])] + list(zip(got[2:],
+                                                                  ref[2:]))),
+                  rel_check(torch.float32, [(got[1], ref[1])]))
+    rec = _record("flash_attention width %d (%s)" % (d, layout),
+                  [batch, heads, s, s, d], dtype,
+                  (err[0], err[1], err[2] and launched == want), False)
+    rec["launches"] = launched
+    return rec
+
+
+def width_checks(gen):
+    """The head widths the kernels do not take natively, on every route in
+    both dtypes, and a head of 160, which the kernel routes refuse."""
+    cases = [width_case(d, dtype, layout, gen)
+             for d in (16, 32, 48, 80, 96)
+             for dtype in (torch.float32, torch.bfloat16)
+             for layout in FLASH_LAYOUTS]
+    x = torch.zeros(1, 2, 64, 160, device="cuda")
+    for fn, args in ((flash_attention, (x, x, x)),
+                     (flash_attention_bsd, (x[0], x[0], x[0], 1))):
+        try:
+            fn(*args, causal=True)
+            raised = False
+        except mx.MXNetError as e:
+            raised = "160" in str(e)
+        cases.append(_record("%s width 160 raises" % fn.__name__,
+                             [1, 2, 64, 64, 160], torch.float32,
+                             (0.0, 0.0, raised), False))
+    return cases
 
 
 def training_kernel_checks():
@@ -779,7 +912,7 @@ def training_kernel_checks():
     # causal with offsets: the dk/dv loop's first query tile moves
     cases += flash_train_case("bsd", 1, 2, 128, torch.float32, gen, sq=256,
                               skv=768, q_off=512, timed=False)
-    # the bf16 backward's ragged tiles at head 128, in both layouts: the
+    # the bf16 kernels' ragged tiles at head 128, in both layouts: the
     # causal diagonal 37 positions into a 64-position tile, a 13-position
     # tail (333 = 5 * 64 + 13, not a multiple of 8: the dS copies pad their
     # rows), and rows that see no key (k_off 50)
@@ -788,6 +921,12 @@ def training_kernel_checks():
                                   sq=333, skv=333, q_off=37, timed=False)
         cases += flash_train_case(layout, 2, 2, 128, torch.bfloat16, gen,
                                   sq=200, skv=333, k_off=50, timed=False)
+    cases += width_checks(gen)
+    # rows wider than the LayerNorm register kernels hold: the wide-row
+    # kernels, at a power of two (timed) and a ragged width
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += layer_norm_train_case(1024, dtype, gen, n=16384)
+        cases += layer_norm_train_case(64, dtype, gen, n=12300, timed=False)
     for c in cases:
         log(describe(c))
     log("card after the training kernel checks (sm clock, mem clock, power, "
@@ -1476,7 +1615,8 @@ def train_path(label, cfg, steps, expect, trainer_kw=None, falls=True,
             "device_idle_share": 1 - busy / wall,
             "kernel_ms": {k: kernel_ms(device, k) for k in (
                 "ln_fwd_kernel", "ln_bwd_kernel", "ln_bwd_reduce_kernel",
-                "flash_fwd_kernel", "flash_bwd_dq_kernel",
+                "flash_fwd_kernel", "flash_fwd_mma_kernel",
+                "flash_bwd_dq_kernel",
                 "flash_bwd_dkv_kernel", "flash_bwd_dq_mma_kernel",
                 "flash_bwd_dkv_mma_kernel", "fused_ce_kernel")},
             "top_device_ops_ms": device[:10], "top_host_ops_ms": host}
@@ -1661,6 +1801,9 @@ def kernels_line(cases, paths):
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
             "library_ms": at["library_ms"],
             "route_ms": at.get("route_ms"),
+            **{k: at[k] for k in ("tflops", "bound_share", "ptxas",
+                                  "bit_identical", "bf16_plain_rel_err")
+               if k in at},
             "checks": [{k: c.get(k) for k in (
                 "shape", "dtype", "max_abs_err", "rel_err", "rel_tol",
                 "rtol", "atol")} for c in cases if c["kernel"] == name]}
@@ -1707,8 +1850,9 @@ def main():
                 for ln in _build.build_log(name).splitlines()
                 if "registers" in ln]
         log("ptxas %s: %s" % (name, regs))
-    log("ptxas spill (stores, loads) bytes, flash_attention_bwd: %s"
-        % spill_bytes("flash_attention_bwd"))
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        log("ptxas registers, spill (stores, loads) bytes, %s: %s"
+            % (name, ptxas_info(name)))
 
     with phase("kernel checks"):
         cases = kernel_checks() + training_kernel_checks()

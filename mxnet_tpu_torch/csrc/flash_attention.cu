@@ -1,6 +1,7 @@
 // Flash-attention forward and backward on Hopper.
 //
-// FORWARD.
+// FORWARD, float32.  In bfloat16 the forward runs on the tensor cores, in
+// flash_attention_fwd.cu.
 // Replaces mxnet_tpu/ops/pallas_kernels/flash_attention.py
 // `_flash_fwd_pallas` / `_fwd_kernel` and, through strides,
 // `_flash_fwd_pallas_bsd`: softmax(scale * Q K^T) V over (B, H, S, D)
@@ -10,8 +11,7 @@
 // Under causal masking query i (global position q_off + i) sees key j
 // (global position k_off + j) iff q_off + i >= k_off + j, and each
 // query tile's K loop stops at the diagonal computed from the offsets.
-// It writes out in q's dtype and, when asked, lse = m + log(l) (B, H, Sq)
-// float32.  A row that sees no key gets out = 0 and lse = -1e30 + log 1,
+// It writes out and, when asked, lse = m + log(l) (B, H, Sq) float32.  A row that sees no key gets out = 0 and lse = -1e30 + log 1,
 // never NaN: masked scores contribute an exact 0 to l and acc.
 //
 // Bound on the H100: at the serving prefill's head_dim 64 the work is
@@ -90,7 +90,6 @@
 // H and B at most 65535 (checked); lse and delta rows are addressed as
 // ((b * H + h) * Sq + i) in 64 bits.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -99,22 +98,6 @@ constexpr int kThreads = 256;
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // Offset of element (row i, column d) of an operand: in layout 0 (SC
 // false) st is the row (sequence) stride and columns are contiguous; in
@@ -141,14 +124,14 @@ __device__ __forceinline__ void tile_pos(int idx, int& i, int& d) {
 // Layout 1's store: a (ROWS, D) float tile staged in shared memory with
 // pitch D + 1 goes to rows row0 .. row0 + ROWS - 1 of dst (those below
 // nrows), along S.
-template <typename T, int ROWS, int D>
-__device__ __forceinline__ void store_tile_sc(T* dst, const float* tile,
+template <int ROWS, int D>
+__device__ __forceinline__ void store_tile_sc(float* dst, const float* tile,
                                               int row0, int nrows,
                                               long long st) {
   for (int idx = threadIdx.x; idx < ROWS * D; idx += kThreads) {
     const int i = idx % ROWS, d = idx / ROWS;
     if (row0 + i < nrows) {
-      dst[at<true>(row0 + i, d, st)] = from_float<T>(tile[i * (D + 1) + d]);
+      dst[at<true>(row0 + i, d, st)] = tile[i * (D + 1) + d];
     }
   }
 }
@@ -180,7 +163,7 @@ constexpr int smem_floats() {
          kBlockQ * (kBlockK + 1);
 }
 
-template <typename T, int D, bool SC>
+template <int D, bool SC>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   constexpr int VP = v_pitch<D, SC>();
   extern __shared__ float smem[];
@@ -196,17 +179,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
 
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-  T* o = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
+  const float* q = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* k = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const float* v = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
+  float* o = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh;
 
   for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
     int i, d;
     tile_pos<SC, kBlockQ, D>(idx, i, d);
     const int qi = q0 + i;
     qs[i * (D + 1) + d] =
-        qi < a.sq ? to_float(q[at<SC>(qi, d, a.q_st)]) * a.scale : 0.f;
+        qi < a.sq ? q[at<SC>(qi, d, a.q_st)] * a.scale : 0.f;
   }
 
   int nkb = (a.skv + kBlockK - 1) / kBlockK;
@@ -231,8 +214,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
       tile_pos<SC, kBlockK, D>(idx, j, d);
       const int kj = k0 + j;
       const bool in = kj < a.skv;
-      ks[j * (D + 1) + d] = in ? to_float(k[at<SC>(kj, d, a.k_st)]) : 0.f;
-      vs[j * VP + d] = in ? to_float(v[at<SC>(kj, d, a.v_st)]) : 0.f;
+      ks[j * (D + 1) + d] = in ? k[at<SC>(kj, d, a.k_st)] : 0.f;
+      vs[j * VP + d] = in ? v[at<SC>(kj, d, a.v_st)] : 0.f;
     }
     __syncthreads();
 
@@ -296,35 +279,35 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
 #pragma unroll
     for (int c = 0; c < D / 4; ++c) qs[r * (D + 1) + sub + 4 * c] = acc[c] * inv;
     __syncthreads();
-    store_tile_sc<T, kBlockQ, D>(o, qs, q0, a.sq, a.o_st);
+    store_tile_sc<kBlockQ, D>(o, qs, q0, a.sq, a.o_st);
   } else if (qi < a.sq) {
-    T* orow = o + qi * a.o_st + sub;
+    float* orow = o + qi * a.o_st + sub;
 #pragma unroll
-    for (int c = 0; c < D / 4; ++c) orow[4 * c] = from_float<T>(acc[c] * inv);
+    for (int c = 0; c < D / 4; ++c) orow[4 * c] = acc[c] * inv;
   }
   if (qi < a.sq && a.lse != nullptr && sub == 0) {
     a.lse[((long long)b * a.heads + h) * a.sq + qi] = m + logf(l_safe);
   }
 }
 
-template <typename T, int D, bool SC>
+template <int D, bool SC>
 int launch(const Args& a, int batch, cudaStream_t stream) {
   const int bytes = smem_floats<D, SC>() * (int)sizeof(float);
   // above 48 KB only by opt-in; set on every launch, as it holds for the
   // current device only
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D, SC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D, SC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((a.sq + kBlockQ - 1) / kBlockQ, a.heads, batch);
-  flash_fwd_kernel<T, D, SC><<<grid, kThreads, bytes, stream>>>(a);
+  flash_fwd_kernel<D, SC><<<grid, kThreads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <int D>
 int launch_layout(const Args& a, int layout, int batch, cudaStream_t s) {
-  return layout ? launch<T, D, true>(a, batch, s)
-                : launch<T, D, false>(a, batch, s);
+  return layout ? launch<D, true>(a, batch, s)
+                : launch<D, false>(a, batch, s);
 }
 
 // -- backward ---------------------------------------------------------------
@@ -360,7 +343,7 @@ constexpr int dkv_smem_floats() {
          2 * kBlockK * (kBlockQ + 1) + 2 * kBlockQ;
 }
 
-template <typename T, int D, bool SC>
+template <int D, bool SC>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
   extern __shared__ float smem[];
   float* qs = smem;                    // kBlockQ x (D + 1), pre-scaled
@@ -376,11 +359,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
 
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const T* dout = static_cast<const T*>(a.dout) + b * a.d_sb + h * a.d_sh;
-  T* dq = static_cast<T*>(a.out0) + b * a.o0_sb + h * a.o0_sh;
+  const float* q = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* k = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const float* v = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const float* dout =
+      static_cast<const float*>(a.dout) + b * a.d_sb + h * a.d_sh;
+  float* dq = static_cast<float*>(a.out0) + b * a.o0_sb + h * a.o0_sh;
 
   for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
     int i, d;
@@ -388,8 +372,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
     const int qi = q0 + i;
     const bool in = qi < a.sq;
     qs[i * (D + 1) + d] =
-        in ? to_float(q[at<SC>(qi, d, a.q_st)]) * a.scale : 0.f;
-    dos[i * (D + 1) + d] = in ? to_float(dout[at<SC>(qi, d, a.d_st)]) : 0.f;
+        in ? q[at<SC>(qi, d, a.q_st)] * a.scale : 0.f;
+    dos[i * (D + 1) + d] = in ? dout[at<SC>(qi, d, a.d_st)] : 0.f;
   }
 
   const int qi = q0 + r;
@@ -417,8 +401,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
       tile_pos<SC, kBlockK, D>(idx, j, d);
       const int kj = k0 + j;
       const bool in = kj < a.skv;
-      ks[j * (D + 1) + d] = in ? to_float(k[at<SC>(kj, d, a.k_st)]) : 0.f;
-      vs[j * (D + 1) + d] = in ? to_float(v[at<SC>(kj, d, a.v_st)]) : 0.f;
+      ks[j * (D + 1) + d] = in ? k[at<SC>(kj, d, a.k_st)] : 0.f;
+      vs[j * (D + 1) + d] = in ? v[at<SC>(kj, d, a.v_st)] : 0.f;
     }
     __syncthreads();
 
@@ -467,17 +451,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
       qs[r * (D + 1) + sub + 4 * c] = acc[c] * a.scale;
     }
     __syncthreads();
-    store_tile_sc<T, kBlockQ, D>(dq, qs, q0, a.sq, a.o0_st);
+    store_tile_sc<kBlockQ, D>(dq, qs, q0, a.sq, a.o0_st);
   } else if (qi < a.sq) {
-    T* row_out = dq + qi * a.o0_st + sub;
+    float* row_out = dq + qi * a.o0_st + sub;
 #pragma unroll
     for (int c = 0; c < D / 4; ++c) {
-      row_out[4 * c] = from_float<T>(acc[c] * a.scale);
+      row_out[4 * c] = acc[c] * a.scale;
     }
   }
 }
 
-template <typename T, int D, bool SC>
+template <int D, bool SC>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
   extern __shared__ float smem[];
   float* ks = smem;                          // kBlockK x (D + 1)
@@ -496,12 +480,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
 
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const T* dout = static_cast<const T*>(a.dout) + b * a.d_sb + h * a.d_sh;
-  T* dk = static_cast<T*>(a.out0) + b * a.o0_sb + h * a.o0_sh;
-  T* dv = static_cast<T*>(a.out1) + b * a.o1_sb + h * a.o1_sh;
+  const float* q = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* k = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const float* v = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const float* dout =
+      static_cast<const float*>(a.dout) + b * a.d_sb + h * a.d_sh;
+  float* dk = static_cast<float*>(a.out0) + b * a.o0_sb + h * a.o0_sh;
+  float* dv = static_cast<float*>(a.out1) + b * a.o1_sb + h * a.o1_sh;
   const float* lse = a.lse + ((long long)b * a.heads + h) * a.sq;
   const float* delta = a.delta + ((long long)b * a.heads + h) * a.sq;
 
@@ -510,8 +495,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
     tile_pos<SC, kBlockK, D>(idx, jj, d);
     const int kj = k0 + jj;
     const bool in = kj < a.skv;
-    ks[jj * (D + 1) + d] = in ? to_float(k[at<SC>(kj, d, a.k_st)]) : 0.f;
-    vs[jj * (D + 1) + d] = in ? to_float(v[at<SC>(kj, d, a.v_st)]) : 0.f;
+    ks[jj * (D + 1) + d] = in ? k[at<SC>(kj, d, a.k_st)] : 0.f;
+    vs[jj * (D + 1) + d] = in ? v[at<SC>(kj, d, a.v_st)] : 0.f;
   }
 
   const int nqb = (a.sq + kBlockQ - 1) / kBlockQ;
@@ -543,8 +528,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
       const int qi = q0 + i;
       const bool in = qi < a.sq;
       qs[i * (D + 1) + d] =
-          in ? to_float(q[at<SC>(qi, d, a.q_st)]) * a.scale : 0.f;
-      dos[i * (D + 1) + d] = in ? to_float(dout[at<SC>(qi, d, a.d_st)]) : 0.f;
+          in ? q[at<SC>(qi, d, a.q_st)] * a.scale : 0.f;
+      dos[i * (D + 1) + d] = in ? dout[at<SC>(qi, d, a.d_st)] : 0.f;
     }
     if (tid < kBlockQ) {
       const int qi = q0 + tid;
@@ -607,25 +592,25 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
       vs[j * (D + 1) + sub + 4 * c] = dva[c];
     }
     __syncthreads();
-    store_tile_sc<T, kBlockK, D>(dk, ks, k0, a.skv, a.o0_st);
-    store_tile_sc<T, kBlockK, D>(dv, vs, k0, a.skv, a.o1_st);
+    store_tile_sc<kBlockK, D>(dk, ks, k0, a.skv, a.o0_st);
+    store_tile_sc<kBlockK, D>(dv, vs, k0, a.skv, a.o1_st);
   } else if (kj < a.skv) {
-    T* dkrow = dk + kj * a.o0_st + sub;
-    T* dvrow = dv + kj * a.o1_st + sub;
+    float* dkrow = dk + kj * a.o0_st + sub;
+    float* dvrow = dv + kj * a.o1_st + sub;
 #pragma unroll
     for (int c = 0; c < D / 4; ++c) {
-      dkrow[4 * c] = from_float<T>(dka[c]);
-      dvrow[4 * c] = from_float<T>(dva[c]);
+      dkrow[4 * c] = dka[c];
+      dvrow[4 * c] = dva[c];
     }
   }
 }
 
-template <typename T, int D, bool DKV, bool SC>
+template <int D, bool DKV, bool SC>
 int launch_bwd(const BwdArgs& a, int batch, cudaStream_t stream) {
   const int bytes =
       (DKV ? dkv_smem_floats<D>() : dq_smem_floats<D>()) * (int)sizeof(float);
   auto kernel =
-      DKV ? flash_bwd_dkv_kernel<T, D, SC> : flash_bwd_dq_kernel<T, D, SC>;
+      DKV ? flash_bwd_dkv_kernel<D, SC> : flash_bwd_dq_kernel<D, SC>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -636,24 +621,25 @@ int launch_bwd(const BwdArgs& a, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, bool DKV>
+template <int D, bool DKV>
 int bwd_layout(int layout, const BwdArgs& a, int batch, cudaStream_t s) {
-  return layout ? launch_bwd<T, D, DKV, true>(a, batch, s)
-                : launch_bwd<T, D, DKV, false>(a, batch, s);
+  return layout ? launch_bwd<D, DKV, true>(a, batch, s)
+                : launch_bwd<D, DKV, false>(a, batch, s);
 }
 
 template <bool DKV>
 int bwd_entry(int head_dim, int layout, const BwdArgs& a, int batch,
               cudaStream_t s) {
-  return head_dim == 64 ? bwd_layout<float, 64, DKV>(layout, a, batch, s)
-                        : bwd_layout<float, 128, DKV>(layout, a, batch, s);
+  return head_dim == 64 ? bwd_layout<64, DKV>(layout, a, batch, s)
+                        : bwd_layout<128, DKV>(layout, a, batch, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16.  head_dim: 64 or 128.  layout 0: operands
+// The forward in float32 (dtype must be 0; bf16 has
+// flash_attention_fwd.cu's entry).  head_dim: 64 or 128.  layout 0: operands
 // (batch, heads, seq, head_dim), the head_dim axis contiguous, strides
 // given in elements for the batch, head and sequence axes; layout 1 (the
 // dS layout): operands (batch, heads, head_dim, seq), the sequence axis
@@ -669,7 +655,7 @@ int mxt_flash_attention_fwd(int dtype, int head_dim, int layout,
                             long long o_sb, long long o_sh, long long o_st,
                             int q_off, int k_off, int causal, float scale,
                             void* stream) {
-  if ((head_dim != 64 && head_dim != 128) || dtype < 0 || dtype > 1 ||
+  if ((head_dim != 64 && head_dim != 128) || dtype != 0 ||
       (layout != 0 && layout != 1) || batch < 0 || heads < 0 || sq < 0 ||
       skv < 0 || batch > 65535 || heads > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -679,13 +665,8 @@ int mxt_flash_attention_fwd(int dtype, int head_dim, int layout,
          k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st,  heads, sq,    skv,
          q_off, k_off, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return head_dim == 64 ? launch_layout<float, 64>(a, layout, batch, s)
-                          : launch_layout<float, 128>(a, layout, batch, s);
-  }
-  return head_dim == 64
-             ? launch_layout<__nv_bfloat16, 64>(a, layout, batch, s)
-             : launch_layout<__nv_bfloat16, 128>(a, layout, batch, s);
+  return head_dim == 64 ? launch_layout<64>(a, layout, batch, s)
+                        : launch_layout<128>(a, layout, batch, s);
 }
 
 // The two backward passes in float32 (dtype must be 0; bf16 has

@@ -25,7 +25,13 @@
 // elements t, t + 256, ... in registers (VPT of them, N <= 256 * 32 =
 // 8192), so the row is read from device memory exactly once, neighbouring
 // threads read neighbouring addresses, and both reductions are warp
-// shuffles plus one shared-memory step.
+// shuffles plus one shared-memory step.  A wider row (the TPU kernel takes
+// any N that is a multiple of 128, holding the row in VMEM) takes the
+// wide-row kernels from the same C entries: the same arithmetic in the
+// same order of operations per element, with thread t looping over the
+// same elements in device memory, read once for the mean, once for the
+// variance and once for y (a row of 16384 bf16 elements is 32 KB, which
+// stays in L2 between the reads).
 //
 // Design, backward: the TPU kernel carries dgamma/dbeta across its
 // sequential grid; here blocks run in no order.  So each block takes a
@@ -35,8 +41,11 @@
 // workspace (chunks, N), and a second small kernel sums the chunks of
 // each column in a fixed order.  No atomics: the result is the same from
 // run to run.  The workspace is (chunks, N) * 2 * 4 bytes, at most 512
-// chunks.  No vector loads, no rows-per-block packing and no persistent
-// blocks yet: those are for a later change.
+// chunks.  Past N = 8192 the wide-row backward keeps the chunk's partial
+// sums in its own row of that workspace instead of registers: thread t
+// adds to its own columns, row after row, so the order of every sum is
+// the register kernel's.  No vector loads, no rows-per-block packing and
+// no persistent blocks yet: those are for a later change.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -116,6 +125,39 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The forward over a row wider than the register kernel holds: thread t
+// reads elements t, t + 256, ... from device memory for each of the three
+// passes.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ln_fwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+                       const T* __restrict__ beta, T* __restrict__ y,
+                       float* __restrict__ mean_out,
+                       float* __restrict__ rstd_out, int n, float eps) {
+  __shared__ float scratch[kWarps];
+  const long long row = blockIdx.x;
+  const T* xr = x + row * n;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < n; i += kThreads) s += to_float(xr[i]);
+  const float mean = block_sum(s, scratch) / n;
+  float ss = 0.f;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const float d = to_float(xr[i]) - mean;
+    ss += d * d;
+  }
+  const float var = block_sum(ss, scratch) / n;
+  const float rstd = rsqrtf(var + eps);
+  T* yr = y + row * n;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    yr[i] = from_float<T>((to_float(xr[i]) - mean) * rstd *
+                              to_float(gamma[i]) +
+                          to_float(beta[i]));
+  }
+  if (threadIdx.x == 0) {
+    mean_out[row] = mean;
+    rstd_out[row] = rstd;
+  }
+}
 
 // Sums of (a, b) over the block; every thread gets the result.
 __device__ __forceinline__ float2 block_sum2(float a, float b,
@@ -198,6 +240,53 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The backward over rows wider than the register kernel holds: the chunk's
+// dgamma/dbeta partial sums live in its row of the workspace, each column
+// updated only by the thread that owns it; each row is read twice, for
+// its two sums and for dx.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ln_bwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+                       const float* __restrict__ mean,
+                       const float* __restrict__ rstd,
+                       const T* __restrict__ dy, T* __restrict__ dx,
+                       float* __restrict__ dg_part,
+                       float* __restrict__ db_part, int rows, int n,
+                       int rows_per_chunk) {
+  __shared__ float2 scratch[kWarps];
+  float* dgp = dg_part + (long long)blockIdx.x * n;
+  float* dbp = db_part + (long long)blockIdx.x * n;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    dgp[i] = 0.f;
+    dbp[i] = 0.f;
+  }
+  const long long r0 = (long long)blockIdx.x * rows_per_chunk;
+  const long long r1 = min((long long)rows, r0 + rows_per_chunk);
+  for (long long row = r0; row < r1; ++row) {
+    const T* xr = x + row * n;
+    const T* dyr = dy + row * n;
+    const float mu = mean[row], rs = rstd[row];
+    float s1 = 0.f, s2 = 0.f;
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const float d = to_float(dyr[i]);
+      const float xh = (to_float(xr[i]) - mu) * rs;
+      const float gd = d * to_float(gamma[i]);
+      dgp[i] += d * xh;
+      dbp[i] += d;
+      s1 += gd;
+      s2 += gd * xh;
+    }
+    const float2 s = block_sum2(s1, s2, scratch);
+    const float m1 = s.x / n, m2 = s.y / n;
+    T* dxr = dx + row * n;
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const float xh = (to_float(xr[i]) - mu) * rs;
+      const float gd = to_float(dyr[i]) * to_float(gamma[i]);
+      dxr[i] = from_float<T>(rs * (gd - m1 - xh * m2));
+    }
+  }
+}
+
 // dgamma/dbeta from the per-chunk partial sums: a block takes 32 columns;
 // its 8 warps sum every 8th chunk of them (a warp reads 32 neighbouring
 // columns), then one warp adds the 8 sums, always in the same order.
@@ -253,8 +342,11 @@ void launch(const void* x, const void* g, const void* b, void* y, float* mean,
     MXT_LN_CASE(8);
   } else if (vpt <= 16) {
     MXT_LN_CASE(16);
-  } else {
+  } else if (vpt <= 32) {
     MXT_LN_CASE(32);
+  } else {
+    ln_fwd_wide_kernel<T><<<rows, kThreads, 0, stream>>>(xp, gp, bp, yp, mean,
+                                                        rstd, n, eps);
   }
 #undef MXT_LN_CASE
 }
@@ -283,8 +375,12 @@ void launch_bwd(const void* x, const void* g, const float* mean,
     MXT_LN_BWD_CASE(8);
   } else if (vpt <= 16) {
     MXT_LN_BWD_CASE(16);
-  } else {
+  } else if (vpt <= 32) {
     MXT_LN_BWD_CASE(32);
+  } else {
+    ln_bwd_wide_kernel<T><<<chunks, kThreads, 0, stream>>>(
+        xp, gp, mean, rstd, dyp, dxp, dg_part, db_part, rows, n,
+        rows_per_chunk);
   }
 #undef MXT_LN_BWD_CASE
   ln_bwd_reduce_kernel<T><<<(n + 31) / 32, 256, 0, stream>>>(
@@ -295,16 +391,13 @@ void launch_bwd(const void* x, const void* g, const float* mean,
 
 extern "C" {
 
-// Largest row width the kernel holds in registers.
-int mxt_layer_norm_max_n() { return kThreads * 32; }
-
-// dtype: 0 float32, 1 bfloat16.  x, y: (rows, n) contiguous; gamma, beta:
-// (n,) in x's dtype; mean, rstd: (rows,) float32.
+// dtype: 0 float32, 1 bfloat16.  x, y: (rows, n) contiguous, n >= 1 (rows
+// of n > 8192 take the wide-row kernel); gamma, beta: (n,) in x's dtype;
+// mean, rstd: (rows,) float32.
 int mxt_layer_norm_fwd(int dtype, const void* x, const void* gamma,
                        const void* beta, void* y, float* mean, float* rstd,
                        int rows, int n, float eps, void* stream) {
-  if (n < 1 || n > mxt_layer_norm_max_n() || rows < 0 || dtype < 0 ||
-      dtype > 1) {
+  if (n < 1 || rows < 0 || dtype < 0 || dtype > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (rows == 0) return 0;
@@ -321,13 +414,14 @@ int mxt_layer_norm_fwd(int dtype, const void* x, const void* gamma,
 // dtype; gamma, dgamma, dbeta: (n,) in dtype; mean, rstd: (rows,)
 // float32; dg_part, db_part: (chunks, n) float32 scratch, with
 // chunks * rows_per_chunk >= rows and chunks <= rows.  Launches the row
-// kernel and the chunk reduction on the stream.
+// kernel (the wide-row one for n > 8192) and the chunk reduction on the
+// stream.
 int mxt_layer_norm_bwd(int dtype, const void* x, const void* gamma,
                        const float* mean, const float* rstd, const void* dy,
                        void* dx, float* dg_part, float* db_part, void* dgamma,
                        void* dbeta, int rows, int n, int chunks,
                        int rows_per_chunk, void* stream) {
-  if (n < 1 || n > mxt_layer_norm_max_n() || rows < 1 || chunks < 1 ||
+  if (n < 1 || rows < 1 || chunks < 1 ||
       rows_per_chunk < 1 || chunks > rows ||
       (long long)chunks * rows_per_chunk < rows || dtype < 0 || dtype > 1) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -7,8 +7,9 @@ into a shared library with a plain C interface:
          -Xcompiler -fPIC -Xptxas -v -o lib<name>_<hash>.so <name>.cu
 
 No source includes PyTorch's headers, so a build takes seconds, not the
-minutes `torch.utils.cpp_extension.load` needs.  The library's file name
-carries a hash of the source and the flags: a changed source builds
+minutes `torch.utils.cpp_extension.load` needs; the tensor-core sources
+share ``csrc/*.cuh``.  The library's file name carries a hash of the
+source, the headers and the flags: a changed source or header builds
 anew, an unchanged one loads the library already built.  Libraries and
 nvcc's logs (ptxas prints each kernel's registers and shared memory
 there) go to ``mxnet_tpu_torch/_build/``, which git ignores.
@@ -38,8 +39,8 @@ __all__ = ["KERNELS", "build", "build_log", "load", "check",
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("layer_norm", "flash_attention", "flash_attention_bwd",
-           "fused_ce")
+KERNELS = ("layer_norm", "flash_attention", "flash_attention_fwd",
+           "flash_attention_bwd", "fused_ce")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -57,7 +58,8 @@ def _nvcc():
 
 def _target(name):
     src = CSRC / ("%s.cu" % name)
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return src, BUILD_DIR / ("lib%s_%s.so" % (name, digest[:16]))
 

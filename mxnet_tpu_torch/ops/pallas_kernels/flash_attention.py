@@ -14,24 +14,33 @@ in float32: the forward and the dq pass take one block per (batch, head,
 64-query tile) and cut the K loop at the causal diagonal; the dk/dv pass
 takes one block per (batch, head, 64-key tile) and starts its Q loop at
 the first query tile that reaches it.  `csrc/flash_attention.cu` holds
-the forward and the float32 backward (CUDA cores);
-`csrc/flash_attention_bwd.cu` the bfloat16 backward on the tensor cores
-(`wgmma`, p and ds rounded to bf16 where the Pallas kernels round
-them).  Each source's note gives the H100 bound and what the design does
-about it.
+the float32 forward and backward (CUDA cores); `csrc/flash_attention_fwd.cu`
+and `csrc/flash_attention_bwd.cu` the bfloat16 forward and backward on the
+tensor cores (`wgmma`, p and ds rounded to bf16 where the mma takes them).
+Each source's note gives the H100 bound and what the design does about
+it.
 
 Operands are (B, H, S, D) in float32 or bfloat16.  The kernels take D in
-{64, 128} and raise on others; they read and write through the batch,
-head and sequence strides, so a transposed view costs no copy, but the
-last axis must be contiguous.  The bf16 backward copies 16-byte rows, so
-its operands must also be 16-byte aligned with strides that are multiples
-of 8 elements (it raises on others; the out cotangent is copied).
+{64, 128}; they read and write through the batch, head and sequence
+strides, so a transposed view costs no copy, but the last axis must be
+contiguous.  The bf16 kernels copy 16-byte rows, so their operands must
+also be 16-byte aligned with strides that are multiples of 8 elements
+(they raise on others; the out cotangent is copied).
 Outputs and gradients are allocated with q's (k's, v's) strides
 (``empty_like``) where those are aligned, so the transposes around them
 are free too; the 'ds' route's copies and outputs pad the storage of
 their sequence axis to a multiple of 16 bytes.  `flash_attention_bsd`
 takes (B, S, E) operands and hands the (B, H, S, D) view of their heads
 to the same kernels: no copy.
+
+Head widths.  On a kernel route, a head_dim of 32 to 127 other than 64 is
+zero-padded along D to 64 or 128 before the kernels and the result sliced
+back (scale from the true head_dim): the padded columns add exact zeros
+to every score and give zero output and gradient columns, so the result
+is the unpadded function.  Such calls count on the route's
+``padded_calls``.  A head_dim below 32 takes the plain versions, as the
+JAX package's `_use_pallas` sends it to its jnp path, counted on the
+route's ``narrow_calls``; above 128 the kernel routes raise `MXNetError`.
 
 Routes.  Each call resolves its route from the environment, read at
 every call as the JAX package reads it at every trace, and counts its
@@ -106,7 +115,8 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bsd",
 _NEG_INF = -1e30
 _BLOCK_K = 256  # the plain versions' default K block: the JAX one on the CPU
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128)  # the kernels' widths; narrower heads are padded
+_MIN_KERNEL_D = 32      # narrower heads take the plain versions
 
 
 def _flash_fwd_plain(q, k, v, q_off, k_off, scale, causal,
@@ -238,8 +248,12 @@ def _count(route, kind):
 # -- the CUDA kernels ---------------------------------------------------------
 
 
-# the backward's C entry for each dtype: (source, function), both with
-# `mxt_flash_attention_bwd`'s argument list
+# the forward's and the backward's C entry for each dtype: (source,
+# function), with `mxt_flash_attention_fwd`'s and `mxt_flash_attention_bwd`'s
+# argument lists
+_FWD_ENTRIES = {
+    torch.float32: ("flash_attention", "mxt_flash_attention_fwd"),
+    torch.bfloat16: ("flash_attention_fwd", "mxt_flash_attention_fwd_bf16")}
 _BWD_ENTRIES = {
     torch.float32: ("flash_attention", "mxt_flash_attention_bwd"),
     torch.bfloat16: ("flash_attention_bwd", "mxt_flash_attention_bwd_bf16")}
@@ -248,17 +262,18 @@ _BWD_ENTRIES = {
 def _lib(name="flash_attention"):
     """The loaded library of source ``name``, its entries typed."""
     lib = _build.load(name)
-    bwd = getattr(lib, dict(_BWD_ENTRIES.values())[name])
-    if bwd.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        bwd.argtypes = ([i, i, i, i] + [p] * 8 + [i, i, i, i] + [ll] * 18
-                        + [i, i, i, ctypes.c_float, p])
-        bwd.restype = i
-        if name == "flash_attention":
-            fwd = lib.mxt_flash_attention_fwd
-            fwd.argtypes = ([i, i, i, p, p, p, p, p, i, i, i, i] + [ll] * 12
-                            + [i, i, i, ctypes.c_float, p])
-            fwd.restype = i
+    p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+    argtypes = (
+        (_FWD_ENTRIES, [i, i, i] + [p] * 5 + [i] * 4 + [ll] * 12
+         + [i, i, i, f, p]),
+        (_BWD_ENTRIES, [i] * 4 + [p] * 8 + [i] * 4 + [ll] * 18
+         + [i, i, i, f, p]))
+    for entries, types in argtypes:
+        for source, entry in entries.values():
+            fn = getattr(lib, entry) if source == name else None
+            if fn is not None and fn.argtypes is None:
+                fn.argtypes, fn.restype = types, i
     return lib
 
 
@@ -298,10 +313,22 @@ def _check_cuda_args(q, k, v, ds=False):
 
 
 def _aligned(t):
-    """Whether the bf16 backward can copy t's rows: 16-byte aligned, the
+    """Whether the bf16 kernels can copy t's rows: 16-byte aligned, the
     batch, head and third strides multiples of 16 bytes."""
     return t.data_ptr() % 16 == 0 and all(
         s * t.element_size() % 16 == 0 for s in t.stride()[:3])
+
+
+def _check_aligned(q, k, v, ds, what):
+    """Raise `MXNetError` unless the bf16 kernels can copy q's, k's and v's
+    rows (float32 takes any strides)."""
+    if q.dtype == torch.bfloat16 and not all(_aligned(t) for t in (q, k, v)):
+        raise MXNetError("%s: the bf16 kernels copy 16-byte rows, so q, k "
+                         "and v must be 16-byte aligned with batch, head and "
+                         "%s strides that are multiples of 8 elements, got "
+                         "strides %s %s %s"
+                         % (what, "head_dim" if ds else "sequence",
+                            q.stride(), k.stride(), v.stride()))
 
 
 def _empty_aligned(shape, dtype, device):
@@ -332,11 +359,13 @@ def _flash_fwd_cuda(q, k, v, q_off, k_off, scale, causal, with_lse, route):
     (B, H, D, S) ones on 'ds' (out in the same layout)."""
     ds = route == "ds"
     _check_cuda_args(q, k, v, ds)
+    _check_aligned(q, k, v, ds, "flash_attention")
     b, h, sq, skv, d = _dims(q, k, ds)
     out = _like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
-    err = _lib().mxt_flash_attention_fwd(
+    source, entry = _FWD_ENTRIES[q.dtype]
+    err = getattr(_lib(source), entry)(
         _DTYPES[q.dtype], d, int(ds), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), b, h, sq, skv,
@@ -358,14 +387,7 @@ def _flash_bwd_cuda(q, k, v, o, lse, g, glse, q_off, k_off, scale, causal,
         raise MXNetError("flash_attention backward: the out cotangent must "
                          "be %s %s, got %s %s" % (tuple(q.shape), q.dtype,
                                                   tuple(g.shape), g.dtype))
-    if q.dtype == torch.bfloat16 and not all(
-            _aligned(t) for t in (q, k, v)):
-        raise MXNetError("flash_attention backward: the bf16 kernels copy "
-                         "16-byte rows, so q, k and v must be 16-byte "
-                         "aligned with batch, head and %s strides that are "
-                         "multiples of 8 elements, got strides %s %s %s"
-                         % ("head_dim" if ds else "sequence", q.stride(),
-                            k.stride(), v.stride()))
+    _check_aligned(q, k, v, ds, "flash_attention backward")
     if g.stride(3) != 1 or not _aligned(g):
         g = _like(g).copy_(g)
     delta = _delta(o, g, glse, 2 if ds else 3).contiguous()
@@ -485,17 +507,48 @@ def _offset(x, what):
     return int(x)
 
 
+def _kernel_width(d, route):
+    """The head width the kernels run for head_dim ``d`` on kernel route
+    ``route``: 64 or 128, counting a padded call on the route's
+    ``padded_calls``; None below `_MIN_KERNEL_D`, counting the call on
+    ``narrow_calls`` (the plain versions run).  Raises above 128."""
+    if d in _HEAD_DIMS:
+        return d
+    if d > _HEAD_DIMS[-1]:
+        raise MXNetError("flash_attention: the CUDA kernels take head_dim up "
+                         "to %d (%d and %d natively, %d to %d zero-padded, "
+                         "below %d the plain versions), got %d"
+                         % (_HEAD_DIMS[-1], *_HEAD_DIMS, _MIN_KERNEL_D,
+                            _HEAD_DIMS[-1] - 1, _MIN_KERNEL_D, d))
+    if d < _MIN_KERNEL_D:
+        _count(route, "narrow_calls")
+        return None
+    _count(route, "padded_calls")
+    return next(w for w in _HEAD_DIMS if w > d)
+
+
 def _attend(q, k, v, causal, scale, q_offset, k_offset, with_lse, route,
             block_k):
+    d = q.shape[-1]
     if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
+        scale = 1.0 / math.sqrt(d)
     args = (_offset(q_offset, "q_offset"), _offset(k_offset, "k_offset"),
             float(scale), bool(causal))
     block = _plain_block(block_k)
+    width = d
+    if not _plain(q, route) and d not in _HEAD_DIMS:
+        width = _kernel_width(d, route)
+        if width is None:
+            route, width = "jnp", d
+        elif k.shape[-1] == d and v.shape[-1] == d:
+            q, k, v = (torch.nn.functional.pad(t, (0, width - d))
+                       for t in (q, k, v))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         out, lse = _FlashFn.apply(q, k, v, *args, route, block)
     else:
         out, lse, _ = _forward(q, k, v, args, with_lse, route, block)
+    if width != d:
+        out = out[..., :d]
     return (out, lse) if with_lse else out
 
 
@@ -553,11 +606,11 @@ def flash_attention_bsd(q, k, v, num_heads, *, causal=False, scale=None,
     """Fused attention over (batch, seq, embed) tensors with ``num_heads``
     heads on the embed axis: the same kernels as `flash_attention`, on the
     (B, H, S, D) view of each operand's heads.  Returns out (B, S, E) and,
-    with ``with_lse=True``, lse (B, H, S) float32.  Head widths 64 and 128
-    both reach the kernels (the JAX package's 128-lane gate is a TPU
-    fact).  The route ('bsd_loop', 'bsd_stream' or 'jnp') is read from the
-    environment and its launches are counted on this function (see the
-    module's note)."""
+    with ``with_lse=True``, lse (B, H, S) float32.  Every head width of
+    32 to 128 reaches the kernels, padded where it is not 64 or 128 (the
+    JAX package's 128-lane gate is a TPU fact).  The route ('bsd_loop',
+    'bsd_stream' or 'jnp') is read from the environment and its launches
+    are counted on this function (see the module's note)."""
     return _bsd(q, k, v, num_heads, causal, scale, q_offset, k_offset,
                 with_lse, _bsd_route(), block_k)
 
@@ -571,12 +624,14 @@ def flash_attention_bsd_plain(q, k, v, num_heads, *, causal=False,
 
 
 # each route's launch counters: (public function, prefix of its counters).
-# A counter counts the kernel launches since it was last set to 0 (CUDA
-# path only): the forward, the dq pass and the dk/dv pass.
+# A counter counts, since it was last set to 0 (CUDA path only), the
+# kernel launches of the forward, the dq pass and the dk/dv pass, and the
+# calls whose head width was padded or sent to the plain versions.
 _COUNTERS = {"hsd": (flash_attention, ""), "ds": (flash_attention, "ds_"),
              "bsd_loop": (flash_attention_bsd, ""),
              "bsd_stream": (flash_attention_bsd, "stream_")}
 for _fn, _prefix in _COUNTERS.values():
-    for _kind in ("launches", "dq_launches", "dkv_launches"):
+    for _kind in ("launches", "dq_launches", "dkv_launches", "padded_calls",
+                  "narrow_calls"):
         setattr(_fn, _prefix + _kind, 0)
 del _fn, _prefix, _kind

@@ -15,7 +15,8 @@ as (rows, 1) float32.  `layer_norm_bwd` takes x, gamma, mean, rstd and dy
 and returns dx in x's dtype with dgamma and dbeta in gamma's dtype.  A
 CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  The TPU kernel's ``N % 128`` gate does not apply: the kernels
-take any N up to 8192 and raise above it.
+take any N >= 1, rows up to `_REGISTER_N` wide in registers and wider
+ones through the wide-row kernels of the same C entries.
 
 `layer_norm` is the public function: a `torch.autograd.Function` whose
 forward is the forward kernel (saving x, gamma, mean and rstd) and whose
@@ -36,7 +37,7 @@ __all__ = ["layer_norm", "layer_norm_fwd", "layer_norm_bwd",
            "layer_norm_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_N = 256 * 32
+_REGISTER_N = 256 * 32  # the widest row the register kernels hold
 _MAX_CHUNKS = 512  # row chunks of the backward's dgamma/dbeta partial sums
 
 
@@ -89,9 +90,9 @@ def _check_cuda_args(x2d, gamma, others, what):
     if gamma.shape != (n,):
         raise MXNetError("%s: gamma must be (%d,), got %s"
                          % (what, n, tuple(gamma.shape)))
-    if not 1 <= n <= _MAX_N:
-        raise MXNetError("%s: the CUDA kernel takes 1 <= N <= %d, got %d"
-                         % (what, _MAX_N, n))
+    if n < 1:
+        raise MXNetError("%s: the CUDA kernel takes N >= 1, got %d"
+                         % (what, n))
     if any(t.device != x2d.device for t in (gamma, *others)):
         raise MXNetError("%s: every operand must be on x's device" % what)
     _build.check_current_device(x2d.device, what)

@@ -115,7 +115,7 @@ def ln_interpret(monkeypatch):
         BlockSpec=pl.BlockSpec, program_id=pl.program_id, when=pl.when))
 
 
-@pytest.mark.parametrize("rows,n", [(5, 128), (300, 256)])
+@pytest.mark.parametrize("rows,n", [(5, 128), (300, 256), (3, 8320)])
 def test_layer_norm_plain_matches_pallas_body(ln_interpret, rows, n):
     x, g, b = _ln_inputs(rows, n, seed=2)
     jy, jmean, jrstd = jln._fwd_pallas(jnp.asarray(x), jnp.asarray(g),
@@ -134,9 +134,12 @@ def test_layer_norm_cpu_takes_plain_version_and_counts_nothing():
     assert tln.layer_norm_fwd.launches == before
 
 
-def test_layer_norm_kernel_arguments_checked_before_launch():
+def test_layer_norm_kernel_arguments_checked_before_launch(monkeypatch):
     """What the CUDA wrapper refuses, it refuses before building or
-    launching anything (the checks run on any tensor)."""
+    launching anything (the checks run on any tensor).  A row wider than
+    the register kernels hold (N = 8320) is no longer refused: with the C
+    library faked, both passes hand it to their C entries, which route it
+    to the wide-row kernels, and count one launch each."""
     x, g, b = _ln_inputs(2, 32)
     with pytest.raises(MXNetError, match="float32 or bfloat16"):
         tln._fwd_cuda(_t(x).half(), _t(g).half(), _t(b).half(), 1e-5)
@@ -144,12 +147,29 @@ def test_layer_norm_kernel_arguments_checked_before_launch():
         tln._fwd_cuda(_t(x), _t(g).to(torch.bfloat16), _t(b), 1e-5)
     with pytest.raises(MXNetError, match="must be"):
         tln._fwd_cuda(_t(x), _t(g)[:16], _t(b), 1e-5)
-    wide = torch.zeros(2, tln._MAX_N + 1)
-    one = torch.ones(tln._MAX_N + 1)
-    with pytest.raises(MXNetError, match="N <="):
-        tln._fwd_cuda(wide, one, one, 1e-5)
+    with pytest.raises(MXNetError, match="N >= 1"):
+        tln._fwd_cuda(torch.zeros(2, 0), torch.ones(0), torch.ones(0), 1e-5)
     with pytest.raises(MXNetError, match="rows, N"):
         tln.layer_norm_fwd(_t(x)[None], _t(g), _t(b))
+    calls = []
+    monkeypatch.setattr(tln, "_lib", lambda: types.SimpleNamespace(
+        mxt_layer_norm_fwd=lambda *a: calls.append(("fwd", a[7], a[8])) or 0,
+        mxt_layer_norm_bwd=lambda *a: calls.append(("bwd", a[11], a[12]))
+        or 0))
+    monkeypatch.setattr(tln._build, "check_current_device",
+                        lambda device, what: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    n = 8320
+    assert n > tln._REGISTER_N
+    wide, one = torch.zeros(3, n), torch.ones(n)
+    before = tln.layer_norm_fwd.launches, tln.layer_norm_bwd.launches
+    _, mean, rstd = tln._fwd_cuda(wide, one, one, 1e-5)
+    tln._bwd_cuda(wide, one, mean, rstd, wide)
+    assert calls == [("fwd", 3, n), ("bwd", 3, n)]
+    assert (tln.layer_norm_fwd.launches, tln.layer_norm_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
 
 
 def _ln_bwd_inputs(rows, n, seed):
@@ -177,11 +197,12 @@ def test_layer_norm_bwd_plain_matches_jax(rows, n):
     _assert_ln_bwd(got, want)
 
 
-@pytest.mark.parametrize("rows,n", [(5, 128), (300, 256)])
+@pytest.mark.parametrize("rows,n", [(5, 128), (300, 256), (3, 8320)])
 def test_layer_norm_bwd_plain_matches_pallas_body(ln_interpret, rows, n):
     """The TPU kernel carries dgamma/dbeta across its sequential grid (two
     256-row blocks at 300 rows); the sums agree with the plain version's
-    one reduction."""
+    one reduction.  8320 is wider than the CUDA register kernels hold: the
+    row width the wide-row kernels serve."""
     args = _ln_bwd_inputs(rows, n, seed=3)
     want = jln._bwd_pallas(*(jnp.asarray(a) for a in args))
     got = tln.layer_norm_bwd(*(_t(a) for a in args))
