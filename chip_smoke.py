@@ -43,17 +43,26 @@ Phases, each of which fails the run with a non-zero exit:
    attention, no biases) at full width for 3 steps;
 9. hold the four fused CE kernels (stats forward, single-pass forward,
    dW/db, dx) and the 5-pass backward against their plain versions, in
-   float32 and bf16, at the training head's shape (32768 tokens, 768,
-   vocab 32768; timed beside `F.linear` + `F.cross_entropy`) and at a
-   ragged one (1000 tokens, vocab 50257, ignored and out-of-range labels,
-   no bias, grad_scale 1.7);
+   float32 (CUDA cores) and bf16 (tensor cores, against the plain
+   version in bf16, and twice bit for bit), at the training head's shape
+   (32768 tokens, 768, vocab 32768; timed beside `F.linear` +
+   `F.cross_entropy`, with TFLOP/s, share of the bound and ptxas's
+   registers and spills) and at ragged ones with ignored and
+   out-of-range labels, no bias and grad_scale 1.7: 1000 tokens at 768
+   and vocab 50257, GPT-2 medium's width (8192 tokens, 1024, 50257),
+   GPT-2 XL's (1000, 1600, 50257), LLaMA-7B's 4096 (300 tokens, vocab
+   5000: past the widest cluster, in windows), and in bf16 (333, 772,
+   1000), whose d the wrapper zero-pads to 776 and counts;
 10. train bench.py's ``fused_`` configuration (the parity configuration
    with the fused CE head, Adam's second moment in bf16 with stochastic
    rounding) at full width for 5 steps, with exact launches per step and
    the rounding's cost; then 2 steps of the 5-pass structure
    (``MXNET_CE_SINGLE_PASS=0``) and one `SPMDTrainer.forward`, each with
-   its launches; and one f32 step's gradients of the fused configuration
-   through the kernels against their plain versions;
+   its launches; one f32 step's gradients of the fused configuration
+   through the kernels against their plain versions; and the fused head
+   at GPT-2 medium's widths (2 layers, embed 1024, 16 heads, vocab
+   50257): one f32 step's gradients at batch 1 against the plain path,
+   and 2 bf16 steps at batch 4 with exact launches;
 11. hold the dS route's kernels and the grid-streamed bsd route's against
    their plain versions (bf16 as in phase 2), in float32 and bf16, at the
    long-context training shapes ((8, 6, 4096, 128) and (4, 6, 8192,
@@ -177,8 +186,9 @@ MFU_PEAK = PEAK_FLOPS[torch.bfloat16]
 
 # The kernels line: one entry per TPU function ported, with the counters
 # whose launches it reports (the first is its ``launches``).  The line
-# reports bf16, so the flash rows name the tensor-core sources; their
-# float32 launches run flash_attention.cu's kernels.
+# reports bf16, so the flash and fused CE rows name the tensor-core
+# sources; their float32 launches run the CUDA-core sources of
+# `F32_SOURCE`.
 TPU = "mxnet_tpu/ops/pallas_kernels/"
 KERNEL_ROWS = [
     ("layer_norm", "layer_norm.cu", TPU + "layer_norm.py:93",
@@ -211,17 +221,21 @@ KERNEL_ROWS = [
      ["flash_attention_bsd_stream_dq", "flash_attention_bsd_stream_dkv"]),
     # the 5-pass backward (row 12) is kernels D and C; its launches are
     # D's, on the 5-pass run
-    ("fused_ce_fwd", "fused_ce.cu", TPU + "fused_ce.py:155",
+    ("fused_ce_fwd", "fused_ce_bf16.cu", TPU + "fused_ce.py:155",
      ["fused_ce_fwd"]),
-    ("fused_ce_bwd", "fused_ce.cu", TPU + "fused_ce.py:289",
+    ("fused_ce_bwd", "fused_ce_bf16.cu", TPU + "fused_ce.py:289",
      ["fused_ce_bwd_dx", "fused_ce_bwd_dw"]),
-    ("fused_ce_fwd_sp", "fused_ce.cu", TPU + "fused_ce.py:520",
+    ("fused_ce_fwd_sp", "fused_ce_bf16.cu", TPU + "fused_ce.py:520",
      ["fused_ce_fwd_sp"]),
-    ("fused_ce_bwd_dw_rs", "fused_ce.cu", TPU + "fused_ce.py:700",
+    ("fused_ce_bwd_dw_rs", "fused_ce_bf16.cu", TPU + "fused_ce.py:700",
      ["fused_ce_bwd_dw"]),
-    ("fused_ce_bwd_dx_rs", "fused_ce.cu", TPU + "fused_ce.py:744",
+    ("fused_ce_bwd_dx_rs", "fused_ce_bf16.cu", TPU + "fused_ce.py:744",
      ["fused_ce_bwd_dx"]),
 ]
+F32_SOURCE = {"layer_norm.cu": "layer_norm.cu",
+              "flash_attention_fwd.cu": "flash_attention.cu",
+              "flash_attention_bwd.cu": "flash_attention.cu",
+              "fused_ce_bf16.cu": "fused_ce.cu"}
 # every launch counter, by name: (wrapper, attribute)
 COUNTERS = {
     "layer_norm": (layer_norm_fwd, "launches"),
@@ -254,6 +268,10 @@ for _name, _fn, _prefix in (
         ("flash_attention_bsd_stream", flash_attention_bsd, "stream_")):
     COUNTERS[_name + "_padded"] = (_fn, _prefix + "padded_calls")
     COUNTERS[_name + "_narrow"] = (_fn, _prefix + "narrow_calls")
+# the bf16 fused CE calls whose d was zero-padded to a multiple of 8
+for _name in ("fused_ce_fwd", "fused_ce_fwd_sp", "fused_ce_bwd_dw",
+              "fused_ce_bwd_dx"):
+    COUNTERS[_name + "_padded"] = (COUNTERS[_name][0], "padded_calls")
 del _name, _fn, _prefix
 
 
@@ -408,6 +426,25 @@ def mma_ptxas(source, d, layout):
     tag = "ILi%dELb%dE" % (d, layout)
     return {re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_mma_kernel", k).group(1):
             v for k, v in ptxas_info(source).items() if tag in k}
+
+
+def ce_ptxas(dtype, mode, d):
+    """ptxas's registers and spill bytes of the fused CE kernel that runs
+    ``mode`` (0 A, 1 B, 2 C, 3 D) at width ``d``: for bf16 the tensor-core
+    template at the cluster size and chunks a warpgroup that
+    `csrc/fused_ce_bf16.cu`'s `launch_d` picks, for float32 the CUDA-core
+    one at its column count."""
+    if dtype == torch.bfloat16:
+        chunks = -(-(d + d % 8) // 64)
+        cl = next((c for c in (1, 2, 4, 8) if 6 * c >= chunks), 8)
+        tag = "fused_ce_mma_kernelILi%dELi%dELi%dELb%dE" % (
+            mode, cl, min(3, -(-chunks // (2 * cl))), chunks > 48)
+        source = "fused_ce_bf16"
+    else:
+        tag = "fused_ce_kernelILi%dELi%dE" % (
+            mode, 8 if d <= 256 else 16 if d <= 512 else 24)
+        source = "fused_ce"
+    return next(v for k, v in ptxas_info(source).items() if tag in k)
 
 
 def check(name, dtype, got, ref):
@@ -807,7 +844,10 @@ def describe(c):
         line += "; kernel with launch %.4f ms" % c["ms_with_launch"]
     if "route_ms" in c:
         line += "; route with its boundary copies %.4f ms" % c["route_ms"]
-    if "tflops" in c:
+    if "tflops" in c and c["kernel"].startswith("fused_ce"):
+        line += ("; %.1f TFLOP/s (2·n·V·d a logit pass), %.3f of the bound"
+                 % (c["tflops"], c["bound_share"]))
+    elif "tflops" in c:
         line += ("; %.1f TFLOP/s (%s·d a visible pair), %.3f of the bound"
                  % (c["tflops"], 10 if "delta_ms" in c else 4,
                     c["bound_share"]))
@@ -817,6 +857,10 @@ def describe(c):
         line += ("; vs the plain f32 version on the bf16 operands, beside "
                  "it the bf16 plain one %.2e; bit-identical twice: %s"
                  % (c["bf16_plain_rel_err"], c["bit_identical"]))
+    if c.get("reference") == "plain bf16":
+        line += "; bit-identical twice: %s" % c["bit_identical"]
+    if any(c.get("padded_calls", {}).values()):
+        line += "; padded calls %s" % c["padded_calls"]
     if "ptxas" in c:
         line += "; ptxas registers, spill (stores, loads) bytes %s" % c[
             "ptxas"]
@@ -1030,11 +1074,22 @@ def route_pin_checks(gen):
 
 # the training head's shape: 32 x 1024 tokens, embed 768, vocab 32768
 CE_TRAIN = (32768, 768, 32768)
-# a ragged one: no multiple of the tiles in tokens or vocabulary (GPT-2's)
+# ragged ones: no multiple of the tiles in tokens or vocabulary (GPT-2's),
+# at GPT-2 small's, medium's and XL's widths, at 4096 (past the widest
+# cluster's 3072 columns), and one whose bf16 d the wrapper zero-pads from
+# 772 to 776
 CE_RAGGED = (1000, 768, 50257)
+CE_MEDIUM = (8192, 1024, 50257)
+CE_XL = (1000, 1600, 50257)
+CE_WIDE = (300, 4096, 5000)
+CE_PADDED = (333, 772, 1000)
 # the op's default tiles: a pin the kernels take (multiples of 32); the
 # plain versions tile the vocabulary by block_v as the jnp twins do
 CE_BLOCKS = (512, 2048)
+# each checked function's kernel modes (0 A, 1 B, 2 C, 3 D)
+CE_MODES = {"fused_ce_fwd": (0,), "fused_ce_fwd_sp": (1,),
+            "fused_ce_bwd_dw_rs": (2,), "fused_ce_bwd_dx_rs": (3,),
+            "fused_ce_bwd": (3, 2)}
 
 
 def ce_operands(n, d, v, dtype, gen, ragged):
@@ -1066,38 +1121,56 @@ def combine(*errs):
 
 def ce_case(shape, dtype, gen, ragged=False, timed=False):
     """Kernels A, B, C, D and the 5-pass backward (D + C) against their
-    plain versions on the same inputs.  Outputs that are float32 by
-    contract (nll, lse, the picked logit) are held to the float32
-    tolerance; dxp (p rounded to W's dtype before p @ W), dx, dW and db to
-    the dtype's.  When timed: each beside its bound and the library's
-    `F.linear` + `F.cross_entropy`, forward for A and B, backward for the
-    rest."""
+    plain versions on the same inputs, in the same dtype.  Outputs that
+    are float32 by contract (nll, lse, the picked logit) are held to the
+    float32 tolerance; dxp (p rounded to W's dtype before p @ W), dx, dW
+    and db to the dtype's.  In bf16 every kernel runs twice and must give
+    the same bits, and a d of 4 more than a multiple of 8 must be counted
+    as padded on every wrapper.  When timed: each beside its bound and
+    the library's `F.linear` + `F.cross_entropy`, forward for A and B,
+    backward for the rest, with its TFLOP/s, share of the bound and
+    ptxas's registers and spills."""
     n, d, v = shape
     x, w, b, label, head, r = ce_operands(n, d, v, dtype, gen, ragged)
     gs, ign, use = head
     bv = CE_BLOCKS[1]
-    got = {
-        "fused_ce_fwd": fce.fused_ce_fwd(x, w, b, label, ign, use,
-                                         *CE_BLOCKS),
-        "fused_ce_fwd_sp": fce.fused_ce_fwd_sp(x, w, b, label, *CE_BLOCKS)}
+    kernels = {
+        "fused_ce_fwd": lambda: fce.fused_ce_fwd(x, w, b, label, ign, use,
+                                                 *CE_BLOCKS),
+        "fused_ce_fwd_sp": lambda: fce.fused_ce_fwd_sp(x, w, b, label,
+                                                       *CE_BLOCKS)}
+    reset_counts()
+    got = {k: fn() for k, fn in kernels.items()}
     torch.cuda.synchronize()
     ref = {"fused_ce_fwd": fce._fwd_plain(x, w, b, label, ign, use, bv),
            "fused_ce_fwd_sp": fce._fwd_sp_plain(x, w, b, label, bv)}
     lse = ref["fused_ce_fwd"][1]
-    got.update({
-        "fused_ce_bwd_dw_rs": fce.fused_ce_bwd_dw(x, w, b, label, lse, r,
-                                                  *CE_BLOCKS),
-        "fused_ce_bwd_dx_rs": (fce.fused_ce_bwd_dx(x, w, b, label, lse, r,
-                                                   *CE_BLOCKS),),
-        "fused_ce_bwd": fce.fused_ce_bwd(x, w, b, label, lse, *head,
-                                         *CE_BLOCKS)})
+    kernels.update({
+        "fused_ce_bwd_dw_rs": lambda: fce.fused_ce_bwd_dw(
+            x, w, b, label, lse, r, *CE_BLOCKS),
+        "fused_ce_bwd_dx_rs": lambda: (fce.fused_ce_bwd_dx(
+            x, w, b, label, lse, r, *CE_BLOCKS),),
+        "fused_ce_bwd": lambda: fce.fused_ce_bwd(x, w, b, label, lse, *head,
+                                                 *CE_BLOCKS)})
+    got.update({k: kernels[k]() for k in ("fused_ce_bwd_dw_rs",
+                                          "fused_ce_bwd_dx_rs",
+                                          "fused_ce_bwd")})
     torch.cuda.synchronize()
+    padded = {k: n for k, n in read_counts().items()
+              if k.startswith("fused_ce") and k.endswith("_padded")}
     ref.update({
         "fused_ce_bwd_dw_rs": fce._bwd_dw_rs_plain(x, w, b, label, lse, r,
                                                    bv),
         "fused_ce_bwd_dx_rs": (fce._bwd_dx_rs_plain(x, w, b, label, lse, r,
                                                     bv),),
         "fused_ce_bwd": fce._bwd_plain(x, w, b, label, lse, *head, bv)})
+    # every wrapper pads a bf16 d of 4 more than a multiple of 8, each
+    # call (the 5-pass backward calls D and C once more), and no other
+    want_pad = 1 if dtype == torch.bfloat16 and d % 8 else 0
+    pad_ok = padded == {"fused_ce_fwd_padded": want_pad,
+                        "fused_ce_fwd_sp_padded": want_pad,
+                        "fused_ce_bwd_dw_padded": 2 * want_pad,
+                        "fused_ce_bwd_dx_padded": 2 * want_pad}
     f32_outputs = {"fused_ce_fwd": 2, "fused_ce_fwd_sp": 2}
     recs = []
     for name, outs in got.items():
@@ -1105,7 +1178,17 @@ def ce_case(shape, dtype, gen, ragged=False, timed=False):
         pairs = list(zip(outs, ref[name]))
         err = combine(rel_check(torch.float32, pairs[:k]),
                       rel_check(dtype, pairs[k:]))
-        recs.append(_record(name, list(shape), dtype, err, False))
+        extra = {"padded_calls": padded, "padded_ok": pad_ok}
+        if dtype == torch.bfloat16:
+            # a second launch on the same inputs: the same bits
+            again = kernels[name]()
+            same = all(torch.equal(a, c) for a, c in zip(outs, again))
+            del again
+            extra.update(reference="plain bf16", bit_identical=same)
+            err = (err[0], err[1], err[2] and same)
+        err = (err[0], err[1], err[2] and pad_ok)
+        recs.append(dict(_record(name, list(shape), dtype, err, False),
+                         **extra))
     if not timed:
         return recs
     isz = x.element_size()
@@ -1113,6 +1196,9 @@ def ce_case(shape, dtype, gen, ragged=False, timed=False):
     # the 5-pass backward as a function needs them once, then dl @ W and
     # dl^T @ x: 3 passes, not D's 2 plus C's 2
     ops = 2 * n * v * d
+    passes = {"fused_ce_fwd": 1, "fused_ce_fwd_sp": 2,
+              "fused_ce_bwd_dw_rs": 2, "fused_ce_bwd_dx_rs": 2,
+              "fused_ce_bwd": 3}
     operands = (n * d + v * d + v) * isz + 4 * n
     bounds = {
         "fused_ce_fwd": bound_ms(operands + 8 * n, ops, dtype),
@@ -1124,23 +1210,16 @@ def ce_case(shape, dtype, gen, ragged=False, timed=False):
                                        2 * ops, dtype),
         "fused_ce_bwd": bound_ms(operands + 4 * n + (n * d + v * d + v)
                                  * isz, 3 * ops, dtype)}
-    calls = {
-        "fused_ce_fwd": (lambda: fce.fused_ce_fwd(x, w, b, label, ign, use,
-                                                  *CE_BLOCKS),
-                         lambda: fce._fwd_plain(x, w, b, label, ign, use,
-                                                bv)),
-        "fused_ce_fwd_sp": (lambda: fce.fused_ce_fwd_sp(x, w, b, label,
-                                                        *CE_BLOCKS),
-                            lambda: fce._fwd_sp_plain(x, w, b, label, bv)),
-        "fused_ce_bwd_dw_rs": (
-            lambda: fce.fused_ce_bwd_dw(x, w, b, label, lse, r, *CE_BLOCKS),
-            lambda: fce._bwd_dw_rs_plain(x, w, b, label, lse, r, bv)),
-        "fused_ce_bwd_dx_rs": (
-            lambda: fce.fused_ce_bwd_dx(x, w, b, label, lse, r, *CE_BLOCKS),
-            lambda: fce._bwd_dx_rs_plain(x, w, b, label, lse, r, bv)),
-        "fused_ce_bwd": (
-            lambda: fce.fused_ce_bwd(x, w, b, label, lse, *head, *CE_BLOCKS),
-            lambda: fce._bwd_plain(x, w, b, label, lse, *head, bv))}
+    plains = {
+        "fused_ce_fwd": lambda: fce._fwd_plain(x, w, b, label, ign, use,
+                                               bv),
+        "fused_ce_fwd_sp": lambda: fce._fwd_sp_plain(x, w, b, label, bv),
+        "fused_ce_bwd_dw_rs": lambda: fce._bwd_dw_rs_plain(x, w, b, label,
+                                                           lse, r, bv),
+        "fused_ce_bwd_dx_rs": lambda: fce._bwd_dx_rs_plain(x, w, b, label,
+                                                           lse, r, bv),
+        "fused_ce_bwd": lambda: fce._bwd_plain(x, w, b, label, lse, *head,
+                                               bv)}
     leaves = [t.detach().clone().requires_grad_() for t in (x, w, b)]
     lab64 = label.long()
     lib_fwd = lambda: F.cross_entropy(F.linear(*leaves), lab64,  # noqa
@@ -1152,11 +1231,15 @@ def ce_case(shape, dtype, gen, ragged=False, timed=False):
     del leaves
     for rec in recs:
         name = rec["kernel"]
-        kern, plain = calls[name]
         bnd, by = bounds[name]
-        rec.update(ms=time_auto(kern), plain_ms=time_auto(plain),
+        rec.update(ms=time_auto(kernels[name]),
+                   plain_ms=time_auto(plains[name]),
                    library_ms=lib["fwd" if "fwd" in name else "bwd"],
                    bound_ms=bnd, bound_by=by)
+        # the rate the function's passes over the logit tiles reach
+        rec["tflops"] = passes[name] * ops / (rec["ms"] * 1e-3) / 1e12
+        rec["bound_share"] = bnd / rec["ms"]
+        rec["ptxas"] = {m: ce_ptxas(dtype, m, d) for m in CE_MODES[name]}
     return recs
 
 
@@ -1167,6 +1250,11 @@ def fused_ce_checks():
         cases += ce_case(CE_RAGGED, dtype, gen, ragged=True)
         cases += ce_case(CE_TRAIN, dtype, gen, timed=True)
         torch.cuda.empty_cache()
+        cases += ce_case(CE_MEDIUM, dtype, gen, ragged=True)
+        cases += ce_case(CE_XL, dtype, gen, ragged=True)
+        cases += ce_case(CE_WIDE, dtype, gen, ragged=True)
+        torch.cuda.empty_cache()
+    cases += ce_case(CE_PADDED, torch.bfloat16, gen, ragged=True)
     for c in cases:
         log(describe(c))
     log("card after the fused CE checks (sm clock, mem clock, power, temp): "
@@ -1516,6 +1604,13 @@ LONGCTX_DS = dict(TRAIN, seq_len=4096, num_heads=6, use_bias=True,
 LONGCTX_DS_BATCH = 8
 LONGCTX_STREAM = dict(LONGCTX_DS, seq_len=8192, attn_layout="bsd")
 LONGCTX_STREAM_BATCH = 4
+# the fused head at GPT-2 medium's published widths (vocab 50257, context
+# 1024, embed 1024, 16 heads of 64, biases), cut to 2 of its 24 layers:
+# the width the CE kernels refused before
+MEDIUM_FUSED = dict(vocab_size=50257, seq_len=1024, num_layers=2,
+                    num_embed=1024, num_heads=16, use_bias=True,
+                    attn_layout="bhsd", fused_head=True)
+MEDIUM_BATCH = 4
 
 
 def lm_trainer(cfg, batch, dtype, seed=0, **kw):
@@ -1618,7 +1713,8 @@ def train_path(label, cfg, steps, expect, trainer_kw=None, falls=True,
                 "flash_fwd_kernel", "flash_fwd_mma_kernel",
                 "flash_bwd_dq_kernel",
                 "flash_bwd_dkv_kernel", "flash_bwd_dq_mma_kernel",
-                "flash_bwd_dkv_mma_kernel", "fused_ce_kernel")},
+                "flash_bwd_dkv_mma_kernel", "fused_ce_kernel",
+                "fused_ce_mma_kernel")},
             "top_device_ops_ms": device[:10], "top_host_ops_ms": host}
         res.update(extra)
         log("%s: %d steps of batch %d x %d tokens, bf16, Adam; step ms (CUDA "
@@ -1781,7 +1877,7 @@ def kernels_line(cases, paths):
              "flash_attention_bsd_stream": [4, 6, 8192, 8192, 128],
              "flash_attention_bsd_stream_bwd": [4, 6, 8192, 8192, 128]}
     train.update({name: list(CE_TRAIN) for name, src, _, _ in KERNEL_ROWS
-                  if src == "fused_ce.cu"})
+                  if src == "fused_ce_bf16.cu"})
     serving = {"layer_norm": [8, 768],
                "flash_attention": [1, 12, 1024, 1024, 64]}
     out = []
@@ -1793,7 +1889,9 @@ def kernels_line(cases, paths):
                    for p, launches in paths.items()}
         entry = {
             "name": name, "route": "cuda",
-            "source": "mxnet_tpu_torch/csrc/" + src, "replaces": replaces,
+            "source": "mxnet_tpu_torch/csrc/" + src,
+            "source_f32": "mxnet_tpu_torch/csrc/" + F32_SOURCE[src],
+            "replaces": replaces,
             "launches": sum(v[counters[0]] for v in by_path.values()),
             "launches_by_path": by_path, "shape": at["shape"],
             "dtype": at["dtype"], "max_abs_err": at["max_abs_err"],
@@ -1850,7 +1948,8 @@ def main():
                 for ln in _build.build_log(name).splitlines()
                 if "registers" in ln]
         log("ptxas %s: %s" % (name, regs))
-    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+    for name in ("flash_attention_fwd", "flash_attention_bwd",
+                 "fused_ce_bf16"):
         log("ptxas registers, spill (stores, loads) bytes, %s: %s"
             % (name, ptxas_info(name)))
 
@@ -1901,6 +2000,21 @@ def main():
             FUSED, ("layer_norm_bwd", "flash_attention_dq",
                     "flash_attention_dkv", "fused_ce_fwd_sp",
                     "fused_ce_bwd_dw"), "fused config")
+        medium_grads = grad_check(
+            MEDIUM_FUSED, ("layer_norm_bwd", "flash_attention_dq",
+                           "flash_attention_dkv", "fused_ce_fwd_sp",
+                           "fused_ce_bwd_dw"),
+            "fused head at GPT-2 medium widths", size=1)
+        medium_layers = MEDIUM_FUSED["num_layers"]
+        medium = train_path(
+            "train fused GPT-2 medium widths", MEDIUM_FUSED, 2,
+            {"layer_norm": 2 * medium_layers + 1,
+             "layer_norm_bwd": 2 * medium_layers + 1,
+             "flash_attention": medium_layers,
+             "flash_attention_dq": medium_layers,
+             "flash_attention_dkv": medium_layers,
+             "fused_ce_fwd_sp": 1, "fused_ce_bwd_dw": 1},
+            FUSED_TRAINER, falls=False, batch=MEDIUM_BATCH)
 
     with phase("long-context kernel checks"):
         cases += longctx_kernel_checks()
@@ -1927,6 +2041,7 @@ def main():
         "train_fused": fused["launches"],
         "train_fused_5pass": five["launches"],
         "forward_fused": fused["forward"]["launches"],
+        "train_fused_medium": medium["launches"],
         "train_longctx_ds": ds["launches"],
         "train_longctx_stream": stream["launches"]})
     log("phase seconds: %s" % {k: round(v, 2) for k, v in phases.items()})
@@ -1934,11 +2049,15 @@ def main():
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "build_s": took, "phase_s": phases, "cases": cases, "paged": paged,
+         "build_s": took,
+         "ptxas": {name: ptxas_info(name) for name in _build.KERNELS},
+         "phase_s": phases, "cases": cases, "paged": paged,
          "slot": slot, "decode_profile": profile,
          "prefill_profile": prefill_prof, "train_bhsd": hsd,
          "gradients": grads, "train_bsd": bsd, "train_fused": fused,
          "train_fused_5pass": five, "gradients_fused": fused_grads,
+         "train_fused_medium": medium,
+         "gradients_fused_medium": medium_grads,
          "train_longctx_ds": ds, "train_longctx_stream": stream,
          "gradients_longctx_stream": stream_grads, "kernels": kernels},
         indent=1))

@@ -1,5 +1,6 @@
-// Fused projection + softmax cross-entropy head on Hopper: four kernels
-// that never write the (tokens x vocab) logits to device memory.
+// Fused projection + softmax cross-entropy head on Hopper, float32: four
+// kernels that never write the (tokens x vocab) logits to device memory.
+// bfloat16 operands take fused_ce_bf16.cu's tensor-core kernels instead.
 //
 // Replaces the Pallas kernels of mxnet_tpu/ops/pallas_kernels/fused_ce.py.
 // With x (n, d), W (V, d), b (V,), int32 labels, s = x W^T + b in float32
@@ -10,55 +11,58 @@
 //      lse = m + log l and nll = lse - a, zeroed on ignored rows;
 //   B, single pass     (`_fwd_sp_pallas` / `_fwd_sp_kernel`): the same
 //      statistics plus the rescaled accumulator acc * exp(m_prev - m_new)
-//      + exp(s - m) W_tile, p cast to W's dtype before the product; writes
-//      lse, a and dxp = acc / l (n, d) float32;
+//      + exp(s - m) W_tile; writes lse, a and dxp = acc / l (n, d);
 //   C, dW/db           (`_bwd_dw_rs_pallas` and `_bwd_pallas`'s
-//      `_bwd_dw_kernel`): dW = sum over tokens of dl (cast to x's dtype)^T
-//      x, db = sum of the float32 dl, both written in W's dtype;
+//      `_bwd_dw_kernel`): dW = sum over tokens of dl^T x, db = sum of dl;
 //   D, dx              (`_bwd_dx_rs_pallas` and `_bwd_pallas`'s
-//      `_bwd_dx_kernel`): dx = sum over the vocabulary of dl (cast to W's
-//      dtype) W, written in x's dtype.
+//      `_bwd_dx_kernel`): dx = sum over the vocabulary of dl W.
 // A label < 0 or >= V matches no column.  Every sum is float32.
 //
 // Bound on the H100: operations.  One pass over the logit tiles is
 // 2 n V d flops against reading x and W once, so at the training shape
 // (n = 32768, d = 768, V = 32768) every kernel needs 1.65e12 (A) or
-// 3.3e12 (B, C, D) flops on 50 MB operands: hundreds of flops a byte.
-// These first kernels compute in float32 on the CUDA cores (67 TFLOP/s
-// peak; no mma, no wgmma, no TMA), whatever the input dtype: bf16
-// operands are widened to float32 in shared memory, so every product is
-// the exact product the tensor cores would form.
+// 3.3e12 (B, C, D) flops on 200 MB of float32 operands: thousands of
+// flops a byte.  These kernels compute on the CUDA cores (67 TFLOP/s
+// peak; no mma: the tensor cores' float32 route, TF32, keeps 10 mantissa
+// bits and would not hold the 1e-4 checks).
 //
 // Design.  All four are one kernel template: a block owns 32 rows of one
 // matrix (tokens of x for A, B, D; vocabulary rows of W for C), holds
-// them in shared memory as float32, and streams 32-row tiles of the
-// other matrix past them.  For each tile it computes the 32 x 32 score
-// tile S = owned . streamed^T on the CUDA cores (each thread 2 x 2
-// scores, four floats of depth per shared-memory load), applies the
-// mode's epilogue in registers (the online softmax, with row maxima
-// across the 16 lanes of a row by shuffles; or dl), writes the
-// coefficient tile (p or dl, rounded to the operand dtype) transposed
-// to shared memory, and adds coefficient . streamed to a 32 x d float32
-// accumulator that lives in registers: thread (rg, cg) holds rows 4rg..
-// 4rg+3 at columns cg + 32k, k < NC, so NC = 24 covers d = 768 in 96
-// registers.  That is the TPU kernels' VMEM accumulator, spread over
-// the register file instead of shared memory: 32 rows of 768 floats in
-// shared memory (98 KB) would not fit beside the owned and streamed
-// tiles (98 KB each at d = 768).  The TPU grid's sequential vocabulary
-// axis becomes the loop inside the block; C gives each vocabulary tile to
-// one block that loops over every token, so dW and db are summed in a
-// fixed order without atomics, like the LayerNorm backward.  Ragged
-// edges are masked, not padded: rows past n or V stage as zeros and are
-// never written; columns past V score -1e30 and contribute exact zeros.
-// Shared memory: (32 + 32) * (32 NC + 4) floats plus the coefficient
-// tile, 203 KB at NC = 24, so one block of 256 threads runs on each SM.
-// ptxas's registers and spills for each instantiation are in the build
-// log, and chip_smoke.py prints them.  The tiles are staged with plain
-// loads (no cp.async double buffering yet): a later change.
+// them in shared memory, and streams 32-row tiles of the other matrix
+// past them.  For each tile it computes the 32 x 32 score tile S =
+// owned . streamed^T on the CUDA cores (each thread 2 x 2 scores, four
+// floats of depth per shared-memory load), applies the mode's epilogue
+// in registers (the online softmax, with row maxima across the 16 lanes
+// of a row by shuffles; or dl), writes the coefficient tile (p or dl)
+// transposed to shared memory, and adds coefficient . streamed to a 32 x
+// 32 NC float32 accumulator that lives in registers: thread (rg, cg)
+// holds rows 4rg..4rg+3 at columns cg + 32k, k < NC, so NC = 24 covers
+// 768 columns in 96 registers.  That is the TPU kernels' VMEM
+// accumulator, spread over the register file instead of shared memory.
+// The TPU grid's sequential vocabulary axis becomes the loop inside the
+// block; C gives each vocabulary tile to one block that loops over every
+// token, so dW and db are summed in a fixed order without atomics, like
+// the LayerNorm backward.
+//
+// Widths.  Up to 768 columns a block holds the whole depth (NC = 8, 16 or
+// 24), stages its owned rows once, and does each tile's S in one sweep.
+// Past 768, d is cut into chunks of 768: the accumulator's columns are
+// split over a second grid axis (block y owns chunk y of dxp, dW or dx;
+// A needs no accumulator and runs one slice), and S's depth is staged a
+// chunk at a time, owned and streamed rows both, the block's own chunk
+// last so that it stays in shared memory for coef . streamed.  Each
+// extra slice recomputes S: a d of k chunks costs k times the logit pass
+// of one.  Ragged edges are masked, not padded: rows past n or V and
+// columns past d stage as zeros and are never written; columns past V
+// score -1e30 and contribute exact zeros.  Shared memory: (32 + 32) *
+// (32 NC + 4) floats plus the coefficient tile, 203 KB at NC = 24, so
+// one block of 256 threads runs on each SM.  ptxas's registers and
+// spills for each instantiation are in the build log, and chip_smoke.py
+// prints them.  The tiles are staged with plain loads (no cp.async
+// double buffering).
 
 #include <climits>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -67,15 +71,14 @@ constexpr int kThreads = 256;
 constexpr int kRows = 32;         // owned rows a block
 constexpr int kTile = 32;         // streamed rows a step
 constexpr int kQld = kRows + 4;   // row stride of the coefficient tile
-constexpr int kMaxD = 768;
 constexpr float kNegInf = -1e30f;
 
 enum Mode { kStats = 0, kSinglePass = 1, kGradW = 2, kGradX = 3 };
 
 struct Args {
-  const void* x;
-  const void* w;
-  const void* b;
+  const float* x;
+  const float* w;
+  const float* b;
   const int* label;
   const float* lse;   // C, D: the forward's lse (n,)
   const float* coef;  // C, D: the per-token coefficient r (n,)
@@ -83,59 +86,29 @@ struct Args {
   float* lse_out;     // A, B
   float* picked;      // B
   float* dxp;         // B (n, d)
-  void* dx;           // D (n, d) in x's dtype
-  void* dw;           // C (V, d) in W's dtype
-  void* db;           // C (V,) in W's dtype
+  float* dx;          // D (n, d)
+  float* dw;          // C (V, d)
+  float* db;          // C (V,)
   int n, d, v, ignore_label, use_ignore;
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch and XLA
-}
-
-// v rounded to T and widened back: the cast the TPU kernels make before
-// a product (p to W's dtype, dl to x's or W's dtype).
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_float(from_float<T>(v));
-}
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 lo = __bfloat1622float2(q[0]);
-  const float2 hi = __bfloat1622float2(q[1]);
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-// Rows row0 .. row0 + 31 of src (rows_total x d, contiguous) into dst
-// (32 x LD floats) as float32, zeros past rows_total and past d up to
-// LD - 4.  d is a multiple of 4 and rows start on 8-byte boundaries.
-template <typename T, int LD>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src,
-                                           int row0, int rows_total,
-                                           int d) {
+// Rows row0 .. row0 + 31 of src (rows_total x d, contiguous), columns c0
+// .. c0 + width - 1, into dst (32 x LD floats), zeros past rows_total and
+// past width up to LD - 4.  d and width are multiples of 4.
+template <int LD>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int row0, int rows_total, int c0,
+                                           int width, int d) {
   constexpr int kGroups = (LD - 4) / 4;
   for (int idx = threadIdx.x; idx < 32 * kGroups; idx += kThreads) {
     const int rr = idx / kGroups;
     const int c = (idx - rr * kGroups) * 4;
     const int row = row0 + rr;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < rows_total && c < d) val = load4(src + (long long)row * d + c);
+    if (row < rows_total && c < width) {
+      val = *reinterpret_cast<const float4*>(src + (long long)row * d + c0 +
+                                             c);
+    }
     *reinterpret_cast<float4*>(dst + rr * LD + c) = val;
   }
 }
@@ -160,9 +133,10 @@ constexpr size_t smem_bytes() {
                           kRows + 4 * kTile);
 }
 
-template <typename T, int MODE, int NC>
+template <int MODE, int NC>
 __global__ void __launch_bounds__(kThreads, 1) fused_ce_kernel(Args a) {
   constexpr int kLd = 32 * NC + 4;  // float4-aligned, 4 banks apart a row
+  constexpr int kChunk = 32 * NC;   // columns a block holds
   constexpr bool kOwnW = MODE == kGradW;
   constexpr bool kAcc = MODE != kStats;
   extern __shared__ float4 smem4[];
@@ -175,17 +149,23 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ce_kernel(Args a) {
   float* t_coef = t_lse + kTile;                // kTile: streamed r (C)
   int* t_lab = reinterpret_cast<int*>(t_coef + kTile);  // kTile (C)
 
-  const T* x = static_cast<const T*>(a.x);
-  const T* w = static_cast<const T*>(a.w);
-  const T* bias = static_cast<const T*>(a.b);
+  const float* x = a.x;
+  const float* w = a.w;
+  const float* bias = a.b;
   const int n_own = kOwnW ? a.v : a.n;
   const int n_str = kOwnW ? a.n : a.v;
   const int o0 = blockIdx.x * kRows;
   const int tid = threadIdx.x;
   const int rp = tid >> 4, jp = tid & 15;  // scores: rows 2rp+i, cols jp+16jj
   const int rg = tid >> 5, cg = tid & 31;  // accumulator: rows 4rg+rr, cols cg+32k
+  // the depth in chunks of kChunk; this block's accumulator holds chunk
+  // blockIdx.y, staged last of each tile's chunks
+  const int nq = (a.d + kChunk - 1) / kChunk;
+  const int y = blockIdx.y;
+  const int wc = y * kChunk;
+  const bool first = y == 0;  // writes the per-row outputs and db
 
-  stage_rows<T, kLd>(os, kOwnW ? w : x, o0, n_own, a.d);
+  if (nq == 1) stage_rows<kLd>(os, kOwnW ? w : x, o0, n_own, 0, a.d, a.d);
 
   // what each thread needs of its two score rows
   int lab[2];
@@ -197,7 +177,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ce_kernel(Args a) {
     lab[i] = (!kOwnW && in) ? a.label[row] : INT_MIN;
     own_lse[i] = (MODE == kGradX && in) ? a.lse[row] : 0.f;
     own_coef[i] = (MODE == kGradX && in) ? a.coef[row] : 0.f;
-    own_b[i] = (kOwnW && in) ? to_float(bias[row]) : 0.f;
+    own_b[i] = (kOwnW && in) ? bias[row] : 0.f;
   }
 
   // this thread's share of each row's l, picked logit and db; m is the
@@ -215,7 +195,6 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ce_kernel(Args a) {
   for (int t = 0; t < ntiles; ++t) {
     const int s0 = t * kTile;
     __syncthreads();  // the last tile's readers of rs, qt and row_f are done
-    stage_rows<T, kLd>(rs, kOwnW ? x : w, s0, n_str, a.d);
     if (tid < kTile) {
       const int j = s0 + tid;
       const bool in = j < n_str;
@@ -224,20 +203,28 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ce_kernel(Args a) {
         t_coef[tid] = in ? a.coef[j] : 0.f;
         t_lab[tid] = in ? a.label[j] : INT_MIN;
       } else {
-        t_bias[tid] = in ? to_float(bias[j]) : 0.f;
+        t_bias[tid] = in ? bias[j] : 0.f;
       }
     }
-    __syncthreads();
 
-    // the score tile, 2 x 2 a thread
+    // the score tile, 2 x 2 a thread, a chunk of the depth at a time
     float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-    {
+    for (int qi = 0; qi < nq; ++qi) {
+      const int q = nq == 1 ? 0 : (y + 1 + qi) % nq;
+      const int width = min(kChunk, a.d - q * kChunk);
+      if (qi > 0) __syncthreads();  // the last chunk's readers are done
+      if (nq > 1) {
+        stage_rows<kLd>(os, kOwnW ? w : x, o0, n_own, q * kChunk, width,
+                        a.d);
+      }
+      stage_rows<kLd>(rs, kOwnW ? x : w, s0, n_str, q * kChunk, width, a.d);
+      __syncthreads();
       const float* xa = os + (2 * rp) * kLd;
       const float* xb = xa + kLd;
       const float* ya = rs + jp * kLd;
       const float* yb = rs + (jp + 16) * kLd;
 #pragma unroll 4
-      for (int k = 0; k < a.d; k += 4) {
+      for (int k = 0; k < width; k += 4) {
         const float4 p0 = *reinterpret_cast<const float4*>(xa + k);
         const float4 p1 = *reinterpret_cast<const float4*>(xb + k);
         const float4 q0 = *reinterpret_cast<const float4*>(ya + k);
@@ -282,9 +269,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ce_kernel(Args a) {
           const int c = s0 + jp + 16 * jj;
           const float p = c < a.v ? expf(sv[jj] - m_new) : 0.f;
           psum += p;
-          if (MODE == kSinglePass) {
-            qt[(jp + 16 * jj) * kQld + 2 * rp + i] = round_to<T>(p);
-          }
+          if (MODE == kSinglePass) qt[(jp + 16 * jj) * kQld + 2 * rp + i] = p;
         }
         l[i] = l[i] * factor + psum;
         m[i] = m_new;
@@ -311,9 +296,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ce_kernel(Args a) {
               dl = (p - (lab[i] == scol ? 1.f : 0.f)) * own_coef[i];
             }
           }
-          // dl to x's dtype before dl^T x (C), to W's before dl W (D):
-          // the kernels take one dtype for both
-          qt[j * kQld + 2 * rp + i] = round_to<T>(dl);
+          qt[j * kQld + 2 * rp + i] = dl;
         }
       }
     }
@@ -335,11 +318,11 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ce_kernel(Args a) {
         const float* yrow = rs + j * kLd + cg;
 #pragma unroll
         for (int k = 0; k < NC; ++k) {
-          const float y = yrow[32 * k];
-          acc[0][k] = fmaf(q.x, y, acc[0][k]);
-          acc[1][k] = fmaf(q.y, y, acc[1][k]);
-          acc[2][k] = fmaf(q.z, y, acc[2][k]);
-          acc[3][k] = fmaf(q.w, y, acc[3][k]);
+          const float yv = yrow[32 * k];
+          acc[0][k] = fmaf(q.x, yv, acc[0][k]);
+          acc[1][k] = fmaf(q.y, yv, acc[1][k]);
+          acc[2][k] = fmaf(q.z, yv, acc[2][k]);
+          acc[3][k] = fmaf(q.w, yv, acc[3][k]);
         }
       }
     }
@@ -356,7 +339,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ce_kernel(Args a) {
     for (int i = 0; i < 2; ++i) {
       const int row = o0 + 2 * rp + i;
       const float lse = m[i] + logf(l[i]);
-      if (jp == 0 && row < a.n) {
+      if (first && jp == 0 && row < a.n) {
         a.lse_out[row] = lse;
         if (MODE == kStats) {
           const bool valid = !(a.use_ignore && lab[i] == a.ignore_label);
@@ -377,21 +360,21 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ce_kernel(Args a) {
         float* out = a.dxp + (long long)row * a.d;
 #pragma unroll
         for (int k = 0; k < NC; ++k) {
-          const int c = cg + 32 * k;
+          const int c = wc + cg + 32 * k;
           if (c < a.d) out[c] = acc[rr][k] / lr;
         }
       }
     }
   } else {
-    T* out = static_cast<T*>(kOwnW ? a.dw : a.dx);
+    float* out = kOwnW ? a.dw : a.dx;
 #pragma unroll
     for (int rr = 0; rr < 4; ++rr) {
       const int row = o0 + 4 * rg + rr;
       if (row >= n_own) continue;
 #pragma unroll
       for (int k = 0; k < NC; ++k) {
-        const int c = cg + 32 * k;
-        if (c < a.d) out[(long long)row * a.d + c] = from_float<T>(acc[rr][k]);
+        const int c = wc + cg + 32 * k;
+        if (c < a.d) out[(long long)row * a.d + c] = acc[rr][k];
       }
     }
     if (kOwnW) {
@@ -399,52 +382,51 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ce_kernel(Args a) {
       for (int i = 0; i < 2; ++i) {
         const float total = half_warp_sum(dbs[i]);
         const int row = o0 + 2 * rp + i;
-        if (jp == 0 && row < a.v) {
-          static_cast<T*>(a.db)[row] = from_float<T>(total);
-        }
+        if (first && jp == 0 && row < a.v) a.db[row] = total;
       }
     }
   }
 }
 
-template <typename T, int MODE, int NC>
+template <int MODE, int NC>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const size_t smem = smem_bytes<NC>();
-  auto kern = fused_ce_kernel<T, MODE, NC>;
+  auto kern = fused_ce_kernel<MODE, NC>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int owners = MODE == kGradW ? a.v : a.n;
-  kern<<<(owners + kRows - 1) / kRows, kThreads, smem, stream>>>(a);
+  // one slice of the accumulator's columns per chunk of the depth; A has
+  // no accumulator
+  const int slices = MODE == kStats ? 1 : (a.d + 32 * NC - 1) / (32 * NC);
+  const dim3 grid((owners + kRows - 1) / kRows, slices);
+  kern<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int MODE>
+template <int MODE>
 cudaError_t launch_d(const Args& a, cudaStream_t stream) {
-  if (a.d <= 256) return launch<T, MODE, 8>(a, stream);
-  if (a.d <= 512) return launch<T, MODE, 16>(a, stream);
-  return launch<T, MODE, 24>(a, stream);
+  if (a.d <= 256) return launch<MODE, 8>(a, stream);
+  if (a.d <= 512) return launch<MODE, 16>(a, stream);
+  return launch<MODE, 24>(a, stream);
 }
 
 template <int MODE>
 int run(int dtype, const Args& a, void* stream) {
-  if (dtype < 0 || dtype > 1 || a.n < 0 || a.v < 1 || a.d < 4 ||
-      a.d > kMaxD || a.d % 4 != 0) {
+  if (dtype != 0 || a.n < 0 || a.v < 1 || a.d < 4 || a.d % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if ((MODE == kGradW ? a.v : a.n) == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dtype == 0 ? launch_d<float, MODE>(a, s)
-                                     : launch_d<__nv_bfloat16, MODE>(a, s);
-  return static_cast<int>(err);
+  return static_cast<int>(
+      launch_d<MODE>(a, static_cast<cudaStream_t>(stream)));
 }
 
 Args make_args(const void* x, const void* w, const void* b, const int* label,
                int n, int d, int v) {
   Args a = {};
-  a.x = x;
-  a.w = w;
-  a.b = b;
+  a.x = static_cast<const float*>(x);
+  a.w = static_cast<const float*>(w);
+  a.b = static_cast<const float*>(b);
   a.label = label;
   a.n = n;
   a.d = d;
@@ -456,13 +438,10 @@ Args make_args(const void* x, const void* w, const void* b, const int* label,
 
 extern "C" {
 
-// Widest d the kernels take.
-int mxt_fused_ce_max_d() { return kMaxD; }
-
-// Common arguments: dtype 0 float32, 1 bfloat16, for x (n, d), w (v, d)
-// and b (v,), all contiguous, 16-byte aligned; label (n,) int32; d a
-// multiple of 4 up to 768.  Each entry launches one kernel on the stream
-// and returns cudaGetLastError().
+// Common arguments: dtype must be 0 (float32) for x (n, d), w (v, d) and b
+// (v,), all contiguous, 16-byte aligned; label (n,) int32; d a multiple of
+// 4.  Each entry launches one kernel on the stream and returns
+// cudaGetLastError().
 
 // A: nll and lse (n,) float32.
 int mxt_fused_ce_fwd(int dtype, const void* x, const void* w, const void* b,
@@ -488,7 +467,7 @@ int mxt_fused_ce_fwd_sp(int dtype, const void* x, const void* w,
   return run<kSinglePass>(dtype, a, stream);
 }
 
-// C: dw (v, d) and db (v,) in dtype, from lse and r (n,) float32.
+// C: dw (v, d) and db (v,) float32, from lse and r (n,) float32.
 int mxt_fused_ce_bwd_dw(int dtype, const void* x, const void* w,
                         const void* b, const int* label, const float* lse,
                         const float* coef, void* dw, void* db, int n, int d,
@@ -496,12 +475,12 @@ int mxt_fused_ce_bwd_dw(int dtype, const void* x, const void* w,
   Args a = make_args(x, w, b, label, n, d, v);
   a.lse = lse;
   a.coef = coef;
-  a.dw = dw;
-  a.db = db;
+  a.dw = static_cast<float*>(dw);
+  a.db = static_cast<float*>(db);
   return run<kGradW>(dtype, a, stream);
 }
 
-// D: dx (n, d) in dtype, from lse and r (n,) float32.
+// D: dx (n, d) float32, from lse and r (n,) float32.
 int mxt_fused_ce_bwd_dx(int dtype, const void* x, const void* w,
                         const void* b, const int* label, const float* lse,
                         const float* coef, void* dx, int n, int d, int v,
@@ -509,7 +488,7 @@ int mxt_fused_ce_bwd_dx(int dtype, const void* x, const void* w,
   Args a = make_args(x, w, b, label, n, d, v);
   a.lse = lse;
   a.coef = coef;
-  a.dx = dx;
+  a.dx = static_cast<float*>(dx);
   return run<kGradX>(dtype, a, stream);
 }
 

@@ -5,7 +5,8 @@ The loss of ``softmax(x @ W.T + b)`` at each token's label, and its
 loss-head gradient, without the (tokens x vocab) logits ever reaching
 device memory.  Replaces the five Pallas functions of
 `mxnet_tpu/ops/pallas_kernels/fused_ce.py`; their math reduces to four
-kernels (`csrc/fused_ce.cu`):
+kernels (modes of one template: `csrc/fused_ce.cu` in float32,
+`csrc/fused_ce_bf16.cu` in bfloat16):
 
 * A, `fused_ce_fwd` — `_fwd_pallas` (`_fwd_kernel`): the online (m, l)
   and the picked logit a over vocabulary tiles; lse and nll = lse - a,
@@ -38,12 +39,19 @@ nll of ~1e30; the kernels' tiles are not the TPU's, so the port keeps
 the rule that does not depend on a tile size.)
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises `MXNetError`: float32 or bfloat16 x, W and b of one dtype,
-d a multiple of 4 up to 768, any n and any V.  The kernels always tile
-32 tokens by 32 vocabulary rows: a pinned ``block_n``/``block_v``
-(`MXNET_CE_BLOCK_N`/`_V`, or the op's parameters) retiles only the plain
-versions (``block_v``; ``block_n`` is kept for the JAX signature), and
-the TPU's cap of ``block_v`` at 1024 (its VMEM) does not apply.
+or raises `MXNetError`: x, W and b of one dtype, any n and any V.
+float32 runs `csrc/fused_ce.cu` (CUDA cores; d any multiple of 4, the
+accumulator's columns split over blocks past 768); bfloat16 runs
+`csrc/fused_ce_bf16.cu` (tensor cores; d a multiple of 8, the depth
+dealt out over a cluster of up to 8 blocks, past 3072 in windows).
+A bf16 d that is 4 more than a multiple of 8 is zero-padded by 4 columns
+to the kernels' 16-byte granule, counted on the wrapper's
+``padded_calls``; the columns added contribute nothing to s and are cut
+from dxp, dx and dW.  The kernels tile 32 (float32) or 64 (bf16) rows of
+each operand: a pinned ``block_n``/``block_v`` (`MXNET_CE_BLOCK_N`/`_V`,
+or the op's parameters) retiles only the plain versions (``block_v``;
+``block_n`` is kept for the JAX signature), and the TPU's cap of
+``block_v`` at 1024 (its VMEM) does not apply.
 
 `fused_softmax_ce` is the public entry, with the JAX package's
 signature and loss-head contract: the backward ignores the incoming
@@ -71,7 +79,9 @@ __all__ = ["fused_softmax_ce", "fused_softmax_ce_plain", "fused_ce_fwd",
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_D = 768   # the kernels' accumulators hold 32 rows of up to 768 floats
+# each dtype's source and the suffix of its C entries
+_SOURCES = {torch.float32: ("fused_ce", ""),
+            torch.bfloat16: ("fused_ce_bf16", "_bf16")}
 
 
 def single_pass_enabled():
@@ -224,18 +234,30 @@ def _bwd_dx_rs_plain(x, w, b, label, lse, r, block_v):
 # -- the CUDA kernels ---------------------------------------------------------
 
 
-def _lib():
-    lib = _build.load("fused_ce")
-    if lib.mxt_fused_ce_fwd.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for name, args in (("mxt_fused_ce_fwd", [i] + [p] * 6 + [i] * 5),
-                           ("mxt_fused_ce_fwd_sp", [i] + [p] * 7 + [i] * 3),
-                           ("mxt_fused_ce_bwd_dw", [i] + [p] * 8 + [i] * 3),
-                           ("mxt_fused_ce_bwd_dx", [i] + [p] * 7 + [i] * 3)):
-            fn = getattr(lib, name)
-            fn.argtypes = args + [p]
-            fn.restype = i
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# each C entry's arguments before the stream
+_SIGNATURES = {"mxt_fused_ce_fwd": [_I] + [_P] * 6 + [_I] * 5,
+               "mxt_fused_ce_fwd_sp": [_I] + [_P] * 7 + [_I] * 3,
+               "mxt_fused_ce_bwd_dw": [_I] + [_P] * 8 + [_I] * 3,
+               "mxt_fused_ce_bwd_dx": [_I] + [_P] * 7 + [_I] * 3}
+
+
+def _lib(source="fused_ce"):
+    lib = _build.load(source)
+    suffix = dict(_SOURCES.values())[source]
+    if getattr(lib, "mxt_fused_ce_fwd" + suffix).argtypes is None:
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name + suffix)
+            fn.argtypes = args + [_P]
+            fn.restype = _I
     return lib
+
+
+def _entry(dtype, name):
+    """The C entry ``name`` of ``dtype``'s source: `fused_ce.cu`'s for
+    float32, `fused_ce_bf16.cu`'s ``name + '_bf16'`` for bfloat16."""
+    source, suffix = _SOURCES[dtype]
+    return getattr(_lib(source), name + suffix)
 
 
 def _aligned(t):
@@ -248,7 +270,9 @@ def _aligned(t):
 def _check_cuda_args(x, w, b, label, what, rows=()):
     """What the CUDA kernels take; raises `MXNetError` on anything else
     before a launch.  ``rows`` are per-token float32 operands (lse, r).
-    Returns the operands ready for the C entry, labels as int32."""
+    Returns the operands ready for the C entry (x and W zero-padded by 4
+    columns where a bf16 d needs it), labels as int32, and whether x and
+    W were padded."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[1]:
         raise MXNetError("%s: x must be (n, d) and W (V, d), got %s and %s"
                          % (what, tuple(x.shape), tuple(w.shape)))
@@ -263,9 +287,9 @@ def _check_cuda_args(x, w, b, label, what, rows=()):
     if b.shape != (v,) or label.shape != (n,) or v < 1:
         raise MXNetError("%s: b must be (%d,) and label (%d,), got %s and %s"
                          % (what, v, n, tuple(b.shape), tuple(label.shape)))
-    if d % 4 or not 4 <= d <= _MAX_D:
-        raise MXNetError("%s: the CUDA kernels take d a multiple of 4 up to "
-                         "%d, got %d" % (what, _MAX_D, d))
+    if d % 4 or d < 4:
+        raise MXNetError("%s: the CUDA kernels take d a positive multiple "
+                         "of 4, got %d" % (what, d))
     for t in rows:
         if t.shape != (n,) or t.dtype != torch.float32:
             raise MXNetError("%s: lse and r must be (%d,) float32, got %s %s"
@@ -276,9 +300,12 @@ def _check_cuda_args(x, w, b, label, what, rows=()):
     if any(t.device != x.device for t in (w, b, label, *rows)):
         raise MXNetError("%s: every operand must be on x's device" % what)
     _build.check_current_device(x.device, what)
+    padded = x.dtype == torch.bfloat16 and d % 8 != 0
+    if padded:
+        x, w = (torch.nn.functional.pad(t, (0, 4)) for t in (x, w))
     return ([_aligned(t) for t in (x, w, b)],
-            label.to(torch.int32).contiguous(),
-            [t.contiguous() for t in rows])
+            _aligned(label.to(torch.int32)),
+            [_aligned(t) for t in rows], padded)
 
 
 def _stream(x):
@@ -286,61 +313,67 @@ def _stream(x):
 
 
 def _fwd_cuda(x, w, b, label, ignore_label, use_ignore):
-    (x, w, b), lbl, _ = _check_cuda_args(x, w, b, label, "fused_ce_fwd")
+    (x, w, b), lbl, _, padded = _check_cuda_args(x, w, b, label,
+                                                 "fused_ce_fwd")
     n, d = x.shape
     nll = torch.empty((n,), dtype=torch.float32, device=x.device)
     lse = torch.empty_like(nll)
-    err = _lib().mxt_fused_ce_fwd(
+    err = _entry(x.dtype, "mxt_fused_ce_fwd")(
         _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(),
         lbl.data_ptr(), nll.data_ptr(), lse.data_ptr(), n, d, w.shape[0],
         int(ignore_label), int(bool(use_ignore)), _stream(x))
     _build.check(err, "fused_ce_fwd launch")
     fused_ce_fwd.launches += 1
+    fused_ce_fwd.padded_calls += padded
     return nll, lse
 
 
 def _fwd_sp_cuda(x, w, b, label):
-    (x, w, b), lbl, _ = _check_cuda_args(x, w, b, label, "fused_ce_fwd_sp")
+    (x, w, b), lbl, _, padded = _check_cuda_args(x, w, b, label,
+                                                 "fused_ce_fwd_sp")
     n, d = x.shape
     lse = torch.empty((n,), dtype=torch.float32, device=x.device)
     a = torch.empty_like(lse)
     dxp = torch.empty((n, d), dtype=torch.float32, device=x.device)
-    err = _lib().mxt_fused_ce_fwd_sp(
+    err = _entry(x.dtype, "mxt_fused_ce_fwd_sp")(
         _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(),
         lbl.data_ptr(), lse.data_ptr(), a.data_ptr(), dxp.data_ptr(), n, d,
         w.shape[0], _stream(x))
     _build.check(err, "fused_ce_fwd_sp launch")
     fused_ce_fwd_sp.launches += 1
-    return lse, a, dxp
+    fused_ce_fwd_sp.padded_calls += padded
+    return lse, a, (dxp[:, :d - 4] if padded else dxp)
 
 
 def _bwd_dw_cuda(x, w, b, label, lse, r):
-    (x, w, b), lbl, (lse, r) = _check_cuda_args(
+    (x, w, b), lbl, (lse, r), padded = _check_cuda_args(
         x, w, b, label, "fused_ce_bwd_dw", (lse, r))
     n, d = x.shape
     dw = torch.empty_like(w)
     db = torch.empty_like(b)
-    err = _lib().mxt_fused_ce_bwd_dw(
+    err = _entry(x.dtype, "mxt_fused_ce_bwd_dw")(
         _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(),
         lbl.data_ptr(), lse.data_ptr(), r.data_ptr(), dw.data_ptr(),
         db.data_ptr(), n, d, w.shape[0], _stream(x))
     _build.check(err, "fused_ce_bwd_dw launch")
     fused_ce_bwd_dw.launches += 1
-    return dw, db
+    fused_ce_bwd_dw.padded_calls += padded
+    return (dw[:, :d - 4].contiguous() if padded else dw), db
 
 
 def _bwd_dx_cuda(x, w, b, label, lse, r):
-    (x, w, b), lbl, (lse, r) = _check_cuda_args(
+    (x, w, b), lbl, (lse, r), padded = _check_cuda_args(
         x, w, b, label, "fused_ce_bwd_dx", (lse, r))
     n, d = x.shape
     dx = torch.empty_like(x)
-    err = _lib().mxt_fused_ce_bwd_dx(
+    err = _entry(x.dtype, "mxt_fused_ce_bwd_dx")(
         _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(),
         lbl.data_ptr(), lse.data_ptr(), r.data_ptr(), dx.data_ptr(), n, d,
         w.shape[0], _stream(x))
     _build.check(err, "fused_ce_bwd_dx launch")
     fused_ce_bwd_dx.launches += 1
-    return dx
+    fused_ce_bwd_dx.padded_calls += padded
+    return dx[:, :d - 4].contiguous() if padded else dx
 
 
 def _on(x, what):
@@ -395,11 +428,12 @@ def fused_ce_bwd(x, w, b, label, lse, grad_scale=1.0, ignore_label=-1.0,
     return dx, dw, db
 
 
-# kernel launches since the counts were last set to 0 (CUDA path only)
-fused_ce_fwd.launches = 0
-fused_ce_fwd_sp.launches = 0
-fused_ce_bwd_dw.launches = 0
-fused_ce_bwd_dx.launches = 0
+# kernel launches since the counts were last set to 0 (CUDA path only),
+# and the bf16 calls among them whose d was zero-padded by 4 columns
+for _fn in (fused_ce_fwd, fused_ce_fwd_sp, fused_ce_bwd_dw, fused_ce_bwd_dx):
+    _fn.launches = 0
+    _fn.padded_calls = 0
+del _fn
 
 
 # -- autograd: the two structures ---------------------------------------------

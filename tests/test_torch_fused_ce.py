@@ -357,7 +357,7 @@ def test_cpu_takes_the_plain_versions_and_counts_nothing(monkeypatch):
     (dict(dtype=torch.float16), "float32 or bfloat16"),
     (dict(w_dtype=torch.bfloat16), "x's dtype"),
     (dict(d=6), "multiple of 4"),
-    (dict(d=772), "up to 768"),
+    (dict(d=0), "positive multiple of 4"),
     (dict(b_rows=39), "b must be"),
     (dict(x_3d=True), "x must be"),
     (dict(float_labels=True), "integer class ids"),
