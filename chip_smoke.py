@@ -19,12 +19,14 @@ Phases, each of which fails the run with a non-zero exit:
    take; the bf16 flash forward and backward (tensor cores) are held
    against the plain versions in float32 on the same bf16 operands, must
    give bit-identical results twice, and report their TFLOP/s, their
-   share of the bound and ptxas's spill bytes; flash attention at head
-   widths 16 (the plain route), 32, 48, 80 and 96 (zero-padded to the
-   kernels' widths) and 160 (refused), forward and backward, float32 and
-   bf16, on all four kernel routes, each on its route's counters; and
-   LayerNorm over rows wider than its register kernels hold (16384 and
-   12300);
+   share of the bound and ptxas's spill bytes; the float32 flash backward
+   (tensor cores, 3xTF32) must give bit-identical gradients twice too,
+   its bound the 3xTF32 one with the CUDA-core bound beside it; flash
+   attention at head widths 16 (the plain route), 32, 48, 80 and 96
+   (zero-padded to the kernels' widths) and 160 (refused), forward and
+   backward, float32 and bf16, on all four kernel routes, each on its
+   route's counters; and LayerNorm over rows wider than its register
+   kernels hold (16384 and 12300);
 3. serve 16 requests at GPT-2-small widths through the default (paged)
    `ServingEngine`, count each kernel's launches, and check the logits
    of two finished requests against the plain float32 path;
@@ -40,7 +42,10 @@ Phases, each of which fails the run with a non-zero exit:
 7. check one step's float32 gradients of the same model (batch 2) through
    the kernels against the same step through their plain versions;
 8. train the transposeless configuration (6 heads of 128, 'bsd'
-   attention, no biases) at full width for 3 steps;
+   attention, no biases) at full width for 3 steps, and check one f32
+   step's gradients of it (batch 2); then the parity configuration in
+   float32, the trainer's default dtype, for 3 steps (its flash backward
+   runs the 3xTF32 kernels);
 9. hold the four fused CE kernels (stats forward, single-pass forward,
    dW/db, dx) and the 5-pass backward against their plain versions, in
    float32 (CUDA cores) and bf16 (tensor cores, against the plain
@@ -73,13 +78,13 @@ Phases, each of which fails the run with a non-zero exit:
    heads of 128, biases, bf16 Adam v) at full width for 5 steps each:
    S=4096 B=8 under ``MXNET_FLASH_LAYOUT=ds`` and S=8192 B=4 under
    ``MXNET_FLASH_BSD_KERNEL=stream``, with exact launches on the route's
-   own counters; and one f32 step's gradients of the S=8192
-   configuration at batch 1 through the kernels against their plain
-   versions.
+   own counters; and one f32 step's gradients of each configuration at
+   batch 1 through the kernels against their plain versions.
 
 It prints each phase's seconds, a ``kernels`` JSON line (launches,
-errors, times, bounds), the card's name and power limit, and as its last
-line
+errors, times, bounds; the float32 backward's routes as entries of their
+own, launched on the float32 paths; a kernel launched on no path fails
+the run), the card's name and power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  It writes the full
 results to ``chiprun_out/chip_smoke.json``.  It exits non-zero without a
 result when no CUDA device is present or the package is missing.
@@ -123,6 +128,10 @@ from mxnet_tpu_torch.serving import decode as decode_mod
 # CUDA cores, bf16 on the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# TF32 on the tensor cores: the float32 flash backward's products run
+# there in 3xTF32, three TF32 products for each float32 one, so its least
+# time is 3x its operations at this rate
+PEAK_TF32 = 495e12
 
 # GPT-2 small's published widths (vocab 50257, context 1024, 12 layers,
 # 12 heads, embed 768, ffn 3072, biases on)
@@ -162,8 +171,10 @@ LOGIT_TOL = 1e-3
 # Tolerances of the training-shape checks (phase 2), as a bound on
 # max |kernel - plain| over max |plain|, per output:
 # * float32: the same float32 arithmetic summed in another order (over up
-#   to 1024 keys or 32768 rows), ~1e-6 of the largest value; 1e-4 leaves
-#   100x headroom;
+#   to 1024 keys or 32768 rows), ~1e-6 of the largest value; the float32
+#   flash backward's products run in 3xTF32 (each operand split into two
+#   TF32 terms; the dropped lo * lo term and lo's rounding cost ~2**-22 of
+#   each product), which keeps it near that; 1e-4 leaves 100x headroom;
 # * bfloat16: the 7e-3 bar the JAX package's Pallas kernels held against
 #   their jnp twins (BENCH_r05.json pallas_parity, flash_bwd_bsd_full_dq
 #   0.007143).
@@ -171,9 +182,10 @@ REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 7e-3}
 
 # Gradient check (phase 7): one step's float32 gradients through the
 # kernels against the plain versions, max |dg| / max |g| per parameter.
-# The two differ in summation order only (LayerNorm reductions, attention
+# The two differ in summation order (LayerNorm reductions, attention
 # blocks, and the embedding's scatter-add, whose atomics add in another
-# order on every run): ~1e-6.  The key-projection biases' true gradient is
+# order on every run) and in the flash backward's 3xTF32 products (~2**-22
+# of each): ~1e-6.  The key-projection biases' true gradient is
 # exactly zero (q.b_k is the same for every key of a query, and the
 # softmax cancels it), so theirs is rounding noise in both paths; they are
 # held to the same bound against the largest gradient of the model
@@ -186,9 +198,11 @@ MFU_PEAK = PEAK_FLOPS[torch.bfloat16]
 
 # The kernels line: one entry per TPU function ported, with the counters
 # whose launches it reports (the first is its ``launches``).  The line
-# reports bf16, so the flash and fused CE rows name the tensor-core
-# sources; their float32 launches run the CUDA-core sources of
-# `F32_SOURCE`.
+# reports bf16, so the flash and fused CE rows name the bf16 tensor-core
+# sources; their float32 launches run the sources of `F32_SOURCE` (the
+# float32 flash backward on the tensor cores in 3xTF32, the rest on the
+# CUDA cores); the float32 backward's four routes have entries of their
+# own (`F32_BWD_ROWS`).
 TPU = "mxnet_tpu/ops/pallas_kernels/"
 KERNEL_ROWS = [
     ("layer_norm", "layer_norm.cu", TPU + "layer_norm.py:93",
@@ -234,7 +248,7 @@ KERNEL_ROWS = [
 ]
 F32_SOURCE = {"layer_norm.cu": "layer_norm.cu",
               "flash_attention_fwd.cu": "flash_attention.cu",
-              "flash_attention_bwd.cu": "flash_attention.cu",
+              "flash_attention_bwd.cu": "flash_attention_bwd_f32.cu",
               "fused_ce_bf16.cu": "fused_ce.cu"}
 # every launch counter, by name: (wrapper, attribute)
 COUNTERS = {
@@ -379,9 +393,12 @@ def time_with_launch_ms(fn, reps=25, warm=3):
     return statistics.median(times)
 
 
-def bound_ms(nbytes, flops, dtype):
+def bound_ms(nbytes, flops, dtype, peak=None):
+    """The least time for ``nbytes`` of memory traffic and ``flops``
+    operations at ``peak`` (the dtype's `PEAK_FLOPS` unless given), and
+    which of the two bounds it."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -420,11 +437,13 @@ def ptxas_info(name):
 
 
 def mma_ptxas(source, d, layout):
-    """ptxas's registers and spill bytes of the bf16 tensor-core kernels of
+    """ptxas's registers and spill bytes of the tensor-core flash kernels of
     ``source`` at head_dim ``d`` in ``layout`` (0 or 1), by kernel: 'fwd',
-    or the backward's 'bwd_dq' and 'bwd_dkv'."""
+    or the backward's 'bwd_dq' and 'bwd_dkv' (bf16 `wgmma`, or the float32
+    ones in 3xTF32)."""
     tag = "ILi%dELb%dE" % (d, layout)
-    return {re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_mma_kernel", k).group(1):
+    return {re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_(mma|tf32)_kernel",
+                      k).group(1):
             v for k, v in ptxas_info(source).items() if tag in k}
 
 
@@ -766,6 +785,16 @@ def flash_train_case(layout, batch, heads, d, dtype, gen, sq=1024,
                          "bit_identical": same}
         else:
             b_err = rel_check(dtype, list(zip(grads, rgrads)))
+            # two launches of the 3xTF32 kernels on the same inputs:
+            # bit-identical gradients (no atomics)
+            once = _flash_bwd_cuda(kq, kk, kv, ko, lse, kg, glse, *args,
+                                   route)
+            again = _flash_bwd_cuda(kq, kk, kv, ko, lse, kg, glse, *args,
+                                    route)
+            same = all(torch.equal(a, b) for a, b in zip(once, again))
+            del once, again
+            b_err = (b_err[0], b_err[1], b_err[2] and same)
+            extra_bwd = {"bit_identical": same}
         if not timed:
             return [dict(_record(name, shape, dtype, f_err, False),
                          **extra_fwd),
@@ -779,8 +808,15 @@ def flash_train_case(layout, batch, heads, d, dtype, gen, sq=1024,
         # not work the function needs)
         fb = bound_ms(batch * heads * d * (2 * sq + 2 * skv) * isz
                       + batch * heads * sq * 4, 4 * d * pairs, dtype)
-        bb = bound_ms(batch * heads * d * (4 * sq + 4 * skv) * isz
-                      + 2 * batch * heads * sq * 4, 10 * d * pairs, dtype)
+        bwd_bytes = (batch * heads * d * (4 * sq + 4 * skv) * isz
+                     + 2 * batch * heads * sq * 4)
+        bb = bound_ms(bwd_bytes, 10 * d * pairs, dtype)
+        if dtype == torch.float32:
+            # the float32 backward's products run in 3xTF32 on the tensor
+            # cores, three TF32 products for each: its least time is at
+            # that rate; the CUDA-core bound is kept beside it
+            bb_cuda_core = bb[0]
+            bb = bound_ms(bwd_bytes, 3 * 10 * d * pairs, dtype, PEAK_TF32)
         leaves = [t.clone().requires_grad_() for t in (q4, k4, v4)]
         sdpa = lambda: F.scaled_dot_product_attention(*leaves,
                                                       is_causal=causal)
@@ -823,6 +859,10 @@ def flash_train_case(layout, batch, heads, d, dtype, gen, sq=1024,
         if dtype == torch.bfloat16:
             bwd["ptxas"] = mma_ptxas("flash_attention_bwd", d,
                                      int(layout == "ds"))
+        else:
+            bwd["bound_cuda_core_ms"] = bb_cuda_core
+            bwd["ptxas"] = mma_ptxas("flash_attention_bwd_f32", d,
+                                     int(layout == "ds"))
         return [fwd, bwd]
 
 
@@ -851,13 +891,17 @@ def describe(c):
         line += ("; %.1f TFLOP/s (%s·d a visible pair), %.3f of the bound"
                  % (c["tflops"], 10 if "delta_ms" in c else 4,
                     c["bound_share"]))
+    if "bound_cuda_core_ms" in c:
+        line += ("; the bound is 3xTF32's, the CUDA-core one %.4f ms"
+                 % c["bound_cuda_core_ms"])
     if "delta_ms" in c:
         line += "; the wrapper's delta %.4f ms of it" % c["delta_ms"]
     if "bf16_plain_rel_err" in c:
         line += ("; vs the plain f32 version on the bf16 operands, beside "
                  "it the bf16 plain one %.2e; bit-identical twice: %s"
                  % (c["bf16_plain_rel_err"], c["bit_identical"]))
-    if c.get("reference") == "plain bf16":
+    if c.get("reference") == "plain bf16" or (
+            "bit_identical" in c and "bf16_plain_rel_err" not in c):
         line += "; bit-identical twice: %s" % c["bit_identical"]
     if any(c.get("padded_calls", {}).values()):
         line += "; padded calls %s" % c["padded_calls"]
@@ -1654,17 +1698,18 @@ def flops_per_token(cfg):
 
 
 def train_path(label, cfg, steps, expect, trainer_kw=None, falls=True,
-               after=None, batch=TRAIN_BATCH, pins=None):
-    """Train ``cfg`` at full width, in bf16, at ``batch`` (32 unless
-    given) under the ``MXNET_*`` ``pins`` (set for the path and restored
-    after): ``steps`` steps (the first a warm-up, left out of the timing)
-    with the counts set to 0 before and read after, then one profiled
-    step.  ``expect`` maps each counter to the launches it must show per
-    step (every other counter must show none); ``falls`` asks for the
-    last loss below the first.  ``after(trainer, batch)`` runs last, on
-    the trained model, and its result joins the record."""
+               after=None, batch=TRAIN_BATCH, pins=None, dtype="bfloat16"):
+    """Train ``cfg`` at full width, in ``dtype`` (bf16 unless given), at
+    ``batch`` (32 unless given) under the ``MXNET_*`` ``pins`` (set for
+    the path and restored after): ``steps`` steps (the first a warm-up,
+    left out of the timing) with the counts set to 0 before and read
+    after, then one profiled step.  ``expect`` maps each counter to the
+    launches it must show per step (every other counter must show none);
+    ``falls`` asks for the last loss below the first.  ``after(trainer,
+    batch)`` runs last, on the trained model, and its result joins the
+    record."""
     with pinned(**(pins or {})):
-        trainer = lm_trainer(cfg, batch, "bfloat16", **(trainer_kw or {}))
+        trainer = lm_trainer(cfg, batch, dtype, **(trainer_kw or {}))
         dev = trainer.shard_batch(lm_batch(batch, cfg))
         labels = dev["softmax_label"]
         torch.cuda.synchronize()
@@ -1696,7 +1741,7 @@ def train_path(label, cfg, steps, expect, trainer_kw=None, falls=True,
         tokens = batch * cfg["seq_len"]
         fpt = flops_per_token(cfg)
         res = {
-            "config": cfg, "batch": batch, "dtype": "bfloat16",
+            "config": cfg, "batch": batch, "dtype": dtype,
             "optimizer": "adam lr 1e-3 wd 0", "trainer_kw": trainer_kw or {},
             "pins": pins or {}, "steps": steps,
             "losses": losses, "step_ms": step_ms, "wall_ms": wall_ms,
@@ -1711,17 +1756,16 @@ def train_path(label, cfg, steps, expect, trainer_kw=None, falls=True,
             "kernel_ms": {k: kernel_ms(device, k) for k in (
                 "ln_fwd_kernel", "ln_bwd_kernel", "ln_bwd_reduce_kernel",
                 "flash_fwd_kernel", "flash_fwd_mma_kernel",
-                "flash_bwd_dq_kernel",
-                "flash_bwd_dkv_kernel", "flash_bwd_dq_mma_kernel",
-                "flash_bwd_dkv_mma_kernel", "fused_ce_kernel",
-                "fused_ce_mma_kernel")},
+                "flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel",
+                "flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel",
+                "fused_ce_kernel", "fused_ce_mma_kernel")},
             "top_device_ops_ms": device[:10], "top_host_ops_ms": host}
         res.update(extra)
-        log("%s: %d steps of batch %d x %d tokens, bf16, Adam; step ms (CUDA "
+        log("%s: %d steps of batch %d x %d tokens, %s, Adam; step ms (CUDA "
             "events) %s; median of the last %d %.2f ms = %.1f tokens/s, MFU "
             "%.4f (%.4g flops/token over the %.0f TFLOP/s dense bf16 peak); "
             "host wall ms %s"
-            % (label, steps, batch, cfg["seq_len"],
+            % (label, steps, batch, cfg["seq_len"], dtype,
                ["%.2f" % t for t in step_ms], len(timed), step,
                res["tokens_per_s"], res["mfu"], fpt, MFU_PEAK / 1e12,
                ["%.1f" % t for t in wall_ms]))
@@ -1864,9 +1908,17 @@ def five_pass_path(expect):
                       pins={"MXNET_CE_SINGLE_PASS": "0"})
 
 
-def kernels_line(cases, paths):
+# the float32 flash backward's entries in the kernels line: the bf16 row
+# each one shares its TPU function with
+F32_BWD_ROWS = ("flash_attention_bwd", "flash_attention_bsd_bwd",
+                "flash_attention_ds_bwd", "flash_attention_bsd_stream_bwd")
+
+
+def kernels_line(cases, paths, f32_paths):
     """One entry per ported TPU function: launches on each path, and the
-    error and times of its check at the training shape, in bf16."""
+    error and times of its check at the training shape, in bf16; then one
+    entry per route of the float32 backward (`flash_attention_bwd_f32.cu`),
+    its launches those of the float32 paths ``f32_paths``."""
     train = {"layer_norm": [32768, 768], "layer_norm_bwd": [32768, 768],
              "flash_attention": [32, 12, 1024, 1024, 64],
              "flash_attention_bwd": [32, 12, 1024, 1024, 64],
@@ -1912,6 +1964,25 @@ def kernels_line(cases, paths):
             entry["serving_shape_ms"] = {"shape": s["shape"],
                                          "dtype": s["dtype"], "ms": s["ms"]}
         out.append(entry)
+    for name, src, replaces, counters in KERNEL_ROWS:
+        if name not in F32_BWD_ROWS:
+            continue
+        at = next(c for c in cases if c["kernel"] == name
+                  and c["shape"] == train[name] and "ms" in c
+                  and c["dtype"] == "torch.float32")
+        by_path = {p: {k: launches[k] for k in counters}
+                   for p, launches in f32_paths.items()}
+        out.append({
+            "name": name + "_f32", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/" + F32_SOURCE[src],
+            "replaces": replaces,
+            "launches": sum(v[counters[0]] for v in by_path.values()),
+            "launches_by_path": by_path, "shape": at["shape"],
+            "dtype": at["dtype"],
+            **{k: at[k] for k in (
+                "max_abs_err", "rel_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "tflops", "bound_share",
+                "bound_cuda_core_ms", "bit_identical", "ptxas")}})
     return out
 
 
@@ -1949,7 +2020,7 @@ def main():
                 if "registers" in ln]
         log("ptxas %s: %s" % (name, regs))
     for name in ("flash_attention_fwd", "flash_attention_bwd",
-                 "fused_ce_bf16"):
+                 "flash_attention_bwd_f32", "fused_ce_bf16"):
         log("ptxas registers, spill (stores, loads) bytes, %s: %s"
             % (name, ptxas_info(name)))
 
@@ -1985,6 +2056,16 @@ def main():
                                     "flash_attention_dkv"))
         bsd = train_path("train bsd (geom fast)", GEOM_FAST, 3,
                          dict(per_layer, **flash("flash_attention_bsd")))
+        bsd_grads = grad_check(
+            GEOM_FAST, ("layer_norm_bwd", "flash_attention_bsd_dq",
+                        "flash_attention_bsd_dkv"), "bsd config")
+
+    with phase("train bhsd f32"):
+        # the trainer's default dtype: every flash backward runs the
+        # float32 dq and dk/dv kernels
+        hsd32 = train_path("train bhsd (parity) f32", PARITY, 3,
+                           dict(per_layer, **flash("flash_attention")),
+                           dtype="float32")
 
     with phase("fused CE"):
         ce_cases = fused_ce_checks()
@@ -2034,6 +2115,10 @@ def main():
                              "flash_attention_bsd_stream_dkv"),
             "longctx stream config", size=1,
             pins={"MXNET_FLASH_BSD_KERNEL": "stream"})
+        ds_grads = grad_check(
+            LONGCTX_DS, ("layer_norm_bwd", "flash_attention_ds_dq",
+                         "flash_attention_ds_dkv"),
+            "longctx ds config", size=1, pins={"MXNET_FLASH_LAYOUT": "ds"})
 
     kernels = kernels_line(cases, {
         "paged": paged["launches"], "slot": slot["launches"],
@@ -2043,7 +2128,17 @@ def main():
         "forward_fused": fused["forward"]["launches"],
         "train_fused_medium": medium["launches"],
         "train_longctx_ds": ds["launches"],
-        "train_longctx_stream": stream["launches"]})
+        "train_longctx_stream": stream["launches"]}, {
+        "train_bhsd_f32": hsd32["launches"],
+        "gradients_parity": grads["launches"],
+        "gradients_bsd": bsd_grads["launches"],
+        "gradients_fused": fused_grads["launches"],
+        "gradients_fused_medium": medium_grads["launches"],
+        "gradients_longctx_ds": ds_grads["launches"],
+        "gradients_longctx_stream": stream_grads["launches"]})
+    idle = [e["name"] for e in kernels if not e["launches"]]
+    if idle:
+        raise SystemExit("kernels launched on no path: %s" % idle)
     log("phase seconds: %s" % {k: round(v, 2) for k, v in phases.items()})
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
@@ -2054,12 +2149,15 @@ def main():
          "phase_s": phases, "cases": cases, "paged": paged,
          "slot": slot, "decode_profile": profile,
          "prefill_profile": prefill_prof, "train_bhsd": hsd,
-         "gradients": grads, "train_bsd": bsd, "train_fused": fused,
+         "gradients": grads, "train_bsd": bsd, "gradients_bsd": bsd_grads,
+         "train_bhsd_f32": hsd32,
+         "train_fused": fused,
          "train_fused_5pass": five, "gradients_fused": fused_grads,
          "train_fused_medium": medium,
          "gradients_fused_medium": medium_grads,
          "train_longctx_ds": ds, "train_longctx_stream": stream,
-         "gradients_longctx_stream": stream_grads, "kernels": kernels},
+         "gradients_longctx_stream": stream_grads,
+         "gradients_longctx_ds": ds_grads, "kernels": kernels},
         indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

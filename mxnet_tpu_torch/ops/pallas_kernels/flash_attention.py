@@ -14,18 +14,21 @@ in float32: the forward and the dq pass take one block per (batch, head,
 64-query tile) and cut the K loop at the causal diagonal; the dk/dv pass
 takes one block per (batch, head, 64-key tile) and starts its Q loop at
 the first query tile that reaches it.  `csrc/flash_attention.cu` holds
-the float32 forward and backward (CUDA cores); `csrc/flash_attention_fwd.cu`
-and `csrc/flash_attention_bwd.cu` the bfloat16 forward and backward on the
-tensor cores (`wgmma`, p and ds rounded to bf16 where the mma takes them).
-Each source's note gives the H100 bound and what the design does about
-it.
+the float32 forward (CUDA cores); `csrc/flash_attention_fwd.cu` and
+`csrc/flash_attention_bwd.cu` the bfloat16 forward and backward on the
+tensor cores (`wgmma`, p and ds rounded to bf16 where the mma takes them);
+`csrc/flash_attention_bwd_f32.cu` the float32 backward on the tensor cores
+through 3xTF32 (each operand split into two TF32 terms, three products
+a product).  Each source's note gives the H100 bound and what the design
+does about it.
 
 Operands are (B, H, S, D) in float32 or bfloat16.  The kernels take D in
 {64, 128}; they read and write through the batch, head and sequence
 strides, so a transposed view costs no copy, but the last axis must be
-contiguous.  The bf16 kernels copy 16-byte rows, so their operands must
-also be 16-byte aligned with strides that are multiples of 8 elements
-(they raise on others; the out cotangent is copied).
+contiguous.  The tensor-core kernels copy 16-byte rows, so their operands
+must also be 16-byte aligned with strides that are multiples of 16 bytes:
+the bf16 kernels raise on others, the float32 backward copies them (and
+the out cotangent is copied in both dtypes).
 Outputs and gradients are allocated with q's (k's, v's) strides
 (``empty_like``) where those are aligned, so the transposes around them
 are free too; the 'ds' route's copies and outputs pad the storage of
@@ -249,13 +252,13 @@ def _count(route, kind):
 
 
 # the forward's and the backward's C entry for each dtype: (source,
-# function), with `mxt_flash_attention_fwd`'s and `mxt_flash_attention_bwd`'s
-# argument lists
+# function), with `mxt_flash_attention_fwd`'s and
+# `mxt_flash_attention_bwd_bf16`'s argument lists
 _FWD_ENTRIES = {
     torch.float32: ("flash_attention", "mxt_flash_attention_fwd"),
     torch.bfloat16: ("flash_attention_fwd", "mxt_flash_attention_fwd_bf16")}
 _BWD_ENTRIES = {
-    torch.float32: ("flash_attention", "mxt_flash_attention_bwd"),
+    torch.float32: ("flash_attention_bwd_f32", "mxt_flash_attention_bwd_f32"),
     torch.bfloat16: ("flash_attention_bwd", "mxt_flash_attention_bwd_bf16")}
 
 
@@ -313,8 +316,8 @@ def _check_cuda_args(q, k, v, ds=False):
 
 
 def _aligned(t):
-    """Whether the bf16 kernels can copy t's rows: 16-byte aligned, the
-    batch, head and third strides multiples of 16 bytes."""
+    """Whether the tensor-core kernels can copy t's rows: 16-byte aligned,
+    the batch, head and third strides multiples of 16 bytes."""
     return t.data_ptr() % 16 == 0 and all(
         s * t.element_size() % 16 == 0 for s in t.stride()[:3])
 
@@ -388,6 +391,10 @@ def _flash_bwd_cuda(q, k, v, o, lse, g, glse, q_off, k_off, scale, causal,
                          "be %s %s, got %s %s" % (tuple(q.shape), q.dtype,
                                                   tuple(g.shape), g.dtype))
     _check_aligned(q, k, v, ds, "flash_attention backward")
+    # the float32 kernels take any strides: an operand whose rows the
+    # kernels cannot copy 16 bytes at a time is copied, as the out
+    # cotangent is in both dtypes
+    q, k, v = (t if _aligned(t) else _like(t).copy_(t) for t in (q, k, v))
     if g.stride(3) != 1 or not _aligned(g):
         g = _like(g).copy_(g)
     delta = _delta(o, g, glse, 2 if ds else 3).contiguous()

@@ -14,7 +14,7 @@ on the same bf16 operands.  What the CPU can pin:
   the reference the card's check uses: so a kernel that rounds where
   Pallas rounds passes that check.  Measured here: at most 4.4e-3.
 * The dispatch.  `_flash_bwd_cuda` sends bf16 to the new C entry and
-  float32 to the CUDA-core one, counts one dq and one dk/dv launch on the
+  float32 to the 3xTF32 one, counts one dq and one dk/dv launch on the
   route either way, hands the kernels 16-byte-aligned operands (the 'ds'
   route pads the storage of an odd sequence length) and raises before any
   launch on operands it cannot copy in 16-byte rows.
@@ -145,15 +145,16 @@ def test_pallas_bsd_bf16_backward_sits_within_the_bar(interpret):
 @pytest.fixture()
 def fake_lib(monkeypatch):
     """`_lib` replaced by fake libraries whose backward entries record
-    (source, entry, which, dtype, layout, strides of q and out0) and
-    launch nothing; the device and stream lookups answered for CPU
+    (source, entry, which, dtype, layout, strides of q and out0, all the
+    arguments) and launch nothing; the device and stream lookups answered for CPU
     tensors.  Returns the calls."""
     calls = []
 
     def entry(source, name):
         def launch(which, dtype, d, layout, *rest):
             strides = rest[12:15], rest[24:27]
-            calls.append((source, name, which, dtype, layout, strides))
+            calls.append((source, name, which, dtype, layout, strides,
+                          (which, dtype, d, layout) + rest))
             return 0
         return launch
 
@@ -186,19 +187,26 @@ def _bwd_inputs(dtype, s=72, d=64, ds=False):
 
 @pytest.mark.parametrize("dtype,source,entry", [
     (torch.bfloat16, "flash_attention_bwd", "mxt_flash_attention_bwd_bf16"),
-    (torch.float32, "flash_attention", "mxt_flash_attention_bwd"),
+    (torch.float32, "flash_attention_bwd_f32", "mxt_flash_attention_bwd_f32"),
 ])
 @pytest.mark.parametrize("route", ["hsd", "ds", "bsd_loop", "bsd_stream"])
 def test_bwd_dispatch_by_dtype(fake_lib, dtype, source, entry, route):
-    """bf16 launches the tensor-core entry, float32 the CUDA-core one,
-    dq pass then dk/dv pass, each counted once on the route."""
+    """bf16 launches the bf16 tensor-core entry, float32 the 3xTF32 one,
+    dq pass then dk/dv pass, each counted once on the route, with one
+    argument list of 39 (which, dtype, head_dim, layout, 8 pointers, 4
+    sizes, 18 strides, offsets, causal, scale, stream)."""
     ds = route == "ds"
     q, k, v, o, lse, g = _bwd_inputs(dtype, ds=ds)
     before = _counts(route)
-    tfa._flash_bwd_cuda(q, k, v, o, lse, g, None, 0, 0, 0.125, True, route)
+    tfa._flash_bwd_cuda(q, k, v, o, lse, g, None, 3, 1, 0.125, True, route)
     assert [c[:5] for c in fake_lib] == [
         (source, entry, which, tfa._DTYPES[dtype], int(ds))
         for which in (0, 1)]
+    for which, (*_, args) in enumerate(fake_lib):
+        assert len(args) == 39
+        assert args[2] == 64 and args[12:16] == (1, 2, 72, 72)
+        assert args[-5:-1] == (3, 1, 1, 0.125)
+        assert (args[11] is None) == (which == 0)
     assert _counts(route) == [n + 1 for n in before]
 
 
@@ -216,7 +224,7 @@ def test_ds_route_hands_the_bf16_kernels_aligned_rows(fake_lib):
     dq, dk, dv = tfa._flash_bwd_cuda(q, k, v, o, lse, g, None, 0, 0, 0.1,
                                      True, "ds")
     assert all(tfa._aligned(t) and t.shape == q.shape for t in (dq, dk, dv))
-    for _, _, _, _, _, (q_strides, out_strides) in fake_lib:
+    for _, _, _, _, _, (q_strides, out_strides), _ in fake_lib:
         assert all(s % 8 == 0 for s in q_strides + out_strides)
 
 
@@ -240,7 +248,7 @@ def test_misaligned_bf16_operands_raise_before_launch(fake_lib):
     # float32 takes any sequence stride, as before
     tfa._flash_bwd_cuda(bad.float(), k.float(), v.float(), o.float(), lse,
                         g.float(), None, 0, 0, 0.125, True, "hsd")
-    assert fake_lib[-1][1] == "mxt_flash_attention_bwd"
+    assert fake_lib[-1][1] == "mxt_flash_attention_bwd_f32"
 
 
 # -- the build -------------------------------------------------------------
