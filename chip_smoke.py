@@ -48,22 +48,28 @@ Phases, each of which fails the run with a non-zero exit:
    runs the 3xTF32 kernels);
 9. hold the four fused CE kernels (stats forward, single-pass forward,
    dW/db, dx) and the 5-pass backward against their plain versions, in
-   float32 (CUDA cores) and bf16 (tensor cores, against the plain
-   version in bf16, and twice bit for bit), at the training head's shape
-   (32768 tokens, 768, vocab 32768; timed beside `F.linear` +
-   `F.cross_entropy`, with TFLOP/s, share of the bound and ptxas's
-   registers and spills) and at ragged ones with ignored and
+   float32 (tensor cores, 3xTF32) and bf16 (tensor cores, against the
+   plain version in bf16), each twice bit for bit, at the training
+   head's shape (32768 tokens, 768, vocab 32768; timed beside `F.linear`
+   + `F.cross_entropy`, with TFLOP/s, share of the bound, in float32 the
+   3xTF32 bound with the CUDA-core one beside it, and ptxas's registers
+   and spills) and at ragged ones with ignored and
    out-of-range labels, no bias and grad_scale 1.7: 1000 tokens at 768
    and vocab 50257, GPT-2 medium's width (8192 tokens, 1024, 50257),
-   GPT-2 XL's (1000, 1600, 50257), LLaMA-7B's 4096 (300 tokens, vocab
-   5000: past the widest cluster, in windows), and in bf16 (333, 772,
-   1000), whose d the wrapper zero-pads to 776 and counts;
+   GPT-2 XL's (1000, 1600, 50257: past the widest float32 cluster, in
+   windows), LLaMA-7B's 4096 (300 tokens, vocab 5000: past the widest
+   cluster in both dtypes, in windows), and in bf16 (333, 772, 1000),
+   whose d the wrapper zero-pads to 776 and counts;
 10. train bench.py's ``fused_`` configuration (the parity configuration
    with the fused CE head, Adam's second moment in bf16 with stochastic
    rounding) at full width for 5 steps, with exact launches per step and
    the rounding's cost; then 2 steps of the 5-pass structure
    (``MXNET_CE_SINGLE_PASS=0``) and one `SPMDTrainer.forward`, each with
-   its launches; one f32 step's gradients of the fused configuration
+   its launches; the same configuration in float32 with the trainer's
+   default float32 v (the float32 kernels B and C) for 3 steps, its
+   `forward` (A), and 2 steps of its 5-pass structure (A, D and C), each
+   with its launches, step time and the CE kernels' time by mode; one
+   f32 step's gradients of the fused configuration
    through the kernels against their plain versions; and the fused head
    at GPT-2 medium's widths (2 layers, embed 1024, 16 heads, vocab
    50257): one f32 step's gradients at batch 1 against the plain path,
@@ -82,10 +88,11 @@ Phases, each of which fails the run with a non-zero exit:
    batch 1 through the kernels against their plain versions.
 
 It prints each phase's seconds, a ``kernels`` JSON line (launches,
-errors, times, bounds; the float32 backward's routes as entries of their
-own, launched on the float32 paths; a kernel launched on no path fails
-the run), the card's name and power limit, and as its last line
-``{"ok": true, "device": {"platform": "gpu", ...}}``.  It writes the full
+errors, times, bounds; the float32 flash backward's routes and float32
+fused CE functions as entries of their own, launched on the float32
+paths; a kernel launched on no path fails the run), the card's name and
+power limit, and as its last line ``{"ok": true, "device": {"platform":
+"gpu", ...}}``.  It writes the full
 results to ``chiprun_out/chip_smoke.json``.  It exits non-zero without a
 result when no CUDA device is present or the package is missing.
 """
@@ -128,9 +135,9 @@ from mxnet_tpu_torch.serving import decode as decode_mod
 # CUDA cores, bf16 on the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-# TF32 on the tensor cores: the float32 flash backward's products run
-# there in 3xTF32, three TF32 products for each float32 one, so its least
-# time is 3x its operations at this rate
+# TF32 on the tensor cores: the float32 flash backward's and fused CE
+# head's products run there in 3xTF32, three TF32 products for each
+# float32 one, so their least time is 3x their operations at this rate
 PEAK_TF32 = 495e12
 
 # GPT-2 small's published widths (vocab 50257, context 1024, 12 layers,
@@ -200,9 +207,9 @@ MFU_PEAK = PEAK_FLOPS[torch.bfloat16]
 # whose launches it reports (the first is its ``launches``).  The line
 # reports bf16, so the flash and fused CE rows name the bf16 tensor-core
 # sources; their float32 launches run the sources of `F32_SOURCE` (the
-# float32 flash backward on the tensor cores in 3xTF32, the rest on the
-# CUDA cores); the float32 backward's four routes have entries of their
-# own (`F32_BWD_ROWS`).
+# float32 flash backward and fused CE head on the tensor cores in 3xTF32,
+# the flash forward on the CUDA cores); those two have entries of their
+# own (`F32_ROWS`).
 TPU = "mxnet_tpu/ops/pallas_kernels/"
 KERNEL_ROWS = [
     ("layer_norm", "layer_norm.cu", TPU + "layer_norm.py:93",
@@ -249,7 +256,7 @@ KERNEL_ROWS = [
 F32_SOURCE = {"layer_norm.cu": "layer_norm.cu",
               "flash_attention_fwd.cu": "flash_attention.cu",
               "flash_attention_bwd.cu": "flash_attention_bwd_f32.cu",
-              "fused_ce_bf16.cu": "fused_ce.cu"}
+              "fused_ce_bf16.cu": "fused_ce_f32.cu"}
 # every launch counter, by name: (wrapper, attribute)
 COUNTERS = {
     "layer_norm": (layer_norm_fwd, "launches"),
@@ -449,10 +456,10 @@ def mma_ptxas(source, d, layout):
 
 def ce_ptxas(dtype, mode, d):
     """ptxas's registers and spill bytes of the fused CE kernel that runs
-    ``mode`` (0 A, 1 B, 2 C, 3 D) at width ``d``: for bf16 the tensor-core
-    template at the cluster size and chunks a warpgroup that
-    `csrc/fused_ce_bf16.cu`'s `launch_d` picks, for float32 the CUDA-core
-    one at its column count."""
+    ``mode`` (0 A, 1 B, 2 C, 3 D) at width ``d``: the tensor-core template
+    at the cluster size and warpgroup width that `launch_d` picks, in
+    `csrc/fused_ce_bf16.cu` (chunks of 64 columns a warpgroup) or
+    `csrc/fused_ce_f32.cu` (64 or 96 columns a warpgroup)."""
     if dtype == torch.bfloat16:
         chunks = -(-(d + d % 8) // 64)
         cl = next((c for c in (1, 2, 4, 8) if 6 * c >= chunks), 8)
@@ -460,9 +467,10 @@ def ce_ptxas(dtype, mode, d):
             mode, cl, min(3, -(-chunks // (2 * cl))), chunks > 48)
         source = "fused_ce_bf16"
     else:
-        tag = "fused_ce_kernelILi%dELi%dE" % (
-            mode, 8 if d <= 256 else 16 if d <= 512 else 24)
-        source = "fused_ce"
+        cl = next((c for c in (1, 2, 4, 8) if 192 * c >= d), 8)
+        tag = "fused_ce_tf32_kernelILi%dELi%dELi%dELb%dE" % (
+            mode, cl, 64 if 128 * cl >= d else 96, d > 1536)
+        source = "fused_ce_f32"
     return next(v for k, v in ptxas_info(source).items() if tag in k)
 
 
@@ -1119,9 +1127,9 @@ def route_pin_checks(gen):
 # the training head's shape: 32 x 1024 tokens, embed 768, vocab 32768
 CE_TRAIN = (32768, 768, 32768)
 # ragged ones: no multiple of the tiles in tokens or vocabulary (GPT-2's),
-# at GPT-2 small's, medium's and XL's widths, at 4096 (past the widest
-# cluster's 3072 columns), and one whose bf16 d the wrapper zero-pads from
-# 772 to 776
+# at GPT-2 small's, medium's and XL's widths (1600: past the widest float32
+# cluster's 1536 columns), at 4096 (past the widest bf16 cluster's 3072),
+# and one whose bf16 d the wrapper zero-pads from 772 to 776
 CE_RAGGED = (1000, 768, 50257)
 CE_MEDIUM = (8192, 1024, 50257)
 CE_XL = (1000, 1600, 50257)
@@ -1168,10 +1176,11 @@ def ce_case(shape, dtype, gen, ragged=False, timed=False):
     plain versions on the same inputs, in the same dtype.  Outputs that
     are float32 by contract (nll, lse, the picked logit) are held to the
     float32 tolerance; dxp (p rounded to W's dtype before p @ W), dx, dW
-    and db to the dtype's.  In bf16 every kernel runs twice and must give
-    the same bits, and a d of 4 more than a multiple of 8 must be counted
-    as padded on every wrapper.  When timed: each beside its bound and
-    the library's `F.linear` + `F.cross_entropy`, forward for A and B,
+    and db to the dtype's.  Every kernel runs twice and must give the
+    same bits, and a bf16 d of 4 more than a multiple of 8 must be counted
+    as padded on every wrapper.  When timed: each beside its bound (in
+    float32 the 3xTF32 one, the CUDA-core one beside it) and the
+    library's `F.linear` + `F.cross_entropy`, forward for A and B,
     backward for the rest, with its TFLOP/s, share of the bound and
     ptxas's registers and spills."""
     n, d, v = shape
@@ -1222,15 +1231,15 @@ def ce_case(shape, dtype, gen, ragged=False, timed=False):
         pairs = list(zip(outs, ref[name]))
         err = combine(rel_check(torch.float32, pairs[:k]),
                       rel_check(dtype, pairs[k:]))
-        extra = {"padded_calls": padded, "padded_ok": pad_ok}
+        # a second launch on the same inputs: the same bits
+        again = kernels[name]()
+        same = all(torch.equal(a, c) for a, c in zip(outs, again))
+        del again
+        extra = {"padded_calls": padded, "padded_ok": pad_ok,
+                 "bit_identical": same}
         if dtype == torch.bfloat16:
-            # a second launch on the same inputs: the same bits
-            again = kernels[name]()
-            same = all(torch.equal(a, c) for a, c in zip(outs, again))
-            del again
-            extra.update(reference="plain bf16", bit_identical=same)
-            err = (err[0], err[1], err[2] and same)
-        err = (err[0], err[1], err[2] and pad_ok)
+            extra["reference"] = "plain bf16"
+        err = (err[0], err[1], err[2] and same and pad_ok)
         recs.append(dict(_record(name, list(shape), dtype, err, False),
                          **extra))
     if not timed:
@@ -1244,16 +1253,20 @@ def ce_case(shape, dtype, gen, ragged=False, timed=False):
               "fused_ce_bwd_dw_rs": 2, "fused_ce_bwd_dx_rs": 2,
               "fused_ce_bwd": 3}
     operands = (n * d + v * d + v) * isz + 4 * n
-    bounds = {
-        "fused_ce_fwd": bound_ms(operands + 8 * n, ops, dtype),
-        "fused_ce_fwd_sp": bound_ms(operands + 8 * n + 4 * n * d, 2 * ops,
-                                    dtype),
-        "fused_ce_bwd_dw_rs": bound_ms(operands + 8 * n + (v * d + v) * isz,
-                                       2 * ops, dtype),
-        "fused_ce_bwd_dx_rs": bound_ms(operands + 8 * n + n * d * isz,
-                                       2 * ops, dtype),
-        "fused_ce_bwd": bound_ms(operands + 4 * n + (n * d + v * d + v)
-                                 * isz, 3 * ops, dtype)}
+    nbytes = {"fused_ce_fwd": operands + 8 * n,
+              "fused_ce_fwd_sp": operands + 8 * n + 4 * n * d,
+              "fused_ce_bwd_dw_rs": operands + 8 * n + (v * d + v) * isz,
+              "fused_ce_bwd_dx_rs": operands + 8 * n + n * d * isz,
+              "fused_ce_bwd": operands + 4 * n + (n * d + v * d + v) * isz}
+    bounds = {k: bound_ms(b, passes[k] * ops, dtype)
+              for k, b in nbytes.items()}
+    if dtype == torch.float32:
+        # the float32 kernels' products run in 3xTF32 on the tensor cores,
+        # three TF32 products for each: their least time is at that rate;
+        # the CUDA-core bound is kept beside it
+        cuda_core = {k: b[0] for k, b in bounds.items()}
+        bounds = {k: bound_ms(b, 3 * passes[k] * ops, dtype, PEAK_TF32)
+                  for k, b in nbytes.items()}
     plains = {
         "fused_ce_fwd": lambda: fce._fwd_plain(x, w, b, label, ign, use,
                                                bv),
@@ -1283,6 +1296,8 @@ def ce_case(shape, dtype, gen, ragged=False, timed=False):
         # the rate the function's passes over the logit tiles reach
         rec["tflops"] = passes[name] * ops / (rec["ms"] * 1e-3) / 1e12
         rec["bound_share"] = bnd / rec["ms"]
+        if dtype == torch.float32:
+            rec["bound_cuda_core_ms"] = cuda_core[name]
         rec["ptxas"] = {m: ce_ptxas(dtype, m, d) for m in CE_MODES[name]}
     return recs
 
@@ -1549,6 +1564,18 @@ def kernel_ms(device, name):
     return sum(ms for k, _, ms in device if name in k)
 
 
+def ce_mode_ms(device):
+    """Device ms of the fused CE kernels by mode (A, B, C, D), from the
+    template's first argument in each kernel's name."""
+    out = {}
+    for k, _, ms in device:
+        m = re.search(r"fused_ce_(?:\w+_)?kernel<(\d)", k)
+        if m:
+            mode = "ABCD"[int(m.group(1))]
+            out[mode] = out.get(mode, 0.0) + ms
+    return out
+
+
 def decode_profile(engine, model, steps=10):
     """Profile ``steps`` decode iterations of a full batch of 8 on the
     paged engine: wall time per step, device busy time, kernel launches
@@ -1758,7 +1785,9 @@ def train_path(label, cfg, steps, expect, trainer_kw=None, falls=True,
                 "flash_fwd_kernel", "flash_fwd_mma_kernel",
                 "flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel",
                 "flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel",
-                "fused_ce_kernel", "fused_ce_mma_kernel")},
+                "fused_ce_kernel", "fused_ce_mma_kernel",
+                "fused_ce_tf32_kernel")},
+            "ce_mode_ms": ce_mode_ms(device),
             "top_device_ops_ms": device[:10], "top_host_ops_ms": host}
         res.update(extra)
         log("%s: %d steps of batch %d x %d tokens, %s, Adam; step ms (CUDA "
@@ -1775,11 +1804,12 @@ def train_path(label, cfg, steps, expect, trainer_kw=None, falls=True,
             % (label, {k: v for k, v in res["launches_per_step"].items() if v},
                peak, state))
         log("%s: profiled step %.2f ms wall, device busy %.2f ms (idle share "
-            "%.4f); kernel ms %s; top device ops (name, count, ms): %s"
+            "%.4f); kernel ms %s; fused CE kernel ms by mode %s; top device "
+            "ops (name, count, ms): %s"
             % (label, res["profiled_step_ms"], res["device_busy_ms"],
                res["device_idle_share"],
                {k: round(v, 3) for k, v in res["kernel_ms"].items()},
-               device[:10]))
+               res["ce_mode_ms"], device[:10]))
         if not all(math.isfinite(x) for x in losses):
             raise SystemExit("%s: a loss is not finite: %s" % (label, losses))
         if falls and not losses[-1] < losses[0]:
@@ -1900,25 +1930,34 @@ def fused_extras(trainer, dev):
     return res
 
 
-def five_pass_path(expect):
+def five_pass_path(expect, dtype="bfloat16", after=None):
     """2 steps of the fused configuration in the 5-pass structure,
-    ``MXNET_CE_SINGLE_PASS=0`` set for them and restored after."""
-    return train_path("train fused, 5-pass", FUSED, 2, expect,
-                      FUSED_TRAINER, falls=False,
-                      pins={"MXNET_CE_SINGLE_PASS": "0"})
+    ``MXNET_CE_SINGLE_PASS=0`` set for them and restored after; in bf16
+    with `FUSED_TRAINER`'s bf16 v, in float32 with the trainer's default
+    float32 v."""
+    bf16 = dtype == "bfloat16"
+    return train_path("train fused, 5-pass" + ("" if bf16 else " f32"),
+                      FUSED, 2, expect, FUSED_TRAINER if bf16 else None,
+                      falls=False, pins={"MXNET_CE_SINGLE_PASS": "0"},
+                      dtype=dtype, after=after)
 
 
-# the float32 flash backward's entries in the kernels line: the bf16 row
-# each one shares its TPU function with
-F32_BWD_ROWS = ("flash_attention_bwd", "flash_attention_bsd_bwd",
-                "flash_attention_ds_bwd", "flash_attention_bsd_stream_bwd")
+# the entries of the kernels line for the float32 kernels on the tensor
+# cores (the flash backward, the fused CE head): the bf16 row each one
+# shares its TPU function with
+F32_ROWS = ("flash_attention_bwd", "flash_attention_bsd_bwd",
+            "flash_attention_ds_bwd", "flash_attention_bsd_stream_bwd",
+            "fused_ce_fwd", "fused_ce_bwd", "fused_ce_fwd_sp",
+            "fused_ce_bwd_dw_rs", "fused_ce_bwd_dx_rs")
 
 
 def kernels_line(cases, paths, f32_paths):
     """One entry per ported TPU function: launches on each path, and the
     error and times of its check at the training shape, in bf16; then one
-    entry per route of the float32 backward (`flash_attention_bwd_f32.cu`),
-    its launches those of the float32 paths ``f32_paths``."""
+    entry per route of the float32 flash backward
+    (`flash_attention_bwd_f32.cu`) and per float32 fused CE function
+    (`fused_ce_f32.cu`), their launches those of the float32 paths
+    ``f32_paths``."""
     train = {"layer_norm": [32768, 768], "layer_norm_bwd": [32768, 768],
              "flash_attention": [32, 12, 1024, 1024, 64],
              "flash_attention_bwd": [32, 12, 1024, 1024, 64],
@@ -1965,7 +2004,7 @@ def kernels_line(cases, paths, f32_paths):
                                          "dtype": s["dtype"], "ms": s["ms"]}
         out.append(entry)
     for name, src, replaces, counters in KERNEL_ROWS:
-        if name not in F32_BWD_ROWS:
+        if name not in F32_ROWS:
             continue
         at = next(c for c in cases if c["kernel"] == name
                   and c["shape"] == train[name] and "ms" in c
@@ -2020,7 +2059,7 @@ def main():
                 if "registers" in ln]
         log("ptxas %s: %s" % (name, regs))
     for name in ("flash_attention_fwd", "flash_attention_bwd",
-                 "flash_attention_bwd_f32", "fused_ce_bf16"):
+                 "flash_attention_bwd_f32", "fused_ce_bf16", "fused_ce_f32"):
         log("ptxas registers, spill (stores, loads) bytes, %s: %s"
             % (name, ptxas_info(name)))
 
@@ -2077,6 +2116,17 @@ def main():
                  fused_ce_bwd_dw=1), FUSED_TRAINER, after=fused_extras)
         five = five_pass_path(dict(per_layer, **hsd_flash, fused_ce_fwd=1,
                                    fused_ce_bwd_dx=1, fused_ce_bwd_dw=1))
+        # the fused head in the trainer's default dtype with its default
+        # float32 v: kernels B and C (5-pass: A, D and C; `forward`: A) run
+        # the float32 source
+        fused32 = train_path(
+            "train fused f32", FUSED, 3,
+            dict(per_layer, **hsd_flash, fused_ce_fwd_sp=1,
+                 fused_ce_bwd_dw=1), dtype="float32",
+            after=lambda t, d: {"forward": forward_check(t, d)})
+        five32 = five_pass_path(dict(per_layer, **hsd_flash, fused_ce_fwd=1,
+                                     fused_ce_bwd_dx=1, fused_ce_bwd_dw=1),
+                                dtype="float32")
         fused_grads = grad_check(
             FUSED, ("layer_norm_bwd", "flash_attention_dq",
                     "flash_attention_dkv", "fused_ce_fwd_sp",
@@ -2130,6 +2180,9 @@ def main():
         "train_longctx_ds": ds["launches"],
         "train_longctx_stream": stream["launches"]}, {
         "train_bhsd_f32": hsd32["launches"],
+        "train_fused_f32": fused32["launches"],
+        "train_fused_5pass_f32": five32["launches"],
+        "forward_fused_f32": fused32["forward"]["launches"],
         "gradients_parity": grads["launches"],
         "gradients_bsd": bsd_grads["launches"],
         "gradients_fused": fused_grads["launches"],
@@ -2152,7 +2205,8 @@ def main():
          "gradients": grads, "train_bsd": bsd, "gradients_bsd": bsd_grads,
          "train_bhsd_f32": hsd32,
          "train_fused": fused,
-         "train_fused_5pass": five, "gradients_fused": fused_grads,
+         "train_fused_5pass": five, "train_fused_f32": fused32,
+         "train_fused_5pass_f32": five32, "gradients_fused": fused_grads,
          "train_fused_medium": medium,
          "gradients_fused_medium": medium_grads,
          "train_longctx_ds": ds, "train_longctx_stream": stream,

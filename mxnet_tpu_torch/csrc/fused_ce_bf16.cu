@@ -1,6 +1,6 @@
 // Fused projection + softmax cross-entropy head in bfloat16 on Hopper's
-// tensor cores: the four kernels of fused_ce.cu (modes A, B, C, D) for
-// bf16 operands, on `wgmma`, never writing the (tokens x vocab) logits.
+// tensor cores: the four kernels of fused_ce_f32.cu (modes A, B, C, D)
+// for bf16 operands, on `wgmma`, never writing the (tokens x vocab) logits.
 //
 // Replaces, in bf16, the Pallas kernels of
 // mxnet_tpu/ops/pallas_kernels/fused_ce.py: `_fwd_pallas` :155 (A),
@@ -110,66 +110,6 @@ struct Args {
   int n, d, v, ignore_label, use_ignore;
 };
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// every thread of every block of the cluster: shared-memory writes before
-// it are visible to reads after it, in any block of the cluster
-template <int CL>
-__device__ __forceinline__ void cluster_sync() {
-  if constexpr (CL == 1) {
-    __syncthreads();
-  } else {
-    asm volatile(
-        "barrier.cluster.arrive.release.aligned;\n"
-        "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-  }
-}
-
-__device__ __forceinline__ void store_local(uint32_t addr, float4 v) {
-  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
-               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
-               : "memory");
-}
-
-// 16 bytes to shared address `addr` of block `rank` of the cluster
-__device__ __forceinline__ void store_remote(uint32_t addr, uint32_t rank,
-                                             float4 v) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(addr), "r"(rank));
-  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                   remote),
-               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
-               : "memory");
-}
-
-// 16 bytes at shared address `addr` of block `rank` of the cluster
-template <int CL>
-__device__ __forceinline__ float4 load_part(uint32_t addr, uint32_t rank) {
-  float4 v;
-  if constexpr (CL == 1) {
-    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-                 : "r"(addr)
-                 : "memory");
-  } else {
-    uint32_t remote;
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-                 : "=r"(remote)
-                 : "r"(addr), "r"(rank));
-    asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-                 : "r"(remote)
-                 : "memory");
-  }
-  return v;
-}
-
 // Rows r0 .. r0 + 63 of src (rows_total x d, contiguous), columns c0 ..
 // c0 + W - 1, into a shared tile of W columns; zeros past rows_total and
 // past d.
@@ -187,16 +127,6 @@ __device__ __forceinline__ void load_rows(uint32_t tile, const bf16* src,
     cp_async16(tile + Tile<W, false>::chunk(s, col),
                in ? src + (long long)(r0 + s) * d + gcol : src, in ? 16 : 0);
   }
-}
-
-// 16 bytes of a vector of `count` elements of `size` bytes from element
-// j0, zero-filled past its end
-__device__ __forceinline__ void load_vec16(uint32_t dst, const void* src,
-                                           int j0, int count, int size) {
-  const int left = (count - j0) * size;
-  const int bytes = left >= 16 ? 16 : (left > 0 ? left : 0);
-  const char* from = static_cast<const char*>(src) + (long long)j0 * size;
-  cp_async16(dst, bytes ? from : src, bytes);
 }
 
 template <int CPW>
@@ -670,7 +600,7 @@ Args make_args(const void* x, const void* w, const void* b, const int* label,
 
 extern "C" {
 
-// The bf16 kernels, with fused_ce.cu's argument lists: dtype must be 1
+// The bf16 kernels, with fused_ce_f32.cu's argument lists: dtype must be 1
 // (bfloat16) for x (n, d), w (v, d) and b (v,), all contiguous and
 // 16-byte aligned; label (n,) int32, lse and r (n,) float32, 16-byte
 // aligned; d a multiple of 8.  Each entry launches one kernel

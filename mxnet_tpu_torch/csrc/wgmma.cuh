@@ -4,7 +4,9 @@
 // and out, the `wgmma` matrix descriptors that read a tile K-major or
 // MN-major, the `wgmma` products themselves, and the conversions between
 // a float32 accumulator and a bf16 register A operand or a staged output
-// tile.
+// tile; and the thread-block-cluster helpers of both fused CE sources
+// (fused_ce_bf16.cu, fused_ce_f32.cu).  The float32 kernels' TF32 blocks
+// are in tf32.cuh.
 //
 // A flash block is one warpgroup (4 warps, 128 threads; `load_tile` and
 // `store_tile` copy with that many threads); a fused CE block is two,
@@ -434,6 +436,80 @@ __device__ __forceinline__ void stage_acc(unsigned char* tile,
       }
     }
   }
+}
+
+// -- thread block clusters (the fused CE kernels): the block's rank, the
+// cluster barrier, and 16-byte stores and loads of shared memory by
+// address in any block of the cluster
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster: shared-memory writes before
+// it are visible to reads after it, in any block of the cluster
+template <int CL>
+__device__ __forceinline__ void cluster_sync() {
+  if constexpr (CL == 1) {
+    __syncthreads();
+  } else {
+    asm volatile(
+        "barrier.cluster.arrive.release.aligned;\n"
+        "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  }
+}
+
+__device__ __forceinline__ void store_local(uint32_t addr, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// 16 bytes to shared address `addr` of block `rank` of the cluster
+__device__ __forceinline__ void store_remote(uint32_t addr, uint32_t rank,
+                                             float4 v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   remote),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// 16 bytes at shared address `addr` of block `rank` of the cluster
+template <int CL>
+__device__ __forceinline__ float4 load_part(uint32_t addr, uint32_t rank) {
+  float4 v;
+  if constexpr (CL == 1) {
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                 : "r"(addr)
+                 : "memory");
+  } else {
+    uint32_t remote;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(remote)
+                 : "r"(addr), "r"(rank));
+    asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                 : "r"(remote)
+                 : "memory");
+  }
+  return v;
+}
+
+// 16 bytes of a vector of `count` elements of `size` bytes from element
+// j0, zero-filled past its end
+__device__ __forceinline__ void load_vec16(uint32_t dst, const void* src,
+                                           int j0, int count, int size) {
+  const int left = (count - j0) * size;
+  const int bytes = left >= 16 ? 16 : (left > 0 ? left : 0);
+  const char* from = static_cast<const char*>(src) + (long long)j0 * size;
+  cp_async16(dst, bytes ? from : src, bytes);
 }
 
 // the first 1024-byte-aligned byte of dynamic shared memory

@@ -8,7 +8,7 @@ into a shared library with a plain C interface:
 
 No source includes PyTorch's headers, so a build takes seconds, not the
 minutes `torch.utils.cpp_extension.load` needs; the tensor-core sources
-share ``csrc/*.cuh``.  The library's file name carries a hash of the
+share ``csrc/*.cuh`` (``wgmma.cuh``, and ``tf32.cuh`` for float32).  The library's file name carries a hash of the
 source, the headers and the flags: a changed source or header builds
 anew, an unchanged one loads the library already built.  Libraries and
 nvcc's logs (ptxas prints each kernel's registers and shared memory
@@ -40,7 +40,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("layer_norm", "flash_attention", "flash_attention_fwd",
-           "flash_attention_bwd", "flash_attention_bwd_f32", "fused_ce",
+           "flash_attention_bwd", "flash_attention_bwd_f32", "fused_ce_f32",
            "fused_ce_bf16")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

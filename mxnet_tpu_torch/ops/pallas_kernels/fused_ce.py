@@ -5,8 +5,8 @@ The loss of ``softmax(x @ W.T + b)`` at each token's label, and its
 loss-head gradient, without the (tokens x vocab) logits ever reaching
 device memory.  Replaces the five Pallas functions of
 `mxnet_tpu/ops/pallas_kernels/fused_ce.py`; their math reduces to four
-kernels (modes of one template: `csrc/fused_ce.cu` in float32,
-`csrc/fused_ce_bf16.cu` in bfloat16):
+kernels (modes of one template on the tensor cores: `csrc/fused_ce_f32.cu`
+in float32, through 3xTF32, `csrc/fused_ce_bf16.cu` in bfloat16):
 
 * A, `fused_ce_fwd` — `_fwd_pallas` (`_fwd_kernel`): the online (m, l)
   and the picked logit a over vocabulary tiles; lse and nll = lse - a,
@@ -40,15 +40,15 @@ the rule that does not depend on a tile size.)
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises `MXNetError`: x, W and b of one dtype, any n and any V.
-float32 runs `csrc/fused_ce.cu` (CUDA cores; d any multiple of 4, the
-accumulator's columns split over blocks past 768); bfloat16 runs
-`csrc/fused_ce_bf16.cu` (tensor cores; d a multiple of 8, the depth
-dealt out over a cluster of up to 8 blocks, past 3072 in windows).
+float32 runs `csrc/fused_ce_f32.cu` (d any positive multiple of 4, the
+depth dealt out over a cluster of up to 8 blocks, past 1536 in windows);
+bfloat16 runs `csrc/fused_ce_bf16.cu` (d a multiple of 8, the cluster's
+depth up to 3072, past it in windows).
 A bf16 d that is 4 more than a multiple of 8 is zero-padded by 4 columns
 to the kernels' 16-byte granule, counted on the wrapper's
 ``padded_calls``; the columns added contribute nothing to s and are cut
-from dxp, dx and dW.  The kernels tile 32 (float32) or 64 (bf16) rows of
-each operand: a pinned ``block_n``/``block_v`` (`MXNET_CE_BLOCK_N`/`_V`,
+from dxp, dx and dW.  The kernels stream tiles of 32 (float32) or 64
+(bf16) rows: a pinned ``block_n``/``block_v`` (`MXNET_CE_BLOCK_N`/`_V`,
 or the op's parameters) retiles only the plain versions (``block_v``;
 ``block_n`` is kept for the JAX signature), and the TPU's cap of
 ``block_v`` at 1024 (its VMEM) does not apply.
@@ -80,7 +80,7 @@ __all__ = ["fused_softmax_ce", "fused_softmax_ce_plain", "fused_ce_fwd",
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # each dtype's source and the suffix of its C entries
-_SOURCES = {torch.float32: ("fused_ce", ""),
+_SOURCES = {torch.float32: ("fused_ce_f32", "_f32"),
             torch.bfloat16: ("fused_ce_bf16", "_bf16")}
 
 
@@ -242,7 +242,7 @@ _SIGNATURES = {"mxt_fused_ce_fwd": [_I] + [_P] * 6 + [_I] * 5,
                "mxt_fused_ce_bwd_dx": [_I] + [_P] * 7 + [_I] * 3}
 
 
-def _lib(source="fused_ce"):
+def _lib(source):
     lib = _build.load(source)
     suffix = dict(_SOURCES.values())[source]
     if getattr(lib, "mxt_fused_ce_fwd" + suffix).argtypes is None:
@@ -254,8 +254,9 @@ def _lib(source="fused_ce"):
 
 
 def _entry(dtype, name):
-    """The C entry ``name`` of ``dtype``'s source: `fused_ce.cu`'s for
-    float32, `fused_ce_bf16.cu`'s ``name + '_bf16'`` for bfloat16."""
+    """The C entry ``name`` of ``dtype``'s source: `fused_ce_f32.cu`'s
+    ``name + '_f32'`` for float32, `fused_ce_bf16.cu`'s ``name + '_bf16'``
+    for bfloat16."""
     source, suffix = _SOURCES[dtype]
     return getattr(_lib(source), name + suffix)
 

@@ -26,8 +26,8 @@ the CPU can pin:
   over 16 bytes at a time instead of refusing it.
 * The build: the new source is in `_build.KERNELS` and compiles for
   ``sm_90a`` into a library named by the hash of its source, the shared
-  headers and the flags; the CUDA-core backward is gone from
-  `flash_attention.cu`.
+  headers (its TF32 blocks in `tf32.cuh`, over `wgmma.cuh`) and the
+  flags; the CUDA-core backward is gone from `flash_attention.cu`.
 """
 import math
 import types
@@ -293,7 +293,9 @@ def test_new_source_builds_for_sm90a_once_per_source_hash(fake_toolchain):
     _build_mod, csrc = fake_toolchain
     assert "flash_attention_bwd_f32" in _build.KERNELS
     real = Path(tfa.__file__).parents[2] / "csrc"
-    assert "wgmma.cuh" in (real / "flash_attention_bwd_f32.cu").read_text()
+    text = (real / "flash_attention_bwd_f32.cu").read_text()
+    assert '#include "tf32.cuh"' in text
+    assert '#include "wgmma.cuh"' in (real / "tf32.cuh").read_text()
     (csrc / "wgmma.cuh").write_text("// h1\n")
     (csrc / "flash_attention_bwd_f32.cu").write_text("// v1\n")
     took = _build_mod.build(("flash_attention_bwd_f32",))

@@ -19,7 +19,8 @@ in bf16.  What the CPU can pin:
 * The width: `fused_softmax_ce` at GPT-2 medium's d = 1024 agrees with
   the JAX package's and its `jax.vjp` in float32, in both structures.
 * The dispatch: with the C library faked, bf16 reaches the ``_bf16``
-  entries of `fused_ce_bf16.cu` and float32 those of `fused_ce.cu`, for
+  entries of `fused_ce_bf16.cu` and float32 the ``_f32`` ones of
+  `fused_ce_f32.cu`, for
   all four wrappers, once each; d = 772, 1024 and 1600 are taken; a bf16
   d of 4 more than a multiple of 8 is zero-padded to the 16-byte granule
   and counted on ``padded_calls``; a bf16 d past the widest cluster's
@@ -280,7 +281,7 @@ def fake_lib(monkeypatch):
             return 0
         return launch
 
-    def lib(source="fused_ce"):
+    def lib(source):
         suffix = dict(tfc._SOURCES.values())[source]
         return types.SimpleNamespace(**{
             name + suffix: entry(source, name, suffix)
@@ -319,12 +320,12 @@ def _call_all(dtype, n, d, v):
 @pytest.mark.parametrize("d", [768, 772, 1024, 1600])
 @pytest.mark.parametrize("dtype,source,suffix", [
     (torch.bfloat16, "fused_ce_bf16", "_bf16"),
-    (torch.float32, "fused_ce", ""),
+    (torch.float32, "fused_ce_f32", "_f32"),
 ])
 def test_dispatch_by_dtype_at_every_width(fake_lib, dtype, source, suffix,
                                           d):
-    """bf16 launches the tensor-core entries, float32 the CUDA-core ones,
-    each wrapper once and counted; a bf16 d of 772 reaches the kernel as
+    """bf16 launches the bf16 tensor-core entries, float32 the 3xTF32
+    ones, each wrapper once and counted; a bf16 d of 772 reaches the kernel as
     776 (zero-padded, counted on ``padded_calls``) and comes back at 772;
     no other call is padded."""
     n, v = 24, 70
