@@ -19,9 +19,11 @@ Phases, each of which fails the run with a non-zero exit:
    take; the bf16 flash forward and backward (tensor cores) are held
    against the plain versions in float32 on the same bf16 operands, must
    give bit-identical results twice, and report their TFLOP/s, their
-   share of the bound and ptxas's spill bytes; the float32 flash backward
-   (tensor cores, 3xTF32) must give bit-identical gradients twice too,
-   its bound the 3xTF32 one with the CUDA-core bound beside it; flash
+   share of the bound and ptxas's spill bytes; the float32 flash forward
+   and backward (tensor cores, 3xTF32) must give bit-identical results
+   twice too, their bound the 3xTF32 one with the CUDA-core bound beside
+   it, the forward also on a k whose rows it cannot copy 16 bytes at a
+   time (the wrapper's aligned copy); flash
    attention at head widths 16 (the plain route), 32, 48, 80 and 96
    (zero-padded to the kernels' widths) and 160 (refused), forward and
    backward, float32 and bf16, on all four kernel routes, each on its
@@ -44,8 +46,8 @@ Phases, each of which fails the run with a non-zero exit:
 8. train the transposeless configuration (6 heads of 128, 'bsd'
    attention, no biases) at full width for 3 steps, and check one f32
    step's gradients of it (batch 2); then the parity configuration in
-   float32, the trainer's default dtype, for 3 steps (its flash backward
-   runs the 3xTF32 kernels);
+   float32, the trainer's default dtype, for 3 steps (its flash forward
+   and backward run the 3xTF32 kernels);
 9. hold the four fused CE kernels (stats forward, single-pass forward,
    dW/db, dx) and the 5-pass backward against their plain versions, in
    float32 (tensor cores, 3xTF32) and bf16 (tensor cores, against the
@@ -88,11 +90,11 @@ Phases, each of which fails the run with a non-zero exit:
    batch 1 through the kernels against their plain versions.
 
 It prints each phase's seconds, a ``kernels`` JSON line (launches,
-errors, times, bounds; the float32 flash backward's routes and float32
-fused CE functions as entries of their own, launched on the float32
-paths; a kernel launched on no path fails the run), the card's name and
-power limit, and as its last line ``{"ok": true, "device": {"platform":
-"gpu", ...}}``.  It writes the full
+errors, times, bounds; the float32 flash forward's and backward's routes
+and float32 fused CE functions as entries of their own, launched on the
+float32 paths; a kernel launched on no path fails the run), the card's
+name and power limit, and as its last line ``{"ok": true, "device":
+{"platform": "gpu", ...}}``.  It writes the full
 results to ``chiprun_out/chip_smoke.json``.  It exits non-zero without a
 result when no CUDA device is present or the package is missing.
 """
@@ -135,9 +137,10 @@ from mxnet_tpu_torch.serving import decode as decode_mod
 # CUDA cores, bf16 on the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-# TF32 on the tensor cores: the float32 flash backward's and fused CE
-# head's products run there in 3xTF32, three TF32 products for each
-# float32 one, so their least time is 3x their operations at this rate
+# TF32 on the tensor cores: the float32 flash forward's and backward's
+# and the fused CE head's products run there in 3xTF32, three TF32
+# products for each float32 one, so their least time is 3x their
+# operations at this rate
 PEAK_TF32 = 495e12
 
 # GPT-2 small's published widths (vocab 50257, context 1024, 12 layers,
@@ -148,9 +151,10 @@ GPT2 = dict(vocab_size=50257, seq_len=1024, num_layers=12, num_heads=12,
 # Tolerances of the kernel checks, as (rtol, atol) on |kernel - plain|:
 # * float32: kernel and plain version do the same float32 arithmetic and
 #   differ only in the order of their sums (block tree vs torch reduction,
-#   64-key vs 256-key softmax blocks) and in rsqrtf's last bit, a few ulp
-#   (~1e-7 relative); 1e-5 leaves that 100x headroom and still catches any
-#   wrong formula, mask or offset;
+#   32-key vs 256-key softmax blocks) and in rsqrtf's last bit, a few ulp
+#   (~1e-7 relative), and the flash forward's products run in 3xTF32
+#   (~2**-22 of each, ~1e-6 of the output); 1e-5 still catches any wrong
+#   formula, mask or offset;
 # * bfloat16 LayerNorm: both round the same float32 result to bf16, so an
 #   element may land one bf16 ulp apart, at most 2**-7 of its value;
 # * bfloat16 flash attention: ``REL_TOL`` below.
@@ -179,7 +183,7 @@ LOGIT_TOL = 1e-3
 # max |kernel - plain| over max |plain|, per output:
 # * float32: the same float32 arithmetic summed in another order (over up
 #   to 1024 keys or 32768 rows), ~1e-6 of the largest value; the float32
-#   flash backward's products run in 3xTF32 (each operand split into two
+#   flash and fused CE products run in 3xTF32 (each operand split into two
 #   TF32 terms; the dropped lo * lo term and lo's rounding cost ~2**-22 of
 #   each product), which keeps it near that; 1e-4 leaves 100x headroom;
 # * bfloat16: the 7e-3 bar the JAX package's Pallas kernels held against
@@ -191,7 +195,7 @@ REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 7e-3}
 # kernels against the plain versions, max |dg| / max |g| per parameter.
 # The two differ in summation order (LayerNorm reductions, attention
 # blocks, and the embedding's scatter-add, whose atomics add in another
-# order on every run) and in the flash backward's 3xTF32 products (~2**-22
+# order on every run) and in the flash kernels' 3xTF32 products (~2**-22
 # of each): ~1e-6.  The key-projection biases' true gradient is
 # exactly zero (q.b_k is the same for every key of a query, and the
 # softmax cancels it), so theirs is rounding noise in both paths; they are
@@ -207,9 +211,8 @@ MFU_PEAK = PEAK_FLOPS[torch.bfloat16]
 # whose launches it reports (the first is its ``launches``).  The line
 # reports bf16, so the flash and fused CE rows name the bf16 tensor-core
 # sources; their float32 launches run the sources of `F32_SOURCE` (the
-# float32 flash backward and fused CE head on the tensor cores in 3xTF32,
-# the flash forward on the CUDA cores); those two have entries of their
-# own (`F32_ROWS`).
+# float32 flash forward and backward and fused CE head, on the tensor
+# cores in 3xTF32), which have entries of their own (`F32_ROWS`).
 TPU = "mxnet_tpu/ops/pallas_kernels/"
 KERNEL_ROWS = [
     ("layer_norm", "layer_norm.cu", TPU + "layer_norm.py:93",
@@ -254,7 +257,7 @@ KERNEL_ROWS = [
      ["fused_ce_bwd_dx"]),
 ]
 F32_SOURCE = {"layer_norm.cu": "layer_norm.cu",
-              "flash_attention_fwd.cu": "flash_attention.cu",
+              "flash_attention_fwd.cu": "flash_attention_fwd_f32.cu",
               "flash_attention_bwd.cu": "flash_attention_bwd_f32.cu",
               "fused_ce_bf16.cu": "fused_ce_f32.cu"}
 # every launch counter, by name: (wrapper, attribute)
@@ -535,55 +538,64 @@ def visible_pairs(sq, skv, causal, q_off, k_off):
 
 
 def flash_case(sq, skv, causal, q_off, k_off, dtype, gen, heads=12, d=64,
-               batch=1, strided=False):
+               batch=1, strided=False, misaligned=False):
     """One flash check; ``strided`` passes (batch, seq, heads, d) tensors
     transposed to (batch, heads, seq, d) views, as the serving prefill
-    does."""
+    does; ``misaligned`` hands over a k whose sequence stride (d + 2) is
+    no multiple of 16 bytes, which the float32 wrapper copies.  Every
+    kernel must give the same bits twice."""
     def make(s):
         t = torch.randn(batch, s, heads, d, device="cuda", generator=gen)
         t = t.to(dtype).transpose(1, 2)
         return t if strided else t.contiguous()
     q, k, v = make(sq), make(skv), make(skv)
+    if misaligned:
+        k = torch.zeros(batch, heads, skv, d + 2, device="cuda",
+                        dtype=dtype)[..., :d].copy_(k)
     kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
     out, lse = flash_attention(q, k, v, with_lse=True, **kw)
     again = flash_attention(q, k, v, with_lse=True, **kw)
     torch.cuda.synchronize()
     rout, rlse = flash_attention_plain(q, k, v, with_lse=True, **kw)
-    extra = {}
+    same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
     if dtype == torch.bfloat16:
         # held against the plain version in float32 on the same operands
         # (see REL_TOL); the bf16 plain one printed beside it
         r32, rlse = flash_attention_plain(q.float(), k.float(), v.float(),
                                           with_lse=True, **kw)
         err, rel, ok = rel_check(dtype, [(out, r32)])
-        same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
         extra = {"rel_err": rel, "rel_tol": REL_TOL[dtype],
                  "reference": "plain float32 on the bf16 operands",
-                 "bf16_plain_rel_err": rel_check(dtype, [(out, rout)])[1],
-                 "bit_identical": same}
-        ok = ok and same
+                 "bf16_plain_rel_err": rel_check(dtype, [(out, rout)])[1]}
     else:
         err, ok, tol = check("flash_attention", dtype, out, rout)
         extra = {"rtol": tol[0], "atol": tol[1]}
+    extra["bit_identical"] = same
+    ok = ok and same
     e2, ok2, _ = check("flash_attention", torch.float32, lse, rlse)
     err, ok = max(err, e2), ok and ok2
+    lk = k.contiguous() if misaligned else k  # SDPA refuses such rows
     if causal and (q_off, k_off) == (0, 0) and sq == skv:
-        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        lib = lambda: F.scaled_dot_product_attention(q, lk, v, is_causal=True)
     elif causal:
         qpos = q_off + torch.arange(sq, device="cuda")[:, None]
         mask = qpos >= k_off + torch.arange(skv, device="cuda")[None, :]
-        lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        lib = lambda: F.scaled_dot_product_attention(q, lk, v, attn_mask=mask)
     else:
-        lib = lambda: F.scaled_dot_product_attention(q, k, v)
+        lib = lambda: F.scaled_dot_product_attention(q, lk, v)
     isz = q.element_size()
     nbytes = batch * heads * (2 * sq * d + 2 * skv * d) * isz
     flops = 4 * d * batch * heads * visible_pairs(sq, skv, causal, q_off,
                                                   k_off)
     bnd, by = bound_ms(nbytes, flops, dtype)
+    if dtype == torch.float32:
+        # 3xTF32 on the tensor cores, the CUDA-core bound beside it
+        extra["bound_cuda_core_ms"] = bnd
+        bnd, by = bound_ms(nbytes, 3 * flops, dtype, PEAK_TF32)
     return {
         "kernel": "flash_attention", "shape": [batch, heads, sq, skv, d],
         "causal": causal, "q_offset": q_off, "k_offset": k_off,
-        "strided": strided,
+        "strided": strided, "misaligned": misaligned,
         "dtype": str(dtype), "max_abs_err": err, "ok": ok, **extra,
         "ms": time_ms(lambda: flash_attention(q, k, v, **kw)),
         "ms_with_launch": time_with_launch_ms(
@@ -608,6 +620,10 @@ def kernel_checks():
     # batch and head strides of transposed views
     cases.append(flash_case(150, 150, True, 0, 0, torch.float32, gen,
                             batch=3, strided=True))
+    # a k whose rows the float32 kernel cannot copy 16 bytes at a time: the
+    # wrapper's aligned copy, at head 128 with an offset
+    cases.append(flash_case(200, 260, True, 60, 0, torch.float32, gen,
+                            heads=4, d=128, misaligned=True))
     # row widths off the 256-thread grid, up to the register kernels' widest
     for rows, n in ((64, 1000), (16, 8192)):
         cases.append(layer_norm_case(rows, torch.float32, gen, n=n))
@@ -758,19 +774,20 @@ def flash_train_case(layout, batch, heads, d, dtype, gen, sq=1024,
             f_err = combine(rel_check(dtype, [(o4, out32)]),
                             rel_check(torch.float32, [(lse, lse32)]))
             del out32, lse32
-            # two launches on the same inputs: bit-identical out and lse
-            once = _flash_fwd_cuda(kq, kk, kv, *args, True, route)
-            again = _flash_fwd_cuda(kq, kk, kv, *args, True, route)
-            same = all(torch.equal(a, b) for a, b in zip(once, again))
-            del once, again
-            f_err = (f_err[0], f_err[1], f_err[2] and same)
             extra_fwd = {"reference": "plain float32 on the bf16 operands",
                          "bf16_plain_rel_err": rel_check(
-                             dtype, [(out, rout)])[1],
-                         "bit_identical": same}
+                             dtype, [(out, rout)])[1]}
         else:
             f_err = combine(rel_check(dtype, [(out, rout)]),
                             rel_check(torch.float32, [(lse, rlse)]))
+        # two launches on the same inputs: bit-identical out and lse (no
+        # atomics, in either dtype)
+        once = _flash_fwd_cuda(kq, kk, kv, *args, True, route)
+        again = _flash_fwd_cuda(kq, kk, kv, *args, True, route)
+        same = all(torch.equal(a, b) for a, b in zip(once, again))
+        del once, again
+        f_err = (f_err[0], f_err[1], f_err[2] and same)
+        extra_fwd["bit_identical"] = same
         if dtype == torch.bfloat16:
             # held against the plain backward in float32 on float32 copies
             # of the same operands (see REL_TOL); the bf16 plain one printed
@@ -814,16 +831,18 @@ def flash_train_case(layout, batch, heads, d, dtype, gen, sq=1024,
         # needs, Q Kᵀ and P V forward; Q Kᵀ once, dO Vᵀ, dV, dQ and dK
         # backward (the two-pass kernels' recompute of Q Kᵀ and dO Vᵀ is
         # not work the function needs)
-        fb = bound_ms(batch * heads * d * (2 * sq + 2 * skv) * isz
-                      + batch * heads * sq * 4, 4 * d * pairs, dtype)
+        fwd_bytes = (batch * heads * d * (2 * sq + 2 * skv) * isz
+                     + batch * heads * sq * 4)
+        fb = bound_ms(fwd_bytes, 4 * d * pairs, dtype)
         bwd_bytes = (batch * heads * d * (4 * sq + 4 * skv) * isz
                      + 2 * batch * heads * sq * 4)
         bb = bound_ms(bwd_bytes, 10 * d * pairs, dtype)
         if dtype == torch.float32:
-            # the float32 backward's products run in 3xTF32 on the tensor
-            # cores, three TF32 products for each: its least time is at
-            # that rate; the CUDA-core bound is kept beside it
-            bb_cuda_core = bb[0]
+            # the float32 kernels' products run in 3xTF32 on the tensor
+            # cores, three TF32 products for each: their least time is at
+            # that rate; the CUDA-core bounds are kept beside them
+            fb_cuda_core, bb_cuda_core = fb[0], bb[0]
+            fb = bound_ms(fwd_bytes, 3 * 4 * d * pairs, dtype, PEAK_TF32)
             bb = bound_ms(bwd_bytes, 3 * 10 * d * pairs, dtype, PEAK_TF32)
         leaves = [t.clone().requires_grad_() for t in (q4, k4, v4)]
         sdpa = lambda: F.scaled_dot_product_attention(*leaves,
@@ -849,6 +868,10 @@ def flash_train_case(layout, batch, heads, d, dtype, gen, sq=1024,
         fwd["bound_share"] = fwd["bound_ms"] / fwd["ms"]
         if dtype == torch.bfloat16:
             fwd["ptxas"] = mma_ptxas("flash_attention_fwd", d,
+                                     int(layout == "ds"))
+        else:
+            fwd["bound_cuda_core_ms"] = fb_cuda_core
+            fwd["ptxas"] = mma_ptxas("flash_attention_fwd_f32", d,
                                      int(layout == "ds"))
         bwd = _record(name + "_bwd", shape, dtype, b_err, True,
                       ms=time_auto(lambda: _flash_bwd_cuda(
@@ -1635,7 +1658,7 @@ def prefill_profile(engine, model, n=1000):
     if not req.done:
         raise SystemExit("the profiled prefill did not finish")
     res = {"prompt": n, "wall_ms": 1e3 * wall, "device_busy_ms": 1e3 * busy,
-           "flash_kernel_ms": kernel_ms(device, "flash_fwd_kernel"),
+           "flash_kernel_ms": kernel_ms(device, "flash_fwd_"),
            "layer_norm_kernel_ms": kernel_ms(device, "ln_fwd_kernel"),
            "top_device_ops_ms": device[:8], "top_host_ops_ms": host}
     log("prefill profile (slot engine, prompt %d): %.3f ms wall, device "
@@ -1782,7 +1805,7 @@ def train_path(label, cfg, steps, expect, trainer_kw=None, falls=True,
             "device_idle_share": 1 - busy / wall,
             "kernel_ms": {k: kernel_ms(device, k) for k in (
                 "ln_fwd_kernel", "ln_bwd_kernel", "ln_bwd_reduce_kernel",
-                "flash_fwd_kernel", "flash_fwd_mma_kernel",
+                "flash_fwd_tf32_kernel", "flash_fwd_mma_kernel",
                 "flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel",
                 "flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel",
                 "fused_ce_kernel", "fused_ce_mma_kernel",
@@ -1943,21 +1966,22 @@ def five_pass_path(expect, dtype="bfloat16", after=None):
 
 
 # the entries of the kernels line for the float32 kernels on the tensor
-# cores (the flash backward, the fused CE head): the bf16 row each one
-# shares its TPU function with
-F32_ROWS = ("flash_attention_bwd", "flash_attention_bsd_bwd",
-            "flash_attention_ds_bwd", "flash_attention_bsd_stream_bwd",
-            "fused_ce_fwd", "fused_ce_bwd", "fused_ce_fwd_sp",
-            "fused_ce_bwd_dw_rs", "fused_ce_bwd_dx_rs")
+# cores (the flash forward and backward, the fused CE head): the bf16 row
+# each one shares its TPU function with
+F32_ROWS = ("flash_attention", "flash_attention_bwd", "flash_attention_bsd",
+            "flash_attention_bsd_bwd", "flash_attention_ds",
+            "flash_attention_ds_bwd", "flash_attention_bsd_stream",
+            "flash_attention_bsd_stream_bwd", "fused_ce_fwd", "fused_ce_bwd",
+            "fused_ce_fwd_sp", "fused_ce_bwd_dw_rs", "fused_ce_bwd_dx_rs")
 
 
 def kernels_line(cases, paths, f32_paths):
     """One entry per ported TPU function: launches on each path, and the
     error and times of its check at the training shape, in bf16; then one
-    entry per route of the float32 flash backward
-    (`flash_attention_bwd_f32.cu`) and per float32 fused CE function
-    (`fused_ce_f32.cu`), their launches those of the float32 paths
-    ``f32_paths``."""
+    entry per route of the float32 flash forward and backward
+    (`flash_attention_fwd_f32.cu`, `flash_attention_bwd_f32.cu`) and per
+    float32 fused CE function (`fused_ce_f32.cu`), their launches those of
+    the float32 paths ``f32_paths``."""
     train = {"layer_norm": [32768, 768], "layer_norm_bwd": [32768, 768],
              "flash_attention": [32, 12, 1024, 1024, 64],
              "flash_attention_bwd": [32, 12, 1024, 1024, 64],
@@ -1971,6 +1995,14 @@ def kernels_line(cases, paths, f32_paths):
                   if src == "fused_ce_bf16.cu"})
     serving = {"layer_norm": [8, 768],
                "flash_attention": [1, 12, 1024, 1024, 64]}
+
+    def serving_ms(name):
+        # the served f32 path's check at its shape
+        s = next(c for c in cases if c["kernel"] == name
+                 and c["shape"] == serving[name]
+                 and c["dtype"] == "torch.float32" and "rtol" in c)
+        return {"shape": s["shape"], "dtype": s["dtype"], "ms": s["ms"]}
+
     out = []
     for name, src, replaces, counters in KERNEL_ROWS:
         at = next(c for c in cases if c["kernel"] == name
@@ -1997,11 +2029,7 @@ def kernels_line(cases, paths, f32_paths):
                 "shape", "dtype", "max_abs_err", "rel_err", "rel_tol",
                 "rtol", "atol")} for c in cases if c["kernel"] == name]}
         if name in serving:
-            s = next(c for c in cases if c["kernel"] == name
-                     and c["shape"] == serving[name]
-                     and c["dtype"] == "torch.float32" and "rtol" in c)
-            entry["serving_shape_ms"] = {"shape": s["shape"],
-                                         "dtype": s["dtype"], "ms": s["ms"]}
+            entry["serving_shape_ms"] = serving_ms(name)
         out.append(entry)
     for name, src, replaces, counters in KERNEL_ROWS:
         if name not in F32_ROWS:
@@ -2011,7 +2039,7 @@ def kernels_line(cases, paths, f32_paths):
                   and c["dtype"] == "torch.float32")
         by_path = {p: {k: launches[k] for k in counters}
                    for p, launches in f32_paths.items()}
-        out.append({
+        entry = {
             "name": name + "_f32", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/" + F32_SOURCE[src],
             "replaces": replaces,
@@ -2021,7 +2049,11 @@ def kernels_line(cases, paths, f32_paths):
             **{k: at[k] for k in (
                 "max_abs_err", "rel_err", "ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "tflops", "bound_share",
-                "bound_cuda_core_ms", "bit_identical", "ptxas")}})
+                "bound_cuda_core_ms", "bit_identical", "ptxas")},
+            "route_ms": at.get("route_ms")}
+        if name in serving:
+            entry["serving_shape_ms"] = serving_ms(name)
+        out.append(entry)
     return out
 
 
@@ -2058,8 +2090,9 @@ def main():
                 for ln in _build.build_log(name).splitlines()
                 if "registers" in ln]
         log("ptxas %s: %s" % (name, regs))
-    for name in ("flash_attention_fwd", "flash_attention_bwd",
-                 "flash_attention_bwd_f32", "fused_ce_bf16", "fused_ce_f32"):
+    for name in ("flash_attention_fwd", "flash_attention_fwd_f32",
+                 "flash_attention_bwd", "flash_attention_bwd_f32",
+                 "fused_ce_bf16", "fused_ce_f32"):
         log("ptxas registers, spill (stores, loads) bytes, %s: %s"
             % (name, ptxas_info(name)))
 
@@ -2100,8 +2133,8 @@ def main():
                         "flash_attention_bsd_dkv"), "bsd config")
 
     with phase("train bhsd f32"):
-        # the trainer's default dtype: every flash backward runs the
-        # float32 dq and dk/dv kernels
+        # the trainer's default dtype: every flash forward, dq and dk/dv
+        # runs the float32 kernels
         hsd32 = train_path("train bhsd (parity) f32", PARITY, 3,
                            dict(per_layer, **flash("flash_attention")),
                            dtype="float32")
@@ -2179,6 +2212,7 @@ def main():
         "train_fused_medium": medium["launches"],
         "train_longctx_ds": ds["launches"],
         "train_longctx_stream": stream["launches"]}, {
+        "slot": slot["launches"],
         "train_bhsd_f32": hsd32["launches"],
         "train_fused_f32": fused32["launches"],
         "train_fused_5pass_f32": five32["launches"],

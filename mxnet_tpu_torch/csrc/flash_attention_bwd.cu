@@ -62,11 +62,12 @@
 // entry): every operand 16-byte aligned, its contiguous axis of stride 1
 // and its other strides multiples of 8 elements (cp.async copies 16
 // bytes); positions past the end are zero-filled (cp.async's source
-// size), never read.  Offsets are 64-bit as in flash_attention.cu.
+// size), never read.  Offsets are 64-bit.
 //
-// float32 operands stay on flash_attention.cu's CUDA-core kernels: the
-// float32 gradient checks hold the kernels to 1e-4 of the plain path, and
-// the tensor cores' float32 route (TF32, 10 mantissa bits) would not.
+// float32 operands go to flash_attention_bwd_f32.cu, the same passes on
+// the tensor cores through 3xTF32: the float32 gradient checks hold the
+// kernels to 1e-4 of the plain path, which one TF32 term (10 mantissa
+// bits) would miss.
 
 #include "wgmma.cuh"
 
@@ -422,14 +423,14 @@ int launch(int which, const Args& a, int batch, cudaStream_t stream) {
 
 extern "C" {
 
-// The two backward passes in bf16, with `mxt_flash_attention_bwd`'s
-// argument list (flash_attention.cu): which = 0 the dq pass (out0 = dq),
-// 1 the dk/dv pass (out0 = dk, out1 = dv); dtype must be 1 (bfloat16);
-// head_dim 64 or 128; layout 0 (batch, heads, seq, head_dim) or 1 (batch,
-// heads, head_dim, seq), strides in elements for the batch, head and
-// non-contiguous axes; lse and delta (batch, heads, sq) float32
-// contiguous.  Every operand and output must be 16-byte aligned with
-// strides that are multiples of 8 elements.
+// The two backward passes in bf16 (`mxt_flash_attention_bwd_f32` in
+// flash_attention_bwd_f32.cu takes the same arguments): which = 0 the dq
+// pass (out0 = dq), 1 the dk/dv pass (out0 = dk, out1 = dv); dtype must be
+// 1 (bfloat16); head_dim 64 or 128; layout 0 (batch, heads, seq,
+// head_dim) or 1 (batch, heads, head_dim, seq), strides in elements for
+// the batch, head and non-contiguous axes; lse and delta (batch, heads,
+// sq) float32 contiguous.  Every operand and output must be 16-byte
+// aligned with strides that are multiples of 8 elements.
 int mxt_flash_attention_bwd_bf16(
     int which, int dtype, int head_dim, int layout, const void* q,
     const void* k, const void* v, const void* dout, const float* lse,

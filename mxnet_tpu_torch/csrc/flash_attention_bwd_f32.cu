@@ -102,14 +102,13 @@
 // is written.  Offsets are 64-bit.
 //
 // The TF32 building blocks (the split, the `wgmma` tf32 products, the
-// split tiles and their descriptors) are shared with fused_ce_f32.cu in
-// tf32.cuh.
+// split tiles and their descriptors) are shared with fused_ce_f32.cu and
+// flash_attention_fwd_f32.cu in tf32.cuh, and so are the raw copies in and
+// the staged float32 out (with the forward).
 
 #include "tf32.cuh"
 
 namespace {
-
-constexpr int kPos = 64;  // positions of the owned tile (wgmma's M)
 
 // positions of a streamed tile: 32 keys in the dq pass (at D = 64 its
 // shared memory then fits two blocks an SM), 64 queries in the dk/dv pass
@@ -139,37 +138,6 @@ struct Args {
              // query i iff j <= i + diag
   float scale;
 };
-
-// cp.async positions s0 .. s0 + ROWS - 1 of an operand (its (batch, head)
-// slice at src, third stride st) into a raw tile, owned (OWN) or
-// streamed, by the block's NT threads; positions at or past len read as
-// zeros.
-template <int ROWS, int D, bool SC, bool OWN, int NT>
-__device__ __forceinline__ void stage_raw(float* tile, const float* src,
-                                          int s0, int len, long long st) {
-  constexpr int kChunks = ROWS * D / 4;
-  static_assert(kChunks % NT == 0, "whole chunks a thread");
-#pragma unroll
-  for (int it = 0; it < kChunks / NT; ++it) {
-    const int i = threadIdx.x + it * NT;
-    int r, c, bytes;
-    const float* from;
-    if (SC) {
-      c = i / (ROWS / 4);
-      r = (i % (ROWS / 4)) * 4;
-      const int left = len - (s0 + r);
-      bytes = left >= 4 ? 16 : (left > 0 ? 4 * left : 0);
-      from = src + (long long)c * st + (s0 + r);
-    } else {
-      r = i / (D / 4);
-      c = (i % (D / 4)) * 4;
-      bytes = s0 + r < len ? 16 : 0;
-      from = src + (long long)(s0 + r) * st + c;
-    }
-    const int off = OWN ? own_at<D, SC>(r, c) : raw_at<D, ROWS, SC>(r, c);
-    cp_async16(smem_u32(tile + off), bytes ? from : src, bytes);
-  }
-}
 
 // One k step of `scores`: its products from the fragments in cur, then,
 // once the previous step's products (which read next) are done, the next
@@ -229,73 +197,6 @@ __device__ __forceinline__ void scores(float (&s)[BN / 8][4],
   if (DP) hold(dp);
   hold(a0);
   hold(a1);
-}
-
-// Float offset of element (position r, column c) of an output staging
-// tile: layout 0 [64][D + 8], layout 1 [D][68] (rows padded against bank
-// conflicts)
-template <int D, bool SC>
-__device__ __forceinline__ int stg_at(int r, int c) {
-  return SC ? c * (kPos + 4) + r : r * (D + 8) + c;
-}
-
-template <int D, bool SC>
-__host__ __device__ constexpr int stg_floats() {
-  return SC ? D * (kPos + 4) : kPos * (D + 8);
-}
-
-// A warp's 16 rows of a (64, D) float32 accumulator into a staging tile
-template <int D, bool SC>
-__device__ __forceinline__ void stage_acc_f32(float* stg,
-                                              const float (&acc)[D / 8][4],
-                                              int r0, int t) {
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int r = r0 + 8 * hi, c = 8 * nt + 2 * t;
-      if (SC) {
-        stg[stg_at<D, true>(r, c)] = acc[nt][2 * hi];
-        stg[stg_at<D, true>(r, c + 1)] = acc[nt][2 * hi + 1];
-      } else {
-        *reinterpret_cast<float2*>(stg + stg_at<D, false>(r, c)) =
-            make_float2(acc[nt][2 * hi], acc[nt][2 * hi + 1]);
-      }
-    }
-}
-
-// A staging tile's positions 0 .. 63 to positions s0 .. s0 + 63 of dst
-// (those below len), 16 bytes at a time, by the 128 threads of a
-// warpgroup (tid its thread)
-template <int D, bool SC>
-__device__ __forceinline__ void store_out(float* dst, const float* stg,
-                                          int s0, int len, long long st,
-                                          int tid) {
-  constexpr int kChunks = kPos * D / 4;
-#pragma unroll
-  for (int it = 0; it < kChunks / kThreads; ++it) {
-    const int i = tid + it * kThreads;
-    if (SC) {
-      const int c = i / (kPos / 4), r = (i % (kPos / 4)) * 4;
-      const int left = len - (s0 + r);
-      if (left <= 0) continue;
-      const float4 v =
-          *reinterpret_cast<const float4*>(stg + stg_at<D, true>(r, c));
-      float* to = dst + (long long)c * st + (s0 + r);
-      if (left >= 4) {
-        *reinterpret_cast<float4*>(to) = v;
-      } else {
-        to[0] = v.x;
-        if (left > 1) to[1] = v.y;
-        if (left > 2) to[2] = v.z;
-      }
-    } else {
-      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-      if (s0 + r >= len) continue;
-      *reinterpret_cast<float4*>(dst + (long long)(s0 + r) * st + c) =
-          *reinterpret_cast<const float4*>(stg + stg_at<D, false>(r, c));
-    }
-  }
 }
 
 template <int D, bool SC>
@@ -605,13 +506,6 @@ int launch(int which, const Args& a, int batch, cudaStream_t stream) {
   dim3 grid((len + kPos - 1) / kPos, a.heads, batch);
   kernel<<<grid, which ? kDkvThreads : kThreads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
-}
-
-// whether a float32 operand can be copied in 16-byte rows: 16-byte
-// aligned, its batch, head and third strides multiples of 4 elements
-bool aligned_f32(const void* p, long long sb, long long sh, long long st) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 4 == 0 &&
-         sh % 4 == 0 && st % 4 == 0;
 }
 
 }  // namespace

@@ -48,9 +48,11 @@
 // bytes); positions past the end are zero-filled, never read.  Element
 // offsets are 64-bit.
 //
-// float32 operands stay on flash_attention.cu's CUDA-core forward: the
-// served logits are held to 1e-3 of the plain float32 path, and the
-// tensor cores' float32 route (TF32, 10 mantissa bits) would not hold it.
+// float32 operands go to flash_attention_fwd_f32.cu, the same online
+// softmax on the tensor cores through 3xTF32 (each operand split into two
+// TF32 terms, three products for one): one TF32 term (10 mantissa bits)
+// would move the served logits past their 1e-3 bar against the plain
+// float32 path; three keep the forward within ~1e-6 of it.
 
 #include "wgmma.cuh"
 
@@ -265,13 +267,13 @@ int launch(const Args& a, int batch, cudaStream_t stream) {
 
 extern "C" {
 
-// The forward in bf16, with `mxt_flash_attention_fwd`'s argument list
-// (flash_attention.cu): dtype must be 1 (bfloat16); head_dim 64 or 128;
-// layout 0 (batch, heads, seq, head_dim) or 1 (batch, heads, head_dim,
-// seq), strides in elements for the batch, head and non-contiguous axes;
-// lse null or (batch, heads, sq) float32 contiguous.  Every operand and
-// out must be 16-byte aligned with strides that are multiples of 8
-// elements.
+// The forward in bf16 (`mxt_flash_attention_fwd_f32` in
+// flash_attention_fwd_f32.cu takes the same arguments): dtype must be 1
+// (bfloat16); head_dim 64 or 128; layout 0 (batch, heads, seq, head_dim)
+// or 1 (batch, heads, head_dim, seq), strides in elements for the batch,
+// head and non-contiguous axes; lse null or (batch, heads, sq) float32
+// contiguous.  Every operand and out must be 16-byte aligned with strides
+// that are multiples of 8 elements.
 int mxt_flash_attention_fwd_bf16(
     int dtype, int head_dim, int layout, const void* q, const void* k,
     const void* v, void* o, float* lse, int batch, int heads, int sq, int skv,

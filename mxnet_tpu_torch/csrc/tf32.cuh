@@ -1,5 +1,6 @@
 // Building blocks of the float32 kernels on Hopper's tensor cores in
-// 3xTF32 (flash_attention_bwd_f32.cu, fused_ce_f32.cu).
+// 3xTF32 (flash_attention_fwd_f32.cu, flash_attention_bwd_f32.cu,
+// fused_ce_f32.cu).
 //
 // 3xTF32.  The tensor cores take float32 only as TF32 (10 mantissa bits).
 // Every operand x is split into hi = cvt.rna.tf32(x) and lo =
@@ -12,13 +13,16 @@
 // time in a fresh accumulator (its hi lo and lo hi terms first) and added
 // to a float32 sum in registers, rounded to nearest (`tile_mma`).
 //
-// `wgmma` reads a 32-bit operand from shared memory K-major only, so every
-// A operand comes from registers: from an accumulator (`split_acc`), whose
-// columns 2 t and 2 t + 1 a TF32 A fragment holds as the slots t and t +
-// 4 of its k step of 8 (the slot order 0 2 4 6 1 3 5 7, `slot8`), or from
-// a raw float32 tile in shared memory, split a k step at a time
-// (`owned_frag`).  Only B operands have split tiles (`split_tile`), K-major
-// in the 128-byte swizzle (`kmaj`, `desc_k`), their k axis in slot order.
+// `wgmma` reads a 32-bit operand from shared memory K-major only, so an A
+// operand contracted over its rows comes from registers: from an
+// accumulator (`split_acc`), whose columns 2 t and 2 t + 1 a TF32 A
+// fragment holds as the slots t and t + 4 of its k step of 8 (the slot
+// order 0 2 4 6 1 3 5 7, `slot8`), or from a raw float32 tile in shared
+// memory, split a k step at a time (`owned_frag`).  Split tiles
+// (`split_tile`) are K-major in the 128-byte swizzle (`kmaj`, `desc_k`),
+// their k axis in slot order: every B operand, and an A operand that is
+// K-major as it lies and read by many products (the forward's Q,
+// `wgmma_tf32_ss32`).
 
 #pragma once
 
@@ -182,6 +186,23 @@ __device__ __forceinline__ void wgmma_tf32_128(float (&d)[16][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 32) += A (64 x 8, shared) B (8 x 32, shared), tf32: both
+// K-major
+__device__ __forceinline__ void wgmma_tf32_ss32(float (&d)[4][4], uint64_t a,
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
 // d (64 x N) += A (64 x 8, registers) B (8 x N, shared), tf32
 template <int N>
 __device__ __forceinline__ void mma_tf32(float (&d)[N / 8][4],
@@ -284,10 +305,10 @@ __device__ __forceinline__ int raw_at(int r, int c) {
 
 // Split a streamed raw tile (BN positions by D) into its TF32 hi and lo
 // tiles: K-major over D (BN rows; the D axis of each k step in slot
-// order) and, with TR, K-major over positions (D rows; positions in slot
-// order).  Each of the block's NT / 32 warps takes 32 consecutive
-// positions and 8 columns at a time.
-template <int D, int BN, bool SC, bool TR, int NT>
+// order; not with NAT false) and, with TR, K-major over positions (D
+// rows; positions in slot order).  Each of the block's NT / 32 warps
+// takes 32 consecutive positions and 8 columns at a time.
+template <int D, int BN, bool SC, bool TR, int NT, bool NAT = true>
 __device__ __forceinline__ void split_tile(const float* raw,
                                            unsigned char* nat_hi,
                                            unsigned char* nat_lo,
@@ -318,14 +339,16 @@ __device__ __forceinline__ void split_tile(const float* raw,
     uint32_t hi[8], lo[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) split(x[e], hi[e], lo[e]);
-    *reinterpret_cast<uint4*>(nat_hi + kmaj<BN>(p, c0)) =
-        make_uint4(hi[0], hi[2], hi[4], hi[6]);
-    *reinterpret_cast<uint4*>(nat_hi + kmaj<BN>(p, c0 + 4)) =
-        make_uint4(hi[1], hi[3], hi[5], hi[7]);
-    *reinterpret_cast<uint4*>(nat_lo + kmaj<BN>(p, c0)) =
-        make_uint4(lo[0], lo[2], lo[4], lo[6]);
-    *reinterpret_cast<uint4*>(nat_lo + kmaj<BN>(p, c0 + 4)) =
-        make_uint4(lo[1], lo[3], lo[5], lo[7]);
+    if (NAT) {
+      *reinterpret_cast<uint4*>(nat_hi + kmaj<BN>(p, c0)) =
+          make_uint4(hi[0], hi[2], hi[4], hi[6]);
+      *reinterpret_cast<uint4*>(nat_hi + kmaj<BN>(p, c0 + 4)) =
+          make_uint4(hi[1], hi[3], hi[5], hi[7]);
+      *reinterpret_cast<uint4*>(nat_lo + kmaj<BN>(p, c0)) =
+          make_uint4(lo[0], lo[2], lo[4], lo[6]);
+      *reinterpret_cast<uint4*>(nat_lo + kmaj<BN>(p, c0 + 4)) =
+          make_uint4(lo[1], lo[3], lo[5], lo[7]);
+    }
     if (TR) {
       const int col = slot8(p);
 #pragma unroll
@@ -360,6 +383,116 @@ __device__ __forceinline__ void owned_frag(const float* own, int kk, int r0,
   }
 #pragma unroll
   for (int e = 0; e < 4; ++e) split(x[e], h[e], l[e]);
+}
+
+// -- the float32 flash kernels' tiles (flash_attention_fwd_f32.cu,
+// flash_attention_bwd_f32.cu): raw copies in, staged float32 out
+
+constexpr int kPos = 64;  // positions of the owned tile (wgmma's M)
+
+// cp.async positions s0 .. s0 + ROWS - 1 of an operand (its (batch, head)
+// slice at src, third stride st) into a raw tile, owned (OWN) or
+// streamed, by the block's NT threads; positions at or past len read as
+// zeros.
+template <int ROWS, int D, bool SC, bool OWN, int NT>
+__device__ __forceinline__ void stage_raw(float* tile, const float* src,
+                                          int s0, int len, long long st) {
+  constexpr int kChunks = ROWS * D / 4;
+  static_assert(kChunks % NT == 0, "whole chunks a thread");
+#pragma unroll
+  for (int it = 0; it < kChunks / NT; ++it) {
+    const int i = threadIdx.x + it * NT;
+    int r, c, bytes;
+    const float* from;
+    if (SC) {
+      c = i / (ROWS / 4);
+      r = (i % (ROWS / 4)) * 4;
+      const int left = len - (s0 + r);
+      bytes = left >= 4 ? 16 : (left > 0 ? 4 * left : 0);
+      from = src + (long long)c * st + (s0 + r);
+    } else {
+      r = i / (D / 4);
+      c = (i % (D / 4)) * 4;
+      bytes = s0 + r < len ? 16 : 0;
+      from = src + (long long)(s0 + r) * st + c;
+    }
+    const int off = OWN ? own_at<D, SC>(r, c) : raw_at<D, ROWS, SC>(r, c);
+    cp_async16(smem_u32(tile + off), bytes ? from : src, bytes);
+  }
+}
+
+// Float offset of element (position r, column c) of an output staging
+// tile: layout 0 [64][D + 8], layout 1 [D][68] (rows padded against bank
+// conflicts)
+template <int D, bool SC>
+__device__ __forceinline__ int stg_at(int r, int c) {
+  return SC ? c * (kPos + 4) + r : r * (D + 8) + c;
+}
+
+template <int D, bool SC>
+__host__ __device__ constexpr int stg_floats() {
+  return SC ? D * (kPos + 4) : kPos * (D + 8);
+}
+
+// A warp's 16 rows of a (64, D) float32 accumulator into a staging tile
+template <int D, bool SC>
+__device__ __forceinline__ void stage_acc_f32(float* stg,
+                                              const float (&acc)[D / 8][4],
+                                              int r0, int t) {
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int r = r0 + 8 * hi, c = 8 * nt + 2 * t;
+      if (SC) {
+        stg[stg_at<D, true>(r, c)] = acc[nt][2 * hi];
+        stg[stg_at<D, true>(r, c + 1)] = acc[nt][2 * hi + 1];
+      } else {
+        *reinterpret_cast<float2*>(stg + stg_at<D, false>(r, c)) =
+            make_float2(acc[nt][2 * hi], acc[nt][2 * hi + 1]);
+      }
+    }
+}
+
+// A staging tile's positions 0 .. 63 to positions s0 .. s0 + 63 of dst
+// (those below len), 16 bytes at a time, by the 128 threads of a
+// warpgroup (tid its thread)
+template <int D, bool SC>
+__device__ __forceinline__ void store_out(float* dst, const float* stg,
+                                          int s0, int len, long long st,
+                                          int tid) {
+  constexpr int kChunks = kPos * D / 4;
+#pragma unroll
+  for (int it = 0; it < kChunks / kThreads; ++it) {
+    const int i = tid + it * kThreads;
+    if (SC) {
+      const int c = i / (kPos / 4), r = (i % (kPos / 4)) * 4;
+      const int left = len - (s0 + r);
+      if (left <= 0) continue;
+      const float4 v =
+          *reinterpret_cast<const float4*>(stg + stg_at<D, true>(r, c));
+      float* to = dst + (long long)c * st + (s0 + r);
+      if (left >= 4) {
+        *reinterpret_cast<float4*>(to) = v;
+      } else {
+        to[0] = v.x;
+        if (left > 1) to[1] = v.y;
+        if (left > 2) to[2] = v.z;
+      }
+    } else {
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+      if (s0 + r >= len) continue;
+      *reinterpret_cast<float4*>(dst + (long long)(s0 + r) * st + c) =
+          *reinterpret_cast<const float4*>(stg + stg_at<D, false>(r, c));
+    }
+  }
+}
+
+// whether a float32 operand can be copied in 16-byte rows: 16-byte
+// aligned, its batch, head and third strides multiples of 4 elements
+bool aligned_f32(const void* p, long long sb, long long sh, long long st) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 4 == 0 &&
+         sh % 4 == 0 && st % 4 == 0;
 }
 
 }  // namespace

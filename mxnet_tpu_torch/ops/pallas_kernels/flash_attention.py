@@ -11,24 +11,25 @@ and `_flash_bwd_pallas_bsd_gs`.  The plain versions mirror `_flash_fwd_jnp`
 (the online-softmax recurrence over K blocks) and `_flash_bwd` (the
 recompute from the saved lse over K blocks).  The kernels run their sums
 in float32: the forward and the dq pass take one block per (batch, head,
-64-query tile) and cut the K loop at the causal diagonal; the dk/dv pass
-takes one block per (batch, head, 64-key tile) and starts its Q loop at
-the first query tile that reaches it.  `csrc/flash_attention.cu` holds
-the float32 forward (CUDA cores); `csrc/flash_attention_fwd.cu` and
-`csrc/flash_attention_bwd.cu` the bfloat16 forward and backward on the
-tensor cores (`wgmma`, p and ds rounded to bf16 where the mma takes them);
-`csrc/flash_attention_bwd_f32.cu` the float32 backward on the tensor cores
-through 3xTF32 (each operand split into two TF32 terms, three products
-a product).  Each source's note gives the H100 bound and what the design
-does about it.
+query tile: 64 queries, 128 in the float32 forward) and cut the K loop
+at the causal diagonal; the dk/dv pass takes one block per (batch, head,
+64-key tile) and starts its Q loop at the first query tile that reaches
+it.  Every kernel runs on the tensor
+cores (`wgmma`): `csrc/flash_attention_fwd.cu` and
+`csrc/flash_attention_bwd.cu` the bfloat16 forward and backward (p and ds
+rounded to bf16 where the mma takes them);
+`csrc/flash_attention_fwd_f32.cu` and `csrc/flash_attention_bwd_f32.cu`
+the float32 forward and backward through 3xTF32 (each operand split into
+two TF32 terms, three products a product).  Each source's note gives the
+H100 bound and what the design does about it.
 
 Operands are (B, H, S, D) in float32 or bfloat16.  The kernels take D in
 {64, 128}; they read and write through the batch, head and sequence
 strides, so a transposed view costs no copy, but the last axis must be
-contiguous.  The tensor-core kernels copy 16-byte rows, so their operands
-must also be 16-byte aligned with strides that are multiples of 16 bytes:
-the bf16 kernels raise on others, the float32 backward copies them (and
-the out cotangent is copied in both dtypes).
+contiguous.  The kernels copy 16-byte rows, so their operands must also
+be 16-byte aligned with strides that are multiples of 16 bytes: the bf16
+kernels raise on others, the float32 ones take a copy of such an operand
+(and the out cotangent is copied in both dtypes).
 Outputs and gradients are allocated with q's (k's, v's) strides
 (``empty_like``) where those are aligned, so the transposes around them
 are free too; the 'ds' route's copies and outputs pad the storage of
@@ -70,8 +71,8 @@ launches on that route's own counters:
   whole K/V (or Q/dO) in VMEM under a ~12 MB model, which S=8192 at head
   128 in bf16 exceeds; it computes the loop kernels' function (the two
   TPU families even cast ds and p to the input dtype at the same
-  points).  The CUDA kernels have no such cap (they stream 64-key and
-  64-query tiles through shared memory at every length), so they are
+  points).  The CUDA kernels have no such cap (they stream key and
+  query tiles through shared memory at every length), so they are
   that route's counterpart as well.
 * ``jnp`` (``MXNET_FLASH_IMPL=jnp``): the plain versions, asked for by
   name; no kernel runs.  ``MXNET_FLASH_BWD=jnp`` takes the plain backward
@@ -252,17 +253,17 @@ def _count(route, kind):
 
 
 # the forward's and the backward's C entry for each dtype: (source,
-# function), with `mxt_flash_attention_fwd`'s and
+# function), with `mxt_flash_attention_fwd_bf16`'s and
 # `mxt_flash_attention_bwd_bf16`'s argument lists
 _FWD_ENTRIES = {
-    torch.float32: ("flash_attention", "mxt_flash_attention_fwd"),
+    torch.float32: ("flash_attention_fwd_f32", "mxt_flash_attention_fwd_f32"),
     torch.bfloat16: ("flash_attention_fwd", "mxt_flash_attention_fwd_bf16")}
 _BWD_ENTRIES = {
     torch.float32: ("flash_attention_bwd_f32", "mxt_flash_attention_bwd_f32"),
     torch.bfloat16: ("flash_attention_bwd", "mxt_flash_attention_bwd_bf16")}
 
 
-def _lib(name="flash_attention"):
+def _lib(name):
     """The loaded library of source ``name``, its entries typed."""
     lib = _build.load(name)
     p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -363,6 +364,9 @@ def _flash_fwd_cuda(q, k, v, q_off, k_off, scale, causal, with_lse, route):
     ds = route == "ds"
     _check_cuda_args(q, k, v, ds)
     _check_aligned(q, k, v, ds, "flash_attention")
+    # the float32 kernel takes any strides: an operand whose rows it
+    # cannot copy 16 bytes at a time is copied first
+    q, k, v = (t if _aligned(t) else _like(t).copy_(t) for t in (q, k, v))
     b, h, sq, skv, d = _dims(q, k, ds)
     out = _like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
@@ -391,9 +395,9 @@ def _flash_bwd_cuda(q, k, v, o, lse, g, glse, q_off, k_off, scale, causal,
                          "be %s %s, got %s %s" % (tuple(q.shape), q.dtype,
                                                   tuple(g.shape), g.dtype))
     _check_aligned(q, k, v, ds, "flash_attention backward")
-    # the float32 kernels take any strides: an operand whose rows the
-    # kernels cannot copy 16 bytes at a time is copied, as the out
-    # cotangent is in both dtypes
+    # as in the forward, a float32 operand whose rows the kernels cannot
+    # copy 16 bytes at a time is copied, as the out cotangent is in both
+    # dtypes
     q, k, v = (t if _aligned(t) else _like(t).copy_(t) for t in (q, k, v))
     if g.stride(3) != 1 or not _aligned(g):
         g = _like(g).copy_(g)

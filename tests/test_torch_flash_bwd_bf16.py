@@ -158,7 +158,7 @@ def fake_lib(monkeypatch):
             return 0
         return launch
 
-    def lib(source="flash_attention"):
+    def lib(source):
         return types.SimpleNamespace(**{
             name: entry(source, name) for s, name in
             tfa._BWD_ENTRIES.values() if s == source})

@@ -27,7 +27,7 @@ the CPU can pin:
 * The build: the new source is in `_build.KERNELS` and compiles for
   ``sm_90a`` into a library named by the hash of its source, the shared
   headers (its TF32 blocks in `tf32.cuh`, over `wgmma.cuh`) and the
-  flags; the CUDA-core backward is gone from `flash_attention.cu`.
+  flags; no flash kernel is left on the CUDA cores.
 """
 import math
 import types
@@ -309,11 +309,21 @@ def test_new_source_builds_for_sm90a_once_per_source_hash(fake_toolchain):
 
 
 def test_the_cuda_core_backward_is_gone():
-    """`flash_attention.cu` keeps the float32 forward alone: no backward
-    kernel or entry is left to fall back to."""
-    src = (Path(tfa.__file__).parents[2] / "csrc" /
-           "flash_attention.cu").read_text()
-    assert "mxt_flash_attention_fwd" in src
-    for gone in ("mxt_flash_attention_bwd", "flash_bwd_dq_kernel",
-                 "flash_bwd_dkv_kernel"):
-        assert gone not in src
+    """No CUDA-core flash source is left to fall back to: every flash
+    source builds on a tensor-core header, its kernels are the `wgmma`
+    ones (`_mma_` in bf16, `_tf32_` in float32), and each dtype's forward
+    and backward entries name such a source."""
+    csrc = Path(tfa.__file__).parents[2] / "csrc"
+    sources = sorted(csrc.glob("flash_attention*.cu"))
+    assert [s.stem for s in sources] == [
+        "flash_attention_bwd", "flash_attention_bwd_f32",
+        "flash_attention_fwd", "flash_attention_fwd_f32"]
+    for src in sources:
+        text = src.read_text()
+        assert '#include "wgmma.cuh"' in text or '#include "tf32.cuh"' in text
+        for gone in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                     "flash_fwd_kernel", "mxt_flash_attention_bwd(",
+                     "mxt_flash_attention_fwd("):
+            assert gone not in text
+    entries = list(tfa._FWD_ENTRIES.values()) + list(tfa._BWD_ENTRIES.values())
+    assert {s for s, _ in entries} == {s.stem for s in sources}

@@ -15,9 +15,9 @@ on the same bf16 operands.  What the CPU can pin:
   offsets, rows that see no key, and in both layouts.  lse is float32 in
   both and agrees to float32 rounding.
 * The dispatch.  `_flash_fwd_cuda` sends bf16 to the new C entry and
-  float32 to the CUDA-core one, counts one launch on the route either
-  way, and raises before any launch on bf16 operands it cannot copy in
-  16-byte rows.
+  float32 to the 3xTF32 one (test_torch_flash_fwd_f32.py), counts one
+  launch on the route either way, and raises before any launch on bf16
+  operands it cannot copy in 16-byte rows.
 * The build: the new source is in `_build.KERNELS` and compiles for
   ``sm_90a`` into a library named by the hash of its source, the shared
   header and the flags.
@@ -175,19 +175,19 @@ def test_pallas_ds_bf16_forward_sits_within_the_bar(interpret):
 @pytest.fixture()
 def fake_lib(monkeypatch):
     """`_lib` replaced by fake libraries whose forward entries record
-    (source, entry, dtype, head_dim, layout, strides of q and out) and
-    launch nothing; the device and stream lookups answered for CPU
-    tensors.  Returns the calls."""
+    (source, entry, dtype, head_dim, layout, strides of q and out,
+    pointers of q, k, v and out) and launch nothing; the device and stream
+    lookups answered for CPU tensors.  Returns the calls."""
     calls = []
 
     def entry(source, name):
         def launch(dtype, d, layout, *rest):
             strides = rest[9:12], rest[18:21]
-            calls.append((source, name, dtype, d, layout, strides))
+            calls.append((source, name, dtype, d, layout, strides, rest[:4]))
             return 0
         return launch
 
-    def lib(source="flash_attention"):
+    def lib(source):
         return types.SimpleNamespace(**{
             name: entry(source, name) for s, name in
             tfa._FWD_ENTRIES.values() if s == source})
@@ -208,13 +208,13 @@ def _launches(route):
 
 @pytest.mark.parametrize("dtype,source,entry", [
     (torch.bfloat16, "flash_attention_fwd", "mxt_flash_attention_fwd_bf16"),
-    (torch.float32, "flash_attention", "mxt_flash_attention_fwd"),
+    (torch.float32, "flash_attention_fwd_f32", "mxt_flash_attention_fwd_f32"),
 ])
 @pytest.mark.parametrize("route", ["hsd", "ds", "bsd_loop", "bsd_stream"])
 def test_fwd_dispatch_by_dtype(fake_lib, dtype, source, entry, route):
-    """bf16 launches the tensor-core entry, float32 the CUDA-core one, once,
-    counted on the route; the output and lse come back in the operands'
-    layout."""
+    """bf16 launches the bf16 tensor-core entry, float32 the 3xTF32 one,
+    once, counted on the route; the output and lse come back in the
+    operands' layout."""
     ds = route == "ds"
     q, k, v = (torch.randn(1, 2, 72, 64).to(dtype) for _ in range(3))
     if ds:
@@ -231,7 +231,8 @@ def test_fwd_dispatch_by_dtype(fake_lib, dtype, source, entry, route):
 
 def test_misaligned_bf16_operands_raise_before_launch(fake_lib):
     """A bf16 k whose sequence stride is no multiple of 8 elements (16
-    bytes) raises before any launch or count; float32 takes it."""
+    bytes) raises before any launch or count; float32 takes it (as an
+    aligned copy)."""
     q, k, v = (torch.randn(1, 2, 72, 64).bfloat16() for _ in range(3))
     bad = torch.zeros(1, 2, 72, 68, dtype=torch.bfloat16)[..., :64]
     bad.copy_(k)
@@ -241,7 +242,7 @@ def test_misaligned_bf16_operands_raise_before_launch(fake_lib):
     assert fake_lib == [] and _launches("hsd") == before
     tfa._flash_fwd_cuda(q.float(), bad.float(), v.float(), 0, 0, 0.125,
                         True, False, "hsd")
-    assert [c[1] for c in fake_lib] == ["mxt_flash_attention_fwd"]
+    assert [c[1] for c in fake_lib] == ["mxt_flash_attention_fwd_f32"]
 
 
 # -- the build -------------------------------------------------------------

@@ -585,11 +585,12 @@ def test_build_compiles_for_sm90a_once_per_source_hash(fake_toolchain):
 def test_build_failure_raises_with_the_compiler_log(fake_toolchain):
     _build, csrc = fake_toolchain
     (csrc / "layer_norm.cu").write_text("// ok\n")
-    (csrc / "flash_attention.cu").write_text("// broken\n")
-    with pytest.raises(MXNetError, match="(?s)flash_attention.*broken"):
+    (csrc / "flash_attention_fwd_f32.cu").write_text("// broken\n")
+    with pytest.raises(MXNetError,
+                       match="(?s)flash_attention_fwd_f32.*broken"):
         _build.build()
     assert _build._target("layer_norm")[1].exists()
-    assert not _build._target("flash_attention")[1].exists()
+    assert not _build._target("flash_attention_fwd_f32")[1].exists()
 
 
 def test_build_without_nvcc_raises(fake_toolchain, monkeypatch):
