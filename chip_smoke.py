@@ -22,13 +22,19 @@ Phases, each of which fails the run with a non-zero exit:
    share of the bound and ptxas's spill bytes; the float32 flash forward
    and backward (tensor cores, 3xTF32) must give bit-identical results
    twice too, their bound the 3xTF32 one with the CUDA-core bound beside
-   it, the forward also on a k whose rows it cannot copy 16 bytes at a
-   time (the wrapper's aligned copy); flash
+   it; the forward in both dtypes, and the bf16 backward, also on a k
+   whose rows the kernels cannot copy 16 bytes at a time (the wrappers'
+   aligned copy); flash
    attention at head widths 16 (the plain route), 32, 48, 80 and 96
    (zero-padded to the kernels' widths) and 160 (refused), forward and
    backward, float32 and bf16, on all four kernel routes, each on its
-   route's counters; and LayerNorm over rows wider than its register
-   kernels hold (16384 and 12300);
+   route's counters; and LayerNorm, forward and backward, each twice bit
+   for bit, in every layout and vector width its plans pick (N = 30 in
+   bf16, 768, 1000, 1024, 8192, rows wider than its registers hold at
+   12300 and 16384, a view one element past a 16-byte boundary, and the
+   decode shape (8, 768)), at the training shape (32768, 768) timed with
+   its inputs warm in L2 and cold, beside the bytes bound, with ptxas's
+   registers and spills of the kernels that ran;
 3. serve 16 requests at GPT-2-small widths through the default (paged)
    `ServingEngine`, count each kernel's launches, and check the logits
    of two finished requests against the plain float32 path;
@@ -60,8 +66,9 @@ Phases, each of which fails the run with a non-zero exit:
    and vocab 50257, GPT-2 medium's width (8192 tokens, 1024, 50257),
    GPT-2 XL's (1000, 1600, 50257: past the widest float32 cluster, in
    windows), LLaMA-7B's 4096 (300 tokens, vocab 5000: past the widest
-   cluster in both dtypes, in windows), and in bf16 (333, 772, 1000),
-   whose d the wrapper zero-pads to 776 and counts;
+   cluster in both dtypes, in windows), in bf16 (333, 772, 1000), whose
+   d the wrapper zero-pads to 776 and counts, and (333, 30, 1000) in both
+   dtypes, zero-padded to 32 and counted;
 10. train bench.py's ``fused_`` configuration (the parity configuration
    with the fused CE head, Adam's second moment in bf16 with stochastic
    rounding) at full width for 5 steps, with exact launches per step and
@@ -122,6 +129,7 @@ from mxnet_tpu_torch.ops import attention as attention_mod
 from mxnet_tpu_torch.ops import loss as loss_mod
 from mxnet_tpu_torch.ops.pallas_kernels import _build
 from mxnet_tpu_torch.ops.pallas_kernels import fused_ce as fce
+from mxnet_tpu_torch.ops.pallas_kernels import layer_norm as lnm
 from mxnet_tpu_torch.ops.pallas_kernels.flash_attention import (
     _delta, _flash_bwd_cuda, _flash_bwd_plain, _flash_fwd_cuda,
     _flash_fwd_plain, _to_ds, flash_attention, flash_attention_bsd,
@@ -622,8 +630,9 @@ def kernel_checks():
                             batch=3, strided=True))
     # a k whose rows the float32 kernel cannot copy 16 bytes at a time: the
     # wrapper's aligned copy, at head 128 with an offset
-    cases.append(flash_case(200, 260, True, 60, 0, torch.float32, gen,
-                            heads=4, d=128, misaligned=True))
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append(flash_case(200, 260, True, 60, 0, dtype, gen, heads=4,
+                                d=128, misaligned=True))
     # row widths off the 256-thread grid, up to the register kernels' widest
     for rows, n in ((64, 1000), (16, 8192)):
         cases.append(layer_norm_case(rows, torch.float32, gen, n=n))
@@ -658,28 +667,105 @@ def _library_bwd_ms(fwd, leaves, cot):
         return time_auto(both) - time_auto(fwd)
 
 
-def layer_norm_train_case(rows, dtype, gen, n=768, timed=True):
+def time_cold_ms(fn, reps=25, scratch_mb=128):
+    """Device time of one call of ``fn`` from a cold L2: before each call
+    a ``scratch_mb`` MB buffer (over twice the H100's 50 MB L2) is written,
+    then a spin kernel covers the host's enqueue of the call, which runs
+    alone between two CUDA events; the median over ``reps`` calls."""
+    scratch = torch.empty(scratch_mb << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    cycles = int(max(0.2, 2 * host_ms) * spin_cycles_per_ms())
+    times = []
+    for i in range(reps):
+        scratch.fill_(i)
+        torch.cuda._sleep(cycles)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    del scratch
+    return statistics.median(times)
+
+
+def ln_plans(x, gamma, dy):
+    """The forward's and backward's launch plans for these operands, as
+    the wrappers make them."""
+    rows, n = x.shape
+    sms = lnm._sm_count(x.device.index)
+    align = lnm._alignment(x.data_ptr(), gamma.data_ptr(), dy.data_ptr())
+    fwd = lnm._plan_fwd(rows, n, x.dtype, align, sms)
+    bwd = lnm._bwd_plan_on(rows, n, x.dtype, align, x.device.index)
+    return {"fwd": fwd._asdict(), "bwd": bwd._asdict()}
+
+
+def ln_ptxas(dtype, plan, kind):
+    """ptxas's registers and spill bytes of the LayerNorm kernel that runs
+    ``plan`` (a dict of `ln_plans`) for ``kind`` ('fwd' or 'bwd')."""
+    t = "f" if dtype == torch.float32 else "13__nv_bfloat16"
+    vw = plan["vec_bytes"] // (4 if dtype == torch.float32 else 2)
+    tag = ("ln_%s_wide_kernelI%sLi%dEE" % (kind, t, vw)
+           if plan["layout"] == "wide" else
+           "ln_%s_kernelI%sLi%dELi%dEE" % (kind, t, vw, plan["ept"]))
+    return next(v for k, v in ptxas_info("layer_norm").items() if tag in k)
+
+
+def layer_norm_train_case(rows, dtype, gen, n=768, timed=True, offset=0):
     """LayerNorm forward and backward at (rows, n): kernels against plain
-    versions (the backward from the same statistics), and, when timed,
-    both passes' times beside `F.layer_norm`'s."""
+    versions (the backward from the same statistics), each launched twice
+    on the same inputs and required to give the same bits, with the plans
+    they ran; ``offset`` starts x and dy that many elements past a 16-byte
+    boundary (a sliced view: a narrower vector).  When timed, both
+    passes' times with inputs warm in L2 and cold (`time_cold_ms`), each
+    beside the bytes bound, `F.layer_norm`'s and the plain version's, and
+    the ptxas numbers of the kernels that ran."""
     def rnd(*shape, scale=1.0, shift=0.0):
         t = torch.randn(*shape, device="cuda", generator=gen)
         return (t * scale + shift).to(dtype)
-    x, dy = rnd(rows, n), rnd(rows, n)
+
+    def view(t):
+        # the rows of a buffer ``offset`` elements longer, from element
+        # ``offset`` on
+        if not offset:
+            return t
+        out = torch.empty(rows * n + offset, device="cuda", dtype=dtype)
+        out = out[offset:].view(rows, n)
+        return out.copy_(t)
+    x, dy = view(rnd(rows, n)), view(rnd(rows, n))
     gamma, beta = rnd(n, scale=0.1, shift=1.0), rnd(n, scale=0.1)
     y, mean, rstd = layer_norm_fwd(x, gamma, beta, 1e-5)
     dx, dg, db = layer_norm_bwd(x, gamma, mean, rstd, dy)
+    fwd2 = layer_norm_fwd(x, gamma, beta, 1e-5)
+    bwd2 = layer_norm_bwd(x, gamma, mean, rstd, dy)
     torch.cuda.synchronize()
+    same_f = all(torch.equal(a, b) for a, b in zip((y, mean, rstd), fwd2))
+    same_b = all(torch.equal(a, b) for a, b in zip((dx, dg, db), bwd2))
+    del fwd2, bwd2
     ry, rmean, rrstd = layer_norm_fwd_plain(x, gamma, beta, 1e-5)
     rdx, rdg, rdb = layer_norm_bwd_plain(x, gamma, mean, rstd, dy)
     f_err = rel_check(dtype, [(y, ry)])
     stats = rel_check(torch.float32, [(mean, rmean), (rstd, rrstd)])
     f_err = (max(f_err[0], stats[0]), max(f_err[1], stats[1]),
-             f_err[2] and stats[2])
+             f_err[2] and stats[2] and same_f)
     b_err = rel_check(dtype, [(dx, rdx), (dg, rdg), (db, rdb)])
+    b_err = (b_err[0], b_err[1], b_err[2] and same_b)
+    plans = ln_plans(x, gamma, dy)
+    extra = [{"bit_identical": same_f, "plan": plans["fwd"]},
+             {"bit_identical": same_b, "plan": plans["bwd"]}]
+    if offset:
+        extra[0]["offset"] = extra[1]["offset"] = offset
     if not timed:
-        return [_record("layer_norm", [rows, n], dtype, f_err, False),
-                _record("layer_norm_bwd", [rows, n], dtype, b_err, False)]
+        return [dict(_record("layer_norm", [rows, n], dtype, f_err, False),
+                     **extra[0]),
+                dict(_record("layer_norm_bwd", [rows, n], dtype, b_err,
+                             False), **extra[1])]
     isz = x.element_size()
     fb = bound_ms(2 * rows * n * isz + 2 * n * isz + 2 * rows * 4,
                   8 * rows * n, dtype)
@@ -688,25 +774,61 @@ def layer_norm_train_case(rows, dtype, gen, n=768, timed=True):
     leaves = [t.detach().clone().requires_grad_() for t in (x, gamma, beta)]
     lib_fwd = lambda: F.layer_norm(leaves[0], (n,), leaves[1], leaves[2],
                                    1e-5)
-    return [
+    fwd = lambda: layer_norm_fwd(x, gamma, beta, 1e-5)
+    bwd = lambda: layer_norm_bwd(x, gamma, mean, rstd, dy)
+    recs = [
         _record("layer_norm", [rows, n], dtype, f_err, True,
-                ms=time_auto(lambda: layer_norm_fwd(x, gamma, beta, 1e-5)),
+                ms=time_auto(fwd), cold_ms=time_cold_ms(fwd),
                 plain_ms=time_auto(
                     lambda: layer_norm_fwd_plain(x, gamma, beta, 1e-5)),
                 library_ms=time_auto(
                     lambda: F.layer_norm(x, (n,), gamma, beta, 1e-5)),
                 bound_ms=fb[0], bound_by=fb[1]),
         _record("layer_norm_bwd", [rows, n], dtype, b_err, True,
-                ms=time_auto(
-                    lambda: layer_norm_bwd(x, gamma, mean, rstd, dy)),
+                ms=time_auto(bwd), cold_ms=time_cold_ms(bwd),
                 plain_ms=time_auto(
                     lambda: layer_norm_bwd_plain(x, gamma, mean, rstd, dy)),
                 library_ms=_library_bwd_ms(lib_fwd, leaves, dy),
                 bound_ms=bb[0], bound_by=bb[1])]
+    for rec, more, kind in zip(recs, extra, ("fwd", "bwd")):
+        rec.update(more)
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        rec["cold_bound_share"] = rec["bound_ms"] / rec["cold_ms"]
+        rec["ptxas"] = ln_ptxas(dtype, more["plan"], kind)
+    if n == 768:
+        # the backward's two kernels: the row kernel and the column sums
+        # of the blocks' partial rows, from one profiled call
+        _, _, device, _ = profiled(bwd)
+        recs[1]["kernel_split_ms"] = {
+            "rows": kernel_ms(device, "ln_bwd_kernel"),
+            "column_sums": kernel_ms(device, "ln_bwd_reduce_kernel")}
+    return recs
+
+
+def layer_norm_layout_checks(gen):
+    """LayerNorm forward and backward in each layout and vector width the
+    plans pick, each against the plain version and twice bit for bit: N
+    = 30 in bf16 (4-byte vectors; a prefill's 1000 rows take 4 warps a
+    row), 1000 in float32 (64 rows: 8 warps a row), GPT-2 medium's 1024 in
+    both dtypes (a warp a row, 32 elements a lane), 8192 (a block of 8
+    warps a row) in both, 12300 in bf16 (the wide loop at 8-byte vectors,
+    in `training_kernel_checks`), and x and dy one element past a 16-byte
+    boundary (single elements) at 768; decode's (8, 768) takes 8 warps a
+    row (`training_kernel_checks`)."""
+    cases = []
+    for rows, n, dtype, offset in (
+            (1000, 30, torch.bfloat16, 0), (64, 1000, torch.float32, 0),
+            (2048, 1024, torch.float32, 0), (2048, 1024, torch.bfloat16, 0),
+            (256, 8192, torch.float32, 0), (256, 8192, torch.bfloat16, 0),
+            (2000, 768, torch.bfloat16, 1), (2000, 768, torch.float32, 1)):
+        cases += layer_norm_train_case(rows, dtype, gen, n=n, timed=False,
+                                       offset=offset)
+    return cases
 
 
 def flash_train_case(layout, batch, heads, d, dtype, gen, sq=1024,
-                     skv=1024, causal=True, q_off=0, k_off=0, timed=True):
+                     skv=1024, causal=True, q_off=0, k_off=0, timed=True,
+                     misaligned=False):
     """Flash attention forward and backward as training runs it: (B, H, S,
     D) views of (B, S, H, D) projections ('bhsd', the graph's transposes;
     'ds', the same through the dS route) or (B, S, E) operands through
@@ -716,7 +838,9 @@ def flash_train_case(layout, batch, heads, d, dtype, gen, sq=1024,
     the layout's route alone; when timed, each pass's time beside
     `scaled_dot_product_attention`'s.  On 'ds' the kernels' times are
     those of the kernels on the dS operands; ``route_ms`` adds the
-    route's boundary copies."""
+    route's boundary copies.  ``misaligned`` ('bhsd') hands over a k whose
+    sequence stride (d + 2) is no multiple of 16 bytes, which the
+    wrappers copy before both passes."""
     pins, name, route = FLASH_LAYOUTS[layout]
     with pinned(**pins):
         bsd = layout in ("bsd", "stream")
@@ -735,6 +859,9 @@ def flash_train_case(layout, batch, heads, d, dtype, gen, sq=1024,
                 if bsd else t
 
         q, k, v = make(sq), make(skv), make(skv)
+        if misaligned:
+            k = torch.zeros(batch, heads, skv, d + 2, device="cuda",
+                            dtype=dtype)[..., :d].copy_(k)
         g = make(sq)
         glse = torch.randn(batch, heads, sq, device="cuda", generator=gen)
 
@@ -820,6 +947,8 @@ def flash_train_case(layout, batch, heads, d, dtype, gen, sq=1024,
             del once, again
             b_err = (b_err[0], b_err[1], b_err[2] and same)
             extra_bwd = {"bit_identical": same}
+        if misaligned:
+            extra_fwd["misaligned"] = extra_bwd["misaligned"] = True
         if not timed:
             return [dict(_record(name, shape, dtype, f_err, False),
                          **extra_fwd),
@@ -911,6 +1040,13 @@ def describe(c):
         line += (" | kernel %.4f ms  plain %.4f ms  library %.4f ms  bound "
                  "%.5f ms (%s)" % (c["ms"], c["plain_ms"], c["library_ms"],
                                    c["bound_ms"], c["bound_by"]))
+    if "cold_ms" in c:
+        line += ("; cold L2 %.4f ms; bound share warm %.3f, cold %.3f"
+                 % (c["cold_ms"], c["bound_share"], c["cold_bound_share"]))
+    if "kernel_split_ms" in c:
+        line += "; kernels %s" % c["kernel_split_ms"]
+    if "plan" in c:
+        line += "; plan %s" % c["plan"]
     if "ms_with_launch" in c:
         line += "; kernel with launch %.4f ms" % c["ms_with_launch"]
     if "route_ms" in c:
@@ -1040,12 +1176,18 @@ def training_kernel_checks():
                                   sq=333, skv=333, q_off=37, timed=False)
         cases += flash_train_case(layout, 2, 2, 128, torch.bfloat16, gen,
                                   sq=200, skv=333, k_off=50, timed=False)
+    # a bf16 k the kernels cannot read in place (sequence stride d + 2):
+    # copied by the wrappers before the forward and both backward passes
+    cases += flash_train_case("bhsd", 2, 4, 128, torch.bfloat16, gen,
+                              sq=200, skv=260, q_off=60, timed=False,
+                              misaligned=True)
     cases += width_checks(gen)
     # rows wider than the LayerNorm register kernels hold: the wide-row
     # kernels, at a power of two (timed) and a ragged width
     for dtype in (torch.float32, torch.bfloat16):
         cases += layer_norm_train_case(1024, dtype, gen, n=16384)
         cases += layer_norm_train_case(64, dtype, gen, n=12300, timed=False)
+    cases += layer_norm_layout_checks(gen)
     for c in cases:
         log(describe(c))
     log("card after the training kernel checks (sm clock, mem clock, power, "
@@ -1158,6 +1300,9 @@ CE_MEDIUM = (8192, 1024, 50257)
 CE_XL = (1000, 1600, 50257)
 CE_WIDE = (300, 4096, 5000)
 CE_PADDED = (333, 772, 1000)
+# d = 30 (`get_transformer_lm(num_embed=30)`'s head): no multiple of either
+# granule, zero-padded to 32 in both dtypes
+CE_NARROW = (333, 30, 1000)
 # the op's default tiles: a pin the kernels take (multiples of 32); the
 # plain versions tile the vocabulary by block_v as the jnp twins do
 CE_BLOCKS = (512, 2048)
@@ -1240,9 +1385,10 @@ def ce_case(shape, dtype, gen, ragged=False, timed=False):
         "fused_ce_bwd_dx_rs": (fce._bwd_dx_rs_plain(x, w, b, label, lse, r,
                                                     bv),),
         "fused_ce_bwd": fce._bwd_plain(x, w, b, label, lse, *head, bv)})
-    # every wrapper pads a bf16 d of 4 more than a multiple of 8, each
-    # call (the 5-pass backward calls D and C once more), and no other
-    want_pad = 1 if dtype == torch.bfloat16 and d % 8 else 0
+    # every wrapper pads a d off the kernels' 16-byte granule (4 float32
+    # or 8 bf16 columns), each call (the 5-pass backward calls D and C once
+    # more), and no other
+    want_pad = 1 if d % (8 if dtype == torch.bfloat16 else 4) else 0
     pad_ok = padded == {"fused_ce_fwd_padded": want_pad,
                         "fused_ce_fwd_sp_padded": want_pad,
                         "fused_ce_bwd_dw_padded": 2 * want_pad,
@@ -1337,6 +1483,9 @@ def fused_ce_checks():
         cases += ce_case(CE_WIDE, dtype, gen, ragged=True)
         torch.cuda.empty_cache()
     cases += ce_case(CE_PADDED, torch.bfloat16, gen, ragged=True)
+    # a d off the granule in both dtypes: zero-padded to 32
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += ce_case(CE_NARROW, dtype, gen, ragged=True)
     for c in cases:
         log(describe(c))
     log("card after the fused CE checks (sm clock, mem clock, power, temp): "
@@ -2001,7 +2150,8 @@ def kernels_line(cases, paths, f32_paths):
         s = next(c for c in cases if c["kernel"] == name
                  and c["shape"] == serving[name]
                  and c["dtype"] == "torch.float32" and "rtol" in c)
-        return {"shape": s["shape"], "dtype": s["dtype"], "ms": s["ms"]}
+        return {"shape": s["shape"], "dtype": s["dtype"], "ms": s["ms"],
+                "ms_with_launch": s.get("ms_with_launch")}
 
     out = []
     for name, src, replaces, counters in KERNEL_ROWS:
@@ -2023,7 +2173,9 @@ def kernels_line(cases, paths, f32_paths):
             "library_ms": at["library_ms"],
             "route_ms": at.get("route_ms"),
             **{k: at[k] for k in ("tflops", "bound_share", "ptxas",
-                                  "bit_identical", "bf16_plain_rel_err")
+                                  "bit_identical", "bf16_plain_rel_err",
+                                  "cold_ms", "cold_bound_share", "plan",
+                                  "kernel_split_ms")
                if k in at},
             "checks": [{k: c.get(k) for k in (
                 "shape", "dtype", "max_abs_err", "rel_err", "rel_tol",
@@ -2090,9 +2242,9 @@ def main():
                 for ln in _build.build_log(name).splitlines()
                 if "registers" in ln]
         log("ptxas %s: %s" % (name, regs))
-    for name in ("flash_attention_fwd", "flash_attention_fwd_f32",
-                 "flash_attention_bwd", "flash_attention_bwd_f32",
-                 "fused_ce_bf16", "fused_ce_f32"):
+    for name in ("layer_norm", "flash_attention_fwd",
+                 "flash_attention_fwd_f32", "flash_attention_bwd",
+                 "flash_attention_bwd_f32", "fused_ce_bf16", "fused_ce_f32"):
         log("ptxas registers, spill (stores, loads) bytes, %s: %s"
             % (name, ptxas_info(name)))
 

@@ -25,11 +25,14 @@ H100 bound and what the design does about it.
 
 Operands are (B, H, S, D) in float32 or bfloat16.  The kernels take D in
 {64, 128}; they read and write through the batch, head and sequence
-strides, so a transposed view costs no copy, but the last axis must be
-contiguous.  The kernels copy 16-byte rows, so their operands must also
-be 16-byte aligned with strides that are multiples of 16 bytes: the bf16
-kernels raise on others, the float32 ones take a copy of such an operand
-(and the out cotangent is copied in both dtypes).
+strides, so a transposed view costs no copy.  The kernels copy 16-byte
+rows, so an operand whose last axis is not contiguous, or that is not
+16-byte aligned with strides that are multiples of 16 bytes, is copied
+first, in both dtypes (`_readable`; the out cotangent too).  The kernels
+put heads on the grid's y and batch on its z, at most 65535 each: a
+larger batch is launched in chunks of 65535 (past 65535 heads, each
+batch index's heads in such chunks), each at its pointers' offset and
+each counted as a launch.
 Outputs and gradients are allocated with q's (k's, v's) strides
 (``empty_like``) where those are aligned, so the transposes around them
 are free too; the 'ds' route's copies and outputs pad the storage of
@@ -306,11 +309,6 @@ def _check_cuda_args(q, k, v, ds=False):
                          " got %s and %s" % (
                              b, h, "%d, Skv" % d if ds else "Skv, %d" % d,
                              tuple(k.shape), tuple(v.shape)))
-    if any(t.stride(3) != 1 for t in (q, k, v)):
-        raise MXNetError("flash_attention: the %s axis of q, k and v must be "
-                         "contiguous" % ("sequence" if ds else "head_dim"))
-    if b > 65535 or h > 65535:
-        raise MXNetError("flash_attention: batch and heads must be <= 65535")
     if k.device != q.device or v.device != q.device:
         raise MXNetError("flash_attention: q, k and v must share a device")
     _build.check_current_device(q.device, "flash_attention")
@@ -323,16 +321,37 @@ def _aligned(t):
         s * t.element_size() % 16 == 0 for s in t.stride()[:3])
 
 
-def _check_aligned(q, k, v, ds, what):
-    """Raise `MXNetError` unless the bf16 kernels can copy q's, k's and v's
-    rows (float32 takes any strides)."""
-    if q.dtype == torch.bfloat16 and not all(_aligned(t) for t in (q, k, v)):
-        raise MXNetError("%s: the bf16 kernels copy 16-byte rows, so q, k "
-                         "and v must be 16-byte aligned with batch, head and "
-                         "%s strides that are multiples of 8 elements, got "
-                         "strides %s %s %s"
-                         % (what, "head_dim" if ds else "sequence",
-                            q.stride(), k.stride(), v.stride()))
+def _readable(t):
+    """``t`` itself where the kernels can read it in place (last axis
+    contiguous, `_aligned`), else a copy they can (`_like`)."""
+    return t if t.stride(3) == 1 and _aligned(t) else _like(t).copy_(t)
+
+
+# the kernels put heads on the grid's y and batch on its z
+_GRID_MAX = 65535
+
+
+def _grid_chunks(b, h):
+    """The launches that cover (batch b, heads h) within the grid's 65535:
+    (first batch, batches, first head, heads) each; one launch up to
+    65535 of both, chunks of 65535 batches past that, and past 65535
+    heads each batch index's heads in chunks of 65535."""
+    if h <= _GRID_MAX:
+        return [(b0, min(_GRID_MAX, b - b0), 0, h)
+                for b0 in range(0, max(b, 1), _GRID_MAX)]
+    return [(b0, 1, h0, min(_GRID_MAX, h - h0))
+            for b0 in range(b) for h0 in range(0, h, _GRID_MAX)]
+
+
+def _at(t, b0, h0, heads=None):
+    """The address of t[b0, h0]: a 4-D operand through its strides, or, with
+    ``heads``, a contiguous (B, heads, S) float32 row statistic."""
+    if t is None:
+        return None
+    if heads is not None:
+        return t.data_ptr() + (b0 * heads + h0) * t.shape[-1] * 4
+    return t.data_ptr() + (b0 * t.stride(0) + h0 * t.stride(1)) * \
+        t.element_size()
 
 
 def _empty_aligned(shape, dtype, device):
@@ -363,23 +382,23 @@ def _flash_fwd_cuda(q, k, v, q_off, k_off, scale, causal, with_lse, route):
     (B, H, D, S) ones on 'ds' (out in the same layout)."""
     ds = route == "ds"
     _check_cuda_args(q, k, v, ds)
-    _check_aligned(q, k, v, ds, "flash_attention")
-    # the float32 kernel takes any strides: an operand whose rows it
-    # cannot copy 16 bytes at a time is copied first
-    q, k, v = (t if _aligned(t) else _like(t).copy_(t) for t in (q, k, v))
+    q, k, v = (_readable(t) for t in (q, k, v))
     b, h, sq, skv, d = _dims(q, k, ds)
     out = _like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
     source, entry = _FWD_ENTRIES[q.dtype]
-    err = getattr(_lib(source), entry)(
-        _DTYPES[q.dtype], d, int(ds), q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), b, h, sq, skv,
-        *_strides(q, k, v, out), q_off, k_off, int(causal), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention launch")
-    _count(route, "launches")
+    launch = getattr(_lib(source), entry)
+    strides = _strides(q, k, v, out)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    for b0, nb, h0, nh in _grid_chunks(b, h):
+        err = launch(
+            _DTYPES[q.dtype], d, int(ds), *(_at(t, b0, h0)
+                                            for t in (q, k, v, out)),
+            _at(lse, b0, h0, h), nb, nh, sq, skv, *strides, q_off, k_off,
+            int(causal), float(scale), stream)
+        _build.check(err, "flash_attention launch")
+        _count(route, "launches")
     return out, lse
 
 
@@ -394,30 +413,28 @@ def _flash_bwd_cuda(q, k, v, o, lse, g, glse, q_off, k_off, scale, causal,
         raise MXNetError("flash_attention backward: the out cotangent must "
                          "be %s %s, got %s %s" % (tuple(q.shape), q.dtype,
                                                   tuple(g.shape), g.dtype))
-    _check_aligned(q, k, v, ds, "flash_attention backward")
-    # as in the forward, a float32 operand whose rows the kernels cannot
-    # copy 16 bytes at a time is copied, as the out cotangent is in both
-    # dtypes
-    q, k, v = (t if _aligned(t) else _like(t).copy_(t) for t in (q, k, v))
-    if g.stride(3) != 1 or not _aligned(g):
-        g = _like(g).copy_(g)
+    # as in the forward, an operand the kernels cannot read in place is
+    # copied, the out cotangent too
+    q, k, v, g = (_readable(t) for t in (q, k, v, g))
     delta = _delta(o, g, glse, 2 if ds else 3).contiguous()
     lse = lse.contiguous()
     dq, dk, dv = _like(q), _like(k), _like(v)
     source, entry = _BWD_ENTRIES[q.dtype]
     launch = getattr(_lib(source), entry)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    common = (_DTYPES[q.dtype], d, int(ds), q.data_ptr(), k.data_ptr(),
-              v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr())
     tail = (q_off, k_off, int(causal), float(scale), stream)
-    err = launch(0, *common, dq.data_ptr(), None, b, h, sq, skv,
-                 *_strides(q, k, v, g, dq, dq), *tail)
-    _build.check(err, "flash_attention dq launch")
-    _count(route, "dq_launches")
-    err = launch(1, *common, dk.data_ptr(), dv.data_ptr(), b, h, sq, skv,
-                 *_strides(q, k, v, g, dk, dv), *tail)
-    _build.check(err, "flash_attention dk/dv launch")
-    _count(route, "dkv_launches")
+    passes = ((0, dq, None, "dq"), (1, dk, dv, "dk/dv"))
+    for which, out0, out1, what in passes:
+        strides = _strides(q, k, v, g, out0, out0 if out1 is None else out1)
+        for b0, nb, h0, nh in _grid_chunks(b, h):
+            err = launch(
+                which, _DTYPES[q.dtype], d, int(ds),
+                *(_at(t, b0, h0) for t in (q, k, v, g)),
+                _at(lse, b0, h0, h), _at(delta, b0, h0, h),
+                _at(out0, b0, h0), _at(out1, b0, h0), nb, nh, sq, skv,
+                *strides, *tail)
+            _build.check(err, "flash_attention %s launch" % what)
+            _count(route, "dq_launches" if which == 0 else "dkv_launches")
     return dq, dk, dv
 
 

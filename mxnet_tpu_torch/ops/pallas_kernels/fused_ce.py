@@ -39,13 +39,13 @@ nll of ~1e30; the kernels' tiles are not the TPU's, so the port keeps
 the rule that does not depend on a tile size.)
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises `MXNetError`: x, W and b of one dtype, any n and any V.
-float32 runs `csrc/fused_ce_f32.cu` (d any positive multiple of 4, the
+or raises `MXNetError`: x, W and b of one dtype, any n, any V and any
+d >= 1.  float32 runs `csrc/fused_ce_f32.cu` (d a multiple of 4, the
 depth dealt out over a cluster of up to 8 blocks, past 1536 in windows);
 bfloat16 runs `csrc/fused_ce_bf16.cu` (d a multiple of 8, the cluster's
 depth up to 3072, past it in windows).
-A bf16 d that is 4 more than a multiple of 8 is zero-padded by 4 columns
-to the kernels' 16-byte granule, counted on the wrapper's
+Any other d is zero-padded to the next multiple of the kernels' 16-byte
+granule (4 float32 or 8 bfloat16 columns), counted on the wrapper's
 ``padded_calls``; the columns added contribute nothing to s and are cut
 from dxp, dx and dW.  The kernels stream tiles of 32 (float32) or 64
 (bf16) rows: a pinned ``block_n``/``block_v`` (`MXNET_CE_BLOCK_N`/`_V`,
@@ -271,9 +271,9 @@ def _aligned(t):
 def _check_cuda_args(x, w, b, label, what, rows=()):
     """What the CUDA kernels take; raises `MXNetError` on anything else
     before a launch.  ``rows`` are per-token float32 operands (lse, r).
-    Returns the operands ready for the C entry (x and W zero-padded by 4
-    columns where a bf16 d needs it), labels as int32, and whether x and
-    W were padded."""
+    Returns the operands ready for the C entry (x and W zero-padded to the
+    next multiple of 16 bytes a row where d needs it), labels as int32,
+    and the number of columns added."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[1]:
         raise MXNetError("%s: x must be (n, d) and W (V, d), got %s and %s"
                          % (what, tuple(x.shape), tuple(w.shape)))
@@ -288,9 +288,9 @@ def _check_cuda_args(x, w, b, label, what, rows=()):
     if b.shape != (v,) or label.shape != (n,) or v < 1:
         raise MXNetError("%s: b must be (%d,) and label (%d,), got %s and %s"
                          % (what, v, n, tuple(b.shape), tuple(label.shape)))
-    if d % 4 or d < 4:
-        raise MXNetError("%s: the CUDA kernels take d a positive multiple "
-                         "of 4, got %d" % (what, d))
+    if d < 1:
+        raise MXNetError("%s: the CUDA kernels take d >= 1 (zero-padded to "
+                         "a positive multiple of 4 or 8), got %d" % (what, d))
     for t in rows:
         if t.shape != (n,) or t.dtype != torch.float32:
             raise MXNetError("%s: lse and r must be (%d,) float32, got %s %s"
@@ -301,12 +301,12 @@ def _check_cuda_args(x, w, b, label, what, rows=()):
     if any(t.device != x.device for t in (w, b, label, *rows)):
         raise MXNetError("%s: every operand must be on x's device" % what)
     _build.check_current_device(x.device, what)
-    padded = x.dtype == torch.bfloat16 and d % 8 != 0
-    if padded:
-        x, w = (torch.nn.functional.pad(t, (0, 4)) for t in (x, w))
+    pad = -d % (8 if x.dtype == torch.bfloat16 else 4)
+    if pad:
+        x, w = (torch.nn.functional.pad(t, (0, pad)) for t in (x, w))
     return ([_aligned(t) for t in (x, w, b)],
             _aligned(label.to(torch.int32)),
-            [_aligned(t) for t in rows], padded)
+            [_aligned(t) for t in rows], pad)
 
 
 def _stream(x):
@@ -314,8 +314,8 @@ def _stream(x):
 
 
 def _fwd_cuda(x, w, b, label, ignore_label, use_ignore):
-    (x, w, b), lbl, _, padded = _check_cuda_args(x, w, b, label,
-                                                 "fused_ce_fwd")
+    (x, w, b), lbl, _, pad = _check_cuda_args(x, w, b, label,
+                                              "fused_ce_fwd")
     n, d = x.shape
     nll = torch.empty((n,), dtype=torch.float32, device=x.device)
     lse = torch.empty_like(nll)
@@ -325,13 +325,13 @@ def _fwd_cuda(x, w, b, label, ignore_label, use_ignore):
         int(ignore_label), int(bool(use_ignore)), _stream(x))
     _build.check(err, "fused_ce_fwd launch")
     fused_ce_fwd.launches += 1
-    fused_ce_fwd.padded_calls += padded
+    fused_ce_fwd.padded_calls += bool(pad)
     return nll, lse
 
 
 def _fwd_sp_cuda(x, w, b, label):
-    (x, w, b), lbl, _, padded = _check_cuda_args(x, w, b, label,
-                                                 "fused_ce_fwd_sp")
+    (x, w, b), lbl, _, pad = _check_cuda_args(x, w, b, label,
+                                              "fused_ce_fwd_sp")
     n, d = x.shape
     lse = torch.empty((n,), dtype=torch.float32, device=x.device)
     a = torch.empty_like(lse)
@@ -342,12 +342,12 @@ def _fwd_sp_cuda(x, w, b, label):
         w.shape[0], _stream(x))
     _build.check(err, "fused_ce_fwd_sp launch")
     fused_ce_fwd_sp.launches += 1
-    fused_ce_fwd_sp.padded_calls += padded
-    return lse, a, (dxp[:, :d - 4] if padded else dxp)
+    fused_ce_fwd_sp.padded_calls += bool(pad)
+    return lse, a, (dxp[:, :d - pad] if pad else dxp)
 
 
 def _bwd_dw_cuda(x, w, b, label, lse, r):
-    (x, w, b), lbl, (lse, r), padded = _check_cuda_args(
+    (x, w, b), lbl, (lse, r), pad = _check_cuda_args(
         x, w, b, label, "fused_ce_bwd_dw", (lse, r))
     n, d = x.shape
     dw = torch.empty_like(w)
@@ -358,12 +358,12 @@ def _bwd_dw_cuda(x, w, b, label, lse, r):
         db.data_ptr(), n, d, w.shape[0], _stream(x))
     _build.check(err, "fused_ce_bwd_dw launch")
     fused_ce_bwd_dw.launches += 1
-    fused_ce_bwd_dw.padded_calls += padded
-    return (dw[:, :d - 4].contiguous() if padded else dw), db
+    fused_ce_bwd_dw.padded_calls += bool(pad)
+    return (dw[:, :d - pad].contiguous() if pad else dw), db
 
 
 def _bwd_dx_cuda(x, w, b, label, lse, r):
-    (x, w, b), lbl, (lse, r), padded = _check_cuda_args(
+    (x, w, b), lbl, (lse, r), pad = _check_cuda_args(
         x, w, b, label, "fused_ce_bwd_dx", (lse, r))
     n, d = x.shape
     dx = torch.empty_like(x)
@@ -373,8 +373,8 @@ def _bwd_dx_cuda(x, w, b, label, lse, r):
         w.shape[0], _stream(x))
     _build.check(err, "fused_ce_bwd_dx launch")
     fused_ce_bwd_dx.launches += 1
-    fused_ce_bwd_dx.padded_calls += padded
-    return dx[:, :d - 4].contiguous() if padded else dx
+    fused_ce_bwd_dx.padded_calls += bool(pad)
+    return dx[:, :d - pad].contiguous() if pad else dx
 
 
 def _on(x, what):
@@ -430,7 +430,7 @@ def fused_ce_bwd(x, w, b, label, lse, grad_scale=1.0, ignore_label=-1.0,
 
 
 # kernel launches since the counts were last set to 0 (CUDA path only),
-# and the bf16 calls among them whose d was zero-padded by 4 columns
+# and the calls among them whose d was zero-padded to the 16-byte granule
 for _fn in (fused_ce_fwd, fused_ce_fwd_sp, fused_ce_bwd_dw, fused_ce_bwd_dx):
     _fn.launches = 0
     _fn.padded_calls = 0

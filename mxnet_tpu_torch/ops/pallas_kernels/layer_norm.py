@@ -4,10 +4,9 @@ versions beside them.
 Replaces `mxnet_tpu/ops/pallas_kernels/layer_norm.py` `_fwd_pallas` (the
 TPU kernel `_fwd_kernel`) and `_bwd_pallas` (`_bwd_kernel`); the plain
 versions are `_fwd_jnp` and `_bwd_jnp` in torch.  The kernels
-(`csrc/layer_norm.cu`) are memory-bound on the H100; the forward is
-launch-bound at serving decode's few rows.  The source's note says what
-the design does about that, and how the backward sums dgamma/dbeta over
-row chunks without atomics.
+(`csrc/layer_norm.cu`) are bounded by bytes on the H100; the source's
+note gives the layouts and how the backward sums dgamma/dbeta over
+persistent blocks without atomics.
 
 `layer_norm_fwd` takes x as (rows, N) in float32 or bfloat16, with gamma
 and beta (N,) in x's dtype, and returns y in x's dtype plus mean and rstd
@@ -15,8 +14,19 @@ as (rows, 1) float32.  `layer_norm_bwd` takes x, gamma, mean, rstd and dy
 and returns dx in x's dtype with dgamma and dbeta in gamma's dtype.  A
 CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  The TPU kernel's ``N % 128`` gate does not apply: the kernels
-take any N >= 1, rows up to `_REGISTER_N` wide in registers and wider
-ones through the wide-row kernels of the same C entries.
+take any N >= 1.
+
+The launch plan is Python (`_plan_fwd`, `_plan_bwd`), handed to the C
+entries, which check it: the layout (a warp a row up to N = 1024, up to
+8 rows a block; a block of 2, 4 or 8 warps a row up to `_REGISTER_N`; a
+256-thread block looping over a wider row; with fewer rows than 8 an SM,
+as in a prefill, a block of 4 warps a row, and of 8 below one row an SM,
+as in decode), the vector width (`_vec_bytes`: 16
+bytes where N and every pointer allow, down to one element), the
+elements a thread holds, rows a block and the grid; for the backward,
+persistent blocks (`_sm_count` SMs times the blocks an SM the occupancy
+query allows), the static split of rows over their teams (`_bwd_split`)
+and the (blocks, N) workspace.
 
 `layer_norm` is the public function: a `torch.autograd.Function` whose
 forward is the forward kernel (saving x, gamma, mean and rstd) and whose
@@ -26,7 +36,9 @@ alone and saves nothing.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 
 import torch
 
@@ -37,8 +49,16 @@ __all__ = ["layer_norm", "layer_norm_fwd", "layer_norm_bwd",
            "layer_norm_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_REGISTER_N = 256 * 32  # the widest row the register kernels hold
-_MAX_CHUNKS = 512  # row chunks of the backward's dgamma/dbeta partial sums
+_THREADS = 256  # a block's threads at most (`kThreads` in the source)
+_EPT = (8, 16, 24, 32)  # elements a thread holds: the kernels' templates
+_REGISTER_N = _THREADS * _EPT[-1]  # the widest row held in registers
+_LAYOUTS = {"warp": 0, "warps": 1, "wide": 2}  # the C entries' codes
+
+# A launch plan: layout, vector width in bytes, elements a thread holds
+# (None on 'wide'), warps a row, rows a block at once (the backward's
+# teams), blocks, and the backward's (blocks, N) workspace (None forward).
+Plan = collections.namedtuple(
+    "Plan", "layout vec_bytes ept warps rows_per_block blocks workspace")
 
 
 def _fwd_plain(x2d, gamma, beta, eps):
@@ -65,15 +85,148 @@ def _bwd_plain(x2d, gamma, mean, rstd, dy2d):
     return dx, (dy * xhat).sum(dim=0), dy.sum(dim=0)
 
 
+# -- the launch plan -----------------------------------------------------------
+
+
+def _alignment(*ptrs):
+    """The largest of 16, 8, 4, 2, 1 bytes that divides every pointer."""
+    bits = 16
+    for p in ptrs:
+        bits |= p
+    return bits & -bits
+
+
+def _vec_bytes(n, itemsize, alignment):
+    """The vector width: the largest of 16, 8, 4 and 2 bytes, at least one
+    element, that divides a row's n * itemsize bytes and ``alignment``."""
+    return next((v for v in (16, 8, 4, 2) if v >= itemsize
+                 and (n * itemsize) % v == 0 and alignment % v == 0),
+                itemsize)
+
+
+def _layout(n, vw, rows, sms):
+    """(layout, elements a thread holds, warps a row) for ``rows`` rows of
+    n at ``vw`` elements a vector: the fewest warps a row whose threads
+    hold the row in at most 32 elements each; where a call's few rows
+    leave SMs short of warps, at least 8 warps a row below one row an SM
+    (decode) and 4 below 8 rows an SM (a prefill's), so that each row's
+    latency, the call's, is shorter; past `_REGISTER_N` the wide loop."""
+    if n > _REGISTER_N:
+        return "wide", None, _THREADS // 32
+    fewest = 8 if rows < sms else 4 if rows < 8 * sms else 1
+    for warps in (w for w in (1, 2, 4, 8) if w >= fewest):
+        need = -(-n // (32 * warps * vw)) * vw
+        if need <= _EPT[-1]:
+            ept = next(e for e in _EPT if e >= need)
+            return ("warp" if warps == 1 else "warps"), ept, warps
+    raise AssertionError("n <= _REGISTER_N fits 8 warps a row")
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_fwd(rows, n, dtype, ptrs_alignment, sms):
+    """The forward's plan: on 'warp' up to 8 rows a block (a row a warp),
+    ceil(rows / sms) when that is fewer, so that every SM takes about as
+    many rows; one row a block on 'warps' and 'wide'."""
+    itemsize = dtype.itemsize
+    vec = _vec_bytes(n, itemsize, ptrs_alignment)
+    layout, ept, warps = _layout(n, vec // itemsize, rows, sms)
+    per_block = 1 if layout != "warp" else min(
+        _THREADS // 32, -(-rows // max(sms, 1)))
+    return Plan(layout, vec, ept, warps, per_block, -(-rows // per_block),
+                None)
+
+
+def _plan_bwd(rows, n, dtype, ptrs_alignment, sms, occupancy):
+    """The backward's plan: persistent blocks of up to 8 teams (a warp a
+    row) or of one (a block a row), each team over every teams-th row
+    (`_bwd_split`).  ``occupancy(layout, vec_bytes, ept, warps,
+    rows_per_block)`` is the blocks an SM holds at once ('wide' takes one
+    an SM).  The grid is the fewest blocks whose teams take no more rows
+    each than ``sms`` full SMs' teams would, and never more teams than
+    rows."""
+    itemsize = dtype.itemsize
+    vec = _vec_bytes(n, itemsize, ptrs_alignment)
+    layout, ept, warps = _layout(n, vec // itemsize, rows, sms)
+    teams = min(_THREADS // 32, rows) if layout == "warp" else 1
+    # 'wide' keeps its partial sums in the workspace row: one block an SM
+    # keeps those rows (SMs x N x 8 bytes) in L2
+    most = max(1, sms * (1 if layout == "wide" else occupancy(
+        layout, vec, ept, warps, teams)))
+    per_team = -(-rows // (most * teams))  # the most rows a team takes
+    busy = -(-rows // per_team)  # the fewest teams that take no more
+    blocks = max(1, min(-(-busy // teams), rows // teams))
+    return Plan(layout, vec, ept, warps, teams, blocks, (blocks, n))
+
+
+def _bwd_split(rows, teams):
+    """The rows of each of ``teams`` teams: the kernels' static split, team
+    k (block k // rows_per_block) taking rows k, k + teams, ..., so that
+    the teams at work at any moment read neighbouring rows."""
+    return [range(k, rows, teams) for k in range(teams)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_occupancy_cache = {}
+
+
+def _occupancy(dtype, n):
+    """The occupancy query of the backward kernel of a plan, for
+    `_plan_bwd`, cached by its arguments."""
+    def blocks_per_sm(layout, vec, ept, warps, teams):
+        key = (_DTYPES[dtype], n, _LAYOUTS[layout], vec, ept or 0, warps,
+               teams)
+        if key not in _occupancy_cache:
+            out = ctypes.c_int(0)
+            err = _lib().mxt_layer_norm_bwd_occupancy(
+                key[0], n, *key[2:], ctypes.byref(out))
+            _build.check(err, "layer_norm_bwd occupancy")
+            if out.value < 1:
+                raise MXNetError("layer_norm_bwd: the plan %s fits no block "
+                                 "on an SM" % (key,))
+            _occupancy_cache[key] = out.value
+        return _occupancy_cache[key]
+    return blocks_per_sm
+
+
+@functools.lru_cache(maxsize=1024)
+def _fwd_args(rows, n, dtype, ptrs_alignment, index):
+    """`_plan_fwd` on CUDA device ``index``, as the C entry's arguments
+    (one cached call: decode's forward is bound by the host)."""
+    return _plan_args(_plan_fwd(rows, n, dtype, ptrs_alignment,
+                                _sm_count(index)))
+
+
+@functools.lru_cache(maxsize=1024)
+def _bwd_plan_on(rows, n, dtype, ptrs_alignment, index):
+    """`_plan_bwd` on CUDA device ``index``: its SMs and occupancy."""
+    return _plan_bwd(rows, n, dtype, ptrs_alignment, _sm_count(index),
+                     _occupancy(dtype, n))
+
+
+def _plan_args(plan):
+    return (_LAYOUTS[plan.layout], plan.vec_bytes, plan.ept or 0, plan.warps,
+            plan.rows_per_block, plan.blocks)
+
+
+# -- the CUDA kernels -----------------------------------------------------------
+
+
 def _lib():
     lib = _build.load("layer_norm")
     fwd, bwd = lib.mxt_layer_norm_fwd, lib.mxt_layer_norm_bwd
     if fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fwd.argtypes = [i, p, p, p, p, p, p, i, i, ctypes.c_float, p]
+        fwd.argtypes = [i] + [p] * 6 + [i, i, ctypes.c_float] + [i] * 6 + [p]
         fwd.restype = i
-        bwd.argtypes = [i] + [p] * 10 + [i, i, i, i, p]
+        bwd.argtypes = [i] + [p] * 10 + [i] * 8 + [p]
         bwd.restype = i
+        occ = lib.mxt_layer_norm_bwd_occupancy
+        occ.argtypes = [i] * 7 + [ctypes.POINTER(i)]
+        occ.restype = i
     return lib
 
 
@@ -108,20 +261,20 @@ def _fwd_cuda(x2d, gamma, beta, eps):
     y = torch.empty_like(x2d)
     mean = torch.empty((rows, 1), dtype=torch.float32, device=x2d.device)
     rstd = torch.empty((rows, 1), dtype=torch.float32, device=x2d.device)
+    if rows == 0:
+        return y, mean, rstd
+    # y, like the backward's dx, is a fresh allocation, on the allocator's
+    # 512-byte boundary
+    px, pg, pb = x2d.data_ptr(), gamma.data_ptr(), beta.data_ptr()
+    args = _fwd_args(rows, n, x2d.dtype, _alignment(px, pg, pb),
+                     x2d.device.index)
     err = _lib().mxt_layer_norm_fwd(
-        _DTYPES[x2d.dtype], x2d.data_ptr(), gamma.data_ptr(),
-        beta.data_ptr(), y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), rows,
-        n, float(eps), torch.cuda.current_stream(x2d.device).cuda_stream)
+        _DTYPES[x2d.dtype], px, pg, pb, y.data_ptr(), mean.data_ptr(),
+        rstd.data_ptr(), rows, n, float(eps), *args,
+        torch.cuda.current_stream(x2d.device).cuda_stream)
     _build.check(err, "layer_norm launch")
     layer_norm_fwd.launches += 1
     return y, mean, rstd
-
-
-def _bwd_chunks(rows):
-    """(chunks, rows_per_chunk) of the backward's row split: at most
-    `_MAX_CHUNKS` blocks, each over consecutive rows."""
-    per = -(-rows // min(rows, _MAX_CHUNKS))
-    return -(-rows // per), per
 
 
 def _bwd_cuda(x2d, gamma, mean, rstd, dy2d):
@@ -144,14 +297,15 @@ def _bwd_cuda(x2d, gamma, mean, rstd, dy2d):
     dbeta = torch.empty_like(gamma)
     if rows == 0:
         return dx, dgamma.zero_(), dbeta.zero_()
-    chunks, per = _bwd_chunks(rows)
-    part = torch.empty((2, chunks, n), dtype=torch.float32,
+    plan = _bwd_plan_on(rows, n, x2d.dtype, _alignment(
+        x2d.data_ptr(), dy2d.data_ptr(), gamma.data_ptr()), x2d.device.index)
+    part = torch.empty((2, *plan.workspace), dtype=torch.float32,
                        device=x2d.device)
     err = _lib().mxt_layer_norm_bwd(
         _DTYPES[x2d.dtype], x2d.data_ptr(), gamma.data_ptr(),
         mean.data_ptr(), rstd.data_ptr(), dy2d.data_ptr(), dx.data_ptr(),
         part[0].data_ptr(), part[1].data_ptr(), dgamma.data_ptr(),
-        dbeta.data_ptr(), rows, n, chunks, per,
+        dbeta.data_ptr(), rows, n, *_plan_args(plan),
         torch.cuda.current_stream(x2d.device).cuda_stream)
     _build.check(err, "layer_norm_bwd launch")
     layer_norm_bwd.launches += 1

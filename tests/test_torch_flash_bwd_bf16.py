@@ -16,8 +16,9 @@ on the same bf16 operands.  What the CPU can pin:
 * The dispatch.  `_flash_bwd_cuda` sends bf16 to the new C entry and
   float32 to the 3xTF32 one, counts one dq and one dk/dv launch on the
   route either way, hands the kernels 16-byte-aligned operands (the 'ds'
-  route pads the storage of an odd sequence length) and raises before any
-  launch on operands it cannot copy in 16-byte rows.
+  route pads the storage of an odd sequence length), copies operands it
+  cannot read in place, and launches a batch past the grid's 65535 in
+  chunks.
 * The build: the new source is in `_build.KERNELS` and compiles for
   ``sm_90a`` into a library named by the hash of its source and flags.
 """
@@ -32,7 +33,6 @@ import torch
 import jax.numpy as jnp
 
 from mxnet_tpu.ops.pallas_kernels import flash_attention_mod as jfa
-from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops.pallas_kernels import _build
 from mxnet_tpu_torch.ops.pallas_kernels import flash_attention as tfa
 from test_torch_kernels import fake_toolchain  # noqa: F401
@@ -230,25 +230,59 @@ def test_ds_route_hands_the_bf16_kernels_aligned_rows(fake_lib):
 
 def test_misaligned_bf16_operands_raise_before_launch(fake_lib):
     """A bf16 q whose sequence stride is no multiple of 8 elements (16
-    bytes) raises before any launch or count; a misaligned out cotangent
-    is copied instead."""
+    bytes), and one whose last axis is not contiguous, no longer raise:
+    each reaches both bf16 passes as a copy the kernels can read in place
+    (16-byte aligned, strides multiples of 8 elements), counted; a
+    misaligned out cotangent is copied too, and float32 takes the same
+    operands."""
     q, k, v, o, lse, g = _bwd_inputs(torch.bfloat16)
     bad = torch.zeros(1, 2, 72, 68, dtype=torch.bfloat16)[..., :64]
     bad.copy_(q)
+    strided = q.transpose(2, 3).contiguous().transpose(2, 3)
     before = _counts("hsd")
-    with pytest.raises(MXNetError, match="16-byte"):
-        tfa._flash_bwd_cuda(bad, k, v, o, lse, g, None, 0, 0, 0.125, True,
+    for qq in (bad, strided):
+        tfa._flash_bwd_cuda(qq, k, v, o, lse, g, None, 0, 0, 0.125, True,
                             "hsd")
-    assert fake_lib == [] and _counts("hsd") == before
+    assert _counts("hsd") == [n + 2 for n in before]
+    assert len(fake_lib) == 4
+    for qq, call in zip((bad, bad, strided, strided), fake_lib):
+        args = call[6]
+        assert args[4] != qq.data_ptr() and args[4] % 16 == 0
+        assert all(s % 8 == 0 for s in call[5][0])
     gbad = torch.zeros(1, 2, 72, 68, dtype=torch.bfloat16)[..., :64]
     gbad.copy_(g)
     tfa._flash_bwd_cuda(q, k, v, o, lse, gbad, None, 0, 0, 0.125, True,
                         "hsd")
-    assert len(fake_lib) == 2
+    assert len(fake_lib) == 6 and fake_lib[-1][6][7] != gbad.data_ptr()
     # float32 takes any sequence stride, as before
     tfa._flash_bwd_cuda(bad.float(), k.float(), v.float(), o.float(), lse,
                         g.float(), None, 0, 0, 0.125, True, "hsd")
     assert fake_lib[-1][1] == "mxt_flash_attention_bwd_f32"
+
+
+def test_grids_past_65535_launch_in_chunks(fake_lib):
+    """Batch 65537 at one head: each pass launches twice, 65535 batches
+    and then 2, each at its first batch's pointers (lse's and delta's rows
+    too), each counted; only the chunks' arguments are checked."""
+    b, s, d = 65537, 2, 64
+    q, k, v, g = (torch.zeros(b, 1, s, d, dtype=torch.bfloat16)
+                  for _ in range(4))
+    lse = torch.zeros(b, 1, s)
+    before = _counts("hsd")
+    tfa._flash_bwd_cuda(q, k, v, g.clone(), lse, g, None, 0, 0, 0.125,
+                        True, "hsd")
+    assert _counts("hsd") == [n + 2 for n in before]
+    # (which, q, k, v, dout, lse, delta, out0, out1, batch, heads)
+    args = [(c[6][0],) + c[6][4:14] for c in fake_lib]
+    assert [(a[0], a[9], a[10]) for a in args] == [
+        (0, 65535, 1), (0, 2, 1), (1, 65535, 1), (1, 2, 1)]
+    step = 65535 * s * d * 2
+    for i in (1, 2, 3, 4, 7):
+        assert args[1][i] - args[0][i] == step
+        assert args[3][i] - args[2][i] == step
+    for i in (5, 6):
+        assert args[1][i] - args[0][i] == 65535 * s * 4
+    assert args[3][8] - args[2][8] == step and args[0][8] is None
 
 
 # -- the build -------------------------------------------------------------

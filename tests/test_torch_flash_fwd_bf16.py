@@ -16,8 +16,9 @@ on the same bf16 operands.  What the CPU can pin:
   both and agrees to float32 rounding.
 * The dispatch.  `_flash_fwd_cuda` sends bf16 to the new C entry and
   float32 to the 3xTF32 one (test_torch_flash_fwd_f32.py), counts one
-  launch on the route either way, and raises before any launch on bf16
-  operands it cannot copy in 16-byte rows.
+  launch on the route either way, copies a bf16 operand it cannot read in
+  place (misaligned, or its last axis not contiguous), and launches a
+  batch past the grid's 65535 in chunks.
 * The build: the new source is in `_build.KERNELS` and compiles for
   ``sm_90a`` into a library named by the hash of its source, the shared
   header and the flags.
@@ -33,7 +34,6 @@ import torch
 import jax.numpy as jnp
 
 from mxnet_tpu.ops.pallas_kernels import flash_attention_mod as jfa
-from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops.pallas_kernels import _build
 from mxnet_tpu_torch.ops.pallas_kernels import flash_attention as tfa
 from test_torch_kernels import fake_toolchain  # noqa: F401
@@ -231,18 +231,65 @@ def test_fwd_dispatch_by_dtype(fake_lib, dtype, source, entry, route):
 
 def test_misaligned_bf16_operands_raise_before_launch(fake_lib):
     """A bf16 k whose sequence stride is no multiple of 8 elements (16
-    bytes) raises before any launch or count; float32 takes it (as an
-    aligned copy)."""
+    bytes), and one whose last axis is not contiguous, no longer raise:
+    each reaches the bf16 entry as a copy the kernel can read in place
+    (16-byte aligned, its values k's), one counted launch each; float32
+    takes them the same way."""
     q, k, v = (torch.randn(1, 2, 72, 64).bfloat16() for _ in range(3))
     bad = torch.zeros(1, 2, 72, 68, dtype=torch.bfloat16)[..., :64]
     bad.copy_(k)
+    strided = k.transpose(2, 3).contiguous().transpose(2, 3)
+    assert strided.stride(3) != 1 and not tfa._aligned(bad)
+    copies = []
+    real_like = tfa._like
+
+    def like(t):
+        copies.append(t.data_ptr())
+        return real_like(t)
+
+    tfa._like = like
+    try:
+        before = _launches("hsd")
+        for kk in (bad, strided):
+            tfa._flash_fwd_cuda(q, kk, v, 0, 0, 0.125, True, False, "hsd")
+        assert _launches("hsd") == before + 2
+        assert [c[1] for c in fake_lib] == [
+            "mxt_flash_attention_fwd_bf16"] * 2
+        for kk, call in zip((bad, strided), fake_lib):
+            assert call[6][1] != kk.data_ptr() and call[6][1] % 16 == 0
+            assert kk.data_ptr() in copies
+        tfa._flash_fwd_cuda(q.float(), bad.float(), v.float(), 0, 0, 0.125,
+                            True, False, "hsd")
+        assert fake_lib[-1][1] == "mxt_flash_attention_fwd_f32"
+    finally:
+        tfa._like = real_like
+
+
+def test_grids_past_65535_launch_in_chunks(fake_lib, monkeypatch):
+    """Batch 65537 at one head: two launches of the forward, 65535
+    batches and then 2, each at its first batch's pointers (lse's rows
+    too), each counted; only the chunks' arguments are checked."""
+    seen = []
+    monkeypatch.setattr(tfa, "_lib", lambda source: types.SimpleNamespace(
+        mxt_flash_attention_fwd_bf16=lambda *a: seen.append(a) or 0))
+    b, s, d = 65537, 2, 64
+    q, k, v = (torch.zeros(b, 1, s, d, dtype=torch.bfloat16)
+               for _ in range(3))
     before = _launches("hsd")
-    with pytest.raises(MXNetError, match="16-byte"):
-        tfa._flash_fwd_cuda(q, bad, v, 0, 0, 0.125, True, False, "hsd")
-    assert fake_lib == [] and _launches("hsd") == before
-    tfa._flash_fwd_cuda(q.float(), bad.float(), v.float(), 0, 0, 0.125,
-                        True, False, "hsd")
-    assert [c[1] for c in fake_lib] == ["mxt_flash_attention_fwd_f32"]
+    out, lse = tfa._flash_fwd_cuda(q, k, v, 0, 0, 0.125, True, True, "hsd")
+    assert _launches("hsd") == before + 2
+    # (q, k, v, out, lse, batch, heads) of each launch
+    args = [a[3:10] for a in seen]
+    step = 65535 * s * d * 2  # bytes of 65535 batches of a bf16 operand
+    assert [a[5:] for a in args] == [(65535, 1), (2, 1)]
+    for t, i in ((q, 0), (k, 1), (v, 2), (out, 3)):
+        assert [a[i] for a in args] == [t.data_ptr(), t.data_ptr() + step]
+    assert [a[4] for a in args] == [lse.data_ptr(),
+                                    lse.data_ptr() + 65535 * s * 4]
+    assert tfa._grid_chunks(b, 1) == [(0, 65535, 0, 1), (65535, 2, 0, 1)]
+    assert tfa._grid_chunks(2, 70000) == [
+        (0, 1, 0, 65535), (0, 1, 65535, 4465),
+        (1, 1, 0, 65535), (1, 1, 65535, 4465)]
 
 
 # -- the build -------------------------------------------------------------

@@ -20,6 +20,9 @@ operands' dtype before each product), so an output rounded to bfloat16
 differs by at most one bfloat16 ulp where the two float32 sums straddle
 a rounding boundary: ``BF16_RTOL`` = 2**-7 of the value.
 """
+import ctypes
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -356,7 +359,6 @@ def test_cpu_takes_the_plain_versions_and_counts_nothing(monkeypatch):
 @pytest.mark.parametrize("bad,match", [
     (dict(dtype=torch.float16), "float32 or bfloat16"),
     (dict(w_dtype=torch.bfloat16), "x's dtype"),
-    (dict(d=6), "multiple of 4"),
     (dict(d=0), "positive multiple of 4"),
     (dict(b_rows=39), "b must be"),
     (dict(x_3d=True), "x must be"),
@@ -390,6 +392,67 @@ def test_cuda_wrappers_refuse_before_any_launch(bad, match):
         with pytest.raises(MXNetError, match=match):
             call()
     assert [f.launches for f in _COUNTED] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [6, 30])
+def test_a_d_off_the_granule_is_padded_not_refused(monkeypatch, dtype, d):
+    """A d that is no multiple of the kernels' 16-byte granule reaches the
+    C entries zero-padded to the next one (6 to 8, 30 to 32, in both
+    dtypes), counted once on each wrapper's ``padded_calls``, and its dxp,
+    dx and dW come back sliced to d.  The C library is faked."""
+    seen = []
+
+    def entry(name):
+        def launch(dt, x, w, *rest):
+            # n, d and v follow the entry's pointers
+            k = tfc._SIGNATURES[name].count(ctypes.c_void_p) - 2
+            seen.append((name, rest[k:k + 3]))
+            return 0
+        return launch
+
+    monkeypatch.setattr(tfc, "_entry", lambda dt, name: entry(name))
+    monkeypatch.setattr(tfc._build, "check_current_device",
+                        lambda device, what: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    n, v = 8, 40
+    x = torch.randn(n, d).to(dtype)
+    w = torch.randn(v, d).to(dtype)
+    b = torch.zeros(v, dtype=dtype)
+    label = torch.arange(n, dtype=torch.int32)
+    lse, r = torch.zeros(n), torch.ones(n)
+    before = [(f.launches, f.padded_calls) for f in _COUNTED]
+    _, _, dxp = tfc._fwd_sp_cuda(x, w, b, label)
+    tfc._fwd_cuda(x, w, b, label, -1.0, False)
+    dw, _ = tfc._bwd_dw_cuda(x, w, b, label, lse, r)
+    dx = tfc._bwd_dx_cuda(x, w, b, label, lse, r)
+    wide = 8 if d == 6 else 32
+    assert sorted(seen) == sorted(
+        (name, (n, wide, v)) for name in tfc._SIGNATURES)
+    assert [(f.launches, f.padded_calls) for f in _COUNTED] == [
+        (a + 1, p + 1) for a, p in before]
+    assert dxp.shape == (n, d) and dx.shape == (n, d) and dw.shape == (v, d)
+    assert dx.dtype == dw.dtype == dtype
+
+
+def test_zero_padding_d_is_exact_against_jax():
+    """Why the padding is exact: the plain versions on x and W zero-padded
+    from d = 30 to 32, with dx and dW sliced back to 30, match the JAX
+    package's `fused_softmax_ce` at d = 30 in value and gradient."""
+    x, w, b, label, _ = _inputs(seed=12, d=30)
+    kw = dict(grad_scale=1.0, ignore_label=5.0, use_ignore=True)
+    want = _jax_vjp(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                    jnp.asarray(label), kw)
+    pad = torch.nn.functional.pad
+    got = _port_grad(pad(_t(x), (0, 2)), pad(_t(w), (0, 2)), _t(b),
+                     torch.from_numpy(label), dict(kw, block_v=BLOCK_V))
+    nll, dx, dw, db = got
+    assert not dx[:, 30:].any() and not dw[:, 30:].any()
+    for name, g, wnt in zip(("nll", "dx", "dw", "db"),
+                            (nll, dx[:, :30], dw[:, :30], db), want):
+        _close(g, wnt, "float32", name)
 
 
 def test_entry_rejects_non_matrix_operands():

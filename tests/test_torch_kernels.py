@@ -137,9 +137,11 @@ def test_layer_norm_cpu_takes_plain_version_and_counts_nothing():
 def test_layer_norm_kernel_arguments_checked_before_launch(monkeypatch):
     """What the CUDA wrapper refuses, it refuses before building or
     launching anything (the checks run on any tensor).  A row wider than
-    the register kernels hold (N = 8320) is no longer refused: with the C
-    library faked, both passes hand it to their C entries, which route it
-    to the wide-row kernels, and count one launch each."""
+    the register layouts hold (N = 8320) is no longer refused: with the C
+    library faked, both passes hand it to their C entries with the wide
+    layout's plan (layout 2, 8 warps, one row a block; the backward on
+    persistent blocks with its (blocks, N) workspace), and count one
+    launch each."""
     x, g, b = _ln_inputs(2, 32)
     with pytest.raises(MXNetError, match="float32 or bfloat16"):
         tln._fwd_cuda(_t(x).half(), _t(g).half(), _t(b).half(), 1e-5)
@@ -152,10 +154,20 @@ def test_layer_norm_kernel_arguments_checked_before_launch(monkeypatch):
     with pytest.raises(MXNetError, match="rows, N"):
         tln.layer_norm_fwd(_t(x)[None], _t(g), _t(b))
     calls = []
+
+    def occupancy(*a):
+        a[-1]._obj.value = 2
+        return 0
     monkeypatch.setattr(tln, "_lib", lambda: types.SimpleNamespace(
-        mxt_layer_norm_fwd=lambda *a: calls.append(("fwd", a[7], a[8])) or 0,
-        mxt_layer_norm_bwd=lambda *a: calls.append(("bwd", a[11], a[12]))
-        or 0))
+        mxt_layer_norm_fwd=lambda *a: calls.append(
+            ("fwd", a[7], a[8]) + a[10:16]) or 0,
+        mxt_layer_norm_bwd=lambda *a: calls.append(
+            ("bwd", a[11], a[12]) + a[13:19]) or 0,
+        mxt_layer_norm_bwd_occupancy=occupancy))
+    monkeypatch.setattr(tln, "_sm_count", lambda index: 4)
+    tln._occupancy_cache.clear()
+    tln._bwd_plan_on.cache_clear()  # plans made for another SM count
+    tln._fwd_args.cache_clear()
     monkeypatch.setattr(tln._build, "check_current_device",
                         lambda device, what: None)
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -167,7 +179,10 @@ def test_layer_norm_kernel_arguments_checked_before_launch(monkeypatch):
     before = tln.layer_norm_fwd.launches, tln.layer_norm_bwd.launches
     _, mean, rstd = tln._fwd_cuda(wide, one, one, 1e-5)
     tln._bwd_cuda(wide, one, mean, rstd, wide)
-    assert calls == [("fwd", 3, n), ("bwd", 3, n)]
+    # (layout, vec_bytes, ept, warps, rows a block, blocks): 3 rows of 3
+    # blocks forward; backward min(4 SMs * 2, 3 rows) blocks
+    assert calls == [("fwd", 3, n, 2, 16, 0, 8, 1, 3),
+                     ("bwd", 3, n, 2, 16, 0, 8, 1, 3)]
     assert (tln.layer_norm_fwd.launches, tln.layer_norm_bwd.launches) == (
         before[0] + 1, before[1] + 1)
 
@@ -245,12 +260,23 @@ def test_layer_norm_bwd_cpu_takes_plain_version_and_counts_nothing():
 
 
 def test_layer_norm_bwd_chunks_cover_every_row_once():
-    """The backward's row split: at most `_MAX_CHUNKS` chunks of
-    consecutive rows, none empty, covering every row."""
-    for rows in (1, 7, 511, 512, 513, 32768, 100003):
-        chunks, per = tln._bwd_chunks(rows)
-        assert 1 <= chunks <= min(rows, tln._MAX_CHUNKS)
-        assert (chunks - 1) * per < rows <= chunks * per
+    """The backward's row split (`_plan_bwd`, `_bwd_split`): persistent
+    blocks of teams, team k over rows k, k + teams, ..., none empty, at
+    most one row more a team than a full card's teams would take, covering
+    every row once, at several SM counts."""
+    for sms in (1, 78, 114, 132):
+        for rows in (1, 7, 511, 512, 513, 32768, 100003):
+            plan = tln._plan_bwd(rows, 768, torch.bfloat16, 16, sms,
+                                 lambda *a: 2)
+            teams = plan.blocks * plan.rows_per_block
+            assert 1 <= teams <= rows
+            split = tln._bwd_split(rows, teams)
+            assert sorted(r for team in split for r in team) == list(
+                range(rows))
+            assert min(len(team) for team in split) >= 1
+            assert max(len(team) for team in split) == -(
+                -rows // teams) <= 1 + -(
+                -rows // min(rows, sms * 2 * plan.rows_per_block))
 
 
 # -- flash attention ----------------------------------------------------------
@@ -375,9 +401,12 @@ def test_flash_kernel_arguments_checked_before_launch():
         tfa._check_cuda_args(q, k.bfloat16(), v)
     with pytest.raises(MXNetError, match="must be"):
         tfa._check_cuda_args(q, k[:, :1], v[:, :1])
-    with pytest.raises(MXNetError, match="contiguous"):
-        qt = q.transpose(2, 3).contiguous().transpose(2, 3)
-        tfa._check_cuda_args(qt, k, v)
+    # a last axis that is not contiguous is no longer refused: the kernel
+    # wrappers copy such an operand (`_readable`) before the launch
+    qt = q.transpose(2, 3).contiguous().transpose(2, 3)
+    assert qt.stride(3) != 1
+    assert tfa._readable(qt).stride(3) == 1 and torch.equal(
+        tfa._readable(qt), qt)
     with pytest.raises(MXNetError, match="whole number"):
         tfa.flash_attention(q, k, v, causal=True, q_offset=1.5)
     with pytest.raises(MXNetError, match="B, H, S, D"):
