@@ -94,7 +94,27 @@ Phases, each of which fails the run with a non-zero exit:
    S=4096 B=8 under ``MXNET_FLASH_LAYOUT=ds`` and S=8192 B=4 under
    ``MXNET_FLASH_BSD_KERNEL=stream``, with exact launches on the route's
    own counters; and one f32 step's gradients of each configuration at
-   batch 1 through the kernels against their plain versions.
+   batch 1 through the kernels against their plain versions;
+13. the reference training API on `BASELINE.json`'s first configuration:
+   `tools/make_mnist.py` writes 20000 training and 4000 test images, and
+   `model.FeedForward(models.get_mlp())` trains on `io.MNISTIter` (batch
+   128, SGD lr 0.1 momentum 0.9, `Xavier`) for 2 epochs on the card, with
+   ms a batch, images/s, the train and validation accuracy and peak
+   memory; the same on the CPU, whose parameters after 10 batches and
+   after the first epoch must match the card's to 1e-4 of max|w| and
+   whose validation accuracy after the first epoch must be within 0.01;
+   the same CPU run on 1, 2 and 4 threads measures how far rounding
+   alone moves the end of training, and the card's final train and
+   validation accuracy must lie within the larger of 0.01 and twice that
+   spread of the CPU run's (`MNIST_SPREAD_MULT`); the card's checkpoint
+   must load on the CPU, save the same bytes again and score the same;
+14. the parity configuration in float32 at batch 8 through
+   `Symbol.simple_bind` (``grad_req='write'``) and Adam through
+   `optimizer.get_fused_updater`: step 1's gradients against
+   `SPMDTrainer(dtype='float32')` on the same parameters and batch
+   (1e-4), 6 steps each with exactly 25/25 LayerNorm and 12/12/12 float32
+   flash launches, the loss finite and falling, ms a step and tokens/s
+   beside the trainer's own steps at the same batch, and peak memory.
 
 It prints each phase's seconds, a ``kernels`` JSON line (launches,
 errors, times, bounds; the float32 flash forward's and backward's routes
@@ -2114,6 +2134,363 @@ def five_pass_path(expect, dtype="bfloat16", after=None):
                       dtype=dtype, after=after)
 
 
+# --- the reference training API (phases 13 and 14) -------------------------
+
+# BASELINE.json's first configuration, `examples/train_mnist.py`: the MLP
+# (784-128-64-10) on MNIST at batch 128, SGD lr 0.1 momentum 0.9, Xavier,
+# 2 epochs, on idx files `tools/make_mnist.py` writes (20000 train, 4000
+# test; no network here, so rendered digits in place of MNIST's)
+MNIST = dict(train=20000, test=4000, batch=128, epochs=2, lr=0.1,
+             momentum=0.9)
+# its bars, the card against the CPU: max |dw| over max |w| after the
+# first 10 batches and after the first epoch (float32 on both, cuBLAS and
+# the CPU's GEMM summing in another order: ~1e-7 after 10 batches, ~5e-7
+# after 157; TF32 stays off), and the validation accuracy after the first
+# epoch within MNIST_ACC_TOL.  In the second epoch two runs part in one
+# batch where a ReLU input within rounding of zero lands on either side
+# of it (the JAX package's runs too: `scripts/mnist_spread.py`), and CPU
+# runs that differ only in their thread count end as far apart as the
+# card and the CPU.  So the end of training is held to what rounding
+# alone does in the same call: the CPU run on 1, 2 and 4 threads beside
+# the one on all, and the card's final train and validation accuracy
+# within the larger of MNIST_ACC_TOL and MNIST_SPREAD_MULT times the
+# spread (max - min) over those CPU runs of the all-threads run's
+MNIST_PARAM_TOL = 1e-4
+MNIST_ACC_TOL = 0.01
+MNIST_SPREAD_THREADS = (1, 2, 4)
+MNIST_SPREAD_MULT = 2.0
+# the LM through `simple_bind`: the parity configuration in float32 at
+# batch 8, Adam lr 1e-3 through `get_fused_updater`
+API_LM_BATCH = 8
+
+
+def mnist_fit(mx_ctx, files, epochs, epoch_size=None):
+    """`README.md`'s quickstart on the MNIST files: FeedForward(get_mlp())
+    fit on `MNISTIter` with the validation iterator.  Returns the model,
+    the wall seconds of each batch (in the callback, after the batch's
+    metric update read its outputs back), the train and validation
+    metric at each epoch's end, the parameters after each epoch and the
+    validation iterator."""
+    mx.random.seed(0)
+    train = mx.io.MNISTIter(image=files["train-images"],
+                            label=files["train-labels"],
+                            batch_size=MNIST["batch"], flat=True)
+    val = mx.io.MNISTIter(image=files["t10k-images"],
+                          label=files["t10k-labels"],
+                          batch_size=MNIST["batch"], flat=True,
+                          shuffle=False)
+    model = mx.model.FeedForward(
+        mx.models.get_mlp(), ctx=mx_ctx, num_epoch=epochs,
+        epoch_size=epoch_size, optimizer="sgd", learning_rate=MNIST["lr"],
+        momentum=MNIST["momentum"], initializer=mx.init.Xavier())
+    ticks, train_acc, val_acc, snaps = [time.perf_counter()], {}, {}, []
+
+    def on_batch(p):
+        ticks.append(time.perf_counter())
+        train_acc[p.epoch] = p.eval_metric.get()[1]
+
+    def on_eval(p):
+        val_acc[p.epoch] = p.eval_metric.get()[1]
+
+    def on_epoch(epoch, sym, arg, aux):
+        snaps.append({k: v.asnumpy() for k, v in arg.items()})
+
+    model.fit(train, eval_data=None if epoch_size else val,
+              batch_end_callback=on_batch, eval_batch_end_callback=on_eval,
+              epoch_end_callback=on_epoch)
+    return model, np.diff(ticks), train_acc, val_acc, snaps, val
+
+
+def _param_gap(a, b):
+    """max |a - b| over max |b|, over every parameter."""
+    wmax = max(float(np.abs(w).max()) for w in b.values())
+    return max(float(np.abs(a[k] - w).max()) for k, w in b.items()) / wmax
+
+
+def mnist_api_path():
+    """The MLP on MNIST through `FeedForward` on the card: 2 epochs timed,
+    held against the same run on the CPU; the checkpoint saved from the
+    card loads on the CPU and saves the same bytes again."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "tools/make_mnist.py", "--out", tmp,
+                        "--train", str(MNIST["train"]), "--test",
+                        str(MNIST["test"])], check=True, capture_output=True)
+        made_s = time.perf_counter() - t0
+        files = {k: os.path.join(tmp, "%s-idx%d-ubyte"
+                                 % (k, 3 if k.endswith("images") else 1))
+                 for k in ("train-images", "train-labels", "t10k-images",
+                           "t10k-labels")}
+        # the first 10 batches on each device
+        first = [mnist_fit(c, files, 1, epoch_size=10)[4][0]
+                 for c in (mx.gpu(0), mx.cpu())]
+        gap_10 = _param_gap(*first)
+        # 2 epochs on the card, counts and peak memory from 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        gpu, batch_s, train_acc, val_acc, snaps, val = mnist_fit(
+            mx.gpu(0), files, MNIST["epochs"])
+        fit_s = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        state = card_state()
+        cpu_model, _, cpu_train, cpu_val, cpu_snaps, cpu_val_iter = \
+            mnist_fit(mx.cpu(), files, MNIST["epochs"])
+        gaps = [_param_gap(a, b) for a, b in zip(snaps, cpu_snaps)]
+        acc_gpu = gpu.score(val)
+        acc_cpu = cpu_model.score(cpu_val_iter)
+        # the same CPU run on fewer threads: how far apart rounding alone
+        # puts runs of this configuration by its end
+        threads = torch.get_num_threads()
+        spread_runs = {}
+        try:
+            for n in MNIST_SPREAD_THREADS:
+                if n == threads:
+                    continue
+                torch.set_num_threads(n)
+                run = mnist_fit(mx.cpu(), files, MNIST["epochs"])
+                spread_runs[n] = {
+                    "val_acc": run[0].score(run[5]),
+                    "train_acc": run[2][MNIST["epochs"] - 1],
+                    "param_gap_by_epoch": [_param_gap(a, b) for a, b in
+                                           zip(run[4], cpu_snaps)]}
+        finally:
+            torch.set_num_threads(threads)
+        last = MNIST["epochs"] - 1
+        cpu_vals = [acc_cpu] + [r["val_acc"] for r in spread_runs.values()]
+        cpu_trains = [cpu_train[last]] + [r["train_acc"]
+                                          for r in spread_runs.values()]
+        val_bar = max(MNIST_ACC_TOL,
+                      MNIST_SPREAD_MULT * (max(cpu_vals) - min(cpu_vals)))
+        train_bar = max(MNIST_ACC_TOL, MNIST_SPREAD_MULT
+                        * (max(cpu_trains) - min(cpu_trains)))
+        # the checkpoint from the card, loaded on the CPU
+        prefix = os.path.join(tmp, "mlp")
+        gpu.save(prefix)
+        back = mx.model.FeedForward.load(prefix, MNIST["epochs"],
+                                         ctx=mx.cpu())
+        mx.model.save_checkpoint(prefix + "-again", MNIST["epochs"],
+                                 back.symbol, back.arg_params,
+                                 back.aux_params)
+        name = "-%04d.params" % MNIST["epochs"]
+        same_bytes = Path(prefix + name).read_bytes() == \
+            Path(prefix + "-again" + name).read_bytes()
+        on_cpu = all(v.context == mx.cpu() for v in back.arg_params.values())
+        val.reset()
+        pred_gap = float(np.abs(back.predict(val) - gpu.predict(val)).max())
+        acc_loaded = back.score(val)
+    # steady state: the batches after each epoch's first
+    per_epoch = len(batch_s) // MNIST["epochs"]
+    steady = [t for i, t in enumerate(batch_s) if i % per_epoch]
+    ms = 1e3 * statistics.median(steady)
+    res = {"config": dict(MNIST, net="get_mlp() 784-128-64-10",
+                          source="BASELINE.json configs[0]; README.md:19-41"),
+           "mnist_files_s": made_s, "fit_s": fit_s,
+           "batches": len(batch_s), "ms_per_batch_median": ms,
+           "images_per_s": MNIST["batch"] / (ms / 1e3),
+           "train_acc_by_epoch": train_acc, "val_acc_by_epoch": val_acc,
+           "cpu_train_acc_by_epoch": cpu_train,
+           "cpu_val_acc_by_epoch": cpu_val, "val_acc": acc_gpu,
+           "val_acc_cpu_run": acc_cpu, "val_acc_card_model_on_cpu":
+           acc_loaded, "param_gap_10_batches": gap_10,
+           "param_gap_by_epoch": gaps, "param_tol": MNIST_PARAM_TOL,
+           "cpu_threads": threads, "cpu_runs_by_threads": spread_runs,
+           "acc_tol": MNIST_ACC_TOL, "spread_mult": MNIST_SPREAD_MULT,
+           "final_val_bar": val_bar, "final_train_bar": train_bar,
+           "checkpoint_same_bytes_on_cpu": same_bytes,
+           "checkpoint_loaded_on_cpu": on_cpu,
+           "predict_gap_card_vs_cpu_load": pred_gap,
+           "launches": launches, "max_memory_allocated": peak,
+           "card_after": state}
+    log("api mnist: FeedForward(get_mlp()) on the card, %d batches of %d in "
+        "%.2f s: median %.3f ms a batch (host clock, metric read each "
+        "batch) = %.1f images/s; train acc by epoch %s, validation %s (CPU "
+        "run %s, %s); card vs CPU max|dw|/max|w| after 10 batches %.3e, "
+        "after each epoch %s (tol %.0e after 10 batches and epoch 1); "
+        "final validation acc %.4f on the card, %.4f in the CPU run, %.4f "
+        "for the card's model loaded on the CPU; the CPU run on other "
+        "thread counts than %d (threads: final validation acc, final "
+        "train acc, max|dw|/max|w| by epoch) %s; final bars: validation "
+        "%.4f, train %.4f; checkpoint loads on the "
+        "CPU (%s) and saves the same bytes (%s), predictions within %.2e; "
+        "max_memory_allocated %d B; launches %s; card after %s; idx files "
+        "made in %.2f s"
+        % (len(batch_s), MNIST["batch"], fit_s, ms, res["images_per_s"],
+           train_acc, val_acc, cpu_train, cpu_val, gap_10,
+           ["%.3e" % g for g in gaps], MNIST_PARAM_TOL, acc_gpu, acc_cpu,
+           acc_loaded, threads,
+           {n: ("%.4f" % r["val_acc"], "%.4f" % r["train_acc"],
+                ["%.3e" % g for g in r["param_gap_by_epoch"]])
+            for n, r in spread_runs.items()}, val_bar, train_bar, on_cpu, same_bytes, pred_gap, peak,
+           {k: v for k, v in launches.items() if v}, state, made_s))
+    if not (gap_10 <= MNIST_PARAM_TOL and gaps[0] <= MNIST_PARAM_TOL):
+        raise SystemExit("api mnist: the card's parameters disagree with the "
+                         "CPU's")
+    if not abs(val_acc[0] - cpu_val[0]) <= MNIST_ACC_TOL:
+        raise SystemExit("api mnist: validation accuracy after epoch 1 %.4f "
+                         "on the card, %.4f on the CPU"
+                         % (val_acc[0], cpu_val[0]))
+    if not (abs(acc_gpu - acc_cpu) <= val_bar and
+            abs(train_acc[last] - cpu_train[last]) <= train_bar):
+        raise SystemExit("api mnist: final accuracy on the card (validation "
+                         "%.4f, train %.4f) beyond what rounding alone moves "
+                         "on the CPU (%.4f, %.4f; bars %.4f, %.4f)"
+                         % (acc_gpu, train_acc[last], acc_cpu,
+                            cpu_train[last], val_bar, train_bar))
+    if not (same_bytes and on_cpu and pred_gap < 1e-4 and
+            abs(acc_loaded - acc_gpu) <= MNIST_ACC_TOL):
+        raise SystemExit("api mnist: the card's checkpoint does not load on "
+                         "the CPU as saved")
+    if any(launches.values()):
+        raise SystemExit("api mnist: the MLP launched a kernel of the table")
+    if not min(acc_gpu, acc_cpu) > 0.5:
+        raise SystemExit("api mnist: validation accuracy %.4f / %.4f, not "
+                         "learning" % (acc_gpu, acc_cpu))
+    return res
+
+
+def api_lm_path(expect, steps=6):
+    """The parity configuration in float32 through `simple_bind`: step 1's
+    gradients held against `SPMDTrainer(dtype='float32')` on the same
+    parameters and batch, then ``steps`` steps of forward, backward and
+    Adam through `get_fused_updater`, each with exact launches, and the
+    trainer's own steps at the same batch for comparison (the median of
+    steps 2 on; the first allocates the optimizer state)."""
+    cfg, batch = PARITY, API_LM_BATCH
+    shapes = {"data": (batch, cfg["seq_len"]),
+              "softmax_label": (batch, cfg["seq_len"])}
+    mx.random.seed(0)
+    net = mx.models.get_transformer_lm(**cfg)
+    exe = net.simple_bind(mx.gpu(0), grad_req="write", **shapes)
+    init = mx.init.Uniform(0.07)
+    names = [n for n in net.list_arguments() if n not in shapes]
+    for n in names:
+        init(n, exe.arg_dict[n])
+    host = lm_batch(batch, cfg)
+    labels = torch.as_tensor(host["softmax_label"]).cuda()
+
+    # the trainer on the same parameters and batch
+    trainer = lm_trainer(cfg, batch, "float32")
+    mx.load_params(trainer, {n: exe.arg_dict[n].data for n in names})
+    ref = trainer.gradients(host)
+    dev = trainer.shard_batch(host)
+    trainer_ms = []
+    for _ in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        trainer.step(dev)
+        b.record()
+        b.synchronize()
+        trainer_ms.append(a.elapsed_time(b))
+    t_wall, t_busy, _, _ = profiled(lambda: trainer.step(dev))
+    del trainer, dev
+    torch.cuda.empty_cache()
+
+    updater = mx.optimizer.get_fused_updater(
+        mx.optimizer.Adam(learning_rate=1e-3, rescale_grad=1.0 / batch))
+    idx = [net.list_arguments().index(n) for n in names]
+    weights = [exe.arg_arrays[i] for i in idx]
+    grads = [exe.grad_arrays[i] for i in idx]
+
+    def step():
+        outs = exe.forward(is_train=True, data=host["data"],
+                           softmax_label=host["softmax_label"])
+        exe.backward()
+        updater(list(range(len(idx))), grads, weights)
+        return outs
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, wall_ms, per_step = [], [], [], []
+    got = None
+    for i in range(steps):
+        reset_counts()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        if i == 0:
+            # step 1's gradients, before the update
+            outs = exe.forward(is_train=True, data=host["data"],
+                               softmax_label=host["softmax_label"])
+            exe.backward()
+            got = {n: exe.grad_dict[n].data.clone() for n in names}
+            updater(list(range(len(idx))), grads, weights)
+        else:
+            outs = step()
+        b.record()
+        b.synchronize()
+        wall_ms.append(1e3 * (time.perf_counter() - t0))
+        step_ms.append(a.elapsed_time(b))
+        per_step.append(read_counts())
+        losses.append(mean_nll(outs[0].data, labels))
+    peak = torch.cuda.max_memory_allocated()
+    state = card_state()
+    wall, busy, device, _ = profiled(step)
+    gmax = max(float(g.abs().max()) for g in ref.values())
+    worst = {}
+    for n, r in ref.items():
+        scale = gmax if n.endswith("_k_bias") else \
+            max(float(r.abs().max()), 1e-30)
+        worst[n] = float((got[n] - r).abs().max()) / scale
+    name = max(worst, key=worst.get)
+    del exe, got, ref, outs
+    torch.cuda.empty_cache()
+
+    ms = statistics.median(step_ms[1:])
+    tms = statistics.median(trainer_ms[1:])
+    tokens = batch * cfg["seq_len"]
+    launches = {k: sum(s[k] for s in per_step) for k in per_step[0]}
+    res = {"config": cfg, "batch": batch, "dtype": "float32",
+           "optimizer": "Adam lr 1e-3 (get_fused_updater)",
+           "losses": losses, "step_ms": step_ms, "wall_ms": wall_ms,
+           "step_ms_median": ms, "tokens_per_s": tokens / (ms / 1e3),
+           "trainer_step_ms": trainer_ms, "trainer_step_ms_median": tms,
+           "executor_over_trainer": ms / tms,
+           "profiled_step_ms": 1e3 * wall, "device_busy_ms": 1e3 * busy,
+           "device_idle_share": 1 - busy / wall,
+           "trainer_profiled_step_ms": 1e3 * t_wall,
+           "trainer_device_busy_ms": 1e3 * t_busy,
+           "trainer_device_idle_share": 1 - t_busy / t_wall,
+           "grad_worst": worst[name], "grad_worst_param": name,
+           "grad_tol": GRAD_TOL, "launches": launches,
+           "launches_by_step": per_step, "max_memory_allocated": peak,
+           "card_after": state, "top_device_ops_ms": device[:10]}
+    log("api lm: simple_bind of the parity configuration, float32, batch "
+        "%d, Adam through get_fused_updater: step ms (CUDA events) %s, "
+        "median of the last %d %.2f ms = %.1f tokens/s (SPMDTrainer f32 at "
+        "the same batch %s, median %.2f ms: ratio %.3f); profiled step "
+        "%.2f ms wall, device busy %.2f ms (idle share %.4f; trainer's "
+        "%.4f); mean NLL per step %s; step 1 gradients vs SPMDTrainer max "
+        "|dg|/max |g| %.3e at %s (tol %.0e); launches per step %s; "
+        "max_memory_allocated %d B; card after %s"
+        % (batch, ["%.2f" % t for t in step_ms], steps - 1, ms,
+           res["tokens_per_s"], ["%.2f" % t for t in trainer_ms], tms,
+           ms / tms, res["profiled_step_ms"], res["device_busy_ms"],
+           res["device_idle_share"], res["trainer_device_idle_share"],
+           ["%.4f" % x for x in losses], worst[name], name, GRAD_TOL,
+           [{k: v for k, v in s.items() if v} for s in per_step], peak,
+           state))
+    if not worst[name] <= GRAD_TOL:
+        raise SystemExit("api lm: the executor's gradients disagree with "
+                         "SPMDTrainer's")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise SystemExit("api lm: the loss is not finite or did not fall: "
+                         "%s" % losses)
+    for i, counts in enumerate(per_step):
+        off = {k: n for k, n in counts.items() if n != expect.get(k, 0)}
+        if off:
+            raise SystemExit("api lm: step %d launched %s, expected %s"
+                             % (i + 1, off, expect))
+    return res
+
+
 # the entries of the kernels line for the float32 kernels on the tensor
 # cores (the flash forward and backward, the fused CE head): the bf16 row
 # each one shares its TPU function with
@@ -2355,6 +2732,14 @@ def main():
                          "flash_attention_ds_dkv"),
             "longctx ds config", size=1, pins={"MXNET_FLASH_LAYOUT": "ds"})
 
+    with phase("reference API"):
+        api_mnist = mnist_api_path()
+        api_lm = api_lm_path(dict(per_layer, **flash("flash_attention")))
+    # the LM's LayerNorm launches join the LayerNorm rows; its float32
+    # flash launches the float32 flash rows
+    api_lm_ln = {k: (n if k.startswith("layer_norm") else 0)
+                 for k, n in api_lm["launches"].items()}
+
     kernels = kernels_line(cases, {
         "paged": paged["launches"], "slot": slot["launches"],
         "train_bhsd": hsd["launches"], "train_bsd": bsd["launches"],
@@ -2363,7 +2748,8 @@ def main():
         "forward_fused": fused["forward"]["launches"],
         "train_fused_medium": medium["launches"],
         "train_longctx_ds": ds["launches"],
-        "train_longctx_stream": stream["launches"]}, {
+        "train_longctx_stream": stream["launches"],
+        "api_lm_simple_bind": api_lm_ln}, {
         "slot": slot["launches"],
         "train_bhsd_f32": hsd32["launches"],
         "train_fused_f32": fused32["launches"],
@@ -2374,7 +2760,8 @@ def main():
         "gradients_fused": fused_grads["launches"],
         "gradients_fused_medium": medium_grads["launches"],
         "gradients_longctx_ds": ds_grads["launches"],
-        "gradients_longctx_stream": stream_grads["launches"]})
+        "gradients_longctx_stream": stream_grads["launches"],
+        "api_lm_simple_bind_f32": api_lm["launches"]})
     idle = [e["name"] for e in kernels if not e["launches"]]
     if idle:
         raise SystemExit("kernels launched on no path: %s" % idle)
@@ -2397,7 +2784,8 @@ def main():
          "gradients_fused_medium": medium_grads,
          "train_longctx_ds": ds, "train_longctx_stream": stream,
          "gradients_longctx_stream": stream_grads,
-         "gradients_longctx_ds": ds_grads, "kernels": kernels},
+         "gradients_longctx_ds": ds_grads, "api_mnist": api_mnist,
+         "api_lm": api_lm, "kernels": kernels},
         indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -2,7 +2,7 @@
 
 This package sits beside the JAX package `mxnet_tpu`, keeps its module
 names where that helps a reader find the counterpart, and imports
-neither JAX nor anything of `mxnet_tpu`.  Two slices exist:
+neither JAX nor anything of `mxnet_tpu`.  It serves and trains:
 
 * serving the transformer LM (`serving.ServingEngine` over
   `serving.TransformerKVModel`);
@@ -19,8 +19,24 @@ single-pass forward, dW/db, dx) (`ops/pallas_kernels/`, sources under
 `csrc/`).  `optimizer.stochastic_round_bf16` stores Adam's second moment
 in bf16 for ``SPMDTrainer(adam_v_dtype='bfloat16')``.
 
-Entry points run on ``cuda:0`` unless given ``ctx="cpu"``; without a
-GPU and without that argument they raise (`context.resolve`).
+The reference training API runs over the same graph walk and kernels:
+`Context` (`cpu`, `gpu`, `tpu` an alias of `gpu`, `current_context`),
+`ndarray` (`nd`), `Symbol.simple_bind`/`bind` and `executor.Executor`,
+the `optimizer` classes and `lr_scheduler`, `kvstore` (`kv`, local and
+device), `io`, `metric`, `callback`, `executor_manager`, `checkpoint`
+and `model.FeedForward`:
+
+    net = mx.models.get_mlp()
+    model = mx.model.FeedForward(net, ctx=mx.gpu(0), num_epoch=2,
+                                 optimizer="sgd", learning_rate=0.1,
+                                 momentum=0.9, initializer=mx.init.Xavier())
+    model.fit(mx.io.NDArrayIter(X, y, batch_size=128, shuffle=True))
+    model.save("mlp")
+
+Entry points run on ``cuda:0`` unless given ``ctx="cpu"`` (or
+``mx.cpu()``); without a GPU and without that argument they raise
+(`context.resolve`).  `current_context()` with no ``with`` scope is
+``gpu(0)``, where the JAX package's is ``cpu(0)``.
 
     import mxnet_tpu_torch as mx
     mx.random.seed(0)
@@ -38,14 +54,27 @@ from . import attribute, initializer, models, name, ops, optimizer
 from . import parallel, random
 from . import symbol
 from . import symbol as sym
+from . import context, ndarray
+from . import ndarray as nd
+from . import lr_scheduler, metric, callback, io, kvstore
+from . import kvstore as kv
+from . import executor, executor_manager, checkpoint, model
 from .attribute import AttrScope
 from .base import MXNetError
-from .context import resolve
+from .context import Context, cpu, current_context, gpu, resolve, tpu
+from .executor import Executor
+from .model import FeedForward
+from .ndarray import NDArray
 from .parallel import SPMDTrainer, load_params
 from .symbol import Symbol
 
 init = initializer
+opt = optimizer
 
-__all__ = ["AttrScope", "MXNetError", "SPMDTrainer", "Symbol", "attribute",
-           "init", "initializer", "load_params", "models", "name", "ops",
-           "optimizer", "parallel", "random", "resolve", "sym", "symbol"]
+__all__ = ["AttrScope", "Context", "Executor", "FeedForward", "MXNetError",
+           "NDArray", "SPMDTrainer", "Symbol", "attribute", "callback",
+           "checkpoint", "context", "cpu", "current_context", "executor",
+           "executor_manager", "gpu", "init", "initializer", "io", "kv",
+           "kvstore", "load_params", "lr_scheduler", "metric", "model",
+           "models", "name", "nd", "ndarray", "ops", "opt", "optimizer",
+           "parallel", "random", "resolve", "sym", "symbol", "tpu"]

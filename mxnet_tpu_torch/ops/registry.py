@@ -113,6 +113,16 @@ class OpDef:
             return in_shapes, [None], []
         return [d] * len(in_shapes), [d], []
 
+    def infer_type(self, params, in_types):
+        """(in_types, out_types, aux_types): every entry takes the first
+        known input type (the JAX package's default rule)."""
+        known = [t for t in in_types if t is not None]
+        if not known:
+            return in_types, [None] * len(self.list_outputs(params)), []
+        t = known[0]
+        return ([t] * len(in_types), [t] * len(self.list_outputs(params)),
+                [t] * len(self.list_aux(params)))
+
     # -- compute ----------------------------------------------------------
     def apply(self, octx: OpCtx, params, inputs, aux):
         """Tensors in -> (list of outputs, list of aux updates (same

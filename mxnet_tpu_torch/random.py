@@ -36,9 +36,10 @@ import torch
 from .base import check_shape
 from .context import resolve
 
-__all__ = ["seed", "next_key", "prng_key", "fold_in", "split",
-           "threefry2x32", "random_bits", "uniform_from_bits", "uniform",
-           "normal", "key_seed"]
+__all__ = ["seed", "next_key", "get_state", "set_state", "prng_key",
+           "fold_in", "split", "threefry2x32", "random_bits",
+           "uniform_from_bits", "uniform", "normal", "normal_from_key",
+           "key_seed"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -136,6 +137,24 @@ def next_key():
     return sub
 
 
+def get_state():
+    """Every host-visible random state, for an exact checkpoint and
+    resume: the root key (as the JAX package's uint32 pair) and numpy's
+    global generator (the iterators' shuffles).  A picklable dict in the
+    JAX package's layout, so either package restores the other's."""
+    k = _root()
+    return {"jax_key": np.array([int(k[0]), int(k[1])], np.uint32),
+            "np_state": np.random.get_state()}
+
+
+def set_state(state):
+    """Restore a `get_state` snapshot: the draws go on from where it was
+    taken."""
+    k = np.asarray(state["jax_key"]).astype(np.uint64).reshape(-1)
+    _state.key = (int(k[0]), int(k[1]))
+    np.random.set_state(state["np_state"])
+
+
 def key_seed(key):
     """A 63-bit seed for a `torch.Generator`, from a key's two words."""
     return ((int(key[0]) << 32) | int(key[1])) & (2 ** 63 - 1)
@@ -150,10 +169,15 @@ def uniform(low=0.0, high=1.0, shape=(1,), ctx=None, dtype=torch.float32):
     return u.to(dtype)
 
 
-def normal(loc=0.0, scale=1.0, shape=(1,), ctx=None, dtype=torch.float32):
-    """Draw from N(loc, scale^2) (`mx.nd.normal`) with the next key, as
-    ``sqrt(2) * erfinv(u)`` for u uniform in (-1, 1)."""
+def normal_from_key(key, shape, device=None):
+    """`jax.random.normal(key, shape)` in float32: ``sqrt(2) * erfinv(u)``
+    for u uniform in (-1, 1) from ``key``'s bits."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(1.0)))
-    u = uniform_from_bits(random_bits(next_key(), shape, resolve(ctx)), lo,
-                          1.0)
-    return (loc + scale * math.sqrt(2) * torch.erfinv(u)).to(dtype)
+    u = uniform_from_bits(random_bits(key, shape, device), lo, 1.0)
+    return math.sqrt(2) * torch.erfinv(u)
+
+
+def normal(loc=0.0, scale=1.0, shape=(1,), ctx=None, dtype=torch.float32):
+    """Draw from N(loc, scale^2) (`mx.nd.normal`) with the next key."""
+    z = normal_from_key(next_key(), shape, resolve(ctx))
+    return (loc + scale * z).to(dtype)

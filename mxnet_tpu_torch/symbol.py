@@ -10,9 +10,9 @@ parameters from the data shapes alone.
 The JSON wire format is the JAX package's (the reference's
 ``nodes``/``arg_nodes``/``heads``, op "null" for variables): a symbol
 saved by either package loads in the other.  Of the arithmetic operators
-only ``+`` (`_Plus`, `_PlusScalar`) exists yet; binding (`simple_bind`,
-`bind`), type inference and the internals/attribute accessors wait for
-the port's Executor.
+only ``+`` (`_Plus`, `_PlusScalar`) exists yet.  `simple_bind` and `bind`
+make an `executor.Executor`; `infer_type` propagates dtypes forward with
+each op's rule; `attr_dict` feeds the optimizers' lr/wd multipliers.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ import numpy as np
 
 from . import attribute, name as _name_mod
 from . import ops as _registered  # noqa: F401  (registers every op)
-from .base import MXNetError, check_shape
+from .base import MXNetError, check_shape, np_dtype
 from .ops import registry as _ops
 
 
@@ -104,6 +104,12 @@ class Symbol:
                 for aux in node.op.list_aux(node.params):
                     out.append("%s_%s" % (node.name, aux))
         return out
+
+    # -- attributes -------------------------------------------------------
+    def attr_dict(self):
+        """{node name: its attributes} over every node that has some."""
+        return {node.name: dict(node.attrs)
+                for node in _topo_order(self._heads) if node.attrs}
 
     # -- arithmetic (creates registry ops, like ndarray) -------------------
     def _binop(self, other, opname, scalar_opname):
@@ -192,7 +198,68 @@ class Symbol:
             return None, None, None
         return arg_shapes, out_shapes, aux_shapes
 
+    def infer_type(self, *args, **kwargs):
+        """(arg_types, out_types, aux_types): numpy dtypes propagated
+        forward by each op's rule, float32 where nothing is given
+        (`symbol.py:440` in the reference)."""
+        arg_names = self.list_arguments()
+        known = {n: np_dtype(t) for n, t in zip(arg_names, args)
+                 if t is not None}
+        known.update({k: np_dtype(v) for k, v in kwargs.items()})
+        f32 = np.dtype(np.float32)
+        entry_t = {}
+        for node in _topo_order(self._heads):
+            if node.is_variable:
+                entry_t[(id(node), 0)] = known.get(node.name, f32)
+            else:
+                in_t = [entry_t.get((id(s), i)) for s, i in node.inputs]
+                _, outs, _ = node.op.infer_type(node.params, in_t)
+                for i, t in enumerate(outs):
+                    entry_t[(id(node), i)] = t
+        arg_types = [known.get(n, f32) for n in arg_names]
+        out_types = [entry_t.get((id(n), i)) for n, i in self._heads]
+        aux_types = [f32] * len(self.list_auxiliary_states())
+        return arg_types, out_types, aux_types
+
+    # -- binding -----------------------------------------------------------
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    group2ctx=None, **kwargs):
+        """Allocate the arguments (``type_dict`` dtypes, float32 else),
+        gradients (float32) and aux states from the shapes inferred from
+        ``kwargs``, on ``ctx`` (`current_context()` if None), and bind
+        (`python/mxnet/symbol.py:616`)."""
+        from .context import current_context
+        from .executor import Executor
+        from .ndarray import zeros
+
+        ctx = ctx or current_context()
+        arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
+        if arg_shapes is None:
+            raise MXNetError("simple_bind: cannot infer shapes from %s"
+                             % kwargs)
+        type_dict = type_dict or {}
+        args = [zeros(s, ctx=ctx, dtype=type_dict.get(n, np.float32))
+                for n, s in zip(self.list_arguments(), arg_shapes)]
+        args_grad = None
+        if grad_req != "null":
+            args_grad = [zeros(s, ctx=ctx) for s in arg_shapes]
+        aux = [zeros(s, ctx=ctx) for s in aux_shapes]
+        return Executor(self, ctx, args, args_grad, grad_req, aux,
+                        group2ctx=group2ctx)
+
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None, group2ctx=None, shared_exec=None):
+        """Bind the given NDArrays (`python/mxnet/symbol.py:672`)."""
+        from .executor import Executor
+
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states,
+                        group2ctx=group2ctx, shared_exec=shared_exec)
+
     # -- serialization -----------------------------------------------------
+    def save(self, fname):
+        with open(fname, "w") as f:
+            f.write(self.tojson())
+
     def tojson(self):
         """Reference-compatible JSON (`nodes`/`arg_nodes`/`heads`)."""
         order = _topo_order(self._heads)
@@ -240,14 +307,19 @@ def _parse_param_str(s):
 # ---------------------------------------------------------------------------
 
 
-def Variable(name, attr=None, shape=None):
-    """Create a variable symbol (`mx.sym.Variable`)."""
+def Variable(name, attr=None, shape=None, **kwargs):
+    """Create a variable symbol (`mx.sym.Variable`); ``lr_mult`` and
+    ``wd_mult`` become the optimizers' per-parameter multipliers."""
     if not isinstance(name, str):
         raise TypeError("Variable name must be a string")
     attrs = attribute.current().get(attr)
     if shape is not None:
         # normalize (numpy ints etc.) so ast.literal_eval can parse it back
         attrs["__shape__"] = str(tuple(int(d) for d in shape))
+    for k, v in kwargs.items():
+        if k not in ("lr_mult", "wd_mult"):
+            raise MXNetError("Variable: unknown argument %r" % k)
+        attrs["__%s__" % k] = str(v)
     return Symbol([(_Node(None, name, attrs=attrs), 0)])
 
 
@@ -314,6 +386,12 @@ def _make_factory(op: "_ops.OpDef"):
     factory.__name__ = op.name
     factory.__doc__ = (op.__doc__ or "") + "\n\nAuto-generated from the op registry."
     return factory
+
+
+def load(fname):
+    """Load a symbol from a JSON file (`Symbol.save`)."""
+    with open(fname) as f:
+        return loads(f.read())
 
 
 def loads(json_str):

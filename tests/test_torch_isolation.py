@@ -50,7 +50,9 @@ def test_every_module_imports_with_jax_blocked():
                 "ops.registry", "ops.nn", "ops.tensor", "ops.elementwise",
                 "ops.loss", "symbol", "models", "models.transformer",
                 "executor", "random", "initializer", "parallel",
-                "parallel.trainer"):
+                "parallel.trainer", "context", "ndarray", "lr_scheduler",
+                "optimizer", "kvstore", "io", "metric", "callback",
+                "executor_manager", "checkpoint", "model", "models.mlp"):
         assert "mxnet_tpu_torch." + mod in names
 
 
