@@ -114,7 +114,42 @@ Phases, each of which fails the run with a non-zero exit:
    `SPMDTrainer(dtype='float32')` on the same parameters and batch
    (1e-4), 6 steps each with exactly 25/25 LayerNorm and 12/12/12 float32
    flash launches, the loss finite and falling, ms a step and tokens/s
-   beside the trainer's own steps at the same batch, and peak memory.
+   beside the trainer's own steps at the same batch, and peak memory;
+15. ResNet-50 at `bench.py`'s headline geometry (224 pixels, 1000
+   classes, 'valid' pooling, bf16, batch 128, SGD lr 0.1 momentum 0.9 wd
+   1e-4) through `SPMDTrainer` on one synthetic batch staged on the card:
+   10 steps, ms a step by CUDA events (median of steps 2 on), images/s
+   and MFU (`bench.py`'s 3 x 2 x 4.089e9 flops an image over 989
+   TFLOP/s), one profiled step (idle share, device ms of convolutions and
+   products against the rest, top ops), peak memory; the mean NLL must
+   fall below the first step's by the last, every aux state be finite
+   and have moved from 0 and 1, and no kernel of the table launch; then
+   a float32 convolution (ResNet-50's stem, a bottleneck's 3x3 and 1x1,
+   FCN-8s's 16x upscore), forward and backward through the op with
+   ``cudnn.allow_tf32 = True``, within 1e-5 of float64 on the card, where
+   the raw cuDNN call under that flag must miss the bar;
+16. ResNet-50 in the reference's 'full' geometry at batch 4 in float32,
+   ``cudnn.allow_tf32 = True`` around it: `SPMDTrainer.forward` and
+   `gradients` on the card against the same on the CPU from the card's
+   initial parameters (forward 1e-4 of the largest output, moving
+   statistics 1e-5, gradients 1e-4 of each parameter's largest or twice
+   the spread of the same CPU run on 1, 2 and 4 threads against all,
+   where larger: this BatchNorm network amplifies rounding through its
+   backward, `CONV_SPREAD_MULT`);
+17. ResNet-50 through `model.FeedForward` as `examples/train_imagenet.py
+   --trainer feedforward` runs it ('full' pooling, SGD lr 0.1,
+   `Xavier(gaussian, 2)`, kvstore 'device', float32) on an `NDArrayIter`
+   of 8 synthetic batches of 64 (cut from 256): ms a batch, images/s,
+   the running cross-entropy finite;
+18. the other `BASELINE.json` configurations, 2 steps each through
+   `SPMDTrainer` (ms a step, the mean NLL finite, no kernel of the table
+   launched) and the check of phase 16 at a small size: Inception-BN at
+   224 (bf16, batch 32; checked at batch 2), the LSTM LM at
+   `examples/lstm_bucketing.py`'s defaults (2 layers, hidden and embed
+   64, vocab 64, batch 32, bucket 32, Adam; checked at batch 4) and
+   FCN-8s at `examples/fcn_xs.py`'s (21 classes, 64x64, batch 4, SGD,
+   bilinear upscore kernels; checked at batch 1 with its Dropouts at
+   p = 0).
 
 It prints each phase's seconds, a ``kernels`` JSON line (launches,
 errors, times, bounds; the float32 flash forward's and backward's routes
@@ -2501,6 +2536,595 @@ F32_ROWS = ("flash_attention", "flash_attention_bwd", "flash_attention_bsd",
             "fused_ce_fwd_sp", "fused_ce_bwd_dw_rs", "fused_ce_bwd_dx_rs")
 
 
+# -- the conv nets (phases 15-18) ---------------------------------------------
+
+# bench.py's headline (`bench.py:126-173`, `BASELINE.json` configs[1]):
+# ResNet-50, 1000 classes, 224 pixels, 'valid' pooling (stages of
+# 56/28/14/7), bf16 compute, batch 128, SGD lr 0.1 momentum 0.9 wd 1e-4
+# through `SPMDTrainer` (its default Uniform(0.07) initializer), one
+# batch from `RandomState(0)` staged on the card once
+RESNET = dict(num_classes=1000, num_layers=50, image_shape=(3, 224, 224),
+              pooling_convention="valid")
+RESNET_BATCH = 128
+RESNET_STEPS = 10
+RESNET_SGD = dict(optimizer="sgd", lr=0.1, momentum=0.9, wd=1e-4)
+# `bench.py:196-201`: 4.089 G multiply-accumulates an image forward
+# (torchvision's count), 2 operations each, training ~3x forward
+RESNET_FLOPS_PER_IMAGE = 3 * 2 * 4.089e9
+# The card-vs-CPU checks of the conv nets (phases 15 and 17): float32
+# on both, the card's convolutions on cuDNN (TF32 off inside the ops
+# whatever the flag says), the CPU's on oneDNN, each summing in its own
+# order.  Forward outputs and moving statistics are held to
+# CONV_FWD_TOL and CONV_AUX_TOL of their largest magnitude.  Gradients
+# are held to GRAD_TOL of each parameter's largest, or to
+# CONV_SPREAD_MULT times the rounding spread, where that is larger: the
+# distance between CPU runs that differ only in their thread count
+# (CONV_SPREAD_THREADS against all) or in float64 (`grads_f64`), and
+# between the card's float32 and float64 gradients.  At initialization
+# these BatchNorm networks amplify rounding in their backward (a
+# convolution before a BatchNorm has a gradient orthogonal to its
+# filters, a difference of two large terms), and a ReLU input within
+# rounding of zero lands on either side in two runs.  ResNet-50 at batch
+# 4 on the CPU: float32 against float64 parts by 0.21 of some
+# parameter's largest gradient, 1 thread against 8 by 0.14; Inception-BN
+# at batch 2 by 0.18 (`tests/test_torch_zoo_resnet.py` measures the same
+# effect against the JAX package).  At this level the check cannot tell
+# TF32 from float32 (its ~3e-4 a product is rounding beside 0.1-0.2):
+# CONV_F32_CASES hold the convolutions to float64 directly
+CONV_FWD_TOL = 1e-4
+CONV_AUX_TOL = 1e-5
+CONV_SPREAD_THREADS = (1, 2, 4)
+CONV_SPREAD_MULT = 2.0
+# the direct check that a float32 convolution keeps float32 products
+# with ``cudnn.allow_tf32 = True``: forward, dx and dw against float64
+# on the card, within CONV_F32_TOL of the largest (a weight gradient
+# sums up to 12544 products, batch 4 x 56 x 56: ~1e-5 of rounding in
+# float32); TF32 (10 mantissa bits) errs ~3e-4 and must exceed it.
+# Shapes: ResNet-50's stem and a bottleneck's 3x3 and 1x1 at batch 4,
+# FCN-8s's 16x upscore
+CONV_F32_TOL = 5e-5
+CONV_F32_CASES = [
+    ("Convolution", (4, 3, 224, 224),
+     dict(kernel=(7, 7), stride=(2, 2), pad=(3, 3), num_filter=64,
+          no_bias=True)),
+    ("Convolution", (4, 64, 56, 56),
+     dict(kernel=(3, 3), pad=(1, 1), num_filter=64, no_bias=True)),
+    ("Convolution", (4, 256, 56, 56),
+     dict(kernel=(1, 1), num_filter=64, no_bias=True)),
+    ("Deconvolution", (4, 21, 8, 8),
+     dict(kernel=(16, 16), stride=(8, 8), pad=(4, 4), num_filter=21)),
+]
+# `examples/train_imagenet.py --trainer feedforward` (:77-97): ResNet-50
+# ('full' pooling, the model's default), FeedForward, SGD lr 0.1 (no
+# momentum), Xavier(gaussian, magnitude 2), kvstore 'device', 8
+# synthetic batches from RandomState(0) in one NDArrayIter, float32; the
+# batch cut from 256 to 64 to keep the script inside its time limit
+FF_BATCH = 64
+FF_BATCHES = 8
+FF_IMAGE = (3, 224, 224)
+# the other `BASELINE.json` configurations, trained a few steps each
+# through `SPMDTrainer` and checked card against CPU at a small size:
+# (build function, data shapes at the training size, at the check size,
+# dtype, optimizer, initializer, steps, kind of head)
+OTHER_NETS = {
+    # `examples/train_imagenet.py --network inception-bn` at 224, bf16
+    "inception_bn": (
+        lambda: mx.models.get_inception_bn(num_classes=1000,
+                                           image_shape=(3, 224, 224)),
+        {"data": (32, 3, 224, 224), "softmax_label": (32,)},
+        {"data": (2, 3, 224, 224), "softmax_label": (2,)}, "bfloat16",
+        dict(optimizer="sgd", lr=0.1, momentum=0.9, wd=1e-4),
+        lambda: mx.init.Xavier(rnd_type="gaussian", magnitude=2.0), 2,
+        "image"),
+    # `examples/lstm_bucketing.py`'s defaults: 2 layers, hidden 64, embed
+    # 64, batch 32, vocab 64 (its synthetic sentences), Adam lr 0.01, at
+    # its largest bucket (32)
+    "lstm": (
+        lambda: mx.models.lstm_unroll(2, 32, 64, 64, 64, 64),
+        dict({"data": (32, 32), "softmax_label": (32, 32)},
+             **{"l%d_init_%s" % (i, t): (32, 64) for i in range(2)
+                for t in "ch"}),
+        dict({"data": (4, 32), "softmax_label": (4, 32)},
+             **{"l%d_init_%s" % (i, t): (4, 64) for i in range(2)
+                for t in "ch"}), "float32",
+        dict(optimizer="adam", lr=0.01, wd=0.0),
+        lambda: mx.init.Xavier(), 2, "lstm"),
+    # `examples/fcn_xs.py`'s defaults: FCN-8s, 21 classes, 64x64, batch
+    # 4, SGD lr 1e-2 momentum 0.9 wd 5e-4, Xavier(magnitude 2) with
+    # bilinear upscore kernels; checked with its Dropouts at p = 0 (the
+    # card's and the CPU's generators draw different masks) and from
+    # Xavier for every weight: with one bilinear kernel on every (input,
+    # output) channel pair the scores are the same for every class, and
+    # every gradient is zero in exact arithmetic (rounding noise in
+    # float32, ~1e-14 in float64)
+    "fcn8s": (
+        lambda: mx.models.get_fcn_xs(num_classes=21, variant="fcn8s"),
+        {"data": (4, 3, 64, 64), "softmax_label": (4, 64, 64)},
+        {"data": (1, 3, 64, 64), "softmax_label": (1, 64, 64)}, "float32",
+        dict(optimizer="sgd", lr=1e-2, momentum=0.9, wd=5e-4),
+        lambda: mx.init.Mixed(["upscore|score2_|score4_", ".*"],
+                              [mx.init.Bilinear(),
+                               mx.init.Xavier(magnitude=2.0)]), 2,
+        "pixels"),
+}
+
+
+def net_batch(shapes, kind, classes, seed=0):
+    """Synthetic inputs for ``shapes`` from ``RandomState(seed)``: images
+    and labels as `bench.py` draws them, token ids whose label is the next
+    id (`examples/lstm_bucketing.py`'s grammar) and zero LSTM states,
+    per-pixel labels."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for n, s in shapes.items():
+        if n == "data" and kind == "lstm":
+            out[n] = rng.randint(0, classes, s).astype(np.float32)
+        elif n == "data":
+            out[n] = rng.randn(*s).astype(np.float32)
+        elif n.endswith("label"):
+            out[n] = (out["data"] + 1) % classes if kind == "lstm" else \
+                rng.randint(0, classes, s).astype(np.float32)
+        else:
+            out[n] = np.zeros(s, np.float32)
+    return out
+
+
+def head_nll(out, labels, kind):
+    """Mean negative log-likelihood of the labels under a SoftmaxOutput's
+    rows: (batch, classes), the LSTM's time-major (seq * batch, vocab), or
+    per pixel (batch, classes, h, w); a probability that underflowed to 0
+    counts as 1e-30 (NLL 69)."""
+    if kind == "lstm":
+        labels = labels.t().reshape(-1)
+    if kind == "pixels":
+        p = out.gather(1, labels.long().unsqueeze(1)).float()
+    else:
+        p = out.gather(1, labels.reshape(-1, 1).long()).float()
+    return float(-torch.log(p.clamp_min(1e-30)).mean())
+
+
+def by_kind(device):
+    """Device ms of the profiled ops: cuDNN/cuBLAS convolutions and
+    products (by kernel name) and the rest (elementwise, reductions,
+    copies)."""
+    keys = ("conv", "implicit", "wgrad", "dgrad", "fprop", "xmma", "gemm",
+            "cutlass", "sm90_", "sm80_", "cudnn")
+    mat = sum(ms for k, _, ms in device if any(s in k.lower() for s in keys))
+    return {"conv_and_gemm_ms": mat,
+            "other_ms": sum(ms for _, _, ms in device) - mat}
+
+
+def resnet_path():
+    """ResNet-50 at bench.py's geometry, bf16, batch 128, SGD through
+    `SPMDTrainer`: RESNET_STEPS steps (the first a warm-up, left out of
+    the timing) with the counts set to 0 before and read after, then one
+    profiled step; the loss must fall, the aux states be finite and have
+    moved from 0 and 1, and no kernel of the table launch."""
+    mx.random.seed(0)
+    shapes = {"data": (RESNET_BATCH,) + RESNET["image_shape"],
+              "softmax_label": (RESNET_BATCH,)}
+    t0 = time.perf_counter()
+    trainer = mx.SPMDTrainer(mx.models.get_resnet(**RESNET),
+                             data_shapes=shapes, dtype="bfloat16",
+                             **RESNET_SGD)
+    build_s = time.perf_counter() - t0
+    dev = trainer.shard_batch(net_batch(shapes, "image",
+                                        RESNET["num_classes"]))
+    labels = dev["softmax_label"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, step_ms, wall_ms = [], [], []
+    for _ in range(RESNET_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        outs = trainer.step(dev)
+        b.record()
+        b.synchronize()
+        wall_ms.append(1e3 * (time.perf_counter() - t0))
+        step_ms.append(a.elapsed_time(b))
+        losses.append(head_nll(outs[0], labels, "image"))
+        del outs
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    state = card_state()
+    wall, busy, device, host = profiled(lambda: trainer.step(dev))
+    aux = {n: a.float() for n, a in trainer.aux.items()}
+    finite = all(bool(torch.isfinite(a).all()) for a in aux.values())
+    moved = {n: bool((a != (1.0 if n.endswith("moving_var") else 0.0))
+                     .any()) for n, a in aux.items()}
+    del trainer, dev, labels, aux
+    torch.cuda.empty_cache()
+    step = statistics.median(step_ms[1:])
+    ips = RESNET_BATCH / (step / 1e3)
+    res = {"config": dict(RESNET, batch=RESNET_BATCH, dtype="bfloat16",
+                          optimizer="sgd lr 0.1 momentum 0.9 wd 1e-4",
+                          source="bench.py:126-173; BASELINE.json "
+                                 "configs[1]"),
+           "steps": RESNET_STEPS, "trainer_build_s": build_s,
+           "losses": losses, "step_ms": step_ms, "wall_ms": wall_ms,
+           "step_ms_median": step, "images_per_s": ips,
+           "flops_per_image": RESNET_FLOPS_PER_IMAGE,
+           "mfu": RESNET_FLOPS_PER_IMAGE * ips / MFU_PEAK,
+           "launches": launches, "max_memory_allocated": peak,
+           "card_after": state, "profiled_step_ms": 1e3 * wall,
+           "device_busy_ms": 1e3 * busy,
+           "device_idle_share": 1 - busy / wall,
+           "device_ms_by_kind": by_kind(device),
+           "top_device_ops_ms": device[:12], "top_host_ops_ms": host,
+           "aux_finite": finite, "aux_moved": sum(moved.values()),
+           "aux_states": len(moved)}
+    log("resnet50: %d steps of batch %d at 224, bf16, SGD; step ms (CUDA "
+        "events) %s; median of the last %d %.2f ms = %.1f images/s, MFU "
+        "%.4f (%.4g flops an image over %.0f TFLOP/s); host wall ms %s"
+        % (RESNET_STEPS, RESNET_BATCH, ["%.2f" % t for t in step_ms],
+           len(step_ms) - 1, step, ips, res["mfu"], RESNET_FLOPS_PER_IMAGE,
+           MFU_PEAK / 1e12, ["%.1f" % t for t in wall_ms]))
+    log("resnet50: mean NLL per step %s; max_memory_allocated %d B; card "
+        "after %s; aux states finite %s, moved from 0/1 %d of %d"
+        % (["%.4f" % x for x in losses], peak, state, finite,
+           res["aux_moved"], res["aux_states"]))
+    log("resnet50: profiled step %.2f ms wall, device busy %.2f ms (idle "
+        "share %.4f), by kind %s; top device ops (name, count, ms): %s"
+        % (res["profiled_step_ms"], res["device_busy_ms"],
+           res["device_idle_share"],
+           {k: round(v, 3) for k, v in res["device_ms_by_kind"].items()},
+           device[:12]))
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit("resnet50: a loss is not finite: %s" % losses)
+    if not losses[-1] < losses[0]:
+        raise SystemExit("resnet50: the loss did not fall: %s" % losses)
+    if not (finite and all(moved.values())):
+        raise SystemExit("resnet50: aux states not finite or not moved")
+    if any(launches.values()):
+        raise SystemExit("resnet50: launched a kernel of the table: %s"
+                         % {k: v for k, v in launches.items() if v})
+    return res
+
+
+def conv_f32_checks():
+    """Each of CONV_F32_CASES through the op, forward and backward, in
+    float32 with ``cudnn.allow_tf32 = True``, against float64 on the card;
+    the raw cuDNN call under the same flag (TF32) beside it must miss the
+    bar."""
+    from mxnet_tpu_torch.ops import registry
+
+    out = []
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for name, shape, params in CONV_F32_CASES:
+            op = registry.get(name)
+            p = op.parse_params(params)
+            shapes = op.infer_shape(p, [shape] + [None] * (
+                len(op.list_arguments(p)) - 1))[0]
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            ins = [torch.randn(s, device="cuda", dtype=torch.float64,
+                               generator=gen) for s in shapes]
+            res = {}
+            for dt in (torch.float32, torch.float64):
+                leaves = [t.detach().to(dt).clone().requires_grad_()
+                          for t in ins]
+                y = op.apply(mx.ops.OpCtx(), p, leaves, [])[0][0]
+                cot = torch.ones_like(y)
+                y.backward(cot)
+                res[dt] = [y.detach()] + [t.grad for t in leaves[:2]]
+            raw_fn = F.conv_transpose2d if name == "Deconvolution" else \
+                F.conv2d
+            raw = raw_fn(ins[0].float(), ins[1].float(), stride=p["stride"],
+                         padding=p["pad"])
+            ref = res[torch.float64]
+            errs = [float((a.double() - r).abs().max() / r.abs().max())
+                    for a, r in zip(res[torch.float32], ref)]
+            y0 = ref[0] - (ins[2].reshape(1, -1, 1, 1)
+                           if len(ins) > 2 else 0)
+            tf32 = float((raw.double() - y0).abs().max() / y0.abs().max())
+            out.append({"op": name, "shape": shape, "params": params,
+                        "f32_err_y_dx_dw": errs, "tf32_raw_err_y": tf32,
+                        "tol": CONV_F32_TOL})
+            log("conv f32 check %s %s %s: op in float32 vs float64, max "
+                "|err|/max (y, dx, dw) %s (tol %.0e); raw cuDNN under "
+                "allow_tf32 %.3e"
+                % (name, shape, params, ["%.2e" % e for e in errs],
+                   CONV_F32_TOL, tf32))
+            if not max(errs) <= CONV_F32_TOL:
+                raise SystemExit("conv f32 check: %s in float32 is off by "
+                                 "%s" % (name, errs))
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    # cuDNN takes TF32 only where its heuristics pick a tensor-core
+    # algorithm (not for the 21-channel upscore): at least one raw call
+    # must miss the bar, or the check could not tell the two apart
+    if not max(c["tf32_raw_err_y"] for c in out) > CONV_F32_TOL:
+        raise SystemExit("conv f32 check: no raw TF32 call misses the bar, "
+                         "so the check does not separate them")
+    return out
+
+
+def grads_f64(t, batch):
+    """The gradients and aux updates of trainer ``t``'s training step on
+    ``batch`` with every floating argument in float64 (through the
+    symbol's graph function; the trainer itself computes in float32 or
+    bf16), as float32 host tensors."""
+    dev = t.shard_batch(batch)
+    leaves = {n: p.detach().double().requires_grad_()
+              for n, p in t.params.items()}
+    args = [leaves[n] if n not in dev else
+            dev[n].double() if dev[n].is_floating_point() and
+            "label" not in n else dev[n] for n in t.arg_names]
+    fn = mx.executor._build_graph_fn(t.symbol)
+    with torch.enable_grad():
+        outs, new_aux = fn(args, [t.aux[n] for n in t.aux_names], None, True)
+        grads = torch.autograd.grad(
+            outs, [leaves[n] for n in t.param_names],
+            [torch.ones_like(o) for o in outs], allow_unused=True)
+    return ({n: (torch.zeros_like(leaves[n]) if g is None else g).float()
+             .cpu() for n, g in zip(t.param_names, grads)},
+            {n: a.detach().float().cpu()
+             for n, a in zip(t.aux_names, new_aux)})
+
+
+def card_cpu_check(label, build, shapes, batch, trainer_kw=None,
+                   init=None):
+    """One `SPMDTrainer.forward` and one `gradients` of ``build()`` in
+    float32 on the card (``cudnn.allow_tf32 = True`` around it) and on the
+    CPU from the card's initial parameters (`init.Load`), at ``shapes``:
+    forward outputs within CONV_FWD_TOL of their largest, the moving
+    statistics after the gradient step within CONV_AUX_TOL (or twice their
+    CPU thread spread), and every gradient within the larger of GRAD_TOL
+    and CONV_SPREAD_MULT times the network's CPU thread spread, of its
+    largest.  The thread spread is measured by the same CPU trainer on
+    CONV_SPREAD_THREADS threads and in float64 (`grads_f64`) against the
+    float32 one on all threads, and by the card's float32 gradients
+    against its own float64 ones.  A parameter whose float64 gradient is
+    below 1e-4 of the model's largest (a convolution's bias before a
+    BatchNorm, zero in exact arithmetic: both devices compute rounding
+    noise there) is left out of the network's spread and held against
+    the model's largest gradient, as the LM's key biases are.  The card's
+    bf16 gradients' distance is printed beside."""
+
+    def trainer(ctx, initializer, dtype="float32"):
+        mx.random.seed(0)
+        return mx.SPMDTrainer(build(), data_shapes=shapes, ctx=ctx,
+                              dtype=dtype, initializer=initializer,
+                              **(trainer_kw or {}))
+
+    def run(t):
+        fwd = [o.float().cpu() for o in t.forward(batch)]
+        grads = {n: g.float().cpu() for n, g in t.gradients(batch).items()}
+        return fwd, grads, {n: a.float().cpu() for n, a in t.aux.items()}
+
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        t0 = time.perf_counter()
+        t = trainer(None, init() if init else None)
+        start = {n: p.detach().cpu().numpy() for n, p in t.params.items()}
+        aux0 = dict(t.aux)
+        card = run(t)
+        t.aux = aux0
+        card64 = grads_f64(t, batch)
+        del t
+        card16 = run(trainer(None, mx.init.Load(start), "bfloat16"))
+        card_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    threads = torch.get_num_threads()
+    t0 = time.perf_counter()
+    t = trainer("cpu", mx.init.Load(start))
+    aux0 = dict(t.aux)
+    cpu = run(t)
+    spread_runs = {}
+    try:
+        for n in CONV_SPREAD_THREADS:
+            if n < threads:
+                torch.set_num_threads(n)
+                t.aux = dict(aux0)
+                spread_runs[n] = run(t)
+    finally:
+        torch.set_num_threads(threads)
+    t.aux = dict(aux0)
+    spread_runs["f64"] = (None,) + grads_f64(t, batch)
+    del t
+    cpu_s = time.perf_counter() - t0
+
+    def dist(a, b):
+        return float((a.double() - b.double()).abs().max())
+
+    fwd_err = max(dist(a, b) / max(float(b.abs().max()), 1e-30)
+                  for a, b in zip(card[0], cpu[0]))
+    gmax = max(float(g.abs().max()) for g in cpu[1].values())
+    noise = sorted(n for n, g in spread_runs["f64"][1].items()
+                   if float(g.abs().max()) < 1e-4 * gmax)
+    size = {n: gmax if n in noise else max(float(g.abs().max()), 1e-30)
+            for n, g in cpu[1].items()}
+    own = {n: max(dist(r[1][n], g) for r in spread_runs.values())
+           for n, g in cpu[1].items()}
+    # the card's own rounding: its float32 gradients against its float64
+    card_own = max([dist(card[1][n], card64[0][n]) / size[n]
+                    for n in size if n not in noise] or [0.0])
+    spread = max([own[n] / size[n] for n in size if n not in noise]
+                 + [card_own])
+    bar = {n: max(max(GRAD_TOL, CONV_SPREAD_MULT * spread) * size[n],
+                  CONV_SPREAD_MULT * own[n]) for n in size}
+    ratio = {n: dist(card[1][n], g) / bar[n] for n, g in cpu[1].items()}
+    worst = max(ratio, key=ratio.get)
+    g16 = max(dist(card16[1][n], g) / size[n] for n, g in cpu[1].items()
+              if n not in noise)
+    aux_size = {n: max(float(a.abs().max()), 1e-30)
+                for n, a in cpu[2].items()}
+    aux_err = max([dist(card[2][n], a) / aux_size[n]
+                   for n, a in cpu[2].items()] or [0.0])
+    aux_spread = max([dist(r[2][n], a) / aux_size[n]
+                      for r in spread_runs.values()
+                      for n, a in cpu[2].items()] or [0.0])
+    aux_bar = max(CONV_AUX_TOL, CONV_SPREAD_MULT * aux_spread)
+    res = {"config": label, "shapes": shapes, "params": len(size),
+           "forward_err": fwd_err, "forward_tol": CONV_FWD_TOL,
+           "cpu_threads": threads,
+           "spread_runs": sorted(str(k) for k in spread_runs),
+           "rounding_spread": spread, "card_f32_vs_f64": card_own,
+           "zero_gradient_params": noise,
+           "grad_bar_rel": max(GRAD_TOL, CONV_SPREAD_MULT * spread),
+           "worst_grad_param": worst,
+           "worst_grad_err_rel": dist(card[1][worst], cpu[1][worst])
+           / size[worst], "worst_grad_err_over_bar": ratio[worst],
+           "aux_err": aux_err, "aux_spread": aux_spread, "aux_bar": aux_bar,
+           "worst_bf16_grad_err": g16, "card_s": card_s, "cpu_s": cpu_s,
+           "per_param_err_rel": {n: dist(card[1][n], g) / size[n]
+                                 for n, g in cpu[1].items()}}
+    log("card vs CPU (%s, data %s): forward max |d|/max %.3e (tol %.0e); "
+        "CPU runs on %s threads and in float64 against %d threads, and "
+        "the card's float32 against its float64 (%.3e), part by up to "
+        "%.3e of a gradient's largest (%d parameters of zero gradient "
+        "held against the largest), so gradients "
+        "are held to %.3e; worst %s at %.3e (%.3f of its bar); moving "
+        "statistics %.3e (spread %.3e, bar %.3e); bf16 gradients %.3e; "
+        "card %.1f s, CPU %.1f s"
+        % (label, shapes["data"], fwd_err, CONV_FWD_TOL,
+           sorted(k for k in spread_runs if k != "f64"), threads,
+           card_own, spread, len(noise),
+           res["grad_bar_rel"], worst, res["worst_grad_err_rel"],
+           ratio[worst], aux_err, aux_spread, aux_bar, g16, card_s, cpu_s))
+    if not (fwd_err <= CONV_FWD_TOL and ratio[worst] <= 1.0
+            and aux_err <= aux_bar):
+        raise SystemExit("%s: the card disagrees with the CPU" % label)
+    return res
+
+
+def resnet_grad_check():
+    """ResNet-50 in the reference's default 'full' geometry (57/29/15/8)
+    at batch 4, card against CPU (`card_cpu_check`)."""
+    shapes = {"data": (4,) + RESNET["image_shape"], "softmax_label": (4,)}
+    return card_cpu_check(
+        "resnet50 full, batch 4",
+        lambda: mx.models.get_resnet(
+            **dict(RESNET, pooling_convention="full")), shapes,
+        net_batch(shapes, "image", RESNET["num_classes"], seed=1),
+        trainer_kw=RESNET_SGD)
+
+
+def resnet_feedforward_path():
+    """ResNet-50 through `FeedForward` as `examples/train_imagenet.py
+    --trainer feedforward` runs it, on the card, float32: ms a batch (host
+    clock between batch ends, each reading its metric back), images/s,
+    the running cross-entropy finite."""
+    mx.random.seed(0)
+    rng = np.random.RandomState(0)
+    n = FF_BATCH * FF_BATCHES
+    X = rng.randn(n, *FF_IMAGE).astype(np.float32)
+    y = rng.randint(0, 1000, n).astype(np.float32)
+    model = mx.model.FeedForward(
+        mx.models.get_resnet(num_classes=1000, num_layers=50),
+        ctx=mx.gpu(0), num_epoch=1, optimizer="sgd", learning_rate=0.1,
+        initializer=mx.init.Xavier(rnd_type="gaussian", magnitude=2.0))
+    ticks, ce = [], []
+
+    def on_batch(p):
+        ce.append(p.eval_metric.get()[1])
+        ticks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    model.fit(mx.io.NDArrayIter(X, y, batch_size=FF_BATCH), kvstore="device",
+              eval_metric="ce", batch_end_callback=on_batch)
+    fit_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    state = card_state()
+    del model, X, y
+    torch.cuda.empty_cache()
+    batch_ms = [1e3 * b for b in np.diff([t0] + ticks)]
+    ms = statistics.median(batch_ms[1:])
+    res = {"config": dict(net="get_resnet(num_layers=50), 'full'",
+                          batch=FF_BATCH, batches=FF_BATCHES,
+                          dtype="float32", optimizer="sgd lr 0.1",
+                          initializer="Xavier(gaussian, 2)",
+                          kvstore="device", reduced="batch 256 -> 64",
+                          source="examples/train_imagenet.py:77-97"),
+           "fit_s": fit_s, "batch_ms": batch_ms, "ms_per_batch_median": ms,
+           "images_per_s": FF_BATCH / (ms / 1e3), "cross_entropy": ce,
+           "launches": launches, "max_memory_allocated": peak,
+           "card_after": state}
+    log("resnet50 FeedForward: %d batches of %d, float32, kvstore device, "
+        "in %.2f s; ms a batch (host clock) %s; median of the last %d "
+        "%.2f ms = %.1f images/s; running cross-entropy %s; "
+        "max_memory_allocated %d B; card after %s"
+        % (FF_BATCHES, FF_BATCH, fit_s, ["%.1f" % t for t in batch_ms],
+           len(batch_ms) - 1, ms, res["images_per_s"],
+           ["%.4f" % c for c in ce], peak, state))
+    if len(ce) != FF_BATCHES or not all(math.isfinite(c) for c in ce):
+        raise SystemExit("resnet50 FeedForward: a loss is not finite or a "
+                         "batch is missing: %s" % ce)
+    if any(launches.values()):
+        raise SystemExit("resnet50 FeedForward: launched a kernel of the "
+                         "table")
+    return res
+
+
+def _without_dropout(sym):
+    """``sym`` with every Dropout at p = 0 (identity in training too)."""
+    import re
+
+    return mx.sym.loads(re.sub(r'"p": "[0-9.]+"', '"p": "0.0"',
+                               sym.tojson()))
+
+
+def other_net_path(name):
+    """One of OTHER_NETS: its steps through `SPMDTrainer` on the card (the
+    first a warm-up; step ms of the rest by CUDA events), the loss finite
+    and no kernel of the table launched, then the card-vs-CPU check at
+    its check size."""
+    build, shapes, check_shapes, dtype, opt, init, steps, kind = \
+        OTHER_NETS[name]
+    classes = {"image": 1000, "lstm": 64, "pixels": 21}[kind]
+    mx.random.seed(0)
+    trainer = mx.SPMDTrainer(build(), data_shapes=shapes, dtype=dtype,
+                             initializer=init(), **opt)
+    dev = trainer.shard_batch(net_batch(shapes, kind, classes))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, step_ms = [], []
+    for _ in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        outs = trainer.step(dev)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+        losses.append(head_nll(outs[0], dev["softmax_label"], kind))
+        del outs
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del trainer, dev
+    torch.cuda.empty_cache()
+    log("%s: %d steps, %s, shapes %s: step ms %s, mean NLL %s, "
+        "max_memory_allocated %d B"
+        % (name, steps, dtype, shapes["data"], ["%.2f" % t for t in step_ms],
+           ["%.4f" % x for x in losses], peak))
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit("%s: a loss is not finite: %s" % (name, losses))
+    if any(launches.values()):
+        raise SystemExit("%s: launched a kernel of the table" % name)
+    check_build, check_init = build, init
+    if kind == "pixels":
+        check_build = lambda: _without_dropout(build())  # noqa: E731
+        check_init = lambda: mx.init.Xavier(magnitude=2.0)  # noqa: E731
+    check = card_cpu_check(name, check_build, check_shapes,
+                           net_batch(check_shapes, kind, classes, seed=1),
+                           trainer_kw=opt, init=check_init)
+    return {"shapes": shapes, "dtype": dtype, "optimizer": opt,
+            "steps": steps, "step_ms": step_ms, "losses": losses,
+            "launches": launches, "max_memory_allocated": peak,
+            "check": check}
+
+
 def kernels_line(cases, paths, f32_paths):
     """One entry per ported TPU function: launches on each path, and the
     error and times of its check at the training shape, in bf16; then one
@@ -2735,6 +3359,13 @@ def main():
     with phase("reference API"):
         api_mnist = mnist_api_path()
         api_lm = api_lm_path(dict(per_layer, **flash("flash_attention")))
+
+    with phase("conv nets"):
+        resnet = resnet_path()
+        conv_f32 = conv_f32_checks()
+        resnet_grads = resnet_grad_check()
+        resnet_ff = resnet_feedforward_path()
+        others = {n: other_net_path(n) for n in OTHER_NETS}
     # the LM's LayerNorm launches join the LayerNorm rows; its float32
     # flash launches the float32 flash rows
     api_lm_ln = {k: (n if k.startswith("layer_norm") else 0)
@@ -2785,7 +3416,10 @@ def main():
          "train_longctx_ds": ds, "train_longctx_stream": stream,
          "gradients_longctx_stream": stream_grads,
          "gradients_longctx_ds": ds_grads, "api_mnist": api_mnist,
-         "api_lm": api_lm, "kernels": kernels},
+         "api_lm": api_lm, "resnet50": resnet, "conv_f32": conv_f32,
+         "resnet50_gradients": resnet_grads,
+         "resnet50_feedforward": resnet_ff, "other_nets": others,
+         "kernels": kernels},
         indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -33,6 +33,21 @@ and `model.FeedForward`:
     model.fit(mx.io.NDArrayIter(X, y, batch_size=128, shuffle=True))
     model.save("mlp")
 
+The JAX package's op set and model zoo are ported too (`ops`,
+`models`): convolution, pooling, BatchNorm and the rest run as torch
+calls (cuDNN on the card; float32 convolutions without TF32 whatever
+``torch.backends.cudnn.allow_tf32`` says), every op also as an
+imperative `nd.<op>`, and ResNet, Inception-BN, LeNet, AlexNet, VGG,
+GoogLeNet, Inception-v3, the LSTM and RNN LMs and FCN-xs build as they do
+in the JAX package:
+
+    net = mx.models.get_resnet(num_layers=50, pooling_convention="valid")
+    trainer = mx.SPMDTrainer(
+        net, data_shapes={"data": (128, 3, 224, 224),
+                          "softmax_label": (128,)},
+        lr=0.1, momentum=0.9, wd=1e-4, dtype="bfloat16")
+    trainer.step({"data": images, "softmax_label": labels})
+
 Entry points run on ``cuda:0`` unless given ``ctx="cpu"`` (or
 ``mx.cpu()``); without a GPU and without that argument they raise
 (`context.resolve`).  `current_context()` with no ``with`` scope is
@@ -67,6 +82,8 @@ from .model import FeedForward
 from .ndarray import NDArray
 from .parallel import SPMDTrainer, load_params
 from .symbol import Symbol
+
+ops.populate_nd(nd.__dict__)
 
 init = initializer
 opt = optimizer

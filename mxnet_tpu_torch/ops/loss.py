@@ -1,12 +1,16 @@
 """Loss heads with the reference's backward.
 
-A port of `mxnet_tpu/ops/loss.py` `SoftmaxOutput` and `FusedSoftmaxCE`.
-`SoftmaxOutput`'s training gradient
-is not the autodiff of its forward: like the reference
-(`src/operator/softmax_output-inl.h`) its backward ignores the incoming
-head gradient and returns ``(softmax - onehot(label)) * grad_scale``, with
-the rows of ``ignore_label`` zeroed under ``use_ignore``.  That is a
-`torch.autograd.Function`, as it is a `jax.custom_vjp` in JAX.
+A port of `mxnet_tpu/ops/loss.py`.  A loss head's training gradient is
+not the autodiff of its forward: like the reference
+(`src/operator/softmax_output-inl.h`, `regression_output-inl.h`) its
+backward ignores the incoming head gradient.  `SoftmaxOutput` returns
+``(softmax - onehot(label)) * grad_scale``, with the rows of
+``ignore_label`` zeroed under ``use_ignore``; the regression heads
+``(out - label) * grad_scale`` (`MAERegressionOutput` its sign).  Each is
+a `torch.autograd.Function`, as it is a `jax.custom_vjp` in JAX.
+`softmax_cross_entropy` (a summed loss of shape (1,)) scales its
+gradient by the incoming one, and `IdentityAttachKLSparseReg` is the
+identity forward whose backward adds the KL-sparseness penalty.
 
 The one-hot is never built: the backward copies the saved softmax and
 subtracts 1 at each row's label (``scatter_add_``), in the softmax's
@@ -25,6 +29,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..base import MXNetError
 from .pallas_kernels.fused_ce import fused_softmax_ce
@@ -148,3 +153,132 @@ class FusedSoftmaxCE(OpDef):
 
 
 register(FusedSoftmaxCE)
+
+
+# -- Regression outputs ---------------------------------------------------
+
+
+class _RegressionFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, label, fwd, grad, grad_scale):
+        out = fwd(data)
+        ctx.save_for_backward(out, label)
+        ctx.args = (grad, grad_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        grad, grad_scale = ctx.args
+        dx = grad(out, label.reshape(out.shape)) * grad_scale
+        return dx.to(out.dtype), None, None, None, None
+
+
+def _make_regression(name_, fwd_fn, grad_fn):
+    class _Reg(OpDef):
+        name = name_
+        params = {"grad_scale": Param(float, default=1.0)}
+
+        def list_arguments(self, params):
+            return ["data", "label"]
+
+        def infer_shape(self, params, in_shapes):
+            d = in_shapes[0]
+            if d is None:
+                return in_shapes, [None], []
+            return [d, d], [d], []
+
+        def apply(self, octx, params, inputs, aux):
+            return [_RegressionFn.apply(inputs[0], inputs[1], fwd_fn, grad_fn,
+                                        params["grad_scale"])], []
+
+    _Reg.__doc__ = "`src/operator/regression_output-inl.h` (%s)" % name_
+    return _Reg
+
+
+register(_make_regression("LinearRegressionOutput", lambda x: x,
+                          lambda o, l: o - l))
+register(_make_regression("LogisticRegressionOutput", torch.sigmoid,
+                          lambda o, l: o - l))
+register(_make_regression("MAERegressionOutput", lambda x: x,
+                          lambda o, l: torch.sign(o - l)))
+
+
+# -- softmax_cross_entropy (loss_binary_op-inl.h) -------------------------
+
+
+class _SoftmaxCEFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, label):
+        ctx.save_for_backward(data, label)
+        logp = torch.log_softmax(data, dim=1)
+        picked = logp.gather(1, label.long().reshape(-1, 1))[:, 0]
+        return -torch.sum(picked).reshape(1)
+
+    @staticmethod
+    def backward(ctx, g):
+        data, label = ctx.saved_tensors
+        grad = torch.softmax(data, dim=1) - F.one_hot(
+            label.long(), data.shape[1]).to(data.dtype)
+        return g[0] * grad, None
+
+
+class SoftmaxCrossEntropy(OpDef):
+    """`src/operator/loss_binary_op-inl.h` — scalar summed CE loss."""
+
+    name = "softmax_cross_entropy"
+
+    def list_arguments(self, params):
+        return ["data", "label"]
+
+    def infer_shape(self, params, in_shapes):
+        d = in_shapes[0]
+        if d is None:
+            return in_shapes, [(1,)], []
+        return [d, (d[0],)], [(1,)], []
+
+    def apply(self, octx, params, inputs, aux):
+        return [_SoftmaxCEFn.apply(inputs[0], inputs[1])], []
+
+
+register(SoftmaxCrossEntropy)
+
+
+# -- IdentityAttachKLSparseReg -------------------------------------------
+
+
+class _KLSparseRegFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rho, penalty):
+        ctx.save_for_backward(x)
+        ctx.args = (rho, penalty)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        rho, penalty = ctx.args
+        rho_hat = torch.mean(x, dim=0, keepdim=True)
+        kl = penalty * (-rho / rho_hat + (1 - rho) / (1 - rho_hat))
+        return g + kl.to(x.dtype), None, None
+
+
+class IdentityAttachKLSparseReg(OpDef):
+    """`src/operator/identity_attach_KL_sparse_reg-inl.h` — identity forward;
+    backward adds the KL-sparseness penalty gradient
+    `penalty * (-rho/rho_hat + (1-rho)/(1-rho_hat))` where rho_hat is the
+    batch mean activation (sigmoid-activity assumption)."""
+
+    name = "IdentityAttachKLSparseReg"
+    params = {
+        "sparseness_target": Param(float, default=0.1),
+        "penalty": Param(float, default=0.001),
+        "momentum": Param(float, default=0.9),
+    }
+
+    def apply(self, octx, params, inputs, aux):
+        return [_KLSparseRegFn.apply(inputs[0], params["sparseness_target"],
+                                     params["penalty"])], []
+
+
+register(IdentityAttachKLSparseReg)

@@ -13,6 +13,11 @@ plus metadata:
 * ``infer_shape`` completes shapes forward and backward from the data
   shapes alone, with the JAX package's rules, so both packages give a
   symbol the same argument shapes.
+* ``key_var_num_args`` names the count parameter of an op that takes a
+  variable number of inputs (`Concat`, `ElementWiseSum`, `Crop`,
+  `UpSampling`); the symbol factories and `mx.nd` fill it in.  An op
+  whose outputs are not all visible (`BatchNorm`: output, mean, var)
+  defines ``num_visible_outputs(params)``.
 
 The registry is the port's own: it holds only the ops the port defines.
 """
@@ -77,6 +82,8 @@ class OpDef:
 
     name: str = None
     params: dict = {}
+    # variable-arity input op (Concat/ElementWiseSum): name of the count param
+    key_var_num_args: str = None
     need_rng: bool = False
 
     # -- metadata ---------------------------------------------------------
@@ -158,6 +165,16 @@ def list_ops():
 # ---------------------------------------------------------------------------
 
 
+class _UnaryOp(OpDef):
+    def __init__(self, name, fn):
+        self.name = name
+        self._fn = fn
+        self.params = {}
+
+    def apply(self, octx, params, inputs, aux):
+        return [self._fn(inputs[0])], []
+
+
 class _BinaryOp(OpDef):
     def __init__(self, name, fn):
         self.name = name
@@ -181,21 +198,28 @@ class _BinaryOp(OpDef):
 
 
 class _ScalarOp(OpDef):
-    """op(tensor, scalar) (`elementwise_binary_scalar_op`)."""
+    """op(tensor, scalar) with optional reverse
+    (`elementwise_binary_scalar_op`)."""
 
     params = {"scalar": Param(float, required=True)}
 
-    def __init__(self, name, fn):
+    def __init__(self, name, fn, reverse=False):
         self.name = name
         self._fn = fn
+        self._reverse = reverse
 
     def apply(self, octx, params, inputs, aux):
-        return [self._fn(inputs[0], params["scalar"])], []
+        s, a = params["scalar"], inputs[0]
+        return [self._fn(s, a) if self._reverse else self._fn(a, s)], []
+
+
+def register_unary(name, fn, aliases=()):
+    return register(_UnaryOp(name, fn), aliases=aliases)
 
 
 def register_binary(name, fn, aliases=()):
     return register(_BinaryOp(name, fn), aliases=aliases)
 
 
-def register_scalar(name, fn, aliases=()):
-    return register(_ScalarOp(name, fn), aliases=aliases)
+def register_scalar(name, fn, reverse=False, aliases=()):
+    return register(_ScalarOp(name, fn, reverse=reverse), aliases=aliases)

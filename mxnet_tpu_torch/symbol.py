@@ -9,10 +9,15 @@ parameters from the data shapes alone.
 
 The JSON wire format is the JAX package's (the reference's
 ``nodes``/``arg_nodes``/``heads``, op "null" for variables): a symbol
-saved by either package loads in the other.  Of the arithmetic operators
-only ``+`` (`_Plus`, `_PlusScalar`) exists yet.  `simple_bind` and `bind`
-make an `executor.Executor`; `infer_type` propagates dtypes forward with
-each op's rule; `attr_dict` feeds the optimizers' lr/wd multipliers.
+saved by either package loads in the other.  The arithmetic operators
+(``+ - * / **``, unary ``-``) build the registry's binary ops between
+symbols and its scalar ops (with their reversed forms) against a
+number.  A symbol indexes, iterates and counts its outputs, and
+`get_internals` groups every visible output of the graph.  An op with
+hidden outputs (`BatchNorm`) shows only its visible ones.  `simple_bind`
+and `bind` make an `executor.Executor`; `infer_type` propagates dtypes
+forward with each op's rule; `attr_dict` feeds the optimizers' lr/wd
+multipliers.
 """
 from __future__ import annotations
 
@@ -45,6 +50,12 @@ class _Node:
 
     def num_outputs(self):
         return 1 if self.is_variable else len(self.op.list_outputs(self.params))
+
+    def num_visible_outputs(self):
+        if self.is_variable:
+            return 1
+        nv = getattr(self.op, "num_visible_outputs", None)
+        return nv(self.params) if nv else self.num_outputs()
 
 
 def _topo_order(heads):
@@ -105,6 +116,26 @@ class Symbol:
                     out.append("%s_%s" % (node.name, aux))
         return out
 
+    def get_internals(self):
+        """Every visible output of the graph, grouped (`symbolic.h`
+        GetInternals)."""
+        return Symbol([(node, i) for node in _topo_order(self._heads)
+                       for i in range(node.num_visible_outputs())])
+
+    def __getitem__(self, index):
+        if isinstance(index, str):
+            names = self.list_outputs()
+            if index not in names:
+                raise MXNetError("no output named %r" % index)
+            index = names.index(index)
+        return Symbol([self._heads[index]])
+
+    def __len__(self):
+        return len(self._heads)
+
+    def __iter__(self):
+        return (Symbol([h]) for h in self._heads)
+
     # -- attributes -------------------------------------------------------
     def attr_dict(self):
         """{node name: its attributes} over every node that has some."""
@@ -112,17 +143,46 @@ class Symbol:
                 for node in _topo_order(self._heads) if node.attrs}
 
     # -- arithmetic (creates registry ops, like ndarray) -------------------
-    def _binop(self, other, opname, scalar_opname):
+    def _binop(self, other, opname, scalar_opname, rscalar_opname=None,
+               reverse=False):
         if isinstance(other, Symbol):
-            return _create(opname, [self, other], {})
+            lhs, rhs = (other, self) if reverse else (self, other)
+            return _create(opname, [lhs, rhs], {})
         if isinstance(other, (int, float, np.generic)):
-            return _create(scalar_opname, [self], {"scalar": float(other)})
+            op = (rscalar_opname or scalar_opname) if reverse else \
+                scalar_opname
+            return _create(op, [self], {"scalar": float(other)})
         return NotImplemented
 
     def __add__(self, other):
         return self._binop(other, "_Plus", "_PlusScalar")
 
     __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binop(other, "_Minus", "_MinusScalar", "_RMinusScalar")
+
+    def __rsub__(self, other):
+        return self._binop(other, "_Minus", "_MinusScalar", "_RMinusScalar",
+                           reverse=True)
+
+    def __mul__(self, other):
+        return self._binop(other, "_Mul", "_MulScalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binop(other, "_Div", "_DivScalar", "_RDivScalar")
+
+    def __rtruediv__(self, other):
+        return self._binop(other, "_Div", "_DivScalar", "_RDivScalar",
+                           reverse=True)
+
+    def __pow__(self, other):
+        return self._binop(other, "_Power", "_PowerScalar", "_RPowerScalar")
+
+    def __neg__(self):
+        return self * -1.0
 
     def __repr__(self):
         return "<Symbol %s>" % self.name
@@ -342,7 +402,7 @@ def _create(op_name, input_syms, params, name=None, attr=None):
     name = _resolve_name(op, name)
     inputs = [Symbol._entry(s) for s in input_syms]
     node = _Node(op, name, parsed, inputs, attrs)
-    return Symbol([(node, i) for i in range(node.num_outputs())])
+    return Symbol([(node, i) for i in range(node.num_visible_outputs())])
 
 
 def _make_factory(op: "_ops.OpDef"):
@@ -362,6 +422,8 @@ def _make_factory(op: "_ops.OpDef"):
                 "%s: positional args must be Symbols; pass params by name"
                 % op.name
             )
+        if op.key_var_num_args and op.key_var_num_args not in params:
+            params[op.key_var_num_args] = len(pos_syms) + len(sym_kwargs)
         parsed = op.parse_params(params)
         arg_names = op.list_arguments(parsed)
         inputs = [None] * len(arg_names)
