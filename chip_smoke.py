@@ -40,6 +40,18 @@ Phases, each of which fails the run with a non-zero exit:
    of two finished requests against the plain float32 path;
 4. serve 4 long-prompt requests through the slot-cache engine, whose
    prefill runs the flash-attention kernel;
+4b. serving, shared prefix and request contract: on the default engine's
+   own thread (`start`, prefix caching on), 15 requests of one 512-token
+   system prompt plus a 16-256-token suffix (odd ones sampled), the
+   first alone until its first token, then the rest and the bare prompt
+   (a full-cover bootstrap); the same through ``prefix=False`` and
+   through a pool of 87 blocks that must preempt.  Tokens must agree
+   request by request, or part only where the plain float32 path's
+   choice was within 1e-3; the prefix counters must show every later
+   request sharing the prompt, a bootstrap and a copy-on-write, and no
+   block may leak after `drain`.  Then the request contract: a deadline
+   and a cancel behind a full batch, ``queue_max=2`` under ``shed`` and
+   ``degrade``, and `stop`, each resolving typed;
 5. profile a few decode steps, and one long slot-cache prefill, to see
    where the eager loop's time goes;
 6. train the GPT-2-small parity configuration of
@@ -1760,6 +1772,246 @@ def slot_path(model, params):
     return engine, res
 
 
+# -- phase 4b: serving, shared prefix and request contract -----------------
+
+# the shared system prompt: 512 tokens, 32 blocks of 16
+SYSTEM_LEN = 512
+# the pressure engine's pool: the trash block, the shared prompt, and the
+# private blocks of three requests at the longest suffix (256 + 32 new
+# tokens = 18 blocks); one request's worst case is 50 blocks
+PRESSURE_BLOCKS = 1 + SYSTEM_LEN // 16 + 3 * 18
+
+
+def prefix_traffic(vocab):
+    """The system prompt and 16 (prompt, kwargs): 15 of the prompt plus
+    a 16-256-token suffix, odd ones sampled, then the prompt alone (the
+    full-cover bootstrap)."""
+    rng = np.random.RandomState(2)
+    system = rng.randint(0, vocab, size=SYSTEM_LEN).tolist()
+    out = []
+    for i in range(15):
+        suffix = rng.randint(0, vocab, size=int(rng.randint(16, 257)))
+        kw = dict(max_new_tokens=32, seed=100 + i)
+        if i % 2:
+            kw.update(temperature=0.8, top_k=50, top_p=0.95)
+        out.append((system + suffix.tolist(), kw))
+    out.append((list(system), dict(max_new_tokens=32, seed=115)))
+    return system, out
+
+
+def serve_threaded(engine, requests):
+    """Serve ``requests`` on the engine's own thread: the first alone
+    until its first token (its prefill registers the shared prompt), then
+    the rest at once; drain; return the requests and their numbers."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    first = engine.submit(*requests[0][:1], **requests[0][1])
+    while not first.tokens:
+        if first.done or time.perf_counter() - t0 > 120:
+            raise SystemExit("the first shared-prefix request produced no "
+                             "token")
+        time.sleep(0.0005)
+    reqs = [first] + [engine.submit(p, **kw) for p, kw in requests[1:]]
+    outs = [r.result(timeout=600) for r in reqs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    stragglers = engine.drain()
+    if stragglers:
+        raise SystemExit("drain left %d stragglers" % len(stragglers))
+    ttft = sorted(r.ttft_ms for r in reqs)
+    gen = sum(len(o) for o in outs)
+    return reqs, {
+        "requests": len(reqs), "generated_tokens": gen, "wall_s": wall,
+        "tokens_per_s": gen / wall, "ttft_ms_median": statistics.median(ttft),
+        "ttft_ms_p99": float(np.percentile(ttft, 99)),
+        "ttft_ms_first": first.ttft_ms, "launches": launches,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "leaked_blocks": engine.leaked_blocks(), "stats": dict(engine.stats)}
+
+
+def decision_margin(model, params, prompt, gen, j, kw):
+    """The margin of the choice of generated token ``j`` on the plain
+    float32 path: top-1 minus top-2 of the logits for a greedy request,
+    of the sampler's scores (Gumbel noise plus the masked, tempered
+    logits) for a sampled one."""
+    from mxnet_tpu_torch.serving import sampling
+    dev = params["embed_weight"].device
+    seq = list(prompt) + list(gen[:j])
+    with plain_kernels():
+        logits, _ = model.prefill(params, torch.tensor([seq], device=dev),
+                                  torch.tensor([len(seq)], device=dev))
+    score = logits.float()
+    t = kw.get("temperature", 0.0)
+    if t > 0:
+        masked = sampling._mask_top_k_top_p(
+            score / t, torch.tensor([kw.get("top_k", 0)], device=dev),
+            torch.tensor([kw.get("top_p", 1.0)], device=dev))
+        noise = -torch.log(-torch.log(sampling.uniform(
+            torch.tensor([kw["seed"]], device=dev),
+            torch.tensor([len(seq)], device=dev), score.shape[-1])))
+        score = noise + masked
+    top = torch.topk(score[0], 2).values
+    return float(top[0] - top[1])
+
+
+def same_tokens(label, model, params, requests, want, got):
+    """Tokens of two runs, request by request: where one parts from the
+    other, the choice there must have been within LOGIT_TOL on the plain
+    float32 path (a near-tie that rounding may break either way)."""
+    parted = []
+    for (prompt, kw), a, b in zip(requests, want, got):
+        if a.tokens == b.tokens:
+            continue
+        j = next((i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
+                  if x != y), min(len(a.tokens), len(b.tokens)))
+        margin = decision_margin(model, params, prompt, a.tokens, j, kw)
+        log("%s: request %d parts at generated position %d (%s vs %s), "
+            "plain f32 margin %.3e (bar %.0e)"
+            % (label, a.id, j, a.tokens[j:j + 1], b.tokens[j:j + 1],
+               margin, LOGIT_TOL))
+        parted.append({"request": a.id, "position": j, "margin": margin})
+        if not margin < LOGIT_TOL:
+            raise SystemExit("%s: tokens part where the choice was clear"
+                             % label)
+    log("%s: %d of %d requests equal token for token"
+        % (label, len(requests) - len(parted), len(requests)))
+    return parted
+
+
+def print_prefix(label, res):
+    log("%s: %d requests, %d tokens in %.3f s = %.1f tok/s, ttft first %.1f "
+        "ms, median %.1f ms, p99 %.1f ms, max_memory_allocated %d B, "
+        "leaked blocks %d, launches %s, stats %s"
+        % (label, res["requests"], res["generated_tokens"], res["wall_s"],
+           res["tokens_per_s"], res["ttft_ms_first"], res["ttft_ms_median"],
+           res["ttft_ms_p99"], res["max_memory_allocated"],
+           res["leaked_blocks"], res["launches"], res["stats"]))
+
+
+def contract_cases(model, params):
+    """The request contract on the card, at small cost: a deadline and a
+    cancel behind a full batch, shed and degrade on an engine that
+    nothing drains, and stop; no block leaks after any."""
+    out = {}
+    eng = ServingEngine(model, params, max_batch=8, n_blocks=512)
+    eng.start()
+    rng = np.random.RandomState(4)
+    full = [eng.submit(rng.randint(0, model.vocab_size, size=64).tolist())
+            for _ in range(8)]
+    t0 = time.perf_counter()
+    while not all(r.tokens for r in full):   # the batch is full
+        if time.perf_counter() - t0 > 60:
+            raise SystemExit("the contract batch was not admitted")
+        time.sleep(0.0005)
+    late = eng.submit([1, 2, 3], deadline_ms=1)
+    queued = eng.submit([4, 5, 6])
+    queued.cancel()
+    for r, cls in ((late, "ServeDeadlineExceeded"),
+                   (queued, "ServeCancelled")):
+        try:
+            r.result(timeout=60)
+        except Exception as e:  # the typed error is the expected outcome
+            out[cls] = type(e).__name__
+        if out.get(cls) != cls:
+            raise SystemExit("expected %s, got %s" % (cls, out.get(cls)))
+    if not all(len(r.result(timeout=120)) == 32 for r in full):
+        raise SystemExit("the full batch did not finish")
+    eng.stop()
+    out["deadline_cancel_stats"] = {k: eng.stats[k] for k in (
+        "expired", "cancelled", "completed", "prefills")}
+    leaks = [eng.leaked_blocks()]
+    for policy in ("shed", "degrade"):
+        eng = ServingEngine(model, params, max_batch=8, n_blocks=64,
+                            queue_max=2, overload=policy)
+        reqs = [eng.submit([7, 8]) for _ in range(2)]
+        try:
+            third = eng.submit([9])
+        except Exception as e:  # shed must refuse the third submit
+            third = e
+        if policy == "shed" and type(third).__name__ != "ServeOverload":
+            raise SystemExit("shed did not refuse the third submit")
+        if policy == "degrade" and third.max_new_tokens != 8:
+            raise SystemExit("degrade did not cap max_new_tokens at 8")
+        if policy == "degrade":
+            reqs.append(third)
+        eng.stop()
+        for r in reqs:
+            try:
+                r.result(timeout=5)
+                got = None
+            except Exception as e:  # stop resolves each one typed
+                got = type(e).__name__
+            if got != "ServeEngineDead":
+                raise SystemExit("stop left a request %s" % got)
+        out[policy] = {k: eng.stats[k] for k in ("shed", "degraded")}
+        leaks.append(eng.leaked_blocks())
+    out["leaked_blocks"] = leaks
+    if any(leaks):
+        raise SystemExit("the contract cases leaked blocks: %s" % leaks)
+    log("contract: %s" % out)
+    return out
+
+
+def prefix_phase(model, params):
+    """Phase 4b: the shared-prefix traffic through the default engine
+    (prefix caching on), the same through ``prefix=False`` and through an
+    engine whose pool must preempt, then the contract cases."""
+    system, requests = prefix_traffic(model.vocab_size)
+    res = {}
+    runs = {}
+    for label, kw in (("prefix on", {}), ("prefix off", {"prefix": False}),
+                      ("prefix on, pool %d" % PRESSURE_BLOCKS,
+                       {"n_blocks": PRESSURE_BLOCKS})):
+        engine = ServingEngine(model, params, max_batch=8, **kw)
+        engine.warmup()
+        engine.start()
+        reqs, r = serve_threaded(engine, requests)
+        print_prefix(label, r)
+        if r["leaked_blocks"]:
+            raise SystemExit("%s leaked %d blocks" % (label,
+                                                      r["leaked_blocks"]))
+        if r["launches"]["layer_norm"] == 0:
+            raise SystemExit("%s launched no LayerNorm kernel" % label)
+        runs[label] = reqs
+        res[label] = r
+        del engine
+        torch.cuda.empty_cache()
+    on, off, tight = (res[k] for k in res)
+    son, soff, stight = on["stats"], off["stats"], tight["stats"]
+    n = len(requests) - 1
+    checks = {
+        "prefix_hits >= 15": son["prefix_hits"] >= n,
+        "prefix_tokens = 15 x 512": son["prefix_tokens"] == n * SYSTEM_LEN,
+        "prefix_bootstraps >= 1": son["prefix_bootstraps"] >= 1,
+        "cow_copies >= 1": son["cow_copies"] >= 1,
+        "prefill_tokens saved = 15 x 512": bool(
+            son["preemptions"] or soff["preemptions"]
+            or soff["prefill_tokens"] - son["prefill_tokens"]
+            == n * SYSTEM_LEN),
+        "pressure preempts": stight["preemptions"] > 0}
+    log("shared prefix checks: %s; pressure engine: preemptions %d, stalls "
+        "%d, thrash_trips %d, prefix_evictions %d, cow_copies %d, "
+        "blocks_free_min %d"
+        % (checks, stight["preemptions"], stight["stalls"],
+           stight["thrash_trips"], stight["prefix_evictions"],
+           stight["cow_copies"], stight["blocks_free_min"]))
+    if not all(checks.values()):
+        raise SystemExit("shared prefix checks failed: %s" % checks)
+    labels = list(runs)
+    res["parted_off"] = same_tokens("prefix off vs on", model, params,
+                                    requests, runs[labels[0]],
+                                    runs[labels[1]])
+    res["parted_pressure"] = same_tokens("pressure vs roomy", model, params,
+                                         requests, runs[labels[0]],
+                                         runs[labels[2]])
+    res["checks"] = checks
+    res["contract"] = contract_cases(model, params)
+    return res
+
+
 def profiled(fn):
     """Run ``fn`` under `torch.profiler` and return the window's wall
     seconds, its device busy seconds (the sum of kernel and copy times),
@@ -3265,7 +3517,12 @@ def main():
         torch.cuda.empty_cache()
         engine, slot = slot_path(model, params)
         prefill_prof = prefill_profile(engine, model)
-        del engine, params
+        del engine
+        torch.cuda.empty_cache()
+
+    with phase("serving, shared prefix and request contract"):
+        prefix = prefix_phase(model, params)
+        del params
         torch.cuda.empty_cache()
 
     per_layer = {"layer_norm": 2 * TRAIN["num_layers"] + 1,
@@ -3373,6 +3630,8 @@ def main():
 
     kernels = kernels_line(cases, {
         "paged": paged["launches"], "slot": slot["launches"],
+        **{"prefix " + k: v["launches"] for k, v in prefix.items()
+           if isinstance(v, dict) and "launches" in v},
         "train_bhsd": hsd["launches"], "train_bsd": bsd["launches"],
         "train_fused": fused["launches"],
         "train_fused_5pass": five["launches"],
@@ -3404,7 +3663,7 @@ def main():
          "build_s": took,
          "ptxas": {name: ptxas_info(name) for name in _build.KERNELS},
          "phase_s": phases, "cases": cases, "paged": paged,
-         "slot": slot, "decode_profile": profile,
+         "slot": slot, "prefix": prefix, "decode_profile": profile,
          "prefill_profile": prefill_prof, "train_bhsd": hsd,
          "gradients": grads, "train_bsd": bsd, "gradients_bsd": bsd_grads,
          "train_bhsd_f32": hsd32,

@@ -11,7 +11,10 @@ same cache layouts, the same programs.
   (num_layers, 2, n_slots, S_max, embed);
 * ``prefill_paged`` / ``decode_paged`` do the same over the paged block
   pool (num_layers, 2, n_blocks, block_size, embed) through int32 block
-  tables, with `chunk_attention` / `paged_decode_attention`.
+  tables, with `chunk_attention` / `paged_decode_attention`;
+* ``copy_block`` copies one block of the pool to another, the prefix
+  cache's copy-on-write (plain indexing, as the JAX one is a gather and
+  a scatter outside any Pallas kernel).
 
 Every program runs LayerNorm through the port's kernel, 2L + 1 times.
 PyTorch runs eagerly, so the cache and the pool are updated in place
@@ -269,6 +272,17 @@ class TransformerKVModel:
             x = x + self._ffn(params, hn.reshape(-1, e), p).reshape(b, c, e)
         last = x[torch.arange(b, device=x.device), length.long() - 1]
         return self._head(params, last), pool
+
+    def copy_block(self, pool, src, dst):
+        """Copy one block's cached rows, every layer, K and V, from block
+        ``src`` to block ``dst`` (ints or (1,) int tensors) in place: the
+        copy-on-write body, so a writer about to touch a shared block
+        gets a private copy and the original keeps serving its other
+        readers.  Returns the pool."""
+        src = torch.as_tensor(src, device=pool.device).long().reshape(-1)
+        dst = torch.as_tensor(dst, device=pool.device).long().reshape(-1)
+        pool[:, :, dst] = pool[:, :, src]
+        return pool
 
     def decode_paged(self, params, pool, token, pos, tables):
         """One generation step over the paged pool, updated in place.

@@ -1,16 +1,27 @@
 """Typed serving errors: the part of `mxnet_tpu/serving/errors.py` that
-this slice of the port raises.
+this port raises.
 
-Every one subclasses `ServeError`, itself an `MXNetError`, so a client
-can branch on what went wrong.  The deadline, overload, cancel,
-quarantine, quantization and replica-death errors belong to engine
-features a later slice ports.
+Every way a `ServeRequest` can fail resolves to exactly one subclass of
+`ServeError`, itself an `MXNetError`, so a client can branch on what went
+wrong (retry a shed request, drop an expired one, page on an engine
+death) instead of matching message strings.  The scopes:
+
+* request-scoped: `ServeOverload`, `ServeDeadlineExceeded`,
+  `ServeCancelled`, `ServeTimeout` (a client-side wait, nothing wrong on
+  the server), `ServeBlocksExhausted` (at submit);
+* engine-scoped: `ServeEngineDead` (the scheduler died, or the engine
+  was stopped or is draining).
+
+The quarantine, cache-invalidation and quantization errors belong to
+the failure-handling and quantization slices, which are not ported.
 """
 from __future__ import annotations
 
 from ..base import MXNetError
 
-__all__ = ["ServeError", "ServeTimeout", "ServeBlocksExhausted"]
+__all__ = ["ServeError", "ServeTimeout", "ServeOverload",
+           "ServeDeadlineExceeded", "ServeCancelled", "ServeBlocksExhausted",
+           "ServeEngineDead"]
 
 
 class ServeError(MXNetError):
@@ -22,9 +33,31 @@ class ServeTimeout(ServeError):
     finished.  Client-side only: the request may still complete."""
 
 
+class ServeOverload(ServeError):
+    """Admission control shed the request: the queue was at
+    `MXNET_SERVE_QUEUE_MAX` under the `shed` overload policy (or past
+    the 4x backstop under `degrade`).  Safe to retry elsewhere or
+    later."""
+
+
+class ServeDeadlineExceeded(ServeError):
+    """The request's `deadline_ms` passed before it finished; the
+    scheduler retired it at iteration granularity (a queued request never
+    reaches a prefill, a running one leaves the next decode batch)."""
+
+
+class ServeCancelled(ServeError):
+    """`ServeRequest.cancel()` retired the request."""
+
+
 class ServeBlocksExhausted(ServeError):
     """The paged K/V block pool can never hold this request: its
     worst-case footprint (prompt + max_new_tokens, clipped to the cache
     depth) exceeds the pool's usable blocks.  Raised at `submit`;
     transient pressure is not this error (the request queues, or a
     running one is preempted and replayed)."""
+
+
+class ServeEngineDead(ServeError):
+    """The owning scheduler died, or the engine was stopped or is
+    draining, before the request finished."""

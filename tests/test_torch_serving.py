@@ -105,13 +105,32 @@ def test_entry_points_run_on_cuda_unless_asked(models, params):
 
 
 @pytest.mark.parametrize("kw", [
-    {"prefix": True}, {"spec": True}, {"quant": "int8"}, {"megastep": 4},
-    {"tier": True}, {"deadline_ms": 50}, {"overload": "shed"},
-    {"queue_max": 4}, {"name": "replica1"}, {"kv_quant": "int8"}])
+    {"spec": True}, {"quant": "int8"}, {"megastep": 4}, {"tier": True},
+    {"kv_quant": "int8"}])
 def test_later_slice_keywords_are_refused(models, params, kw):
     _, tm = models
     with pytest.raises(TypeError):
         ServingEngine(tm, params, ctx="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw,attr,want", [
+    ({"prefix": False}, "_prefix", None),
+    ({"deadline_ms": 50}, "_deadline_ms_default", 50.0),
+    ({"overload": "DEGRADE"}, "_overload", "degrade"),
+    ({"queue_max": 4}, "_queue_max", 4),
+    ({"name": "replica1"}, "name", "replica1")])
+def test_request_contract_keywords_are_read_back(models, params, kw, attr,
+                                                 want):
+    """The keywords of the request contract and the prefix cache are
+    taken, and land where the JAX engine keeps them."""
+    jm, tm = models
+    teng = ServingEngine(tm, params, ctx="cpu", **kw)
+    jeng = JServingEngine(jm, params, **kw)
+    assert getattr(teng, attr) == want
+    if attr == "_prefix":
+        assert jeng._prefix is None
+    else:
+        assert getattr(jeng, attr) == want
 
 
 def test_block_allocator_matches_jax():
@@ -276,7 +295,10 @@ def test_batched_engine_equals_solo_runs(models, params, paged):
     assert eng.stats["tokens"] == sum(max_news)
     assert not eng._active and len(eng._free) == eng.max_batch
     if paged:
-        assert eng._alloc.free_blocks == eng._alloc.capacity
+        # retired registered blocks park in the prefix cache's pool
+        assert eng.leaked_blocks() == 0
+        assert eng._alloc.free_blocks + eng._prefix.parked_count \
+            == eng._alloc.capacity
 
 
 def _margins(jm, params, reqs):
@@ -359,7 +381,9 @@ def test_preemption_replays_exactly(models, params):
         rs = [eng.submit(p, **kw) for p, kw in zip(prompts, reqs)]
         eng.run_until_idle(timeout=60)
         outs.append([r.result(1) for r in rs])
-        assert eng._alloc.free_blocks == eng._alloc.capacity
+        assert eng.leaked_blocks() == 0
+        assert eng._alloc.free_blocks + eng._prefix.parked_count \
+            == eng._alloc.capacity
     assert eng.stats["preemptions"] >= 1
     assert outs[1] == outs[0]
     assert all(len(o) == 10 for o in outs[1])
