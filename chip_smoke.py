@@ -161,7 +161,27 @@ Phases, each of which fails the run with a non-zero exit:
    64, vocab 64, batch 32, bucket 32, Adam; checked at batch 4) and
    FCN-8s at `examples/fcn_xs.py`'s (21 classes, 64x64, batch 4, SGD,
    bilinear upscore kernels; checked at batch 1 with its Dropouts at
-   p = 0).
+   p = 0);
+19. the Module API: (a) the parity configuration in float32 at batch 8
+   through `mx.mod.Module.fit` (Adam lr 1e-3, kvstore 'local', an
+   `NDArrayIter` of 6 seeded batches, ``MXNET_DEVICE_PREFETCH=2``,
+   ``MXNET_METRIC_INTERVAL=3``): its parameters bit for bit those of
+   phase 14's `simple_bind` loop on the same batches from the same
+   parameters, exactly 25/25 LayerNorm and 12/12/12 float32 flash
+   launches a step, 2 blocking metric fetches and 6 staged batches; the
+   same under ``MXNET_DEVICE_PREFETCH=0`` (bit for bit again), with ms a
+   step and one profiled step of each; (b) the fused configuration in
+   bf16 at batch 32 through `mx.mod.SPMDModule.fit` (Adam, 5 batches):
+   bit for bit `SPMDTrainer.step` on the same batches, rows 1-4 and
+   13-14 launched as in phase 10; (c) (a)'s fit interrupted after batch
+   4 with ``auto_checkpoint``, ``checkpoint_every=3``, finished by a
+   fresh module with ``resume="auto"``: parameters and Adam states bit
+   for bit the straight fit's, the checkpoint's bytes and write ms;
+   (d) `examples/lstm_bucketing.py`'s defaults (buckets 8/16/24/32, 2
+   layers, hidden and embed 64, batch 32, Adam lr 0.01) through
+   `mx.mod.BucketingModule` for one epoch of its synthetic sentences:
+   every bucket on the default bucket's parameter tensors, the
+   parameters within 1e-4 of max|w| of the same fit on the CPU.
 
 It prints each phase's seconds, a ``kernels`` JSON line (launches,
 errors, times, bounds; the float32 flash forward's and backward's routes
@@ -2778,6 +2798,614 @@ def api_lm_path(expect, steps=6):
     return res
 
 
+# -- phase 19: the Module API ------------------------------------------------
+
+# (a) and (c): the parity configuration in float32 at batch 8 through
+# `mx.mod.Module`, Adam lr 1e-3, over 6 seeded batches; (b) the fused
+# configuration in bf16 at batch 32 through `mx.mod.SPMDModule`, 5 batches
+MODULE_BATCHES = 6
+SPMD_MODULE_BATCHES = 5
+MODULE_PINS = {"MXNET_DEVICE_PREFETCH": "2", "MXNET_METRIC_INTERVAL": "3"}
+# (d) `examples/lstm_bucketing.py`'s defaults on its synthetic sentences
+# (`data/ptb.train.txt` is not in the repo): buckets 8/16/24/32, 2 layers,
+# hidden and embed 64, batch 32, Adam lr 0.01, `Xavier`, one epoch
+LSTM_BUCKETS = (8, 16, 24, 32)
+LSTM_BUCKET = dict(num_layers=2, num_hidden=64, num_embed=64, batch=32,
+                   lr=0.01, sentences=400, vocab=64)
+BUCKET_TOL = 1e-4
+
+
+_WINDOW_OPEN, _WINDOW_CLOSE = "step_window_open", "step_window_close"
+
+
+def _read_window(prof):
+    """The profiled window between `_StepWatch`'s two marks: its length,
+    the device's busy time (the union of its kernel and copy intervals
+    clipped to the window, so a side stream's copy under a kernel counts
+    once) and idle share, and the largest device and host items."""
+    events = prof.events()
+    marks = {e.name: e.time_range.start for e in events
+             if e.name in (_WINDOW_OPEN, _WINDOW_CLOSE)}
+    t0, t1 = marks[_WINDOW_OPEN], marks[_WINDOW_CLOSE]
+    spans, by_name = [], {}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        a, b = max(e.time_range.start, t0), min(e.time_range.end, t1)
+        if b <= a:
+            continue
+        spans.append((a, b))
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + (b - a))
+    busy, end = 0.0, t0
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    wall = t1 - t0
+    host = sorted(prof.key_averages(),
+                  key=lambda e: -e.self_cpu_time_total)[:8]
+    return {"profiled_step_ms": wall / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1 - busy / wall,
+            "device_items": len(spans),
+            "top_device_ops_ms": sorted(
+                ((k[:60], n, us / 1e3) for k, (n, us) in by_name.items()),
+                key=lambda t: -t[2])[:6],
+            "top_host_ops_ms": [(e.key, e.count, e.self_cpu_time_total / 1e3)
+                                for e in host]}
+
+
+def _step_spread(runs):
+    """Steps 2 on of each run of one setting: each run's median, and the
+    pooled median, range and standard deviation."""
+    steps = [t for r in runs for t in r[1:]]
+    return {"run_medians": [statistics.median(r[1:]) for r in runs],
+            "median": statistics.median(steps), "min": min(steps),
+            "max": max(steps), "sd": statistics.stdev(steps),
+            "steps": len(steps)}
+
+
+class _StepWatch:
+    """A ``batch_end_callback`` of `BaseModule.fit` on the card: each
+    step's launches (read, then set to 0), a CUDA event at its end, and
+    optionally one profiled step.  The profiler opens at the end of batch
+    ``profile_at - 2`` with no sync, so the device keeps the queue the loop
+    built, and batch ``profile_at - 1`` runs under it unread; the window is
+    batch ``profile_at`` alone, from the host's end of batch
+    ``profile_at - 1`` to the end of batch ``profile_at``, and the device
+    is busy for the union of its kernels and copies inside it."""
+
+    def __init__(self, profile_at=None, then=None):
+        self.counts, self.events, self.metric = [], [], []
+        self.profile_at = profile_at
+        self.then = then
+        self.prof = None
+        self.window = None
+
+    def start(self):
+        torch.cuda.synchronize()
+        reset_counts()
+        self._event()
+
+    def _event(self):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+
+    def __call__(self, p):
+        self.counts.append(read_counts())
+        reset_counts()
+        self._event()
+        self.metric.append(p.eval_metric.get_name_value())
+        if self.profile_at is not None and p.nbatch == self.profile_at - 2:
+            self.prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            self.prof.__enter__()
+        elif self.prof is not None and p.nbatch == self.profile_at - 1:
+            with torch.profiler.record_function(_WINDOW_OPEN):
+                pass
+        elif self.prof is not None and p.nbatch == self.profile_at:
+            torch.cuda.synchronize()
+            with torch.profiler.record_function(_WINDOW_CLOSE):
+                pass
+            self.prof.__exit__(None, None, None)
+            self.window = _read_window(self.prof)
+            self.prof = None
+        if self.then is not None:
+            self.then(p)
+
+    def step_ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in zip(self.events,
+                                                 self.events[1:])]
+
+
+def module_batches(n, batch, cfg, seed):
+    """``n`` batches of token ids and labels from `RandomState(seed)`."""
+    rng = np.random.RandomState(seed)
+    shape = (n * batch, cfg["seq_len"])
+    return (rng.randint(0, cfg["vocab_size"], shape).astype(np.int32),
+            rng.randint(0, cfg["vocab_size"], shape).astype(np.float32))
+
+
+def _host_params(arrays):
+    """Float32 copies on the host (never views of the arrays)."""
+    return {n: (a.data if isinstance(a, mx.nd.NDArray) else a).detach()
+            .to("cpu", torch.float32, copy=True) for n, a in arrays.items()}
+
+
+def _max_gap(got, want):
+    """(max |got - want| over every tensor, its name)."""
+    gaps = {n: float((got[n] - want[n]).abs().max()) for n in want}
+    name = max(gaps, key=gaps.get)
+    return gaps[name], name
+
+
+def _adam_states(updater):
+    return {"%s.%d" % (k, j): s.data.detach().to("cpu", copy=True)
+            for k, v in updater.states.items() for j, s in enumerate(v)}
+
+
+class _Stop(Exception):
+    pass
+
+
+def module_lm_path(expect):
+    """(a) and (c): the parity LM in float32 at batch 8 through
+    `mx.mod.Module.fit` (Adam lr 1e-3, kvstore 'local', an `NDArrayIter`
+    of 6 seeded batches, ``MXNET_DEVICE_PREFETCH=2``,
+    ``MXNET_METRIC_INTERVAL=3``) against phase 14's `simple_bind` loop on
+    the same batches from the same parameters: bit for bit, exactly 25/25
+    LayerNorm and 12/12/12 float32 flash launches a step, 2 blocking
+    fetches; the same fit under ``MXNET_DEVICE_PREFETCH=0``, both timed
+    twice more (2, 0, 0, 2) for the spread and profiled once each; then the fit interrupted after batch 4 with
+    ``auto_checkpoint``/``checkpoint_every=3`` and finished by a fresh
+    module with ``resume="auto"``: parameters and Adam states bit for bit
+    the straight fit's."""
+    import shutil
+    import tempfile
+
+    cfg, batch = PARITY, API_LM_BATCH
+    shapes = {"data": (batch, cfg["seq_len"]),
+              "softmax_label": (batch, cfg["seq_len"])}
+    X, Y = module_batches(MODULE_BATCHES, batch, cfg, seed=1)
+    mx.random.seed(0)
+    net = mx.models.get_transformer_lm(**cfg)
+    names = [n for n in net.list_arguments() if n not in shapes]
+
+    # phase 14's loop on these batches
+    exe = net.simple_bind(mx.gpu(0), grad_req="write", **shapes)
+    init = mx.init.Uniform(0.07)
+    for n in names:
+        init(n, exe.arg_dict[n])
+    initial = {n: mx.nd.NDArray(t, mx.cpu())
+               for n, t in _host_params(
+                   {n: exe.arg_dict[n] for n in names}).items()}
+    updater = mx.optimizer.get_fused_updater(
+        mx.optimizer.Adam(learning_rate=1e-3, rescale_grad=1.0 / batch))
+    idx = [net.list_arguments().index(n) for n in names]
+    weights = [exe.arg_arrays[i] for i in idx]
+    grads = [exe.grad_arrays[i] for i in idx]
+    loop_ms = []
+    for i in range(MODULE_BATCHES):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        exe.forward(is_train=True, data=X[i * batch:(i + 1) * batch],
+                    softmax_label=Y[i * batch:(i + 1) * batch])
+        exe.backward()
+        updater(list(range(len(idx))), grads, weights)
+        b.record()
+        b.synchronize()
+        loop_ms.append(a.elapsed_time(b))
+    loop = _host_params({n: exe.arg_dict[n] for n in names})
+    del exe, updater, weights, grads
+    torch.cuda.empty_cache()
+
+    def fit(pins, profile_at=None, then=None, **kw):
+        mod = mx.mod.Module(net, context=mx.gpu(0))
+        watch = _StepWatch(profile_at, then)
+        it = mx.io.NDArrayIter(X, Y, batch_size=batch)
+        with pinned(**pins):
+            watch.start()
+            t0 = time.perf_counter()
+            try:
+                mod.fit(it, num_epoch=1, optimizer="adam",
+                        optimizer_params={"learning_rate": 1e-3},
+                        kvstore="local", arg_params=initial,
+                        eval_metric="acc", batch_end_callback=watch, **kw)
+            except _Stop:
+                pass
+            wall = time.perf_counter() - t0
+        return mod, watch, wall
+
+    pins0 = dict(MODULE_PINS, MXNET_DEVICE_PREFETCH="0")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mod, watch, fit_s = fit(MODULE_PINS)
+    peak = torch.cuda.max_memory_allocated()
+    straight = _host_params(mod.get_params()[0])
+    straight_states = _adam_states(mod._updater)
+    stats = dict(mod.stats)
+    del mod
+    torch.cuda.empty_cache()
+    gap, gap_name = _max_gap(straight, loop)
+
+    mod0, watch0, _ = fit(pins0)
+    gap0, _ = _max_gap(_host_params(mod0.get_params()[0]), straight)
+    stats0 = dict(mod0.stats)
+    del mod0
+    torch.cuda.empty_cache()
+    # prefetch 2, 0, 0, 2 with no profiler: the step times and their
+    # spread; then one profiled step of each, read with the device's queue
+    # full (`_StepWatch`)
+    runs = {"2": [watch.step_ms()], "0": [watch0.step_ms()]}
+    for key, pins in (("0", pins0), ("2", MODULE_PINS)):
+        m, w, _ = fit(pins)
+        runs[key].append(w.step_ms())
+        del m
+        torch.cuda.empty_cache()
+    windows = {}
+    for key, pins in (("2", MODULE_PINS), ("0", pins0)):
+        m, w, _ = fit(pins, profile_at=MODULE_BATCHES - 1)
+        windows[key] = w.window
+        del m
+        torch.cuda.empty_cache()
+    spread = {k: _step_spread(v) for k, v in runs.items()}
+    step_ms, step_ms0 = runs["2"][0], runs["0"][0]
+
+    # (c): a crash after batch 4 (0-based 3), its checkpoint at 3
+    tmp = tempfile.mkdtemp(dir=os.environ.get("TMPDIR"))
+    try:
+        prefix = os.path.join(tmp, "lm")
+
+        def crash(p):
+            if p.nbatch == 3:
+                raise _Stop()
+
+        # every auto-checkpoint fit writes, timed (bytes, ms)
+        writes = []
+        save_auto = mx.checkpoint.save_auto
+
+        def timed_save(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nbytes = save_auto(*args, **kw)
+            writes.append((nbytes, 1e3 * (time.perf_counter() - t0)))
+            return nbytes
+
+        mx.checkpoint.save_auto = timed_save
+        first, _, first_s = fit(MODULE_PINS, then=crash,
+                                auto_checkpoint=prefix, checkpoint_every=3)
+        first_stats = dict(first.stats)
+        del first
+        torch.cuda.empty_cache()
+        resumed, _, resumed_s = fit(MODULE_PINS, auto_checkpoint=prefix,
+                                    checkpoint_every=3, resume="auto")
+        resumed_stats = dict(resumed.stats)
+        rgap, rgap_name = _max_gap(_host_params(resumed.get_params()[0]),
+                                   straight)
+        sgap, sgap_name = _max_gap(_adam_states(resumed._updater),
+                                   straight_states)
+        del resumed
+        torch.cuda.empty_cache()
+    finally:
+        mx.checkpoint.save_auto = save_auto
+        shutil.rmtree(tmp, ignore_errors=True)
+    nbytes = writes[0][0]
+    write_ms = statistics.median(w[1] for w in writes)
+
+    ms, ms0 = spread["2"]["median"], spread["0"]["median"]
+    # staging's gain counts only beyond twice the larger per-step spread
+    staging_ms = ms0 - ms
+    resolved = abs(staging_ms) > 2 * max(spread["2"]["sd"],
+                                         spread["0"]["sd"])
+    tokens = batch * cfg["seq_len"]
+    launches = {k: sum(s[k] for s in watch.counts) for k in watch.counts[0]}
+    res = {"config": cfg, "batch": batch, "dtype": "float32",
+           "batches": MODULE_BATCHES, "pins": MODULE_PINS,
+           "optimizer": "Adam lr 1e-3 (Module.init_optimizer, kvstore "
+                        "'local' on one device: get_fused_updater)",
+           "step_ms": step_ms, "step_ms_runs": runs["2"],
+           "step_ms_median": ms, "step_ms_spread": spread["2"],
+           "tokens_per_s": tokens / (ms / 1e3),
+           "simple_bind_loop_step_ms": loop_ms,
+           "simple_bind_loop_step_ms_median": statistics.median(loop_ms[1:]),
+           "fit_s": fit_s, "stats": stats, "launches": launches,
+           "launches_by_step": watch.counts,
+           "metric_by_step": watch.metric,
+           "profiled": windows["2"], "max_memory_allocated": peak,
+           "vs_simple_bind_loop_max_abs": gap,
+           "vs_simple_bind_loop_worst": gap_name,
+           "prefetch0": {"step_ms": step_ms0, "step_ms_runs": runs["0"],
+                         "step_ms_median": ms0,
+                         "step_ms_spread": spread["0"],
+                         "tokens_per_s": tokens / (ms0 / 1e3),
+                         "stats": stats0, "profiled": windows["0"],
+                         "vs_prefetch2_max_abs": gap0},
+           "staging_ms_saved": staging_ms,
+           "staging_resolved": resolved,
+           "resume": {"first_leg_stats": first_stats,
+                      "resumed_stats": resumed_stats,
+                      "first_leg_s": first_s, "resumed_leg_s": resumed_s,
+                      "params_max_abs": rgap, "params_worst": rgap_name,
+                      "adam_states_max_abs": sgap,
+                      "adam_states_worst": sgap_name,
+                      "checkpoint_bytes": nbytes,
+                      "checkpoint_write_ms": write_ms,
+                      "checkpoint_writes": writes}}
+
+    def brief(w):
+        return ("%.2f ms, device busy %.2f ms, idle share %.4f, %d device "
+                "items" % (w["profiled_step_ms"], w["device_busy_ms"],
+                           w["device_idle_share"], w["device_items"]))
+
+    log("module lm: mx.mod.Module.fit of the parity configuration, float32, "
+        "batch %d, %d batches, Adam, prefetch 2, metric interval 3: step ms "
+        "(CUDA events, no profiler) %s; stats %s; launches per step %s; "
+        "params vs the simple_bind loop max |d| %.3e (%s); "
+        "max_memory_allocated %d B; phase 14's loop on the same batches %s"
+        % (batch, MODULE_BATCHES, ["%.2f" % t for t in step_ms], stats,
+           [{k: v for k, v in s.items() if v} for s in watch.counts], gap,
+           gap_name, peak, ["%.2f" % t for t in loop_ms]))
+    log("module lm, MXNET_DEVICE_PREFETCH=0: step ms %s; stats %s; params "
+        "vs prefetch 2 max |d| %.3e"
+        % (["%.2f" % t for t in step_ms0], stats0, gap0))
+    for key in ("2", "0"):
+        sp = spread[key]
+        log("module lm, prefetch %s over runs in the order 2, 0, 0, 2: run "
+            "medians (steps 2-%d) %s ms; pooled median %.3f ms (%.1f "
+            "tokens/s), range %.3f-%.3f, sd %.3f over %d steps; profiled "
+            "step (queue full at the window's start): %s; top device %s; "
+            "top host %s"
+            % (key, MODULE_BATCHES, ["%.3f" % t for t in sp["run_medians"]],
+               sp["median"], tokens / (sp["median"] / 1e3), sp["min"],
+               sp["max"], sp["sd"], sp["steps"], brief(windows[key]),
+               windows[key]["top_device_ops_ms"],
+               windows[key]["top_host_ops_ms"]))
+    log("module lm: staging (prefetch 2 against 0) %.3f ms a step, %s (bar: "
+        "twice the larger per-step sd, %.3f ms)"
+        % (staging_ms, "resolved" if resolved else "unresolved",
+           2 * max(spread["2"]["sd"], spread["0"]["sd"])))
+    log("module lm resume: interrupted after batch 4 (stats %s), resumed "
+        "(stats %s): params vs the straight fit max |d| %.3e (%s), Adam "
+        "states %.3e (%s); checkpoint %d B, writes (B, ms) %s"
+        % (first_stats, resumed_stats, rgap, rgap_name, sgap, sgap_name,
+           nbytes, writes))
+    if gap != 0 or gap0 != 0:
+        raise SystemExit("module lm: Module.fit's parameters differ from the "
+                         "simple_bind loop's (%.3e at %s) or between prefetch "
+                         "2 and 0 (%.3e)" % (gap, gap_name, gap0))
+    if stats["train.host_blocking_fetches"] != 2 or \
+            stats["io.device_batches"] != MODULE_BATCHES or \
+            stats0["io.device_batches"] != 0:
+        raise SystemExit("module lm: stats %s, %s: expected 2 blocking "
+                         "fetches and %d staged batches (0 with prefetch 0)"
+                         % (stats, stats0, MODULE_BATCHES))
+    for i, counts in enumerate(watch.counts):
+        off = {k: n for k, n in counts.items() if n != expect.get(k, 0)}
+        if off:
+            raise SystemExit("module lm: step %d launched %s, expected %s"
+                             % (i + 1, off, expect))
+    if rgap != 0 or sgap != 0 or resumed_stats["train.resumes"] != 1 or \
+            first_stats["train.auto_checkpoints"] != 1:
+        raise SystemExit("module lm resume: params %.3e (%s), Adam states "
+                         "%.3e (%s) from the straight fit; stats %s, %s"
+                         % (rgap, rgap_name, sgap, sgap_name, first_stats,
+                            resumed_stats))
+    return res
+
+
+def spmd_module_path(expect):
+    """(b): the fused configuration in bf16 at batch 32 through
+    `mx.mod.SPMDModule.fit` (Adam lr 1e-3, 5 seeded batches), against
+    `SPMDTrainer.step` on the same batches from the same seed (Adam's v in
+    float32): bit for bit, with rows 1-4 (bf16) and 13-14 launched as in
+    phase 10."""
+    cfg, batch = FUSED, TRAIN_BATCH
+    X, Y = module_batches(SPMD_MODULE_BATCHES, batch, cfg, seed=2)
+    mx.random.seed(0)
+    net = mx.models.get_transformer_lm(**cfg)
+    mod = mx.mod.SPMDModule(net, dtype="bfloat16")
+    watch = _StepWatch()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    watch.start()
+    mod.fit(mx.io.NDArrayIter(X, Y, batch_size=batch), num_epoch=1,
+            optimizer="adam", optimizer_params={"learning_rate": 1e-3},
+            initializer=mx.init.Uniform(0.07), eval_metric="torch",
+            batch_end_callback=watch)
+    step_ms = watch.step_ms()
+    peak = torch.cuda.max_memory_allocated()
+    got = _host_params(mod._trainer.params)
+    stats = dict(mod.stats)
+    del mod
+    torch.cuda.empty_cache()
+
+    trainer = lm_trainer(cfg, batch, "bfloat16")
+    for i in range(SPMD_MODULE_BATCHES):
+        trainer.step({"data": X[i * batch:(i + 1) * batch],
+                      "softmax_label": Y[i * batch:(i + 1) * batch]})
+    gap, gap_name = _max_gap(got, _host_params(trainer.params))
+    del trainer
+    torch.cuda.empty_cache()
+
+    ms = statistics.median(step_ms[1:])
+    launches = {k: sum(s[k] for s in watch.counts) for k in watch.counts[0]}
+    res = {"config": cfg, "batch": batch, "dtype": "bfloat16",
+           "batches": SPMD_MODULE_BATCHES, "optimizer": "adam lr 1e-3",
+           "step_ms": step_ms, "step_ms_median": ms,
+           "tokens_per_s": batch * cfg["seq_len"] / (ms / 1e3),
+           "stats": stats, "launches": launches,
+           "launches_by_step": watch.counts,
+           "mean_nll_by_step": watch.metric, "max_memory_allocated": peak,
+           "vs_trainer_max_abs": gap, "vs_trainer_worst": gap_name}
+    log("spmd module: mx.mod.SPMDModule.fit of the fused configuration, "
+        "bf16, batch %d, %d batches, Adam: step ms %s, median %.2f ms = %.1f "
+        "tokens/s; running mean NLL %s; launches per step %s; params vs "
+        "SPMDTrainer.step max |d| %.3e (%s); max_memory_allocated %d B"
+        % (batch, SPMD_MODULE_BATCHES, ["%.2f" % t for t in step_ms], ms,
+           res["tokens_per_s"], [m[0][1] for m in watch.metric],
+           [{k: v for k, v in s.items() if v} for s in watch.counts], gap,
+           gap_name, peak))
+    if gap != 0:
+        raise SystemExit("spmd module: parameters differ from SPMDTrainer's "
+                         "(%.3e at %s)" % (gap, gap_name))
+    if not all(math.isfinite(m[0][1]) for m in watch.metric):
+        raise SystemExit("spmd module: a loss is not finite")
+    for i, counts in enumerate(watch.counts):
+        off = {k: n for k, n in counts.items() if n != expect.get(k, 0)}
+        if off:
+            raise SystemExit("spmd module: step %d launched %s, expected %s"
+                             % (i + 1, off, expect))
+    return res
+
+
+def synthetic_sentences(n, vocab, seed=0):
+    """`examples/lstm_bucketing.py`'s synthetic sentences: lengths 4-32,
+    each a run of consecutive token ids."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ln = rng.randint(4, LSTM_BUCKETS[-1] + 1)
+        start = rng.randint(0, vocab)
+        out.append([(start + i) % vocab for i in range(ln)])
+    return out
+
+
+class BucketSentenceIter(mx.io.DataIter):
+    """`examples/lstm_bucketing.py`'s iterator over the port, its batches
+    on the host: each sentence padded into the smallest bucket that holds
+    it, each bucket's rows cut into batches, the batches shuffled at
+    every reset."""
+
+    def __init__(self, sentences, batch_size, init_states):
+        super().__init__()
+        self.batch_size = batch_size
+        self.init_states = list(init_states)
+        self._init_arrays = [mx.nd.zeros(s, mx.cpu()) for _, s in
+                             self.init_states]
+        self.default_bucket_key = LSTM_BUCKETS[-1]
+        self.data = {b: [] for b in LSTM_BUCKETS}
+        for s in sentences:
+            for b in LSTM_BUCKETS:
+                if len(s) <= b:
+                    pad = np.zeros(b, np.float32)
+                    pad[:len(s)] = s
+                    self.data[b].append(pad)
+                    break
+        self.reset()
+
+    @property
+    def provide_data(self):
+        return [("data", (self.batch_size, self.default_bucket_key))] + \
+            self.init_states
+
+    @property
+    def provide_label(self):
+        return [("softmax_label", (self.batch_size,
+                                   self.default_bucket_key))]
+
+    def reset(self):
+        self._plan = []
+        for b, rows in self.data.items():
+            rows = np.asarray(rows)
+            for i in range(0, len(rows) - self.batch_size + 1,
+                           self.batch_size):
+                self._plan.append((b, rows[i:i + self.batch_size]))
+        np.random.shuffle(self._plan)
+        self._idx = 0
+
+    def next(self):
+        if self._idx >= len(self._plan):
+            raise StopIteration
+        b, rows = self._plan[self._idx]
+        self._idx += 1
+        labels = np.roll(rows, -1, axis=1)
+        labels[:, -1] = 0
+        return mx.io.DataBatch(
+            data=[mx.nd.array(rows, ctx=mx.cpu())] + self._init_arrays,
+            label=[mx.nd.array(labels, ctx=mx.cpu())], bucket_key=b,
+            provide_data=[("data", (self.batch_size, b))] + self.init_states,
+            provide_label=[("softmax_label", (self.batch_size, b))])
+
+
+def bucketing_path():
+    """(d): `examples/lstm_bucketing.py` through `mx.mod.BucketingModule`
+    for one epoch on the card and on the CPU: every bucket binds the
+    default bucket's parameter and gradient tensors (the same
+    ``data_ptr``), and the card's parameters after the epoch lie within
+    1e-4 of max|w| of the CPU's."""
+    c = LSTM_BUCKET
+    sentences = synthetic_sentences(c["sentences"], c["vocab"])
+    init_states = [("l%d_init_%s" % (i, t), (c["batch"], c["num_hidden"]))
+                   for i in range(c["num_layers"]) for t in ("c", "h")]
+    data_names = ("data",) + tuple(n for n, _ in init_states)
+
+    def sym_gen(key):
+        return (mx.models.lstm_unroll(c["num_layers"], key, c["vocab"],
+                                      c["num_hidden"], c["num_embed"],
+                                      c["vocab"]),
+                data_names, ("softmax_label",))
+
+    def run(ctx):
+        mx.random.seed(0)
+        it = BucketSentenceIter(sentences, c["batch"], init_states)
+        mod = mx.mod.BucketingModule(sym_gen, default_bucket_key=LSTM_BUCKETS[-1],
+                                     context=ctx)
+        seen = []
+        t0 = time.perf_counter()
+        mod.fit(it, num_epoch=1, optimizer="adam",
+                optimizer_params={"learning_rate": c["lr"]},
+                initializer=mx.init.Xavier(), eval_metric="ce",
+                batch_end_callback=lambda p: seen.append(
+                    p.eval_metric.get()[1]))
+        return mod, seen, time.perf_counter() - t0
+
+    card, card_ce, card_s = run(mx.gpu(0))
+    shared = {}
+    default = card._buckets[LSTM_BUCKETS[-1]]._exec_group.train_execs[0]
+    names = default._symbol.list_arguments()
+    params = [n for n in card._buckets[LSTM_BUCKETS[-1]]._param_names]
+    for b, mod in card._buckets.items():
+        exe = mod._exec_group.train_execs[0]
+        shared[b] = all(
+            exe.arg_dict[n].data.data_ptr() ==
+            default.arg_dict[n].data.data_ptr() and
+            exe.grad_dict[n].data.data_ptr() ==
+            default.grad_dict[n].data.data_ptr() for n in params)
+    got = _host_params(card.get_params()[0])
+    del card
+    torch.cuda.empty_cache()
+    host, host_ce, host_s = run(mx.cpu())
+    want = _host_params(host.get_params()[0])
+    worst = {n: float((got[n] - want[n]).abs().max()) /
+             max(float(want[n].abs().max()), 1e-30) for n in want}
+    name = max(worst, key=worst.get)
+    res = {"config": dict(c, buckets=LSTM_BUCKETS),
+           "buckets_bound": sorted(shared), "shares_default": shared,
+           "params": len(params), "arguments": len(names),
+           "batches": len(card_ce), "card_ce_by_step": card_ce,
+           "cpu_ce_by_step": host_ce, "card_fit_s": card_s,
+           "cpu_fit_s": host_s, "worst_rel": worst[name],
+           "worst_param": name, "tol": BUCKET_TOL}
+    log("bucketing: lstm_bucketing's defaults through BucketingModule, one "
+        "epoch of %d batches over buckets %s: every bucket on the default "
+        "bucket's tensors %s; card vs CPU max |dw|/max |w| %.3e at %s (tol "
+        "%.0e); running CE card %s, CPU %s; fit s card %.2f, CPU %.2f"
+        % (len(card_ce), sorted(shared), shared, worst[name], name,
+           BUCKET_TOL, ["%.4f" % x for x in card_ce],
+           ["%.4f" % x for x in host_ce], card_s, host_s))
+    if sorted(shared) != list(LSTM_BUCKETS) or not all(shared.values()):
+        raise SystemExit("bucketing: buckets %s, shared %s" % (
+            sorted(shared), shared))
+    if not worst[name] <= BUCKET_TOL:
+        raise SystemExit("bucketing: card vs CPU %.3e at %s" % (worst[name],
+                                                               name))
+    return res
+
+
 # the entries of the kernels line for the float32 kernels on the tensor
 # cores (the flash forward and backward, the fused CE head): the bf16 row
 # each one shares its TPU function with
@@ -3623,10 +4251,19 @@ def main():
         resnet_grads = resnet_grad_check()
         resnet_ff = resnet_feedforward_path()
         others = {n: other_net_path(n) for n in OTHER_NETS}
+
+    with phase("module API"):
+        module_lm = module_lm_path(dict(per_layer, **flash("flash_attention")))
+        spmd_module = spmd_module_path(
+            dict(per_layer, **flash("flash_attention"), fused_ce_fwd_sp=1,
+                 fused_ce_bwd_dw=1))
+        bucketing = bucketing_path()
     # the LM's LayerNorm launches join the LayerNorm rows; its float32
     # flash launches the float32 flash rows
     api_lm_ln = {k: (n if k.startswith("layer_norm") else 0)
                  for k, n in api_lm["launches"].items()}
+    module_lm_ln = {k: (n if k.startswith("layer_norm") else 0)
+                    for k, n in module_lm["launches"].items()}
 
     kernels = kernels_line(cases, {
         "paged": paged["launches"], "slot": slot["launches"],
@@ -3639,7 +4276,9 @@ def main():
         "train_fused_medium": medium["launches"],
         "train_longctx_ds": ds["launches"],
         "train_longctx_stream": stream["launches"],
-        "api_lm_simple_bind": api_lm_ln}, {
+        "api_lm_simple_bind": api_lm_ln,
+        "module_lm_fit": module_lm_ln,
+        "spmd_module_fit_fused": spmd_module["launches"]}, {
         "slot": slot["launches"],
         "train_bhsd_f32": hsd32["launches"],
         "train_fused_f32": fused32["launches"],
@@ -3651,7 +4290,8 @@ def main():
         "gradients_fused_medium": medium_grads["launches"],
         "gradients_longctx_ds": ds_grads["launches"],
         "gradients_longctx_stream": stream_grads["launches"],
-        "api_lm_simple_bind_f32": api_lm["launches"]})
+        "api_lm_simple_bind_f32": api_lm["launches"],
+        "module_lm_fit_f32": module_lm["launches"]})
     idle = [e["name"] for e in kernels if not e["launches"]]
     if idle:
         raise SystemExit("kernels launched on no path: %s" % idle)
@@ -3678,7 +4318,8 @@ def main():
          "api_lm": api_lm, "resnet50": resnet, "conv_f32": conv_f32,
          "resnet50_gradients": resnet_grads,
          "resnet50_feedforward": resnet_ff, "other_nets": others,
-         "kernels": kernels},
+         "module_lm": module_lm, "spmd_module": spmd_module,
+         "bucketing": bucketing, "kernels": kernels},
         indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -33,6 +33,17 @@ and `model.FeedForward`:
     model.fit(mx.io.NDArrayIter(X, y, batch_size=128, shuffle=True))
     model.save("mlp")
 
+The Module API (`module`, also `mod`: `Module`, `BucketingModule`,
+`SequentialModule`, `PythonModule`, `SPMDModule`) and `monitor.Monitor`
+run over the same stack; `BaseModule.fit` and `FeedForward.fit` stage
+their input on the devices ahead of the step, accumulate the metric
+there (``MXNET_METRIC_INTERVAL``), and write and resume from
+mid-epoch auto-checkpoints in the JAX package's format:
+
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    mod.fit(train_iter, num_epoch=2, optimizer="adam",
+            auto_checkpoint="run", checkpoint_every=100, resume="auto")
+
 The JAX package's op set and model zoo are ported too (`ops`,
 `models`): convolution, pooling, BatchNorm and the rest run as torch
 calls (cuDNN on the card; float32 convolutions without TF32 whatever
@@ -73,7 +84,9 @@ from . import context, ndarray
 from . import ndarray as nd
 from . import lr_scheduler, metric, callback, io, kvstore
 from . import kvstore as kv
-from . import executor, executor_manager, checkpoint, model
+from . import executor, executor_manager, checkpoint, model, monitor
+from . import module
+from . import module as mod
 from .attribute import AttrScope
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, resolve, tpu
@@ -92,6 +105,7 @@ __all__ = ["AttrScope", "Context", "Executor", "FeedForward", "MXNetError",
            "NDArray", "SPMDTrainer", "Symbol", "attribute", "callback",
            "checkpoint", "context", "cpu", "current_context", "executor",
            "executor_manager", "gpu", "init", "initializer", "io", "kv",
-           "kvstore", "load_params", "lr_scheduler", "metric", "model",
-           "models", "name", "nd", "ndarray", "ops", "opt", "optimizer",
+           "kvstore", "load_params", "lr_scheduler", "metric", "mod",
+           "model", "models", "module", "monitor", "name", "nd", "ndarray",
+           "ops", "opt", "optimizer",
            "parallel", "random", "resolve", "sym", "symbol", "tpu"]

@@ -1,14 +1,17 @@
 """Checkpoints with optimizer state and atomic writes.
 
-A port of the part of `mxnet_tpu/checkpoint.py` that `model.py` needs:
-`save`, `load`, `latest_epoch` and `restore_updater`.  The files are the
-JAX package's: ``prefix-symbol.json``, ``prefix-%04d.params`` in the
+A port of `mxnet_tpu/checkpoint.py`: `save`, `load`, `latest_epoch`,
+`restore_updater`, and the training loops' mid-epoch auto-checkpoint,
+`save_auto`, `load_auto` and `restore_auto`.  The files are the JAX
+package's: ``prefix-symbol.json``, ``prefix-%04d.params`` in the
 `ndarray.save` format with ``arg:``/``aux:`` names, the updater's
-per-key optimizer state pickled as numpy in ``prefix-%04d.states``, and
-``prefix-latest`` naming the last epoch whose files are complete.  Every
-file is written to a temporary name and renamed into place.  The
-mid-epoch auto-checkpoints (``save_auto``, ``load_auto``,
-``restore_auto``) come with the fault-tolerance slice.
+per-key optimizer state pickled as numpy in ``prefix-%04d.states``,
+``prefix-latest`` naming the last epoch whose files are complete, and
+``prefix-auto.ckpt``, one pickle (``format: 1``) of the parameters, the
+optimizer state and counts, the (epoch, nbatch) cursor, the iterator
+position and the random state now and at the epoch's start, so that a
+``fit(resume="auto")`` after a kill goes on exactly, in either package.
+Every file is written to a temporary name and renamed into place.
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ from .base import MXNetError
 from .context import cpu
 from .ndarray import NDArray
 
-__all__ = ["save", "load", "latest_epoch", "restore_updater"]
+__all__ = ["save", "load", "latest_epoch", "restore_updater", "save_auto",
+           "load_auto", "restore_auto"]
 
 
 def _atomic_write(path, write_fn):
@@ -120,3 +124,99 @@ def restore_updater(updater, states):
     """Install loaded optimizer state into a `get_updater` closure."""
     updater.states.clear()
     updater.states.update(states)
+
+
+def save_auto(prefix, arg_params, aux_params, updater=None, epoch=0,
+              nbatch=0, epoch_rng=None, iter_pos=None, extra=None):
+    """Write ``prefix``-auto.ckpt atomically and return its size in bytes.
+    ``nbatch`` counts the finished batches of ``epoch``; ``epoch_rng`` is
+    the `random.get_state` taken just before the epoch's iterator reset
+    (a resume replays the epoch's shuffle from it); ``iter_pos`` is the
+    number of batches the loop consumed since that reset (``nbatch``
+    unless an ``epoch_size`` cut the pass).  ``updater``'s state, its
+    optimizer's update counts and lr go with it."""
+    from . import random as _random
+
+    state = {
+        "format": 1,
+        "arg": {k: v.asnumpy() for k, v in arg_params.items()},
+        "aux": {k: v.asnumpy() for k, v in aux_params.items()},
+        "epoch": int(epoch),
+        "nbatch": int(nbatch),
+        "iter_pos": int(nbatch if iter_pos is None else iter_pos),
+        "rng": _random.get_state(),
+        "epoch_rng": epoch_rng,
+        "extra": dict(extra or {}),
+    }
+    if updater is not None:
+        states = getattr(updater, "states", None)
+        if states is not None:
+            state["states"] = _states_to_host(states)
+        opt = getattr(updater, "optimizer", None)
+        if opt is not None:
+            state["opt_counts"] = (dict(opt._index_update_count),
+                                   int(opt.num_update))
+            state["opt_lr"] = float(opt.lr)
+            # the JAX package's guard counters, carried as they came
+            guard_counts = getattr(opt, "_guard_counts", None)
+            if guard_counts:
+                state["guard_counts"] = {
+                    k: np.asarray(v, np.float32)
+                    for k, v in guard_counts.items()}
+    blob = pickle.dumps(state, protocol=4)
+    _atomic_write("%s-auto.ckpt" % prefix, lambda p: _write_bytes(p, blob))
+    return len(blob)
+
+
+def load_auto(prefix):
+    """``prefix``-auto.ckpt as written, or None if there is none: the
+    parameters and the optimizer state as NDArrays on the CPU (`restore_auto`
+    places each state), the cursor and random states as saved."""
+    path = "%s-auto.ckpt" % prefix
+    if not os.path.exists(path):
+        return None
+    with open(path, "rb") as f:
+        state = pickle.loads(f.read())
+    state["arg"] = {k: nd.array(v, ctx=cpu(), dtype=v.dtype)
+                    for k, v in state["arg"].items()}
+    state["aux"] = {k: nd.array(v, ctx=cpu(), dtype=v.dtype)
+                    for k, v in state["aux"].items()}
+    if state.get("states") is not None:
+        state["states"] = _states_from_host(state["states"], cpu())
+    return state
+
+
+def restore_auto(state, updater=None, ctx_of=None):
+    """Install a `load_auto` result's optimizer state into a new
+    ``updater``: each key's state (moved to ``ctx_of(key)`` where that is
+    given and not None), the update counts and the lr."""
+    if updater is None or state is None:
+        return
+    if state.get("states") is not None and hasattr(updater, "states"):
+        states = state["states"]
+        if ctx_of is not None:
+            states = {k: _as_in(v, ctx_of(k)) for k, v in states.items()}
+        updater.states.clear()
+        updater.states.update(states)
+    opt = getattr(updater, "optimizer", None)
+    counts = state.get("opt_counts")
+    if opt is not None and counts is not None:
+        opt._index_update_count = dict(counts[0])
+        opt.num_update = int(counts[1])
+    if opt is not None and state.get("opt_lr") is not None:
+        opt.lr = state["opt_lr"]
+    if opt is not None and state.get("guard_counts"):
+        opt._guard_counts = {
+            tuple(k) if isinstance(k, list) else k:
+            np.asarray(v, np.float32)
+            for k, v in state["guard_counts"].items()}
+
+
+def _as_in(state, ctx):
+    """An optimizer state (None, an NDArray or a tuple of them) on
+    ``ctx``."""
+    if ctx is None or state is None:
+        return state
+    if isinstance(state, (tuple, list)):
+        return type(state)(_as_in(s, ctx) for s in state)
+    return state.as_in_context(ctx)

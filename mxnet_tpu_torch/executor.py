@@ -29,11 +29,21 @@ forward and its `backward` (an optimizer update in between) makes
 states the forward read, so the aux states take one update, as in the
 JAX package's replay after its fused update deletes the buffers its
 pending forward held (a write that leaves those buffers alive keeps the
-JAX package on the forward's values: ROADMAP queue 3).  Refused with an error, never accepted and
-ignored: ``group2ctx`` over more than one device, the rematerialization
-pins ``MXNET_BACKWARD_DO_MIRROR``, ``MXNET_BACKWARD_MIRROR_POLICY`` and
-``MXNET_BACKWARD_MIRROR_STEP``, the in-graph monitor, the in-graph
-metric statistics (``set_step_stat_fn``) and the AOT cache.
+JAX package on the forward's values: ROADMAP queue 3).
+
+The monitor (`set_monitor_callback`) sees every entry of a forward's own
+walk: ``eager`` hands each entry's NDArray to the callback, ``ingraph``
+computes one statistic an entry on the device in that walk and hands
+the callback 0-d device tensors of one stacked bundle, which
+`monitor.Monitor` fetches in one transfer.  `set_step_stat_fn` adds a
+statistic of each training step's outputs and arguments (the metric's
+``device_batch_stats``) to a device carry in `backward`, with no host
+sync until `pop_step_stats` hands the carry to the caller.
+
+Refused with an error, never accepted and ignored: ``group2ctx`` over
+more than one device, the rematerialization pins
+``MXNET_BACKWARD_DO_MIRROR``, ``MXNET_BACKWARD_MIRROR_POLICY`` and
+``MXNET_BACKWARD_MIRROR_STEP``, and the AOT cache.
 """
 from __future__ import annotations
 
@@ -123,6 +133,11 @@ def _check_mirror_pins():
         raise _later("MXNET_BACKWARD_MIRROR_STEP")
 
 
+def _asum(x):
+    """The reference Monitor's default statistic: |x|.sum() / size."""
+    return x.float().abs().sum() / max(x.numel(), 1)
+
+
 class AotCache:
     """The JAX package's store of ahead-of-time compiled programs.  PyTorch
     runs eagerly; its counterpart (CUDA-graph capture) is later work."""
@@ -207,6 +222,11 @@ class Executor:
         self._pending = None  # (leaves, versions, aux read, outputs, rng)
         self._outputs = None
         self._monitor_cb = None
+        self._monitor_mode = "eager"
+        self._monitor_stat_fn = None
+        self._monitor_active_fn = None
+        self._step_stat_fn = None
+        self._stats_acc = None
 
     # -- dict views (python/mxnet/executor.py) -----------------------------
     @property
@@ -232,18 +252,37 @@ class Executor:
 
     def set_monitor_callback(self, callback, mode="eager", stat_fn=None,
                              active_fn=None):
-        """Call ``callback(name, NDArray)`` on every internal entry at each
-        later forward (the reference's eager monitor).  The JAX package's
-        in-graph mode is not ported."""
-        if mode != "eager":
-            raise _later("the in-graph monitor (mode=%r)" % (mode,))
+        """Report every internal entry of each later forward.
+
+        ``mode='eager'`` (the reference's): ``callback(name, NDArray)``.
+        ``mode='ingraph'``: ``stat_fn`` (tensor -> 0-d tensor; default
+        |x|.sum()/size in float32) runs on each entry on its device in
+        the forward's walk, and ``callback(name, value)`` gets each
+        value as a 0-d float32 tensor of one stacked bundle, nothing
+        fetched; a forward for which ``active_fn()`` is False computes
+        no statistic."""
+        if mode not in ("eager", "ingraph"):
+            raise MXNetError("monitor mode must be 'eager' or 'ingraph', "
+                             "got %r" % (mode,))
         self._monitor_cb = callback
+        self._monitor_mode = mode
+        self._monitor_stat_fn = stat_fn
+        self._monitor_active_fn = active_fn
 
     def set_step_stat_fn(self, fn, n_stats=0):
-        """The JAX package's in-graph metric statistics: not ported."""
-        if fn is not None:
-            raise _later("in-graph step statistics (set_step_stat_fn, "
-                         "MXNET_METRIC_INTERVAL > 1)", "ROADMAP queue 3")
+        """Install (or clear, ``fn=None``) ``fn(outputs, args) -> (n_stats,)
+        float32 tensor``, taken in every later `backward` that has no
+        ``out_grads`` from the step's outputs and argument tensors and
+        added to a carry on the device (the metric's statistics,
+        ``MXNET_METRIC_INTERVAL`` > 1)."""
+        self._step_stat_fn = fn
+        self._stats_acc = None
+
+    def pop_step_stats(self):
+        """The carry on the device (the caller fetches it), reset; None
+        when nothing was added since the last pop."""
+        acc, self._stats_acc = self._stats_acc, None
+        return acc
 
     # -- execution ---------------------------------------------------------
     def _run(self, rng, is_train, aux=None, on_entry=None):
@@ -284,12 +323,26 @@ class Executor:
         self._step += 1
         rng = _random.fold_in(self._base_key, self._step)
         on_entry = None
-        if self._monitor_cb is not None:
+        names, stats = [], []
+        if self._monitor_cb is not None and self._monitor_mode == "eager":
             # every internal entry (`graph_executor.cc:835-849`'s per-op
             # callback), reported from this forward's own walk
             def on_entry(name, t):
                 self._monitor_cb(name, NDArray(t.detach(), self._ctx))
+        elif self._monitor_cb is not None and (
+                self._monitor_active_fn is None
+                or self._monitor_active_fn()):
+            stat = self._monitor_stat_fn or _asum
+
+            def on_entry(name, t):
+                names.append(name)
+                stats.append(torch.as_tensor(
+                    stat(t.detach()), dtype=torch.float32,
+                    device=t.device).reshape(()))
         leaves, aux, outs = self._run(rng, is_train, on_entry=on_entry)
+        if names:
+            for name, value in zip(names, torch.stack(stats)):
+                self._monitor_cb(name, value)
         self._pending = None
         if is_train and self.grad_arrays is not None:
             self._pending = (leaves, [t._version for t in leaves], aux,
@@ -328,6 +381,13 @@ class Executor:
                 [o for o, _ in pairs], [leaves[i] for i in wrt],
                 [c for _, c in pairs], allow_unused=True)
         got = dict(zip(wrt, grads))
+        if self._step_stat_fn is not None and out_grads is None:
+            with torch.no_grad():
+                step = self._step_stat_fn([o.detach() for o in outs],
+                                          [t.detach() for t in leaves])
+                step = step.to(torch.float32)
+                self._stats_acc = step if self._stats_acc is None \
+                    else self._stats_acc + step
         self._pending = None
         self._outputs = [NDArray(o.detach(), self._ctx) for o in outs]
         for i, (name, nd) in enumerate(zip(self._arg_names,

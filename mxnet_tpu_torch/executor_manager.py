@@ -7,18 +7,43 @@ context and copies each device's slice of a batch into it, and
 `DataParallelExecutorManager` drives the group for `model.FeedForward`.
 Gradients are reduced by the training loop (through the KVStore, or by
 each device's updater) and `copy_to` averages the devices' parameters
-into the host dicts.  The JAX package's device-prefetch plan and its
-in-graph metric statistics are not ported.
+into the host dicts.
+
+A group bound with ``shared_group`` (a `module.BucketingModule` bucket)
+binds the shared group's parameter and gradient NDArrays themselves, so
+every bucket reads and updates one set of tensors.  `prefetch_plan`
+tells `io.DevicePrefetchIter` where each device's slice goes, and
+`load_data_batch` binds a staged batch's slices in place of the copy,
+after checking every shape.  `install_metric_stats` puts a metric's
+device statistics into every executor's training step, and
+`fetch_metric_stats` brings them back in one blocking fetch.  The
+group counts ``io.device_batches`` (staged batches bound) and
+``train.host_blocking_fetches`` (metric fetches) in ``stats``, a dict
+the caller may share.
 """
 from __future__ import annotations
 
 import logging
 
+import numpy as np
+import torch
+
 from .base import MXNetError
+from .io import PrefetchPlan
 from .kvstore import _reduce
-from .ndarray import NDArray
+from .ndarray import NDArray, zeros
 
 __all__ = ["DataParallelExecutorGroup", "DataParallelExecutorManager"]
+
+
+def _reduce_blocks(blocks):
+    """The sum of the devices' copies of one array, as a tensor on the
+    first one's device."""
+    return _reduce(blocks).data
+
+
+def _count(stats, key):
+    stats[key] = stats.get(key, 0) + 1
 
 
 def _split_input_slice(batch_size, work_load_list):
@@ -61,7 +86,8 @@ class DataParallelExecutorGroup:
     """One executor per context, each bound to its slice of the batch
     (`executor_manager.py:180-262`)."""
 
-    def __init__(self, sym, arg_names, param_names, ctx, slices, train_data):
+    def __init__(self, sym, arg_names, param_names, ctx, slices, train_data,
+                 shared_group=None, grad_req="write", stats=None):
         _check_arguments(sym)
         self.sym = sym
         self.arg_names = arg_names
@@ -77,12 +103,17 @@ class DataParallelExecutorGroup:
         self.param_idx = [i for i, name in enumerate(arg_names)
                           if name in param_names]
 
+        self.stats = {} if stats is None else stats
         self.train_execs = []
         for i, ctxi in enumerate(ctx):
             rows = slices[i].stop - slices[i].start
             shapes = {k: (rows,) + v[1:] for k, v in data_shapes.items()}
-            self.train_execs.append(
-                sym.simple_bind(ctxi, grad_req="write", **shapes))
+            if shared_group is None:
+                exe = sym.simple_bind(ctxi, grad_req=grad_req, **shapes)
+            else:
+                exe = self._bind_shared(sym, ctxi, shapes, grad_req,
+                                        shared_group.train_execs[i])
+            self.train_execs.append(exe)
 
         self.data_arrays = [
             [(slices[i], e.arg_dict[name])
@@ -99,8 +130,67 @@ class DataParallelExecutorGroup:
         self.aux_arrays = [[e.aux_arrays[i] for e in self.train_execs]
                            for i in range(len(self.aux_names))]
 
+    def _bind_shared(self, sym, ctx, shapes, grad_req, shared):
+        """An executor of ``sym`` whose parameters, their gradients and
+        the aux states are ``shared``'s NDArrays (a bucket of a
+        `BucketingModule` reads and updates the default bucket's)."""
+        arg_shapes, _, _ = sym.infer_shape(**shapes)
+        if arg_shapes is None:
+            raise MXNetError("cannot infer shapes from %s" % (shapes,))
+        own = shared.arg_dict
+        own_grads = shared.grad_dict
+        args, grads = [], []
+        for n, s in zip(sym.list_arguments(), arg_shapes):
+            if n in self.param_names:
+                if own[n].shape != tuple(s):
+                    raise MXNetError(
+                        "shared parameter %r has shape %s, this symbol "
+                        "needs %s" % (n, own[n].shape, tuple(s)))
+                args.append(own[n])
+                grads.append(own_grads.get(n))
+            else:
+                args.append(zeros(s, ctx))
+                grads.append(zeros(s, ctx))
+        return sym.bind(ctx, args, grads, grad_req, shared.aux_arrays)
+
+    def prefetch_plan(self):
+        """The `io.DevicePrefetchIter` plan of this group: its batch slices
+        and contexts (made once)."""
+        plan = getattr(self, "_plan", None)
+        if plan is None:
+            plan = self._plan = PrefetchPlan(self.slices, self.ctx)
+        return plan
+
     def load_data_batch(self, data_batch):
-        """Copy each device's slice of the batch into its executor."""
+        """Bind a batch staged by this group's plan in place; copy each
+        device's slice of any other batch into its executor."""
+        parts = getattr(data_batch, "device_parts", None)
+        if parts is not None and parts.get("key") == self.prefetch_plan().key:
+            pairs = [
+                (src, dst)
+                for per_dev, targets in zip(
+                    list(parts["data"]) + list(parts["label"]),
+                    list(self.data_arrays) + list(self.label_arrays))
+                for src, (_, dst) in zip(per_dev, targets)]
+            for src, dst in pairs:  # check all before binding any
+                if src.shape != dst.shape:
+                    raise MXNetError(
+                        "staged batch slice shape %s does not match "
+                        "bound array %s (ragged batch?)"
+                        % (src.shape, dst.shape))
+            for ctx, event in zip(self.ctx, parts["events"]):
+                if event is not None:  # the copy is ordered, not waited
+                    torch.cuda.current_stream(
+                        ctx.torch_device()).wait_event(event)
+            for src, dst in pairs:
+                t = src.data
+                if t.is_cuda:
+                    t.record_stream(torch.cuda.current_stream(t.device))
+                if t.dtype != dst.data.dtype:
+                    t = t.to(dst.data.dtype)
+                dst._data = t
+            _count(self.stats, "io.device_batches")
+            return
         _load_general(data_batch.data, self.data_arrays)
         _load_general(data_batch.label, self.label_arrays)
 
@@ -117,13 +207,52 @@ class DataParallelExecutorGroup:
             lab = [l[sl.start:sl.stop] for l in labels]
             metric.update(lab, e.outputs)
 
+    def install_metric_stats(self, metric):
+        """Add ``metric``'s device statistics to every executor's training
+        step (`Executor.set_step_stat_fn`).  False, leaving the host
+        update, where the metric has none or the symbol has no label."""
+        n = metric.device_stats_size()
+        if not n or not self.label_names:
+            return False
+        arg_names = self.sym.list_arguments()
+        if any(name not in arg_names for name in self.label_names):
+            return False
+        label_idx = [arg_names.index(name) for name in self.label_names]
+
+        def stat_fn(outputs, args):
+            return metric.device_batch_stats([args[i] for i in label_idx],
+                                             list(outputs))
+
+        for e in self.train_execs:
+            e.set_step_stat_fn(stat_fn, n)
+        return True
+
+    def uninstall_metric_stats(self):
+        for e in self.train_execs:
+            e.set_step_stat_fn(None)
+
+    def fetch_metric_stats(self, metric):
+        """Fold the devices' accumulated statistics into ``metric``: one
+        blocking fetch, counted.  False when nothing accumulated since the
+        last fetch."""
+        pending = [p for p in (e.pop_step_stats() for e in self.train_execs)
+                   if p is not None]
+        if not pending:
+            return False
+        _count(self.stats, "train.host_blocking_fetches")
+        total = np.zeros((metric.device_stats_size(),), np.float64)
+        for p in pending:
+            total += p.cpu().numpy().astype(np.float64)
+        metric.apply_device_stats(total)
+        return True
+
 
 class DataParallelExecutorManager:
     """The group and the parameter/gradient lists for the training loop
     (`executor_manager.py:288-318`)."""
 
     def __init__(self, symbol, ctx, train_data, param_names, arg_names,
-                 aux_names, work_load_list=None, logger=None):
+                 aux_names, work_load_list=None, logger=None, stats=None):
         if logger is None:
             logger = logging
         num_device = len(ctx)
@@ -139,7 +268,8 @@ class DataParallelExecutorManager:
         self.aux_names = aux_names
         self.ctx = ctx
         self.execgrp = DataParallelExecutorGroup(
-            symbol, arg_names, param_names, ctx, self.slices, train_data)
+            symbol, arg_names, param_names, ctx, self.slices, train_data,
+            stats=stats)
         self.symbol = symbol
         self.curr_execgrp = self.execgrp
 
@@ -184,3 +314,15 @@ class DataParallelExecutorManager:
 
     def update_metric(self, metric, labels):
         self.curr_execgrp.update_metric(metric, labels)
+
+    def prefetch_plan(self):
+        return self.curr_execgrp.prefetch_plan()
+
+    def install_metric_stats(self, metric):
+        return self.curr_execgrp.install_metric_stats(metric)
+
+    def uninstall_metric_stats(self):
+        self.curr_execgrp.uninstall_metric_stats()
+
+    def fetch_metric_stats(self, metric):
+        return self.curr_execgrp.fetch_metric_stats(metric)

@@ -4,29 +4,45 @@ A port of `mxnet_tpu/io.py` (the reference's `include/mxnet/io.h`,
 `src/io/`, `python/mxnet/io.py`): `DataBatch`, `DataIter`, `NDArrayIter`
 (shuffle from numpy's global generator, which `random.seed` seeds;
 last-batch ``pad``, ``discard`` and ``roll_over``), `CSVIter`,
-and `MNISTIter` (idx files, ``part_index``/``num_parts`` sharding), the
-same code over the port's NDArray.  Batches are
-NDArrays on the CPU.
+`MNISTIter` (idx files, ``part_index``/``num_parts`` sharding),
+`ResizeIter` and `PrefetchingIter`, the same code over the port's
+NDArray.  Batches are NDArrays on the CPU.
 
-The training loop (`model._train_multi_device`) copies each batch to its
-devices in the step, whatever ``MXNET_DEVICE_PREFETCH`` says: the JAX
-package stages batch N+1 on the devices on a worker thread while step N
-runs, which moves the same values, so both give the same numbers.
-`ResizeIter`, `PrefetchingIter`, `DevicePrefetchIter` and
-`ImageRecordIter` are not ported yet.
+`DevicePrefetchIter` is the training loops' device-staging layer
+(``MXNET_DEVICE_PREFETCH``, default depth 2): a producer thread pulls
+host batches from the inner iterator and a stager thread cuts each into
+the executor group's per-device slices (`PrefetchPlan`) and copies them
+to their devices while the step before computes.  On CUDA the stager
+copies from pinned host memory on a side `torch.cuda.Stream` and records
+an event; the consuming step makes its stream wait on the event (no host
+sync) and `record_stream` keeps the allocator from reusing a slice's
+memory while that step still reads it
+(`executor_manager.DataParallelExecutorGroup.load_data_batch`).  On the
+CPU the stager makes plain copies.  A worker's exception surfaces in
+`next()`, `close()` is idempotent and joins both threads, and the
+training loops close the iterator in ``finally`` (`close_iter`).
+`ImageRecordIter` is not ported yet.
 """
 from __future__ import annotations
 
 import gzip
+import logging
+import os
+import queue as _queue
 import struct
+import threading
+import time
 
 import numpy as np
+import torch
 
 from .base import MXNetError, check_shape
 from .context import cpu
 from .ndarray import NDArray, array
 
-__all__ = ["DataBatch", "DataIter", "NDArrayIter", "CSVIter", "MNISTIter"]
+__all__ = ["DataBatch", "DataIter", "NDArrayIter", "CSVIter", "MNISTIter",
+           "ResizeIter", "PrefetchingIter", "PrefetchPlan",
+           "DevicePrefetchIter", "device_prefetch_depth", "close_iter"]
 
 
 class DataBatch:
@@ -286,3 +302,407 @@ class MNISTIter(DataIter):
 
     def next(self):
         return self._inner.next()
+
+
+class ResizeIter(DataIter):
+    """An iterator resized to a fixed number of batches an epoch
+    (`python/mxnet/io.py` ResizeIter): the inner one is reset and read on
+    when it runs out first."""
+
+    def __init__(self, data_iter, size, reset_internal=True):
+        super().__init__()
+        self.data_iter = data_iter
+        self.size = size
+        self.reset_internal = reset_internal
+        self.cur = 0
+        self.batch_size = data_iter.batch_size
+
+    @property
+    def provide_data(self):
+        return self.data_iter.provide_data
+
+    @property
+    def provide_label(self):
+        return self.data_iter.provide_label
+
+    def reset(self):
+        self.cur = 0
+        if self.reset_internal:
+            self.data_iter.reset()
+
+    def next(self):
+        if self.cur == self.size:
+            raise StopIteration
+        try:
+            batch = self.data_iter.next()
+        except StopIteration:
+            self.data_iter.reset()
+            batch = self.data_iter.next()
+        self.cur += 1
+        return batch
+
+
+class _WorkerError:
+    """Queue marker carrying a prefetch worker's exception to the
+    consumer thread, which raises it."""
+
+    __slots__ = ("error",)
+
+    def __init__(self, error):
+        self.error = error
+
+
+def _drain_and_join(threads, queues, deadline_s=5.0):
+    """Stop protocol of the prefetch iterators: drain the queues (so a
+    worker blocked on a full ``put`` sees its stop flag) while joining,
+    up to the deadline.  Returns the threads still alive then (stuck in
+    the inner iterator's ``next()``), which `reset` waits out before it
+    touches the inner iterator again."""
+    deadline = time.perf_counter() + deadline_s
+    while any(t.is_alive() for t in threads):
+        for q in queues:
+            try:
+                while True:
+                    q.get_nowait()
+            except _queue.Empty:
+                pass
+        for t in threads:
+            t.join(timeout=0.05)
+        if time.perf_counter() > deadline:
+            break
+    return [t for t in threads if t.is_alive()]
+
+
+def _require_workers_dead(stale, what):
+    """Wait out any worker an earlier `close` left inside the inner
+    iterator's ``next()`` (two threads in one iterator would corrupt its
+    cursor); one that will not end raises."""
+    alive = [t for t in stale if t.is_alive()]
+    for t in alive:
+        t.join(timeout=30)
+    if any(t.is_alive() for t in alive):
+        raise MXNetError(
+            "%s.reset(): a prefetch worker is still blocked inside the "
+            "inner iterator's next(); cannot safely reset" % what)
+    return []
+
+
+class PrefetchingIter(DataIter):
+    """Prefetch over one or more iterators on a worker thread and a
+    bounded queue (`python/mxnet/io.py` PrefetchingIter).  The worker
+    starts at the first `next()`; `close()` (idempotent; also from
+    `reset` and the training loops' ``finally``) stops and joins it; a
+    closed iterator revives on `reset()` or `next()`."""
+
+    def __init__(self, iters, capacity=2):
+        super().__init__()
+        if not isinstance(iters, list):
+            iters = [iters]
+        self.iters = iters
+        self.batch_size = iters[0].batch_size
+        self._capacity = capacity
+        self._queue = None
+        self._thread = None
+        self._stop = [False]  # one cell a generation of workers
+        self._stale = []
+        self._exhausted = False
+
+    def _start(self):
+        self._stale = _require_workers_dead(self._stale, "PrefetchingIter")
+        self._queue = _queue.Queue(self._capacity)
+        # a restart never un-stops a worker an earlier close gave up on:
+        # each generation has its own stop cell
+        stop = self._stop = [False]
+        queue = self._queue
+
+        def worker():
+            while not stop[0]:
+                try:
+                    batches = [it.next() for it in self.iters]
+                except StopIteration:
+                    queue.put(None)
+                    return
+                except BaseException as e:  # raised again in next()
+                    queue.put(_WorkerError(e))
+                    return
+                queue.put(batches)
+
+        self._thread = threading.Thread(target=worker, daemon=True,
+                                        name="mx-prefetch")
+        self._thread.start()
+
+    def close(self):
+        """Stop and join the worker, discarding queued batches
+        (idempotent)."""
+        thread, self._thread = self._thread, None
+        if thread is None:
+            return
+        self._stop[0] = True
+        self._stale = _drain_and_join((thread,), (self._queue,)) + \
+            [t for t in self._stale if t.is_alive()]
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    @property
+    def provide_data(self):
+        return sum([it.provide_data for it in self.iters], [])
+
+    @property
+    def provide_label(self):
+        return sum([it.provide_label for it in self.iters], [])
+
+    def reset(self):
+        self.close()
+        self._stale = _require_workers_dead(self._stale, "PrefetchingIter")
+        self._exhausted = False
+        for it in self.iters:
+            it.reset()
+
+    def next(self):
+        if self._exhausted:
+            raise StopIteration
+        if self._thread is None:
+            self._start()
+        batches = self._queue.get()
+        if batches is None or isinstance(batches, _WorkerError):
+            self._exhausted = True
+            self.close()
+            if batches is not None:
+                raise batches.error
+            raise StopIteration
+        if len(batches) == 1:
+            return batches[0]
+        return DataBatch(data=sum([b.data for b in batches], []),
+                         label=sum([b.label for b in batches], []),
+                         pad=batches[0].pad)
+
+
+def device_prefetch_depth():
+    """MXNET_DEVICE_PREFETCH: the queue depth of the training loops'
+    device-staging layer (default 2; 0 copies each batch in the step)."""
+    raw = os.environ.get("MXNET_DEVICE_PREFETCH", "2")
+    try:
+        depth = int(raw or 0)
+    except ValueError:
+        raise MXNetError(
+            "MXNET_DEVICE_PREFETCH must be an integer queue depth, got %r"
+            % raw)
+    return max(depth, 0)
+
+
+class PrefetchPlan:
+    """Where a staged batch's slices go: the executor group's batch
+    slices and contexts.  A staged batch carries the plan's `key`, and a
+    group loads it in place only when the key is its own, so a stale plan
+    falls back to the copy in the step."""
+
+    def __init__(self, slices, contexts):
+        self.slices = list(slices)
+        self.contexts = list(contexts)
+        self.key = (tuple((s.start, s.stop) for s in self.slices),
+                    tuple(str(c) for c in self.contexts))
+
+
+class DevicePrefetchIter(DataIter):
+    """Stage host batches on their devices while the step before runs.
+
+    A producer thread pulls batches from ``data_iter``; a stager thread
+    cuts each into ``plan``'s per-device slices and copies them to their
+    devices (pinned memory and a side stream on CUDA, with one event a
+    device; plain copies on the CPU) and hangs them on the batch as
+    ``device_parts``.  The batch keeps its host arrays for the host
+    metric and callbacks.  Without a plan the batches pass through
+    unstaged.  ``depth`` bounds both queues; `close()` is idempotent and
+    joins the threads; `reset()` and `next()` revive a closed iterator."""
+
+    def __init__(self, data_iter, plan=None, depth=None):
+        super().__init__()
+        self.data_iter = data_iter
+        self.plan = plan
+        self.batch_size = data_iter.batch_size
+        if depth is None:
+            depth = device_prefetch_depth()
+        if depth <= 0:
+            raise MXNetError(
+                "DevicePrefetchIter needs depth >= 1; use the plain "
+                "iterator (MXNET_DEVICE_PREFETCH=0) for the copy in the "
+                "step")
+        self._depth = depth
+        self._host_queue = None
+        self._queue = None
+        self._threads = ()
+        self._stop = [False]  # one cell a generation of workers
+        self._stale = []
+        self._exhausted = False
+        self._skip_stage = [0]  # see set_skip_staging
+        self._streams = {}  # the stager's side stream a CUDA device
+
+    @property
+    def provide_data(self):
+        return self.data_iter.provide_data
+
+    @property
+    def provide_label(self):
+        return self.data_iter.provide_label
+
+    def _side_stream(self, dev):
+        stream = self._streams.get(dev)
+        if stream is None:
+            stream = self._streams[dev] = torch.cuda.Stream(device=dev)
+        return stream
+
+    def _stage(self, batch):
+        """Cut ``batch`` into the plan's slices on their devices (on the
+        stager thread)."""
+        plan = self.plan
+        if plan is None:
+            return batch
+        devices = [c.torch_device() for c in plan.contexts]
+
+        def shard(arrs):
+            out = []
+            for arr in arrs:
+                src = arr.data if isinstance(arr, NDArray) else \
+                    torch.as_tensor(np.asarray(arr))
+                parts = []
+                for s, ctx, dev in zip(plan.slices, plan.contexts, devices):
+                    piece = src[s.start:s.stop]
+                    if dev.type != "cuda":
+                        parts.append(NDArray(piece.to(dev, copy=True), ctx))
+                        continue
+                    stream = self._side_stream(dev)
+                    if piece.is_cuda:
+                        # produced on another stream: copy after it
+                        stream.wait_stream(
+                            torch.cuda.current_stream(piece.device))
+                        piece.record_stream(stream)
+                    else:
+                        piece = piece.pin_memory()
+                    with torch.cuda.stream(stream):
+                        parts.append(NDArray(piece.to(dev, non_blocking=True),
+                                             ctx))
+                out.append(parts)
+            return out
+
+        data, label = shard(batch.data), shard(batch.label)
+        events = []
+        for dev in devices:
+            event = None
+            if dev.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(self._side_stream(dev))
+            events.append(event)
+        batch.device_parts = {"key": plan.key, "data": data,
+                              "label": label, "events": events}
+        return batch
+
+    def _start(self):
+        self._stale = _require_workers_dead(self._stale,
+                                            "DevicePrefetchIter")
+        self._host_queue = _queue.Queue(self._depth)
+        self._queue = _queue.Queue(self._depth)
+        stop = self._stop = [False]
+        host_queue, queue = self._host_queue, self._queue
+        skip_stage = self._skip_stage
+
+        def producer():
+            while not stop[0]:
+                try:
+                    batch = self.data_iter.next()
+                except StopIteration:
+                    host_queue.put((None, None))
+                    return
+                except BaseException as e:  # raised again in next()
+                    host_queue.put((e, None))
+                    return
+                host_queue.put((None, batch))
+
+        def stager():
+            while not stop[0]:
+                try:
+                    err, batch = host_queue.get(timeout=0.05)
+                except _queue.Empty:
+                    continue  # look at the stop flag again
+                if err is not None or batch is None:
+                    queue.put((err, None))
+                    return
+                if skip_stage[0] > 0:
+                    # a resume's fast-forward discards this batch
+                    skip_stage[0] -= 1
+                    queue.put((None, batch))
+                    continue
+                try:
+                    staged = self._stage(batch)
+                except BaseException as e:  # raised again in next()
+                    queue.put((e, None))
+                    return
+                queue.put((None, staged))
+
+        self._threads = (
+            threading.Thread(target=producer, daemon=True,
+                             name="mx-device-prefetch-in"),
+            threading.Thread(target=stager, daemon=True,
+                             name="mx-device-prefetch-stage"))
+        for t in self._threads:
+            t.start()
+
+    def close(self):
+        """Stop and join both threads, discarding queued batches
+        (idempotent)."""
+        threads, self._threads = self._threads, ()
+        if not threads:
+            return
+        self._stop[0] = True
+        self._stale = _drain_and_join(
+            threads, (self._host_queue, self._queue)) + \
+            [t for t in self._stale if t.is_alive()]
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    def set_skip_staging(self, n):
+        """Deliver the next ``n`` batches unstaged: a resume consumes and
+        discards them.  Call before the first `next()`."""
+        self._skip_stage[0] = int(n)
+
+    def reset(self):
+        self.close()
+        self._stale = _require_workers_dead(self._stale,
+                                            "DevicePrefetchIter")
+        self._exhausted = False
+        self._skip_stage[0] = 0
+        self.data_iter.reset()
+
+    def next(self):
+        if self._exhausted:
+            raise StopIteration
+        if not self._threads:
+            self._start()
+        err, batch = self._queue.get()
+        if err is not None:
+            self._exhausted = True
+            self.close()
+            raise err
+        if batch is None:
+            self._exhausted = True
+            self.close()
+            raise StopIteration
+        return batch
+
+
+def close_iter(data_iter):
+    """Close a prefetching iterator from a training loop's ``finally``,
+    so that no worker thread outlives ``fit``; other iterators are left
+    alone."""
+    if isinstance(data_iter, (PrefetchingIter, DevicePrefetchIter)):
+        try:
+            data_iter.close()
+        except Exception:
+            logging.exception("close of %r failed", data_iter)

@@ -1,16 +1,24 @@
 """Evaluation metrics.
 
 The port's copy of `mxnet_tpu/metric.py` (the reference's
-`python/mxnet/metric.py:127-347`), in numpy on the host: every metric
-reads its labels and predictions through ``asnumpy``, once a batch.  The
-JAX package's in-graph accumulation (``MXNET_METRIC_INTERVAL`` > 1, the
-``device_stat`` methods) is not ported: `metric_interval` raises for it.
+`python/mxnet/metric.py:127-347`).  ``update`` computes in numpy on the
+host, reading labels and predictions through ``asnumpy`` once a batch.
+
+Accumulation on the device (``MXNET_METRIC_INTERVAL`` = N > 1): a metric
+whose batch contribution is a pair of additive numbers (``device_stat``:
+Accuracy, TopKAccuracy, MAE, MSE, RMSE, CrossEntropy, and a
+CompositeEvalMetric of them) computes it from the step's own output
+tensors on their device (`Executor.set_step_stat_fn`), into a carry that
+the training loops fetch once every N steps and at an epoch's end
+(``apply_device_stats``), in place of one ``update`` a batch.  The
+arithmetic is ``update``'s, in float32 on the device.
 """
 from __future__ import annotations
 
 import os
 
 import numpy
+import torch
 
 from .base import MXNetError
 from .ndarray import NDArray
@@ -22,21 +30,15 @@ def _np(x):
 
 def metric_interval():
     """MXNET_METRIC_INTERVAL: 1 (the default) updates the metric on the
-    host after every batch.  The JAX package's in-graph accumulation of
-    N > 1 batches is not ported, so N > 1 raises."""
+    host after every batch; N > 1 accumulates the metric's statistics on
+    the device and fetches them once every N steps."""
     raw = os.environ.get("MXNET_METRIC_INTERVAL", "1")
     try:
-        n = int(raw or 1)
+        return int(raw or 1)
     except ValueError:
         raise MXNetError(
             "MXNET_METRIC_INTERVAL must be an integer step count, got %r"
             % raw)
-    if n > 1:
-        raise MXNetError(
-            "MXNET_METRIC_INTERVAL=%d (metric statistics accumulated on "
-            "the device) is not ported yet (ROADMAP queue 3); unset it or "
-            "set 1" % n)
-    return n
 
 
 class EvalMetric:
@@ -55,6 +57,38 @@ class EvalMetric:
 
     def update(self, labels, preds):
         raise NotImplementedError()
+
+    # -- accumulation on the device ----------------------------------------
+    supports_device = False
+
+    def device_stats_size(self):
+        """The length of the metric's device statistics (0: none; the
+        loops then update it on the host every batch)."""
+        return 2 if self.supports_device and self.num is None else 0
+
+    def device_stat(self, label, pred):
+        """One (label, pred) pair of tensors' contribution: (sum_metric
+        delta, num_inst delta), ``update``'s arithmetic on the device."""
+        raise NotImplementedError()
+
+    def device_batch_stats(self, labels, preds):
+        """A batch's statistics as one float32 tensor on the predictions'
+        device."""
+        s_total, n_total = 0.0, 0.0
+        for label, pred in zip(labels, preds):
+            s, n = self.device_stat(label, pred)
+            s_total = s_total + s
+            n_total = n_total + n
+        dev = preds[0].device
+        return torch.stack([torch.as_tensor(s_total, dtype=torch.float32,
+                                            device=dev).reshape(()),
+                            torch.full((), float(n_total),
+                                       dtype=torch.float32, device=dev)])
+
+    def apply_device_stats(self, stats):
+        """Fold fetched statistics (numpy) into the host accumulators."""
+        self.sum_metric += float(stats[0])
+        self.num_inst += int(round(float(stats[1])))
 
     def get(self):
         if self.num is None:
@@ -77,6 +111,8 @@ class EvalMetric:
 class Accuracy(EvalMetric):
     """Classification accuracy (`metric.py:127`)."""
 
+    supports_device = True
+
     def __init__(self):
         super().__init__("accuracy")
 
@@ -88,9 +124,17 @@ class Accuracy(EvalMetric):
             self.sum_metric += float((pred_label.flat == label.flat).sum())
             self.num_inst += len(pred_label.flat)
 
+    def device_stat(self, label, pred):
+        lab = label.reshape(-1).to(torch.int32)
+        pl = pred.argmax(dim=1) if pred.dim() > 1 else pred.to(torch.int32)
+        pl = pl.reshape(-1)
+        return (pl == lab).sum().float(), float(pl.numel())
+
 
 class TopKAccuracy(EvalMetric):
     """Top-k accuracy (`metric.py` TopKAccuracy)."""
+
+    supports_device = True
 
     def __init__(self, top_k=1):
         super().__init__("top_k_accuracy_%d" % top_k)
@@ -108,6 +152,12 @@ class TopKAccuracy(EvalMetric):
             for i in range(len(label)):
                 self.sum_metric += float(label[i] in top[i])
             self.num_inst += len(label)
+
+    def device_stat(self, label, pred):
+        lab = label.reshape(-1).to(torch.int64)
+        top = torch.argsort(pred, dim=1, stable=True)[:, -self.top_k:]
+        hits = (top == lab[:, None]).any(dim=1).sum()
+        return hits.float(), float(lab.numel())
 
 
 class F1(EvalMetric):
@@ -135,6 +185,8 @@ class F1(EvalMetric):
 
 
 class MAE(EvalMetric):
+    supports_device = True
+
     def __init__(self):
         super().__init__("mae")
 
@@ -144,8 +196,13 @@ class MAE(EvalMetric):
             self.sum_metric += float(numpy.abs(label.reshape(pred.shape) - pred).mean())
             self.num_inst += 1
 
+    def device_stat(self, label, pred):
+        return (label.reshape(pred.shape) - pred).abs().mean(), 1.0
+
 
 class MSE(EvalMetric):
+    supports_device = True
+
     def __init__(self):
         super().__init__("mse")
 
@@ -155,8 +212,13 @@ class MSE(EvalMetric):
             self.sum_metric += float(((label.reshape(pred.shape) - pred) ** 2).mean())
             self.num_inst += 1
 
+    def device_stat(self, label, pred):
+        return ((label.reshape(pred.shape) - pred) ** 2).mean(), 1.0
+
 
 class RMSE(EvalMetric):
+    supports_device = True
+
     def __init__(self):
         super().__init__("rmse")
 
@@ -168,9 +230,15 @@ class RMSE(EvalMetric):
             )
             self.num_inst += 1
 
+    def device_stat(self, label, pred):
+        # each batch adds its own RMSE, as update does
+        return ((label.reshape(pred.shape) - pred) ** 2).mean().sqrt(), 1.0
+
 
 class CrossEntropy(EvalMetric):
     """Per-sample NLL of the labelled class (`metric.py` CrossEntropy)."""
+
+    supports_device = True
 
     def __init__(self):
         super().__init__("cross-entropy")
@@ -182,6 +250,12 @@ class CrossEntropy(EvalMetric):
             prob = pred[numpy.arange(label.shape[0]), label]
             self.sum_metric += float((-numpy.log(numpy.maximum(prob, 1e-12))).sum())
             self.num_inst += label.shape[0]
+
+    def device_stat(self, label, pred):
+        lab = label.reshape(-1).to(torch.int64)
+        prob = pred[torch.arange(lab.shape[0], device=pred.device), lab]
+        return (-torch.log(torch.clamp(prob, min=1e-12))).sum(), \
+            float(lab.shape[0])
 
 
 class Torch(EvalMetric):
@@ -245,6 +319,23 @@ class CompositeEvalMetric(EvalMetric):
     def update(self, labels, preds):
         for m in self.metrics:
             m.update(labels, preds)
+
+    def device_stats_size(self):
+        sizes = [m.device_stats_size() for m in self.metrics]
+        if not sizes or not all(sizes):
+            return 0  # one host-only child keeps the whole on the host
+        return sum(sizes)
+
+    def device_batch_stats(self, labels, preds):
+        return torch.cat([m.device_batch_stats(labels, preds)
+                          for m in self.metrics])
+
+    def apply_device_stats(self, stats):
+        off = 0
+        for m in self.metrics:
+            k = m.device_stats_size()
+            m.apply_device_stats(stats[off:off + k])
+            off += k
 
     def get(self):
         names, results = [], []

@@ -15,10 +15,20 @@ devices' mean comes back into them after each epoch.  The optimizer's
 update is `optimizer.get_fused_updater`'s one `update_multi` a device a
 step (``MXNET_FUSED_UPDATE=0``: one `update` a parameter).
 
-Refused with an error, never accepted and ignored: ``auto_checkpoint``,
-``checkpoint_every``, ``resume`` and their ``MXNET_AUTO_CHECKPOINT``,
-``MXNET_AUTO_CHECKPOINT_EVERY`` and ``MXNET_AUTO_RESUME`` pins, and
-``MXNET_NONFINITE_BACKOFF``: they come with the fault-tolerance slice.
+Fault tolerance as in the JAX package: ``fit(auto_checkpoint=prefix,
+checkpoint_every=n)`` (or the ``MXNET_AUTO_CHECKPOINT``,
+``MXNET_AUTO_CHECKPOINT_EVERY`` pins) writes ``prefix-auto.ckpt`` every
+n batches and at each epoch's end, and ``resume="auto"`` (or
+``MXNET_AUTO_RESUME=1``) goes on from it bit for bit: parameters,
+optimizer state and counts, the cursor, the epoch's shuffle.  The loop
+stages its input on the devices ahead of the step
+(``MXNET_DEVICE_PREFETCH``) and accumulates the metric there
+(``MXNET_METRIC_INTERVAL``).  ``FeedForward.stats`` counts its blocking
+metric fetches, staged batches, auto-checkpoints and resumes.
+
+Refused with an error, never accepted and ignored:
+``MXNET_NONFINITE_GUARD`` and ``MXNET_NONFINITE_BACKOFF``, which come
+with telemetry.
 """
 from __future__ import annotations
 
@@ -28,14 +38,18 @@ import time
 
 import numpy as np
 
+from . import checkpoint as checkpoint_mod
 from . import initializer as init_mod
+from . import io as io_mod
 from . import kvstore as kvs_mod
 from . import metric as metric_mod
 from . import ndarray as nd
+from . import random as random_mod
 from .base import MXNetError
 from .callback import BatchEndParam
 from .context import Context, cpu, current_context
-from .executor_manager import DataParallelExecutorManager, _check_arguments
+from .executor_manager import (DataParallelExecutorManager, _check_arguments,
+                               _count)
 from .io import DataIter, NDArrayIter
 from .ndarray import NDArray, zeros
 from .optimizer import Optimizer, get_fused_updater
@@ -146,33 +160,184 @@ def load_checkpoint(prefix, epoch):
     return symbol, arg_params, aux_params
 
 
-def _refuse_fault_tolerance(auto_checkpoint, checkpoint_every, resume):
-    """The auto-checkpoint, resume and nonfinite-backoff knobs, by
-    argument or pin, raise: they come with the fault-tolerance slice."""
+def _auto_checkpoint_config(auto_checkpoint, checkpoint_every, resume):
+    """The auto-checkpoint knobs of `_train_multi_device` and
+    `BaseModule.fit`: the arguments first, then the ``MXNET_AUTO_*`` pins.
+    Returns (prefix or None, every, resume)."""
+    prefix = auto_checkpoint or os.environ.get("MXNET_AUTO_CHECKPOINT") \
+        or None
+    every = checkpoint_every or int(
+        os.environ.get("MXNET_AUTO_CHECKPOINT_EVERY", "0") or 0)
+    if resume is None and os.environ.get(
+            "MXNET_AUTO_RESUME", "0").lower() in ("1", "true", "yes"):
+        resume = "auto"
+    return prefix, every, resume
+
+
+def _refuse_nonfinite():
+    """``MXNET_NONFINITE_GUARD`` and ``MXNET_NONFINITE_BACKOFF`` report
+    through the JAX package's telemetry, which the port does not have
+    yet: either raises rather than being ignored."""
     env = os.environ
-    asked = {
-        "auto_checkpoint": auto_checkpoint,
-        "checkpoint_every": checkpoint_every,
-        "resume": resume,
-        "MXNET_AUTO_CHECKPOINT": env.get("MXNET_AUTO_CHECKPOINT"),
-        "MXNET_AUTO_CHECKPOINT_EVERY":
-            env.get("MXNET_AUTO_CHECKPOINT_EVERY", "0") not in ("", "0"),
-        "MXNET_AUTO_RESUME": env.get("MXNET_AUTO_RESUME", "0").lower()
-        in ("1", "true", "yes"),
-        "MXNET_NONFINITE_BACKOFF":
-            float(env.get("MXNET_NONFINITE_BACKOFF", "0") or 0) != 0,
-    }
-    on = sorted(k for k, v in asked.items() if v)
+    on = []
+    if env.get("MXNET_NONFINITE_GUARD", "0").lower() in ("1", "true",
+                                                         "yes"):
+        on.append("MXNET_NONFINITE_GUARD")
+    if float(env.get("MXNET_NONFINITE_BACKOFF", "0") or 0) != 0:
+        on.append("MXNET_NONFINITE_BACKOFF")
     if on:
         raise MXNetError(
-            "%s: mid-epoch auto-checkpoints, resume and the nonfinite lr "
-            "backoff are not ported yet (the fault-tolerance slice, "
-            "ROADMAP queue 3)" % ", ".join(on))
+            "%s: the nonfinite-gradient guard and lr backoff are not "
+            "ported yet (they come with telemetry, ROADMAP queue 1)"
+            % ", ".join(on))
+
+
+# the JAX package's telemetry counters of the training loops, kept as
+# plain counts (``FeedForward.stats``, ``BaseModule.stats``)
+STATS = ("train.host_blocking_fetches", "io.device_batches",
+         "train.auto_checkpoints", "train.resumes")
+
+
+def _state_ctx(contexts, update_on_kvstore):
+    """Where each optimizer-state key's arrays live: the device of key
+    ``i * n + k``'s weight, or the store's (host) copy when the store
+    updates."""
+    if update_on_kvstore:
+        return None
+    return lambda key: contexts[key % len(contexts)]
 
 
 def _call(callbacks, *args):
     for cb in callbacks if isinstance(callbacks, list) else [callbacks]:
         cb(*args)
+
+
+class _FitRun:
+    """What `_train_multi_device` and `BaseModule.fit` share around their
+    loop bodies: the auto-checkpoint knobs and the resume state (loaded
+    here, before anything is bound), the device-staged input and the
+    metric accumulated on the device, the first epoch's random state, the
+    checkpoint cadence and the teardown.  ``stats`` counts the JAX
+    package's telemetry keys (`STATS`)."""
+
+    def __init__(self, auto_checkpoint, checkpoint_every, resume, stats,
+                 logger):
+        self.prefix, self.every, resume = _auto_checkpoint_config(
+            auto_checkpoint, checkpoint_every, resume)
+        self.stats = stats
+        self.logger = logger
+        self.state = None
+        if self.prefix and resume == "auto":
+            self.state = checkpoint_mod.load_auto(self.prefix)
+        self.updater = None
+        self.writer = False
+        self.train_data = self.raw_train_data = None
+        self.device_metric = False
+
+    @property
+    def resume_batch(self):
+        """The finished batches of the resumed epoch (0 without one)."""
+        return self.state["nbatch"] if self.state is not None else 0
+
+    @property
+    def resume_iter_pos(self):
+        """The batches the interrupted loop consumed since its last reset;
+        those still queued in a prefetcher do not count, so a resume
+        replays them."""
+        if self.state is None:
+            return 0
+        return int(self.state.get("iter_pos", self.state["nbatch"]))
+
+    def stage(self, train_data, eval_metric, plan=None, install=None,
+              fetch=None, uninstall=None):
+        """``train_data`` behind an `io.DevicePrefetchIter` when
+        ``MXNET_DEVICE_PREFETCH`` asks for one and ``plan()`` gives its
+        plan; the metric on the device when ``MXNET_METRIC_INTERVAL`` > 1
+        and ``install(eval_metric)`` takes it (``fetch(eval_metric)``
+        brings it back, ``uninstall()`` ends it).  Returns the iterator
+        to loop over."""
+        self.raw_train_data = self.train_data = train_data
+        depth = io_mod.device_prefetch_depth()
+        staging = plan() if depth and plan is not None else None
+        if staging is not None:
+            self.train_data = io_mod.DevicePrefetchIter(
+                train_data, plan=staging, depth=depth)
+        self.eval_metric = eval_metric
+        self.interval = metric_mod.metric_interval()
+        self.device_metric = bool(
+            self.interval > 1 and eval_metric is not None
+            and install is not None and install(eval_metric))
+        self._fetch, self._uninstall = fetch, uninstall
+        return self.train_data
+
+    def restore(self, updater, ctx_of=None, kvstore=None):
+        """Take ``updater`` as the optimizer state to checkpoint, and
+        install the resume state's into it (each key's on ``ctx_of(key)``);
+        only rank 0 of a store writes."""
+        self.updater = updater
+        self.writer = bool(self.prefix and self.every and (
+            kvstore is None or getattr(kvstore, "rank", 0) == 0))
+        if self.state is None:
+            return
+        checkpoint_mod.restore_auto(self.state, updater, ctx_of)
+        self.logger.info("auto-resume from %s-auto.ckpt: epoch %d, batch %d",
+                         self.prefix, self.state["epoch"], self.resume_batch)
+        _count(self.stats, "train.resumes")
+
+    def begin(self, reset=True, skip=0):
+        """Set up the first epoch's order and return its random state: the
+        interrupted epoch's replayed, the iterator reset (when ``reset``),
+        ``skip`` batches marked to pass unstaged, and the random stream put
+        back where the checkpoint left it."""
+        if self.state is not None and self.state.get("epoch_rng"):
+            random_mod.set_state(self.state["epoch_rng"])
+        epoch_rng = random_mod.get_state()
+        if reset:
+            self.train_data.reset()
+        if skip and hasattr(self.train_data, "set_skip_staging"):
+            self.train_data.set_skip_staging(skip)
+        if self.state is not None:
+            random_mod.set_state(self.state["rng"])
+        return epoch_rng
+
+    def batch_metric(self, nbatch, update_host):
+        """After the epoch's ``nbatch``-th batch (from 1): one blocking
+        fetch an interval from the device, else ``update_host()``."""
+        if self.device_metric:
+            if nbatch % self.interval == 0:
+                self._fetch(self.eval_metric)
+        else:
+            _count(self.stats, "train.host_blocking_fetches")
+            update_host()
+
+    def flush_metric(self):
+        """The batches since the last fetch, so the metric is whole."""
+        if self.device_metric:
+            self._fetch(self.eval_metric)
+
+    def due(self, nbatch):
+        """Whether the epoch's ``nbatch``-th batch ends with a checkpoint."""
+        return self.writer and nbatch % self.every == 0
+
+    def save(self, arg_params, aux_params, epoch, nbatch, epoch_rng,
+             iter_pos=None):
+        """``prefix``-auto.ckpt, atomically: a kill after this resumes
+        here."""
+        checkpoint_mod.save_auto(
+            self.prefix, arg_params, aux_params, updater=self.updater,
+            epoch=epoch, nbatch=nbatch, epoch_rng=epoch_rng,
+            iter_pos=iter_pos)
+        _count(self.stats, "train.auto_checkpoints")
+
+    def close(self):
+        """No prefetch worker outlives fit, whatever raised."""
+        if self.train_data is None:
+            return
+        io_mod.close_iter(self.train_data)
+        if self.raw_train_data is not self.train_data:
+            io_mod.close_iter(self.raw_train_data)
+        if self.device_metric:
+            self._uninstall()
 
 
 def _train_multi_device(symbol, ctx, arg_names, param_names, aux_names,
@@ -181,17 +346,39 @@ def _train_multi_device(symbol, ctx, arg_names, param_names, aux_names,
                         train_data, eval_data=None, eval_metric=None,
                         epoch_end_callback=None, batch_end_callback=None,
                         logger=None, work_load_list=None, monitor=None,
-                        eval_batch_end_callback=None):
-    """The training loop (`model.py:119-312`)."""
+                        eval_batch_end_callback=None, auto_checkpoint=None,
+                        checkpoint_every=0, resume=None, stats=None):
+    """The training loop (`model.py:119-312`), with the JAX package's
+    auto-checkpoint every ``checkpoint_every`` batches and at each
+    epoch's end, ``resume="auto"`` from the last one, the device-staged
+    input (``MXNET_DEVICE_PREFETCH``) and the metric accumulated on the
+    device (``MXNET_METRIC_INTERVAL`` > 1).  ``stats`` counts
+    ``train.host_blocking_fetches``, ``io.device_batches``,
+    ``train.auto_checkpoints`` and ``train.resumes``."""
     if logger is None:
         logger = logging
-    metric_mod.metric_interval()  # raises for the in-graph accumulation
+    stats = {} if stats is None else stats
+    run = _FitRun(auto_checkpoint, checkpoint_every, resume, stats, logger)
     executor_manager = DataParallelExecutorManager(
         symbol=symbol, ctx=ctx, train_data=train_data,
         param_names=param_names, arg_names=arg_names, aux_names=aux_names,
-        work_load_list=work_load_list, logger=logger)
+        work_load_list=work_load_list, logger=logger, stats=stats)
     if monitor:
         executor_manager.install_monitor(monitor)
+    train_data = run.stage(
+        train_data, eval_metric, plan=executor_manager.prefetch_plan,
+        install=executor_manager.install_metric_stats,
+        fetch=executor_manager.fetch_metric_stats,
+        uninstall=executor_manager.uninstall_metric_stats)
+
+    if run.state is not None:
+        for k, v in run.state["arg"].items():
+            if k in arg_params:
+                arg_params[k][:] = v
+        for k, v in run.state["aux"].items():
+            if k in aux_params:
+                aux_params[k][:] = v
+        begin_epoch = run.state["epoch"]
     executor_manager.set_params(arg_params, aux_params)
 
     updater = None
@@ -205,65 +392,101 @@ def _train_multi_device(symbol, ctx, arg_names, param_names, aux_names,
                             update_on_kvstore=update_on_kvstore)
     if update_on_kvstore:
         kvstore.set_optimizer(optimizer)
+    # the state to checkpoint: the local updater, or the store's
+    run.restore(updater if updater is not None
+                else getattr(kvstore, "_updater", None),
+                _state_ctx(ctx, update_on_kvstore), kvstore)
 
-    train_data.reset()
-    for epoch in range(begin_epoch, end_epoch):
-        tic = time.time()
-        eval_metric.reset()
-        nbatch = 0
-        while True:
-            do_reset = True
-            for data_batch in train_data:
-                if monitor is not None:
-                    monitor.tic()
-                executor_manager.load_data_batch(data_batch)
-                executor_manager.forward(is_train=True)
-                executor_manager.backward()
-                if update_on_kvstore:
-                    _update_params_on_kvstore(executor_manager.param_arrays,
-                                              executor_manager.grad_arrays,
-                                              kvstore)
-                else:
-                    _update_params(executor_manager.param_arrays,
-                                   executor_manager.grad_arrays,
-                                   updater=updater, num_device=len(ctx),
-                                   kvstore=kvstore)
-                if monitor is not None:
-                    monitor.toc_print()
-                executor_manager.update_metric(eval_metric, data_batch.label)
-                nbatch += 1
-                if batch_end_callback is not None:
-                    _call(batch_end_callback,
-                          BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                        eval_metric=eval_metric))
-                if epoch_size is not None and nbatch >= epoch_size:
-                    do_reset = False
-                    break
-            if do_reset:
-                logger.info("Epoch[%d] Resetting Data Iterator", epoch)
-                train_data.reset()
-            if epoch_size is None or nbatch >= epoch_size:
-                break
-        logger.info("Epoch[%d] Time cost=%.3f", epoch, time.time() - tic)
-
-        executor_manager.copy_to(arg_params, aux_params)
-        if epoch_end_callback is not None:
-            _call(epoch_end_callback, epoch, symbol, arg_params, aux_params)
-
-        if eval_data:
+    def run_epochs():
+        epoch_rng = run.begin(skip=run.resume_iter_pos)
+        iter_pos = 0
+        for epoch in range(begin_epoch, end_epoch):
+            tic = time.time()
             eval_metric.reset()
-            eval_data.reset()
-            for i, eval_batch in enumerate(eval_data):
-                executor_manager.load_data_batch(eval_batch)
-                executor_manager.forward(is_train=False)
-                executor_manager.update_metric(eval_metric, eval_batch.label)
-                if eval_batch_end_callback is not None:
-                    _call(eval_batch_end_callback,
-                          BatchEndParam(epoch=epoch, nbatch=i,
-                                        eval_metric=eval_metric))
-            eval_data.reset()
-            for name, value in eval_metric.get_name_value():
-                logger.info("Epoch[%d] Validation-%s=%f", epoch, name, value)
+            nbatch = 0
+            skip = 0
+            if run.state is not None and epoch == begin_epoch:
+                nbatch = run.resume_batch
+                skip = run.resume_iter_pos
+            while True:
+                do_reset = True
+                for data_batch in train_data:
+                    iter_pos += 1
+                    if skip > 0:
+                        skip -= 1
+                        continue
+                    if monitor is not None:
+                        monitor.tic()
+                    executor_manager.load_data_batch(data_batch)
+                    executor_manager.forward(is_train=True)
+                    executor_manager.backward()
+                    if update_on_kvstore:
+                        _update_params_on_kvstore(
+                            executor_manager.param_arrays,
+                            executor_manager.grad_arrays, kvstore)
+                    else:
+                        _update_params(executor_manager.param_arrays,
+                                       executor_manager.grad_arrays,
+                                       updater=updater, num_device=len(ctx),
+                                       kvstore=kvstore)
+                    if monitor is not None:
+                        monitor.toc_print()
+                    run.batch_metric(
+                        nbatch + 1, lambda: executor_manager.update_metric(
+                            eval_metric, data_batch.label))
+                    nbatch += 1
+                    if batch_end_callback is not None:
+                        _call(batch_end_callback,
+                              BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                            eval_metric=eval_metric))
+                    if run.due(nbatch):
+                        run.flush_metric()
+                        executor_manager.copy_to(arg_params, aux_params)
+                        run.save(arg_params, aux_params, epoch, nbatch,
+                                 epoch_rng, iter_pos)
+                    if epoch_size is not None and nbatch >= epoch_size:
+                        do_reset = False
+                        break
+                if do_reset:
+                    logger.info("Epoch[%d] Resetting Data Iterator", epoch)
+                    epoch_rng = random_mod.get_state()
+                    train_data.reset()
+                    iter_pos = 0
+                if epoch_size is None or nbatch >= epoch_size:
+                    break
+            run.flush_metric()
+            logger.info("Epoch[%d] Time cost=%.3f", epoch, time.time() - tic)
+
+            executor_manager.copy_to(arg_params, aux_params)
+            if run.writer:
+                # a crash between epochs resumes at (epoch + 1, 0)
+                run.save(arg_params, aux_params, epoch + 1, 0, epoch_rng,
+                         iter_pos)
+            if epoch_end_callback is not None:
+                _call(epoch_end_callback, epoch, symbol, arg_params,
+                      aux_params)
+
+            if eval_data:
+                eval_metric.reset()
+                eval_data.reset()
+                for i, eval_batch in enumerate(eval_data):
+                    executor_manager.load_data_batch(eval_batch)
+                    executor_manager.forward(is_train=False)
+                    executor_manager.update_metric(eval_metric,
+                                                   eval_batch.label)
+                    if eval_batch_end_callback is not None:
+                        _call(eval_batch_end_callback,
+                              BatchEndParam(epoch=epoch, nbatch=i,
+                                            eval_metric=eval_metric))
+                eval_data.reset()
+                for name, value in eval_metric.get_name_value():
+                    logger.info("Epoch[%d] Validation-%s=%f", epoch, name,
+                                value)
+
+    try:
+        run_epochs()
+    finally:
+        run.close()
 
 
 def _host(value):
@@ -305,6 +528,7 @@ class FeedForward:
         self.argument_checked = False
         self.begin_epoch = begin_epoch
         self._pred_exec = None
+        self.stats = dict.fromkeys(STATS, 0)
 
     def _check_arguments(self):
         if self.argument_checked:
@@ -442,8 +666,10 @@ class FeedForward:
             kvstore="local", logger=None, work_load_list=None, monitor=None,
             eval_batch_end_callback=None, auto_checkpoint=None,
             checkpoint_every=0, resume=None):
-        """Train (`model.py:694-790`)."""
-        _refuse_fault_tolerance(auto_checkpoint, checkpoint_every, resume)
+        """Train (`model.py:694-790`); ``auto_checkpoint``,
+        ``checkpoint_every`` and ``resume`` as `_train_multi_device`
+        takes them."""
+        _refuse_nonfinite()
         data = self._init_iter(X, y, is_train=True)
         eval_data = self._init_eval_iter(eval_data)
         self.kwargs["sym"] = self.symbol
@@ -483,7 +709,10 @@ class FeedForward:
             batch_end_callback=batch_end_callback,
             kvstore=kvstore, update_on_kvstore=update_on_kvstore,
             logger=logger, work_load_list=work_load_list, monitor=monitor,
-            eval_batch_end_callback=eval_batch_end_callback)
+            eval_batch_end_callback=eval_batch_end_callback,
+            auto_checkpoint=auto_checkpoint,
+            checkpoint_every=checkpoint_every, resume=resume,
+            stats=self.stats)
 
     def save(self, prefix, epoch=None):
         """(`model.py` save)"""

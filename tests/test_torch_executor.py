@@ -416,10 +416,24 @@ def test_unported_executor_features_raise():
                              **MLP_SHAPES)
     exe = mlp(tmx).simple_bind(tmx.cpu(), group2ctx={"a": tmx.cpu()},
                                **MLP_SHAPES)
-    with pytest.raises(MXNetError, match="in-graph monitor"):
-        exe.set_monitor_callback(print, mode="ingraph")
-    with pytest.raises(MXNetError):
-        exe.set_step_stat_fn(lambda o, a: o, 2)
+    # the in-graph monitor and step statistics work: one statistic an
+    # entry, as device tensors; a carry of the step's statistics
+    seen = []
+    stepped = mlp(tmx).simple_bind(tmx.cpu(), **MLP_SHAPES)
+    stepped.set_monitor_callback(lambda n, v: seen.append((n, v)),
+                                 mode="ingraph")
+    with pytest.raises(MXNetError, match="monitor mode"):
+        exe.set_monitor_callback(print, mode="lazy")
+    stepped.set_step_stat_fn(lambda o, a: o[0].sum().reshape(1), 1)
+    stepped.forward(is_train=True)
+    stepped.backward()
+    assert [n for n, _ in seen][:1] == ["data"]
+    assert all(v.dim() == 0 for _, v in seen)
+    total = stepped.pop_step_stats()
+    assert total.shape == (1,) and stepped.pop_step_stats() is None
+    np.testing.assert_allclose(float(total[0]),
+                               float(stepped.outputs[0].data.sum()),
+                               rtol=1e-6)
     with pytest.raises(MXNetError, match="AotCache"):
         tmx.executor.AotCache("x")
     with pytest.raises(MXNetError):

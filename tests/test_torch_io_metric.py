@@ -11,10 +11,10 @@ against the JAX package's, on the CPU.
 * `KVStore('local')` push and pull over two CPU contexts give the JAX
   package's arrays: the sums exactly, an SGD step on the store to 1e-6
   of max|w| (the optimizers' bar).
-* Deliberate difference: the port's training loop copies each batch in
-  step whatever ``MXNET_DEVICE_PREFETCH`` says (the JAX package stages
-  batches ahead on a worker thread); the numbers are the same with the
-  pin at 0 and at 2.
+* ``MXNET_DEVICE_PREFETCH`` at 0 (each batch copied in the step) and 2
+  (batches staged ahead by `io.DevicePrefetchIter` and bound in place)
+  give the same numbers; ``MXNET_METRIC_INTERVAL`` takes any step count
+  and refuses a malformed one.
 """
 import logging
 import subprocess
@@ -182,6 +182,9 @@ def test_metric_errors_and_interval(monkeypatch):
         tmx.metric.TopKAccuracy(top_k=1)
     assert tmx.metric.metric_interval() == 1
     monkeypatch.setenv("MXNET_METRIC_INTERVAL", "8")
+    assert tmx.metric.metric_interval() == \
+        jmx.metric.metric_interval() == 8
+    monkeypatch.setenv("MXNET_METRIC_INTERVAL", "eight")
     with pytest.raises(MXNetError, match="MXNET_METRIC_INTERVAL"):
         tmx.metric.metric_interval()
 
@@ -250,17 +253,19 @@ def _fit_params(monkeypatch, depth):
                                   num_epoch=2, learning_rate=0.1,
                                   initializer=tmx.init.Xavier())
     model.fit(tmx.io.NDArrayIter(X, y, batch_size=16, shuffle=True))
-    return {k: v.asnumpy() for k, v in model.arg_params.items()}
+    return ({k: v.asnumpy() for k, v in model.arg_params.items()},
+            model.stats["io.device_batches"])
 
 
 def test_batches_copied_in_step_whatever_device_prefetch_says(monkeypatch):
-    """Deliberate difference: no staging thread in the port; the same
-    numbers either way."""
-    a = _fit_params(monkeypatch, "0")
-    b = _fit_params(monkeypatch, "2")
+    """Pin 0 copies each batch in the step; pin 2 stages them ahead
+    through `io.DevicePrefetchIter` (2 epochs of 6 staged batches bound in
+    place): the same numbers either way."""
+    a, staged_a = _fit_params(monkeypatch, "0")
+    b, staged_b = _fit_params(monkeypatch, "2")
     for k in a:
         np.testing.assert_array_equal(a[k], b[k])
-    assert not hasattr(tmx.io, "DevicePrefetchIter")
+    assert (staged_a, staged_b) == (0, 12)
 
 
 def test_callbacks(tmp_path, caplog):

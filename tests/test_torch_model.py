@@ -14,7 +14,8 @@ must agree to 1e-6 (counts over 128 samples).
 
 Checkpoints carry across: what either package's `FeedForward.save` (or
 `checkpoint.save`, with the optimizer state) writes, the other loads and
-predicts the same from.  The fault-tolerance pins raise.
+predicts the same from.  The auto-checkpoint and resume pins and
+arguments act as in the JAX package; ``MXNET_NONFINITE_BACKOFF`` raises.
 """
 import numpy as np
 import pytest
@@ -178,20 +179,72 @@ def test_checkpoint_module_with_optimizer_state(tmp_path, writer):
     ("MXNET_AUTO_CHECKPOINT", "ck"), ("MXNET_AUTO_CHECKPOINT_EVERY", "5"),
     ("MXNET_AUTO_RESUME", "1"), ("MXNET_NONFINITE_BACKOFF", "0.5"),
     ("MXNET_METRIC_INTERVAL", "4")])
-def test_fault_tolerance_and_metric_pins_raise(monkeypatch, pin):
-    monkeypatch.setenv(*pin)
-    with pytest.raises(MXNetError, match=pin[0]):
+def test_fault_tolerance_and_metric_pins_raise(monkeypatch, tmp_path, pin):
+    """Each pin does what it does in the JAX package: the auto-checkpoint
+    prefix (with an interval of 4 batches), the interval (with a prefix),
+    the resume (from a file the first run left), the metric on the
+    device; the nonfinite backoff still raises."""
+    name, value = pin
+    if name == "MXNET_NONFINITE_BACKOFF":
+        monkeypatch.setenv(name, value)
+        with pytest.raises(MXNetError, match=name):
+            _fit("torch", epochs=1)
+        return
+    prefix = str(tmp_path / "ck")
+    base, _ = _fit("torch", epochs=1)
+    if name == "MXNET_AUTO_RESUME":
+        ref, _ = _fit("torch", epochs=2)
+        monkeypatch.setenv("MXNET_AUTO_CHECKPOINT", prefix)
+        monkeypatch.setenv("MXNET_AUTO_CHECKPOINT_EVERY", "4")
         _fit("torch", epochs=1)
+        monkeypatch.setenv(name, value)
+        model, _ = _fit("torch", epochs=2)
+        assert model.stats["train.resumes"] == 1
+        _same_params(_params(model), _params(ref))
+        return
+    if name == "MXNET_AUTO_CHECKPOINT":
+        monkeypatch.setenv("MXNET_AUTO_CHECKPOINT_EVERY", "4")
+        monkeypatch.setenv(name, prefix)
+    elif name == "MXNET_AUTO_CHECKPOINT_EVERY":
+        monkeypatch.setenv("MXNET_AUTO_CHECKPOINT", prefix)
+        monkeypatch.setenv(name, value)
+    else:
+        monkeypatch.setenv(name, value)
+    model, _ = _fit("torch", epochs=1)
+    _same_params(_params(model), _params(base))
+    if name == "MXNET_METRIC_INTERVAL":
+        # 8 batches: fetched at 4 and 8
+        assert model.stats["train.host_blocking_fetches"] == 2
+        return
+    every = 4 if name == "MXNET_AUTO_CHECKPOINT" else 5
+    state = tmx.checkpoint.load_auto(prefix)
+    assert (state["epoch"], state["nbatch"]) == (1, 0)
+    assert model.stats["train.auto_checkpoints"] == N // BATCH // every + 1
 
 
 @pytest.mark.parametrize("arg", [{"auto_checkpoint": "ck"},
                                  {"checkpoint_every": 3},
                                  {"resume": "auto"}])
-def test_fault_tolerance_arguments_raise(arg):
+def test_fault_tolerance_arguments_raise(tmp_path, arg):
+    """Each argument alone as in the JAX package: a prefix without an
+    interval writes nothing, an interval without a prefix writes nothing,
+    a resume with no prefix (or no file) starts afresh; with all three a
+    run resumes."""
+    prefix = str(tmp_path / "ck")
+    arg = {k: (prefix if k == "auto_checkpoint" else v)
+           for k, v in arg.items()}
     model = tmx.model.FeedForward(mlp(tmx), ctx=tmx.cpu(), num_epoch=1)
     X, y = _data()
-    with pytest.raises(MXNetError, match=list(arg)[0]):
-        model.fit(X, y, **arg)
+    model.fit(X, y, **arg)
+    assert model.stats["train.auto_checkpoints"] == 0
+    assert model.stats["train.resumes"] == 0
+    assert tmx.checkpoint.load_auto(prefix) is None
+    model = tmx.model.FeedForward(mlp(tmx), ctx=tmx.cpu(), num_epoch=1)
+    model.fit(X, y, auto_checkpoint=prefix, checkpoint_every=3)
+    model = tmx.model.FeedForward(mlp(tmx), ctx=tmx.cpu(), num_epoch=2)
+    model.fit(X, y, auto_checkpoint=prefix, checkpoint_every=3,
+              resume="auto")
+    assert model.stats["train.resumes"] == 1
 
 
 def test_default_context_is_the_card():
