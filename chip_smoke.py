@@ -181,7 +181,27 @@ Phases, each of which fails the run with a non-zero exit:
    layers, hidden and embed 64, batch 32, Adam lr 0.01) through
    `mx.mod.BucketingModule` for one epoch of its synthetic sentences:
    every bucket on the default bucket's parameter tensors, the
-   parameters within 1e-4 of max|w| of the same fit on the CPU.
+   parameters within 1e-4 of max|w| of the same fit on the CPU;
+20. fault tolerance, on phase 19 (a)'s fit: (a) ``MXNET_NONFINITE_GUARD=1``
+   with ``MXNET_CHAOS=nan_grad:3:inf``: the parameters after batch 3 bit
+   for bit those after batch 2, the final parameters and Adam states bit
+   for bit a guarded fit over the same batches without batch 3, exactly
+   25/25 LayerNorm and 12/12/12 float32 flash launches every step (the
+   skipped one too), every `update_multi` under
+   ``torch.cuda.set_sync_debug_mode("error")``, 2 blocking fetches; (b)
+   the same with ``MXNET_NONFINITE_BACKOFF=0.5``: lr 5e-4 at the end, one
+   ``lr_backoff`` event, ``train.nonfinite_steps`` 1, 8 blocking fetches
+   (the JAX package's count for this fit on the CPU,
+   `tests/test_torch_nonfinite.py`); (c) ms a step with the guard on and
+   off over the 6 clean batches (off, on, on, off) and the relative
+   drift of the parameters between the two; (d) an `Embedding` at
+   ``input_dim`` 8 with indices [[0, 3, 7, 9], [-1, 2, 8, 1]] on the card
+   (NaN rows for 9 and 8, row 7 for -1), then a LayerNorm and a flash
+   check against their plain versions, and a GPT-2-small paged engine
+   serving a prompt with a token past the vocabulary and then two normal
+   prompts, whose tokens must equal a fresh engine's; (e) storage: the
+   card's memory counters, a freed pool buffer handed back by the next
+   alloc of its size, the ``storage`` collector in a step report.
 
 It prints each phase's seconds, a ``kernels`` JSON line (launches,
 errors, times, bounds; the float32 flash forward's and backward's routes
@@ -3197,6 +3217,259 @@ def module_lm_path(expect):
     return res
 
 
+def fault_tolerance_path(expect):
+    """Phase 20 (a)-(c): the nonfinite guard, chaos's ``nan_grad`` and
+    the lr backoff on `module_lm_path`'s fit (the parity LM in float32 at
+    batch 8, Adam lr 1e-3, 6 seeded batches, prefetch 2, metric interval
+    3), and the guard's cost and drift on the clean batches."""
+    cfg, batch = PARITY, API_LM_BATCH
+    X, Y = module_batches(MODULE_BATCHES, batch, cfg, seed=1)
+    mx.random.seed(0)
+    net = mx.models.get_transformer_lm(**cfg)
+    shapes = {"data": (batch, cfg["seq_len"]),
+              "softmax_label": (batch, cfg["seq_len"])}
+    # the initial parameters drawn once on the card (a fit's own
+    # init_params draws on the host), as module_lm_path does
+    exe = net.simple_bind(mx.gpu(0), grad_req="null", **shapes)
+    names = [n for n in net.list_arguments() if n not in shapes]
+    init = mx.init.Uniform(0.07)
+    for n in names:
+        init(n, exe.arg_dict[n])
+    initial = {n: mx.nd.NDArray(t, mx.cpu()) for n, t in _host_params(
+        {n: exe.arg_dict[n] for n in names}).items()}
+    del exe
+    torch.cuda.empty_cache()
+    skip = 2  # 0-based: the 3rd update is poisoned
+    keep = np.r_[0:skip * batch, (skip + 1) * batch:len(X)]
+    update_multi = mx.optimizer.Optimizer.update_multi
+
+    def no_sync_update(self, *args, **kw):
+        # the guard decides on the device: a host sync in the update
+        # raises here
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return update_multi(self, *args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def fit(pins, x=X, y=Y, snap=()):
+        mx.chaos.reset()
+        mx.telemetry.reset()
+        mx.random.seed(0)
+        mod = mx.mod.Module(net, context=mx.gpu(0))
+        snaps = {}
+
+        def then(p):
+            # a copy on the card: no sync inside the timed steps
+            if p.nbatch in snap:
+                snaps[p.nbatch] = {
+                    n: a[0].data.clone() for n, a in zip(
+                        mod._param_names, mod._exec_group.param_arrays)}
+        watch = _StepWatch(then=then)
+        with pinned(**dict(MODULE_PINS, **pins)):
+            mx.optimizer.Optimizer.update_multi = no_sync_update
+            try:
+                watch.start()
+                mod.fit(mx.io.NDArrayIter(x, y, batch_size=batch),
+                        num_epoch=1, optimizer="adam",
+                        optimizer_params={"learning_rate": 1e-3},
+                        kvstore="local", arg_params=initial,
+                        eval_metric="acc", batch_end_callback=watch)
+                step_ms = watch.step_ms()
+            finally:
+                mx.optimizer.Optimizer.update_multi = update_multi
+        reg = mx.telemetry.registry()
+        return {"watch": watch,
+                "snaps": {k: _host_params(v) for k, v in snaps.items()},
+                "step_ms": step_ms, "stats": dict(mod.stats),
+                "params": _host_params(mod.get_params()[0]),
+                "states": _adam_states(mod._updater),
+                "lr": mod._optimizer.lr,
+                "counters": {k: v for k, v in reg._counters.items()},
+                "lr_backoff": mx.telemetry.events("lr_backoff")}
+
+    guard = {"MXNET_NONFINITE_GUARD": "1"}
+    chaos = dict(guard, MXNET_CHAOS="nan_grad:3:inf")
+    a = fit(chaos, snap=(skip - 1, skip))
+    skipped_same = _max_gap(a["snaps"][skip], a["snaps"][skip - 1])[0] == 0
+    a_ref = fit(guard, X[keep], Y[keep])
+    gap, gap_name = _max_gap(a["params"], a_ref["params"])
+    sgap, sgap_name = _max_gap(a["states"], a_ref["states"])
+    launches = {k: sum(s[k] for s in a["watch"].counts)
+                for k in a["watch"].counts[0]}
+    b = fit(dict(chaos, MXNET_NONFINITE_BACKOFF="0.5"))
+    # (c): the same clean batches, guard off, on, on, off
+    runs = {"off": [], "on": []}
+    first, finals = {}, {}
+    for key in ("off", "on", "on", "off"):
+        r = fit(guard if key == "on" else {}, snap=(0,))
+        runs[key].append(r["step_ms"])
+        first[key], finals[key] = r["snaps"][0], r["params"]
+        del r
+        torch.cuda.empty_cache()
+    spread = {k: _step_spread(v) for k, v in runs.items()}
+    scale = max(float(w.abs().max()) for w in finals["off"].values())
+    # after one step the gradients are the same bits, so the runs differ
+    # by the float32 fold of lr_t alone; later, a weight whose gradient
+    # is rounding noise (the key biases) takes lr-sized steps that a
+    # one-ulp difference anywhere turns around
+    drift1, drift1_name = _max_gap(first["on"], first["off"])
+    drift, drift_name = _max_gap(finals["on"], finals["off"])
+    drift1, drift = drift1 / scale, drift / scale
+    res = {"config": cfg, "batch": batch, "dtype": "float32",
+           "batches": MODULE_BATCHES, "pins": MODULE_PINS,
+           "skip": {"spec": "nan_grad:3:inf",
+                    "after_3_equals_after_2": skipped_same,
+                    "vs_fit_without_batch_3_params_max_abs": gap,
+                    "params_worst": gap_name,
+                    "vs_fit_without_batch_3_adam_max_abs": sgap,
+                    "adam_worst": sgap_name, "stats": a["stats"],
+                    "counters": a["counters"], "launches": launches,
+                    "launches_by_step": a["watch"].counts,
+                    "step_ms": a["step_ms"]},
+           "backoff": {"lr": b["lr"], "lr_backoff": b["lr_backoff"],
+                       "counters": b["counters"], "stats": b["stats"],
+                       "step_ms": b["step_ms"]},
+           "guard_cost": {"runs": runs, "spread": spread,
+                          "guard_ms": spread["on"]["median"]
+                          - spread["off"]["median"],
+                          "drift_rel_after_step_1": drift1,
+                          "drift_worst_after_step_1": drift1_name,
+                          "drift_rel": drift, "drift_worst": drift_name},
+           "launches": launches}
+    log("fault tolerance (a): nan_grad:3:inf under the guard: params after "
+        "batch 3 %s those after batch 2; vs the guarded fit without batch 3 "
+        "params max |d| %.3e (%s), Adam states %.3e (%s); stats %s; "
+        "launches per step %s"
+        % ("==" if skipped_same else "!=", gap, gap_name, sgap, sgap_name,
+           a["stats"], [{k: v for k, v in c.items() if v}
+                        for c in a["watch"].counts]))
+    log("fault tolerance (b): backoff 0.5: lr %g, lr_backoff events %d, "
+        "counters %s" % (b["lr"], len(b["lr_backoff"]), b["counters"]))
+    log("fault tolerance (c): ms a step over runs off, on, on, off (steps "
+        "2-%d): guard off median %.3f (sd %.3f), on %.3f (sd %.3f): the "
+        "guard costs %.3f ms a step; max|w_on - w_off| / max|w| after "
+        "step 1 %.3e (%s), after step %d %.3e (%s)"
+        % (MODULE_BATCHES, spread["off"]["median"], spread["off"]["sd"],
+           spread["on"]["median"], spread["on"]["sd"],
+           res["guard_cost"]["guard_ms"], drift1, drift1_name,
+           MODULE_BATCHES, drift, drift_name))
+    if not skipped_same or gap != 0 or sgap != 0:
+        raise SystemExit("fault tolerance (a): the skipped step moved the "
+                         "parameters, or the run differs from the fit "
+                         "without batch 3 (%.3e, %.3e)" % (gap, sgap))
+    for i, counts in enumerate(a["watch"].counts):
+        off = {k: n for k, n in counts.items() if n != expect.get(k, 0)}
+        if off:
+            raise SystemExit("fault tolerance (a): step %d launched %s, "
+                             "expected %s" % (i + 1, off, expect))
+    if a["stats"]["train.host_blocking_fetches"] != 2 or \
+            a["counters"].get("train.nonfinite_steps", 0) != 0:
+        raise SystemExit("fault tolerance (a): counters %s: expected 2 "
+                         "blocking fetches and no drained health"
+                         % a["counters"])
+    if b["lr"] != 1e-3 * 0.5 or len(b["lr_backoff"]) != 1 or \
+            b["counters"].get("train.nonfinite_steps") != 1 or \
+            b["counters"]["train.host_blocking_fetches"] != 8:
+        raise SystemExit("fault tolerance (b): lr %r, %d lr_backoff events, "
+                         "counters %s" % (b["lr"], len(b["lr_backoff"]),
+                                          b["counters"]))
+    if not drift1 <= 1e-6 or not math.isfinite(drift):
+        raise SystemExit("fault tolerance (c): after one step guarded Adam "
+                         "is %.3e of max|w| from unguarded Adam (bar 1e-6: "
+                         "the float32 fold of lr_t)" % drift1)
+    return res
+
+
+def out_of_range_checks(gen):
+    """Phase 20 (d): an out-of-range `Embedding` on the card, then
+    kernels still launching and matching; a served prompt with a token
+    past the vocabulary, then normal prompts with a fresh engine's
+    tokens."""
+    from mxnet_tpu_torch.ops import registry
+
+    op = registry.get("Embedding")
+    w = torch.randn(8, 5, device="cuda", generator=gen)
+    idx = torch.tensor([[0, 3, 7, 9], [-1, 2, 8, 1]], device="cuda")
+    out = op.apply(registry.OpCtx(), op.parse_params(
+        {"input_dim": 8, "output_dim": 5}), [idx, w], [])[0][0]
+    nan_rows = torch.isnan(out).all(dim=-1).cpu().tolist()
+    emb_ok = nan_rows == [[False, False, False, True],
+                          [False, False, True, False]] and \
+        torch.equal(out[1, 0], w[7]) and torch.equal(out[0, 1], w[3])
+    after = [layer_norm_case(8, torch.float32, gen),
+             flash_case(64, 64, True, 0, 0, torch.float32, gen)]
+    model = TransformerKVModel(**GPT2)
+    params = model.params_from_jax(
+        model.init_params(np.random.RandomState(0)), "cuda")
+    rng = np.random.RandomState(5)
+    bad = rng.randint(0, model.vocab_size, 40).tolist()
+    bad[17] = model.vocab_size + 123
+    good = [(rng.randint(0, model.vocab_size, 60).tolist(), {}),
+            (rng.randint(0, model.vocab_size, 90).tolist(),
+             dict(temperature=0.8, top_k=50, seed=3))]
+    engine = ServingEngine(model, params, max_batch=8)
+    r_bad = engine.submit(bad, max_new_tokens=8, temperature=0.8, seed=1)
+    engine.run_until_idle(timeout=300)
+    got = [engine.submit(p, max_new_tokens=16, **kw) for p, kw in good]
+    engine.run_until_idle(timeout=300)
+    fresh = ServingEngine(model, params, max_batch=8)
+    want = [fresh.submit(p, max_new_tokens=16, **kw) for p, kw in good]
+    fresh.run_until_idle(timeout=300)
+    res = {"embedding_nan_rows": nan_rows, "embedding_ok": emb_ok,
+           "after": [{k: c[k] for k in ("kernel", "shape", "dtype",
+                                        "max_abs_err", "ok")}
+                     for c in after],
+           "bad_prompt_tokens": r_bad.result(1),
+           "good_tokens": [r.result(1) for r in got],
+           "fresh_tokens": [r.result(1) for r in want],
+           "completed": engine.stats["completed"]}
+    del engine, fresh, params
+    torch.cuda.empty_cache()
+    log("fault tolerance (d): Embedding [[0,3,7,9],[-1,2,8,1]] at "
+        "input_dim 8 on the card: NaN rows %s; then %s; a served prompt "
+        "with token %d (vocab %d): tokens %s; the next two prompts %s, a "
+        "fresh engine's %s" % (
+            nan_rows, [(c["kernel"], c["max_abs_err"], c["ok"])
+                       for c in after], bad[17], model.vocab_size,
+            res["bad_prompt_tokens"], res["good_tokens"],
+            res["fresh_tokens"]))
+    if not emb_ok or not all(c["ok"] for c in after):
+        raise SystemExit("fault tolerance (d): the out-of-range Embedding "
+                         "or a kernel after it is wrong: %s" % res)
+    if res["bad_prompt_tokens"] != [0] * 8 or \
+            res["good_tokens"] != res["fresh_tokens"] or \
+            res["completed"] != 3:
+        raise SystemExit("fault tolerance (d): the engine after an "
+                         "out-of-range prompt: %s" % res)
+    return res
+
+
+def storage_checks():
+    """Phase 20 (e): the card's memory counters, the pool's reuse of a
+    freed buffer, the ``storage`` collector of a step report."""
+    mem = mx.storage.device_memory_stats()
+    st = mx.storage.Storage.get()
+    h = st.alloc(1 << 20, mx.gpu(0))
+    ptr = h.data.data_ptr()
+    st.free(h)
+    h2 = st.alloc(1 << 20, mx.gpu(0))
+    reused = h2.data.data_ptr() == ptr
+    pool = st.pool_stats()
+    st.free(h2)
+    st.release_all()
+    report = mx.telemetry.step_report()["storage"]
+    res = {"device_memory_stats": mem, "reused": reused, "pool": pool,
+           "step_report_storage": report}
+    log("fault tolerance (e): device_memory_stats %s; alloc/free/alloc of "
+        "1 MiB reused the buffer: %s; step report storage %s"
+        % (mem, reused, report))
+    if not mem.get("bytes_in_use") or not reused or \
+            not report.get("hbm", {}).get("bytes_in_use"):
+        raise SystemExit("fault tolerance (e): storage %s" % res)
+    return res
+
+
 def spmd_module_path(expect):
     """(b): the fused configuration in bf16 at batch 32 through
     `mx.mod.SPMDModule.fit` (Adam lr 1e-3, 5 seeded batches), against
@@ -4258,12 +4531,21 @@ def main():
             dict(per_layer, **flash("flash_attention"), fused_ce_fwd_sp=1,
                  fused_ce_bwd_dw=1))
         bucketing = bucketing_path()
+
+    with phase("fault tolerance"):
+        faults = fault_tolerance_path(
+            dict(per_layer, **flash("flash_attention")))
+        faults["out_of_range"] = out_of_range_checks(
+            torch.Generator(device="cuda").manual_seed(20))
+        faults["storage"] = storage_checks()
     # the LM's LayerNorm launches join the LayerNorm rows; its float32
     # flash launches the float32 flash rows
     api_lm_ln = {k: (n if k.startswith("layer_norm") else 0)
                  for k, n in api_lm["launches"].items()}
     module_lm_ln = {k: (n if k.startswith("layer_norm") else 0)
                     for k, n in module_lm["launches"].items()}
+    guarded_ln = {k: (n if k.startswith("layer_norm") else 0)
+                  for k, n in faults["launches"].items()}
 
     kernels = kernels_line(cases, {
         "paged": paged["launches"], "slot": slot["launches"],
@@ -4278,6 +4560,7 @@ def main():
         "train_longctx_stream": stream["launches"],
         "api_lm_simple_bind": api_lm_ln,
         "module_lm_fit": module_lm_ln,
+        "module_lm_fit_guarded": guarded_ln,
         "spmd_module_fit_fused": spmd_module["launches"]}, {
         "slot": slot["launches"],
         "train_bhsd_f32": hsd32["launches"],
@@ -4291,7 +4574,8 @@ def main():
         "gradients_longctx_ds": ds_grads["launches"],
         "gradients_longctx_stream": stream_grads["launches"],
         "api_lm_simple_bind_f32": api_lm["launches"],
-        "module_lm_fit_f32": module_lm["launches"]})
+        "module_lm_fit_f32": module_lm["launches"],
+        "module_lm_fit_guarded_f32": faults["launches"]})
     idle = [e["name"] for e in kernels if not e["launches"]]
     if idle:
         raise SystemExit("kernels launched on no path: %s" % idle)
@@ -4319,7 +4603,8 @@ def main():
          "resnet50_gradients": resnet_grads,
          "resnet50_feedforward": resnet_ff, "other_nets": others,
          "module_lm": module_lm, "spmd_module": spmd_module,
-         "bucketing": bucketing, "kernels": kernels},
+         "bucketing": bucketing, "fault_tolerance": faults,
+         "kernels": kernels},
         indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -44,6 +44,15 @@ mid-epoch auto-checkpoints in the JAX package's format:
     mod.fit(train_iter, num_epoch=2, optimizer="adam",
             auto_checkpoint="run", checkpoint_every=100, resume="auto")
 
+The training half of the JAX package's fault tolerance runs on them:
+``MXNET_NONFINITE_GUARD=1`` skips a step with a nonfinite gradient on
+the device, ``MXNET_NONFINITE_BACKOFF`` backs the lr off after it,
+`chaos` injects ``nan_grad:N`` (its other clauses raise), and
+`telemetry` (counters, gauges, histograms, events, JSONL step records,
+the retrace watch, the staged health moments) reports them; `storage`
+(the pooled scratch allocator, device memory counters) and `resource`
+come with them.
+
 The JAX package's op set and model zoo are ported too (`ops`,
 `models`): convolution, pooling, BatchNorm and the rest run as torch
 calls (cuDNN on the card; float32 convolutions without TF32 whatever
@@ -85,6 +94,7 @@ from . import ndarray as nd
 from . import lr_scheduler, metric, callback, io, kvstore
 from . import kvstore as kv
 from . import executor, executor_manager, checkpoint, model, monitor
+from . import telemetry, chaos, storage, resource
 from . import module
 from . import module as mod
 from .attribute import AttrScope
@@ -107,5 +117,6 @@ __all__ = ["AttrScope", "Context", "Executor", "FeedForward", "MXNetError",
            "executor_manager", "gpu", "init", "initializer", "io", "kv",
            "kvstore", "load_params", "lr_scheduler", "metric", "mod",
            "model", "models", "module", "monitor", "name", "nd", "ndarray",
-           "ops", "opt", "optimizer",
+           "ops", "opt", "optimizer", "chaos", "resource", "storage",
+           "telemetry",
            "parallel", "random", "resolve", "sym", "symbol", "tpu"]

@@ -9,8 +9,11 @@ per-key optimizer state pickled as numpy in ``prefix-%04d.states``,
 ``prefix-latest`` naming the last epoch whose files are complete, and
 ``prefix-auto.ckpt``, one pickle (``format: 1``) of the parameters, the
 optimizer state and counts, the (epoch, nbatch) cursor, the iterator
-position and the random state now and at the epoch's start, so that a
+position, the random state now and at the epoch's start, and the
+nonfinite guard's applied-step counters (``guard_counts``), so that a
 ``fit(resume="auto")`` after a kill goes on exactly, in either package.
+Each auto-checkpoint counts ``train.auto_checkpoints`` and records an
+``auto_checkpoint`` event in `telemetry`.
 Every file is written to a temporary name and renamed into place.
 """
 from __future__ import annotations
@@ -21,6 +24,7 @@ import pickle
 import numpy as np
 
 from . import ndarray as nd
+from . import telemetry
 from .base import MXNetError
 from .context import cpu
 from .ndarray import NDArray
@@ -157,15 +161,28 @@ def save_auto(prefix, arg_params, aux_params, updater=None, epoch=0,
             state["opt_counts"] = (dict(opt._index_update_count),
                                    int(opt.num_update))
             state["opt_lr"] = float(opt.lr)
-            # the JAX package's guard counters, carried as they came
+            # the guard's applied-step counters (they lag the host counts
+            # by the skipped steps): without them a resume would re-seed
+            # from the host counts and count the skips in Adam's bias
+            # correction
             guard_counts = getattr(opt, "_guard_counts", None)
             if guard_counts:
                 state["guard_counts"] = {
-                    k: np.asarray(v, np.float32)
-                    for k, v in guard_counts.items()}
+                    k: _host_counts(v) for k, v in guard_counts.items()}
     blob = pickle.dumps(state, protocol=4)
     _atomic_write("%s-auto.ckpt" % prefix, lambda p: _write_bytes(p, blob))
+    telemetry.inc("train.auto_checkpoints")
+    telemetry.record_event("auto_checkpoint", epoch=int(epoch),
+                           nbatch=int(nbatch))
     return len(blob)
+
+
+def _host_counts(counts):
+    """A guard counter (a device tensor, or numpy from a restore) as the
+    float32 numpy array the JAX package saves."""
+    if hasattr(counts, "cpu"):
+        counts = counts.cpu().numpy()
+    return np.asarray(counts, np.float32)
 
 
 def load_auto(prefix):
@@ -206,9 +223,10 @@ def restore_auto(state, updater=None, ctx_of=None):
     if opt is not None and state.get("opt_lr") is not None:
         opt.lr = state["opt_lr"]
     if opt is not None and state.get("guard_counts"):
+        # host numpy: update_multi copies each counter to its bucket's
+        # device at its next use
         opt._guard_counts = {
-            tuple(k) if isinstance(k, list) else k:
-            np.asarray(v, np.float32)
+            tuple(k): np.asarray(v, np.float32)
             for k, v in state["guard_counts"].items()}
 
 

@@ -38,7 +38,9 @@ the callback 0-d device tensors of one stacked bundle, which
 `monitor.Monitor` fetches in one transfer.  `set_step_stat_fn` adds a
 statistic of each training step's outputs and arguments (the metric's
 ``device_batch_stats``) to a device carry in `backward`, with no host
-sync until `pop_step_stats` hands the carry to the caller.
+sync until `pop_step_stats` hands the carry to the caller.  Each
+training step (in `backward`) and each other forward feeds the retrace
+watch of `telemetry` its arguments' shapes and dtypes.
 
 Refused with an error, never accepted and ignored: ``group2ctx`` over
 more than one device, the rematerialization pins
@@ -52,6 +54,7 @@ import os
 import torch
 
 from . import random as _random
+from . import telemetry
 from .base import MXNetError
 from .context import Context
 from .ndarray import NDArray
@@ -339,6 +342,11 @@ class Executor:
                 stats.append(torch.as_tensor(
                     stat(t.detach()), dtype=torch.float32,
                     device=t.device).reshape(()))
+        if not (is_train and self.grad_arrays is not None):
+            # a training forward is watched as the step, in backward
+            self._watch_retrace("executor.forward%s[%s]" % (
+                "_monitored" if on_entry is not None else "",
+                "train" if is_train else "eval"))
         leaves, aux, outs = self._run(rng, is_train, on_entry=on_entry)
         if names:
             for name, value in zip(names, torch.stack(stats)):
@@ -373,6 +381,11 @@ class Executor:
             cots = [(g.data if isinstance(g, NDArray) else
                      torch.as_tensor(g)).to(o.device, o.dtype)
                     for g, o in zip(out_grads, outs)]
+        with_stats = self._step_stat_fn is not None and out_grads is None
+        self._watch_retrace(
+            "executor.train_step", cots,
+            program=("donate" if out_grads is None else "keep")
+            + ("+stats" if with_stats else ""))
         pairs = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]
         wrt = [i for i, t in enumerate(leaves) if t.requires_grad]
         grads = [None] * len(wrt)
@@ -381,7 +394,7 @@ class Executor:
                 [o for o, _ in pairs], [leaves[i] for i in wrt],
                 [c for _, c in pairs], allow_unused=True)
         got = dict(zip(wrt, grads))
-        if self._step_stat_fn is not None and out_grads is None:
+        if with_stats:
             with torch.no_grad():
                 step = self._step_stat_fn([o.detach() for o in outs],
                                           [t.detach() for t in leaves])
@@ -403,6 +416,25 @@ class Executor:
                 nd.data.zero_()
             else:
                 nd.data.copy_(g)
+
+    def _watch_retrace(self, site, cots=None, program=None):
+        """Feed the retrace watch one call's signature (the bound
+        arguments, aux states and head gradients), scoped by the Symbol:
+        a change of shape or dtype fires where the JAX executor
+        recompiles (a ragged batch, a rebind)."""
+        if not telemetry.retrace_enabled():
+            return
+        sig = telemetry.arrays_signature(
+            [a.data for a in self.arg_arrays], self._arg_names)
+        sig += telemetry.arrays_signature(
+            [a.data for a in self.aux_arrays],
+            ["aux:%s" % n for n in self._aux_names])
+        if cots is not None:
+            sig += telemetry.arrays_signature(
+                cots, ["cot%d" % i for i in range(len(cots))])
+        telemetry.watch_jit(site, sig,
+                            scope=telemetry.watch_scope(self._symbol),
+                            meta={"program": program} if program else None)
 
     def copy_params_from(self, arg_params, aux_params=None,
                          allow_extra_params=False):

@@ -18,8 +18,7 @@ after checking every shape.  `install_metric_stats` puts a metric's
 device statistics into every executor's training step, and
 `fetch_metric_stats` brings them back in one blocking fetch.  The
 group counts ``io.device_batches`` (staged batches bound) and
-``train.host_blocking_fetches`` (metric fetches) in ``stats``, a dict
-the caller may share.
+``train.host_blocking_fetches`` (metric fetches) in `telemetry`.
 """
 from __future__ import annotations
 
@@ -28,6 +27,7 @@ import logging
 import numpy as np
 import torch
 
+from . import telemetry
 from .base import MXNetError
 from .io import PrefetchPlan
 from .kvstore import _reduce
@@ -40,10 +40,6 @@ def _reduce_blocks(blocks):
     """The sum of the devices' copies of one array, as a tensor on the
     first one's device."""
     return _reduce(blocks).data
-
-
-def _count(stats, key):
-    stats[key] = stats.get(key, 0) + 1
 
 
 def _split_input_slice(batch_size, work_load_list):
@@ -87,7 +83,7 @@ class DataParallelExecutorGroup:
     (`executor_manager.py:180-262`)."""
 
     def __init__(self, sym, arg_names, param_names, ctx, slices, train_data,
-                 shared_group=None, grad_req="write", stats=None):
+                 shared_group=None, grad_req="write"):
         _check_arguments(sym)
         self.sym = sym
         self.arg_names = arg_names
@@ -103,7 +99,6 @@ class DataParallelExecutorGroup:
         self.param_idx = [i for i, name in enumerate(arg_names)
                           if name in param_names]
 
-        self.stats = {} if stats is None else stats
         self.train_execs = []
         for i, ctxi in enumerate(ctx):
             rows = slices[i].stop - slices[i].start
@@ -189,7 +184,7 @@ class DataParallelExecutorGroup:
                 if t.dtype != dst.data.dtype:
                     t = t.to(dst.data.dtype)
                 dst._data = t
-            _count(self.stats, "io.device_batches")
+            telemetry.inc("io.device_batches")
             return
         _load_general(data_batch.data, self.data_arrays)
         _load_general(data_batch.label, self.label_arrays)
@@ -239,7 +234,7 @@ class DataParallelExecutorGroup:
                    if p is not None]
         if not pending:
             return False
-        _count(self.stats, "train.host_blocking_fetches")
+        telemetry.blocking_fetch("metric_interval")
         total = np.zeros((metric.device_stats_size(),), np.float64)
         for p in pending:
             total += p.cpu().numpy().astype(np.float64)
@@ -252,7 +247,7 @@ class DataParallelExecutorManager:
     (`executor_manager.py:288-318`)."""
 
     def __init__(self, symbol, ctx, train_data, param_names, arg_names,
-                 aux_names, work_load_list=None, logger=None, stats=None):
+                 aux_names, work_load_list=None, logger=None):
         if logger is None:
             logger = logging
         num_device = len(ctx)
@@ -268,8 +263,7 @@ class DataParallelExecutorManager:
         self.aux_names = aux_names
         self.ctx = ctx
         self.execgrp = DataParallelExecutorGroup(
-            symbol, arg_names, param_names, ctx, self.slices, train_data,
-            stats=stats)
+            symbol, arg_names, param_names, ctx, self.slices, train_data)
         self.symbol = symbol
         self.curr_execgrp = self.execgrp
 

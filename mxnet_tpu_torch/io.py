@@ -20,7 +20,9 @@ memory while that step still reads it
 (`executor_manager.DataParallelExecutorGroup.load_data_batch`).  On the
 CPU the stager makes plain copies.  A worker's exception surfaces in
 `next()`, `close()` is idempotent and joins both threads, and the
-training loops close the iterator in ``finally`` (`close_iter`).
+training loops close the iterator in ``finally`` (`close_iter`).  Both
+prefetchers report their waits to `telemetry` (``io.wait_ms``;
+``io.device_wait_ms``, ``io.prefetch_depth``, ``io.input_wait_frac``).
 `ImageRecordIter` is not ported yet.
 """
 from __future__ import annotations
@@ -36,6 +38,7 @@ import time
 import numpy as np
 import torch
 
+from . import telemetry
 from .base import MXNetError, check_shape
 from .context import cpu
 from .ndarray import NDArray, array
@@ -467,7 +470,11 @@ class PrefetchingIter(DataIter):
             raise StopIteration
         if self._thread is None:
             self._start()
+        # how long the loop blocked on the queue: near zero when the
+        # pipeline keeps up, a step's time when the loop is input-bound
+        t0 = time.perf_counter()
         batches = self._queue.get()
+        telemetry.observe("io.wait_ms", 1e3 * (time.perf_counter() - t0))
         if batches is None or isinstance(batches, _WorkerError):
             self._exhausted = True
             self.close()
@@ -532,6 +539,7 @@ class DevicePrefetchIter(DataIter):
                 "iterator (MXNET_DEVICE_PREFETCH=0) for the copy in the "
                 "step")
         self._depth = depth
+        self._last_return = None
         self._host_queue = None
         self._queue = None
         self._threads = ()
@@ -677,6 +685,7 @@ class DevicePrefetchIter(DataIter):
         self._stale = _require_workers_dead(self._stale,
                                             "DevicePrefetchIter")
         self._exhausted = False
+        self._last_return = None
         self._skip_stage[0] = 0
         self.data_iter.reset()
 
@@ -685,7 +694,17 @@ class DevicePrefetchIter(DataIter):
             raise StopIteration
         if not self._threads:
             self._start()
+        t0 = time.perf_counter()
         err, batch = self._queue.get()
+        now = time.perf_counter()
+        wait = now - t0
+        telemetry.observe("io.device_wait_ms", 1e3 * wait)
+        telemetry.set_gauge("io.prefetch_depth", self._queue.qsize())
+        if self._last_return is not None:
+            interval = now - self._last_return
+            telemetry.set_gauge("io.input_wait_frac",
+                                wait / interval if interval > 0 else 0.0)
+        self._last_return = now
         if err is not None:
             self._exhausted = True
             self.close()

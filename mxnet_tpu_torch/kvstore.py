@@ -11,6 +11,8 @@ one a push fills the merge buffer and a pull serves that; `rank`,
 `num_workers`, `barrier`; `set_optimizer` installs
 `optimizer.get_fused_updater`, which applies a pushed list of keys as one
 `update_multi`.  A pull copies (the JAX package shares the buffer).
+Pushes and pulls count ``kvstore.push_calls``/``push_bytes`` and
+``kvstore.pull_calls``/``pull_bytes`` in `telemetry`.
 
 The ``dist_*`` types (the parameter server of `parallel/dist.py`) raise:
 they come with ROADMAP queue 5.
@@ -20,6 +22,7 @@ from __future__ import annotations
 import os
 import pickle
 
+from . import telemetry
 from .base import MXNetError
 from .ndarray import NDArray
 
@@ -71,7 +74,11 @@ class KVStore:
         """Push values; a list of keys is one bucket, which a list-capable
         updater applies in one `update_multi`."""
         keys = self._keylist(key)
-        merged = [_reduce(v) for v in self._vallist(value, len(keys))]
+        vals = self._vallist(value, len(keys))
+        telemetry.inc("kvstore.push_calls")
+        telemetry.inc("kvstore.push_bytes", sum(
+            v.data.nbytes for vlist in vals for v in vlist))
+        merged = [_reduce(v) for v in vals]
         if self._updater is None:
             for k, m in zip(keys, merged):
                 self._merge_buf[k] = m
@@ -102,8 +109,10 @@ class KVStore:
                 src = self._store[k]
             else:
                 raise MXNetError("key %r not initialized" % k)
+            telemetry.inc("kvstore.pull_bytes", src.data.nbytes * len(olist))
             for o in olist:
                 src.copyto(o)
+        telemetry.inc("kvstore.pull_calls")
 
     def _set_updater(self, updater):
         self._updater = updater

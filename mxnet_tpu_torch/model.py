@@ -23,12 +23,16 @@ n batches and at each epoch's end, and ``resume="auto"`` (or
 optimizer state and counts, the cursor, the epoch's shuffle.  The loop
 stages its input on the devices ahead of the step
 (``MXNET_DEVICE_PREFETCH``) and accumulates the metric there
-(``MXNET_METRIC_INTERVAL``).  ``FeedForward.stats`` counts its blocking
-metric fetches, staged batches, auto-checkpoints and resumes.
-
-Refused with an error, never accepted and ignored:
-``MXNET_NONFINITE_GUARD`` and ``MXNET_NONFINITE_BACKOFF``, which come
-with telemetry.
+(``MXNET_METRIC_INTERVAL``).  With ``MXNET_NONFINITE_GUARD=1`` a step
+whose gradients are not finite is skipped on the device
+(`optimizer.Optimizer.update_multi`), and ``MXNET_NONFINITE_BACKOFF=f``
+multiplies ``optimizer.lr`` by f once for each such step, polled after
+every update.  The loops report to `telemetry` under the JAX package's
+names (``train.host_blocking_fetches``, ``io.device_batches``,
+``train.auto_checkpoints``, ``train.resumes``, ``train.nonfinite_steps``,
+the ``lr_backoff`` event, a step record per batch once a sink is
+attached); ``FeedForward.stats`` reads the first four back as counted
+by this model's fits.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ import time
 
 import numpy as np
 
+from . import chaos
 from . import checkpoint as checkpoint_mod
 from . import initializer as init_mod
 from . import io as io_mod
@@ -45,11 +50,11 @@ from . import kvstore as kvs_mod
 from . import metric as metric_mod
 from . import ndarray as nd
 from . import random as random_mod
+from . import telemetry
 from .base import MXNetError
 from .callback import BatchEndParam
 from .context import Context, cpu, current_context
-from .executor_manager import (DataParallelExecutorManager, _check_arguments,
-                               _count)
+from .executor_manager import DataParallelExecutorManager, _check_arguments
 from .io import DataIter, NDArrayIter
 from .ndarray import NDArray, zeros
 from .optimizer import Optimizer, get_fused_updater
@@ -174,26 +179,50 @@ def _auto_checkpoint_config(auto_checkpoint, checkpoint_every, resume):
     return prefix, every, resume
 
 
-def _refuse_nonfinite():
-    """``MXNET_NONFINITE_GUARD`` and ``MXNET_NONFINITE_BACKOFF`` report
-    through the JAX package's telemetry, which the port does not have
-    yet: either raises rather than being ignored."""
-    env = os.environ
-    on = []
-    if env.get("MXNET_NONFINITE_GUARD", "0").lower() in ("1", "true",
-                                                         "yes"):
-        on.append("MXNET_NONFINITE_GUARD")
-    if float(env.get("MXNET_NONFINITE_BACKOFF", "0") or 0) != 0:
-        on.append("MXNET_NONFINITE_BACKOFF")
-    if on:
-        raise MXNetError(
-            "%s: the nonfinite-gradient guard and lr backoff are not "
-            "ported yet (they come with telemetry, ROADMAP queue 1)"
-            % ", ".join(on))
+def _nonfinite_backoff():
+    """MXNET_NONFINITE_BACKOFF=<factor>: after a step whose gradients were
+    not finite (seen through the staged health moments, one small fetch a
+    step while this is set), multiply the optimizer's lr by the factor.
+    The lr reaches the update through `_step_scalars` on every call."""
+    return float(os.environ.get("MXNET_NONFINITE_BACKOFF", "0") or 0)
 
 
-# the JAX package's telemetry counters of the training loops, kept as
-# plain counts (``FeedForward.stats``, ``BaseModule.stats``)
+def _backoff_active(backoff, optimizer, kvstore, update_on_kvstore, logger):
+    """Whether the lr backoff can reach the updates: not while a
+    scheduler decides the lr, nor where a parameter server's copy of the
+    optimizer runs them."""
+    if not backoff or optimizer is None:
+        return False
+    if getattr(optimizer, "lr_scheduler", None) is not None:
+        logger.warning(
+            "MXNET_NONFINITE_BACKOFF ignored: the optimizer has an "
+            "lr_scheduler, which (not optimizer.lr) decides the "
+            "effective lr")
+        return False
+    if update_on_kvstore and kvstore is not None \
+            and "dist" in kvstore.type:
+        logger.warning(
+            "MXNET_NONFINITE_BACKOFF ignored: updates run on the "
+            "parameter server's optimizer copy, which a worker-side lr "
+            "mutation cannot reach")
+        return False
+    return True
+
+
+def _poll_nonfinite_backoff(optimizer, backoff, logger):
+    """After each update: drain the staged health moments; if any update
+    since the last poll saw nonfinite gradients, back the lr off once and
+    record the event."""
+    bad = telemetry.consume_nonfinite()
+    if bad:
+        optimizer.lr *= backoff
+        logger.warning("nonfinite gradients in %d update(s): lr backed "
+                       "off to %g", bad, optimizer.lr)
+        telemetry.record_event("lr_backoff", lr=optimizer.lr, steps=bad)
+
+
+# the telemetry counters that ``FeedForward.stats`` and
+# ``BaseModule.stats`` read back
 STATS = ("train.host_blocking_fetches", "io.device_batches",
          "train.auto_checkpoints", "train.resumes")
 
@@ -217,14 +246,18 @@ class _FitRun:
     loop bodies: the auto-checkpoint knobs and the resume state (loaded
     here, before anything is bound), the device-staged input and the
     metric accumulated on the device, the first epoch's random state, the
-    checkpoint cadence and the teardown.  ``stats`` counts the JAX
-    package's telemetry keys (`STATS`)."""
+    checkpoint cadence, the nonfinite lr backoff, the telemetry of each
+    step and the teardown.  At the end the `STATS` counters' increase
+    over the run is added to ``stats`` (the owner's counts)."""
 
     def __init__(self, auto_checkpoint, checkpoint_every, resume, stats,
                  logger):
+        chaos.spec()  # a clause the port cannot inject raises here
         self.prefix, self.every, resume = _auto_checkpoint_config(
             auto_checkpoint, checkpoint_every, resume)
         self.stats = stats
+        self._base = {k: telemetry.registry().counter(k).value
+                      for k in STATS}
         self.logger = logger
         self.state = None
         if self.prefix and resume == "auto":
@@ -233,6 +266,9 @@ class _FitRun:
         self.writer = False
         self.train_data = self.raw_train_data = None
         self.device_metric = False
+        self.backoff = 0
+        self.optimizer = None
+        self.in_flight = 0
 
     @property
     def resume_batch(self):
@@ -270,19 +306,33 @@ class _FitRun:
         self._fetch, self._uninstall = fetch, uninstall
         return self.train_data
 
-    def restore(self, updater, ctx_of=None, kvstore=None):
+    def restore(self, updater, ctx_of=None, kvstore=None, optimizer=None,
+                update_on_kvstore=False):
         """Take ``updater`` as the optimizer state to checkpoint, and
         install the resume state's into it (each key's on ``ctx_of(key)``);
-        only rank 0 of a store writes."""
+        only rank 0 of a store writes.  ``optimizer`` is the one the lr
+        backoff acts on."""
         self.updater = updater
         self.writer = bool(self.prefix and self.every and (
             kvstore is None or getattr(kvstore, "rank", 0) == 0))
+        backoff = _nonfinite_backoff()
+        if _backoff_active(backoff, optimizer, kvstore, update_on_kvstore,
+                           self.logger):
+            self.backoff, self.optimizer = backoff, optimizer
         if self.state is None:
             return
         checkpoint_mod.restore_auto(self.state, updater, ctx_of)
         self.logger.info("auto-resume from %s-auto.ckpt: epoch %d, batch %d",
                          self.prefix, self.state["epoch"], self.resume_batch)
-        _count(self.stats, "train.resumes")
+        telemetry.inc("train.resumes")
+        telemetry.record_event("resume", epoch=self.state["epoch"],
+                               nbatch=self.resume_batch)
+
+    def after_update(self):
+        """After each step's update: the nonfinite backoff's poll."""
+        if self.backoff:
+            _poll_nonfinite_backoff(self.optimizer, self.backoff,
+                                    self.logger)
 
     def begin(self, reset=True, skip=0):
         """Set up the first epoch's order and return its random state: the
@@ -304,16 +354,20 @@ class _FitRun:
         """After the epoch's ``nbatch``-th batch (from 1): one blocking
         fetch an interval from the device, else ``update_host()``."""
         if self.device_metric:
+            self.in_flight += 1
             if nbatch % self.interval == 0:
                 self._fetch(self.eval_metric)
+                self.in_flight = 0
+            telemetry.set_gauge("train.steps_in_flight", self.in_flight)
         else:
-            _count(self.stats, "train.host_blocking_fetches")
+            telemetry.blocking_fetch("metric_update")
             update_host()
 
     def flush_metric(self):
         """The batches since the last fetch, so the metric is whole."""
         if self.device_metric:
             self._fetch(self.eval_metric)
+            self.in_flight = 0
 
     def due(self, nbatch):
         """Whether the epoch's ``nbatch``-th batch ends with a checkpoint."""
@@ -327,10 +381,13 @@ class _FitRun:
             self.prefix, arg_params, aux_params, updater=self.updater,
             epoch=epoch, nbatch=nbatch, epoch_rng=epoch_rng,
             iter_pos=iter_pos)
-        _count(self.stats, "train.auto_checkpoints")
 
     def close(self):
-        """No prefetch worker outlives fit, whatever raised."""
+        """No prefetch worker outlives fit, whatever raised; the owner's
+        ``stats`` take the run's counts."""
+        for k in STATS:
+            self.stats[k] = self.stats.get(k, 0) + \
+                telemetry.registry().counter(k).value - self._base[k]
         if self.train_data is None:
             return
         io_mod.close_iter(self.train_data)
@@ -352,9 +409,10 @@ def _train_multi_device(symbol, ctx, arg_names, param_names, aux_names,
     auto-checkpoint every ``checkpoint_every`` batches and at each
     epoch's end, ``resume="auto"`` from the last one, the device-staged
     input (``MXNET_DEVICE_PREFETCH``) and the metric accumulated on the
-    device (``MXNET_METRIC_INTERVAL`` > 1).  ``stats`` counts
-    ``train.host_blocking_fetches``, ``io.device_batches``,
-    ``train.auto_checkpoints`` and ``train.resumes``."""
+    device (``MXNET_METRIC_INTERVAL`` > 1), the nonfinite lr backoff
+    (``MXNET_NONFINITE_BACKOFF``) polled after every update, and a
+    telemetry step record per batch.  ``stats`` (a dict) takes the run's
+    increase of the `STATS` counters."""
     if logger is None:
         logger = logging
     stats = {} if stats is None else stats
@@ -362,7 +420,7 @@ def _train_multi_device(symbol, ctx, arg_names, param_names, aux_names,
     executor_manager = DataParallelExecutorManager(
         symbol=symbol, ctx=ctx, train_data=train_data,
         param_names=param_names, arg_names=arg_names, aux_names=aux_names,
-        work_load_list=work_load_list, logger=logger, stats=stats)
+        work_load_list=work_load_list, logger=logger)
     if monitor:
         executor_manager.install_monitor(monitor)
     train_data = run.stage(
@@ -395,7 +453,8 @@ def _train_multi_device(symbol, ctx, arg_names, param_names, aux_names,
     # the state to checkpoint: the local updater, or the store's
     run.restore(updater if updater is not None
                 else getattr(kvstore, "_updater", None),
-                _state_ctx(ctx, update_on_kvstore), kvstore)
+                _state_ctx(ctx, update_on_kvstore), kvstore, optimizer,
+                update_on_kvstore)
 
     def run_epochs():
         epoch_rng = run.begin(skip=run.resume_iter_pos)
@@ -429,6 +488,7 @@ def _train_multi_device(symbol, ctx, arg_names, param_names, aux_names,
                                        executor_manager.grad_arrays,
                                        updater=updater, num_device=len(ctx),
                                        kvstore=kvstore)
+                    run.after_update()
                     if monitor is not None:
                         monitor.toc_print()
                     run.batch_metric(
@@ -439,6 +499,9 @@ def _train_multi_device(symbol, ctx, arg_names, param_names, aux_names,
                         _call(batch_end_callback,
                               BatchEndParam(epoch=epoch, nbatch=nbatch,
                                             eval_metric=eval_metric))
+                    # one telemetry record a step, once a sink is attached
+                    telemetry.step_end(extra={"epoch": epoch,
+                                              "nbatch": nbatch})
                     if run.due(nbatch):
                         run.flush_metric()
                         executor_manager.copy_to(arg_params, aux_params)
@@ -528,7 +591,13 @@ class FeedForward:
         self.argument_checked = False
         self.begin_epoch = begin_epoch
         self._pred_exec = None
-        self.stats = dict.fromkeys(STATS, 0)
+        self._stats = dict.fromkeys(STATS, 0)
+
+    @property
+    def stats(self):
+        """What this model's fits added to the `STATS` counters of
+        `telemetry` (a copy)."""
+        return dict(self._stats)
 
     def _check_arguments(self):
         if self.argument_checked:
@@ -669,7 +738,6 @@ class FeedForward:
         """Train (`model.py:694-790`); ``auto_checkpoint``,
         ``checkpoint_every`` and ``resume`` as `_train_multi_device`
         takes them."""
-        _refuse_nonfinite()
         data = self._init_iter(X, y, is_train=True)
         eval_data = self._init_eval_iter(eval_data)
         self.kwargs["sym"] = self.symbol
@@ -712,7 +780,7 @@ class FeedForward:
             eval_batch_end_callback=eval_batch_end_callback,
             auto_checkpoint=auto_checkpoint,
             checkpoint_every=checkpoint_every, resume=resume,
-            stats=self.stats)
+            stats=self._stats)
 
     def save(self, prefix, epoch=None):
         """(`model.py` save)"""

@@ -10,9 +10,12 @@ without staging, and the prefetch workers are closed in ``finally``.  A
 module with the hooks `Module` has stages its input on the devices
 (``MXNET_DEVICE_PREFETCH``) and accumulates the metric there
 (``MXNET_METRIC_INTERVAL`` > 1); others update the metric on the host.
-``stats`` counts ``train.host_blocking_fetches``, ``io.device_batches``,
-``train.auto_checkpoints`` and ``train.resumes``, the JAX package's
-telemetry counters.
+After each update the nonfinite lr backoff is polled
+(``MXNET_NONFINITE_BACKOFF``, with the ``MXNET_NONFINITE_GUARD`` skip),
+and each batch ends with a telemetry step record once a sink is
+attached.  ``stats`` reads back what this module's fits added to
+``train.host_blocking_fetches``, ``io.device_batches``,
+``train.auto_checkpoints`` and ``train.resumes`` in `telemetry`.
 """
 from __future__ import annotations
 
@@ -22,10 +25,10 @@ import time
 import numpy as np
 
 from .. import metric as metric_mod
+from .. import telemetry
 from ..base import MXNetError
 from ..callback import BatchEndParam
-from ..model import (STATS, _call, _FitRun, _refuse_nonfinite,
-                     save_checkpoint)
+from ..model import STATS, _call, _FitRun, save_checkpoint
 
 __all__ = ["BaseModule"]
 
@@ -38,7 +41,13 @@ class BaseModule:
         self.params_initialized = False
         self.optimizer_initialized = False
         self._symbol = None
-        self.stats = dict.fromkeys(STATS, 0)
+        self._stats = dict.fromkeys(STATS, 0)
+
+    @property
+    def stats(self):
+        """What this module's fits added to the `model.STATS` counters of
+        `telemetry` (a copy)."""
+        return dict(self._stats)
 
     # -- the interface of a module -------------------------------------------
     def forward(self, data_batch, is_train=None):
@@ -146,11 +155,10 @@ class BaseModule:
 
         if num_epoch is None:
             raise MXNetError("num_epoch must be specified")
-        _refuse_nonfinite()
         if initializer is None:
             initializer = init_mod.Uniform(0.01)
         optimizer_params = optimizer_params or {"learning_rate": 0.01}
-        run = _FitRun(auto_checkpoint, checkpoint_every, resume, self.stats,
+        run = _FitRun(auto_checkpoint, checkpoint_every, resume, self._stats,
                       self.logger)
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
@@ -181,7 +189,8 @@ class BaseModule:
         run.restore(getattr(self, "_updater", None)
                     or getattr(kv, "_updater", None),
                     self._state_ctx() if hasattr(self, "_state_ctx")
-                    else None, kv)
+                    else None, kv, getattr(self, "_optimizer", None),
+                    getattr(self, "_update_on_kvstore", False))
         if run.state is not None:
             begin_epoch = run.state["epoch"]
         # with checkpoints on, the first epoch's order is reset()'s, which
@@ -200,6 +209,7 @@ class BaseModule:
                         monitor.tic()
                     self.forward_backward(data_batch)
                     self.update()
+                    run.after_update()
                     # the statistics rode the step; one blocking fetch an
                     # interval
                     run.batch_metric(nbatch + 1, lambda: self.update_metric(
@@ -210,6 +220,9 @@ class BaseModule:
                         _call(batch_end_callback,
                               BatchEndParam(epoch=epoch, nbatch=nbatch,
                                             eval_metric=eval_metric))
+                    # one telemetry record a step, once a sink is attached
+                    telemetry.step_end(extra={"epoch": epoch,
+                                              "nbatch": nbatch})
                     if run.due(nbatch + 1):
                         arg_p, aux_p = self.get_params()
                         run.save(arg_p, aux_p, epoch, nbatch + 1, epoch_rng)

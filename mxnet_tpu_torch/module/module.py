@@ -123,8 +123,7 @@ class Module(BaseModule):
             self._symbol, self._symbol.list_arguments(), self._param_names,
             self._context, slices, stub, shared_group=shared_group,
             grad_req=self._grad_reqs(for_training, inputs_need_grad,
-                                     grad_req),
-            stats=self.stats)
+                                     grad_req))
         if shared_module is not None and shared_module.params_initialized:
             self._arg_params = shared_module._arg_params
             self._aux_params = shared_module._aux_params

@@ -29,9 +29,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..base import MXNetError
+from .indexing import as_index, pick
 from .pallas_kernels.fused_ce import fused_softmax_ce
 from .registry import OpDef, Param, register
 
@@ -212,14 +212,18 @@ class _SoftmaxCEFn(torch.autograd.Function):
     def forward(ctx, data, label):
         ctx.save_for_backward(data, label)
         logp = torch.log_softmax(data, dim=1)
-        picked = logp.gather(1, label.long().reshape(-1, 1))[:, 0]
+        # the JAX op's take_along_axis: a label out of range picks NaN,
+        # a negative one in range wraps
+        picked = pick(logp, label)
         return -torch.sum(picked).reshape(1)
 
     @staticmethod
     def backward(ctx, g):
         data, label = ctx.saved_tensors
-        grad = torch.softmax(data, dim=1) - F.one_hot(
-            label.long(), data.shape[1]).to(data.dtype)
+        # jax.nn.one_hot: a label outside [0, classes) has a zero row
+        onehot = as_index(label)[:, None] == torch.arange(
+            data.shape[1], device=data.device)
+        grad = torch.softmax(data, dim=1) - onehot.to(data.dtype)
         return g[0] * grad, None
 
 

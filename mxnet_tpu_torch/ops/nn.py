@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from .indexing import take_rows
 from .registry import OpDef, Param, register
 
 
@@ -136,7 +137,9 @@ register(Dropout)
 
 class Embedding(OpDef):
     """`src/operator/embedding-inl.h` — table lookup; backward is a
-    scatter-add into the table (autograd of the lookup)."""
+    scatter-add into the table (autograd of the lookup).  An index out of
+    range gives a NaN row and no gradient, a negative one in range wraps
+    (`indexing.take_rows`, the JAX op's ``jnp.take``)."""
 
     name = "Embedding"
     params = {
@@ -155,7 +158,7 @@ class Embedding(OpDef):
         return [d, w], [tuple(d) + (params["output_dim"],)], []
 
     def apply(self, octx, params, inputs, aux):
-        return [F.embedding(inputs[0].long(), inputs[1])], []
+        return [take_rows(inputs[1], inputs[0])], []
 
 
 register(Embedding)

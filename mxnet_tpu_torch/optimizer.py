@@ -23,18 +23,33 @@ order: SGLD's noise (``jax.random.normal``'s construction; torch's
 second moment (``v_dtype='bfloat16'``), stored through
 `stochastic_round_bf16` bit for bit as the JAX package stores it.
 
-``MXNET_NONFINITE_GUARD=1`` (the JAX package's in-graph skip of a step
-with a nonfinite gradient) is not ported: `update_multi` raises while it
-is set.
+``MXNET_NONFINITE_GUARD=1`` skips, on the device, an `update_multi` call
+(one bucket) whose gradients hold a NaN or Inf anywhere: the bucket's
+nonfinite count is a device tensor computed before anything is written,
+the update is computed into new tensors, and each weight and state takes
+``torch.where(bad, old, new)``.  Nothing is read on the host, so the
+guard adds no sync.  The skip reaches the host through the staged health
+moments (``telemetry.health``), where the loops count it and may back
+the lr off (``MXNET_NONFINITE_BACKOFF``).  Under the guard, Adam's
+bias-correction count is a float32 device counter a bucket that advances
+only on applied steps (``_guard_counts``, checkpointed), so a run with k
+skipped steps equals, bit for bit, a run where they never happened; the
+host counts still advance.  ``MXNET_TELEMETRY_HEALTH=1`` stages the same
+moments without the guard.  ``MXNET_CHAOS=nan_grad:N`` poisons the N-th
+call's gradients (`chaos.grad_poison`).  Without either pin the update
+runs in place exactly as before.
 """
 from __future__ import annotations
 
 import math
 import os
 
+import numpy as np
 import torch
 
+from . import chaos
 from . import random as _random
+from . import telemetry
 from .base import MXNetError, torch_dtype
 from .ndarray import zeros
 from .random import random_bits
@@ -52,8 +67,10 @@ def fused_update_enabled():
 
 
 def nonfinite_guard_enabled():
-    """Whether MXNET_NONFINITE_GUARD asks for the in-graph nonfinite skip
-    (which the port does not have yet: `update_multi` raises)."""
+    """MXNET_NONFINITE_GUARD=1: `update_multi` leaves every weight and
+    state of a bucket unchanged when any of its gradient elements is NaN
+    or Inf, decided on the device.  The guard rides the fused path only:
+    under MXNET_FUSED_UPDATE=0 per-key updates are not guarded."""
     return os.environ.get("MXNET_NONFINITE_GUARD", "0").lower() in (
         "1", "true", "yes")
 
@@ -221,26 +238,153 @@ class Optimizer:
         self._apply([weight.data], [grad.data], [_tensors(state)], scalars,
                     keys)
 
+    # -- the device step counter of guarded count-dependent optimizers --
+    # (the JAX package's `_counts_in_graph` protocol)
+    def _counts_in_graph(self):
+        """Whether the guard carries a device step counter (optimizers
+        whose scalars depend on the update count)."""
+        return False
+
+    def _step_scalars_base(self, index):
+        """The count-independent scalars of the counter path; bumps the
+        host counts like `_step_scalars`."""
+        return self._step_scalars(index)
+
+    def _traced_step_scalars(self, scalars, t):
+        """Fold the float32 device counts ``t`` (one a parameter) into
+        the scalar rows, on the device.  Default: count-independent."""
+        return scalars
+
     def update_multi(self, indices, weights, grads, states, donate=True):
         """Update many parameters in one pass of each ``torch._foreach_*``
         op: the same numbers as `update` over the lists in order, its
         counts and schedules included.  ``donate`` is accepted for the
-        JAX package's callers; the update is in place either way."""
+        JAX package's callers; the update is in place either way.  Under
+        ``MXNET_NONFINITE_GUARD`` or ``MXNET_TELEMETRY_HEALTH`` see the
+        module's docstring."""
         indices = list(indices)
         if not indices:
             return
-        if nonfinite_guard_enabled():
-            raise MXNetError(
-                "MXNET_NONFINITE_GUARD=1 (skipping a step whose gradients "
-                "are not finite) is not ported yet; it comes with the "
-                "fault-tolerance slice (ROADMAP queue 3). Unset it.")
+        guard = nonfinite_guard_enabled()
+        health = telemetry.health_enabled() or guard
+        tcount = guard and self._counts_in_graph()
         scalars, keys = [], []
         for i in indices:
-            scalars.append(self._step_scalars(i))
+            scalars.append(self._step_scalars_base(i) if tcount
+                           else self._step_scalars(i))
             keys.append(_random.next_key() if self._needs_key() else None)
-        self._apply([w.data for w in weights], [g.data for g in grads],
-                    [_tensors(s) for s in states], scalars,
-                    keys if self._needs_key() else None)
+        ws = [w.data for w in weights]
+        gs = [g.data for g in grads]
+        ss = [_tensors(s) for s in states]
+        keys = keys if self._needs_key() else None
+        if chaos.enabled():
+            # MXNET_CHAOS=nan_grad:N: this call's gradients poisoned, so
+            # the guard is testable end to end
+            poison = chaos.grad_poison()
+            if poison is not None:
+                gs = [torch.full_like(g, poison) for g in gs]
+        self._watch_retrace(ws, weights[0].context, health, guard, tcount)
+        if not health:
+            self._apply(ws, gs, ss, scalars, keys)
+            return
+        # the bucket's nonfinite count, before anything is written
+        nonfinite = torch.sum(~torch.isfinite(torch.cat(
+            [g.reshape(-1) for g in gs])))
+        bad = nonfinite > 0
+        if tcount:
+            scalars = self._traced_step_scalars(
+                scalars, self._guard_count(indices, bad, ws[0].device))
+        if guard:
+            # the update into new tensors: the old ones stay for the where
+            old_ws, new_ws = ws, _copies(ws)
+            flat = _copies([t for s in ss for t in s])
+            new_ss = [[flat.pop(0) for _ in s] for s in ss]
+        else:
+            old_ws, new_ws, new_ss = _copies(ws), ws, ss
+        self._apply(new_ws, gs, new_ss, scalars, keys)
+        upd_sq = _sq_sum(torch._foreach_sub(
+            [n.float() for n in new_ws], [o.float() for o in old_ws]))
+        if guard:
+            upd_sq = torch.where(bad, torch.zeros_like(upd_sq), upd_sq)
+        moments = torch.stack([_sq_sum(gs), upd_sq, _sq_sum(old_ws),
+                               nonfinite.float()])
+        if guard:
+            for o, n in zip(ws + [t for s in ss for t in s],
+                            new_ws + [t for s in new_ss for t in s]):
+                torch.where(bad, o, n, out=o)
+        telemetry.stage_health(
+            ("grad_sq", "update_sq", "param_sq", "nonfinite"), moments)
+
+    def _guard_count(self, indices, bad, device):
+        """The bucket's applied-step counts after this call, (n,) float32
+        on ``device``: the carried counter (from the host counts as they
+        stood before this call's bump, the first time), plus one unless
+        the bucket is skipped."""
+        counts_map = getattr(self, "_guard_counts", None)
+        if counts_map is None:
+            counts_map = self._guard_counts = {}
+        ckey = tuple(indices)
+        tc = counts_map.get(ckey)
+        if tc is None:
+            tc = [self._index_update_count.get(i, 0) - 1 for i in indices]
+        if not isinstance(tc, torch.Tensor) or tc.device != device:
+            # a host copy (first use, a restored checkpoint): one
+            # asynchronous copy, no sync
+            tc = torch.as_tensor(np.asarray(
+                tc.cpu() if isinstance(tc, torch.Tensor) else tc,
+                np.float32)).to(device, non_blocking=True)
+        t_new = tc + (~bad).float()
+        counts_map[ckey] = t_new
+        return t_new
+
+    def _watch_retrace(self, ws, ctx, health, guard, tcount):
+        """The retrace watch over the fused update: a changed bucket
+        shape profile, device context or a mutated hyperparameter fires
+        one diagnosed event where the JAX package recompiles its update
+        program."""
+        if not telemetry.retrace_enabled():
+            return
+        sig = telemetry.arrays_signature(
+            ws, ["w%d" % i for i in range(len(ws))])
+        meta = {"donate": True, "health": bool(health),
+                "guard": bool(guard), "tcount": bool(tcount),
+                "device": str(ctx)}
+        for k, v in self._trace_key():
+            meta["hp:%s" % k] = telemetry._dtype_name(v)
+        telemetry.watch_jit("optimizer.update_multi", sig,
+                            scope=telemetry.watch_scope(self), meta=meta)
+
+    # recomputed on the host every call, or mutated every step
+    _UNTRACED_ATTRS = frozenset(("lr", "wd", "num_update", "sym",
+                                 "lr_scheduler"))
+
+    def _trace_key(self):
+        """The hyperparameters the JAX package's update program bakes in
+        (its jit-cache key): the scalar attributes other than the
+        schedule's moving parts."""
+        items = []
+        for k, v in sorted(self.__dict__.items()):
+            if k in self._UNTRACED_ATTRS or k.startswith("_"):
+                continue
+            if isinstance(v, (int, float, bool, str, bytes, type(None))) \
+                    or isinstance(v, torch.dtype):
+                items.append((k, v))
+        return tuple(items)
+
+
+def _copies(ts):
+    """New tensors with the values of ``ts``, in one multi-tensor copy."""
+    out = [torch.empty_like(t) for t in ts]
+    if out:
+        torch._foreach_copy_(out, ts)
+    return out
+
+
+def _sq_sum(ts):
+    """The float32 sum of squares over every element of ``ts``, from one
+    multi-tensor norm a tensor."""
+    norms = torch._foreach_norm([t.float() for t in ts])
+    return torch.stack(norms).square().sum()
 
 
 def _col(scalars, j):
@@ -355,6 +499,29 @@ class Adam(Optimizer):
         coef2 = 1 - self.beta2 ** t
         return (lr * math.sqrt(coef2) / coef1, wd)
 
+    # Under MXNET_NONFINITE_GUARD the bias-correction count is the
+    # bucket's device counter, which skipped steps do not advance; the
+    # fold runs in float32 on the device (the host path's in float64), so
+    # guarded Adam is within a few ulp of unguarded Adam.
+    def _counts_in_graph(self):
+        return True
+
+    def _step_scalars_base(self, index):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)  # the host counts: checkpoints, schedules
+        return (lr, wd)
+
+    def _traced_step_scalars(self, scalars, t):
+        # lr * sqrt(1 - b2**t) / (1 - b1**t) in float32, lr rounded to
+        # float32 first, as the JAX package's traced fold
+        coef1 = 1 - torch.pow(self.beta1, t)
+        lr_t = torch._foreach_mul(
+            list(torch.sqrt(1 - torch.pow(self.beta2, t)).unbind()),
+            [float(row[0]) for row in scalars])
+        torch._foreach_div_(lr_t, list(coef1.unbind()))
+        return [(lr, row[1]) for lr, row in zip(lr_t, scalars)]
+
     def _apply(self, ws, gs, states, scalars, keys):
         b1, b2 = self.beta1, self.beta2
         g = _decayed(self._grads(gs), ws, _col(scalars, 1))
@@ -369,7 +536,9 @@ class Adam(Optimizer):
         torch._foreach_add_(v, g2)
         denom = torch._foreach_sqrt(v)
         torch._foreach_add_(denom, self.epsilon)
-        step = torch._foreach_mul(m, _col(scalars, 0))
+        lr_t = [row[0] for row in scalars]
+        step = torch._foreach_mul(m, lr_t if isinstance(
+            lr_t[0], torch.Tensor) else _col(scalars, 0))
         torch._foreach_div_(step, denom)
         torch._foreach_sub_(ws, step)
         if bf16:

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from .. import random as _random
+from .. import telemetry
 from ..base import MXNetError
 from ..context import resolve
 from ..executor import _build_graph_fn
@@ -317,11 +318,24 @@ class SPMDTrainer:
         self._update(grads)
         return outs
 
+    def _watch_retrace(self, site, dev_batch):
+        """Feed the retrace watch this step's batch signature: a change
+        of shape or dtype fires where the JAX trainer recompiles."""
+        if not telemetry.retrace_enabled():
+            return
+        names = sorted(dev_batch)
+        sig = telemetry.arrays_signature([dev_batch[n] for n in names],
+                                         names)
+        telemetry.watch_jit(site, sig,
+                            scope=telemetry.watch_scope(self.symbol))
+
     def step(self, batch):
         """One fused train step.  Returns the graph outputs."""
         self._nstep += 1
         rng = _random.fold_in(self._base_key, self._nstep)
-        return self._train_step(self.shard_batch(batch), rng)
+        dev_batch = self.shard_batch(batch)
+        self._watch_retrace("trainer.step", dev_batch)
+        return self._train_step(dev_batch, rng)
 
     def run_steps(self, batch, nsteps):
         """nsteps train steps.  `batch` leaves may carry a leading

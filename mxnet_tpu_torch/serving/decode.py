@@ -16,6 +16,11 @@ same cache layouts, the same programs.
   cache's copy-on-write (plain indexing, as the JAX one is a gather and
   a scatter outside any Pallas kernel).
 
+The token embedding is the JAX model's ``jnp.take``
+(`ops.indexing.take_rows`): a token outside [-V, V) embeds as a NaN row,
+so its request decodes from NaN logits as in the JAX engine, and no
+gather trips a device-side assert.
+
 Every program runs LayerNorm through the port's kernel, 2L + 1 times.
 PyTorch runs eagerly, so the cache and the pool are updated in place
 (the JAX programs donate them); each method still returns the buffer so
@@ -34,6 +39,7 @@ from ..base import MXNetError
 from ..context import resolve
 from ..ops.attention import (chunk_attention, decode_attention,
                              gather_paged_kv, paged_decode_attention)
+from ..ops.indexing import take_rows
 from ..ops.pallas_kernels.flash_attention import flash_attention
 from ..ops.pallas_kernels.layer_norm import layer_norm
 
@@ -171,7 +177,7 @@ class TransformerKVModel:
         row's last real token, kv (num_layers, 2, b, s, embed))."""
         b, s = tokens.shape
         h, e = self.num_heads, self.num_embed
-        x = params["embed_weight"][tokens.long()] + \
+        x = take_rows(params["embed_weight"], tokens) + \
             params["pos_embed_weight"][0, :s]
         kv = []
         for i in range(self.num_layers):
@@ -210,7 +216,7 @@ class TransformerKVModel:
         the engine's trash slot).  Returns (logits (b, vocab), cache)."""
         pos = pos.long()
         slots = slots.long()
-        x = params["embed_weight"][token.long()] + \
+        x = take_rows(params["embed_weight"], token) + \
             params["pos_embed_weight"][0][pos]
         for i in range(self.num_layers):
             p = "layer%d_" % i
@@ -251,7 +257,7 @@ class TransformerKVModel:
         # a short final chunk's padding can run past seq_len: clamp its
         # (never attended) positions into the table
         positions = start[:, None] + torch.arange(c, device=tables.device)
-        x = params["embed_weight"][tokens.long()] + \
+        x = take_rows(params["embed_weight"], tokens) + \
             params["pos_embed_weight"][0][positions.clamp(max=self.seq_len - 1)]
         for i in range(self.num_layers):
             p = "layer%d_" % i
@@ -298,7 +304,7 @@ class TransformerKVModel:
         blk = torch.gather(tables, 1, ent.clamp(max=m - 1)[:, None])[:, 0]
         blk = torch.where(ent < m, blk, 0)
         off = pos % bs
-        x = params["embed_weight"][token.long()] + \
+        x = take_rows(params["embed_weight"], token) + \
             params["pos_embed_weight"][0][pos.clamp(max=self.seq_len - 1)]
         for i in range(self.num_layers):
             p = "layer%d_" % i

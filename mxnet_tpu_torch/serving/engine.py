@@ -63,7 +63,10 @@ What the JAX engine has beyond this waits for later slices: the host
 tier and sessions, speculative and megastep decoding, streaming,
 quantization, MoE, meshes, routers and the journal, handoffs, launch
 failure scoping and cache rebuilds, chaos, telemetry and tracing.  Their
-keywords are not accepted.
+keywords are not accepted, and an ``MXNET_CHAOS`` spec with a serving
+clause raises at construction (`chaos`).  A prompt token outside
+[-V, V) embeds as NaN, as in the JAX engine, and its request decodes
+token 0 (the first NaN's index) while the scheduler goes on.
 """
 from __future__ import annotations
 
@@ -76,13 +79,14 @@ from collections import deque
 import numpy as np
 import torch
 
+from .. import chaos
 from ..base import MXNetError
 from ..context import resolve
 from .errors import (ServeBlocksExhausted, ServeCancelled,
                      ServeDeadlineExceeded, ServeEngineDead, ServeError,
                      ServeOverload, ServeTimeout)
 from .paged import TRASH_BLOCK, BlockAllocator, PrefixCache
-from .sampling import sample_tokens
+from .sampling import argmax, sample_tokens
 
 __all__ = ["ServeRequest", "ServingEngine"]
 
@@ -252,6 +256,7 @@ class ServingEngine:
                  name="replica0", queue_max=None, overload=None,
                  deadline_ms=None, prefix=None, prefix_pool=None,
                  min_progress=None, thrash_trip=None):
+        chaos.spec()  # a clause the port cannot inject raises here
         self.model = model
         self.name = name
         self.device = resolve(ctx)
@@ -401,7 +406,7 @@ class ServingEngine:
                 self._put(np.array([r.seed for r in reqs], np.int64)),
                 self._put(np.asarray(newpos, np.int64)))
         else:
-            toks = logits.argmax(dim=-1)
+            toks = argmax(logits)
         return toks.tolist()
 
     # -- programs ----------------------------------------------------------

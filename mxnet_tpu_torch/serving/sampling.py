@@ -1,9 +1,9 @@
 """Token sampling for the serving engine, in plain torch.
 
 A port of `mxnet_tpu/serving/sampling.py`.  Greedy is temperature <= 0
-(argmax, first index on ties as `jnp.argmax`); otherwise temperature,
-then the top-k mask, then the nucleus (top-p) mask off one descending
-sort, then a categorical draw.
+(argmax, first index on ties and the first NaN of a row with one, as
+`jnp.argmax`); otherwise temperature, then the top-k mask, then the
+nucleus (top-p) mask off one descending sort, then a categorical draw.
 
 The draw reproduces the JAX package's random stream, so a seeded request
 samples the same tokens in both.  The key for the token that will occupy
@@ -29,7 +29,8 @@ import torch
 from .. import random as _random
 from ..random import threefry2x32
 
-__all__ = ["sample_tokens", "threefry2x32", "random_bits", "uniform"]
+__all__ = ["argmax", "sample_tokens", "threefry2x32", "random_bits",
+           "uniform"]
 
 _TINY = float(torch.finfo(torch.float32).tiny)
 
@@ -66,6 +67,15 @@ def _mask_top_k_top_p(scaled, top_k, top_p):
     return torch.where(scaled >= thr, scaled, float("-inf"))
 
 
+def argmax(x):
+    """``jnp.argmax`` over the last axis: the first NaN of a row that has
+    one (a request whose prompt embedded as NaN), else the first
+    maximum."""
+    nan = torch.isnan(x)
+    first_nan = nan.to(torch.uint8).argmax(dim=-1)
+    return torch.where(nan.any(dim=-1), first_nan, x.argmax(dim=-1))
+
+
 def sample_tokens(logits, temperature, top_k, top_p, seed, newpos):
     """One token per row from per-row sampling parameters.
 
@@ -74,10 +84,10 @@ def sample_tokens(logits, temperature, top_k, top_p, seed, newpos):
     the request's RNG identity; newpos (b,) int, the absolute position the
     sampled token will occupy.  Returns (b,) int64 token ids."""
     logits = logits.float()
-    greedy = logits.argmax(dim=-1)
+    greedy = argmax(logits)
     temperature = temperature.float()
     t = torch.where(temperature > 0, temperature, 1.0)
     masked = _mask_top_k_top_p(logits / t[:, None], top_k, top_p)
     gumbel = -torch.log(-torch.log(uniform(seed, newpos, logits.shape[-1])))
-    sampled = (gumbel + masked).argmax(dim=-1)
+    sampled = argmax(gumbel + masked)
     return torch.where(temperature > 0, sampled, greedy)

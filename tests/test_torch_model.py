@@ -15,14 +15,14 @@ must agree to 1e-6 (counts over 128 samples).
 Checkpoints carry across: what either package's `FeedForward.save` (or
 `checkpoint.save`, with the optimizer state) writes, the other loads and
 predicts the same from.  The auto-checkpoint and resume pins and
-arguments act as in the JAX package; ``MXNET_NONFINITE_BACKOFF`` raises.
+arguments act as in the JAX package, and so does
+``MXNET_NONFINITE_BACKOFF``.
 """
 import numpy as np
 import pytest
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
-from mxnet_tpu_torch.base import MXNetError
 
 PK = {"jax": jmx, "torch": tmx}
 RTOL, ATOL = 1e-4, 1e-5
@@ -183,12 +183,25 @@ def test_fault_tolerance_and_metric_pins_raise(monkeypatch, tmp_path, pin):
     """Each pin does what it does in the JAX package: the auto-checkpoint
     prefix (with an interval of 4 batches), the interval (with a prefix),
     the resume (from a file the first run left), the metric on the
-    device; the nonfinite backoff still raises."""
+    device, and the nonfinite backoff (with the guard, and NaN injected
+    into the 3rd update: the step skipped, the lr halved once, the
+    parameters those of the JAX package's same run)."""
     name, value = pin
     if name == "MXNET_NONFINITE_BACKOFF":
         monkeypatch.setenv(name, value)
-        with pytest.raises(MXNetError, match=name):
-            _fit("torch", epochs=1)
+        monkeypatch.setenv("MXNET_NONFINITE_GUARD", "1")
+        monkeypatch.setenv("MXNET_CHAOS", "nan_grad:3")
+        got = {}
+        for which, mx in PK.items():
+            mx.chaos.reset()
+            mx.telemetry.reset()
+            model, _ = _fit(which, epochs=1)
+            ev = mx.telemetry.events("lr_backoff")
+            assert [e["lr"] for e in ev] == [pytest.approx(0.05)]
+            assert mx.telemetry.registry().counter(
+                "train.nonfinite_steps").value == 1
+            got[which] = _params(model)
+        _same_params(got["torch"], got["jax"])
         return
     prefix = str(tmp_path / "ck")
     base, _ = _fit("torch", epochs=1)

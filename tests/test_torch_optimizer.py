@@ -160,13 +160,32 @@ def test_adam_bf16_second_moment_bit_identical(fused):
 
 
 def test_nonfinite_guard_raises(monkeypatch):
+    """Under MXNET_NONFINITE_GUARD a bucket with one NaN gradient element
+    is skipped whole (weights and momenta), in both packages; the steps
+    around it apply, and the weights agree with the JAX package's."""
     monkeypatch.setenv("MXNET_NONFINITE_GUARD", "1")
-    opt = tmx.optimizer.SGD(learning_rate=0.1)
-    w = tmx.nd.array(_weights()[0], ctx=tmx.cpu())
-    g = tmx.nd.array(_grads(0)[0], ctx=tmx.cpu())
-    with pytest.raises(MXNetError, match="MXNET_NONFINITE_GUARD"):
-        opt.update_multi([0], [w], [g], [None])
-    np.testing.assert_array_equal(w.asnumpy(), _weights()[0])
+    out = []
+    for mx in (jmx, tmx):
+        opt = mx.optimizer.SGD(learning_rate=0.1, momentum=0.9)
+        upd = mx.optimizer.get_fused_updater(opt)
+        ws = [mx.nd.array(w, ctx=mx.cpu()) for w in _weights()]
+        bad = _grads(1)
+        bad[2][1, 1, 0] = np.nan
+        seen = []
+        for gs in (_grads(0), bad, _grads(2)):
+            upd([0, 1, 2], [mx.nd.array(g, ctx=mx.cpu()) for g in gs], ws)
+            seen.append([w.asnumpy().copy() for w in ws]
+                        + [upd.states[i].asnumpy().copy() for i in range(3)])
+        for a, b in zip(seen[0], seen[1]):
+            np.testing.assert_array_equal(a, b)
+        assert not np.array_equal(seen[2][0], seen[1][0])
+        out.append(seen[2])
+    for t, j in zip(out[1], out[0]):
+        np.testing.assert_allclose(t, j, rtol=0, atol=1e-6 * np.abs(j).max())
+    with pytest.raises(MXNetError, match="rpc_drop"):
+        monkeypatch.setenv("MXNET_CHAOS", "rpc_drop:0.5")
+        tmx.chaos.reset()
+        upd([0], [tmx.nd.array(_grads(0)[0], ctx=tmx.cpu())], [ws[0]])
 
 
 def test_registry_and_updater_closure():
