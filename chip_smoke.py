@@ -201,7 +201,27 @@ Phases, each of which fails the run with a non-zero exit:
    serving a prompt with a token past the vocabulary and then two normal
    prompts, whose tokens must equal a fresh engine's; (e) storage: the
    card's memory counters, a freed pool buffer handed back by the next
-   alloc of its size, the ``storage`` collector in a step report.
+   alloc of its size, the ``storage`` collector in a step report;
+21. image records: (a) build the port's native library with g++ (its
+   seconds, and whether libjpeg was found) and write a RecordIO pack of
+   512 uint8 3x256x256 .npy records from ``RandomState(3)`` (labels in
+   [0, 1000)) into a temporary directory, with 64 JPEG records beside it
+   where the machine has libjpeg; (b) one epoch of `io.ImageRecordIter`
+   without augmentation on the native loader (4 threads) and on the
+   Python path, on the host: the same batches, labels and pads bit for
+   bit, two shards covering the pack once each, images/s of each; (c) one
+   augmented batch of 64 at 3x224x224 on the card against the same on the
+   CPU from the same seed: random crop, mirror and scale bit for bit, and
+   with the affine warp and the HSL jitter within 1e-4 of max|ref|
+   (elements differing counted); (d) ResNet-50 through `model.FeedForward`
+   as in phase 17 but fed from the pack by `ImageRecordIter` (random crop
+   and mirror on the card, 8 batches of 64): ms a batch and images/s
+   beside phase 17's, the device prefetcher's waits and input-wait
+   share, the running cross-entropy finite, every batch's data on
+   ``cuda:0`` before the loop staged it, no decode failure and no kernel
+   of the table launched; (e) the threaded, naive and native host
+   engines on the JAX package's random workload (`tests/test_engine.py`,
+   20 vars, seeds 0-2) against serial execution, with ops/s.
 
 It prints each phase's seconds, a ``kernels`` JSON line (launches,
 errors, times, bounds; the float32 flash forward's and backward's routes
@@ -4278,6 +4298,422 @@ def other_net_path(name):
             "check": check}
 
 
+# Phase 21, image records: `examples/train_imagenet.py`'s feedforward
+# path fed from a RecordIO pack (:77-82), at phase 17's settings; the
+# records stored at ImageNet's usual 3x256x256 and cut to data_shape
+# (3, 224, 224) by the random crop, with random mirrors
+REC_N = 512  # one epoch of 8 batches of 64
+REC_SHAPE = (3, 256, 256)
+REC_JPEG_N = 64
+# the card's augmented batch against the CPU's from the same seed: crops
+# and mirrors move whole pixels (bit for bit); the affine warp differs in
+# float32 rounding (cos/sin, a reciprocal for a division by a scalar on
+# the card), ~1e-5 of max|ref| on noise images, held to 1e-4.  The HSL
+# pass divides by vmax - vmin: a pixel within rounding of grey gets its
+# hue from the rounding, and the saturation jitter then shows it, up to
+# ~15 of 255 between float32 and float64 on the CPU alone (on the
+# 3x256x256 noise records here).  So with the HSL pass the card is held
+# by how many elements stray past 1e-4 of max|ref| from the same batch
+# augmented in float64: no more than twice the CPU float32's, plus 16.
+AUG_TOL = 1e-4
+
+
+class _DeviceWatch(mx.io.DataIter):
+    """Pass ``inner``'s batches through, noting each data tensor's device
+    before the training loop stages or copies it."""
+
+    def __init__(self, inner):
+        super().__init__()
+        self.inner = inner
+        self.batch_size = inner.batch_size
+        self.devices = []
+
+    @property
+    def provide_data(self):
+        return self.inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self.inner.provide_label
+
+    def reset(self):
+        self.inner.reset()
+
+    def next(self):
+        batch = self.inner.next()
+        self.devices.append(str(batch.data[0].data.device))
+        return batch
+
+
+def _random_workload(num_vars=20, num_ops=200, seed=0):
+    """`tests/test_engine.py:13-25`: each op reads some vars and writes
+    others."""
+    import random
+
+    rng = random.Random(seed)
+    ops = []
+    for i in range(num_ops):
+        reads = rng.sample(range(num_vars), rng.randint(0, 3))
+        writes = rng.sample(range(num_vars), rng.randint(1, 2))
+        writes = [w for w in writes if w not in reads]
+        if writes:
+            ops.append((i, reads, writes))
+    return ops
+
+
+def _engine_run(engine, ops, num_vars):
+    """`tests/test_engine.py:37-56`: push every op, wait for all."""
+    mem = [0] * num_vars
+    vars_ = [engine.new_variable() for _ in range(num_vars)]
+
+    def make_fn(i, reads, writes):
+        def fn():
+            s = sum(mem[r] for r in reads)
+            time.sleep(0.0001 * (i % 3))  # jitter to expose races
+            for w in writes:
+                mem[w] = mem[w] * 2 + s + i + 1
+        return fn
+
+    for i, reads, writes in ops:
+        engine.push(make_fn(i, reads, writes),
+                    const_vars=[vars_[r] for r in reads],
+                    mutable_vars=[vars_[w] for w in writes])
+    engine.wait_for_all()
+    return mem
+
+
+def engine_checks():
+    """Phase 21 (e): the threaded, naive and native engines on the JAX
+    package's random workload (20 vars, seeds 0-2) against serial
+    execution; ops/s of each."""
+    from mxnet_tpu_torch import engine as eng
+
+    out = {}
+    for name, make in (("ThreadedEngine", lambda: eng.Engine(4)),
+                       ("NaiveEngine", eng.NaiveEngine),
+                       ("NativeEngine", lambda: eng.NativeEngine(4))):
+        n_ops, secs, same = 0, 0.0, True
+        for seed in (0, 1, 2):
+            ops = _random_workload(seed=seed)
+            serial = [0] * 20
+            for i, reads, writes in ops:
+                t = sum(serial[r] for r in reads)
+                for w in writes:
+                    serial[w] = serial[w] * 2 + t + i + 1
+            engine = make()
+            t0 = time.perf_counter()
+            got = _engine_run(engine, ops, 20)
+            secs += time.perf_counter() - t0
+            engine.shutdown()
+            same &= got == serial
+            n_ops += len(ops)
+        out[name] = {"ops": n_ops, "seconds": secs,
+                     "ops_per_s": n_ops / secs, "matches_serial": same}
+        log("engine %s: %d ops over 3 seeds in %.3f s = %.0f ops/s "
+            "(each op sleeps 0-0.2 ms, as the JAX test's do), serial "
+            "result %s" % (name, n_ops, secs, n_ops / secs,
+                           "matched" if same else "MISSED"))
+        if not same:
+            raise SystemExit("engine %s: result differs from serial" % name)
+    return out
+
+
+def _rows(it):
+    """One epoch of ``it``: the valid rows of data and labels (pad cut),
+    and the pads."""
+    data, labels, pads = [], [], []
+    for b in it:
+        n = it.batch_size - b.pad
+        data.append(b.data[0].data[:n].clone())
+        labels.append(b.label[0].data[:n].clone())
+        pads.append(b.pad)
+    it.reset()
+    return torch.cat(data), torch.cat(labels), pads
+
+
+def image_records_path(ff):
+    """Phase 21: the native library, a RecordIO pack at ImageNet's record
+    size, `ImageRecordIter` on its native and Python paths, augmentation
+    on the card against the CPU, ResNet-50 through `FeedForward` from the
+    pack beside phase 17's `NDArrayIter` run (``ff``), and the engines."""
+    import shutil
+    import tempfile
+
+    from mxnet_tpu_torch import _native
+
+    res = {}
+    # (a) build and pack
+    info = _native.build()
+    res["build"] = info
+    log("image records (a): g++ build of the native library %.2f s "
+        "(built %s), libjpeg %s; %s"
+        % (info["seconds"], info["built"],
+           "found" if info["jpeg"] else "NOT found (jpeglib.h missing): "
+           "the native loader decodes no JPEG on this machine",
+           info["path"]))
+    tmp = tempfile.mkdtemp(dir=os.environ.get("TMPDIR"))
+    try:
+        path = os.path.join(tmp, "train.rec")
+        rng = np.random.RandomState(3)
+        labels = rng.randint(0, 1000, REC_N)
+        t0 = time.perf_counter()
+        w = mx.recordio.MXRecordIO(path, "w")
+        for i in range(REC_N):
+            img = rng.randint(0, 256, REC_SHAPE, dtype=np.uint8)
+            w.write(mx.recordio.pack_img((0, float(labels[i]), i, 0), img))
+        w.close()
+        write_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        res["pack"] = {"records": REC_N, "shape": REC_SHAPE,
+                       "payload": "uint8 CHW .npy", "bytes": nbytes,
+                       "write_s": write_s}
+        log("image records (a): %d records of uint8 %s .npy from "
+            "RandomState(3), labels in [0, 1000): %d B in %.3f s (%.1f MB/s)"
+            % (REC_N, "x".join(map(str, REC_SHAPE)), nbytes, write_s,
+               nbytes / write_s / 1e6))
+        if info["jpeg"]:
+            from PIL import Image  # noqa: F401  (pack_img's JPEG encoder)
+
+            jpath = os.path.join(tmp, "jpeg.rec")
+            w = mx.recordio.MXRecordIO(jpath, "w")
+            for i in range(REC_JPEG_N):
+                img = rng.randint(0, 256, REC_SHAPE[1:] + (3,),
+                                  dtype=np.uint8)
+                w.write(mx.recordio.pack_img((0, float(i), i, 0), img,
+                                             img_fmt=".jpg"))
+            w.close()
+            res["jpeg_pack"] = {"records": REC_JPEG_N,
+                                "bytes": os.path.getsize(jpath)}
+            log("image records (a): %d JPEG records with PIL: %d B"
+                % (REC_JPEG_N, res["jpeg_pack"]["bytes"]))
+        else:
+            res["jpeg_pack"] = None
+            log("image records (a): no JPEG records: libjpeg is not on "
+                "this machine, so the native loader cannot decode them "
+                "(a JPEG pack raises MXNetError naming libjpeg)")
+
+        # (b) the native and Python paths, host only, one epoch each
+        kw = dict(path_imgrec=path, data_shape=REC_SHAPE, batch_size=FF_BATCH)
+        got, rates = {}, {}
+        with mx.cpu():
+            for name, native in (("native", True), ("python", False)):
+                it = mx.io.ImageRecordIter(use_native=native,
+                                           preprocess_threads=4, **kw)
+                _rows(it)  # warm: first pass through the page cache
+                t0 = time.perf_counter()
+                got[name] = _rows(it)
+                rates[name] = REC_N / (time.perf_counter() - t0)
+                it.close()
+            shards = {}
+            for name, native in (("native", True), ("python", False)):
+                parts = []
+                for part in (0, 1):
+                    it = mx.io.ImageRecordIter(use_native=native,
+                                               part_index=part, num_parts=2,
+                                               **kw)
+                    parts.append(_rows(it))
+                    it.close()
+                shards[name] = (
+                    torch.equal(torch.cat([parts[0][0], parts[1][0]]),
+                                got[name][0])
+                    and torch.equal(torch.cat([parts[0][1], parts[1][1]]),
+                                    got[name][1]),
+                    [len(p[1]) for p in parts])
+        same = (torch.equal(got["native"][0], got["python"][0])
+                and torch.equal(got["native"][1], got["python"][1])
+                and got["native"][2] == got["python"][2])
+        want = torch.as_tensor(labels.astype(np.float32))
+        res["iterators"] = {
+            "native_images_per_s": rates["native"],
+            "python_images_per_s": rates["python"],
+            "bit_for_bit": same,
+            "labels_are_the_pack": torch.equal(got["native"][1], want),
+            "pads": got["native"][2], "shards": shards}
+        log("image records (b): one epoch, no augmentation, host only: "
+            "native (preprocess_threads 4) %.1f images/s, Python %.1f "
+            "images/s; batches, labels and pads bit for bit %s; two "
+            "shards cover the pack once each, in order: native %s, "
+            "Python %s (records %s / %s)"
+            % (rates["native"], rates["python"], same, shards["native"][0],
+               shards["python"][0], shards["native"][1],
+               shards["python"][1]))
+        if not (same and res["iterators"]["labels_are_the_pack"]
+                and shards["native"][0] and shards["python"][0]):
+            raise SystemExit("image records (b): the paths or shards differ")
+
+        # (c) augmentation on the card against the CPU, one batch
+        res["augment"] = {}
+        with mx.cpu():
+            it = mx.io.ImageRecordIter(path_imgrec=path, data_shape=REC_SHAPE,
+                                       batch_size=FF_BATCH)
+            raw = it.next().data[0].data  # the records the batch augments
+            it.close()
+        warp = dict(max_rotate_angle=10, max_shear_ratio=0.1,
+                    max_random_scale=1.1, min_random_scale=0.9)
+        hsl = dict(random_h=10, random_s=20, random_l=20)
+        for name, extra in (("crop_mirror_scale", dict(scale=1 / 255)),
+                            ("affine", warp),
+                            ("affine_hsl", dict(warp, **hsl))):
+            akw = dict(path_imgrec=path, data_shape=FF_IMAGE,
+                       record_shape=REC_SHAPE, batch_size=FF_BATCH,
+                       rand_crop=True, rand_mirror=True, **extra)
+            it = mx.io.ImageRecordIter(**akw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = it.next().data[0].data
+            torch.cuda.synchronize()
+            card_ms = 1e3 * (time.perf_counter() - t0)
+            it.close()
+            with mx.cpu():
+                it = mx.io.ImageRecordIter(**akw)
+                t0 = time.perf_counter()
+                cpu = it.next().data[0].data
+                cpu_ms = 1e3 * (time.perf_counter() - t0)
+                aug = it._augmenter
+                it.close()
+            card = card.cpu()
+            scale = float(cpu.abs().max())
+            diff = (card - cpu).abs()
+            entry = {"max_abs_err": float(diff.max()),
+                     "rel_err": float(diff.max()) / scale,
+                     "elements_differing": int((diff > 0).sum()),
+                     "elements": diff.numel(), "card_ms": card_ms,
+                     "cpu_ms": cpu_ms}
+            if name == "crop_mirror_scale":
+                ok = entry["max_abs_err"] == 0
+                bar = "bit for bit"
+            else:
+                # the same draws, warped and jittered in float64 on the CPU:
+                # how far float32 rounding alone moves this batch
+                ref = aug._augment(raw.double(), mx.random.fold_in(aug._key, 1),
+                                   FF_IMAGE[1:]).float()
+                tau = AUG_TOL * scale
+                n_card = int(((card - ref).abs() > tau).sum())
+                n_cpu = int(((cpu - ref).abs() > tau).sum())
+                entry.update(
+                    beyond_bar_card_vs_cpu=int((diff > tau).sum()),
+                    beyond_bar_card_vs_f64=n_card,
+                    beyond_bar_cpu_vs_f64=n_cpu,
+                    rel_err_card_vs_f64=float((card - ref).abs().max())
+                    / scale,
+                    rel_err_cpu_vs_f64=float((cpu - ref).abs().max()) / scale)
+                if name == "affine":
+                    ok = entry["rel_err"] <= AUG_TOL
+                    bar = "max |d| <= %g of max|ref|" % AUG_TOL
+                else:
+                    ok = n_card <= 2 * n_cpu + 16
+                    bar = ("elements past %g of max|ref| from float64 <= 2 x "
+                           "the CPU float32's + 16" % AUG_TOL)
+            entry["bar"] = bar
+            res["augment"][name] = entry
+            log("image records (c) %s: batch %s on the card vs the CPU from "
+                "the same seed: max |d| %.4g = %.4g of max|ref|, %d of %d "
+                "elements differ%s [bar: %s]; one batch (read + augment) "
+                "%.1f ms on the card, %.1f ms on the CPU"
+                % (name, tuple(card.shape), entry["max_abs_err"],
+                   entry["rel_err"], entry["elements_differing"],
+                   entry["elements"],
+                   "" if name == "crop_mirror_scale" else
+                   "; past %g of max|ref|: card vs CPU %d, card vs float64 "
+                   "%d, CPU vs float64 %d (max %.4g and %.4g of max|ref|)"
+                   % (AUG_TOL, entry["beyond_bar_card_vs_cpu"],
+                      entry["beyond_bar_card_vs_f64"],
+                      entry["beyond_bar_cpu_vs_f64"],
+                      entry["rel_err_card_vs_f64"],
+                      entry["rel_err_cpu_vs_f64"]),
+                   bar, card_ms, cpu_ms))
+            if not ok:
+                raise SystemExit("image records (c) %s: card vs CPU fails "
+                                 "its bar (%s)" % (name, bar))
+
+        # (d) ResNet-50 through FeedForward from the pack
+        mx.random.seed(0)
+        it = mx.io.ImageRecordIter(path_imgrec=path, data_shape=FF_IMAGE,
+                                   record_shape=REC_SHAPE,
+                                   batch_size=FF_BATCH, rand_crop=True,
+                                   rand_mirror=True, preprocess_threads=4)
+        watch = _DeviceWatch(it)
+        model = mx.model.FeedForward(
+            mx.models.get_resnet(num_classes=1000, num_layers=50),
+            ctx=mx.gpu(0), num_epoch=1, optimizer="sgd", learning_rate=0.1,
+            initializer=mx.init.Xavier(rnd_type="gaussian", magnitude=2.0))
+        ticks, ce, wait_frac = [], [], []
+        reg = mx.telemetry.registry()
+
+        def on_batch(p):
+            ce.append(p.eval_metric.get()[1])
+            wait_frac.append(reg._gauges.get("io.input_wait_frac"))
+            ticks.append(time.perf_counter())
+
+        mx.telemetry.reset()
+        reg = mx.telemetry.registry()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        model.fit(watch, kvstore="device", eval_metric="ce",
+                  batch_end_callback=on_batch)
+        fit_s = time.perf_counter() - t0
+        launches = read_counts()
+        waits = list(reg._hists.get("io.device_wait_ms", []))
+        host_waits = list(reg._hists.get("io.wait_ms", []))
+        failures = it.decode_failures
+        it.close()
+        del model
+        torch.cuda.empty_cache()
+        batch_ms = [1e3 * b for b in np.diff([t0] + ticks)]
+        ms = statistics.median(batch_ms[1:])
+        res["resnet50_feedforward"] = {
+            "config": dict(net="get_resnet(num_layers=50), 'full'",
+                           batch=FF_BATCH, batches=REC_N // FF_BATCH,
+                           dtype="float32", optimizer="sgd lr 0.1",
+                           initializer="Xavier(gaussian, 2)",
+                           kvstore="device",
+                           data="ImageRecordIter, 3x256x256 records, "
+                                "rand_crop to 3x224x224, rand_mirror",
+                           reduced="batch 256 -> 64; 512 synthetic records",
+                           source="examples/train_imagenet.py:77-97"),
+            "fit_s": fit_s, "batch_ms": batch_ms,
+            "ms_per_batch_median": ms, "images_per_s": FF_BATCH / (ms / 1e3),
+            "phase17_images_per_s": ff["images_per_s"],
+            "phase17_ms_per_batch_median": ff["ms_per_batch_median"],
+            "cross_entropy": ce, "io.device_wait_ms": waits,
+            "io.wait_ms": host_waits, "io.input_wait_frac": wait_frac,
+            "data_devices": watch.devices, "decode_failures": failures,
+            "launches": launches}
+        log("image records (d): ResNet-50 FeedForward from the pack, %d "
+            "batches of %d, float32, kvstore device, in %.2f s; ms a batch "
+            "(host clock) %s; median of the last %d %.2f ms = %.1f "
+            "images/s, beside phase 17's NDArrayIter %.2f ms = %.1f "
+            "images/s; io.device_wait_ms %s; io.wait_ms %s; "
+            "io.input_wait_frac by batch %s; running cross-entropy %s; "
+            "data on %s before staging; decode_failures %d"
+            % (len(batch_ms), FF_BATCH, fit_s,
+               ["%.1f" % t for t in batch_ms], len(batch_ms) - 1, ms,
+               FF_BATCH / (ms / 1e3), ff["ms_per_batch_median"],
+               ff["images_per_s"], ["%.2f" % t for t in waits],
+               host_waits or "not recorded (no PrefetchingIter on this "
+               "path)", ["%.3f" % f if f is not None else None
+                         for f in wait_frac],
+               ["%.4f" % c for c in ce], sorted(set(watch.devices)),
+               failures))
+        if (len(ce) != REC_N // FF_BATCH
+                or not all(math.isfinite(c) for c in ce)):
+            raise SystemExit("image records (d): a loss is not finite or a "
+                             "batch is missing: %s" % ce)
+        if set(watch.devices) != {"cuda:0"} or failures:
+            raise SystemExit("image records (d): data on %s, %d decode "
+                             "failures" % (set(watch.devices), failures))
+        if any(launches.values()):
+            raise SystemExit("image records (d): launched a kernel of the "
+                             "table")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (e) the host engines
+    res["engines"] = engine_checks()
+    return res
+
+
 def kernels_line(cases, paths, f32_paths):
     """One entry per ported TPU function: launches on each path, and the
     error and times of its check at the training shape, in bf16; then one
@@ -4538,6 +4974,9 @@ def main():
         faults["out_of_range"] = out_of_range_checks(
             torch.Generator(device="cuda").manual_seed(20))
         faults["storage"] = storage_checks()
+
+    with phase("image records"):
+        records = image_records_path(resnet_ff)
     # the LM's LayerNorm launches join the LayerNorm rows; its float32
     # flash launches the float32 flash rows
     api_lm_ln = {k: (n if k.startswith("layer_norm") else 0)
@@ -4604,6 +5043,7 @@ def main():
          "resnet50_feedforward": resnet_ff, "other_nets": others,
          "module_lm": module_lm, "spmd_module": spmd_module,
          "bucketing": bucketing, "fault_tolerance": faults,
+         "image_records": records,
          "kernels": kernels},
         indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

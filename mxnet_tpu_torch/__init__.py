@@ -53,6 +53,19 @@ the retrace watch, the staged health moments) reports them; `storage`
 (the pooled scratch allocator, device memory counters) and `resource`
 come with them.
 
+The host runtime comes with the data path: `engine` (the host dependency
+engine: threaded, naive, and native over `_native`, the port's own copy
+of the C++ runtime under `native/`, built with g++ at first use),
+`recordio` (packs byte for byte the JAX package's), `image`
+(`ImageAugmenter` on the current context's device) and
+`io.ImageRecordIter`, which feeds a model from a pack:
+
+    it = mx.io.ImageRecordIter(path_imgrec="train.rec",
+                               data_shape=(3, 224, 224),
+                               record_shape=(3, 256, 256), batch_size=64,
+                               rand_crop=True, rand_mirror=True)
+    model.fit(it, kvstore="device")
+
 The JAX package's op set and model zoo are ported too (`ops`,
 `models`): convolution, pooling, BatchNorm and the rest run as torch
 calls (cuDNN on the card; float32 convolutions without TF32 whatever
@@ -95,6 +108,7 @@ from . import lr_scheduler, metric, callback, io, kvstore
 from . import kvstore as kv
 from . import executor, executor_manager, checkpoint, model, monitor
 from . import telemetry, chaos, storage, resource
+from . import engine, recordio, image
 from . import module
 from . import module as mod
 from .attribute import AttrScope
@@ -113,10 +127,13 @@ opt = optimizer
 
 __all__ = ["AttrScope", "Context", "Executor", "FeedForward", "MXNetError",
            "NDArray", "SPMDTrainer", "Symbol", "attribute", "callback",
-           "checkpoint", "context", "cpu", "current_context", "executor",
-           "executor_manager", "gpu", "init", "initializer", "io", "kv",
+           "checkpoint", "context", "cpu", "current_context", "engine",
+           "executor",
+           "executor_manager", "gpu", "image", "init", "initializer", "io",
+           "kv",
            "kvstore", "load_params", "lr_scheduler", "metric", "mod",
            "model", "models", "module", "monitor", "name", "nd", "ndarray",
-           "ops", "opt", "optimizer", "chaos", "resource", "storage",
+           "ops", "opt", "optimizer", "chaos", "recordio", "resource",
+           "storage",
            "telemetry",
            "parallel", "random", "resolve", "sym", "symbol", "tpu"]

@@ -11,9 +11,14 @@ ndarray.h`, `python/mxnet/ndarray.py`): an `NDArray` holds a
   (the JAX package models the same with ``(parent, index)``; its
   ``reshape`` is a copy, the port's a view).
 * Ops go onto the tensor's CUDA stream in issue order, which gives the
-  reference's read-after-write order without its host dependency engine
-  (`engine.py`, a later slice).  ``wait_to_read``, ``wait_to_write`` and
-  `waitall` synchronize the device; ``asnumpy`` is a synchronizing copy.
+  reference's read-after-write order on the device.  Host ops pushed to
+  the dependency engine (`engine.py`) that will write an array mark it
+  with their var (``_hvar``, a ``(var, token)`` pair on the array a view
+  was cut from), and every read or write of the array or its views waits
+  for that op first (``_sync_host``), as the JAX package's arrays do.
+  ``wait_to_read``, ``wait_to_write`` and `waitall` synchronize the
+  device (`waitall` drains the engine first); ``asnumpy`` is a
+  synchronizing copy.
 * `save`/`load` write the JAX package's bytes: list magic 0x112 and a
   reserved word, the arrays (magic 0xF7B7, ndim, shape, device type and
   id, dtype flag, byte count, data), then the names, every field
@@ -29,6 +34,7 @@ import struct
 import numpy as np
 import torch
 
+from . import engine
 from .base import (MXNetError, check_shape, dtype_flag, flag_dtype, np_dtype,
                    numeric_types, torch_dtype)
 from .context import Context, cpu, current_context
@@ -50,9 +56,9 @@ def _tensor(value, device, dtype=None):
 class NDArray:
     """A multi-dimensional array on one context's device."""
 
-    __slots__ = ("_data", "_ctx", "__weakref__")
+    __slots__ = ("_buf", "_ctx", "_hvar", "_base", "__weakref__")
 
-    def __init__(self, data, ctx=None):
+    def __init__(self, data, ctx=None, _base=None):
         ctx = Context(ctx) if ctx is not None else None
         if isinstance(data, NDArray):
             ctx = ctx or data._ctx
@@ -65,8 +71,43 @@ class NDArray:
         dev = ctx.torch_device()
         if data.device != dev:
             data = data.to(dev)
-        self._data = data
+        self._buf = data
         self._ctx = ctx
+        # pending-host-write mark: ``(engine var, generation token)`` while
+        # an async host op has a write into this array pending; the fresh
+        # token per mark lets a reader clear exactly the mark it waited on
+        self._hvar = None
+        self._base = _base  # the array a view was cut from (holds the mark)
+        engine.track_array(self)
+
+    def _sync_host(self):
+        """Wait for a pending host-engine write into this array (or the
+        array it is a view of).  A read from inside the op that holds the
+        var must not wait on itself; the clear compares the whole mark, so
+        finishing an older wait never erases a newer op's mark."""
+        root = self if self._base is None else self._base
+        mark = root._hvar
+        if mark is not None:
+            var = mark[0]
+            if engine.current_op_holds(var):
+                return
+            engine.get().wait_for_var(var)
+            if root._hvar is mark:
+                root._hvar = None
+
+    @property
+    def _data(self) -> torch.Tensor:
+        root = self if self._base is None else self._base
+        if root._hvar is not None:
+            self._sync_host()
+        return self._buf
+
+    @_data.setter
+    def _data(self, value):
+        root = self if self._base is None else self._base
+        if root._hvar is not None:
+            self._sync_host()
+        self._buf = value
 
     @property
     def data(self) -> torch.Tensor:
@@ -162,10 +203,14 @@ class NDArray:
         return self.copyto(ctx)
 
     # -- views ------------------------------------------------------------
+    def _root(self):
+        return self if self._base is None else self._base
+
     def slice(self, start, stop):
         """A view of rows [start, stop) of axis 0 (`ndarray.h:227-239`);
         writes to it write through to this array."""
-        return NDArray(self._data[int(start):int(stop)], self._ctx)
+        return NDArray(self._data[int(start):int(stop)], self._ctx,
+                       _base=self._root())
 
     def reshape(self, shape):
         """A view of the same elements in another shape
@@ -173,13 +218,15 @@ class NDArray:
         elements cannot be viewed so."""
         shape = check_shape(shape)
         try:
-            return NDArray(self._data.view(shape), self._ctx)
+            return NDArray(self._data.view(shape), self._ctx,
+                           _base=self._root())
         except RuntimeError as e:
             raise MXNetError("reshape %s -> %s: %s" % (self.shape, shape, e))
 
     def __getitem__(self, idx):
         if isinstance(idx, (int, np.integer)):
-            return NDArray(self._data[int(idx)], self._ctx)
+            return NDArray(self._data[int(idx)], self._ctx,
+                           _base=self._root())
         if isinstance(idx, slice):
             if idx.step not in (None, 1):
                 raise MXNetError("slice step not supported")
@@ -350,7 +397,9 @@ def onehot_encode(indices, out):
 
 
 def waitall():
-    """Block until all queued device work is done (`MXNDArrayWaitAll`)."""
+    """Drain the host engine, then block until all queued device work is
+    done (`MXNDArrayWaitAll`)."""
+    engine.wait_for_all()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
 

@@ -15,7 +15,9 @@ initial parameters in both packages:
 * ``bits(k, shape)``: word i (row-major) is y1 ^ y2 of threefry2x32(k,
   (0, i));
 * ``uniform``: bitcast((bits >> 9) | 0x3f800000) - 1, then
-  ``max(lo, u * (hi - lo) + lo)`` in float32.
+  ``max(lo, u * (hi - lo) + lo)`` in float32;
+* ``randint`` (int32): two bit draws from ``split(k)``, reduced mod the
+  span as JAX's ``_randint`` does; ``bernoulli``: ``uniform < p``.
 
 Threefry runs in int64 tensors masked to 32 bits, on the device asked for
 (so a large parameter is drawn on the card).  A key is a pair of uint32
@@ -38,8 +40,8 @@ from .context import resolve
 
 __all__ = ["seed", "next_key", "get_state", "set_state", "prng_key",
            "fold_in", "split", "threefry2x32", "random_bits",
-           "uniform_from_bits", "uniform", "normal", "normal_from_key",
-           "key_seed"]
+           "uniform_from_bits", "randint", "bernoulli", "uniform", "normal",
+           "normal_from_key", "key_seed"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -113,6 +115,46 @@ def uniform_from_bits(bits, minval, maxval):
     hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
     scaled = floats.double() * (hi - lo).double() + lo.double()
     return torch.maximum(scaled.float(), lo)
+
+
+def _mul32(a, b):
+    """a * b mod 2**32 for uint32 values held in int64, as uint32
+    multiplication wraps (the full product may not fit in int64)."""
+    return (a * (b & 0xFFFF) + (((a * (b >> 16)) & 0xFFFF) << 16)) & _MASK
+
+
+def randint(key, shape, minval, maxval, device=None):
+    """`jax.random.randint(key, shape, minval, maxval)` bit for bit, in
+    int32 (JAX's default integer without 64-bit types).  As JAX's
+    ``_randint``: words hi, lo from the two keys of ``split(key)``, span
+    = maxval - minval as uint32 (1 where maxval <= minval), m = (2**16 mod
+    span)**2 mod span, and minval + ((hi mod span) * m + lo mod span) mod
+    2**32 mod span.  ``minval``/``maxval`` are ints or int tensors that
+    broadcast to ``shape``."""
+    k1, k2 = split(key)
+    hi = random_bits(k1, shape, device)
+    lo = random_bits(k2, shape, hi.device)
+    lim = (-2 ** 31, 2 ** 31 - 1)
+    minval = torch.as_tensor(minval, dtype=torch.int64,
+                             device=hi.device).clamp(*lim)
+    maxval = torch.as_tensor(maxval, dtype=torch.int64,
+                             device=hi.device).clamp(*lim)
+    span = torch.where(maxval <= minval, 1, (maxval - minval) & _MASK)
+    mult = (2 ** 16) % span
+    mult = _mul32(mult, mult) % span
+    offset = ((_mul32(hi % span, mult) + lo % span) & _MASK) % span
+    out = minval + offset  # int32 arithmetic, wrapped
+    return (((out - lim[0]) & _MASK) + lim[0]).to(torch.int32)
+
+
+def bernoulli(key, p=0.5, shape=None, device=None):
+    """`jax.random.bernoulli(key, p, shape)` bit for bit (its default 'low'
+    mode): float32 ``uniform(key, shape) < p``."""
+    p = torch.as_tensor(p, dtype=torch.float32, device=device)
+    if shape is None:
+        shape = tuple(p.shape)
+    u = uniform_from_bits(random_bits(key, shape, device), 0.0, 1.0)
+    return u < p.to(u.device)
 
 
 def _root():

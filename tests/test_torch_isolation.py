@@ -3,11 +3,14 @@
 `mxnet_tpu_torch` and `chip_smoke.py` run on a machine that has PyTorch
 and CUDA but no JAX, so every module of the package must import with
 `jax` (and `mxnet_tpu`) blocked, and no source may name either in an
-import.  `chip_smoke.py` must refuse, with a non-zero exit and no result
+import.  The port's C++ runtime is its own copy too: every header its
+sources include is beside them in `mxnet_tpu_torch/native/`, and the
+library the port loads is built from there, never `native/`'s.  `chip_smoke.py` must refuse, with a non-zero exit and no result
 on stdout, where there is no card or no package beside it.
 """
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -52,7 +55,8 @@ def test_every_module_imports_with_jax_blocked():
                 "executor", "random", "initializer", "parallel",
                 "parallel.trainer", "context", "ndarray", "lr_scheduler",
                 "optimizer", "kvstore", "io", "metric", "callback",
-                "executor_manager", "checkpoint", "model", "models.mlp"):
+                "executor_manager", "checkpoint", "model", "models.mlp",
+                "_native", "engine", "recordio", "image"):
         assert "mxnet_tpu_torch." + mod in names
 
 
@@ -72,6 +76,44 @@ def test_no_source_imports_jax_or_the_jax_package():
            for mod in _imported(f)
            if mod.split(".")[0] in BANNED]
     assert bad == []
+
+
+def test_native_sources_include_only_their_own_headers():
+    sources = sorted((PKG / "native").glob("*.cc")) + \
+        sorted((PKG / "native").glob("*.h"))
+    assert {p.name for p in sources} >= {
+        "engine.cc", "recordio.cc", "loader.cc", "optimizer.cc",
+        "im2rec.cc", "mxtpu.h", "error.h", "jpeg_err.h"}
+    for src in sources:
+        for line in src.read_text().splitlines():
+            m = re.match(r'\s*#\s*include\s*"([^"]+)"', line)
+            if m:
+                assert (PKG / "native" / m.group(1)).is_file(), (src, line)
+                assert "/" not in m.group(1), (src, line)
+
+
+def test_the_port_loads_no_library_from_the_jax_packages_native_dir():
+    for path in sorted(PKG.rglob("*.py")):
+        text = path.read_text()
+        assert "libmxtpu.so" not in text, path
+        assert not re.search(r"['\"]\.\.['\"]\s*,\s*['\"]native", text), path
+    code = (
+        "import sys\n"
+        "for name in %r:\n"
+        "    sys.modules[name] = None\n"
+        "from mxnet_tpu_torch import _native, engine\n"
+        "e = engine.NativeEngine(num_workers=1)\n"
+        "e.push_sync(lambda: None)\n"
+        "print(_native.build_info['path'])\n"
+        "print(open('/proc/self/maps').read())\n" % (BANNED,))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         env=_env())
+    assert out.returncode == 0, out.stderr
+    lib, maps = out.stdout.split("\n", 1)
+    assert Path(lib).parent == PKG / "_build"
+    assert lib in maps
+    assert str(REPO / "native") + "/" not in maps
 
 
 def test_chip_smoke_refuses_without_a_card():
