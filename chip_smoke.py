@@ -25,10 +25,11 @@ Phases, each of which fails the run with a non-zero exit:
    it; the forward in both dtypes, and the bf16 backward, also on a k
    whose rows the kernels cannot copy 16 bytes at a time (the wrappers'
    aligned copy); flash
-   attention at head widths 16 (the plain route), 32, 48, 80 and 96
-   (zero-padded to the kernels' widths) and 160 (refused), forward and
-   backward, float32 and bf16, on all four kernel routes, each on its
-   route's counters; and LayerNorm, forward and backward, each twice bit
+   attention at head widths 16 (the plain route), 32, 48, 80, 96 and 160
+   (zero-padded to the kernels' widths), 192 (padded to 256) and 256,
+   causal and not, and 320 (refused), forward and backward, float32 and
+   bf16, on all four kernel routes, each on its route's counters and
+   twice bit for bit; and LayerNorm, forward and backward, each twice bit
    for bit, in every layout and vector width its plans pick (N = 30 in
    bf16, 768, 1000, 1024, 8192, rows wider than its registers hold at
    12300 and 16384, a view one element past a 16-byte boundary, and the
@@ -221,7 +222,33 @@ Phases, each of which fails the run with a non-zero exit:
    ``cuda:0`` before the loop staged it, no decode failure and no kernel
    of the table launched; (e) the threaded, naive and native host
    engines on the JAX package's random workload (`tests/test_engine.py`,
-   20 vars, seeds 0-2) against serial execution, with ops/s.
+   20 vars, seeds 0-2) against serial execution, with ops/s;
+22. head 256 and the rematerialization pins: (a) the four flash kernels
+   at head 256, forward and backward, both dtypes, on every route at
+   (4, 8, 2048, 2048, causal), timed beside SDPA with ptxas's numbers
+   (phase 2 holds 160, 192 and 256 on every route, causal and not, with a
+   key length of 333); (b) the LM at Gemma-2B's attention widths (embed
+   2048, 8 heads of 256, ffn 16384, no biases; 2 of its 18 layers, vocab
+   32768) at S 2048, batch 4, bf16, 3 steps in each layout with exact
+   launches (5/5 LayerNorm, 2/2/2 flash on the layout's route, no padded
+   call), ms a step, tokens/s, MFU, idle share and peak memory, and one
+   f32 step's gradients at batch 1 against the plain path; (c) slot-cache
+   serving of a 2-layer model at those widths in float32, 4 requests,
+   each one's teacher-forced logits within 1e-3 of the plain path; (d)
+   the parity configuration (bf16, batch 32) through `SPMDTrainer` under
+   ``MXNET_BACKWARD_MIRROR_POLICY`` none, dots, attn, streams and nothing
+   and ``MXNET_BACKWARD_MIRROR_STEP=block``: gradients bit for bit the
+   plain step's, the flash forward's launches a step as predicted (12
+   where its out and lse are kept, 24 where they are recomputed), peak
+   memory (lower than none's under attn and nothing), the median ms of 6
+   steps and one profiled step (device busy ms by kind of kernel beside
+   none's, the idle share); then `examples/memcost.py`'s deep net at its
+   defaults through `simple_bind` plain, with ``MXNET_BACKWARD_DO_MIRROR=1``
+   and with ``MXNET_BACKWARD_MIRROR_POLICY=nothing``: the same gradients
+   bit for bit, the three peaks (lower than plain's under both) and ms a
+   step; and one differentiable flash call, forward and backward, through
+   the custom op beside a plain `torch.autograd.Function` over the same
+   work: the host's microseconds to issue it, and ms with the device's.
 
 It prints each phase's seconds, a ``kernels`` JSON line (launches,
 errors, times, bounds; the float32 flash forward's and backward's routes
@@ -255,6 +282,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch.ops import attention as attention_mod
 from mxnet_tpu_torch.ops import loss as loss_mod
 from mxnet_tpu_torch.ops.pallas_kernels import _build
+from mxnet_tpu_torch.ops.pallas_kernels import flash_attention as fam
 from mxnet_tpu_torch.ops.pallas_kernels import fused_ce as fce
 from mxnet_tpu_torch.ops.pallas_kernels import layer_norm as lnm
 from mxnet_tpu_torch.ops.pallas_kernels.flash_attention import (
@@ -586,10 +614,18 @@ def mma_ptxas(source, d, layout):
     ``source`` at head_dim ``d`` in ``layout`` (0 or 1), by kernel: 'fwd',
     or the backward's 'bwd_dq' and 'bwd_dkv' (bf16 `wgmma`, or the float32
     ones in 3xTF32)."""
-    tag = "ILi%dELb%dE" % (d, layout)
-    return {re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_(mma|tf32)_kernel",
-                      k).group(1):
-            v for k, v in ptxas_info(source).items() if tag in k}
+    # the templates at (d, layout), and the float32 forward's head-256
+    # kernel, a template of the layout alone
+    tags = ["ILi%dELb%dE" % (d, layout)]
+    if d == 256:
+        tags.append("_wide_kernelILb%dE" % layout)
+    out = {}
+    for k, v in ptxas_info(source).items():
+        m = re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_(mma|tf32)(_wide)?_kernel",
+                      k)
+        if m and any(tag in k for tag in tags):
+            out[m.group(1)] = v
+    return out
 
 
 def ce_ptxas(dtype, mode, d):
@@ -1205,31 +1241,36 @@ def describe(c):
     return line
 
 
-def width_case(d, dtype, layout, gen, batch=2, heads=3, s=200, q_off=24):
+def width_case(d, dtype, layout, gen, batch=2, heads=3, s=200, q_off=24,
+               causal=True, skv=None):
     """Flash attention at head_dim ``d`` through the public function and
     route of ``layout`` (a key of `FLASH_LAYOUTS`), forward and backward
     (lse cotangent included), against the plain versions: float32 against
     float32 at ``REL_TOL``; bf16 against the plain versions in float32 on
-    the same bf16 operands, as the kernels' own checks.  The call must
-    count on its route: below 32 one plain-route call and no launch; 32
-    to 127 one padded call and one forward, dq and dk/dv launch."""
+    the same bf16 operands, as the kernels' own checks.  ``skv`` keys (s
+    by default).  The call must count on its route: below 32 one
+    plain-route call and no launch; a kernel width (64, 128, 256) one
+    forward, dq and dk/dv launch; any other width up to 255 those and one
+    padded call.  On the kernel routes a second call must give the same
+    bits (no atomics in either dtype)."""
     pins, name, route = FLASH_LAYOUTS[layout]
+    skv = s if skv is None else skv
     bsd = layout in ("bsd", "stream")
     fn = flash_attention_bsd if bsd else flash_attention
     plain = flash_attention_bsd_plain if bsd else flash_attention_plain
     extra = (heads,) if bsd else ()
 
-    def make():
-        t = torch.randn(batch, s, heads, d, device="cuda", generator=gen)
+    def make(n):
+        t = torch.randn(batch, n, heads, d, device="cuda", generator=gen)
         t = t.to(dtype)
-        return t.reshape(batch, s, heads * d) if bsd else t.transpose(1, 2)
+        return t.reshape(batch, n, heads * d) if bsd else t.transpose(1, 2)
 
-    q, k, v, g = make(), make(), make(), make()
+    q, k, v, g = make(s), make(skv), make(skv), make(s)
     glse = torch.randn(batch, heads, s, device="cuda", generator=gen)
 
     def through(f, ts):
         leaves = [t.detach().clone().requires_grad_() for t in ts]
-        out, lse = f(*leaves, *extra, causal=True, q_offset=q_off,
+        out, lse = f(*leaves, *extra, causal=causal, q_offset=q_off,
                      with_lse=True)
         torch.autograd.backward((out, lse), (g.to(out.dtype), glse))
         return [out, lse] + [t.grad for t in leaves]
@@ -1239,36 +1280,52 @@ def width_case(d, dtype, layout, gen, batch=2, heads=3, s=200, q_off=24):
         got = through(fn, (q, k, v))
         torch.cuda.synchronize()
         launched = {c: n for c, n in read_counts().items() if n}
-    want = ({name + "_narrow": 1} if d < 32 else
-            {name: 1, name + "_dq": 1, name + "_dkv": 1, name + "_padded": 1})
+        same = d < 32 or all(torch.equal(a, b) for a, b in
+                             zip(got, through(fn, (q, k, v))))
+    want = {name + "_narrow": 1} if d < 32 else \
+        {name: 1, name + "_dq": 1, name + "_dkv": 1}
+    if d >= 32 and d not in (64, 128, 256):
+        want[name + "_padded"] = 1
     ref = through(plain, [t.float() for t in (q, k, v)])
     err = combine(rel_check(dtype, [(got[0], ref[0])] + list(zip(got[2:],
                                                                   ref[2:]))),
                   rel_check(torch.float32, [(got[1], ref[1])]))
-    rec = _record("flash_attention width %d (%s)" % (d, layout),
-                  [batch, heads, s, s, d], dtype,
-                  (err[0], err[1], err[2] and launched == want), False)
+    rec = _record("flash_attention width %d (%s%s)"
+                  % (d, layout, "" if causal else ", not causal"),
+                  [batch, heads, s, skv, d], dtype,
+                  (err[0], err[1], err[2] and launched == want and same),
+                  False)
     rec["launches"] = launched
+    if d >= 32:
+        rec["bit_identical"] = same
     return rec
 
 
 def width_checks(gen):
     """The head widths the kernels do not take natively, on every route in
-    both dtypes, and a head of 160, which the kernel routes refuse."""
+    both dtypes; the head-256 kernels at 256 and at 160 and 192 padded to
+    it, causal and not, with a key length no multiple of 8 (333); and a
+    head of 320, which the kernel routes refuse."""
     cases = [width_case(d, dtype, layout, gen)
-             for d in (16, 32, 48, 80, 96)
+             for d in (16, 32, 48, 80, 96, 160)
              for dtype in (torch.float32, torch.bfloat16)
              for layout in FLASH_LAYOUTS]
-    x = torch.zeros(1, 2, 64, 160, device="cuda")
+    cases += [width_case(d, dtype, layout, gen, skv=333, causal=causal,
+                         q_off=133 if causal else 24)
+              for d in (192, 256)
+              for dtype in (torch.float32, torch.bfloat16)
+              for layout in FLASH_LAYOUTS
+              for causal in (True, False)]
+    x = torch.zeros(1, 2, 64, 320, device="cuda")
     for fn, args in ((flash_attention, (x, x, x)),
                      (flash_attention_bsd, (x[0], x[0], x[0], 1))):
         try:
             fn(*args, causal=True)
             raised = False
         except mx.MXNetError as e:
-            raised = "160" in str(e)
-        cases.append(_record("%s width 160 raises" % fn.__name__,
-                             [1, 2, 64, 64, 160], torch.float32,
+            raised = "320" in str(e) and "256" in str(e)
+        cases.append(_record("%s width 320 raises" % fn.__name__,
+                             [1, 2, 64, 64, 320], torch.float32,
                              (0.0, 0.0, raised), False))
     return cases
 
@@ -2259,7 +2316,8 @@ def flops_per_token(cfg):
     (the embedding lookup is a gather, not a matmul) plus causal
     attention's 12 * L * D * S / 2."""
     l, d = cfg["num_layers"], cfg["num_embed"]
-    n_matmul = l * (4 * d * d + 2 * d * 4 * d) + d * cfg["vocab_size"]
+    f = cfg.get("num_ffn_hidden") or 4 * d
+    n_matmul = l * (4 * d * d + 2 * d * f) + d * cfg["vocab_size"]
     return 6 * n_matmul + 12 * l * d * cfg["seq_len"] // 2
 
 
@@ -4714,6 +4772,398 @@ def image_records_path(ff):
     return res
 
 
+# -- phase 22: head 256 and the rematerialization pins ----------------------
+
+# Gemma-2B's attention widths (its published config: embed 2048, 8 heads
+# of 256, ffn 16384, no biases), cut from its 18 layers to 2, at the
+# repo's training vocabulary (32768, not Gemma's 256000) and S = 2048
+HEAD256 = dict(vocab_size=32768, seq_len=2048, num_layers=2, num_embed=2048,
+               num_heads=8, num_ffn_hidden=16384, use_bias=False,
+               attn_layout="bhsd")
+HEAD256_BATCH = 4
+# the settings of phase 22 (d), and the flash forward's launches a step
+# each should give, in layers: once where the policy keeps the kernel's
+# out and lse (attn_out), twice where the backward recomputes it (a flash
+# launch is not a matrix product to `dots`)
+REMAT_SETTINGS = (("none", {}),
+                  ("dots", {"MXNET_BACKWARD_MIRROR_POLICY": "dots"}),
+                  ("attn", {"MXNET_BACKWARD_MIRROR_POLICY": "attn"}),
+                  ("streams", {"MXNET_BACKWARD_MIRROR_POLICY": "streams"}),
+                  ("nothing", {"MXNET_BACKWARD_MIRROR_POLICY": "nothing"}),
+                  ("block", {"MXNET_BACKWARD_MIRROR_STEP": "block"}))
+REMAT_FLASH = {"none": 1, "dots": 2, "attn": 1, "streams": 1, "nothing": 2,
+               "block": 2}
+# the parity configuration's peak memory without remat, in an earlier
+# run of phase 6 (`PERF.md`, run 11E), printed beside this run's
+NONE_PEAK_RUN_11E = 17328565248
+
+
+def head256_kernel_checks():
+    """The four flash kernels at head 256 on every route, at the training
+    shape of phase 22 (B 4, H 8, S 2048, causal), timed beside SDPA, in
+    both dtypes; the checks at 256 and at 160 and 192 padded to it are
+    phase 2's (`width_checks`)."""
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    cases = []
+    for layout in FLASH_LAYOUTS:
+        for dtype in (torch.bfloat16, torch.float32):
+            cases += flash_train_case(layout, HEAD256_BATCH,
+                                      HEAD256["num_heads"], 256, dtype, gen,
+                                      sq=HEAD256["seq_len"],
+                                      skv=HEAD256["seq_len"])
+    for c in cases:
+        log(describe(c))
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise SystemExit("head-256 kernel checks failed: %s" % bad)
+    return cases
+
+
+def head256_paths():
+    """The head-256 LM trained on the card: 3 bf16 steps in each attention
+    layout with exact launches (2L+1 LayerNorm each way; L flash forward,
+    dq and dk/dv on the layout's route; no padded call), and one f32 step's
+    gradients at batch 1 against the plain path."""
+    layers = HEAD256["num_layers"]
+    per_layer = {"layer_norm": 2 * layers + 1,
+                 "layer_norm_bwd": 2 * layers + 1}
+    out = {}
+    for layout, name in (("bhsd", "flash_attention"),
+                         ("bsd", "flash_attention_bsd")):
+        out[layout] = train_path(
+            "train head 256 %s" % layout, dict(HEAD256, attn_layout=layout),
+            3, dict(per_layer, **{name + k: layers
+                                  for k in ("", "_dq", "_dkv")}),
+            batch=HEAD256_BATCH)
+    out["gradients"] = grad_check(
+        HEAD256, ("layer_norm_bwd", "flash_attention_dq",
+                  "flash_attention_dkv"), "head 256 config", size=1)
+    return out
+
+
+def head256_serving():
+    """Slot-cache serving of a 2-layer head-256 model in float32 (the
+    float32 flash forward at D = 256 in every prefill): 4 requests of 32
+    tokens, then each request's teacher-forced logits (one prefill of
+    prompt and generated tokens, a row cut at each position) through the
+    kernels against the plain float32 path, within ``LOGIT_TOL``."""
+    cfg = {k: HEAD256[k] for k in ("vocab_size", "seq_len", "num_layers",
+                                   "num_heads", "num_embed",
+                                   "num_ffn_hidden", "use_bias")}
+    model = TransformerKVModel(**cfg)
+    params = model.params_from_jax(
+        model.init_params(np.random.RandomState(0)), "cuda")
+    engine = ServingEngine(model, params, max_batch=8, paged=False)
+    t0 = time.perf_counter()
+    warm = engine.warmup()
+    warm_s = time.perf_counter() - t0
+    log("head-256 slot engine: %s, warmup %.2f s" % (warm, warm_s))
+    rng = np.random.RandomState(22)
+    requests = [(rng.randint(0, model.vocab_size, size=int(n)).tolist(),
+                 dict(max_new_tokens=32))
+                for n in rng.randint(520, 1001, size=4)]
+    reqs, res = serve(engine, requests)
+    res["warmup_s"] = warm_s
+    print_serving("head-256 slot path (f32)", res)
+    if res["launches"]["flash_attention"] < 4 * model.num_layers or \
+            res["launches"]["flash_attention_padded"]:
+        raise SystemExit("the head-256 prefills did not run the head-256 "
+                         "kernel: %s" % res["launches"])
+    dev = params["embed_weight"].device
+    checks = []
+    for r in reqs:
+        seq = list(r.prompt) + list(r.tokens[:-1])
+        n = len(r.tokens)
+        toks = torch.tensor([seq] * n, device=dev)
+        length = torch.arange(len(r.prompt), len(r.prompt) + n, device=dev)
+        got, _ = model.prefill(params, toks, length)
+        ref = reference_logits(model, params, r.prompt, r.tokens)
+        err = float((got.float() - ref).abs().max())
+        checks.append({"request": r.id, "prompt_len": len(r.prompt),
+                       "positions": n, "max_abs_err": err, "tol": LOGIT_TOL})
+        log("head-256 logits request %d (prompt %d, %d positions): f32 "
+            "kernel path vs plain f32 err %.3e (tol %.0e)"
+            % (r.id, len(r.prompt), n, err, LOGIT_TOL))
+        if not err <= LOGIT_TOL:
+            raise SystemExit("head-256 served logits disagree with the "
+                             "plain path")
+    res["logit_checks"] = checks
+    del engine, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def device_by_kind(device):
+    """Device ms of a profiled window by kind of kernel: the flash
+    kernels, LayerNorm's, matrix products (cuBLAS and CUTLASS names) and
+    the rest (elementwise ops, copies, reductions, the fused CE head)."""
+    out = {"flash": 0.0, "layer_norm": 0.0, "matmul": 0.0, "other": 0.0}
+    for name, _, ms in device:
+        low = name.lower()
+        kind = "flash" if "flash_" in low else "layer_norm" if \
+            low.startswith("ln_") else "matmul" if any(
+                k in low for k in ("gemm", "nvjet", "xmma", "cutlass",
+                                   "sm90_")) else "other"
+        out[kind] += ms
+    return out
+
+
+def remat_path(steps=6):
+    """The parity configuration in bf16 at batch 32 through `SPMDTrainer`
+    under each of `REMAT_SETTINGS`: one step's gradients bit for bit the
+    plain step's, the flash launches of that step as `REMAT_FLASH` says,
+    then ``steps`` steps (their median ms and peak memory) and one
+    profiled step (device busy ms by kind of kernel, beside ``none``'s,
+    and the idle share); the peak must fall under ``attn`` and
+    ``nothing``."""
+    layers = PARITY["num_layers"]
+    batch = lm_batch(TRAIN_BATCH, PARITY)
+    ref, out = None, {}
+    for label, pins in REMAT_SETTINGS:
+        with pinned(**pins):
+            trainer = lm_trainer(PARITY, TRAIN_BATCH, "bfloat16")
+            dev = trainer.shard_batch(batch)
+            torch.cuda.synchronize()
+            reset_counts()
+            grads = trainer.gradients(dev)
+            torch.cuda.synchronize()
+            launches = {k: n for k, n in read_counts().items() if n}
+            if ref is None:
+                ref = grads
+            same = all(torch.equal(grads[k], ref[k]) for k in ref)
+            del grads
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step_ms = []
+            for _ in range(steps):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                trainer.step(dev)
+                b.record()
+                b.synchronize()
+                step_ms.append(a.elapsed_time(b))
+            peak = torch.cuda.max_memory_allocated()
+            torch.cuda.synchronize()
+            wall, busy, device, host = profiled(lambda: trainer.step(dev))
+            del trainer, dev
+            torch.cuda.empty_cache()
+        kinds = device_by_kind(device)
+        rec = {"pins": pins, "bit_identical_to_none": same,
+               "launches_one_step": launches, "step_ms": step_ms,
+               "step_ms_median": statistics.median(step_ms),
+               "max_memory_allocated": peak,
+               "predicted_flash_forward": REMAT_FLASH[label] * layers,
+               "profiled_step_ms": 1e3 * wall, "device_busy_ms": 1e3 * busy,
+               "device_idle_share": 1 - busy / wall,
+               "device_ms_by_kind": kinds, "top_device_ops_ms": device[:12],
+               "top_host_ops_ms": host}
+        if "none" in out:
+            base = out["none"]
+            rec["recompute_device_ms"] = rec["device_busy_ms"] - \
+                base["device_busy_ms"]
+            rec["recompute_device_ms_by_kind"] = {
+                k: kinds[k] - base["device_ms_by_kind"][k] for k in kinds}
+        out[label] = rec
+        log("remat %s %s: gradients bit for bit the plain step's: %s; one "
+            "step's launches %s (flash forward predicted %d); step ms %s, "
+            "median %.2f; max_memory_allocated %d B (none, run 11E: %d B); "
+            "profiled step %.2f ms wall, device busy %.2f ms (idle share "
+            "%.4f), busy ms by kind %s, over none's %s; top host ops (name, "
+            "count, self ms) %s"
+            % (label, pins, same, launches, rec["predicted_flash_forward"],
+               ["%.2f" % t for t in step_ms], rec["step_ms_median"], peak,
+               NONE_PEAK_RUN_11E, rec["profiled_step_ms"],
+               rec["device_busy_ms"], rec["device_idle_share"],
+               {k: round(v, 3) for k, v in kinds.items()},
+               {k: round(v, 3) for k, v in
+                rec.get("recompute_device_ms_by_kind", {}).items()},
+               host[:6]))
+        want = {"flash_attention": REMAT_FLASH[label] * layers,
+                "flash_attention_dq": layers, "flash_attention_dkv": layers}
+        if not same or any(launches.get(k) != n for k, n in want.items()):
+            raise SystemExit("remat %s: bit for bit %s, launches %s, "
+                             "expected %s" % (label, same, launches, want))
+    for label in ("attn", "nothing"):
+        if not out[label]["max_memory_allocated"] < \
+                out["none"]["max_memory_allocated"]:
+            raise SystemExit("remat %s: peak memory did not fall: %s"
+                             % (label, {k: v["max_memory_allocated"]
+                                        for k, v in out.items()}))
+    return out
+
+
+def memcost_net(depth, width):
+    """`examples/memcost.py`'s `deep_net`, in the port."""
+    x = mx.sym.Variable("data")
+    for i in range(depth):
+        x = mx.sym.Convolution(data=x, kernel=(3, 3), pad=(1, 1),
+                               num_filter=width, name="conv%d" % i)
+        x = mx.sym.Activation(data=x, act_type="relu", name="relu%d" % i)
+    x = mx.sym.Pooling(data=x, pool_type="avg", kernel=(8, 8), name="gap")
+    x = mx.sym.Flatten(data=x)
+    x = mx.sym.FullyConnected(data=x, num_hidden=10, name="fc")
+    return mx.sym.SoftmaxOutput(data=x, name="softmax")
+
+
+class _FlashFunction(torch.autograd.Function):
+    """The flash forward and backward of `fam._forward` and `fam._backward`
+    as a plain `torch.autograd.Function`, with no dispatcher: only to time
+    the port's custom op ``mxt::flash_attention`` against it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, args, route, block):
+        out, lse, res = fam._forward(q, k, v, args, True, route, block)
+        ctx.save_for_backward(*res, lse)
+        ctx.args, ctx.route, ctx.block = args, route, block
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, glse):
+        *res, lse = ctx.saved_tensors
+        grads = fam._backward(res, lse, g, glse, ctx.args, ctx.route,
+                              ctx.block)
+        return tuple(grads) + (None,) * 3
+
+
+def flash_grad_call_ms(reps=40):
+    """A differentiable flash call, forward and backward, through the
+    port's custom op (`fam._flash_op`, what `flash_attention` calls once
+    it has resolved the route) and through `_FlashFunction` (the same
+    work with no dispatcher), in turns, bf16, causal, hsd: at
+    the parity shape (32, 12, 1024, 64) and at (1, 1, 64, 64), where the
+    host is all of it.  For each, the host's microseconds to issue one
+    call (``reps`` calls, then one sync) and the ms a call with the
+    device's work (a sync each call), medians of 5 rounds."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    args = (0, 0, 0.125, True)
+    out = {}
+    for label, shape in (("parity", (32, 12, 1024, 64)),
+                         ("tiny", (1, 1, 64, 64))):
+        q, k, v, g = (torch.randn(shape, generator=gen, device="cuda",
+                                  dtype=torch.bfloat16) for _ in range(4))
+        for t in (q, k, v):
+            t.requires_grad_()
+
+        def op():
+            o = fam._flash_op(q, k, v, *args, "hsd", 0, "attn_out")[0]
+            return torch.autograd.grad(o, (q, k, v), g)
+
+        def fn():
+            o, _ = _FlashFunction.apply(q, k, v, args, "hsd", 0)
+            return torch.autograd.grad(o, (q, k, v), g)
+
+        want = fn()
+        if not all(torch.equal(a, b) for a, b in zip(op(), want)):
+            raise SystemExit("flash op and Function differ at %s" % label)
+        rounds = {"op": ([], []), "function": ([], [])}
+        for _ in range(5):
+            for name, f in (("op", op), ("function", fn)):
+                for _ in range(3):
+                    f()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    f()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                rounds[name][0].append(1e6 * (t1 - t0) / reps)
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    f()
+                    torch.cuda.synchronize()
+                rounds[name][1].append(
+                    1e3 * (time.perf_counter() - t0) / reps)
+        res = {name: {"host_us_to_issue": statistics.median(h),
+                      "ms_per_call_synced": statistics.median(m),
+                      "rounds_host_us": h, "rounds_ms": m}
+               for name, (h, m) in rounds.items()}
+        res["op_minus_function_host_us"] = \
+            res["op"]["host_us_to_issue"] - \
+            res["function"]["host_us_to_issue"]
+        out[label] = res
+        log("flash call with gradient, %s %s bf16 causal: op %.1f us to "
+            "issue, %.4f ms synced; Function %.1f us, %.4f ms; op - "
+            "Function %.1f us a call"
+            % (label, shape, res["op"]["host_us_to_issue"],
+               res["op"]["ms_per_call_synced"],
+               res["function"]["host_us_to_issue"],
+               res["function"]["ms_per_call_synced"],
+               res["op_minus_function_host_us"]))
+    return out
+
+
+MEMCOST_SETTINGS = (("plain", {"MXNET_BACKWARD_DO_MIRROR": "0"}),
+                    ("mirror", {"MXNET_BACKWARD_DO_MIRROR": "1"}),
+                    ("nothing", {"MXNET_BACKWARD_MIRROR_POLICY": "nothing"}))
+
+
+def memcost_path(depth=24, width=64, batch=32, steps=6):
+    """`examples/memcost.py` at its defaults through the port's
+    `simple_bind` on the card, plain, with ``MXNET_BACKWARD_DO_MIRROR=1``
+    (``dots``) and with ``MXNET_BACKWARD_MIRROR_POLICY=nothing``: float32
+    with cuDNN's deterministic algorithms, the gradients of all three bit
+    for bit, and each one's peak memory and ms a step (median of
+    ``steps``).  The peak must fall under ``dots`` and ``nothing``."""
+    out, ref = {}, None
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, pins in MEMCOST_SETTINGS:
+            with pinned(**pins):
+                exe = memcost_net(depth, width).simple_bind(
+                    mx.gpu(0), grad_req="write", data=(batch, 3, 8, 8))
+                rng = np.random.RandomState(0)
+                for name, arr in exe.arg_dict.items():
+                    if name not in ("data", "softmax_label"):
+                        arr[:] = (rng.randn(*arr.shape) * 0.05).astype(
+                            np.float32)
+                exe.arg_dict["data"][:] = rng.randn(batch, 3, 8, 8).astype(
+                    np.float32)
+                exe.arg_dict["softmax_label"][:] = rng.randint(
+                    0, 10, batch).astype(np.float32)
+                exe.forward(is_train=True)
+                exe.backward()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                times = []
+                for _ in range(steps):
+                    t0 = time.perf_counter()
+                    exe.forward(is_train=True)
+                    exe.backward()
+                    torch.cuda.synchronize()
+                    times.append(1e3 * (time.perf_counter() - t0))
+                peak = torch.cuda.max_memory_allocated()
+                grads = {n: g.data.clone() for n, g in exe.grad_dict.items()
+                         if g is not None}
+                del exe
+                torch.cuda.empty_cache()
+            if ref is None:
+                ref = grads
+            same = all(torch.equal(grads[k], ref[k]) for k in ref)
+            ms = statistics.median(times)
+            out[label] = {"pins": pins, "max_memory_allocated": peak,
+                          "ms_per_step": ms, "step_ms": times,
+                          "bit_identical_to_plain": same}
+            log("memcost deep_net (depth %d, width %d, batch %d), %s: "
+                "max_memory_allocated %d B, %.2f ms a step (median of %s), "
+                "gradients bit for bit the plain bind's: %s"
+                % (depth, width, batch, pins, peak, ms,
+                   ["%.2f" % t for t in times], same))
+            if not same:
+                raise SystemExit("memcost %s: the gradients differ" % label)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    for label in ("mirror", "nothing"):
+        if not out[label]["max_memory_allocated"] < \
+                out["plain"]["max_memory_allocated"]:
+            raise SystemExit("memcost: the peak did not fall under %s: %s"
+                             % (label, {k: v["max_memory_allocated"]
+                                        for k, v in out.items()}))
+    return out
+
+
 def kernels_line(cases, paths, f32_paths):
     """One entry per ported TPU function: launches on each path, and the
     error and times of its check at the training shape, in bf16; then one
@@ -4977,6 +5427,14 @@ def main():
 
     with phase("image records"):
         records = image_records_path(resnet_ff)
+
+    with phase("head 256 and remat"):
+        cases += head256_kernel_checks()
+        head256 = head256_paths()
+        head256["serving"] = head256_serving()
+        remat_runs = remat_path()
+        remat_runs["flash_grad_call"] = flash_grad_call_ms()
+        memcost = memcost_path()
     # the LM's LayerNorm launches join the LayerNorm rows; its float32
     # flash launches the float32 flash rows
     api_lm_ln = {k: (n if k.startswith("layer_norm") else 0)
@@ -5000,7 +5458,9 @@ def main():
         "api_lm_simple_bind": api_lm_ln,
         "module_lm_fit": module_lm_ln,
         "module_lm_fit_guarded": guarded_ln,
-        "spmd_module_fit_fused": spmd_module["launches"]}, {
+        "spmd_module_fit_fused": spmd_module["launches"],
+        "train_head256_bhsd": head256["bhsd"]["launches"],
+        "train_head256_bsd": head256["bsd"]["launches"]}, {
         "slot": slot["launches"],
         "train_bhsd_f32": hsd32["launches"],
         "train_fused_f32": fused32["launches"],
@@ -5014,7 +5474,9 @@ def main():
         "gradients_longctx_stream": stream_grads["launches"],
         "api_lm_simple_bind_f32": api_lm["launches"],
         "module_lm_fit_f32": module_lm["launches"],
-        "module_lm_fit_guarded_f32": faults["launches"]})
+        "module_lm_fit_guarded_f32": faults["launches"],
+        "gradients_head256": head256["gradients"]["launches"],
+        "slot_head256_f32": head256["serving"]["launches"]})
     idle = [e["name"] for e in kernels if not e["launches"]]
     if idle:
         raise SystemExit("kernels launched on no path: %s" % idle)
@@ -5043,7 +5505,8 @@ def main():
          "resnet50_feedforward": resnet_ff, "other_nets": others,
          "module_lm": module_lm, "spmd_module": spmd_module,
          "bucketing": bucketing, "fault_tolerance": faults,
-         "image_records": records,
+         "image_records": records, "head256": head256,
+         "remat": remat_runs, "memcost": memcost,
          "kernels": kernels},
         indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -58,6 +58,16 @@
 // blocks share an SM.  Outputs are staged through a tile and stored 16
 // bytes at a time.
 //
+// Head width 256 (widths 129-255 are zero-padded to it by the wrapper):
+// dK and dV of 64 x 256 would be 256 float32 registers a thread, and dQ
+// 128 beside S and dP, so each pass's grid is twice as wide and a block
+// computes one half of its outputs' columns (`out_cols`), as at D = 128
+// (dk/dv in query steps of 32): S (S^T) and dP (dP^T) over all 256
+// columns, recomputed by both halves, then dQ += ds K, dV += p^T dO and
+// dK += ds^T Q over the half's 128 columns of K, dO and Q.  Shared memory:
+// 6 tiles of 32 KB, 193 KB (dq) and 193.5 KB (dk/dv), one block an SM.
+// The two halves add nothing into a shared sum, so the bits are fixed.
+//
 // Requirements, checked by the wrapper (and the alignment again by the C
 // entry): every operand 16-byte aligned, its contiguous axis of stride 1
 // and its other strides multiples of 8 elements (cp.async copies 16
@@ -95,8 +105,10 @@ struct Args {
 };
 
 template <int D, bool SC>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, D > 128 ? 1 : 2)
     flash_bwd_dq_mma_kernel(Args a) {
+  // the dq columns this block computes: all D up to 128, a half at 256
+  constexpr int DO = out_cols<D>(), kHalves = col_halves<D>();
   using T = Tile<D, SC>;
   unsigned char* qs = smem_base();
   unsigned char* dos = qs + T::kBytes;
@@ -107,15 +119,17 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
+  const int col0 = (blockIdx.x % kHalves) * DO;  // the block's columns
   // the last query tiles see the most keys under causal masking: first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int q0 = (gridDim.x / kHalves - 1 - blockIdx.x / kHalves) * kTile;
   const int h = blockIdx.y, b = blockIdx.z;
 
   const bf16* q = a.q + b * a.q_sb + h * a.q_sh;
   const bf16* k = a.k + b * a.k_sb + h * a.k_sh;
   const bf16* v = a.v + b * a.v_sb + h * a.v_sh;
   const bf16* dout = a.dout + b * a.d_sb + h * a.d_sh;
-  bf16* dq_out = a.out0 + b * a.o0_sb + h * a.o0_sh;
+  bf16* dq_out =
+      from_col<SC>(a.out0 + b * a.o0_sb + h * a.o0_sh, col0, a.o0_st);
 
   load_tile<D, SC>(qt, q, q0, a.sq, a.q_st);
   load_tile<D, SC>(dot, dout, q0, a.sq, a.d_st);
@@ -144,9 +158,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     cp_async_commit();
   }
 
-  float dq[D / 8][4];
+  float dq[DO / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
+  for (int nt = 0; nt < DO / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[nt][e] = 0.f;
 
@@ -215,14 +229,16 @@ __global__ void __launch_bounds__(kThreads, 2)
         s[nt][e] = p * (dp[nt][e] - dl[hi]) * a.scale;
       }
 
-    // dq += ds K, ds rounded to bf16: key steps of 16
+    // dq += ds K over the block's columns of K, ds rounded to bf16: key
+    // steps of 16
     uint32_t da[4][4];
     pack_a<8>(da, s);
     hold(dq);
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      wgmma_rs<D, !SC>(dq, da[j], desc_col<D, SC>(kt, j * 16));
+      wgmma_rs<DO, !SC>(dq, da[j],
+                        desc_col<DO, SC>(col_tile<SC>(kt, col0), j * 16));
     }
     wgmma_commit();
     wgmma_wait();
@@ -232,14 +248,17 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 
   cp_async_wait_all_threads<0>();  // the Q tile's copy, when no key tile
-  stage_acc<D, SC>(qs, dq, w * 16, lane);
+  stage_acc<DO, SC>(qs, dq, w * 16, lane);
   __syncthreads();
-  store_tile<D, SC>(dq_out, qs, q0, a.sq, a.o0_st);
+  store_tile<DO, SC>(dq_out, qs, q0, a.sq, a.o0_st);
 }
 
 template <int D, bool SC>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, D > 128 ? 1 : 2)
     flash_bwd_dkv_mma_kernel(Args a) {
+  // the dk and dv columns this block computes: all D up to 128, a half at
+  // 256
+  constexpr int DO = out_cols<D>(), kHalves = col_halves<D>();
   using T = Tile<D, SC>;
   unsigned char* ks = smem_base();
   unsigned char* vs = ks + T::kBytes;
@@ -252,15 +271,18 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * kTile;
+  const int col0 = (blockIdx.x % kHalves) * DO;  // the block's columns
+  const int k0 = (blockIdx.x / kHalves) * kTile;
   const int h = blockIdx.y, b = blockIdx.z;
 
   const bf16* q = a.q + b * a.q_sb + h * a.q_sh;
   const bf16* k = a.k + b * a.k_sb + h * a.k_sh;
   const bf16* v = a.v + b * a.v_sb + h * a.v_sh;
   const bf16* dout = a.dout + b * a.d_sb + h * a.d_sh;
-  bf16* dk_out = a.out0 + b * a.o0_sb + h * a.o0_sh;
-  bf16* dv_out = a.out1 + b * a.o1_sb + h * a.o1_sh;
+  bf16* dk_out =
+      from_col<SC>(a.out0 + b * a.o0_sb + h * a.o0_sh, col0, a.o0_st);
+  bf16* dv_out =
+      from_col<SC>(a.out1 + b * a.o1_sb + h * a.o1_sh, col0, a.o1_st);
   const float* lse = a.lse + ((long long)b * a.heads + h) * a.sq;
   const float* delta = a.delta + ((long long)b * a.heads + h) * a.sq;
 
@@ -297,9 +319,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   };
   if (lo < nqb) load_q(lo, 0);
 
-  float dk[D / 8][4], dv[D / 8][4];
+  float dk[DO / 8][4], dv[DO / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
+  for (int nt = 0; nt < DO / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       dk[nt][e] = 0.f;
@@ -308,7 +330,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   const float sl2 = a.scale * kLog2e;
   const int kw = k0 + w * 16;  // this warp's first key
-  constexpr int kStep = D == 128 ? 32 : kTile;  // queries a step
+  constexpr int kStep = DO == 128 ? 32 : kTile;  // queries a step
 
   for (int qb = lo; qb < nqb; ++qb) {
     const int stage = (qb - lo) & 1;
@@ -382,8 +404,10 @@ __global__ void __launch_bounds__(kThreads, 2)
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < kStep / 16; ++j) {
-        wgmma_rs<D, !SC>(dv, pa[j], desc_col<D, SC>(dot, c0 + j * 16));
-        wgmma_rs<D, !SC>(dk, sa[j], desc_col<D, SC>(qt, c0 + j * 16));
+        wgmma_rs<DO, !SC>(
+            dv, pa[j], desc_col<DO, SC>(col_tile<SC>(dot, col0), c0 + j * 16));
+        wgmma_rs<DO, !SC>(
+            dk, sa[j], desc_col<DO, SC>(col_tile<SC>(qt, col0), c0 + j * 16));
       }
       wgmma_commit();
       wgmma_wait();
@@ -396,11 +420,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 
   cp_async_wait_all_threads<0>();  // the K/V copy, when no query tile
-  stage_acc<D, SC>(ks, dk, w * 16, lane);
-  stage_acc<D, SC>(vs, dv, w * 16, lane);
+  stage_acc<DO, SC>(ks, dk, w * 16, lane);
+  stage_acc<DO, SC>(vs, dv, w * 16, lane);
   __syncthreads();
-  store_tile<D, SC>(dk_out, ks, k0, a.skv, a.o0_st);
-  store_tile<D, SC>(dv_out, vs, k0, a.skv, a.o1_st);
+  store_tile<DO, SC>(dk_out, ks, k0, a.skv, a.o0_st);
+  store_tile<DO, SC>(dv_out, vs, k0, a.skv, a.o1_st);
 }
 
 template <int D, bool SC>
@@ -414,7 +438,7 @@ int launch(int which, const Args& a, int batch, cudaStream_t stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int len = which ? a.skv : a.sq;
-  dim3 grid((len + kTile - 1) / kTile, a.heads, batch);
+  dim3 grid(col_halves<D>() * ((len + kTile - 1) / kTile), a.heads, batch);
   kernel<<<grid, kThreads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -426,7 +450,7 @@ extern "C" {
 // The two backward passes in bf16 (`mxt_flash_attention_bwd_f32` in
 // flash_attention_bwd_f32.cu takes the same arguments): which = 0 the dq
 // pass (out0 = dq), 1 the dk/dv pass (out0 = dk, out1 = dv); dtype must be
-// 1 (bfloat16); head_dim 64 or 128; layout 0 (batch, heads, seq,
+// 1 (bfloat16); head_dim 64, 128 or 256; layout 0 (batch, heads, seq,
 // head_dim) or 1 (batch, heads, head_dim, seq), strides in elements for
 // the batch, head and non-contiguous axes; lse and delta (batch, heads,
 // sq) float32 contiguous.  Every operand and output must be 16-byte
@@ -442,7 +466,8 @@ int mxt_flash_attention_bwd_bf16(
     long long o1_sh, long long o1_st, int q_off, int k_off, int causal,
     float scale, void* stream) {
   if ((which != 0 && which != 1) || dtype != 1 ||
-      (head_dim != 64 && head_dim != 128) || (layout != 0 && layout != 1) ||
+      (head_dim != 64 && head_dim != 128 && head_dim != 256) ||
+      (layout != 0 && layout != 1) ||
       batch < 0 || heads < 0 || sq < 0 || skv < 0 || batch > 65535 ||
       heads > 65535 || (which == 1 && out1 == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -474,8 +499,12 @@ int mxt_flash_attention_bwd_bf16(
     return layout ? launch<64, true>(which, a, batch, s)
                   : launch<64, false>(which, a, batch, s);
   }
-  return layout ? launch<128, true>(which, a, batch, s)
-                : launch<128, false>(which, a, batch, s);
+  if (head_dim == 128) {
+    return layout ? launch<128, true>(which, a, batch, s)
+                  : launch<128, false>(which, a, batch, s);
+  }
+  return layout ? launch<256, true>(which, a, batch, s)
+                : launch<256, false>(which, a, batch, s);
 }
 
 const char* mxt_error_string(int err) {

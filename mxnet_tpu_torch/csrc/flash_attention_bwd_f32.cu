@@ -94,6 +94,19 @@
 //   Two warpgroups, one sum each, keep every kernel under it with no
 //   spill; ptxas's count is in the build log (chip_smoke.py prints it).
 //
+// Head width 256 (widths 129-255 are zero-padded to it by the wrapper):
+// the owned raw tiles alone take 128 K, so the streamed operands come a
+// chunk of their columns at a time (64 in the dq pass, 32 in the dk/dv
+// pass: `chunk_cols`), raw and then split, S and dP adding each chunk's
+// products in their accumulators; and, as in the bf16 kernels, each
+// pass's grid is twice as wide, a block computing one half of its
+// outputs' columns (`out_cols`) from the transposed split tile of that
+// half (K^T; Q^T and dO^T), which the chunks of the half fill as they
+// pass.  Bytes: dq pass 128 K owned, 16 K raw, 32 K chunk split, 32 K
+// K^T: 208 K; dk/dv pass 128 K owned, 8 K raw, 16 K chunk split, 64 K
+// Q^T and dO^T, 0.5 K lse and delta: 216.5 K (+1 K alignment each).  The
+// registers are D = 128's (a 64 x 128 sum a warpgroup).
+//
 // Requirements, checked by the C entry (the wrapper copies an operand
 // that lacks them): every operand and output 16-byte aligned, its
 // contiguous axis of stride 1 and its other strides multiples of 4
@@ -116,6 +129,14 @@ namespace {
 template <int D, bool DKV>
 __host__ __device__ constexpr int stream_len() {
   return DKV && D == 64 ? 64 : 32;
+}
+
+// the columns a streamed chunk holds: all D up to 128; at D = 256 chunks
+// of 64 (dq pass) or 32 (dk/dv pass), so that the owned tiles (128 K)
+// leave room for the chunk's raw and split copies and the transposed half
+template <int D, bool DKV>
+__host__ __device__ constexpr int chunk_cols() {
+  return D <= 128 ? D : (DKV ? 32 : 64);
 }
 
 struct Args {
@@ -141,56 +162,52 @@ struct Args {
 
 // One k step of `scores`: its products from the fragments in cur, then,
 // once the previous step's products (which read next) are done, the next
-// step's fragments into next.
-template <int D, int BN, bool SC, bool DP>
+// step's fragments into next.  kk counts the chunk's steps, kk0 + kk the
+// owned tiles'.
+template <int D, int DC, int BN, bool SC, bool DP>
 __device__ __forceinline__ void scores_step(
     float (&s)[BN / 8][4], float (&dp)[BN / 8][4], uint32_t (&cur)[4][4],
     uint32_t (&next)[4][4], const float* x, const float* z, uint32_t yh,
-    uint32_t yl, uint32_t wh, uint32_t wl, int kk, int r0, int t) {
+    uint32_t yl, uint32_t wh, uint32_t wl, int kk, int kk0, int r0, int t) {
   wgmma_fence();
   mma3<BN>(s, cur[0], cur[1], desc_k<BN>(yh, kk), desc_k<BN>(yl, kk));
   if (DP) {
     mma3<BN>(dp, cur[2], cur[3], desc_k<BN>(wh, kk), desc_k<BN>(wl, kk));
   }
   wgmma_commit();
-  if (kk + 1 < D / 8) {
+  if (kk + 1 < DC / 8) {
     wgmma_wait1();
     hold(next);
-    owned_frag<D, SC>(x, kk + 1, r0, t, next[0], next[1]);
-    if (DP) owned_frag<D, SC>(z, kk + 1, r0, t, next[2], next[3]);
+    owned_frag<D, SC>(x, kk0 + kk + 1, r0, t, next[0], next[1]);
+    if (DP) owned_frag<D, SC>(z, kk0 + kk + 1, r0, t, next[2], next[3]);
   }
 }
 
-// s (64 x BN) = X Y^T and, with DP, dp = Z W^T over D, in 3xTF32: X and
-// Z the owned raw tiles (A, split a k step at a time into two register
-// buffers, the next step's while this step's products run), Y and W the
-// hi and lo tiles K-major over D (B).
-template <int D, int BN, bool SC, bool DP>
+// s (64 x BN) += X Y^T and, with DP, dp += Z W^T over the DC columns of a
+// chunk (the owned tiles' columns from 8 kk0 on), in 3xTF32: X and Z the
+// owned raw tiles (A, split a k step at a time into two register buffers,
+// the next step's while this step's products run), Y and W the chunk's hi
+// and lo tiles K-major over its columns (B).  Up to D = 128 the chunk is
+// all of D.
+template <int D, int DC, int BN, bool SC, bool DP>
 __device__ __forceinline__ void scores(float (&s)[BN / 8][4],
                                        float (&dp)[BN / 8][4], const float* x,
                                        const float* z, uint32_t yh,
                                        uint32_t yl, uint32_t wh, uint32_t wl,
-                                       int r0, int t) {
-#pragma unroll
-  for (int nt = 0; nt < BN / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[nt][e] = 0.f;
-      if (DP) dp[nt][e] = 0.f;
-    }
+                                       int r0, int t, int kk0) {
   // two buffers of [x hi, x lo, z hi, z lo][4]: step kk uses a0 when kk
   // is even, a1 when odd
   uint32_t a0[4][4], a1[4][4];
-  owned_frag<D, SC>(x, 0, r0, t, a0[0], a0[1]);
-  if (DP) owned_frag<D, SC>(z, 0, r0, t, a0[2], a0[3]);
+  owned_frag<D, SC>(x, kk0, r0, t, a0[0], a0[1]);
+  if (DP) owned_frag<D, SC>(z, kk0, r0, t, a0[2], a0[3]);
   hold(s);
   if (DP) hold(dp);
 #pragma unroll
-  for (int kk = 0; kk < D / 8; kk += 2) {
-    scores_step<D, BN, SC, DP>(s, dp, a0, a1, x, z, yh, yl, wh, wl, kk, r0,
-                               t);
-    scores_step<D, BN, SC, DP>(s, dp, a1, a0, x, z, yh, yl, wh, wl, kk + 1,
-                               r0, t);
+  for (int kk = 0; kk < DC / 8; kk += 2) {
+    scores_step<D, DC, BN, SC, DP>(s, dp, a0, a1, x, z, yh, yl, wh, wl, kk,
+                                   kk0, r0, t);
+    scores_step<D, DC, BN, SC, DP>(s, dp, a1, a0, x, z, yh, yl, wh, wl,
+                                   kk + 1, kk0, r0, t);
   }
   wgmma_wait();
   hold(s);
@@ -199,34 +216,53 @@ __device__ __forceinline__ void scores(float (&s)[BN / 8][4],
   hold(a1);
 }
 
+// s and dp zeroed
+template <int BN>
+__device__ __forceinline__ void zero2(float (&s)[BN / 8][4],
+                                      float (&dp)[BN / 8][4]) {
+#pragma unroll
+  for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[nt][e] = 0.f;
+      dp[nt][e] = 0.f;
+    }
+}
+
 template <int D, bool SC>
 __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
     flash_bwd_dq_tf32_kernel(Args a) {
   constexpr int BN = stream_len<D, false>();
-  constexpr int kSplit = BN * D * 4;  // bytes of a hi or lo tile
+  // the chunk's columns, the block's dq columns, chunks, halves
+  constexpr int DC = chunk_cols<D, false>(), DO = out_cols<D>();
+  constexpr int kChunks = D / DC, kHalves = col_halves<D>();
+  constexpr int kCB = BN * DC * 4;  // bytes of a chunk's hi or lo tile
+  constexpr int kTB = BN * DO * 4;  // bytes of a K^T hi or lo tile
   float* qo = reinterpret_cast<float*>(smem_base());  // owned raw Q
   float* doo = qo + kPos * D;                         // owned raw dO
-  float* kr = doo + kPos * D;                         // raw K
-  float* vr = kr + BN * D;                            // raw V
-  unsigned char* sp = reinterpret_cast<unsigned char*>(vr + BN * D);
+  float* kr = doo + kPos * D;                         // raw K chunk
+  float* vr = kr + BN * DC;                           // raw V chunk
+  unsigned char* sp = reinterpret_cast<unsigned char*>(vr + BN * DC);
   unsigned char* kh = sp;               // K hi, lo: K-major over D
-  unsigned char* kl = sp + kSplit;
-  unsigned char* vh = sp + 2 * kSplit;  // V hi, lo: K-major over D
-  unsigned char* vl = sp + 3 * kSplit;
-  unsigned char* kth = sp + 4 * kSplit;  // K^T hi, lo: K-major over keys
-  unsigned char* ktl = sp + 5 * kSplit;
+  unsigned char* kl = sp + kCB;
+  unsigned char* vh = sp + 2 * kCB;     // V hi, lo: K-major over D
+  unsigned char* vl = sp + 3 * kCB;
+  unsigned char* kth = sp + 4 * kCB;    // K^T hi, lo: K-major over keys,
+  unsigned char* ktl = kth + kTB;       // the block's columns
 
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
+  const int col0 = (blockIdx.x % kHalves) * DO;  // the block's columns
   // the last query tiles see the most keys under causal masking: first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kPos;
+  const int q0 = (gridDim.x / kHalves - 1 - blockIdx.x / kHalves) * kPos;
   const int h = blockIdx.y, b = blockIdx.z;
 
   const float* q = a.q + b * a.q_sb + h * a.q_sh;
   const float* k = a.k + b * a.k_sb + h * a.k_sh;
   const float* v = a.v + b * a.v_sb + h * a.v_sh;
   const float* dout = a.dout + b * a.d_sb + h * a.d_sh;
-  float* dq_out = a.out0 + b * a.o0_sb + h * a.o0_sh;
+  float* dq_out =
+      from_col<SC>(a.out0 + b * a.o0_sb + h * a.o0_sh, col0, a.o0_st);
 
   stage_raw<kPos, D, SC, true, kThreads>(qo, q, q0, a.sq, a.q_st);
   stage_raw<kPos, D, SC, true, kThreads>(doo, dout, q0, a.sq, a.d_st);
@@ -250,15 +286,19 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
     const long long hi = last_q - a.k_off;
     nkb = hi < 0 ? 0 : (int)min((long long)nkb, hi / BN + 1);
   }
-  if (nkb > 0) {
-    stage_raw<BN, D, SC, false, kThreads>(kr, k, 0, a.skv, a.k_st);
-    stage_raw<BN, D, SC, false, kThreads>(vr, v, 0, a.skv, a.v_st);
+  // raw K and V chunk c of key tile kb
+  auto stage_keys = [&](int kb, int c) {
+    stage_raw<BN, DC, SC, false, kThreads>(
+        kr, from_col<SC>(k, c * DC, a.k_st), kb * BN, a.skv, a.k_st);
+    stage_raw<BN, DC, SC, false, kThreads>(
+        vr, from_col<SC>(v, c * DC, a.v_st), kb * BN, a.skv, a.v_st);
     cp_async_commit();
-  }
+  };
+  if (nkb > 0) stage_keys(0, 0);
 
-  float dq[D / 8][4];
+  float dq[DO / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
+  for (int nt = 0; nt < DO / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[nt][e] = 0.f;
 
@@ -266,22 +306,33 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
   const int qw = q0 + w * 16;  // this warp's first query
 
   for (int kb = 0; kb < nkb; ++kb) {
-    cp_async_wait_all_threads<0>();  // raw K and V of this tile
-    split_tile<D, BN, SC, true, kThreads>(kr, kh, kl, kth, ktl);
-    split_tile<D, BN, SC, false, kThreads>(vr, vh, vl, nullptr, nullptr);
-    publish_shared();  // the split tiles; the raw ones are free again
-    if (kb + 1 < nkb) {
-      stage_raw<BN, D, SC, false, kThreads>(kr, k, (kb + 1) * BN, a.skv,
-                                            a.k_st);
-      stage_raw<BN, D, SC, false, kThreads>(vr, v, (kb + 1) * BN, a.skv,
-                                            a.v_st);
-      cp_async_commit();
-    }
-
-    // S = Q K^T and dP = dO V^T
+    // S = Q K^T and dP = dO V^T, a chunk of K's and V's columns at a time
     float s[BN / 8][4], dp[BN / 8][4];
-    scores<D, BN, SC, true>(s, dp, qo, doo, smem_u32(kh), smem_u32(kl),
-                            smem_u32(vh), smem_u32(vl), r0, t);
+    zero2<BN>(s, dp);
+#pragma unroll 1
+    for (int c = 0; c < kChunks; ++c) {
+      cp_async_wait_all_threads<0>();  // raw K and V of this chunk
+      // the chunk's K^T rows where its columns are the block's
+      const int tr = c * DC - col0;
+      if (tr >= 0 && tr < DO) {
+        split_tile<DC, BN, SC, true, kThreads>(kr, kh, kl, kth + tr * 128,
+                                               ktl + tr * 128);
+      } else {
+        split_tile<DC, BN, SC, false, kThreads>(kr, kh, kl, nullptr,
+                                                nullptr);
+      }
+      split_tile<DC, BN, SC, false, kThreads>(vr, vh, vl, nullptr, nullptr);
+      publish_shared();  // the split tiles; the raw ones are free again
+      if (c + 1 < kChunks) {
+        stage_keys(kb, c + 1);
+      } else if (kb + 1 < nkb) {
+        stage_keys(kb + 1, 0);
+      }
+      scores<D, DC, BN, SC, true>(s, dp, qo, doo, smem_u32(kh), smem_u32(kl),
+                                  smem_u32(vh), smem_u32(vl), r0, t,
+                                  c * (DC / 8));
+      if (c + 1 < kChunks) __syncthreads();  // the chunk's tiles are read
+    }
 
     // p and ds, into s; the mask only where a pair of the warp's rows and
     // this key tile can be hidden
@@ -303,41 +354,45 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
         s[nt][e] = p * (dp[nt][e] - dl[hi]) * a.scale;
       }
 
-    // dq += ds K: key steps of 8, ds's registers the A operand, this
-    // tile's sum first
+    // dq += ds K over the block's columns: key steps of 8, ds's registers
+    // the A operand, this tile's sum first
     uint32_t sh[BN / 8][4], sl[BN / 8][4];
     split_acc<BN / 8>(sh, sl, s);
-    float dt[D / 8][4];
-    tile_mma<D, BN / 8>(dt, sh, sl, smem_u32(kth), smem_u32(ktl));
-    add_acc<D>(dq, dt);
+    float dt[DO / 8][4];
+    tile_mma<DO, BN / 8>(dt, sh, sl, smem_u32(kth), smem_u32(ktl));
+    add_acc<DO>(dq, dt);
     __syncthreads();  // every warp is done with the split tiles
   }
 
   cp_async_wait_all_threads<0>();  // the owned copy, when no key tile
   float* stg = reinterpret_cast<float*>(sp);
-  stage_acc_f32<D, SC>(stg, dq, r0, t);
+  stage_acc_f32<DO, SC>(stg, dq, r0, t);
   __syncthreads();
-  store_out<D, SC>(dq_out, stg, q0, a.sq, a.o0_st, threadIdx.x);
+  store_out<DO, SC>(dq_out, stg, q0, a.sq, a.o0_st, threadIdx.x);
 }
 
-// The dk/dv pass's copy of a query tile (queries q0 ..): raw Q and dO,
-// and its lse and delta into lses and dls (one stage of each)
+// The dk/dv pass's copy of chunk c of a query tile (queries q0 ..): raw
+// Q and dO columns, and with chunk 0 its lse and delta into lses and dls
+// (one stage of each)
 template <int D, bool SC>
 __device__ __forceinline__ void load_q(float* qr, float* dr, float* lses,
                                        float* dls, const float* q,
                                        const float* dout, const float* lse,
-                                       const float* delta, int q0, int sq,
-                                       long long q_st, long long d_st) {
-  constexpr int BN = stream_len<D, true>();
-  stage_raw<BN, D, SC, false, 2 * kThreads>(qr, q, q0, sq, q_st);
-  stage_raw<BN, D, SC, false, 2 * kThreads>(dr, dout, q0, sq, d_st);
+                                       const float* delta, int q0, int c,
+                                       int sq, long long q_st,
+                                       long long d_st) {
+  constexpr int BN = stream_len<D, true>(), DC = chunk_cols<D, true>();
+  stage_raw<BN, DC, SC, false, 2 * kThreads>(
+      qr, from_col<SC>(q, c * DC, q_st), q0, sq, q_st);
+  stage_raw<BN, DC, SC, false, 2 * kThreads>(
+      dr, from_col<SC>(dout, c * DC, d_st), q0, sq, d_st);
   const int tid = threadIdx.x;
   const int i = tid & (BN - 1);
   const int qi = q0 + i;
   const bool in = qi < sq;
-  if (tid < BN) {
+  if (c == 0 && tid < BN) {
     cp_async4(smem_u32(lses + i), in ? lse + qi : lse, in ? 4 : 0);
-  } else if (tid < 2 * BN) {
+  } else if (c == 0 && tid < 2 * BN) {
     cp_async4(smem_u32(dls + i), in ? delta + qi : delta, in ? 4 : 0);
   }
   cp_async_commit();
@@ -353,28 +408,33 @@ template <int D, bool SC>
 __global__ void __launch_bounds__(kDkvThreads, 1)
     flash_bwd_dkv_tf32_kernel(Args a) {
   constexpr int BN = stream_len<D, true>();
-  constexpr int kSplit = BN * D * 4;
+  // the chunk's columns, the block's dk and dv columns, chunks, halves
+  constexpr int DC = chunk_cols<D, true>(), DO = out_cols<D>();
+  constexpr int kChunks = D / DC, kHalves = col_halves<D>();
+  constexpr int kCB = BN * DC * 4;  // bytes of a chunk's hi or lo tile
+  constexpr int kTB = BN * DO * 4;  // bytes of a transposed hi or lo tile
   float* ko = reinterpret_cast<float*>(smem_base());  // owned raw K
   float* vo = ko + kPos * D;                          // owned raw V
-  float* qr = vo + kPos * D;                          // raw Q
-  float* dr = qr + BN * D;                            // raw dO
-  unsigned char* sp = reinterpret_cast<unsigned char*>(dr + BN * D);
+  float* qr = vo + kPos * D;                          // raw Q chunk
+  float* dr = qr + BN * DC;                           // raw dO chunk
+  unsigned char* sp = reinterpret_cast<unsigned char*>(dr + BN * DC);
   unsigned char* qh = sp;                // Q hi, lo: K-major over D
-  unsigned char* ql = sp + kSplit;
-  unsigned char* dh = sp + 2 * kSplit;   // dO hi, lo: K-major over D
-  unsigned char* dlo = sp + 3 * kSplit;
-  unsigned char* qth = sp + 4 * kSplit;  // Q^T hi, lo: K-major over queries
-  unsigned char* qtl = sp + 5 * kSplit;
-  unsigned char* dth = sp + 6 * kSplit;  // dO^T hi, lo
-  unsigned char* dtl = sp + 7 * kSplit;
-  float* lses = reinterpret_cast<float*>(sp + 8 * kSplit);  // 2 x BN
-  float* dls = lses + 2 * BN;                                // 2 x BN
+  unsigned char* ql = sp + kCB;
+  unsigned char* dh = sp + 2 * kCB;      // dO hi, lo: K-major over D
+  unsigned char* dlo = sp + 3 * kCB;
+  unsigned char* qth = sp + 4 * kCB;     // Q^T hi, lo: K-major over
+  unsigned char* qtl = qth + kTB;        // queries, the block's columns
+  unsigned char* dth = qtl + kTB;        // dO^T hi, lo
+  unsigned char* dtl = dth + kTB;
+  float* lses = reinterpret_cast<float*>(dtl + kTB);  // 2 x BN
+  float* dls = lses + 2 * BN;                          // 2 x BN
 
   const int tid = threadIdx.x;
   const bool dk_group = tid >= kThreads;  // the second warpgroup: dK
   const int lane = tid & 31, w = (tid >> 5) & 3;
   const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * kPos;
+  const int col0 = (blockIdx.x % kHalves) * DO;  // the block's columns
+  const int k0 = (blockIdx.x / kHalves) * kPos;
   const int h = blockIdx.y, b = blockIdx.z;
 
   const float* q = a.q + b * a.q_sb + h * a.q_sh;
@@ -398,14 +458,14 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   }
 
   if (lo < nqb) {
-    load_q<D, SC>(qr, dr, lses, dls, q, dout, lse, delta, lo * BN, a.sq,
+    load_q<D, SC>(qr, dr, lses, dls, q, dout, lse, delta, lo * BN, 0, a.sq,
                   a.q_st, a.d_st);
   }
 
   // this warpgroup's sum: dV or dK
-  float acc[D / 8][4];
+  float acc[DO / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
+  for (int nt = 0; nt < DO / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
 
@@ -415,27 +475,48 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
 
   for (int qb = lo; qb < nqb; ++qb) {
     const int stage = (qb - lo) & 1;
-    cp_async_wait_all_threads<0>();  // raw Q, dO, lse and delta of qb
-    split_tile<D, BN, SC, true, kDkvThreads>(qr, qh, ql, qth, qtl);
-    split_tile<D, BN, SC, true, kDkvThreads>(dr, dh, dlo, dth, dtl);
-    publish_shared();
-    if (qb + 1 < nqb) {
-      load_q<D, SC>(qr, dr, lses + (stage ^ 1) * BN, dls + (stage ^ 1) * BN,
-                    q, dout, lse, delta, (qb + 1) * BN, a.sq, a.q_st, a.d_st);
+    // S^T = K Q^T and, for dK, dP^T = V dO^T, a chunk of Q's and dO's
+    // columns at a time: rows are keys, columns queries
+    float s[BN / 8][4], dp[BN / 8][4];
+    zero2<BN>(s, dp);
+#pragma unroll 1
+    for (int c = 0; c < kChunks; ++c) {
+      cp_async_wait_all_threads<0>();  // raw Q, dO (lse and delta) of qb
+      // the chunk's Q^T and dO^T rows where its columns are the block's
+      const int tr = c * DC - col0;
+      if (tr >= 0 && tr < DO) {
+        split_tile<DC, BN, SC, true, kDkvThreads>(qr, qh, ql, qth + tr * 128,
+                                                  qtl + tr * 128);
+        split_tile<DC, BN, SC, true, kDkvThreads>(dr, dh, dlo, dth + tr * 128,
+                                                  dtl + tr * 128);
+      } else {
+        split_tile<DC, BN, SC, false, kDkvThreads>(qr, qh, ql, nullptr,
+                                                   nullptr);
+        split_tile<DC, BN, SC, false, kDkvThreads>(dr, dh, dlo, nullptr,
+                                                   nullptr);
+      }
+      publish_shared();
+      if (c + 1 < kChunks) {
+        load_q<D, SC>(qr, dr, lses + stage * BN, dls + stage * BN, q, dout,
+                      lse, delta, qb * BN, c + 1, a.sq, a.q_st, a.d_st);
+      } else if (qb + 1 < nqb) {
+        load_q<D, SC>(qr, dr, lses + (stage ^ 1) * BN, dls + (stage ^ 1) * BN,
+                      q, dout, lse, delta, (qb + 1) * BN, 0, a.sq, a.q_st,
+                      a.d_st);
+      }
+      if (dk_group) {
+        scores<D, DC, BN, SC, true>(s, dp, ko, vo, smem_u32(qh), smem_u32(ql),
+                                    smem_u32(dh), smem_u32(dlo), r0, t,
+                                    c * (DC / 8));
+      } else {
+        scores<D, DC, BN, SC, false>(s, dp, ko, vo, smem_u32(qh),
+                                     smem_u32(ql), smem_u32(dh),
+                                     smem_u32(dlo), r0, t, c * (DC / 8));
+      }
+      if (c + 1 < kChunks) __syncthreads();  // the chunk's tiles are read
     }
     const float* l_t = lses + stage * BN;
     const float* d_t = dls + stage * BN;
-
-    // S^T = K Q^T and, for dK, dP^T = V dO^T: rows are keys, columns
-    // queries
-    float s[BN / 8][4], dp[BN / 8][4];
-    if (dk_group) {
-      scores<D, BN, SC, true>(s, dp, ko, vo, smem_u32(qh), smem_u32(ql),
-                              smem_u32(dh), smem_u32(dlo), r0, t);
-    } else {
-      scores<D, BN, SC, false>(s, dp, ko, vo, smem_u32(qh), smem_u32(ql),
-                               smem_u32(dh), smem_u32(dlo), r0, t);
-    }
 
     // p^T into s and, for dK, ds^T into s
     const int qc = qb * BN;
@@ -456,30 +537,33 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
         s[nt][e] = dk_group ? p * (dp[nt][e] - d_t[col]) * a.scale : p;
       }
 
-    // dV += p^T dO or dK += ds^T Q: query steps of 8, the accumulator's
-    // registers the A operand, this tile's sum first
+    // dV += p^T dO or dK += ds^T Q over the block's columns: query steps
+    // of 8, the accumulator's registers the A operand, this tile's sum
+    // first
     uint32_t fh[BN / 8][4], fl[BN / 8][4];
     split_acc<BN / 8>(fh, fl, s);
-    float dt[D / 8][4];
+    float dt[DO / 8][4];
     if (dk_group) {
-      tile_mma<D, BN / 8>(dt, fh, fl, smem_u32(qth), smem_u32(qtl));
+      tile_mma<DO, BN / 8>(dt, fh, fl, smem_u32(qth), smem_u32(qtl));
     } else {
-      tile_mma<D, BN / 8>(dt, fh, fl, smem_u32(dth), smem_u32(dtl));
+      tile_mma<DO, BN / 8>(dt, fh, fl, smem_u32(dth), smem_u32(dtl));
     }
-    add_acc<D>(acc, dt);
+    add_acc<DO>(acc, dt);
     __syncthreads();  // every warp is done with the split tiles
   }
 
   cp_async_wait_all_threads<0>();  // the owned copy, when no query tile
-  float* stg = reinterpret_cast<float*>(sp) + dk_group * stg_floats<D, SC>();
-  stage_acc_f32<D, SC>(stg, acc, r0, t);
+  float* stg = reinterpret_cast<float*>(sp) + dk_group * stg_floats<DO, SC>();
+  stage_acc_f32<DO, SC>(stg, acc, r0, t);
   __syncthreads();
   if (dk_group) {
-    store_out<D, SC>(a.out0 + b * a.o0_sb + h * a.o0_sh, stg, k0, a.skv,
-                     a.o0_st, tid - kThreads);
+    store_out<DO, SC>(
+        from_col<SC>(a.out0 + b * a.o0_sb + h * a.o0_sh, col0, a.o0_st), stg,
+        k0, a.skv, a.o0_st, tid - kThreads);
   } else {
-    store_out<D, SC>(a.out1 + b * a.o1_sb + h * a.o1_sh, stg, k0, a.skv,
-                     a.o1_st, tid);
+    store_out<DO, SC>(
+        from_col<SC>(a.out1 + b * a.o1_sb + h * a.o1_sh, col0, a.o1_st), stg,
+        k0, a.skv, a.o1_st, tid);
   }
 }
 
@@ -488,10 +572,14 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
 template <int D>
 constexpr int smem_bytes(int which) {
   constexpr int dq = stream_len<D, false>(), dkv = stream_len<D, true>();
-  // owned raw tiles, 2 raw and 6 (dq) or 8 (dk/dv) split tiles of the
-  // streamed length, lse and delta (dk/dv), alignment
+  constexpr int dq_c = chunk_cols<D, false>(), dkv_c = chunk_cols<D, true>();
+  constexpr int cols = out_cols<D>();
+  // owned raw tiles; a chunk's 2 raw and 4 split tiles of the streamed
+  // length; 2 (dq) or 4 (dk/dv) transposed split tiles of the block's
+  // columns; lse and delta (dk/dv); alignment
   return 2 * kPos * D * 4 + 1024 +
-         (which ? 10 * dkv * D * 4 + 4 * dkv * 4 : 8 * dq * D * 4);
+         (which ? 6 * dkv * dkv_c * 4 + 4 * dkv * cols * 4 + 4 * dkv * 4
+                : 6 * dq * dq_c * 4 + 2 * dq * cols * 4);
 }
 
 template <int D, bool SC>
@@ -503,7 +591,7 @@ int launch(int which, const Args& a, int batch, cudaStream_t stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int len = which ? a.skv : a.sq;
-  dim3 grid((len + kPos - 1) / kPos, a.heads, batch);
+  dim3 grid(col_halves<D>() * ((len + kPos - 1) / kPos), a.heads, batch);
   kernel<<<grid, which ? kDkvThreads : kThreads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -515,7 +603,7 @@ extern "C" {
 // The two backward passes in float32, with `mxt_flash_attention_bwd_bf16`'s
 // argument list (flash_attention_bwd.cu): which = 0 the dq pass (out0 =
 // dq), 1 the dk/dv pass (out0 = dk, out1 = dv); dtype must be 0
-// (float32); head_dim 64 or 128; layout 0 (batch, heads, seq, head_dim) or
+// (float32); head_dim 64, 128 or 256; layout 0 (batch, heads, seq, head_dim) or
 // 1 (batch, heads, head_dim, seq), strides in elements for the batch, head
 // and non-contiguous axes; lse and delta (batch, heads, sq) float32
 // contiguous.  Every operand and output must be 16-byte aligned with
@@ -531,7 +619,8 @@ int mxt_flash_attention_bwd_f32(
     long long o1_sh, long long o1_st, int q_off, int k_off, int causal,
     float scale, void* stream) {
   if ((which != 0 && which != 1) || dtype != 0 ||
-      (head_dim != 64 && head_dim != 128) || (layout != 0 && layout != 1) ||
+      (head_dim != 64 && head_dim != 128 && head_dim != 256) ||
+      (layout != 0 && layout != 1) ||
       batch < 0 || heads < 0 || sq < 0 || skv < 0 || batch > 65535 ||
       heads > 65535 || (which == 1 && out1 == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -564,8 +653,12 @@ int mxt_flash_attention_bwd_f32(
     return layout ? launch<64, true>(which, a, batch, s)
                   : launch<64, false>(which, a, batch, s);
   }
-  return layout ? launch<128, true>(which, a, batch, s)
-                : launch<128, false>(which, a, batch, s);
+  if (head_dim == 128) {
+    return layout ? launch<128, true>(which, a, batch, s)
+                  : launch<128, false>(which, a, batch, s);
+  }
+  return layout ? launch<256, true>(which, a, batch, s)
+                : launch<256, false>(which, a, batch, s);
 }
 
 const char* mxt_error_string(int err) {

@@ -42,6 +42,15 @@
 // Shared memory: 5 tiles of 16 KB at D = 128 (8 KB at 64), two blocks to
 // an SM.  No atomics: two launches give the same bits.
 //
+// Head width 256 (widths 129-255 are zero-padded to it by the wrapper):
+// the O accumulator of 64 x 256 would be 128 registers a thread beside
+// S's 32, so the grid is twice as wide and each block computes one half
+// of O's columns (`out_cols`): S = Q K^T over all 256 columns (recomputed
+// by both halves, 1.5x the products of one block), P V over the block's
+// 128 columns of V.  Shared memory: Q and two stages of K at 32 KB, two
+// stages of V's half at 16 KB: 129 KB, one block an SM.  Both halves make
+// the same m and l; the first writes lse.
+//
 // Requirements, checked by the wrapper (and the alignment again by the C
 // entry): every operand 16-byte aligned, its contiguous axis of stride 1
 // and its other strides multiples of 8 elements (cp.async copies 16
@@ -78,9 +87,13 @@ struct Args {
 };
 
 template <int D, bool SC>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, D > 128 ? 1 : 2)
     flash_fwd_mma_kernel(Args a) {
+  // the output columns this block computes (all D up to 128, a half at
+  // 256): V's tiles hold only those
+  constexpr int DO = out_cols<D>(), kHalves = col_halves<D>();
   using T = Tile<D, SC>;
+  using TV = Tile<DO, SC>;
   unsigned char* qs = smem_base();
   unsigned char* ks = qs + T::kBytes;      // two stages
   unsigned char* vs = ks + 2 * T::kBytes;  // two stages
@@ -89,14 +102,15 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int t = lane & 3;
+  const int col0 = (blockIdx.x % kHalves) * DO;  // the block's columns
   // the last query tiles see the most keys under causal masking: first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int q0 = (gridDim.x / kHalves - 1 - blockIdx.x / kHalves) * kTile;
   const int h = blockIdx.y, b = blockIdx.z;
 
   const bf16* q = a.q + b * a.q_sb + h * a.q_sh;
   const bf16* k = a.k + b * a.k_sb + h * a.k_sh;
-  const bf16* v = a.v + b * a.v_sb + h * a.v_sh;
-  bf16* out = a.o + b * a.o_sb + h * a.o_sh;
+  const bf16* v = from_col<SC>(a.v + b * a.v_sb + h * a.v_sh, col0, a.v_st);
+  bf16* out = from_col<SC>(a.o + b * a.o_sb + h * a.o_sh, col0, a.o_st);
 
   load_tile<D, SC>(qt, q, q0, a.sq, a.q_st);
   cp_async_commit();
@@ -109,7 +123,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
   if (nkb > 0) {
     load_tile<D, SC>(kt0, k, 0, a.skv, a.k_st);
-    load_tile<D, SC>(vt0, v, 0, a.skv, a.v_st);
+    load_tile<DO, SC>(vt0, v, 0, a.skv, a.v_st);
     cp_async_commit();
   }
 
@@ -117,9 +131,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   // domain) and its share of their sums
   const int r = q0 + w * 16 + (lane >> 2);
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[D / 8][4];
+  float o[DO / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
+  for (int nt = 0; nt < DO / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
 
@@ -131,15 +145,15 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (kb + 1 < nkb) {
       load_tile<D, SC>(kt0 + (stage ^ 1) * T::kBytes, k, (kb + 1) * kTile,
                        a.skv, a.k_st);
-      load_tile<D, SC>(vt0 + (stage ^ 1) * T::kBytes, v, (kb + 1) * kTile,
-                       a.skv, a.v_st);
+      load_tile<DO, SC>(vt0 + (stage ^ 1) * TV::kBytes, v, (kb + 1) * kTile,
+                        a.skv, a.v_st);
       cp_async_commit();
       cp_async_wait_all_threads<1>();
     } else {
       cp_async_wait_all_threads<0>();
     }
     const uint32_t kt = kt0 + stage * T::kBytes;
-    const uint32_t vt = vt0 + stage * T::kBytes;
+    const uint32_t vt = vt0 + stage * TV::kBytes;
 
     // S = Q K^T
     float s[8][4];
@@ -202,7 +216,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         l[hi] += p;
       }
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
+    for (int nt = 0; nt < DO / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[nt][e] *= corr[e >> 1];
 
@@ -213,7 +227,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      wgmma_rs<D, !SC>(o, pa[j], desc_col<D, SC>(vt, j * 16));
+      wgmma_rs<DO, !SC>(o, pa[j], desc_col<DO, SC>(vt, j * 16));
     }
     wgmma_commit();
     wgmma_wait();
@@ -230,13 +244,14 @@ __global__ void __launch_bounds__(kThreads, 2)
     inv[hi] = l[hi] == 0.f ? 0.f : 1.f / l[hi];
   }
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
+  for (int nt = 0; nt < DO / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[nt][e] *= inv[e >> 1];
 
   cp_async_wait_all_threads<0>();  // the Q tile's copy, when no key tile
-  stage_acc<D, SC>(qs, o, w * 16, lane);
-  if (a.lse != nullptr && t == 0) {
+  stage_acc<DO, SC>(qs, o, w * 16, lane);
+  // both halves compute the same m and l: the first writes lse
+  if (a.lse != nullptr && t == 0 && col0 == 0) {
 #pragma unroll
     for (int hi = 0; hi < 2; ++hi) {
       const int qi = r + 8 * hi;
@@ -247,18 +262,20 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   }
   __syncthreads();
-  store_tile<D, SC>(out, qs, q0, a.sq, a.o_st);
+  store_tile<DO, SC>(out, qs, q0, a.sq, a.o_st);
 }
 
 template <int D, bool SC>
 int launch(const Args& a, int batch, cudaStream_t stream) {
-  // 5 tiles and room to align them to 1024
-  constexpr int bytes = 5 * Tile<D, SC>::kBytes + 1024;
+  // Q and two stages of K (D columns), two stages of V (the block's
+  // columns), and room to align them to 1024
+  constexpr int bytes = 3 * Tile<D, SC>::kBytes +
+                        2 * Tile<out_cols<D>(), SC>::kBytes + 1024;
   auto kernel = flash_fwd_mma_kernel<D, SC>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((a.sq + kTile - 1) / kTile, a.heads, batch);
+  dim3 grid(col_halves<D>() * ((a.sq + kTile - 1) / kTile), a.heads, batch);
   kernel<<<grid, kThreads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -269,7 +286,7 @@ extern "C" {
 
 // The forward in bf16 (`mxt_flash_attention_fwd_f32` in
 // flash_attention_fwd_f32.cu takes the same arguments): dtype must be 1
-// (bfloat16); head_dim 64 or 128; layout 0 (batch, heads, seq, head_dim)
+// (bfloat16); head_dim 64, 128 or 256; layout 0 (batch, heads, seq, head_dim)
 // or 1 (batch, heads, head_dim, seq), strides in elements for the batch,
 // head and non-contiguous axes; lse null or (batch, heads, sq) float32
 // contiguous.  Every operand and out must be 16-byte aligned with strides
@@ -281,7 +298,8 @@ int mxt_flash_attention_fwd_bf16(
     long long k_sh, long long k_st, long long v_sb, long long v_sh,
     long long v_st, long long o_sb, long long o_sh, long long o_st, int q_off,
     int k_off, int causal, float scale, void* stream) {
-  if (dtype != 1 || (head_dim != 64 && head_dim != 128) ||
+  if (dtype != 1 ||
+      (head_dim != 64 && head_dim != 128 && head_dim != 256) ||
       (layout != 0 && layout != 1) || batch < 0 || heads < 0 || sq < 0 ||
       skv < 0 || batch > 65535 || heads > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -307,8 +325,12 @@ int mxt_flash_attention_fwd_bf16(
     return layout ? launch<64, true>(a, batch, s)
                   : launch<64, false>(a, batch, s);
   }
-  return layout ? launch<128, true>(a, batch, s)
-                : launch<128, false>(a, batch, s);
+  if (head_dim == 128) {
+    return layout ? launch<128, true>(a, batch, s)
+                  : launch<128, false>(a, batch, s);
+  }
+  return layout ? launch<256, true>(a, batch, s)
+                : launch<256, false>(a, batch, s);
 }
 
 const char* mxt_error_string(int err) {

@@ -72,12 +72,24 @@
 // the split of every key tile after the first, by building edited copies
 // of this source.
 //
+// Head width 256 (widths 129-255 are zero-padded to it by the wrapper),
+// `flash_fwd_tf32_wide_kernel`: Q's split tiles for two warpgroups would
+// take 256 KB alone, so a block is one warpgroup of 64 queries; K streams
+// each key tile in four chunks of 64 columns (raw, then split), S adding
+// each chunk's products (its cross terms, then hi hi) in the same
+// accumulator; and, as in the bf16 kernel, the grid is twice as wide, each
+// block computing one half of O's columns from its half of V
+// (`out_cols`).  Shared memory: Q split 128 K, raw K chunk 8 K and V half
+// 16 K, split K chunk 16 K and V half 32 K: 200 K (+1 K alignment).  The
+// registers are D = 128's.
+//
 // Requirements, checked by the C entry (the wrapper copies an operand
 // that lacks them): every operand and out 16-byte aligned, its contiguous
 // axis of stride 1 and its other strides multiples of 4 elements.
 // Positions past the end are zero-filled (cp.async's source size), never
 // read; nothing past the end is written.  Offsets are 64-bit; the grid is
-// (ceil(Sq / 128), H, B) with H and B at most 65535 (checked).
+// (ceil(Sq / 128), H, B) (at D = 256: (2 ceil(Sq / 64), H, B)) with H and
+// B at most 65535 (checked).
 
 #include "tf32.cuh"
 
@@ -338,13 +350,263 @@ int launch(const Args& a, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Head width 256: one warpgroup of 64 queries a block (its split Q tiles
+// alone take 128 KB), K streamed in chunks of kWideChunk columns, the
+// block's half of V's columns (see the file's note)
+constexpr int kWideChunk = 64;
+
+constexpr int wide_smem_bytes() {
+  // Q split (hi, lo), raw K chunk and V half, split K chunk and V half
+  // (hi, lo), alignment
+  return 2 * kPos * 256 * 4 + 3 * kKeys * (kWideChunk + out_cols<256>()) * 4 +
+         1024;
+}
+
+template <bool SC>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_tf32_wide_kernel(Args a) {
+  constexpr int D = 256, kWG = 1, NTW = kThreads;
+  // K's chunk columns, the block's output columns (V's), chunks, halves
+  constexpr int DC = kWideChunk, DO = out_cols<D>();
+  constexpr int kChunks = D / DC, kHalves = col_halves<D>();
+  constexpr int kQB = kPos * D * 4;    // bytes of a Q hi or lo tile
+  constexpr int kKB = kKeys * DC * 4;  // bytes of a raw, hi or lo K chunk
+  constexpr int kVB = kKeys * DO * 4;  // bytes of a raw, hi or lo V tile
+  unsigned char* base = smem_base();
+  // raw K chunk, raw V columns
+  float* kr = reinterpret_cast<float*>(base + 2 * kWG * kQB);
+  float* vr = kr + kKeys * DC;
+  unsigned char* sp = reinterpret_cast<unsigned char*>(vr + kKeys * DO);
+  unsigned char* kh = sp;                // K hi, lo: K-major over D
+  unsigned char* kl = sp + kKB;
+  unsigned char* vth = sp + 2 * kKB;     // V hi, lo: K-major over keys
+  unsigned char* vtl = sp + 2 * kKB + kVB;
+  // Q's raw copy, first: 64 KB, more than the split tiles' room, so in
+  // all the room from the raw K chunk on
+  float* qraw = kr;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / kThreads;  // this thread's warpgroup
+  const int lane = tid & 31, w = (tid >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int col0 = (blockIdx.x % kHalves) * DO;  // the block's columns
+  // the last query tiles see the most keys under causal masking: first
+  const int q0 = (gridDim.x / kHalves - 1 - blockIdx.x / kHalves) *
+                 (kWG * kPos);
+  const int h = blockIdx.y, b = blockIdx.z;
+
+  const float* q = a.q + b * a.q_sb + h * a.q_sh;
+  const float* k = a.k + b * a.k_sb + h * a.k_sh;
+  const float* v = from_col<SC>(a.v + b * a.v_sb + h * a.v_sh, col0, a.v_st);
+  float* out = from_col<SC>(a.o + b * a.o_sb + h * a.o_sh, col0, a.o_st);
+
+  // raw K chunk c of key tile kb and, with chunk 0, its V columns
+  auto stage_keys = [&](int kb, int c) {
+    stage_raw<kKeys, DC, SC, false, NTW>(kr, from_col<SC>(k, c * DC, a.k_st),
+                                        kb * kKeys, a.skv, a.k_st);
+    if (c == 0) {
+      stage_raw<kKeys, DO, SC, false, NTW>(vr, v, kb * kKeys, a.skv, a.v_st);
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int i = 0; i < kWG; ++i) {
+    stage_raw<kPos, D, SC, false, NTW>(qraw + i * kPos * D, q, q0 + i * kPos,
+                                      a.sq, a.q_st);
+  }
+  cp_async_commit();
+  const int nkb = key_tiles(a, q0, q0 + kWG * kPos);
+  // the key tiles this warpgroup's rows see (under causal masking the
+  // first warpgroup's end up to 64 keys before the block's)
+  const int nkw = key_tiles(a, q0 + wg * kPos, q0 + (wg + 1) * kPos);
+  cp_async_wait_all_threads<0>();  // raw Q
+#pragma unroll
+  for (int i = 0; i < kWG; ++i) {
+    split_tile<D, kPos, SC, false, NTW>(qraw + i * kPos * D,
+                                       base + 2 * i * kQB,
+                                       base + (2 * i + 1) * kQB, nullptr,
+                                       nullptr);
+  }
+  __syncthreads();  // Q's raw copy is read: its room is free
+  if (nkb > 0) {
+    stage_keys(0, 0);
+    cp_async_wait_all_threads<0>();
+  }
+
+  const uint32_t qh = smem_u32(base + 2 * wg * kQB), ql = qh + kQB;
+  const uint32_t khs = smem_u32(kh), kls = smem_u32(kl);
+  // this thread's two query rows, r and r + 8: their running max (log2
+  // domain) and its share of their sums
+  const int r = q0 + wg * kPos + w * 16 + g;
+  const int qw = q0 + wg * kPos + w * 16;  // this warp's first query
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[DO / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < DO / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+  const float sl2 = a.scale * kLog2e;
+
+  for (int kb = 0; kb < nkb; ++kb) {
+    float s[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll 1
+    for (int c = 0; c < kChunks; ++c) {
+      // raw K chunk (and V) of this tile; every warp is done with the
+      // split tiles
+      if (kb > 0 || c > 0) cp_async_wait_all_threads<0>();
+      split_tile<DC, kKeys, SC, false, NTW>(kr, kh, kl, nullptr, nullptr);
+      if (c == 0) {
+        split_tile<DO, kKeys, SC, true, NTW, false>(vr, nullptr, nullptr, vth,
+                                                   vtl);
+      }
+      publish_shared();  // the split tiles; the raw ones are free again
+      if (c + 1 < kChunks) {
+        stage_keys(kb, c + 1);
+      } else if (kb + 1 < nkb) {
+        stage_keys(kb + 1, 0);
+      }
+      if (kb >= nkw) continue;  // past this warpgroup's diagonal
+
+      // S += Q K^T over the chunk's columns: the hi lo and lo hi terms,
+      // then hi hi
+      const int kk0 = c * (DC / 8);
+      hold(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DC / 8; ++kk) {
+        wgmma_tf32_ss32(s, desc_k<kPos>(qh, kk0 + kk), desc_k<kKeys>(kls, kk));
+        wgmma_tf32_ss32(s, desc_k<kPos>(ql, kk0 + kk), desc_k<kKeys>(khs, kk));
+      }
+#pragma unroll
+      for (int kk = 0; kk < DC / 8; ++kk) {
+        wgmma_tf32_ss32(s, desc_k<kPos>(qh, kk0 + kk), desc_k<kKeys>(khs, kk));
+      }
+      wgmma_commit();
+      wgmma_wait();
+      hold(s);
+    }
+    if (kb >= nkw) continue;
+
+    // the log2-domain scores, masked only where a pair of the warp's rows
+    // and this key tile can be hidden; the tile's row max
+    const int k0 = kb * kKeys;
+    const bool edge = k0 + kKeys > a.skv || qw + 16 > a.sq ||
+                      (a.causal && k0 + kKeys - 1 > qw + a.diag);
+    float mx[2] = {kNegInf, kNegInf}, corr[2];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hi = e >> 1;
+        float x = s[nt][e] * sl2;
+        if (edge) {
+          const int qi = r + 8 * hi, kj = k0 + nt * 8 + 2 * t + (e & 1);
+          const bool ok = qi < a.sq && kj < a.skv &&
+                          (!a.causal || kj <= qi + a.diag);
+          x = ok ? x : kNegInf;
+        }
+        s[nt][e] = x;
+        mx[hi] = fmaxf(mx[hi], x);
+      }
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      mx[hi] = fmaxf(mx[hi], __shfl_xor_sync(0xffffffffu, mx[hi], 1));
+      mx[hi] = fmaxf(mx[hi], __shfl_xor_sync(0xffffffffu, mx[hi], 2));
+      const float m_new = fmaxf(m[hi], mx[hi]);
+      corr[hi] = exp2_ftz(m[hi] - m_new);
+      m[hi] = m_new;
+      l[hi] *= corr[hi];
+    }
+    // p, 0 where masked (a row whose every key so far is masked has m
+    // at kNegInf, where 2**(x - m) of a masked score would be 1)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hi = e >> 1;
+        const float x = s[nt][e];
+        const float p = x == kNegInf ? 0.f : exp2_ftz(x - m[hi]);
+        s[nt][e] = p;
+        l[hi] += p;
+      }
+
+    // the tile's P V in a fresh accumulator (key steps of 8, p's
+    // registers the A operand), then o = o * corr + tile
+    uint32_t ph[4][4], pl[4][4];
+    split_acc<4>(ph, pl, s);
+    float pv[DO / 8][4];
+    tile_mma<DO, 4>(pv, ph, pl, smem_u32(vth), smem_u32(vtl));
+#pragma unroll
+    for (int nt = 0; nt < DO / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        o[nt][e] = o[nt][e] * corr[e >> 1] + pv[nt][e];
+      }
+  }
+
+  float inv[2], lse[2];
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    l[hi] += __shfl_xor_sync(0xffffffffu, l[hi], 1);
+    l[hi] += __shfl_xor_sync(0xffffffffu, l[hi], 2);
+    inv[hi] = l[hi] == 0.f ? 0.f : 1.f / l[hi];
+    lse[hi] = l[hi] == 0.f ? kNegInf : m[hi] * kLn2 + logf(l[hi]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < DO / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] *= inv[e >> 1];
+
+  // every warp is done with its products: the warpgroup's Q tiles take
+  // its out, the raw K tile the block's lse
+  __syncthreads();
+  float* stg = reinterpret_cast<float*>(base + 2 * wg * kQB);
+  stage_acc_f32<DO, SC>(stg, o, w * 16 + g, t);
+  if (t == 0) {
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      kr[wg * kPos + w * 16 + g + 8 * hi] = lse[hi];
+    }
+  }
+  __syncthreads();
+  store_out<DO, SC>(out, stg, q0 + wg * kPos, a.sq, a.o_st,
+                    tid - wg * kThreads);
+  // both halves make the same m and l: the first writes lse
+  if (a.lse != nullptr && col0 == 0 && tid < kWG * kPos / 4) {
+    const int i = 4 * tid, left = a.sq - (q0 + i);
+    float* to = a.lse + ((long long)b * a.heads + h) * a.sq + q0 + i;
+    if (left >= 4 && reinterpret_cast<uintptr_t>(to) % 16 == 0) {
+      *reinterpret_cast<float4*>(to) = *reinterpret_cast<const float4*>(kr + i);
+    } else {
+      for (int j = 0; j < 4 && j < left; ++j) to[j] = kr[i + j];
+    }
+  }
+}
+
+template <bool SC>
+int launch_wide(const Args& a, int batch, cudaStream_t stream) {
+  constexpr int bytes = wide_smem_bytes();
+  auto kernel = flash_fwd_tf32_wide_kernel<SC>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(col_halves<256>() * ((a.sq + kPos - 1) / kPos), a.heads, batch);
+  kernel<<<grid, kThreads, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // The forward in float32, with `mxt_flash_attention_fwd_bf16`'s argument
-// list (flash_attention_fwd.cu): dtype must be 0 (float32); head_dim 64
-// or 128; layout 0 (batch, heads, seq, head_dim) or 1 (batch, heads,
+// list (flash_attention_fwd.cu): dtype must be 0 (float32); head_dim 64,
+// 128 or 256; layout 0 (batch, heads, seq, head_dim) or 1 (batch, heads,
 // head_dim, seq), strides in elements for the batch, head and
 // non-contiguous axes; lse null or (batch, heads, sq) float32
 // contiguous.  Every operand and out must be 16-byte aligned with strides
@@ -356,7 +618,8 @@ int mxt_flash_attention_fwd_f32(
     long long k_sh, long long k_st, long long v_sb, long long v_sh,
     long long v_st, long long o_sb, long long o_sh, long long o_st, int q_off,
     int k_off, int causal, float scale, void* stream) {
-  if (dtype != 0 || (head_dim != 64 && head_dim != 128) ||
+  if (dtype != 0 ||
+      (head_dim != 64 && head_dim != 128 && head_dim != 256) ||
       (layout != 0 && layout != 1) || batch < 0 || heads < 0 || sq < 0 ||
       skv < 0 || batch > 65535 || heads > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -382,8 +645,11 @@ int mxt_flash_attention_fwd_f32(
     return layout ? launch<64, true>(a, batch, s)
                   : launch<64, false>(a, batch, s);
   }
-  return layout ? launch<128, true>(a, batch, s)
-                : launch<128, false>(a, batch, s);
+  if (head_dim == 128) {
+    return layout ? launch<128, true>(a, batch, s)
+                  : launch<128, false>(a, batch, s);
+  }
+  return layout ? launch_wide<true>(a, batch, s) : launch_wide<false>(a, batch, s);
 }
 
 const char* mxt_error_string(int err) {

@@ -307,7 +307,8 @@ __device__ __forceinline__ int raw_at(int r, int c) {
 // tiles: K-major over D (BN rows; the D axis of each k step in slot
 // order; not with NAT false) and, with TR, K-major over positions (D
 // rows; positions in slot order).  Each of the block's NT / 32 warps
-// takes 32 consecutive positions and 8 columns at a time.
+// takes 32 consecutive positions and 8 columns at a time; where a tile has
+// fewer such items than the block has warps, the warps past them idle.
 template <int D, int BN, bool SC, bool TR, int NT, bool NAT = true>
 __device__ __forceinline__ void split_tile(const float* raw,
                                            unsigned char* nat_hi,
@@ -318,10 +319,13 @@ __device__ __forceinline__ void split_tile(const float* raw,
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   constexpr int kBlocks = BN / 32;
   constexpr int kItems = kBlocks * (D / 8);
-  static_assert(kItems % kWarps == 0, "whole items a warp");
+  static_assert(kItems % kWarps == 0 || kItems < kWarps,
+                "whole items a warp");
+  constexpr int kRounds = kItems < kWarps ? 1 : kItems / kWarps;
 #pragma unroll
-  for (int it = 0; it < kItems / kWarps; ++it) {
+  for (int it = 0; it < kRounds; ++it) {
     const int wi = w + kWarps * it;
+    if (kItems < kWarps && wi >= kItems) break;
     const int p = (wi % kBlocks) * 32 + lane;
     const int c0 = (wi / kBlocks) * 8;
     float x[8];

@@ -9,7 +9,9 @@
 // are in tf32.cuh.
 //
 // A flash block is one warpgroup (4 warps, 128 threads; `load_tile` and
-// `store_tile` copy with that many threads); a fused CE block is two,
+// `store_tile` copy with that many threads), at head_dim 256 one of the
+// two blocks that split the output columns (`out_cols`); a fused CE block
+// is two,
 // with loaders of its own.  Each warp holds 16 rows of every 64-row
 // accumulator, in the layout `mma.sync`'s m16n8 fragments have, which is
 // also the layout of a register A operand: thread (lane = 4 g + t) of
@@ -60,6 +62,34 @@ struct Tile {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Head widths above 128 (the flash kernels, both dtypes): a 64 x 256
+// float32 accumulator is 128 registers a thread, too many beside the
+// score tiles, so a block computes one half of the output columns and the
+// grid is twice as wide: block x is (tile x / 2, half x % 2).  The scores
+// still contract over all D.  The columns a block writes, and the halves:
+template <int D>
+__host__ __device__ constexpr int out_cols() {
+  return D > 128 ? 128 : D;
+}
+template <int D>
+__host__ __device__ constexpr int col_halves() {
+  return D / out_cols<D>();
+}
+
+// An operand's columns from c0 on, from its (batch, head) slice at p with
+// third stride st: a column offset in layout 0, c0 rows in layout 1
+template <bool SC, typename T>
+__device__ __forceinline__ T* from_col(T* p, int c0, long long st) {
+  return p + (SC ? (long long)c0 * st : (long long)c0);
+}
+
+// The shared address of column c0 (a multiple of 64) of a (64, D) bf16
+// tile: where an operand over its columns c0 .. starts (`Tile` below)
+template <bool SC>
+__device__ __forceinline__ uint32_t col_tile(uint32_t tile, int c0) {
+  return tile + (SC ? c0 * 128 : (c0 >> 6) * 8192);
 }
 
 // 16 bytes from src to shared dst, of which the first `bytes` are read and

@@ -42,18 +42,43 @@ sync until `pop_step_stats` hands the carry to the caller.  Each
 training step (in `backward`) and each other forward feeds the retrace
 watch of `telemetry` its arguments' shapes and dtypes.
 
+Rematerialization (the reference's mirroring plan, `static_graph.cc:
+410-560`) is read from the JAX package's pins when a graph function is
+built, at bind: ``MXNET_BACKWARD_MIRROR_POLICY`` (``dots``, ``attn``,
+``streams``, ``nothing``, ``none``; ``MXNET_BACKWARD_DO_MIRROR=1`` alone
+means ``dots``) picks what a training step keeps (`_mirror_policy`), and
+``MXNET_BACKWARD_MIRROR_STEP`` (``k`` or ``block``) cuts the walk into
+segments recomputed in the backward (`_mirror_segments`, with the nodes'
+``force_mirroring`` attributes).  Both run as PyTorch's selective
+checkpointing (`remat`): each region is one `torch.utils.checkpoint`
+call.  The JAX package wraps its whole step in one `jax.checkpoint`;
+PyTorch's non-reentrant checkpoint recomputes a region whole at its
+first use in the backward, so one region over the whole graph would hold
+every activation again at once.  So a policy runs over the segments of
+``MIRROR_STEP`` where that pin is set, else over about sqrt(N) runs of
+the walk's N op nodes, each cut where the fewest entries cross it
+(`_sqrt_runs`, the plan of Chen et al.'s sublinear-memory training): the
+step then holds the runs' boundaries and one run's recompute at a time,
+whatever the nodes are called.  With both pins set, each segment runs
+under the policy; the JAX package instead nests segments that keep
+nothing inside its whole-step checkpoint under the policy, so what is
+kept differs from it there (the gradients do not).  Outputs and
+gradients are those of the plain walk, bit for bit: the regions change
+when values are computed, never what.
+
 Refused with an error, never accepted and ignored: ``group2ctx`` over
-more than one device, the rematerialization pins
-``MXNET_BACKWARD_DO_MIRROR``, ``MXNET_BACKWARD_MIRROR_POLICY`` and
-``MXNET_BACKWARD_MIRROR_STEP``, and the AOT cache.
+more than one device, and the AOT cache.
 """
 from __future__ import annotations
 
+import math
 import os
+import re
 
 import torch
 
 from . import random as _random
+from . import remat
 from . import telemetry
 from .base import MXNetError
 from .context import Context
@@ -64,12 +89,180 @@ from .symbol import _topo_order
 __all__ = ["_build_graph_fn", "Executor", "AotCache"]
 
 
-def _build_graph_fn(symbol):
+def _layer_groups(order):
+    """The op nodes of ``order`` in runs that share a ``layer<k>_`` name
+    prefix (None outside any): [(tag, [nodes])], in topological order."""
+    groups = []
+    for node in order:
+        if node.is_variable:
+            continue
+        m = re.match(r"(layer\d+)_", node.name or "")
+        tag = m.group(1) if m else None
+        if groups and groups[-1][0] == tag:
+            groups[-1][1].append(node)
+        else:
+            groups.append((tag, [node]))
+    return groups
+
+
+def _mirror_segments(order):
+    """Plan the MXNET_BACKWARD_MIRROR_STEP rematerialization regions, as
+    the JAX package's `_mirror_segments` does.
+
+    The reference keeps every MIRROR_STEP-th eligible node as a checkpoint
+    boundary and recomputes the nodes in between during backward
+    (`static_graph.cc:423-438`): consecutive op nodes are grouped into
+    segments of ``step`` ops, each recomputed in the backward from its
+    inputs.  Per-node ``force_mirroring`` attributes: ``"0"``/``"False"``
+    pins the node as a stored boundary; anything truthy keeps it inside a
+    segment even where the step count would cut one.
+    ``MXNET_BACKWARD_MIRROR_STEP=block`` segments on ``layer<k>_`` name
+    prefixes instead (ops outside any stay stored boundaries; the
+    attributes are ignored).
+
+    Returns None when the pin is unset (or block mode finds no
+    layer-prefixed node), else a list of (nodes, remat) runs covering the
+    op nodes of ``order`` in sequence."""
+    step_env = os.environ.get("MXNET_BACKWARD_MIRROR_STEP", "")
+    if not step_env:
+        return None
+    if step_env.lower() == "block":
+        groups = _layer_groups(order)
+        if not any(tag is not None for tag, _ in groups):
+            return None  # not a layer-structured graph: no-op
+        return [(nodes, tag is not None) for tag, nodes in groups]
+    step = max(int(step_env), 1)
+
+    def boundary_attr(node):
+        v = (node.attrs or {}).get("force_mirroring")
+        if v is None:
+            return None
+        return str(v).lower() in ("0", "false")
+
+    segments = []
+    run, count = [], 0
+    for node in order:
+        if node.is_variable:
+            # variables carry no compute: they never cut a run
+            continue
+        forced_boundary = boundary_attr(node)
+        if forced_boundary:
+            if run:
+                segments.append((run, True))
+                run, count = [], 0
+            segments.append(([node], False))
+            continue
+        run.append(node)
+        count += 1
+        if count >= step and forced_boundary is None:
+            segments.append((run, True))
+            run, count = [], 0
+    if run:
+        segments.append((run, True))
+    return segments
+
+
+# MXNET_BACKWARD_MIRROR_POLICY=dots: the JAX package's `_mirror_saveable`
+_mirror_saveable = remat.dots_saveable
+
+
+def _mirror_policy():
+    """The whole-graph rematerialization policy from the environment, as
+    the JAX package's `_mirror_policy` reads it: MXNET_BACKWARD_MIRROR_POLICY
+    ``dots`` (`_mirror_saveable`: keep matrix products and convolutions),
+    ``attn`` (keep the outputs tagged ``attn_out``), ``streams`` (``attn_out``
+    and ``act_out``) or ``nothing``; an explicit ``none`` wins over
+    MXNET_BACKWARD_DO_MIRROR, which alone means ``dots``.  Returns a
+    `remat` policy or None; anything else raises."""
+    pol = os.environ.get("MXNET_BACKWARD_MIRROR_POLICY", "").lower()
+    if pol == "none":
+        return None  # explicit 'none' wins over MXNET_BACKWARD_DO_MIRROR
+    if not pol:
+        if os.environ.get("MXNET_BACKWARD_DO_MIRROR", "0").lower() in (
+                "1", "true", "yes"):
+            pol = "dots"
+        else:
+            return None
+    if pol == "dots":
+        return _mirror_saveable
+    if pol in ("attn", "attn_out"):
+        return remat.save_only_these_names("attn_out")
+    if pol == "streams":
+        return remat.save_only_these_names("attn_out", "act_out")
+    if pol == "nothing":
+        return remat.nothing_saveable
+    raise MXNetError(
+        "MXNET_BACKWARD_MIRROR_POLICY must be one of none/dots/attn/"
+        "streams/nothing, got %r" % pol)
+
+
+def _sqrt_runs(order, heads):
+    """The op nodes of ``order`` in about sqrt(N) runs for a whole-graph
+    policy: each run takes at least ceil(sqrt(N)) nodes, then ends at the
+    first place among the next as many where the fewest entries made so
+    far are read later (the heads, kept as outputs anyway, not counted).
+    Those entries are what the step stores between runs, so a chain of
+    layers is cut where one activation crosses.  Depends on the graph's
+    edges alone, not on its node names."""
+    ops = [n for n in order if not n.is_variable]
+    n = len(ops)
+    at = {id(node): i for i, node in enumerate(ops)}
+    head_keys = {(id(s), i) for s, i in heads}
+    last = {}  # entry -> position of the last op reading it
+    for i, node in enumerate(ops):
+        for s, j in node.inputs:
+            if id(s) in at:
+                last[(id(s), j)] = i
+    # live[i]: entries made at or before ops[i] and read after it
+    live, alive = [], set()
+    for i, node in enumerate(ops):
+        alive |= {(id(node), j)
+                  for j in range(len(node.op.list_outputs(node.params)))
+                  if last.get((id(node), j), -1) > i
+                  and (id(node), j) not in head_keys}
+        alive = {k for k in alive if last[k] > i}
+        live.append(len(alive))
+    size = math.isqrt(n - 1) + 1 if n else 1  # ceil(sqrt(n))
+    runs, start = [], 0
+    while start < n:
+        lo, hi = start + size - 1, min(start + 2 * size - 1, n - 1)
+        if lo >= n - 1:
+            runs.append(ops[start:])
+            break
+        cut = min(range(lo, hi), key=lambda i: (live[i], i))
+        runs.append(ops[start:cut + 1])
+        start = cut + 1
+    return runs
+
+
+def _remat_runs(order, heads, policy):
+    """The regions of a training walk: [(nodes, region policy or None)],
+    None for nodes that run plainly; None when nothing is recomputed.
+    The MIRROR_STEP segments where that pin is set (a stored boundary runs
+    under ``policy`` if there is one, plainly if not; a segment under
+    ``policy`` or, without one, keeping nothing); else, with a policy,
+    `_sqrt_runs` (see the module's note)."""
+    segments = _mirror_segments(order)
+    if segments is not None:
+        return [(nodes, policy if policy is not None else
+                 (remat.nothing_saveable if keep else None))
+                for nodes, keep in segments]
+    if policy is None:
+        return None
+    return [(nodes, policy) for nodes in _sqrt_runs(order, heads)]
+
+
+def _build_graph_fn(symbol, mirror_policy=None):
     """fn(arg_tensors, aux_tensors, rng, is_train, on_entry=None) ->
     (outputs, new_aux) for ``symbol``; arguments in `list_arguments`
     order, aux states in `list_auxiliary_states` order.  ``on_entry``,
     if given, is called with each variable's name and tensor and each
-    op output's ``<node>_<output>`` name and tensor, in walk order."""
+    op output's ``<node>_<output>`` name and tensor, in walk order.
+
+    ``mirror_policy`` (`_mirror_policy`) and MXNET_BACKWARD_MIRROR_STEP,
+    read here, make a training walk with autograd on run in remat regions
+    (`_remat_runs`); a walk with ``on_entry`` (a monitored one) runs
+    plainly, as the JAX package's monitor walk does."""
     heads = symbol._heads
     order = _topo_order(heads)
     arg_index = {n: i for i, n in enumerate(symbol.list_arguments())}
@@ -84,7 +277,26 @@ def _build_graph_fn(symbol):
                 n_aux += k
     seq_of = {id(node): seq for seq, node in enumerate(order)}
 
-    def fn(arg_arrays, aux_arrays, rng, is_train, on_entry=None):
+    def run_node(node, env, new_aux, rng, is_train, device, on_entry=None):
+        inputs = [env[(id(s), i)] for s, i in node.inputs]
+        lo, hi = aux_slots.get(id(node), (0, 0))
+        gen = None
+        if getattr(node.op, "need_rng", False) and rng is not None:
+            key = _random.fold_in(rng, seq_of[id(node)])
+            gen = torch.Generator(device=device)
+            gen.manual_seed(_random.key_seed(key))
+        outs, aux_up = node.op.apply(OpCtx(is_train=is_train, rng=gen),
+                                     node.params, inputs, new_aux[lo:hi])
+        for i, o in enumerate(outs):
+            env[(id(node), i)] = o
+        if on_entry is not None:
+            for o, name in zip(outs, node.op.list_outputs(node.params)):
+                on_entry("%s_%s" % (node.name, name), o)
+        for i, u in enumerate(aux_up):
+            if u is not None:
+                new_aux[lo + i] = u
+
+    def plain(arg_arrays, aux_arrays, rng, is_train, on_entry=None):
         env = {}
         new_aux = list(aux_arrays)
         device = arg_arrays[0].device if arg_arrays else None
@@ -95,45 +307,82 @@ def _build_graph_fn(symbol):
                 if on_entry is not None:
                     on_entry(node.name, t)
                 continue
-            inputs = [env[(id(s), i)] for s, i in node.inputs]
-            lo, hi = aux_slots.get(id(node), (0, 0))
-            gen = None
-            if getattr(node.op, "need_rng", False) and rng is not None:
-                key = _random.fold_in(rng, seq_of[id(node)])
-                gen = torch.Generator(device=device)
-                gen.manual_seed(_random.key_seed(key))
-            outs, aux_up = node.op.apply(OpCtx(is_train=is_train, rng=gen),
-                                         node.params, inputs, new_aux[lo:hi])
-            for i, o in enumerate(outs):
-                env[(id(node), i)] = o
-            if on_entry is not None:
-                for o, name in zip(outs, node.op.list_outputs(node.params)):
-                    on_entry("%s_%s" % (node.name, name), o)
-            for i, u in enumerate(aux_up):
-                if u is not None:
-                    new_aux[lo + i] = u
+            run_node(node, env, new_aux, rng, is_train, device, on_entry)
         outputs = tuple(env[(id(n), i)] for n, i in heads)
         return outputs, tuple(new_aux)
+
+    runs = _remat_runs(order, heads, mirror_policy)
+    if runs is None:
+        return plain
+
+    # each region's inputs (entries made before it) and outputs (entries
+    # read after it, or heads): its boundary, stored across the step
+    plans, needed = [], {(id(n), i) for n, i in heads}
+    for nodes, policy in reversed(runs):
+        in_keys, local = [], set()
+        for node in nodes:
+            for s_, i in node.inputs:
+                key = (id(s_), i)
+                if key not in local and key not in in_keys:
+                    in_keys.append(key)
+            for i in range(len(node.op.list_outputs(node.params))):
+                local.add((id(node), i))
+        plans.append((nodes, policy, in_keys,
+                      sorted(k for k in local if k in needed)))
+        needed |= set(in_keys)
+    plans.reverse()
+
+    def segmented(arg_arrays, aux_arrays, rng, is_train):
+        env = {(id(node), 0): arg_arrays[arg_index[node.name]]
+               for node in order if node.is_variable}
+        new_aux = list(aux_arrays)
+        device = arg_arrays[0].device if arg_arrays else None
+        for nodes, policy, in_keys, out_keys in plans:
+            if policy is None:
+                for node in nodes:
+                    run_node(node, env, new_aux, rng, is_train, device)
+                continue
+            ranges = [aux_slots[id(n)] for n in nodes if id(n) in aux_slots]
+
+            def region(*vals, nodes=nodes, in_keys=in_keys,
+                       out_keys=out_keys, ranges=ranges):
+                # its own env and aux slots: a recompute in the backward
+                # writes nothing the step has kept (BatchNorm's moving
+                # statistics take the forward's update alone)
+                local_env = dict(zip(in_keys, vals))
+                local_aux = [None] * len(new_aux)
+                at = len(in_keys)
+                for lo, hi in ranges:
+                    local_aux[lo:hi] = vals[at:at + hi - lo]
+                    at += hi - lo
+                for node in nodes:
+                    run_node(node, local_env, local_aux, rng, is_train,
+                             device)
+                return tuple(local_env[k] for k in out_keys) + tuple(
+                    a for lo, hi in ranges for a in local_aux[lo:hi])
+
+            outs = remat.run_region(
+                region, policy, *(env[k] for k in in_keys),
+                *(a for lo, hi in ranges for a in new_aux[lo:hi]))
+            env.update(zip(out_keys, outs))
+            at = len(out_keys)
+            for lo, hi in ranges:
+                new_aux[lo:hi] = outs[at:at + hi - lo]
+                at += hi - lo
+        outputs = tuple(env[(id(n), i)] for n, i in heads)
+        return outputs, tuple(new_aux)
+
+    def fn(arg_arrays, aux_arrays, rng, is_train, on_entry=None):
+        if on_entry is not None or not is_train or \
+                not torch.is_grad_enabled():
+            return plain(arg_arrays, aux_arrays, rng, is_train, on_entry)
+        return segmented(arg_arrays, aux_arrays, rng, is_train)
 
     return fn
 
 
 def _later(what, where="ROADMAP queue 1"):
     return MXNetError("%s is not ported yet (%s)" % (what, where))
-
-
-def _check_mirror_pins():
-    """The JAX package's rematerialization pins change what a training
-    step stores; the port has no rematerialization yet, so each raises
-    rather than being ignored."""
-    truthy = ("1", "true", "yes")
-    if os.environ.get("MXNET_BACKWARD_DO_MIRROR", "0").lower() in truthy:
-        raise _later("MXNET_BACKWARD_DO_MIRROR")
-    if os.environ.get("MXNET_BACKWARD_MIRROR_POLICY", "").lower() \
-            not in ("", "none"):
-        raise _later("MXNET_BACKWARD_MIRROR_POLICY")
-    if os.environ.get("MXNET_BACKWARD_MIRROR_STEP", "0") not in ("", "0"):
-        raise _later("MXNET_BACKWARD_MIRROR_STEP")
 
 
 def _asum(x):
@@ -183,7 +432,8 @@ class Executor:
 
     def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
                  aux_states=None, group2ctx=None, shared_exec=None):
-        _check_mirror_pins()
+        # read at bind, as the JAX executor reads it
+        self._mirror_policy = _mirror_policy()
         self._symbol = symbol
         self._ctx = Context(ctx) if ctx is not None else None
         if group2ctx and any(Context(c) != self._ctx
@@ -219,7 +469,7 @@ class Executor:
             for n, g in zip(self._arg_names, self.grad_arrays):
                 if g is None:
                     self._grad_req[n] = "null"
-        self._fn = _build_graph_fn(symbol)
+        self._fn = _build_graph_fn(symbol, self._mirror_policy)
         self._base_key = _random.next_key()
         self._step = 0
         self._pending = None  # (leaves, versions, aux read, outputs, rng)

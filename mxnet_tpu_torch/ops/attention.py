@@ -100,15 +100,20 @@ class DotProductAttention(OpDef):
 
     def apply(self, octx, params, inputs, aux):
         q, k, v = inputs
+        # the output is tagged "attn_out" for MXNET_BACKWARD_MIRROR_POLICY
+        # attn and streams (`remat.save_only_these_names`): the flash
+        # forward itself carries the name, so a policy that keeps it keeps
+        # the kernel's out and lse
         if params["layout"] == "bsd":
             out = flash_attention_bsd(q, k, v, params["num_heads"],
                                       causal=params["causal"],
                                       scale=params["scale"],
-                                      block_k=params["block_k"])
+                                      block_k=params["block_k"],
+                                      name="attn_out")
         else:
             out = flash_attention(q, k, v, causal=params["causal"],
                                   scale=params["scale"],
-                                  block_k=params["block_k"])
+                                  block_k=params["block_k"], name="attn_out")
         return [out], []
 
 

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from ..remat import checkpoint_name
 from .indexing import take_rows
 from .registry import OpDef, Param, register
 
@@ -70,7 +71,9 @@ class Activation(OpDef):
         act = params["act_type"]
         if act not in self._FNS:
             raise MXNetError("Activation: unknown act_type %r" % act)
-        return [self._FNS[act](inputs[0])], []
+        # the remat anchor of MXNET_BACKWARD_MIRROR_POLICY=streams: x itself
+        # outside a remat region (like the attention op's "attn_out")
+        return [checkpoint_name(self._FNS[act](inputs[0]), "act_out")], []
 
 
 register(Activation)

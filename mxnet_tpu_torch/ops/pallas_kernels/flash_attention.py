@@ -24,8 +24,10 @@ two TF32 terms, three products a product).  Each source's note gives the
 H100 bound and what the design does about it.
 
 Operands are (B, H, S, D) in float32 or bfloat16.  The kernels take D in
-{64, 128}; they read and write through the batch, head and sequence
-strides, so a transposed view costs no copy.  The kernels copy 16-byte
+{64, 128, 256} (at 256 each launch's grid is twice as wide, a block
+computing one half of the output columns); they read and write through
+the batch, head and sequence strides, so a transposed view costs no
+copy.  The kernels copy 16-byte
 rows, so an operand whose last axis is not contiguous, or that is not
 16-byte aligned with strides that are multiples of 16 bytes, is copied
 first, in both dtypes (`_readable`; the out cotangent too).  The kernels
@@ -40,14 +42,16 @@ their sequence axis to a multiple of 16 bytes.  `flash_attention_bsd`
 takes (B, S, E) operands and hands the (B, H, S, D) view of their heads
 to the same kernels: no copy.
 
-Head widths.  On a kernel route, a head_dim of 32 to 127 other than 64 is
-zero-padded along D to 64 or 128 before the kernels and the result sliced
-back (scale from the true head_dim): the padded columns add exact zeros
-to every score and give zero output and gradient columns, so the result
-is the unpadded function.  Such calls count on the route's
-``padded_calls``.  A head_dim below 32 takes the plain versions, as the
-JAX package's `_use_pallas` sends it to its jnp path, counted on the
-route's ``narrow_calls``; above 128 the kernel routes raise `MXNetError`.
+Head widths.  On a kernel route, a head_dim of 32 to 255 other than 64
+and 128 is zero-padded along D to the next of 64, 128 and 256 before the
+kernels and the result sliced back (scale from the true head_dim): the
+padded columns add exact zeros to every score and give zero output and
+gradient columns, so the result is the unpadded function.  Such calls
+count on the route's ``padded_calls``.  A head_dim below 32 takes the
+plain versions, as the JAX package's `_use_pallas` sends it to its jnp
+path, counted on the route's ``narrow_calls``; above 256 the kernel
+routes raise `MXNetError` (the JAX package's residency model still takes
+such heads to Pallas at short lengths: ROADMAP queue 3).
 
 Routes.  Each call resolves its route from the environment, read at
 every call as the JAX package reads it at every trace, and counts its
@@ -90,10 +94,15 @@ versions' K block; the plain versions have no Q block, so there is no
 ``block_q`` (``MXNET_FLASH_BLOCK_Q`` is not read), and the kernels keep
 their 64-position tiles.
 
-`flash_attention` and `flash_attention_bsd` are `torch.autograd.Function`s
-over (out, lse): the backward folds the lse cotangent into delta_i =
+Where a gradient is wanted, `flash_attention` and `flash_attention_bsd`
+run the custom op ``mxt::flash_attention`` over (out, lse), with its
+autograd formula: the backward folds the lse cotangent into delta_i =
 sum(dO_i * O_i) - glse_i (plain torch, as the JAX package computes it
-outside its kernels) and returns no gradient for the offsets.  Where no
+outside its kernels) and returns no gradient for the offsets.  The op
+carries the caller's ``name`` for its output (``attn_out`` from
+`DotProductAttention`), so that a rematerialization policy
+(`remat.save_only_these_names`) sees the launch and may keep its out and
+lse rather than launch it again in the backward's recompute.  Where no
 gradient is wanted (serving, under `torch.no_grad`) they run the forward
 alone, with lse only when asked.
 
@@ -113,6 +122,7 @@ import os
 
 import torch
 
+from ... import remat
 from ...base import MXNetError
 from . import _build
 
@@ -122,7 +132,7 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bsd",
 _NEG_INF = -1e30
 _BLOCK_K = 256  # the plain versions' default K block: the JAX one on the CPU
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)  # the kernels' widths; narrower heads are padded
+_HEAD_DIMS = (64, 128, 256)  # the kernels' widths; others are padded
 _MIN_KERNEL_D = 32      # narrower heads take the plain versions
 
 
@@ -499,30 +509,51 @@ def _backward(res, lse, g, glse, args, route, block):
     return _flash_bwd_cuda(q, k, v, o, lse, g, glse, *args, route)
 
 
-class _FlashFn(torch.autograd.Function):
-    """Attention over (out, lse) with the backward of `_flash_bwd_pallas`
-    (`_flash_bwd_pallas_ds` on 'ds'): dq, dk, dv from the two backward
-    passes; no gradient for the offsets.  ``route`` is the route resolved
+@torch.library.custom_op("mxt::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_off: int,
+              k_off: int, scale: float, causal: bool, route: str, block: int,
+              name: str) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor, torch.Tensor]:
+    """Attention over (out, lse) as one dispatched op, its output named
+    ``name`` for `remat.save_only_these_names`; then the (B, H, D, S)
+    copies of q, k and v that the backward reads on 'ds' (empty on the
+    other routes, whose backward reads q, k and v as given), so that the
+    backward copies none of them again.  ``route`` is the route resolved
     for this call, ``block`` the plain versions' K block."""
+    out, lse, res = _forward(q, k, v, (q_off, k_off, scale, causal), True,
+                             route, block)
+    if route == "ds":
+        return (out, lse) + res[:3]
+    return (out, lse) + tuple(q.new_empty(0) for _ in range(3))
 
-    @staticmethod
-    def forward(ctx, q, k, v, q_off, k_off, scale, causal, route, block):
-        args = (q_off, k_off, scale, causal)
-        out, lse, res = _forward(q, k, v, args, True, route, block)
-        ctx.save_for_backward(*res, lse)
-        ctx.args, ctx.route, ctx.block = args, route, block
-        ctx.set_materialize_grads(False)
-        return out, lse
 
-    @staticmethod
-    def backward(ctx, g, glse):
-        *res, lse = ctx.saved_tensors
-        if g is None:
-            o = res[3]
-            g = torch.zeros_like(o.transpose(2, 3) if ctx.route == "ds"
-                                 else o)
-        grads = _backward(res, lse, g, glse, ctx.args, ctx.route, ctx.block)
-        return tuple(grads) + (None,) * 6
+def _flash_op_setup(ctx, inputs, output):
+    q, k, v, q_off, k_off, scale, causal, route, block, _ = inputs
+    out, lse, *ds = output
+    # the residuals of `_forward`: (B, H, D, S) on 'ds', out included
+    if route == "ds":
+        q, k, v, out = *ds, out.transpose(2, 3)
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.mark_non_differentiable(*ds)
+    ctx.set_materialize_grads(False)
+    ctx.args, ctx.route, ctx.block = (q_off, k_off, scale, causal), route, \
+        block
+
+
+def _flash_op_backward(ctx, g, glse, *_):
+    """The backward of `_flash_bwd_pallas` (`_flash_bwd_pallas_ds` on
+    'ds'): dq, dk, dv from the two backward passes, the lse cotangent
+    folded into delta; no gradient for the offsets."""
+    *res, lse = ctx.saved_tensors
+    if g is None:
+        o = res[3]
+        g = torch.zeros_like(o.transpose(2, 3) if ctx.route == "ds" else o)
+    grads = _backward(res, lse, g, glse, ctx.args, ctx.route, ctx.block)
+    return tuple(grads) + (None,) * 7
+
+
+_flash_op.register_autograd(_flash_op_backward, setup_context=_flash_op_setup)
+remat.named_op(torch.ops.mxt.flash_attention.default, 9)
 
 
 def _offset(x, what):
@@ -537,17 +568,18 @@ def _offset(x, what):
 
 def _kernel_width(d, route):
     """The head width the kernels run for head_dim ``d`` on kernel route
-    ``route``: 64 or 128, counting a padded call on the route's
+    ``route``: 64, 128 or 256, counting a padded call on the route's
     ``padded_calls``; None below `_MIN_KERNEL_D`, counting the call on
-    ``narrow_calls`` (the plain versions run).  Raises above 128."""
+    ``narrow_calls`` (the plain versions run).  Raises above 256."""
     if d in _HEAD_DIMS:
         return d
     if d > _HEAD_DIMS[-1]:
         raise MXNetError("flash_attention: the CUDA kernels take head_dim up "
-                         "to %d (%d and %d natively, %d to %d zero-padded, "
-                         "below %d the plain versions), got %d"
-                         % (_HEAD_DIMS[-1], *_HEAD_DIMS, _MIN_KERNEL_D,
-                            _HEAD_DIMS[-1] - 1, _MIN_KERNEL_D, d))
+                         "to %d (%s natively, %d to %d zero-padded, below "
+                         "%d the plain versions), got %d"
+                         % (_HEAD_DIMS[-1], ", ".join(map(str, _HEAD_DIMS)),
+                            _MIN_KERNEL_D, _HEAD_DIMS[-1] - 1, _MIN_KERNEL_D,
+                            d))
     if d < _MIN_KERNEL_D:
         _count(route, "narrow_calls")
         return None
@@ -556,7 +588,7 @@ def _kernel_width(d, route):
 
 
 def _attend(q, k, v, causal, scale, q_offset, k_offset, with_lse, route,
-            block_k):
+            block_k, name=None):
     d = q.shape[-1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -572,7 +604,7 @@ def _attend(q, k, v, causal, scale, q_offset, k_offset, with_lse, route,
             q, k, v = (torch.nn.functional.pad(t, (0, width - d))
                        for t in (q, k, v))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        out, lse = _FlashFn.apply(q, k, v, *args, route, block)
+        out, lse, *_ = _flash_op(q, k, v, *args, route, block, name or "")
     else:
         out, lse, _ = _forward(q, k, v, args, with_lse, route, block)
     if width != d:
@@ -581,7 +613,7 @@ def _attend(q, k, v, causal, scale, q_offset, k_offset, with_lse, route,
 
 
 def flash_attention(q, k, v, *, causal=False, scale=None, q_offset=0,
-                    k_offset=0, block_k=0, with_lse=False):
+                    k_offset=0, block_k=0, with_lse=False, name=None):
     """Fused attention over (batch, heads, seq, head_dim) tensors.
 
     ``scale`` defaults to 1/sqrt(head_dim).  ``q_offset``/``k_offset`` are
@@ -591,20 +623,21 @@ def flash_attention(q, k, v, *, causal=False, scale=None, q_offset=0,
     q, k and v through out and lse.  The route ('hsd', 'ds' or 'jnp') is
     read from the environment (see the module's note); ``block_k`` is the
     plain versions' K block.  A CPU tensor takes the plain versions; a
-    CUDA tensor launches the kernels or raises."""
+    CUDA tensor launches the kernels or raises.  ``name`` names the output
+    for a rematerialization policy (the module's note)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise MXNetError("flash_attention expects (B, H, S, D) inputs")
     return _attend(q, k, v, causal, scale, q_offset, k_offset, with_lse,
-                   _hsd_route(), block_k)
+                   _hsd_route(), block_k, name)
 
 
 def flash_attention_plain(q, k, v, *, causal=False, scale=None, q_offset=0,
-                          k_offset=0, block_k=0, with_lse=False):
+                          k_offset=0, block_k=0, with_lse=False, name=None):
     """`flash_attention` through the plain versions on any device, gradient
     included: the reference that `chip_smoke.py` holds the kernels against
     on the card."""
     return _attend(q, k, v, causal, scale, q_offset, k_offset, with_lse,
-                   "jnp", block_k)
+                   "jnp", block_k, name)
 
 
 def _bsd_to_heads(t, num_heads):
@@ -615,7 +648,7 @@ def _bsd_to_heads(t, num_heads):
 
 
 def _bsd(q, k, v, num_heads, causal, scale, q_offset, k_offset, with_lse,
-         route, block_k):
+         route, block_k, name=None):
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise MXNetError("flash_attention_bsd expects (B, S, E) inputs")
     b, s, e = q.shape
@@ -623,32 +656,34 @@ def _bsd(q, k, v, num_heads, causal, scale, q_offset, k_offset, with_lse,
         raise MXNetError("flash_attention_bsd: embed dim %d not divisible by "
                          "num_heads %d" % (e, num_heads))
     out = _attend(*(_bsd_to_heads(t, num_heads) for t in (q, k, v)), causal,
-                  scale, q_offset, k_offset, with_lse, route, block_k)
+                  scale, q_offset, k_offset, with_lse, route, block_k, name)
     out, lse = out if with_lse else (out, None)
     out = out.transpose(1, 2).reshape(b, s, e)
     return (out, lse) if with_lse else out
 
 
 def flash_attention_bsd(q, k, v, num_heads, *, causal=False, scale=None,
-                        q_offset=0, k_offset=0, block_k=0, with_lse=False):
+                        q_offset=0, k_offset=0, block_k=0, with_lse=False,
+                        name=None):
     """Fused attention over (batch, seq, embed) tensors with ``num_heads``
     heads on the embed axis: the same kernels as `flash_attention`, on the
     (B, H, S, D) view of each operand's heads.  Returns out (B, S, E) and,
     with ``with_lse=True``, lse (B, H, S) float32.  Every head width of
-    32 to 128 reaches the kernels, padded where it is not 64 or 128 (the
-    JAX package's 128-lane gate is a TPU fact).  The route ('bsd_loop',
+    32 to 256 reaches the kernels, padded where it is not 64, 128 or 256
+    (the JAX package's 128-lane gate is a TPU fact).  The route ('bsd_loop',
     'bsd_stream' or 'jnp') is read from the environment and its launches
-    are counted on this function (see the module's note)."""
+    are counted on this function (see the module's note).  ``name`` as
+    in `flash_attention`."""
     return _bsd(q, k, v, num_heads, causal, scale, q_offset, k_offset,
-                with_lse, _bsd_route(), block_k)
+                with_lse, _bsd_route(), block_k, name)
 
 
 def flash_attention_bsd_plain(q, k, v, num_heads, *, causal=False,
                               scale=None, q_offset=0, k_offset=0, block_k=0,
-                              with_lse=False):
+                              with_lse=False, name=None):
     """`flash_attention_bsd` through the plain versions on any device."""
     return _bsd(q, k, v, num_heads, causal, scale, q_offset, k_offset,
-                with_lse, "jnp", block_k)
+                with_lse, "jnp", block_k, name)
 
 
 # each route's launch counters: (public function, prefix of its counters).

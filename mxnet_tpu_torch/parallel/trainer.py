@@ -28,6 +28,10 @@ position among the sorted parameter names (the order in which `jax.jit`
 hands the JAX step its parameter dict).  Parameters of one shape are
 rounded together, one draw of random bits for each group.
 
+The rematerialization pins apply as in `executor` (`_mirror_policy`,
+`_mirror_segments`): read at construction, they put each training step's
+walk into remat regions; gradients are those of the plain step.
+
 Refused with an error, never accepted and ignored: a mesh of more than
 one device, ``param_sharding``, ``abstract=True``, an ``adam_v_dtype``
 other than float32 or bfloat16, and ``MXNET_CE_SHARD=1`` (the
@@ -45,7 +49,7 @@ from .. import random as _random
 from .. import telemetry
 from ..base import MXNetError
 from ..context import resolve
-from ..executor import _build_graph_fn
+from ..executor import _build_graph_fn, _mirror_policy
 from ..initializer import Uniform
 from ..optimizer import stochastic_round_bf16
 
@@ -181,7 +185,12 @@ class SPMDTrainer:
             for n, s in zip(self.aux_names, aux_shapes)}
         self.reset_optimizer()
 
-        self._graph_fn = _build_graph_fn(symbol)
+        # the rematerialization pins (MXNET_BACKWARD_MIRROR_POLICY,
+        # MXNET_BACKWARD_DO_MIRROR, MXNET_BACKWARD_MIRROR_STEP), read at
+        # construction as the JAX trainer reads them, apply to every
+        # training walk: `step`, `run_steps` and `gradients`
+        self._mirror_policy = _mirror_policy()
+        self._graph_fn = _build_graph_fn(symbol, self._mirror_policy)
         self._base_key = _random.next_key()
         self._rescale = 1.0 / self._shape_of[self.data_names[0]][0]
         self._nstep = 0

@@ -16,7 +16,8 @@ training (an op with a running mean, registered in both packages for
 that test only); the key order (binding takes one key of `random`, forward n
 runs with ``fold_in(key, n)``: a Dropout graph's masks, and the draws
 after a bind, follow it); `copy_params_from`, `reshape`, the eager
-monitor; and the pins that raise.
+monitor; the rematerialization pins, read at bind; and the pins that
+raise.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -405,8 +406,21 @@ def test_infer_type_matches():
                                  ("MXNET_BACKWARD_MIRROR_POLICY", "dots"),
                                  ("MXNET_BACKWARD_MIRROR_STEP", "4")])
 def test_mirror_pins_raise(monkeypatch, pin):
+    """The rematerialization pins, once refused, are read at bind: under
+    each, a training step's outputs and gradients are the unpinned bind's
+    bit for bit (`test_torch_remat.py` holds them against the JAX
+    package); what raises is an unknown MXNET_BACKWARD_MIRROR_POLICY
+    beside it, with the JAX package's message."""
+    exe, want = _train_step("torch", mlp, MLP_SHAPES)
+    ref = _np(exe.grad_dict)
     monkeypatch.setenv(*pin)
-    with pytest.raises(MXNetError, match=pin[0]):
+    exe, got = _train_step("torch", mlp, MLP_SHAPES)
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    for k, g in _np(exe.grad_dict).items():
+        assert np.array_equal(g, ref[k]), k
+    monkeypatch.setenv("MXNET_BACKWARD_MIRROR_POLICY", "bogus")
+    with pytest.raises(MXNetError, match="MXNET_BACKWARD_MIRROR_POLICY must "
+                       "be one of none/dots/attn/streams/nothing"):
         mlp(tmx).simple_bind(tmx.cpu(), **MLP_SHAPES)
 
 

@@ -1,11 +1,12 @@
 """Flash attention at head widths other than 64 and 128, on the CPU.
 
-The CUDA kernels take head_dim 64 and 128.  On a kernel route the router
-zero-pads a head_dim of 32 to 127 along D to 64 or 128 (scale from the
-true head_dim) and slices the result back, counting the call on the
-route's ``padded_calls``; below 32 it takes the plain versions, as the
-JAX package's `_use_pallas` sends head_dim < 32 to its jnp path, counting
-the call on ``narrow_calls``; above 128 it raises.  Here the kernel routes
+The CUDA kernels take head_dim 64, 128 and 256.  On a kernel route the
+router zero-pads a head_dim of 32 to 127 along D to 64 or 128 (scale from
+the true head_dim; 129 to 255 go to 256, `test_torch_flash_256.py`) and
+slices the result back, counting the call on the route's
+``padded_calls``; below 32 it takes the plain versions, as the JAX
+package's `_use_pallas` sends head_dim < 32 to its jnp path, counting the
+call on ``narrow_calls``; above 256 it raises.  Here the kernel routes
 run with the kernels faked by the plain versions on the operands the
 kernels would be handed (`fake_kernels` of `test_torch_flash_routes.py`),
 so the padding, the slicing and their gradients are held against the JAX
@@ -157,15 +158,17 @@ def test_kernel_widths_are_not_padded(fake_kernels, d):
 
 
 @pytest.mark.parametrize("fn,shape,extra", [
-    (tfa.flash_attention, (1, 2, 24, 160), ()),
-    (tfa.flash_attention_bsd, (1, 24, 320), (2,)),
+    (tfa.flash_attention, (1, 2, 24, 320), ()),
+    (tfa.flash_attention_bsd, (1, 24, 640), (2,)),
 ])
 def test_heads_wider_than_128_raise_on_the_kernel_routes(fake_kernels, fn,
                                                          shape, extra):
-    """head_dim 160 raises `MXNetError` naming the width before any kernel;
-    the plain versions on the CPU compute it."""
+    """Heads wider than the widest kernel (256) raise: head_dim 320 raises
+    `MXNetError` naming the width before any kernel; the plain versions on
+    the CPU compute it.  (Widths 129 to 255 are padded to the head-256
+    kernels: `test_torch_flash_256.py`.)"""
     x = torch.zeros(shape)
-    with pytest.raises(MXNetError, match="head_dim up to 128.*got 160"):
+    with pytest.raises(MXNetError, match="head_dim up to 256.*got 320"):
         fn(x, x, x, *extra, causal=True)
     assert fake_kernels == []
     plain = (tfa.flash_attention_plain if fn is tfa.flash_attention
