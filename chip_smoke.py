@@ -27,7 +27,7 @@ Phases, each of which fails the run with a non-zero exit:
    aligned copy); flash
    attention at head widths 16 (the plain route), 32, 48, 80, 96 and 160
    (zero-padded to the kernels' widths), 192 (padded to 256) and 256,
-   causal and not, and 320 (refused), forward and backward, float32 and
+   causal and not, and 320 (padded to 384), forward and backward, float32 and
    bf16, on all four kernel routes, each on its route's counters and
    twice bit for bit; and LayerNorm, forward and backward, each twice bit
    for bit, in every layout and vector width its plans pick (N = 30 in
@@ -248,7 +248,33 @@ Phases, each of which fails the run with a non-zero exit:
    bit for bit, the three peaks (lower than plain's under both) and ms a
    step; and one differentiable flash call, forward and backward, through
    the custom op beside a plain `torch.autograd.Function` over the same
-   work: the host's microseconds to issue it, and ms with the device's.
+   work: the host's microseconds to issue it, and ms with the device's;
+23. wide heads and serving faults: (a) the wide flash kernels (head_dim
+   above 256, `csrc/flash_attention_wide.cu` and
+   `csrc/flash_attention_wide_f32.cu`) against their plain versions at
+   384 and 512 on every route and at 320 (padded to 384) and 1024, both
+   dtypes, causal with both offsets and not, each twice bit for bit, then
+   (2, 8, 1024, 1024, 512) causal timed in both dtypes beside SDPA (its
+   backend named) with the bound of the function and that of the work the
+   kernels do (the score products once per column block of 128) and
+   ptxas's numbers; the LM of phase 22 with 4 heads of 512 for 3 bf16
+   steps with exact launches (every flash launch a wide one) and one f32
+   step's gradients against the plain path; (b) GPT-2 small in f32,
+   paged and slot, 16 requests each: one prefill quarantined
+   (`ServeQuarantined`, the other 15 the fault-free engine's tokens under
+   the 1e-3 margin rule), a decode that writes the cache and raises (the
+   8 admitted requests `ServeCacheInvalidated`, one cache rebuild, the 8
+   queued served, no block leaked), and, paged, a ``CUDA error:`` that
+   kills the engine and ``MXNET_CHAOS=launch_error:0.2`` (with
+   ``MXNET_SERVE_LAUNCH_RETRIES=8``) ending with the scheduler alive,
+   telemetry's ``serve.*`` counters the record; (c) two GPT-2 replicas
+   (replica0 on the slot cache, replica1 paged) under `ReplicaRouter`,
+   16 requests fault-free and then under
+   ``MXNET_CHAOS=engine_crash:6:replica0``: every request resolves, the
+   migrated ones with the fault-free tokens, one failover, a respawn,
+   the tail served, then a drain of replica0 under load with no failure;
+   tokens/s of both runs, and exact LayerNorm and flash launches (2L + 1
+   LayerNorm per program, L flash per slot prefill, warmups included).
 
 It prints each phase's seconds, a ``kernels`` JSON line (launches,
 errors, times, bounds; the float32 flash forward's and backward's routes
@@ -292,8 +318,8 @@ from mxnet_tpu_torch.ops.pallas_kernels.flash_attention import (
 from mxnet_tpu_torch.ops.pallas_kernels.layer_norm import (
     _bwd_plain as layer_norm_bwd_plain, _fwd_plain as layer_norm_fwd_plain,
     layer_norm_bwd, layer_norm_fwd, layer_norm_plain)
-from mxnet_tpu_torch.serving import (ServingEngine, TransformerKVModel,
-                                     pool_bytes)
+from mxnet_tpu_torch.serving import (ReplicaRouter, ServingEngine,
+                                     TransformerKVModel, pool_bytes)
 from mxnet_tpu_torch.serving import decode as decode_mod
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32 on the
@@ -455,11 +481,16 @@ for _name, _fn, _prefix in (
         ("flash_attention_bsd_stream", flash_attention_bsd, "stream_")):
     COUNTERS[_name + "_padded"] = (_fn, _prefix + "padded_calls")
     COUNTERS[_name + "_narrow"] = (_fn, _prefix + "narrow_calls")
+    # the launches of the wide kernels (head_dim above 256), counted again
+    for _kind, _attr in (("_wide", "wide_launches"),
+                         ("_wide_dq", "wide_dq_launches"),
+                         ("_wide_dkv", "wide_dkv_launches")):
+        COUNTERS[_name + _kind] = (_fn, _prefix + _attr)
 # the bf16 fused CE calls whose d was zero-padded to a multiple of 8
 for _name in ("fused_ce_fwd", "fused_ce_fwd_sp", "fused_ce_bwd_dw",
               "fused_ce_bwd_dx"):
     COUNTERS[_name + "_padded"] = (COUNTERS[_name][0], "padded_calls")
-del _name, _fn, _prefix
+del _name, _fn, _prefix, _kind, _attr
 
 
 def log(*args):
@@ -609,11 +640,27 @@ def ptxas_info(name):
     return out
 
 
+# the wide kernels' source (head_dim above 256) of each flash source
+WIDE_SOURCE = {"flash_attention_fwd": "flash_attention_wide",
+               "flash_attention_bwd": "flash_attention_wide",
+               "flash_attention_fwd_f32": "flash_attention_wide_f32",
+               "flash_attention_bwd_f32": "flash_attention_wide_f32"}
+
+
 def mma_ptxas(source, d, layout):
     """ptxas's registers and spill bytes of the tensor-core flash kernels of
     ``source`` at head_dim ``d`` in ``layout`` (0 or 1), by kernel: 'fwd',
     or the backward's 'bwd_dq' and 'bwd_dkv' (bf16 `wgmma`, or the float32
-    ones in 3xTF32)."""
+    ones in 3xTF32); above 256 the wide kernels of `WIDE_SOURCE`."""
+    if d > 256:
+        kinds = ("fwd",) if "fwd" in source else ("bwd_dq", "bwd_dkv")
+        out = {}
+        for k, v in ptxas_info(WIDE_SOURCE[source]).items():
+            m = re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_wide_(tf32_)?kernel"
+                          r"ILb%dE" % layout, k)
+            if m and m.group(1) in kinds:
+                out[m.group(1)] = v
+        return out
     # the templates at (d, layout), and the float32 forward's head-256
     # kernel, a template of the layout alone
     tags = ["ILi%dELb%dE" % (d, layout)]
@@ -1039,6 +1086,9 @@ def flash_train_case(layout, batch, heads, d, dtype, gen, sq=1024,
         torch.cuda.synchronize()
         launched = {k: n for k, n in read_counts().items() if n}
         want = {k: 1 for k in (name, name + "_dq", name + "_dkv")}
+        if wide_width(d):
+            want.update({name + k: 1
+                         for k in ("_wide", "_wide_dq", "_wide_dkv")})
         if launched != want:
             raise SystemExit("%s %s: launches %s, expected %s"
                              % (name, dtype, launched, want))
@@ -1241,17 +1291,23 @@ def describe(c):
     return line
 
 
+def wide_width(d):
+    """Whether head_dim ``d`` is a width of the wide kernels unpadded."""
+    return d > 256 and d % 128 == 0
+
+
 def width_case(d, dtype, layout, gen, batch=2, heads=3, s=200, q_off=24,
-               causal=True, skv=None):
+               causal=True, skv=None, k_off=0):
     """Flash attention at head_dim ``d`` through the public function and
     route of ``layout`` (a key of `FLASH_LAYOUTS`), forward and backward
     (lse cotangent included), against the plain versions: float32 against
     float32 at ``REL_TOL``; bf16 against the plain versions in float32 on
     the same bf16 operands, as the kernels' own checks.  ``skv`` keys (s
     by default).  The call must count on its route: below 32 one
-    plain-route call and no launch; a kernel width (64, 128, 256) one
-    forward, dq and dk/dv launch; any other width up to 255 those and one
-    padded call.  On the kernel routes a second call must give the same
+    plain-route call and no launch; a kernel width (64, 128, 256, or a
+    multiple of 128 above 256) one forward, dq and dk/dv launch; any other
+    width those and one padded call; above 256 the launches also count on
+    the route's wide counters.  On the kernel routes a second call must give the same
     bits (no atomics in either dtype)."""
     pins, name, route = FLASH_LAYOUTS[layout]
     skv = s if skv is None else skv
@@ -1271,7 +1327,7 @@ def width_case(d, dtype, layout, gen, batch=2, heads=3, s=200, q_off=24,
     def through(f, ts):
         leaves = [t.detach().clone().requires_grad_() for t in ts]
         out, lse = f(*leaves, *extra, causal=causal, q_offset=q_off,
-                     with_lse=True)
+                     k_offset=k_off, with_lse=True)
         torch.autograd.backward((out, lse), (g.to(out.dtype), glse))
         return [out, lse] + [t.grad for t in leaves]
 
@@ -1284,14 +1340,17 @@ def width_case(d, dtype, layout, gen, batch=2, heads=3, s=200, q_off=24,
                              zip(got, through(fn, (q, k, v))))
     want = {name + "_narrow": 1} if d < 32 else \
         {name: 1, name + "_dq": 1, name + "_dkv": 1}
-    if d >= 32 and d not in (64, 128, 256):
+    if d >= 32 and d not in (64, 128, 256) and not wide_width(d):
         want[name + "_padded"] = 1
+    if d > 256:
+        want.update({name + k: 1 for k in ("_wide", "_wide_dq", "_wide_dkv")})
     ref = through(plain, [t.float() for t in (q, k, v)])
     err = combine(rel_check(dtype, [(got[0], ref[0])] + list(zip(got[2:],
                                                                   ref[2:]))),
                   rel_check(torch.float32, [(got[1], ref[1])]))
-    rec = _record("flash_attention width %d (%s%s)"
-                  % (d, layout, "" if causal else ", not causal"),
+    rec = _record("flash_attention width %d (%s%s%s)"
+                  % (d, layout, "" if causal else ", not causal",
+                     ", k_offset %d" % k_off if k_off else ""),
                   [batch, heads, s, skv, d], dtype,
                   (err[0], err[1], err[2] and launched == want and same),
                   False)
@@ -1305,7 +1364,7 @@ def width_checks(gen):
     """The head widths the kernels do not take natively, on every route in
     both dtypes; the head-256 kernels at 256 and at 160 and 192 padded to
     it, causal and not, with a key length no multiple of 8 (333); and a
-    head of 320, which the kernel routes refuse."""
+    head of 320, padded to the wide kernels' 384."""
     cases = [width_case(d, dtype, layout, gen)
              for d in (16, 32, 48, 80, 96, 160)
              for dtype in (torch.float32, torch.bfloat16)
@@ -1316,17 +1375,11 @@ def width_checks(gen):
               for dtype in (torch.float32, torch.bfloat16)
               for layout in FLASH_LAYOUTS
               for causal in (True, False)]
-    x = torch.zeros(1, 2, 64, 320, device="cuda")
-    for fn, args in ((flash_attention, (x, x, x)),
-                     (flash_attention_bsd, (x[0], x[0], x[0], 1))):
-        try:
-            fn(*args, causal=True)
-            raised = False
-        except mx.MXNetError as e:
-            raised = "320" in str(e) and "256" in str(e)
-        cases.append(_record("%s width 320 raises" % fn.__name__,
-                             [1, 2, 64, 64, 320], torch.float32,
-                             (0.0, 0.0, raised), False))
+    # above 256: 320 zero-padded to the wide kernels' 384 (phase 23 holds
+    # their own widths)
+    cases += [width_case(320, dtype, layout, gen, skv=333)
+              for dtype in (torch.float32, torch.bfloat16)
+              for layout in FLASH_LAYOUTS]
     return cases
 
 
@@ -2382,6 +2435,10 @@ def train_path(label, cfg, steps, expect, trainer_kw=None, falls=True,
                 "flash_fwd_tf32_kernel", "flash_fwd_mma_kernel",
                 "flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel",
                 "flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel",
+                "flash_fwd_wide_kernel", "flash_bwd_dq_wide_kernel",
+                "flash_bwd_dkv_wide_kernel", "flash_fwd_wide_tf32_kernel",
+                "flash_bwd_dq_wide_tf32_kernel",
+                "flash_bwd_dkv_wide_tf32_kernel",
                 "fused_ce_kernel", "fused_ce_mma_kernel",
                 "fused_ce_tf32_kernel")},
             "ce_mode_ms": ce_mode_ms(device),
@@ -5164,13 +5221,452 @@ def memcost_path(depth=24, width=64, batch=32, steps=6):
     return out
 
 
-def kernels_line(cases, paths, f32_paths):
+# -- phase 23: wide heads and serving faults -----------------------------------
+
+# the LM of phase 22 with 4 heads of 512: the wide kernels on a training
+# path (2 of its layers, as phase 22 cuts it)
+WIDE = dict(HEAD256, num_heads=4)
+WIDE_BATCH = 2
+# the timed wide shape: (batch, heads, sequence, head_dim), causal
+WIDE_TIMED = (2, 8, 1024, 512)
+# the kernels line's wide entries: (name, source, TPU function, counters,
+# dtype); their launches are those of the wide-head LM's paths
+WIDE_ROWS = [
+    ("flash_attention_wide", "flash_attention_wide.cu",
+     TPU + "flash_attention.py:155", ["flash_attention_wide"],
+     torch.bfloat16),
+    ("flash_attention_wide_bwd", "flash_attention_wide.cu",
+     TPU + "flash_attention.py:372",
+     ["flash_attention_wide_dq", "flash_attention_wide_dkv"],
+     torch.bfloat16),
+    ("flash_attention_wide_f32", "flash_attention_wide_f32.cu",
+     TPU + "flash_attention.py:155", ["flash_attention_wide"],
+     torch.float32),
+    ("flash_attention_wide_bwd_f32", "flash_attention_wide_f32.cu",
+     TPU + "flash_attention.py:372",
+     ["flash_attention_wide_dq", "flash_attention_wide_dkv"],
+     torch.float32),
+]
+
+
+def sdpa_backend(q, k, v, causal):
+    """The backend `scaled_dot_product_attention` picks for these inputs
+    (PyTorch's own choice, `torch._fused_sdp_choice`)."""
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, None, 0.0,
+                                              causal)).name
+
+
+def wide_kernel_checks():
+    """Phase 23 (a): the wide kernels against their plain versions at head
+    widths 384 and 512 on every route and 320 (padded to 384) and 1024 on
+    hsd, both dtypes, causal with both offsets and not, each twice bit
+    for bit; then (2, 8, 1024, 1024, 512) causal timed in both dtypes
+    beside SDPA, with the bound of the function and the bound of the work
+    the kernels do (the score products recomputed once per column block
+    of 128)."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    cases = []
+    plan = [(d, layout) for d in (384, 512) for layout in FLASH_LAYOUTS]
+    plan += [(320, "bhsd"), (1024, "bhsd")]
+    for d, layout in plan:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                cases.append(width_case(
+                    d, dtype, layout, gen, heads=2, skv=333, causal=causal,
+                    q_off=133 if causal else 24, k_off=20 if causal else 8))
+    for c in cases:
+        log(describe(c))
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise SystemExit("wide kernel checks failed: %s" % bad)
+    b, h, s, d = WIDE_TIMED
+    pairs = visible_pairs(s, s, True, 0, 0) * b * h
+    ncb = d // 128
+    for dtype in (torch.bfloat16, torch.float32):
+        fwd, bwd = flash_train_case("bhsd", b, h, d, dtype, gen, sq=s, skv=s)
+        q = torch.randn(b, h, s, d, device="cuda", dtype=dtype)
+        backend = sdpa_backend(q, q, q, True)
+        # the kernels' work: S (and dP) once per column block; the float32
+        # dk/dv pass computes S^T in both of its warpgroups
+        fwd_ops = (2 * d * ncb + 2 * d) * pairs
+        bwd_ops = ((8 if dtype == torch.bfloat16 else 10) * d * ncb
+                   + 6 * d) * pairs
+        for rec, ops in ((fwd, fwd_ops), (bwd, bwd_ops)):
+            nbytes = b * h * d * (2 * s + 2 * s) * q.element_size() * (
+                1 if rec is fwd else 2)
+            if dtype == torch.float32:
+                rec["bound_recompute_ms"] = bound_ms(nbytes, 3 * ops, dtype,
+                                                     PEAK_TF32)[0]
+            else:
+                rec["bound_recompute_ms"] = bound_ms(nbytes, ops, dtype)[0]
+            rec["library_backend"] = backend
+            log("%s | bound of the kernels' work (S recomputed for each of "
+                "%d column blocks) %.5f ms; SDPA backend %s"
+                % (describe(rec), ncb, rec["bound_recompute_ms"], backend))
+        cases += [fwd, bwd]
+        del q
+    torch.cuda.empty_cache()
+    return cases
+
+
+def wide_paths():
+    """Phase 23 (a): the wide-head LM (`WIDE`) trained on the card: 3 bf16
+    steps with exact launches (2L+1 LayerNorm each way; L flash forward,
+    dq and dk/dv, every one a wide launch), and one f32 step's gradients
+    at batch 1 against the plain path (the float32 wide kernels)."""
+    layers = WIDE["num_layers"]
+    expect = {"layer_norm": 2 * layers + 1, "layer_norm_bwd": 2 * layers + 1}
+    expect.update({"flash_attention" + k: layers for k in (
+        "", "_dq", "_dkv", "_wide", "_wide_dq", "_wide_dkv")})
+    out = {"bhsd": train_path("train wide heads (4 of 512)", WIDE, 3, expect,
+                              batch=WIDE_BATCH)}
+    out["gradients"] = grad_check(
+        WIDE, ("layer_norm_bwd", "flash_attention_wide",
+               "flash_attention_wide_dq", "flash_attention_wide_dkv"),
+        "wide-head config", size=1)
+    return out
+
+
+# phase 23 (b) and (c): GPT-2 small in float32 under faults
+FAULT_REQUESTS = 16
+FAULT_NEW = 16
+
+
+def fault_traffic(vocab, seed, n=FAULT_REQUESTS):
+    """``n`` greedy requests of 16 to 199 prompt tokens and 16 new ones."""
+    rng = np.random.RandomState(seed)
+    return [(rng.randint(0, vocab, size=int(m)).tolist(),
+             dict(max_new_tokens=FAULT_NEW))
+            for m in rng.randint(16, 200, size=n)]
+
+
+def arm(engine, program, action, skip=0, n=1):
+    """Engine ``engine``'s ``program`` ('prefill' or 'decode') runs
+    ``action(engine)`` (which raises) in place of launches skip+1 ..
+    skip+n."""
+    name = {"prefill": "_prefill_chunk" if engine._paged else "_prefill_slot",
+            "decode": "_decode"}[program]
+    real = getattr(engine, name)
+    seen = [0]
+
+    def launch(*a):
+        seen[0] += 1
+        if skip < seen[0] <= skip + n:
+            action(engine)
+        return real(*a)
+    setattr(engine, name, launch)
+
+
+def poison(engine):
+    raise RuntimeError("a poisoned launch raised before writing the cache")
+
+
+def write_then_raise(engine):
+    """A program that writes the cache in place and raises: its write mark
+    set, NaN over the first usable block (paged) or slot (slot cache)."""
+    engine.model._mark(engine._cache)
+    engine._cache[:, :, 1 if engine._paged else 0] = float("nan")
+    raise RuntimeError("the launch failed after writing the cache")
+
+
+def cuda_error(engine):
+    raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+
+def serve_counted(engine, requests, thread=False):
+    """Serve ``requests`` (all submitted at once) to the end, on the
+    caller's thread or the engine's own; the requests and the serve.*
+    telemetry counters of the run."""
+    mx.telemetry.reset()
+    reset_counts()
+    reqs = [engine.submit(p, **kw) for p, kw in requests]
+    if thread:
+        engine.start()
+        for r in reqs:
+            try:
+                r.result(timeout=300)
+            except mx.serving.ServeError:
+                pass
+        engine.stop()
+    else:
+        engine.run_until_idle(timeout=600)
+    torch.cuda.synchronize()
+    counters = {k: v for k, v in mx.telemetry.registry()._counters.items()
+                if k.startswith("serve.") and ".replica" not in k}
+    return reqs, counters
+
+
+def outcomes(reqs):
+    return [None if r.error is None else type(r.error).__name__
+            for r in reqs]
+
+
+def fault_cases(model, params):
+    """Phase 23 (b): GPT-2 small in f32 under scoped faults, paged and
+    slot: a quarantined prefill, a write-then-raise decode, a ``CUDA
+    error:`` that kills the engine, and ``MXNET_CHAOS=launch_error:0.2``;
+    telemetry's counters are the record, tokens are held against a
+    fault-free engine's under the 1e-3 margin rule."""
+    out = {}
+    requests = fault_traffic(model.vocab_size, 23)
+    for paged in (True, False):
+        mode = "paged" if paged else "slot"
+
+        def engine():
+            eng = ServingEngine(model, params, max_batch=8, paged=paged)
+            eng.warmup()
+            return eng
+        clean, _ = serve_counted(engine(), requests)
+        # one quarantined prefill: the third admission's launch raises
+        # before it writes
+        eng = engine()
+        arm(eng, "prefill", poison, skip=2)
+        reqs, counters = serve_counted(eng, requests)
+        got = outcomes(reqs)
+        ok = [i for i, o in enumerate(got) if o is None]
+        parted = same_tokens("faults %s quarantine" % mode, model, params,
+                             [requests[i] for i in ok],
+                             [clean[i] for i in ok], [reqs[i] for i in ok])
+        rec = {"outcomes": got, "counters": counters, "parted": parted,
+               "leaked_blocks": eng.leaked_blocks(), "launches":
+               {k: v for k, v in read_counts().items() if v}}
+        log("faults %s quarantine: outcomes %s; counters %s; launches %s"
+            % (mode, got, counters, rec["launches"]))
+        if got != [None, None, "ServeQuarantined"] + [None] * (
+                len(requests) - 3) or counters.get("serve.quarantined") != 1 \
+                or eng._dead is not None or eng.leaked_blocks():
+            raise SystemExit("faults %s: the quarantine was not scoped: %s"
+                             % (mode, rec))
+        out[mode + "_quarantine"] = rec
+        # a decode that writes the cache and raises: the admitted requests
+        # fail typed, the cache is rebuilt once, the queue is served
+        eng = engine()
+        arm(eng, "decode", write_then_raise, skip=2)
+        reqs, counters = serve_counted(eng, requests)
+        got = outcomes(reqs)
+        lost = [i for i, o in enumerate(got) if o == "ServeCacheInvalidated"]
+        ok = [i for i, o in enumerate(got) if o is None]
+        parted = same_tokens("faults %s cache rebuild" % mode, model, params,
+                             [requests[i] for i in ok],
+                             [clean[i] for i in ok], [reqs[i] for i in ok])
+        rec = {"outcomes": got, "counters": counters, "parted": parted,
+               "leaked_blocks": eng.leaked_blocks(),
+               "cache_finite": bool(torch.isfinite(eng._cache).all())}
+        log("faults %s write-then-raise decode: %d invalidated, %d served; "
+            "counters %s; leaked blocks %d; rebuilt cache finite %s"
+            % (mode, len(lost), len(ok), counters, rec["leaked_blocks"],
+               rec["cache_finite"]))
+        if len(lost) != 8 or len(ok) != len(requests) - 8 or \
+                counters.get("serve.cache_rebuilds") != 1 or \
+                eng._dead is not None or eng.leaked_blocks() or \
+                not rec["cache_finite"]:
+            raise SystemExit("faults %s: the cache rebuild went wrong: %s"
+                             % (mode, rec))
+        out[mode + "_cache_rebuild"] = rec
+        if not paged:
+            continue
+        # a CUDA error past out of memory is a dead device: the engine dies
+        eng = engine()
+        arm(eng, "decode", cuda_error, skip=1)
+        reqs, counters = serve_counted(eng, requests, thread=True)
+        got = outcomes(reqs)
+        rec = {"outcomes": got, "counters": counters, "dead": eng._dead}
+        log("faults paged CUDA error: outcomes %s; dead: %s; counters %s"
+            % (sorted(set(got), key=str), eng._dead, counters))
+        if set(got) != {"ServeEngineDead"} or "CUDA error" not in \
+                str(eng._dead) or counters.get("serve.engine_failures") != 1:
+            raise SystemExit("faults: the CUDA error did not kill the "
+                             "engine: %s" % rec)
+        out["cuda_error"] = rec
+        # launch_error:0.2 over 16 requests: prefill hits quarantine their
+        # request, decode hits retry (8 in a row would kill the engine)
+        with pinned(MXNET_CHAOS="launch_error:0.2",
+                    MXNET_SERVE_LAUNCH_RETRIES="8"):
+            mx.chaos.reset()
+            eng = engine()
+            reqs, counters = serve_counted(eng, requests)
+        mx.chaos.reset()
+        got = outcomes(reqs)
+        ok = [i for i, o in enumerate(got) if o is None]
+        parted = same_tokens("faults launch_error", model, params,
+                             [requests[i] for i in ok],
+                             [clean[i] for i in ok], [reqs[i] for i in ok])
+        rec = {"outcomes": got, "counters": counters, "parted": parted,
+               "alive": eng._dead is None,
+               "leaked_blocks": eng.leaked_blocks()}
+        log("faults launch_error:0.2: outcomes %s; counters %s; scheduler "
+            "alive %s" % (got, counters, rec["alive"]))
+        if eng._dead is not None or set(got) - {None, "ServeQuarantined"} \
+                or counters.get("serve.quarantined", 0) != got.count(
+                    "ServeQuarantined") or eng.leaked_blocks():
+            raise SystemExit("faults: launch_error was not scoped: %s" % rec)
+        out["launch_error"] = rec
+    return out
+
+
+# each served program's launches of the table's kernels: LayerNorm 2L + 1
+# in every program, the flash forward L in a slot-cache prefill
+def expected_launches(engines, warmups, layers):
+    """The LayerNorm and flash launches that ``engines`` (every engine
+    object of a run) and ``warmups`` (the engines warmed inside the
+    counted window) made: 2L + 1 LayerNorm per slot prefill, paged chunk,
+    decode step and warmup program, L flash per slot prefill and slot
+    warmup prefill."""
+    programs = flash = 0
+    for e in engines:
+        prefills = e.stats["prefills"] if not e._paged else \
+            e.stats["prefill_chunks"]
+        programs += prefills + e.stats["decode_steps"]
+        if not e._paged:
+            flash += e.stats["prefills"]
+    for e in warmups:
+        programs += len(e.prefill_buckets) + len(e.decode_buckets)
+        if not e._paged:
+            flash += len(e.prefill_buckets)
+    return {"layer_norm": (2 * layers + 1) * programs,
+            "flash_attention": layers * flash}
+
+
+def router_run(model, params, requests, spec=None, respawn=False,
+               drain_after=None):
+    """Two GPT-2 replicas (replica0 on the slot cache, whose prefills run
+    the flash kernel; replica1 paged, where a migrated request's exact
+    replay lands) under `ReplicaRouter`, ``requests`` submitted at once
+    under ``MXNET_CHAOS=spec``; after a crash, the respawn awaited and 4
+    tail requests served; with ``drain_after``, those requests again and
+    replica0 drained mid-flight.  The counts are set to 0 after the
+    warmups and read at the end."""
+    fleet = [ServingEngine(model, params, max_batch=8, paged=False,
+                           name="replica0"),
+             ServingEngine(model, params, max_batch=8, name="replica1")]
+    for e in fleet:
+        e.warmup()
+    router = ReplicaRouter(fleet, respawn=respawn)
+    mx.telemetry.reset()
+    seen = list(fleet)
+    with pinned(**({"MXNET_CHAOS": spec} if spec else {})):
+        mx.chaos.reset()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        router.start()
+        try:
+            reqs = [router.submit(p, **kw) for p, kw in requests]
+            for r in reqs:
+                try:
+                    r.result(timeout=300)
+                except mx.serving.ServeError:
+                    pass
+            wall = time.perf_counter() - t0
+            tail, drained = [], []
+            if spec:
+                t1 = time.perf_counter()
+                while mx.telemetry.registry().counter(
+                        "serve.respawns").value < 1:
+                    if time.perf_counter() - t1 > 120:
+                        raise SystemExit("the dead replica never respawned")
+                    time.sleep(0.05)
+                tail = [router.submit(p, **kw) for p, kw in requests[:4]]
+                for r in tail:
+                    r.result(timeout=300)
+            if drain_after:
+                drained = [router.submit(p, **kw) for p, kw in drain_after]
+                while not any(r.tokens for r in drained):
+                    time.sleep(0.001)
+                seen += [e for e in router.engines if e not in seen]
+                router.drain("replica0", deadline_ms=1)
+                for r in drained:
+                    try:
+                        r.result(timeout=300)
+                    except mx.serving.ServeError:
+                        pass
+            seen += [e for e in router.engines if e not in seen]
+        finally:
+            router.stop()
+        torch.cuda.synchronize()
+    mx.chaos.reset()
+    launches = read_counts()
+    counters = {k: v for k, v in mx.telemetry.registry()._counters.items()
+                if k.startswith("serve.")}
+    warmed = [e for e in seen if e not in fleet]
+    return {"requests": reqs, "tail": tail, "drained": drained,
+            "wall_s": wall, "tokens": sum(len(r.tokens) for r in reqs),
+            "counters": counters, "launches": launches,
+            "expected": expected_launches(seen, warmed, model.num_layers),
+            "replicas_seen": len(seen),
+            "leaked_blocks": [e.leaked_blocks() for e in router.engines]}
+
+
+def failover_path(model, params):
+    """Phase 23 (c): the router's failover on the card.  A fault-free run
+    of 16 requests, then the same under ``engine_crash:6:replica0``
+    (every request resolves, the migrated T = 0 requests give the
+    fault-free tokens, one failover, a respawn, the tail served), then a
+    drain of replica0 under load with no failure; exact LayerNorm and
+    flash launches in each run."""
+    requests = fault_traffic(model.vocab_size, 24)
+    clean = router_run(model, params, requests)
+    crash = router_run(model, params, requests, spec="engine_crash:6:replica0",
+                       respawn=True, drain_after=requests)
+    out = {}
+    for label, run in (("fault-free", clean), ("engine_crash", crash)):
+        got = outcomes(run["requests"] + run["tail"] + run["drained"])
+        launched = {k: run["launches"][k] for k in run["expected"]}
+        log("failover %s: %d requests, %d tokens in %.3f s = %.1f tok/s; "
+            "outcomes %s; counters %s; launches %s (expected %s); leaked "
+            "blocks %s" % (label, len(run["requests"]), run["tokens"],
+                           run["wall_s"], run["tokens"] / run["wall_s"],
+                           sorted(set(got), key=str), run["counters"],
+                           launched, run["expected"], run["leaked_blocks"]))
+        if set(got) != {None}:
+            raise SystemExit("failover %s: a request failed: %s"
+                             % (label, got))
+        if launched != run["expected"] or any(run["leaked_blocks"]):
+            raise SystemExit("failover %s: launches %s, expected %s; leaked "
+                             "%s" % (label, launched, run["expected"],
+                                     run["leaked_blocks"]))
+        out[label] = {
+            "wall_s": run["wall_s"], "tokens": run["tokens"],
+            "tokens_per_s": run["tokens"] / run["wall_s"],
+            "counters": run["counters"], "launches": run["launches"],
+            "expected_launches": run["expected"],
+            "replicas_seen": run["replicas_seen"]}
+    c = crash["counters"]
+    if c.get("serve.failovers") != 1 or c.get("serve.respawns", 0) < 1 or \
+            c.get("serve.migrated", 0) < 1 or \
+            c.get("serve.replays") != c.get("serve.migrated"):
+        raise SystemExit("failover: counters %s" % c)
+    out["parted"] = same_tokens("failover migrated vs fault-free", model,
+                                params, requests, clean["requests"],
+                                crash["requests"])
+    out["parted_drain"] = same_tokens("failover drained vs fault-free",
+                                      model, params, requests,
+                                      clean["requests"], crash["drained"])
+    return out
+
+
+def serving_faults_phase():
+    """Phase 23 (b) and (c) on GPT-2 small in float32."""
+    model = TransformerKVModel(**GPT2)
+    params = model.params_from_jax(
+        model.init_params(np.random.RandomState(0)), "cuda")
+    out = {"faults": fault_cases(model, params),
+           "failover": failover_path(model, params)}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernels_line(cases, paths, f32_paths, wide_paths):
     """One entry per ported TPU function: launches on each path, and the
     error and times of its check at the training shape, in bf16; then one
     entry per route of the float32 flash forward and backward
     (`flash_attention_fwd_f32.cu`, `flash_attention_bwd_f32.cu`) and per
     float32 fused CE function (`fused_ce_f32.cu`), their launches those of
-    the float32 paths ``f32_paths``."""
+    the float32 paths ``f32_paths``; then the four wide kernels (head_dim
+    above 256, `WIDE_ROWS`), their launches those of the paths
+    ``wide_paths[dtype]``, their times those of `WIDE_TIMED`."""
     train = {"layer_norm": [32768, 768], "layer_norm_bwd": [32768, 768],
              "flash_attention": [32, 12, 1024, 1024, 64],
              "flash_attention_bwd": [32, 12, 1024, 1024, 64],
@@ -5246,6 +5742,25 @@ def kernels_line(cases, paths, f32_paths):
         if name in serving:
             entry["serving_shape_ms"] = serving_ms(name)
         out.append(entry)
+    b, h, sq, d = WIDE_TIMED
+    for name, src, replaces, counters, dtype in WIDE_ROWS:
+        kernel = "flash_attention_bwd" if "bwd" in name else "flash_attention"
+        at = next(c for c in cases if c["kernel"] == kernel
+                  and c["shape"] == [b, h, sq, sq, d] and "ms" in c
+                  and c["dtype"] == str(dtype))
+        by_path = {p: {k: launches[k] for k in counters}
+                   for p, launches in wide_paths[dtype].items()}
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/" + src, "replaces": replaces,
+            "launches": sum(v[counters[0]] for v in by_path.values()),
+            "launches_by_path": by_path, "shape": at["shape"],
+            "dtype": at["dtype"],
+            **{k: at.get(k) for k in (
+                "max_abs_err", "rel_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "library_backend",
+                "bound_recompute_ms", "tflops", "bound_share",
+                "bound_cuda_core_ms", "bit_identical", "ptxas")}})
     return out
 
 
@@ -5284,7 +5799,8 @@ def main():
         log("ptxas %s: %s" % (name, regs))
     for name in ("layer_norm", "flash_attention_fwd",
                  "flash_attention_fwd_f32", "flash_attention_bwd",
-                 "flash_attention_bwd_f32", "fused_ce_bf16", "fused_ce_f32"):
+                 "flash_attention_bwd_f32", "flash_attention_wide",
+                 "flash_attention_wide_f32", "fused_ce_bf16", "fused_ce_f32"):
         log("ptxas registers, spill (stores, loads) bytes, %s: %s"
             % (name, ptxas_info(name)))
 
@@ -5435,6 +5951,12 @@ def main():
         remat_runs = remat_path()
         remat_runs["flash_grad_call"] = flash_grad_call_ms()
         memcost = memcost_path()
+
+    with phase("wide heads and serving faults"):
+        cases += wide_kernel_checks()
+        wide = wide_paths()
+        faults = dict(faults, serving=serving_faults_phase())
+    crash = faults["serving"]["failover"]["engine_crash"]
     # the LM's LayerNorm launches join the LayerNorm rows; its float32
     # flash launches the float32 flash rows
     api_lm_ln = {k: (n if k.startswith("layer_norm") else 0)
@@ -5460,7 +5982,11 @@ def main():
         "module_lm_fit_guarded": guarded_ln,
         "spmd_module_fit_fused": spmd_module["launches"],
         "train_head256_bhsd": head256["bhsd"]["launches"],
-        "train_head256_bsd": head256["bsd"]["launches"]}, {
+        "train_head256_bsd": head256["bsd"]["launches"],
+        "train_wide_bhsd": wide["bhsd"]["launches"],
+        "serving_failover_f32": {
+            k: (n if k.startswith("layer_norm") else 0)
+            for k, n in crash["launches"].items()}}, {
         "slot": slot["launches"],
         "train_bhsd_f32": hsd32["launches"],
         "train_fused_f32": fused32["launches"],
@@ -5476,7 +6002,11 @@ def main():
         "module_lm_fit_f32": module_lm["launches"],
         "module_lm_fit_guarded_f32": faults["launches"],
         "gradients_head256": head256["gradients"]["launches"],
-        "slot_head256_f32": head256["serving"]["launches"]})
+        "slot_head256_f32": head256["serving"]["launches"],
+        "gradients_wide": wide["gradients"]["launches"],
+        "serving_failover_f32": crash["launches"]}, {
+        torch.bfloat16: {"train_wide_bhsd": wide["bhsd"]["launches"]},
+        torch.float32: {"gradients_wide": wide["gradients"]["launches"]}})
     idle = [e["name"] for e in kernels if not e["launches"]]
     if idle:
         raise SystemExit("kernels launched on no path: %s" % idle)
@@ -5506,7 +6036,7 @@ def main():
          "module_lm": module_lm, "spmd_module": spmd_module,
          "bucketing": bucketing, "fault_tolerance": faults,
          "image_records": records, "head256": head256,
-         "remat": remat_runs, "memcost": memcost,
+         "remat": remat_runs, "memcost": memcost, "wide": wide,
          "kernels": kernels},
         indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

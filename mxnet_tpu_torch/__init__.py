@@ -109,6 +109,7 @@ from . import kvstore as kv
 from . import executor, executor_manager, checkpoint, model, monitor
 from . import telemetry, chaos, storage, resource
 from . import engine, recordio, image
+from . import serving
 from . import module
 from . import module as mod
 from .attribute import AttrScope

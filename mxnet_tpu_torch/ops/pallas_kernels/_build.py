@@ -40,7 +40,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("layer_norm", "flash_attention_fwd", "flash_attention_fwd_f32",
-           "flash_attention_bwd", "flash_attention_bwd_f32", "fused_ce_f32",
+           "flash_attention_bwd", "flash_attention_bwd_f32",
+           "flash_attention_wide", "flash_attention_wide_f32", "fused_ce_f32",
            "fused_ce_bf16")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

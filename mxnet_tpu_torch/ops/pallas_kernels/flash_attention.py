@@ -20,12 +20,17 @@ cores (`wgmma`): `csrc/flash_attention_fwd.cu` and
 rounded to bf16 where the mma takes them);
 `csrc/flash_attention_fwd_f32.cu` and `csrc/flash_attention_bwd_f32.cu`
 the float32 forward and backward through 3xTF32 (each operand split into
-two TF32 terms, three products a product).  Each source's note gives the
-H100 bound and what the design does about it.
+two TF32 terms, three products a product); `csrc/flash_attention_wide.cu`
+and `csrc/flash_attention_wide_f32.cu` the same three kernels in each
+dtype at head_dim above 256.  Each source's note gives the H100 bound and
+what the design does about it.
 
 Operands are (B, H, S, D) in float32 or bfloat16.  The kernels take D in
 {64, 128, 256} (at 256 each launch's grid is twice as wide, a block
-computing one half of the output columns); they read and write through
+computing one half of the output columns) and every multiple of 128
+above 256 (the wide kernels, `csrc/flash_attention_wide.cu` and
+`csrc/flash_attention_wide_f32.cu`: the grid has D / 128 column blocks
+and the score products stream D in chunks); they read and write through
 the batch, head and sequence strides, so a transposed view costs no
 copy.  The kernels copy 16-byte
 rows, so an operand whose last axis is not contiguous, or that is not
@@ -43,15 +48,19 @@ takes (B, S, E) operands and hands the (B, H, S, D) view of their heads
 to the same kernels: no copy.
 
 Head widths.  On a kernel route, a head_dim of 32 to 255 other than 64
-and 128 is zero-padded along D to the next of 64, 128 and 256 before the
-kernels and the result sliced back (scale from the true head_dim): the
-padded columns add exact zeros to every score and give zero output and
-gradient columns, so the result is the unpadded function.  Such calls
-count on the route's ``padded_calls``.  A head_dim below 32 takes the
-plain versions, as the JAX package's `_use_pallas` sends it to its jnp
-path, counted on the route's ``narrow_calls``; above 256 the kernel
-routes raise `MXNetError` (the JAX package's residency model still takes
-such heads to Pallas at short lengths: ROADMAP queue 3).
+and 128 is zero-padded along D to the next of 64, 128 and 256, and one
+above 256 to the next multiple of 128, before the kernels and the result
+sliced back (scale from the true head_dim): the padded columns add exact
+zeros to every score and give zero output and gradient columns, so the
+result is the unpadded function.  Such calls count on the route's
+``padded_calls``.  A head_dim below 32 takes the plain versions, as the
+JAX package's `_use_pallas` sends it to its jnp path, counted on the
+route's ``narrow_calls``.  No head_dim of 32 or more raises on a kernel
+route: above 256 the wide kernels run (their launches count on the
+route's counters and again on its ``wide_launches``,
+``wide_dq_launches`` and ``wide_dkv_launches``), where the JAX package
+takes Pallas only while its residency model admits the head
+(`_stream_residency_fits`) and its jnp body past that.
 
 Routes.  Each call resolves its route from the environment, read at
 every call as the JAX package reads it at every trace, and counts its
@@ -119,6 +128,7 @@ from __future__ import annotations
 import ctypes
 import math
 import os
+import threading
 
 import torch
 
@@ -133,6 +143,7 @@ _NEG_INF = -1e30
 _BLOCK_K = 256  # the plain versions' default K block: the JAX one on the CPU
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)  # the kernels' widths; others are padded
+_WIDE_STEP = 128        # above 256: the wide kernels, D a multiple of this
 _MIN_KERNEL_D = 32      # narrower heads take the plain versions
 
 
@@ -256,10 +267,16 @@ def _plain_block(block_k):
     return int(block_k) if int(block_k) > 0 else _BLOCK_K
 
 
+# the counters' lock: the scheduler threads of several serving replicas
+# launch at once
+_COUNT_LOCK = threading.Lock()
+
+
 def _count(route, kind):
     fn, prefix = _COUNTERS[route]
     name = prefix + kind
-    setattr(fn, name, getattr(fn, name) + 1)
+    with _COUNT_LOCK:
+        setattr(fn, name, getattr(fn, name) + 1)
 
 
 # -- the CUDA kernels ---------------------------------------------------------
@@ -274,6 +291,22 @@ _FWD_ENTRIES = {
 _BWD_ENTRIES = {
     torch.float32: ("flash_attention_bwd_f32", "mxt_flash_attention_bwd_f32"),
     torch.bfloat16: ("flash_attention_bwd", "mxt_flash_attention_bwd_bf16")}
+# the same for head_dim above 256 (`_wide`), with the same argument lists
+_WIDE_FWD_ENTRIES = {
+    torch.float32: ("flash_attention_wide_f32",
+                    "mxt_flash_attention_fwd_wide_f32"),
+    torch.bfloat16: ("flash_attention_wide",
+                     "mxt_flash_attention_fwd_wide_bf16")}
+_WIDE_BWD_ENTRIES = {
+    torch.float32: ("flash_attention_wide_f32",
+                    "mxt_flash_attention_bwd_wide_f32"),
+    torch.bfloat16: ("flash_attention_wide",
+                     "mxt_flash_attention_bwd_wide_bf16")}
+
+
+def _wide(d):
+    """Whether head_dim ``d`` runs the wide kernels."""
+    return d > _HEAD_DIMS[-1] and d % _WIDE_STEP == 0
 
 
 def _lib(name):
@@ -281,11 +314,10 @@ def _lib(name):
     lib = _build.load(name)
     p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
-    argtypes = (
-        (_FWD_ENTRIES, [i, i, i] + [p] * 5 + [i] * 4 + [ll] * 12
-         + [i, i, i, f, p]),
-        (_BWD_ENTRIES, [i] * 4 + [p] * 8 + [i] * 4 + [ll] * 18
-         + [i, i, i, f, p]))
+    fwd = [i, i, i] + [p] * 5 + [i] * 4 + [ll] * 12 + [i, i, i, f, p]
+    bwd = [i] * 4 + [p] * 8 + [i] * 4 + [ll] * 18 + [i, i, i, f, p]
+    argtypes = ((_FWD_ENTRIES, fwd), (_WIDE_FWD_ENTRIES, fwd),
+                (_BWD_ENTRIES, bwd), (_WIDE_BWD_ENTRIES, bwd))
     for entries, types in argtypes:
         for source, entry in entries.values():
             fn = getattr(lib, entry) if source == name else None
@@ -310,9 +342,10 @@ def _check_cuda_args(q, k, v, ds=False):
         raise MXNetError("flash_attention: CUDA kernel takes q, k, v all "
                          "float32 or all bfloat16, got %s %s %s"
                          % (q.dtype, k.dtype, v.dtype))
-    if d not in _HEAD_DIMS:
-        raise MXNetError("flash_attention: CUDA kernel takes head_dim in %s, "
-                         "got %d" % (_HEAD_DIMS, d))
+    if d not in _HEAD_DIMS and not _wide(d):
+        raise MXNetError("flash_attention: CUDA kernel takes head_dim in %s "
+                         "or a multiple of %d above %d, got %d"
+                         % (_HEAD_DIMS, _WIDE_STEP, _HEAD_DIMS[-1], d))
     d_axis = 2 if ds else 3
     if k.shape[:2] != (b, h) or v.shape != k.shape or k.shape[d_axis] != d:
         raise MXNetError("flash_attention: k and v must be (%d, %d, %s),"
@@ -397,7 +430,8 @@ def _flash_fwd_cuda(q, k, v, q_off, k_off, scale, causal, with_lse, route):
     out = _like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
-    source, entry = _FWD_ENTRIES[q.dtype]
+    wide = _wide(d)
+    source, entry = (_WIDE_FWD_ENTRIES if wide else _FWD_ENTRIES)[q.dtype]
     launch = getattr(_lib(source), entry)
     strides = _strides(q, k, v, out)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -409,6 +443,8 @@ def _flash_fwd_cuda(q, k, v, q_off, k_off, scale, causal, with_lse, route):
             int(causal), float(scale), stream)
         _build.check(err, "flash_attention launch")
         _count(route, "launches")
+        if wide:
+            _count(route, "wide_launches")
     return out, lse
 
 
@@ -429,7 +465,8 @@ def _flash_bwd_cuda(q, k, v, o, lse, g, glse, q_off, k_off, scale, causal,
     delta = _delta(o, g, glse, 2 if ds else 3).contiguous()
     lse = lse.contiguous()
     dq, dk, dv = _like(q), _like(k), _like(v)
-    source, entry = _BWD_ENTRIES[q.dtype]
+    wide = _wide(d)
+    source, entry = (_WIDE_BWD_ENTRIES if wide else _BWD_ENTRIES)[q.dtype]
     launch = getattr(_lib(source), entry)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     tail = (q_off, k_off, int(causal), float(scale), stream)
@@ -444,7 +481,10 @@ def _flash_bwd_cuda(q, k, v, o, lse, g, glse, q_off, k_off, scale, causal,
                 _at(out0, b0, h0), _at(out1, b0, h0), nb, nh, sq, skv,
                 *strides, *tail)
             _build.check(err, "flash_attention %s launch" % what)
-            _count(route, "dq_launches" if which == 0 else "dkv_launches")
+            kind = "dq_launches" if which == 0 else "dkv_launches"
+            _count(route, kind)
+            if wide:
+                _count(route, "wide_" + kind)
     return dq, dk, dv
 
 
@@ -568,22 +608,18 @@ def _offset(x, what):
 
 def _kernel_width(d, route):
     """The head width the kernels run for head_dim ``d`` on kernel route
-    ``route``: 64, 128 or 256, counting a padded call on the route's
-    ``padded_calls``; None below `_MIN_KERNEL_D`, counting the call on
-    ``narrow_calls`` (the plain versions run).  Raises above 256."""
-    if d in _HEAD_DIMS:
+    ``route``: 64, 128 or 256 up to 256, the next multiple of 128 above
+    it, counting a padded call on the route's ``padded_calls`` where that
+    is not ``d``; None below `_MIN_KERNEL_D`, counting the call on
+    ``narrow_calls`` (the plain versions run)."""
+    if d in _HEAD_DIMS or _wide(d):
         return d
-    if d > _HEAD_DIMS[-1]:
-        raise MXNetError("flash_attention: the CUDA kernels take head_dim up "
-                         "to %d (%s natively, %d to %d zero-padded, below "
-                         "%d the plain versions), got %d"
-                         % (_HEAD_DIMS[-1], ", ".join(map(str, _HEAD_DIMS)),
-                            _MIN_KERNEL_D, _HEAD_DIMS[-1] - 1, _MIN_KERNEL_D,
-                            d))
     if d < _MIN_KERNEL_D:
         _count(route, "narrow_calls")
         return None
     _count(route, "padded_calls")
+    if d > _HEAD_DIMS[-1]:
+        return -(-d // _WIDE_STEP) * _WIDE_STEP
     return next(w for w in _HEAD_DIMS if w > d)
 
 
@@ -596,7 +632,7 @@ def _attend(q, k, v, causal, scale, q_offset, k_offset, with_lse, route,
             float(scale), bool(causal))
     block = _plain_block(block_k)
     width = d
-    if not _plain(q, route) and d not in _HEAD_DIMS:
+    if not _plain(q, route) and d not in _HEAD_DIMS and not _wide(d):
         width = _kernel_width(d, route)
         if width is None:
             route, width = "jnp", d
@@ -669,8 +705,9 @@ def flash_attention_bsd(q, k, v, num_heads, *, causal=False, scale=None,
     heads on the embed axis: the same kernels as `flash_attention`, on the
     (B, H, S, D) view of each operand's heads.  Returns out (B, S, E) and,
     with ``with_lse=True``, lse (B, H, S) float32.  Every head width of
-    32 to 256 reaches the kernels, padded where it is not 64, 128 or 256
-    (the JAX package's 128-lane gate is a TPU fact).  The route ('bsd_loop',
+    32 or more reaches the kernels, padded where it is not 64, 128, 256 or
+    a multiple of 128 above 256 (the JAX package's 128-lane gate is a TPU
+    fact).  The route ('bsd_loop',
     'bsd_stream' or 'jnp') is read from the environment and its launches
     are counted on this function (see the module's note).  ``name`` as
     in `flash_attention`."""
@@ -688,13 +725,15 @@ def flash_attention_bsd_plain(q, k, v, num_heads, *, causal=False,
 
 # each route's launch counters: (public function, prefix of its counters).
 # A counter counts, since it was last set to 0 (CUDA path only), the
-# kernel launches of the forward, the dq pass and the dk/dv pass, and the
-# calls whose head width was padded or sent to the plain versions.
+# kernel launches of the forward, the dq pass and the dk/dv pass (those of
+# the wide kernels, head_dim above 256, again on the ``wide_`` counters),
+# and the calls whose head width was padded or sent to the plain versions.
 _COUNTERS = {"hsd": (flash_attention, ""), "ds": (flash_attention, "ds_"),
              "bsd_loop": (flash_attention_bsd, ""),
              "bsd_stream": (flash_attention_bsd, "stream_")}
 for _fn, _prefix in _COUNTERS.values():
     for _kind in ("launches", "dq_launches", "dkv_launches", "padded_calls",
-                  "narrow_calls"):
+                  "narrow_calls", "wide_launches", "wide_dq_launches",
+                  "wide_dkv_launches"):
         setattr(_fn, _prefix + _kind, 0)
 del _fn, _prefix, _kind

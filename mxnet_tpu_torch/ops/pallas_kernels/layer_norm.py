@@ -39,6 +39,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -273,7 +274,8 @@ def _fwd_cuda(x2d, gamma, beta, eps):
         rstd.data_ptr(), rows, n, float(eps), *args,
         torch.cuda.current_stream(x2d.device).cuda_stream)
     _build.check(err, "layer_norm launch")
-    layer_norm_fwd.launches += 1
+    with _COUNT_LOCK:
+        layer_norm_fwd.launches += 1
     return y, mean, rstd
 
 
@@ -308,7 +310,8 @@ def _bwd_cuda(x2d, gamma, mean, rstd, dy2d):
         dbeta.data_ptr(), rows, n, *_plan_args(plan),
         torch.cuda.current_stream(x2d.device).cuda_stream)
     _build.check(err, "layer_norm_bwd launch")
-    layer_norm_bwd.launches += 1
+    with _COUNT_LOCK:
+        layer_norm_bwd.launches += 1
     return dx, dgamma, dbeta
 
 
@@ -337,7 +340,10 @@ def layer_norm_bwd(x2d, gamma, mean, rstd, dy2d):
                rstd, dy2d)
 
 
-# kernel launches since the counts were last set to 0 (CUDA path only)
+# kernel launches since the counts were last set to 0 (CUDA path only),
+# under a lock: the scheduler threads of several serving replicas launch
+# at once
+_COUNT_LOCK = threading.Lock()
 layer_norm_fwd.launches = 0
 layer_norm_bwd.launches = 0
 

@@ -24,7 +24,12 @@ gather trips a device-side assert.
 Every program runs LayerNorm through the port's kernel, 2L + 1 times.
 PyTorch runs eagerly, so the cache and the pool are updated in place
 (the JAX programs donate them); each method still returns the buffer so
-the call sites read as the JAX ones.  Parameters are a ``{name: tensor}``
+the call sites read as the JAX ones.  In place of the JAX package's
+donation, a program that writes the cache first sets a write mark on it
+and clears the mark when it returns: a program that raises between the
+two has left the cache half-written, and `cache_lost` reads the mark (the
+JAX `cache_lost` asks whether a failed launch consumed the donated
+buffer).  Parameters are a ``{name: tensor}``
 dict; `params_from_jax` carries a JAX parameter dict (numpy arrays)
 across with a check of every name and shape.  The quantized, MoE,
 megastep, verify and sharding methods wait for a later slice.
@@ -68,6 +73,26 @@ class TransformerKVModel:
         self.use_bias = bool(use_bias)
         self.eps = float(eps)
         self.dtype = dtype
+
+    # -- the write mark ----------------------------------------------------
+    @staticmethod
+    def _mark(cache):
+        """Set the write mark: ``cache`` is about to be written in place."""
+        cache._mxt_writing = True
+
+    @staticmethod
+    def _unmark(cache):
+        """Clear the write mark: the program writing ``cache`` returned."""
+        cache._mxt_writing = False
+        return cache
+
+    @staticmethod
+    def cache_lost(cache):
+        """True when a program that wrote ``cache`` in place raised before
+        it returned, leaving rows half-written: the engine's probe for a
+        lost cache (the JAX one: a failed launch consumed the donated
+        buffer)."""
+        return bool(getattr(cache, "_mxt_writing", False))
 
     # -- parameters --------------------------------------------------------
     def param_shapes(self):
@@ -204,8 +229,9 @@ class TransformerKVModel:
         cache at ``slots``, rows 0..s-1, in place.  ``length`` is unused,
         as in the JAX package (decode never attends past its position)."""
         s = kv.shape[3]
+        self._mark(cache)
         cache[:, :, slots.long(), :s] = kv.to(cache.dtype)
-        return cache
+        return self._unmark(cache)
 
     # -- decode ------------------------------------------------------------
     def decode(self, params, cache, token, pos, slots):
@@ -224,6 +250,7 @@ class TransformerKVModel:
             q = self._proj(params, hn, p + "q")
             k = self._proj(params, hn, p + "k")
             v = self._proj(params, hn, p + "v")
+            self._mark(cache)
             cache[i, 0, slots, pos] = k.to(cache.dtype)
             cache[i, 1, slots, pos] = v.to(cache.dtype)
             attn = decode_attention(q, cache[i, 0][slots], cache[i, 1][slots],
@@ -231,7 +258,7 @@ class TransformerKVModel:
             x = x + self._proj(params, attn, p + "attn_out")
             hn = self._ln(params, x, p + "ln2")
             x = x + self._ffn(params, hn, p)
-        return self._head(params, x), cache
+        return self._head(params, x), self._unmark(cache)
 
     # -- paged cache -------------------------------------------------------
     def prefill_paged(self, params, pool, tokens, start, length, tables):
@@ -267,6 +294,7 @@ class TransformerKVModel:
             v = self._proj(params, hf, p + "v").reshape(b, c, e)
             # write the chunk's rows into their blocks, then gather the
             # whole context so the chunk attends to itself too
+            self._mark(pool)
             pool[i, 0, blk] = k.reshape(b, nb, bs, e).to(pool.dtype)
             pool[i, 1, blk] = v.reshape(b, nb, bs, e).to(pool.dtype)
             kc = gather_paged_kv(pool[i, 0], tables)
@@ -277,7 +305,7 @@ class TransformerKVModel:
             hn = self._ln(params, x, p + "ln2")
             x = x + self._ffn(params, hn.reshape(-1, e), p).reshape(b, c, e)
         last = x[torch.arange(b, device=x.device), length.long() - 1]
-        return self._head(params, last), pool
+        return self._head(params, last), self._unmark(pool)
 
     def copy_block(self, pool, src, dst):
         """Copy one block's cached rows, every layer, K and V, from block
@@ -287,8 +315,9 @@ class TransformerKVModel:
         readers.  Returns the pool."""
         src = torch.as_tensor(src, device=pool.device).long().reshape(-1)
         dst = torch.as_tensor(dst, device=pool.device).long().reshape(-1)
+        self._mark(pool)
         pool[:, :, dst] = pool[:, :, src]
-        return pool
+        return self._unmark(pool)
 
     def decode_paged(self, params, pool, token, pos, tables):
         """One generation step over the paged pool, updated in place.
@@ -312,6 +341,7 @@ class TransformerKVModel:
             q = self._proj(params, hn, p + "q")
             k = self._proj(params, hn, p + "k")
             v = self._proj(params, hn, p + "v")
+            self._mark(pool)
             pool[i, 0, blk, off] = k.to(pool.dtype)
             pool[i, 1, blk, off] = v.to(pool.dtype)
             attn = paged_decode_attention(q, pool[i, 0], pool[i, 1], tables,
@@ -319,4 +349,4 @@ class TransformerKVModel:
             x = x + self._proj(params, attn, p + "attn_out")
             hn = self._ln(params, x, p + "ln2")
             x = x + self._ffn(params, hn, p)
-        return self._head(params, x), pool
+        return self._head(params, x), self._unmark(pool)

@@ -48,10 +48,42 @@ iteration granularity, queued or running; a bounded queue
 ``stop()`` and a dead scheduler fail what is left with
 `ServeEngineDead`; ``drain()`` closes admission, serves out what is here
 and returns the stragglers.  The scheduler runs on the caller's thread
-(`step`, `run_until_idle`) or on its own (`start`).  The counters the JAX
-engine sends to its telemetry (``shed``, ``expired``, ``cancelled``,
-``degraded``, ``block_waits``, ``preempted``, ``stalled``, ``drained``)
-are keys of `stats` here.
+(`step`, `run_until_idle`) or on its own (`start`).
+
+Launch failures are scoped as in the JAX engine (`_classify_failure`):
+a request that poisons its own prefill is quarantined
+(`ServeQuarantined`) while the batch goes on; a program that raised
+after its first in-place write has left the cache half-written (the
+model's write mark, `TransformerKVModel.cache_lost`, the port's
+counterpart of a consumed donated buffer), so every admitted sequence
+fails with `ServeCacheInvalidated`, the cache is reallocated and the
+queue goes on being served; a scoped decode failure retries up to
+``MXNET_SERVE_LAUNCH_RETRIES`` consecutive times (3) before the engine
+dies; a dead device (chaos's `ChaosEngineCrash`, a device message, and
+in the port any ``CUDA error:`` but out of memory, after which the CUDA
+context is unusable) kills the scheduler.  A dying engine hands its
+in-flight and queued requests to its router's failover hook
+(`ReplicaRouter`), which migrates the admitted ones to a survivor by
+exact replay of ``(prompt + generated)[:pos]`` (`journal.RequestJournal`)
+and respawns the dead replica.  Chaos's serving clauses
+(``decode_slow``, ``engine_crash``, ``launch_error``, ``block_exhaust``,
+``prefix_evict``, ``queue_flood``) inject at the JAX engine's sites.
+
+Telemetry (`mxnet_tpu_torch.telemetry`) gets the JAX engine's counters,
+histograms, gauges and events under its names: ``serve.requests``,
+``serve.prefills``, ``serve.tokens``, ``serve.decode_steps``,
+``serve.quarantined``, ``serve.cache_rebuilds``, ``serve.launch_errors``,
+``serve.shed``, ``serve.failovers`` and the rest, each per-replica
+counter again as ``serve.<name>.<counter>``, the ``serve.latency_ms`` /
+``serve.ttft_ms`` / ``serve.queue_age_ms`` histograms, the per-replica
+gauges and the ``serve_quarantine``, ``serve_cache_rebuild``,
+``serve_preempt``, ``serve_failover``, ``serve_migrate`` and
+``serve_respawn`` events.  The JAX engine's ``serve.aot.*`` counters have
+no counterpart: the port compiles no programs, so there is no AOT cache
+to count.  `stats` keeps the engine's own accounting, the telemetry
+counters ``shed``, ``expired``, ``cancelled``, ``degraded``,
+``block_waits``, ``preempted``, ``stalled`` and ``drained`` among its
+keys.
 
 Sampling is `sampling.sample_tokens`, request-keyed by (seed, position)
 like the JAX engine; an iteration whose rows are all greedy takes the
@@ -61,10 +93,12 @@ cuBLAS initialises) instead of compiling it.
 
 What the JAX engine has beyond this waits for later slices: the host
 tier and sessions, speculative and megastep decoding, streaming,
-quantization, MoE, meshes, routers and the journal, handoffs, launch
-failure scoping and cache rebuilds, chaos, telemetry and tracing.  Their
-keywords are not accepted, and an ``MXNET_CHAOS`` spec with a serving
-clause raises at construction (`chaos`).  A prompt token outside
+quantization, MoE, sharded replicas (`ReplicaRouter.from_mesh`),
+disaggregated prefill and decode (router roles and handoffs), the
+gateway and autoscaling, and tracing (the JAX engine's `tracing.dump`
+and `tracing.phase` calls have no counterpart here).  Their keywords are
+not accepted, and an ``MXNET_CHAOS`` spec with a clause of theirs raises
+at construction (`chaos`).  A prompt token outside
 [-V, V) embeds as NaN, as in the JAX engine, and its request decodes
 token 0 (the first NaN's index) while the scheduler goes on.
 """
@@ -72,6 +106,7 @@ from __future__ import annotations
 
 import math
 import os
+import re
 import threading
 import time
 from collections import deque
@@ -79,22 +114,33 @@ from collections import deque
 import numpy as np
 import torch
 
-from .. import chaos
+from .. import chaos, telemetry
 from ..base import MXNetError
 from ..context import resolve
-from .errors import (ServeBlocksExhausted, ServeCancelled,
-                     ServeDeadlineExceeded, ServeEngineDead, ServeError,
-                     ServeOverload, ServeTimeout)
+from .errors import (ServeBlocksExhausted, ServeCacheInvalidated,
+                     ServeCancelled, ServeDeadlineExceeded, ServeEngineDead,
+                     ServeError, ServeOverload, ServeQuarantined,
+                     ServeTimeout)
+from .journal import RequestJournal, journal_enabled
 from .paged import TRASH_BLOCK, BlockAllocator, PrefixCache
 from .sampling import argmax, sample_tokens
 
-__all__ = ["ServeRequest", "ServingEngine"]
+__all__ = ["ServeRequest", "ServingEngine", "ReplicaRouter"]
 
 _OVERLOAD_POLICIES = ("shed", "block", "degrade")
+# the JAX engine's telemetry counters that the port keeps in `stats` too
+_STATS_COUNTERS = frozenset(("shed", "expired", "cancelled", "degraded",
+                             "block_waits", "preempted", "stalled",
+                             "drained"))
 
 
 def _env_flag(name, default="1"):
     return os.environ.get(name, default).lower() not in ("0", "false", "no")
+
+
+class _EngineFatal(Exception):
+    """A dead-device-scoped failure: the scheduler cannot go on, and
+    `step` must not absorb it as one request's poison."""
 
 
 class ServeRequest:
@@ -142,10 +188,12 @@ class ServeRequest:
         self.t_done = None
         self._done = threading.Event()
         self._cancelled = False
+        self._requeues = 0        # cache-loss retries already burned
         self._waker = None        # set by the owning engine at enqueue
         self._preempt_n_new = None  # n_new at the last preemption: exempt
         #                           from another one until it advances
         #                           min_progress tokens past it
+        self._migrated = False    # journal migration pending its replay
 
     @property
     def done(self):
@@ -247,6 +295,8 @@ class ServingEngine:
     none), ``MXNET_SERVE_PREFIX`` (on, with paging),
     ``MXNET_SERVE_PREFIX_POOL`` (-1, no cap), ``MXNET_SERVE_MIN_PROGRESS``
     (4) and ``MXNET_SERVE_THRASH_TRIP`` (8; 0 never trips).
+    ``MXNET_SERVE_LAUNCH_RETRIES`` (3) bounds the consecutive scoped
+    decode failures before the engine dies.
     """
 
     def __init__(self, model, params, ctx=None, max_batch=8,
@@ -297,6 +347,8 @@ class ServingEngine:
         dl = float(os.environ.get("MXNET_SERVE_DEADLINE_MS", "0")
                    if deadline_ms is None else deadline_ms)
         self._deadline_ms_default = dl if dl > 0 else None
+        self._launch_retries = max(1, int(os.environ.get(
+            "MXNET_SERVE_LAUNCH_RETRIES", "3")))
         self._paged = bool(paged)
         self._sampling = bool(sampling)
         self._prefix = None
@@ -343,6 +395,8 @@ class ServingEngine:
             # slot max_batch is the trash slot padding rows write into
             self._cache = model.init_cache(self.max_batch + 1,
                                            device=self.device)
+        # the per-replica telemetry names: engines share one registry
+        self._gauge = "serve.%s." % self.name
         self._queue = deque()
         self._qlock = threading.Lock()
         self._qcond = threading.Condition(self._qlock)
@@ -355,6 +409,10 @@ class ServingEngine:
         self._wake = threading.Event()  # set by submit: work arrived
         self._thread = None
         self._dead = None         # scheduler-fatal error message, if any
+        self._on_death = None     # router failover hook:
+        #                           fn(engine, pending, inflight, msg)
+        self._launch_fails = 0    # consecutive decode launch failures
+        self.last_beat = time.monotonic()  # scheduler heartbeat
         # anti-thrash preemption: a resumed sequence is exempt from another
         # preemption until it advances min_progress tokens (0 = preempt on
         # every denial), the oldest in-flight request is never a victim,
@@ -381,8 +439,8 @@ class ServingEngine:
                       "prefix_hits": 0, "prefix_tokens": 0,
                       "prefix_lookup_tokens": 0, "prefix_bootstraps": 0,
                       "cow_copies": 0, "prefix_evictions": 0,
-                      # anti-thrash
-                      "stalls": 0, "thrash_trips": 0,
+                      # anti-thrash, and migrated requests replayed here
+                      "stalls": 0, "thrash_trips": 0, "replays": 0,
                       # the JAX engine's telemetry counters
                       "shed": 0, "expired": 0, "cancelled": 0,
                       "degraded": 0, "block_waits": 0, "preempted": 0,
@@ -416,47 +474,58 @@ class ServingEngine:
             tables[i, :len(bl)] = bl
         return self._put(tables)
 
-    def _prefill_slot(self, tokens, slot):
-        """The slot-cache prefill program: forward, write the K/V into
-        ``slot``, return the last real token's logits."""
+    def _slot_inputs(self, tokens, slot):
+        """The slot-cache prefill's operands on the device: ``tokens``
+        right-padded to their bucket, their length, ``slot``."""
         s = self._bucket_for(len(tokens), self.prefill_buckets)
         toks = np.zeros((1, s), np.int64)
         toks[0, :len(tokens)] = tokens
-        length = self._put(np.array([len(tokens)], np.int64))
-        logits, kv = self.model.prefill(self._params, self._put(toks), length)
-        self.model.write_prefill(self._cache, kv, length,
-                                 self._put(np.array([slot], np.int64)))
+        return (self._put(toks), self._put(np.array([len(tokens)], np.int64)),
+                self._put(np.array([slot], np.int64)))
+
+    def _prefill_slot(self, toks, length, slot):
+        """The slot-cache prefill program: forward, write the K/V into
+        ``slot``, return the last real token's logits."""
+        logits, kv = self.model.prefill(self._params, toks, length)
+        self.model.write_prefill(self._cache, kv, length, slot)
         return logits
 
-    def _prefill_chunk(self, chunk, bucket, start, blocks):
-        """The paged prefill program over one chunk of ``bucket`` tokens."""
+    def _chunk_inputs(self, chunk, bucket, start, blocks):
+        """One paged prefill chunk's operands on the device."""
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :len(chunk)] = chunk
-        logits, _ = self.model.prefill_paged(
-            self._params, self._cache, self._put(toks),
-            self._put(np.array([start], np.int64)),
-            self._put(np.array([len(chunk)], np.int64)),
-            self._table(1, [blocks]))
+        return (self._put(toks), self._put(np.array([start], np.int64)),
+                self._put(np.array([len(chunk)], np.int64)),
+                self._table(1, [blocks]))
+
+    def _prefill_chunk(self, toks, start, length, table):
+        """The paged prefill program over one chunk."""
+        logits, _ = self.model.prefill_paged(self._params, self._cache, toks,
+                                             start, length, table)
         return logits
 
-    def _decode(self, b, seqs, slots):
-        """The decode program over bucket ``b`` (rows past len(seqs) are
-        padding on the trash slot / trash block)."""
+    def _decode_inputs(self, b, seqs, slots):
+        """The decode program's operands for bucket ``b`` (rows past
+        len(seqs) are padding on the trash slot / trash block)."""
         token = np.zeros((b,), np.int64)
         pos = np.zeros((b,), np.int64)
         for i, seq in enumerate(seqs):
             token[i] = seq.last
             pos[i] = seq.pos
         if self._paged:
-            logits, _ = self.model.decode_paged(
-                self._params, self._cache, self._put(token), self._put(pos),
-                self._table(b, [s.blocks for s in seqs]))
+            where = self._table(b, [s.blocks for s in seqs])
         else:
             slot_ids = np.full((b,), self.max_batch, np.int64)
             slot_ids[:len(slots)] = slots
-            logits, _ = self.model.decode(
-                self._params, self._cache, self._put(token), self._put(pos),
-                self._put(slot_ids))
+            where = self._put(slot_ids)
+        return self._put(token), self._put(pos), where
+
+    def _decode(self, token, pos, where):
+        """The decode program: block tables ``where`` on the paged cache,
+        slot ids on the slot cache."""
+        program = self.model.decode_paged if self._paged \
+            else self.model.decode
+        logits, _ = program(self._params, self._cache, token, pos, where)
         return logits
 
     def warmup(self):
@@ -466,12 +535,15 @@ class ServingEngine:
         request."""
         for s in self.prefill_buckets:
             if self._paged:
-                logits = self._prefill_chunk([0], s, 0, [])
+                logits = self._prefill_chunk(
+                    *self._chunk_inputs([0], s, 0, []))
             else:
-                logits = self._prefill_slot([0], self.max_batch)
+                logits = self._prefill_slot(
+                    *self._slot_inputs([0], self.max_batch))
             logits.argmax(dim=-1).tolist()
         for b in self.decode_buckets:
-            self._decode(b, [], []).argmax(dim=-1).tolist()
+            self._decode(*self._decode_inputs(b, [], [])).argmax(
+                dim=-1).tolist()
         if self._sampling:
             one = self._put(np.ones((1,), np.float32))
             zero = self._put(np.zeros((1,), np.int64))
@@ -486,10 +558,30 @@ class ServingEngine:
                 "block_size": self.block_size, "n_blocks": self.n_blocks,
                 "prefix": self._prefix is not None}
 
+    def respawn(self, name=None):
+        """A replacement engine for this (dead) replica: the same device,
+        geometry, name and admission settings, the parameters shared (no
+        copy), a fresh K/V cache and scheduler state.  ``name`` names a
+        new replica templated off this one instead."""
+        return ServingEngine(
+            self.model, self._params, ctx=self.device,
+            max_batch=self.max_batch,
+            decode_buckets=list(self.decode_buckets),
+            prefill_buckets=list(self.prefill_buckets),
+            max_new_tokens=self.max_new_default, eos_id=self.eos_id,
+            paged=self._paged, block_size=self.block_size,
+            n_blocks=self.n_blocks, chunk_prefill=self._chunk_prefill,
+            sampling=self._sampling,
+            name=self.name if name is None else name,
+            queue_max=self._queue_max, overload=self._overload,
+            deadline_ms=self._deadline_ms_default,
+            prefix=self._prefix is not None, prefix_pool=self._prefix_pool,
+            min_progress=self._min_progress, thrash_trip=self._thrash_trip)
+
     # -- submission and admission control ----------------------------------
     def submit(self, prompt, max_new_tokens=None, eos_id=None,
                deadline_ms=None, temperature=0.0, top_k=0, top_p=1.0,
-               seed=None):
+               seed=None, _count_shed=True):
         if max_new_tokens is None:
             max_new_tokens = self.max_new_default
         elif int(max_new_tokens) < 1:
@@ -522,32 +614,52 @@ class ServingEngine:
                         self.model.seq_len)
             need = self._alloc.blocks_for(worst)
             if need > self._alloc.capacity:
+                telemetry.inc("serve.blocks_rejected")
                 raise ServeBlocksExhausted(
                     "ServingEngine %s: request needs up to %d cache blocks "
                     "but the pool only has %d usable (n_blocks=%d, "
                     "block_size=%d)" % (self.name, need, self._alloc.capacity,
                                         self.n_blocks, self.block_size))
+        telemetry.inc("serve.sampled_requests" if req.temperature > 0
+                      else "serve.greedy_requests")
         if self._queue_max > 0 and self._overload == "block":
-            return self._enqueue_blocking(req)
-        return self._enqueue(req)
+            self._enqueue_blocking(req)
+        else:
+            self._enqueue(req, count_shed_global=_count_shed)
+        # counted at the submit door only: failover re-dispatch and chaos
+        # floods reuse _enqueue but are not new offered requests
+        telemetry.inc("serve.requests")
+        return req
 
     def _count(self, what, n=1):
-        """Bump a counter that the submitting thread and the scheduler
-        can both touch."""
-        with self._count_lock:
-            self.stats[what] += n
+        """Bump the telemetry counter ``serve.<what>`` and its per-replica
+        ``serve.<name>.<what>``, and the `stats` key of the same name
+        where the port keeps one; the submitting thread and the scheduler
+        can both call it."""
+        telemetry.inc("serve.%s" % what, n)
+        telemetry.inc(self._gauge + what, n)
+        if what in _STATS_COUNTERS:
+            with self._count_lock:
+                self.stats[what] += n
 
-    def _admission_shed(self, depth):
+    def _admission_shed(self, depth, count_global=True):
         """Overload decision for one enqueue at queue depth ``depth``:
         a degrade cap on max_new_tokens, None, or `ServeOverload` raised.
-        Called under `_qlock`."""
+        Called under `_qlock`.  ``count_global=False`` (a router's
+        dispatch and redispatch, which try other replicas) counts only
+        the per-replica shed: ``serve.shed`` counts requests finally
+        refused."""
         if self._queue_max <= 0 or depth < self._queue_max:
             return None
         if self._overload == "degrade" and depth < 4 * self._queue_max:
             # cap generation length under pressure instead of shedding;
             # the 4x backstop bounds the queue even under a flood
             return max(1, self.max_new_default // 4)
-        self._count("shed")
+        with self._count_lock:
+            self.stats["shed"] += 1
+        telemetry.inc(self._gauge + "shed")
+        if count_global:
+            telemetry.inc("serve.shed")
         raise ServeOverload(
             "ServingEngine %s: queue full (%d >= %d, policy %s)"
             % (self.name, depth, self._queue_max, self._overload))
@@ -566,28 +678,34 @@ class ServingEngine:
             raise ServeEngineDead("ServingEngine %s: engine stopped"
                                   % self.name)
 
-    def _post_enqueue(self, req):
+    def _post_enqueue(self, req, depth):
         req._waker = self._wake.set
         self._wake.set()
+        telemetry.set_gauge(self._gauge + "queue_depth", depth)
         return req
 
-    def _enqueue(self, req):
-        """Admission under the shed and degrade policies."""
+    def _enqueue(self, req, count_shed_global=True):
+        """Admission under the shed and degrade policies (also a router's
+        failover redispatch and the chaos flood, which must never block a
+        scheduler thread)."""
         with self._qlock:
             self._check_alive_locked()
-            cap = self._admission_shed(len(self._queue))
+            cap = self._admission_shed(len(self._queue),
+                                       count_global=count_shed_global)
             if cap is None and self._storm:
                 # preemption storm: admit new work at the degrade cap, so
                 # shorter answers shrink the churning footprint
                 cap = max(1, self.max_new_default // 4)
             if cap is not None and req.max_new_tokens > cap \
-                    and req._resume is None:
-                # never degrade a resumed request: its output is already
-                # promised, and a cap would cut its replay short
+                    and req._resume is None and not req._migrated:
+                # never degrade a resumed or migrated request: its output
+                # is already promised, and a cap would cut its replay
+                # short
                 req.max_new_tokens = cap
                 self._count("degraded")
             self._queue.append(req)
-        return self._post_enqueue(req)
+            depth = len(self._queue)
+        return self._post_enqueue(req, depth)
 
     def _enqueue_blocking(self, req):
         """`block` policy: wait for queue room, bounded by the request's
@@ -609,12 +727,13 @@ class ServingEngine:
                         "admission (%s queue full)" % (req.id, self.name))
                 if len(self._queue) < self._queue_max:
                     self._queue.append(req)
+                    depth = len(self._queue)
                     break
                 waited = True
                 self._qcond.wait(0.05)
         if waited:
             self._count("block_waits")
-        return self._post_enqueue(req)
+        return self._post_enqueue(req, depth)
 
     def depth(self):
         """Queued + mid-admission + prefilling + running requests."""
@@ -630,6 +749,122 @@ class ServingEngine:
         raise MXNetError("ServingEngine %s: no bucket >= %d in %s"
                          % (self.name, n, buckets))
 
+    # -- failure scoping ---------------------------------------------------
+    def _cache_lost(self):
+        return self.model.cache_lost(self._cache)
+
+    def _classify_failure(self, exc):
+        """Scope of a failed launch:
+
+        * ``device``: the card itself is gone (or chaos says so):
+          scheduler-fatal, the router fails over.  In the port this
+          includes any ``CUDA error:`` but out of memory (an illegal
+          address, a launch failure, a device-side assert), after which
+          the CUDA context is unusable.
+        * ``cache``: the program raised after its first in-place write
+          (the model's write mark): every admitted sequence lost its
+          context, but the engine rebuilds the cache and keeps serving
+          its queue.
+        * ``scoped``: the cache is untouched, so the fault is local to the
+          launch (a poisoned request at prefill, a transient error at
+          decode)."""
+        if isinstance(exc, chaos.ChaosEngineCrash):
+            return "device"
+        if self._cache_lost():
+            return "cache"
+        msg = str(exc).lower()
+        # allocation pressure names the device but the device is healthy:
+        # a scoped retry (a respawn would allocate another whole cache
+        # into the same pressure)
+        if isinstance(exc, torch.cuda.OutOfMemoryError) or any(
+                k in msg for k in ("resource_exhausted", "out of memory",
+                                   "oom")):
+            return "scoped"
+        if "cuda error:" in msg:
+            return "device"
+        # \bdead\b: "dead device" yes, a transient DEADLINE_EXCEEDED no
+        if any(k in msg for k in ("device", "data_loss", "disconnected")) \
+                or re.search(r"\bdead\b", msg):
+            return "device"
+        return "scoped"
+
+    def _quarantine(self, req, msg):
+        """Fail one poisoned request with `ServeQuarantined`; the batch
+        keeps decoding and the scheduler stays up."""
+        self._count("quarantined")
+        telemetry.record_event("serve_quarantine", replica=self.name,
+                               request=req.id, error=msg[:200])
+        req._finish(error=ServeQuarantined(msg[:500]))
+
+    def _requeue_once(self, req, what, reason):
+        """A request whose cached context died with the cache: back to
+        the queue front for one retry against the fresh cache, then
+        quarantined."""
+        if req._requeues < 1:
+            req._requeues += 1
+            with self._qlock:
+                self._queue.appendleft(req)
+        else:
+            self._quarantine(req, what % reason[:200])
+
+    def _rebuild_cache(self, reason):
+        """A failed launch left the cache half-written: every admitted
+        sequence lost its context (`ServeCacheInvalidated`), the cache is
+        reallocated, and the engine keeps serving its queue.  Paged, the
+        pool and every block table go: the allocator resets, the prefix
+        index clears, and mid-prefill requests requeue for one retry
+        against the fresh pool."""
+        err = ServeCacheInvalidated(
+            "ServingEngine %s: K/V cache invalidated (%s)"
+            % (self.name, reason[:300]))
+        for row, seq in list(self._active.items()):
+            seq.blocks = None  # the pool they pointed into is gone
+            self._retire_error(row, seq, err)
+        if self._paged:
+            for row, pf in list(self._prefilling.items()):
+                del self._prefilling[row]
+                self._free.append(row)
+                pf.blocks = None
+                self._requeue_once(pf.req, "prefill lost to a cache rebuild "
+                                   "twice: %s", reason)
+            if self._prefix is not None:
+                self._prefix.clear()  # the pool its nodes point at is gone
+            self._alloc.reset()
+            self._cache = self.model.init_block_pool(
+                self.n_blocks, self.block_size, device=self.device)
+            self._block_gauges()
+        else:
+            self._cache = self.model.init_cache(self.max_batch + 1,
+                                                device=self.device)
+        self._count("cache_rebuilds")
+        telemetry.record_event("serve_cache_rebuild", replica=self.name,
+                               reason=reason[:200])
+
+    def _launch_failed(self, e, req, cleanup):
+        """The prefill failure ladder of a launch that raised: a dead
+        device fails the request and raises `_EngineFatal`; a lost cache
+        rebuilds it (the request requeues with the other mid-prefill
+        ones, or, on the slot path, here); anything else quarantines the
+        request.  ``cleanup`` returns the request's row (and blocks)."""
+        kind = self._classify_failure(e)
+        if kind == "device":
+            cleanup()
+            req._finish(error=ServeEngineDead(
+                "prefill launch failed: %s" % str(e)[:400]))
+            raise _EngineFatal("prefill launch failed: %s" % e) from e
+        if kind == "cache":
+            if not self._paged:
+                cleanup()
+            self._rebuild_cache("prefill launch failed: %s" % e)
+            if not self._paged:
+                # this request's prefill was lost with the cache: one
+                # retry against the fresh one, then quarantine
+                self._requeue_once(req, "prefill launch failed twice "
+                                   "across a cache rebuild: %s", str(e))
+            return
+        cleanup()
+        self._quarantine(req, "prefill launch failed: %s" % e)
+
     def _admit_one(self, req):
         """Admit one queued request.  Returns False only when a paged
         block allocation was denied (the request went back to the queue
@@ -638,13 +873,30 @@ class ServingEngine:
             return self._admit_one_paged(req)
         slot = self._free.pop()
         plen = len(req.prompt)
-        logits = self._prefill_slot(req.prompt, slot)
-        first = self._pick(logits, [req], [plen])[0]
+        try:
+            inputs = self._slot_inputs(req.prompt, slot)
+            if chaos.serve_launch_error():
+                raise chaos.ChaosError("chaos: injected prefill launch "
+                                       "error")
+        except Exception as e:  # noqa: BLE001 -- nothing launched
+            self._free.append(slot)
+            self._quarantine(req, "prefill setup failed: %s" % e)
+            return True
+        try:
+            logits = self._prefill_slot(*inputs)
+            first = self._pick(logits, [req], [plen])[0]
+        except Exception as e:  # noqa: BLE001 -- scoped in _launch_failed
+            self._launch_failed(e, req, lambda: self._free.append(slot))
+            return True
+        telemetry.observe("serve.queue_age_ms",
+                          1e3 * (time.perf_counter() - req.t_submit))
         req.t_first = time.perf_counter()
         req.tokens.append(first)
         self.stats["prefills"] += 1
         self.stats["prefill_tokens"] += plen
         self.stats["tokens"] += 1
+        telemetry.inc("serve.prefills")
+        telemetry.inc("serve.tokens")
         seq = _Seq(req, first, plen)
         if self._seq_finished(seq, first):
             self._retire(slot, seq, enter=False)
@@ -659,6 +911,7 @@ class ServingEngine:
         if self._paged and holder.blocks is not None:
             self._drop_refs(holder.blocks)
             holder.blocks = None
+            self._block_gauges()
 
     def _drop_refs(self, blocks):
         """Release; a block whose count reaches 0 parks if the prefix
@@ -676,6 +929,7 @@ class ServingEngine:
 
     def _count_evictions(self, n):
         self.stats["prefix_evictions"] += n
+        self._count("prefix_evictions", n)
 
     def _alloc_blocks(self, n):
         """`BlockAllocator.alloc`, evicting parked prefix blocks LRU-first
@@ -711,12 +965,43 @@ class ServingEngine:
             self._prefix.insert(tokens, blocks,
                                 int(n_tokens) // self.block_size)
 
-    def _block_gauges(self):
-        """The ``blocks_free_min`` low-water mark, taken at every
-        allocation, as the JAX engine's pool gauges are."""
-        if self._paged:
-            self.stats["blocks_free_min"] = min(
-                self.stats["blocks_free_min"], self._alloc.free_blocks)
+    def _block_gauges(self, full=False):
+        """The pool gauges at every allocator touch, as the JAX engine's:
+        the ``blocks_free_min`` low-water mark, ``serve.<name>.blocks_free``
+        and ``.blocks_shared``; with ``full`` (once an iteration) also the
+        fragmentation (``blocks_frag``: each physical block's written rows
+        counted once), ``blocks_parked`` and ``prefix_hit_rate``."""
+        if not self._paged:
+            return
+        free = self._alloc.free_blocks
+        self.stats["blocks_free_min"] = min(self.stats["blocks_free_min"],
+                                            free)
+        telemetry.set_gauge(self._gauge + "blocks_free", free)
+        telemetry.set_gauge(self._gauge + "blocks_shared",
+                            self._alloc.shared_blocks)
+        if not full:
+            return
+        bs = self.block_size
+        filled = {}
+        for holder, n in [(s.blocks, s.pos) for s in self._active.values()] \
+                + [(p.blocks, p.done) for p in self._prefilling.values()]:
+            if holder is None:
+                continue
+            for i, b in enumerate(holder):
+                rows = min(bs, max(0, n - i * bs))
+                if rows > filled.get(b, 0):
+                    filled[b] = rows
+        parked = 0 if self._prefix is None else self._prefix.parked_count
+        telemetry.set_gauge(self._gauge + "blocks_frag", round(
+            self._alloc.fragmentation(sum(filled.values()) + parked * bs,
+                                      cached_blocks=parked), 4))
+        if self._prefix is not None:
+            telemetry.set_gauge(self._gauge + "blocks_parked", parked)
+            looked = self.stats["prefix_lookup_tokens"]
+            if looked:
+                telemetry.set_gauge(
+                    self._gauge + "prefix_hit_rate",
+                    round(self.stats["prefix_tokens"] / float(looked), 4))
 
     # -- paged admission and chunked prefill -------------------------------
     def _admit_one_paged(self, req):
@@ -739,6 +1024,7 @@ class ServingEngine:
             self._drop_refs(shared)
             self._free.append(row)
             self.stats["alloc_denied"] += 1
+            self._count("alloc_denied")
             with self._qlock:
                 self._queue.appendleft(req)
             return False
@@ -750,12 +1036,20 @@ class ServingEngine:
                 self._count_prefix_hit(matched)
         blocks = shared + fresh
         self._block_gauges()
+        if req._migrated:
+            # a journal-migrated request's replay admission landed on this
+            # survivor: counted once, here
+            req._migrated = False
+            self.stats["replays"] += 1
+            self._count("replays")
         self._enter_decode_or_prefill(req, row, list(tokens), blocks, matched)
         return True
 
     def _count_prefix_hit(self, matched_tokens):
         self.stats["prefix_hits"] += 1
         self.stats["prefix_tokens"] += matched_tokens
+        self._count("prefix_hits")
+        telemetry.inc("serve.prefix_tokens", matched_tokens)
 
     def _enter_decode_or_prefill(self, req, row, tokens, blocks, covered):
         """Route an admission whose cache rows [0, covered) are already
@@ -768,8 +1062,12 @@ class ServingEngine:
             # t_first stamps at its first decode); a resumed one carries
             # on with its own counters
             self.stats["prefix_bootstraps"] += 1
+            self._count("prefix_bootstraps")
             if req._resume is None:
                 last, pos, n_new = int(tokens[-1]), len(tokens) - 1, 0
+                telemetry.observe(
+                    "serve.queue_age_ms",
+                    1e3 * (time.perf_counter() - req.t_submit))
             else:
                 last, pos, n_new = req._resume[1:]
                 req._resume = None
@@ -794,13 +1092,17 @@ class ServingEngine:
     def _advance_prefills(self):
         """Advance every mid-stream prefill by one chunk."""
         for pf in list(self._prefilling.values()):
-            if pf.row in self._prefilling:
+            if self._prefilling.get(pf.row) is pf:
                 self._advance_chunk(pf)
 
     def _advance_chunk(self, pf):
         """Launch one prefill chunk; the last one moves the sequence to
         the active set (sampling its first token, or resuming a
-        preempted generation where it stopped)."""
+        preempted generation where it stopped).  Failures are scoped as
+        on the slot path: a setup or scoped fault quarantines the
+        request, a lost cache rebuilds the pool (requeueing every
+        mid-prefill request, this one included), a dead device is
+        scheduler-fatal."""
         req = pf.req
         total = len(pf.tokens)
         remaining = total - pf.done
@@ -808,11 +1110,27 @@ class ServingEngine:
         bucket = largest if remaining > largest else \
             self._bucket_for(remaining, self.prefill_buckets)
         chunk = min(remaining, bucket)
-        logits = self._prefill_chunk(pf.tokens[pf.done:pf.done + chunk],
-                                     bucket, pf.done, pf.blocks)
+        final = pf.done + chunk >= total and pf.resume is None
+        try:
+            inputs = self._chunk_inputs(pf.tokens[pf.done:pf.done + chunk],
+                                        bucket, pf.done, pf.blocks)
+            if chaos.serve_launch_error():
+                raise chaos.ChaosError("chaos: injected prefill launch "
+                                       "error")
+        except Exception as e:  # noqa: BLE001 -- nothing launched
+            self._drop_prefill(pf)
+            self._quarantine(req, "prefill setup failed: %s" % e)
+            return
+        try:
+            logits = self._prefill_chunk(*inputs)
+            first = self._pick(logits, [req], [total])[0] if final else None
+        except Exception as e:  # noqa: BLE001 -- scoped in _launch_failed
+            self._launch_failed(e, req, lambda: self._drop_prefill(pf))
+            return
         pf.done += chunk
         self.stats["prefill_chunks"] += 1
         self.stats["prefill_tokens"] += chunk
+        telemetry.inc("serve.prefill_chunks")
         # publish the newly full blocks (``done`` counts real tokens only,
         # so a block whose tail holds the bucket's padding stays private)
         self._register_prefix(pf.tokens, pf.blocks, pf.done)
@@ -821,6 +1139,11 @@ class ServingEngine:
         del self._prefilling[pf.row]
         blocks, pf.blocks = pf.blocks, None
         self.stats["prefills"] += 1
+        telemetry.inc("serve.prefills")
+        if pf.resume is None:
+            # fresh admissions only: a resumed one's wait was decode time
+            telemetry.observe("serve.queue_age_ms",
+                              1e3 * (time.perf_counter() - req.t_submit))
         if pf.resume is not None:
             # the cache rows are rebuilt: continue from the token the
             # preemption interrupted (nothing is sampled again)
@@ -830,10 +1153,10 @@ class ServingEngine:
             seq.n_new = n_new
             self._active[pf.row] = seq
             return
-        first = self._pick(logits, [req], [total])[0]
         req.t_first = time.perf_counter()
         req.tokens.append(first)
         self.stats["tokens"] += 1
+        telemetry.inc("serve.tokens")
         seq = _Seq(req, first, total, blocks=blocks, ctx=pf.tokens)
         if self._seq_finished(seq, first):
             self._retire(pf.row, seq, enter=False)
@@ -873,7 +1196,8 @@ class ServingEngine:
                 got = self._grow_alloc(row, seq, 1, oldest)
                 if got is None:
                     break
-                self._cow(seq, idx, got[0])
+                if not self._cow(seq, idx, got[0]):
+                    return  # the cache was rebuilt: every row is gone
 
     def _oldest_inflight(self):
         """Id of the oldest admitted request (active or mid-prefill): the
@@ -957,6 +1281,8 @@ class ServingEngine:
         self.stats["preemptions"] += 1
         self._count("preempted")
         self._note_preempt()
+        telemetry.record_event("serve_preempt", replica=self.name,
+                               request=req.id, pos=pf.done, prefill=True)
         with self._qlock:
             self._queue.appendleft(req)
 
@@ -976,16 +1302,39 @@ class ServingEngine:
                 self._preempts_since_retire >= self._thrash_trip:
             self._storm = True
             self.stats["thrash_trips"] += 1
+            self._count("thrash_trips")
+            telemetry.record_event(
+                "serve_thrash_trip", replica=self.name,
+                preempts=self._preempts_since_retire)
 
     def _cow(self, seq, idx, dst):
         """Copy block ``seq.blocks[idx]`` into ``dst`` and repoint the
-        table; the original loses this reader."""
+        table; the original loses this reader.  Returns False when the
+        copy raised after writing (the cache was rebuilt: every table is
+        void); a scoped failure preempts the row (its replay rebuilds the
+        context; the shared block is never written); a dead device
+        raises."""
         src = seq.blocks[idx]
-        self.model.copy_block(self._cache, src, dst)
+        try:
+            self.model.copy_block(self._cache, src, dst)
+        except Exception as e:  # noqa: BLE001 -- classified below
+            kind = self._classify_failure(e)
+            if kind == "device":
+                raise _EngineFatal("cow copy failed: %s" % e) from e
+            self._drop_refs([dst])
+            if kind == "cache":
+                self._rebuild_cache("cow copy failed: %s" % e)
+                return False
+            for row, s in list(self._active.items()):
+                if s is seq:
+                    self._preempt(row, seq)
+            return True
         seq.blocks[idx] = dst
         self._drop_refs([src])
         self.stats["cow_copies"] += 1
+        self._count("cow_copies")
         self._block_gauges()
+        return True
 
     def _vacate_row(self, row, seq):
         """Take an active row out for a later exact replay: leave the
@@ -1006,6 +1355,8 @@ class ServingEngine:
         self.stats["preemptions"] += 1
         self._count("preempted")
         self._note_preempt()
+        telemetry.record_event("serve_preempt", replica=self.name,
+                               request=req.id, pos=seq.pos)
         with self._qlock:
             self._queue.appendleft(req)
 
@@ -1029,6 +1380,17 @@ class ServingEngine:
         # a completion proves the pool drains: reset the storm detector
         self._preempts_since_retire = 0
         self._storm = False
+        telemetry.inc("serve.completed")
+        telemetry.observe("serve.latency_ms", seq.req.latency_ms)
+        if seq.req.ttft_ms is not None:
+            telemetry.observe("serve.ttft_ms", seq.req.ttft_ms)
+
+    def _retire_error(self, row, seq, err):
+        """Retire an active row with the typed error ``err``."""
+        del self._active[row]
+        self._free.append(row)
+        self._release_blocks(seq)
+        seq.req._finish(error=err)
 
     def _finish_dropped(self, req, now=None):
         """Resolve a cancelled or expired request with its typed error."""
@@ -1093,7 +1455,8 @@ class ServingEngine:
 
     def _decode_plain(self):
         """One single-token decode launch over the active rows that are
-        not stalled."""
+        not stalled.  A failed launch goes through
+        `_handle_launch_failure`."""
         rows = [r for r in self._active if r not in self._stalled]
         n = len(rows)
         if n == 0:
@@ -1103,22 +1466,78 @@ class ServingEngine:
             return
         b = self._bucket_for(n, self.decode_buckets)
         seqs = [self._active[r] for r in rows]
-        logits = self._decode(b, seqs, rows)
-        nxt = self._pick(logits, [s.req for s in seqs],
-                         [s.pos + 1 for s in seqs])
+        inputs = self._decode_inputs(b, seqs, rows)
+        try:
+            if chaos.serve_launch_error():
+                raise chaos.ChaosError("chaos: injected decode launch error")
+            logits = self._decode(*inputs)
+            nxt = self._pick(logits, [s.req for s in seqs],
+                             [s.pos + 1 for s in seqs])
+        except Exception as e:  # noqa: BLE001 -- scoped below
+            # scoped or transient: the cache is intact, so the same decode
+            # retries next iteration; escalates after N in a row
+            self._handle_launch_failure(e, "decode")
+            return
+        self._launch_fails = 0
         self.stats["decode_steps"] += 1
         self.stats["decode_rows"] += n
         self.stats["decode_padded"] += b - n
         self.stats["tokens"] += n
+        telemetry.inc("serve.decode_steps")
+        telemetry.inc("serve.tokens", n)
+        telemetry.inc("serve.decode_padded", b - n)
+        telemetry.set_gauge(self._gauge + "batch_occupancy", n / float(b))
         for row, seq, t in zip(rows, seqs, nxt):
             if self._advance_one(seq, t):
                 self._retire(row, seq)
 
+    def _handle_launch_failure(self, e, what):
+        """The decode failure ladder: a dead device raises `_EngineFatal`,
+        a lost cache rebuilds it, and a scoped or transient fault counts
+        toward ``MXNET_SERVE_LAUNCH_RETRIES`` consecutive failures, past
+        which the engine dies; below it the decode retries next
+        iteration."""
+        kind = self._classify_failure(e)
+        if kind == "device":
+            raise _EngineFatal("%s launch failed: %s" % (what, e)) from e
+        if kind == "cache":
+            self._rebuild_cache("%s launch failed: %s" % (what, e))
+            return
+        self._launch_fails += 1
+        self._count("launch_errors")
+        if self._launch_fails >= self._launch_retries:
+            raise _EngineFatal(
+                "%s launch failed %d consecutive times (last: %s)"
+                % (what, self._launch_fails, e)) from e
+
+    def _inject_flood(self):
+        """`queue_flood` chaos: synthetic one-token requests through the
+        same admission control as real traffic (a shed flood counts in
+        ``serve.shed``)."""
+        for _ in range(chaos.serve_queue_flood()):
+            req = ServeRequest([1], 1, deadline_ms=self._deadline_ms_default)
+            telemetry.inc("serve.chaos_flooded")
+            try:
+                self._enqueue(req)
+            except ServeError:
+                pass  # shed: the pressure the clause probes
+
     def step(self):
-        """One scheduler iteration: sweep deadlines and cancellations,
-        advance mid-stream prefills, admit while there is room, grow (and
-        copy) blocks, then one decode step over the active set.  Returns
-        the number of sequences still in flight (0 = idle)."""
+        """One scheduler iteration: inject chaos's faults, sweep deadlines
+        and cancellations, advance mid-stream prefills, admit while there
+        is room, grow (and copy) blocks, then one decode step over the
+        active set.  Returns the number of sequences still in flight
+        (0 = idle)."""
+        self.last_beat = time.monotonic()
+        if chaos.enabled():
+            self._inject_flood()
+            if self._prefix is not None and chaos.serve_prefix_evict():
+                # `prefix_evict` chaos: the LRU parked block goes as if
+                # allocation pressure claimed it
+                evicted = self._prefix.evict(1)
+                if evicted:
+                    self._alloc.reclaim(evicted)
+                    self._count_evictions(len(evicted))
         self._sweep()
         if self._paged:
             self._advance_prefills()
@@ -1140,12 +1559,23 @@ class ServingEngine:
             finally:
                 with self._qlock:
                     self._admitting -= 1
+        with self._qlock:
+            telemetry.set_gauge(self._gauge + "queue_depth",
+                                len(self._queue))
         if self._paged:
             self._grow_active()
-            self._block_gauges()
+            self._block_gauges(full=True)
         n = len(self._active)
         self.stats["max_concurrent"] = max(self.stats["max_concurrent"], n)
+        telemetry.set_gauge(self._gauge + "active", n)
         if n:
+            if chaos.enabled():
+                if chaos.serve_engine_crash(self.name):
+                    raise chaos.ChaosEngineCrash(
+                        "chaos: engine_crash killed replica %s" % self.name)
+                ms = chaos.serve_decode_slow()
+                if ms:
+                    time.sleep(ms / 1e3)
             self._decode_plain()
         return len(self._active) + len(self._prefilling)
 
@@ -1165,10 +1595,13 @@ class ServingEngine:
             try:
                 n = self.step()
             except Exception as e:  # noqa: BLE001
-                # anything that escapes a step kills the scheduler: fail
-                # every request typed rather than leave it hanging
+                # per-request poison and a lost cache are absorbed inside
+                # step(); anything that escapes is device-scoped: die, and
+                # hand the requests to the router's failover
+                telemetry.inc("serve.engine_failures")
                 self._die(str(e)[:500])
                 return
+            self.last_beat = time.monotonic()
             if n == 0:
                 # idle: wait for a submit instead of spinning.  Clear
                 # first, then re-check the queue, so a submit landing in
@@ -1181,8 +1614,11 @@ class ServingEngine:
 
     def _die(self, msg):
         """Scheduler death: release every admitted request's blocks, mark
-        the engine dead and fail the admitted and the queued requests
-        with `ServeEngineDead`."""
+        the engine dead, and hand the admitted (in-flight) and the queued
+        requests to the router's failover hook (``_on_death``).  A
+        router with a journal migrates the in-flight ones to survivors by
+        exact replay; without a router (or when the hook raises) they
+        fail with `ServeEngineDead`."""
         err = ServeEngineDead("ServingEngine %s: scheduler died: %s"
                               % (self.name, msg))
         inflight = self._sweep_inflight()
@@ -1193,6 +1629,13 @@ class ServingEngine:
             pending = list(self._queue)
             self._queue.clear()
             self._qcond.notify_all()
+        handler = self._on_death
+        if handler is not None:
+            try:
+                handler(self, pending, inflight, msg)
+                return
+            except Exception:  # noqa: BLE001 -- never strand a request
+                pass
         for req in inflight + pending:
             req._finish(error=err)
 
@@ -1257,6 +1700,8 @@ class ServingEngine:
             self._draining = True
             self._qcond.notify_all()  # blocked submitters resolve typed
         self._wake.set()
+        telemetry.record_event("serve_drain_begin", replica=self.name,
+                               depth=self.depth())
         t0 = time.monotonic()
         budget_s = None if deadline_ms is None else float(deadline_ms) / 1e3
         while not self._stopped.is_set():
@@ -1271,6 +1716,7 @@ class ServingEngine:
                 try:
                     n = self.step()
                 except Exception as e:  # noqa: BLE001 — as in _loop
+                    telemetry.inc("serve.engine_failures")
                     self._die(str(e)[:500])
                     break
                 if n == 0:
@@ -1286,6 +1732,10 @@ class ServingEngine:
             self._queue.clear()
             self._qcond.notify_all()
         self._count("drained")
+        telemetry.record_event("serve_drain", replica=self.name,
+                               stragglers=len(stragglers),
+                               waited_ms=round(1e3 * (time.monotonic()
+                                                      - t0), 1))
         return stragglers
 
     def run_until_idle(self, timeout=None):
@@ -1336,3 +1786,465 @@ def _default_prefill_buckets(seq_len):
         s *= 2
     out.append(seq_len)
     return sorted(set(out))
+
+
+# what a router keyword or method of the JAX package's waits on, by the
+# ROADMAP.md item that brings it
+_SHARDED = ("sharded replicas (ROADMAP.md queue 1, item 2: "
+            "`param_shardings`, `kv_shardings` with torch.distributed)")
+_DISAGG = ("disaggregated prefill/decode (ROADMAP.md queue 1, item 2: "
+           "`handoff.py`)")
+_SESSIONS = ("sessions (ROADMAP.md queue 1, item 2: the host tier and "
+             "sessions, `tiers.py`)")
+
+
+class ReplicaRouter:
+    """Least-depth dispatch over engine replicas, with health monitoring,
+    failover and respawn: the port of `mxnet_tpu/serving/engine.py`
+    `ReplicaRouter`, on replicas that are whole engines (each on one
+    device; on one card, all on the same one).
+
+    When a replica's scheduler dies, its admitted in-flight requests
+    migrate to survivors by exact replay through the request journal
+    (``MXNET_SERVE_JOURNAL=0`` fails them typed instead), its queued ones
+    re-dispatch, and a background monitor (`start`) respawns a
+    replacement behind a capped exponential backoff (``respawn=False`` or
+    ``MXNET_SERVE_RESPAWN=0`` turns respawn off).  `drain` is the planned
+    restart: a replica serves out its work, its stragglers migrate the
+    same way, and a replacement takes its place.  The JAX router's
+    replacement warms from a shared AOT cache and compiles nothing; the
+    port compiles nothing in the first place, so a replacement's warmup
+    only runs each program once.  Not ported: `from_mesh` (sharded
+    replicas), roles and handoffs (``disagg``) and the migration of
+    sessions, each raising `MXNetError` that names its ROADMAP item.
+    """
+
+    _MONITOR_PERIOD = 0.2
+    _BREAKER_RESET_S = 10.0   # healthy this long clears the breaker
+
+    def __init__(self, engines, respawn=None, journal=None, disagg=None,
+                 prefill_replicas=None):
+        if not engines:
+            raise MXNetError("ReplicaRouter: need at least one engine")
+        if disagg or prefill_replicas or (disagg is None and _env_flag(
+                "MXNET_SERVE_DISAGG", "0")):
+            raise MXNetError("ReplicaRouter: %s is not ported yet" % _DISAGG)
+        self.engines = list(engines)
+        self._lock = threading.Lock()
+        if respawn is None:
+            respawn = _env_flag("MXNET_SERVE_RESPAWN")
+        self._respawn = bool(respawn)
+        if journal is None:
+            journal = journal_enabled()
+        self.journal = RequestJournal() if journal else None
+        self._stopped = False
+        self._monitor = None
+        self._mon_stop = threading.Event()
+        self._breaker = {}   # replica name -> (fails, next_try monotonic)
+        for e in self.engines:
+            self._wire(e)
+
+    def _wire(self, engine):
+        """Attach one engine to this router: its death hook."""
+        engine._on_death = self._handle_death
+
+    @classmethod
+    def from_mesh(cls, *args, **kw):
+        raise MXNetError("ReplicaRouter.from_mesh: %s is not ported yet"
+                         % _SHARDED)
+
+    def warmup(self):
+        return [e.warmup() for e in self.engines]
+
+    # -- failover ----------------------------------------------------------
+    def _live_engines(self, exclude=None):
+        with self._lock:
+            engines = list(self.engines)
+        return [e for e in engines
+                if e is not exclude and e._dead is None
+                and not e._stopped.is_set() and not e._draining]
+
+    def _handle_death(self, engine, pending, inflight, msg):
+        """An engine's death hook (runs on the dying scheduler's thread):
+        migrate its admitted in-flight requests to survivors by exact
+        replay (typed failure without a journal), and re-dispatch its
+        queued ones.  Each request resolves on its own: a surprise midway
+        must not fail the requests already moved."""
+        try:
+            telemetry.inc("serve.failovers")
+            telemetry.inc("serve.%s.failover" % engine.name)
+            telemetry.record_event("serve_failover", replica=engine.name,
+                                   pending=len(pending),
+                                   inflight=len(inflight), error=msg[:200])
+        except Exception:  # noqa: BLE001 -- accounting must not abort it
+            pass
+        err = ServeEngineDead("ServingEngine %s: scheduler died: %s"
+                              % (engine.name, msg))
+        for req in inflight:
+            try:
+                if not self._migrate(req, exclude=engine):
+                    req._finish(error=err)
+            except Exception:  # noqa: BLE001
+                req._finish(error=err)
+        err = ServeEngineDead(
+            "ServingEngine %s: scheduler died: %s (no live replica to "
+            "fail over to)" % (engine.name, msg))
+        for req in pending:
+            try:
+                if not self._redispatch(req, exclude=engine):
+                    req._finish(error=err)
+            except Exception:  # noqa: BLE001
+                req._finish(error=err)
+
+    def _migrate(self, req, exclude=None):
+        """Move an admitted in-flight request off a dead or draining
+        replica, token for token: the journal rebuilds its resume state
+        ``(prompt + generated)[:pos]``, the request (the same object, so
+        its deadline and latency stamps never reset) enqueues on the
+        least-loaded survivor, whose resume admission prefills the
+        replayed context and decodes on at the same position with the
+        same request-keyed sampler.  Returns the engine that took it (a
+        request already resolved returns True), or False when nothing
+        can: no journal, no paged survivor, or every survivor shed."""
+        if self.journal is None:
+            return False  # in-flight context dies with the replica
+        if req.done:
+            return True
+        state = self.journal.replay_state(req)
+        survivors = self._live_engines(exclude=exclude)
+        if state is not None:
+            # exact replay rides the paged resume path
+            survivors = [e for e in survivors if e._paged]
+        if not survivors:
+            return False
+        if state is not None:
+            req._resume = state
+            req._migrated = True
+        for eng in sorted(survivors, key=lambda e: e.depth()):
+            try:
+                eng._enqueue(req, count_shed_global=False)
+            except ServeError:
+                continue  # died or shed in the window: try the next
+            self.journal.migrations += 1
+            telemetry.inc("serve.migrated")
+            telemetry.record_event(
+                "serve_migrate", request=req.id, target=eng.name,
+                pos=0 if state is None else state[2],
+                generated=len(req.tokens))
+            return eng
+        req._migrated = False
+        req._resume = None if state is not None else req._resume
+        return False
+
+    def _redispatch(self, req, exclude=None):
+        """Move a request that was never admitted (the same object) to
+        the least-loaded survivor."""
+        for eng in sorted(self._live_engines(exclude=exclude),
+                          key=lambda e: e.depth()):
+            try:
+                eng._enqueue(req, count_shed_global=False)
+            except ServeError:
+                continue
+            telemetry.inc("serve.redispatched")
+            return True
+        return False
+
+    def _monitor_loop(self):
+        """Replica health: the heartbeat-age gauges, and the respawn of
+        dead replicas behind a capped exponential backoff."""
+        while not self._mon_stop.wait(self._MONITOR_PERIOD):
+            with self._lock:
+                engines = list(self.engines)
+            now = time.monotonic()
+            for e in engines:
+                telemetry.set_gauge("serve.%s.beat_age_s" % e.name,
+                                    round(now - e.last_beat, 3))
+                if e._dead is None:
+                    # a replacement healthy past the reset window clears
+                    # its breaker, so rare independent faults over a long
+                    # life do not climb toward the backoff cap
+                    fails, next_try = self._breaker.get(e.name, (0, 0.0))
+                    if fails and now - next_try > self._BREAKER_RESET_S:
+                        self._breaker.pop(e.name, None)
+                if e._dead is None or not self._respawn or self._stopped:
+                    continue
+                fails, next_try = self._breaker.get(e.name, (0, 0.0))
+                if now < next_try:
+                    continue
+                # the breaker advances whether or not the respawn works
+                self._breaker[e.name] = (
+                    fails + 1, now + min(0.05 * (2 ** fails), 5.0))
+                try:
+                    fresh = e.respawn()
+                    self._wire(fresh)
+                    fresh.warmup()
+                    fresh.start()
+                except Exception as ex:  # noqa: BLE001
+                    telemetry.record_event("serve_respawn_failed",
+                                           replica=e.name,
+                                           error=str(ex)[:200])
+                    continue
+                with self._lock:
+                    try:
+                        self.engines[self.engines.index(e)] = fresh
+                    except ValueError:   # raced with a concurrent swap
+                        fresh.stop()
+                        continue
+                telemetry.inc("serve.respawns")
+                telemetry.record_event("serve_respawn", replica=e.name,
+                                       attempt=fails + 1)
+
+    # -- dispatch ----------------------------------------------------------
+    def submit(self, prompt, **kw):
+        """Submit to the least-deep live replica; a replica that dies or
+        sheds in the window passes the request on.  Returns the
+        `ServeRequest`, entered in the journal."""
+        if self._stopped:
+            raise ServeEngineDead("ReplicaRouter: router stopped")
+        if kw.get("session") is not None:
+            raise MXNetError("ReplicaRouter.submit: %s are not ported yet"
+                             % _SESSIONS)
+        with self._lock:
+            fleet = len(self.engines)
+        telemetry.set_gauge("serve.replicas", fleet)
+        last_err = None
+        # two rounds: a replica dying (or respawning) between the snapshot
+        # and the submit re-routes instead of failing the request
+        for _ in range(2):
+            live = self._live_engines()
+            if not live:
+                break
+            shed = 0
+            order = sorted(live, key=lambda e: e.depth())
+            for eng in order:
+                try:
+                    req = eng.submit(prompt, _count_shed=False, **kw)
+                    if self.journal is not None:
+                        telemetry.set_gauge("serve.journal_depth",
+                                            self.journal.record(req))
+                    return req
+                except ServeOverload as e:
+                    last_err = e
+                    shed += 1
+                except ServeEngineDead as e:
+                    last_err = e  # died in the window: try the next
+                except MXNetError as e:
+                    if eng._dead is None:
+                        raise  # a bad request, not a dead replica
+                    last_err = e
+            if shed == len(order):
+                telemetry.inc("serve.shed")
+                raise ServeOverload(
+                    "ReplicaRouter: all %d live candidate replicas shed "
+                    "(%s)" % (shed, last_err))
+        raise ServeEngineDead(
+            "ReplicaRouter: no live replica among %d (%s)"
+            % (fleet, last_err))
+
+    def _resolve_engine(self, replica):
+        """An engine by object, index or replica name."""
+        with self._lock:
+            engines = list(self.engines)
+        if isinstance(replica, ServingEngine):
+            if replica in engines:
+                return replica
+            raise MXNetError("ReplicaRouter: engine %s is not (or no "
+                             "longer) one of this router's replicas"
+                             % replica.name)
+        if isinstance(replica, int):
+            if not 0 <= replica < len(engines):
+                raise MXNetError(
+                    "ReplicaRouter: replica index %d out of range "
+                    "(have %d replicas)" % (replica, len(engines)))
+            return engines[replica]
+        for e in engines:
+            if e.name == replica:
+                return e
+        raise MXNetError("ReplicaRouter: no replica named %r (have %s)"
+                         % (replica, [e.name for e in engines]))
+
+    def drain(self, replica, deadline_ms=None, respawn=True):
+        """Restart one replica gracefully: close its admission, let its
+        in-flight work finish within ``deadline_ms``, migrate the
+        stragglers to survivors by exact replay, stop it and (by default)
+        swap in a respawned replacement, so draining every replica in
+        turn restarts the fleet with no failed request.  Returns the
+        replacement (None with ``respawn=False``)."""
+        eng = self._resolve_engine(replica)
+        stragglers = eng.drain(deadline_ms=deadline_ms)  # counts drained
+        err = ServeEngineDead(
+            "ServingEngine %s: drained for restart with no live replica "
+            "to migrate to" % eng.name)
+        for req in stragglers:
+            if req.done:
+                continue
+            try:
+                if self._migrate(req, exclude=eng):
+                    continue
+                # no journal (or no paged survivor): a straggler with no
+                # generated tokens needs no replay, so it redispatches
+                # losslessly; only in-flight progress fails typed
+                if not req.tokens and self._redispatch(req, exclude=eng):
+                    continue
+                req._finish(error=err)
+            except Exception:  # noqa: BLE001
+                req._finish(error=err)
+        fresh = None
+        if respawn and not self._stopped:
+            try:
+                fresh = eng.respawn()
+                self._wire(fresh)
+                fresh.warmup()
+            except Exception as ex:  # noqa: BLE001
+                # do not leave the fleet a replica short: mark the drained
+                # engine dead so the monitor's respawn retries it
+                eng._dead = "drain respawn failed: %s" % str(ex)[:300]
+                telemetry.record_event("serve_respawn_failed",
+                                       replica=eng.name,
+                                       error=str(ex)[:200])
+                fresh = None
+            if fresh is not None:
+                with self._lock:
+                    try:
+                        self.engines[self.engines.index(eng)] = fresh
+                    except ValueError:  # raced with a concurrent swap
+                        fresh.stop()
+                        fresh = None
+                if fresh is not None and self._monitor is not None \
+                        and self._monitor.is_alive():
+                    fresh.start()
+        return fresh
+
+    def _migrate_sessions(self, *args, **kw):
+        raise MXNetError("ReplicaRouter: %s are not ported yet" % _SESSIONS)
+
+    def _next_name(self):
+        """A fresh replicaN name (the caller holds ``_lock``)."""
+        names = {e.name for e in self.engines}
+        idx = len(self.engines)
+        while "replica%d" % idx in names:
+            idx += 1
+        return "replica%d" % idx
+
+    def add_replica(self, role=None, name=None, template=None):
+        """Grow the fleet by one replica templated off a live one (the
+        parameters shared), warmed and started.  Returns it."""
+        if role is not None:
+            raise MXNetError("ReplicaRouter.add_replica: %s is not ported "
+                             "yet" % _DISAGG)
+        if self._stopped:
+            raise MXNetError("ReplicaRouter: router stopped")
+        with self._lock:
+            if template is None:
+                template = next((e for e in self.engines if e._dead is None
+                                 and not e._stopped.is_set()
+                                 and not e._draining), None)
+            if template is None:
+                raise MXNetError("ReplicaRouter: no live replica to "
+                                 "template a scale-up from")
+            if name is None:
+                name = self._next_name()
+        fresh = template.respawn(name=name)
+        self._wire(fresh)
+        fresh.warmup()
+        with self._lock:
+            self.engines.append(fresh)
+            fleet = len(self.engines)
+        fresh.start()
+        telemetry.set_gauge("serve.replicas", fleet)
+        return fresh
+
+    def remove_replica(self, replica=None, deadline_ms=None, role=None):
+        """Shrink the fleet by one replica: `drain` it (its stragglers
+        migrate), then drop it.  With no ``replica`` the least-loaded
+        live one goes.  Refuses to remove the last replica.  Returns the
+        removed engine's name."""
+        if role is not None:
+            raise MXNetError("ReplicaRouter.remove_replica: %s is not "
+                             "ported yet" % _DISAGG)
+        with self._lock:
+            engines = list(self.engines)
+        if replica is None:
+            pool = [e for e in engines if e._dead is None
+                    and not e._stopped.is_set() and not e._draining]
+            if not pool:
+                raise MXNetError("ReplicaRouter: no removable replica")
+            eng = min(pool, key=lambda e: e.depth())
+        else:
+            eng = self._resolve_engine(replica)
+        with self._lock:
+            if not [e for e in self.engines if e is not eng]:
+                raise MXNetError(
+                    "ReplicaRouter: refusing to remove %s: it is the last "
+                    "replica" % eng.name)
+        self.drain(eng, deadline_ms=deadline_ms, respawn=False)
+        with self._lock:
+            try:
+                self.engines.remove(eng)
+            except ValueError:
+                pass   # raced with a concurrent removal
+            fleet = len(self.engines)
+        telemetry.set_gauge("serve.replicas", fleet)
+        return eng.name
+
+    def start(self):
+        """Start every replica's scheduler and the health monitor."""
+        self._stopped = False
+        with self._lock:
+            engines = list(self.engines)
+        for e in engines:
+            e.start()
+        if self._monitor is None or not self._monitor.is_alive():
+            self._mon_stop.clear()
+            self._monitor = threading.Thread(
+                target=self._monitor_loop, name="serve-router-monitor",
+                daemon=True)
+            self._monitor.start()
+        return self
+
+    def stop(self):
+        """Refuse new submits, stop the monitor (so no respawn races the
+        stop), then stop every engine, raising after all are stopped if
+        any failed to."""
+        self._stopped = True
+        self._mon_stop.set()
+        m = self._monitor
+        if m is not None:
+            m.join(timeout=10)
+            self._monitor = None
+        errs = []
+        with self._lock:
+            engines = list(self.engines)
+        for e in engines:
+            try:
+                e.stop()
+            except MXNetError as err:
+                errs.append(str(err))
+        if errs:
+            raise MXNetError(
+                "ReplicaRouter: %d engine(s) failed to stop: %s"
+                % (len(errs), "; ".join(errs)))
+
+    def run_until_idle(self, timeout=None):
+        """Drive every replica until it is idle (on this thread where no
+        scheduler thread owns it); ``timeout`` bounds the whole drive
+        (`ServeTimeout`)."""
+        t0 = time.perf_counter()
+        steps = []
+        with self._lock:
+            engines = list(self.engines)
+        for e in engines:
+            remaining = None if timeout is None else \
+                max(0.0, timeout - (time.perf_counter() - t0))
+            if timeout is not None and remaining <= 0 and e.depth() > 0:
+                raise ServeTimeout(
+                    "ReplicaRouter.run_until_idle: timed out after %.1fs "
+                    "with %s still holding %d request(s)"
+                    % (timeout, e.name, e.depth()))
+            steps.append(e.run_until_idle(timeout=remaining))
+        return steps
+
+    def depth(self):
+        with self._lock:
+            engines = list(self.engines)
+        return sum(e.depth() for e in engines)

@@ -8,20 +8,24 @@ death) instead of matching message strings.  The scopes:
 
 * request-scoped: `ServeOverload`, `ServeDeadlineExceeded`,
   `ServeCancelled`, `ServeTimeout` (a client-side wait, nothing wrong on
-  the server), `ServeBlocksExhausted` (at submit);
+  the server), `ServeBlocksExhausted` (at submit), `ServeQuarantined` (a
+  request that poisoned its own launch);
+* cache-scoped: `ServeCacheInvalidated` (a failed launch left the K/V
+  cache half-written: every admitted sequence lost its context, the
+  engine rebuilt the cache and went on serving its queue);
 * engine-scoped: `ServeEngineDead` (the scheduler died, or the engine
   was stopped or is draining).
 
-The quarantine, cache-invalidation and quantization errors belong to
-the failure-handling and quantization slices, which are not ported.
+The quantization error belongs to the quantization slice, which is not
+ported.
 """
 from __future__ import annotations
 
 from ..base import MXNetError
 
 __all__ = ["ServeError", "ServeTimeout", "ServeOverload",
-           "ServeDeadlineExceeded", "ServeCancelled", "ServeBlocksExhausted",
-           "ServeEngineDead"]
+           "ServeDeadlineExceeded", "ServeCancelled", "ServeQuarantined",
+           "ServeBlocksExhausted", "ServeCacheInvalidated", "ServeEngineDead"]
 
 
 class ServeError(MXNetError):
@@ -50,6 +54,12 @@ class ServeCancelled(ServeError):
     """`ServeRequest.cancel()` retired the request."""
 
 
+class ServeQuarantined(ServeError):
+    """This single request poisoned its own launch (bad shape escaping a
+    bucket, an injected launch fault) and was quarantined; the rest of
+    the batch kept decoding."""
+
+
 class ServeBlocksExhausted(ServeError):
     """The paged K/V block pool can never hold this request: its
     worst-case footprint (prompt + max_new_tokens, clipped to the cache
@@ -58,6 +68,14 @@ class ServeBlocksExhausted(ServeError):
     running one is preempted and replayed)."""
 
 
+class ServeCacheInvalidated(ServeError):
+    """A failed launch consumed the K/V cache (in the port: wrote part of
+    it in place, then raised), so every admitted sequence on the replica
+    lost its context.  The engine rebuilt the cache and kept serving its
+    queue."""
+
+
 class ServeEngineDead(ServeError):
-    """The owning scheduler died, or the engine was stopped or is
-    draining, before the request finished."""
+    """The owning scheduler died (dead device, repeated launch failures),
+    or the engine was stopped or is draining, before the request
+    finished."""

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 from collections import OrderedDict
 
+from .. import chaos
 from ..base import MXNetError
 
 __all__ = ["TRASH_BLOCK", "pool_bytes", "BlockAllocator", "PrefixCache"]
@@ -109,17 +110,21 @@ class BlockAllocator:
         return -(-int(n_tokens) // self.block_size)
 
     def can_serve(self, n):
-        """Whether the free list alone could serve ``n`` blocks now."""
+        """Whether the free list alone could serve ``n`` blocks now: after
+        a denied `alloc`, True means the denial was chaos's
+        ``block_exhaust`` draw, not exhaustion."""
         return int(n) <= len(self._free)
 
     def alloc(self, n):
         """``n`` fresh block ids at refcount 1, or None when the free list
-        cannot serve them.  Never partial.  Parked prefix blocks do not
-        count as free: the engine evicts them explicitly under
-        pressure."""
+        cannot serve them (or chaos's ``block_exhaust`` denies the
+        attempt).  Never partial.  Parked prefix blocks do not count as
+        free: the engine evicts them explicitly under pressure."""
         n = int(n)
         if n <= 0:
             return []
+        if chaos.serve_block_exhaust():
+            return None
         if n > len(self._free):
             return None
         blocks = self._free[-n:]

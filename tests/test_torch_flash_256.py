@@ -3,7 +3,8 @@
 The CUDA kernels take head_dim 256 beside 64 and 128 (each launch's grid
 twice as wide at 256, a block computing one half of the output columns);
 on a kernel route the router zero-pads 129 to 255 to 256 and counts the
-call on the route's ``padded_calls``; above 256 it raises.  Here:
+call on the route's ``padded_calls``; above 256 it pads to the next
+multiple of 128, the wide kernels' widths.  Here:
 
 * the plain versions of `flash_attention` and `flash_attention_bsd`
   (the CPU path, the reference `chip_smoke.py` holds the kernels
@@ -14,7 +15,7 @@ call on the route's ``padded_calls``; above 256 it raises.  Here:
   (`fake_kernels` of `test_torch_flash_routes.py`): the width the kernels
   are asked for (256), the padded and launch counters, and the result
   against the JAX package;
-* a head of 257 raises before any kernel.
+* a head of 257 goes to the wide kernels, padded to 384.
 
 The seeded inputs are `test_torch_flash_widths.py`'s (causal, Sq 40, Skv
 56, q_offset 16, blocks of 16 in the Pallas bodies).  Bar: float32,
@@ -110,12 +111,22 @@ def test_wide_heads_route_to_the_256_kernels(monkeypatch, fake_kernels, d,
     (tfa.flash_attention_bsd, (1, 24, 514), (2,)),
 ])
 def test_heads_wider_than_256_raise(fake_kernels, fn, shape, extra):
-    """head_dim 257 raises `MXNetError` naming 256 before any kernel; the
-    plain versions on the CPU compute it."""
-    x = torch.zeros(shape)
-    with pytest.raises(MXNetError, match="head_dim up to 256.*got 257"):
-        fn(x, x, x, *extra, causal=True)
-    assert fake_kernels == []
+    """head_dim 257 no longer raises: the kernel route zero-pads it to the
+    wide kernels' 384, counts one padded call, and gives the plain
+    versions' result (the name is the test's from when 257 was
+    refused)."""
+    rng = np.random.RandomState(257)
+    x = torch.from_numpy((0.5 * rng.randn(*shape)).astype(np.float32))
+    before = _calls()
+    got = fn(x, x, x, *extra, causal=True)
+    route = "hsd" if fn is tfa.flash_attention else "bsd_loop"
+    assert [c[:3] for c in fake_kernels] == [("fwd", route, (1, 2, 24, 384))]
+    moved = {k: n - before[k] for k, n in _calls().items() if n != before[k]}
+    assert moved == {(fn.__name__, "launches"): 1,
+                     (fn.__name__, "padded_calls"): 1}
     plain = (tfa.flash_attention_plain if fn is tfa.flash_attention
              else tfa.flash_attention_bsd_plain)
-    assert plain(x, x, x, *extra, causal=True).shape == shape
+    want = plain(x, x, x, *extra, causal=True)
+    assert got.shape == want.shape == shape
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    assert err <= REL

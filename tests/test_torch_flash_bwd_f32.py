@@ -311,13 +311,15 @@ def test_new_source_builds_for_sm90a_once_per_source_hash(fake_toolchain):
 def test_the_cuda_core_backward_is_gone():
     """No CUDA-core flash source is left to fall back to: every flash
     source builds on a tensor-core header, its kernels are the `wgmma`
-    ones (`_mma_` in bf16, `_tf32_` in float32), and each dtype's forward
-    and backward entries name such a source."""
+    ones (`_mma_` in bf16, `_tf32_` in float32; above head 256 the wide
+    sources' `_wide_` ones), and each dtype's forward and backward
+    entries, the wide ones too, name such a source."""
     csrc = Path(tfa.__file__).parents[2] / "csrc"
     sources = sorted(csrc.glob("flash_attention*.cu"))
     assert [s.stem for s in sources] == [
         "flash_attention_bwd", "flash_attention_bwd_f32",
-        "flash_attention_fwd", "flash_attention_fwd_f32"]
+        "flash_attention_fwd", "flash_attention_fwd_f32",
+        "flash_attention_wide", "flash_attention_wide_f32"]
     for src in sources:
         text = src.read_text()
         assert '#include "wgmma.cuh"' in text or '#include "tf32.cuh"' in text
@@ -325,5 +327,7 @@ def test_the_cuda_core_backward_is_gone():
                      "flash_fwd_kernel", "mxt_flash_attention_bwd(",
                      "mxt_flash_attention_fwd("):
             assert gone not in text
-    entries = list(tfa._FWD_ENTRIES.values()) + list(tfa._BWD_ENTRIES.values())
+    entries = [e for table in (tfa._FWD_ENTRIES, tfa._BWD_ENTRIES,
+                               tfa._WIDE_FWD_ENTRIES, tfa._WIDE_BWD_ENTRIES)
+               for e in table.values()]
     assert {s for s, _ in entries} == {s.stem for s in sources}

@@ -6,14 +6,14 @@ the true head_dim; 129 to 255 go to 256, `test_torch_flash_256.py`) and
 slices the result back, counting the call on the route's
 ``padded_calls``; below 32 it takes the plain versions, as the JAX
 package's `_use_pallas` sends head_dim < 32 to its jnp path, counting the
-call on ``narrow_calls``; above 256 it raises.  Here the kernel routes
-run with the kernels faked by the plain versions on the operands the
-kernels would be handed (`fake_kernels` of `test_torch_flash_routes.py`),
-so the padding, the slicing and their gradients are held against the JAX
-package: `flash_attention` and `flash_attention_bsd` (head-split) out,
-lse, dq, dk and dv against the Pallas forward and backward bodies in
-interpret mode for head_dim >= 32 and the public jnp function for 16, at
-the same seeded numpy inputs.
+call on ``narrow_calls``; above 256 it pads to the next multiple of
+128.  Here the kernel routes run with the kernels faked by the plain
+versions on the operands the kernels would be handed (`fake_kernels` of
+`test_torch_flash_routes.py`), so the padding, the slicing and their
+gradients are held against the JAX package: `flash_attention` and
+`flash_attention_bsd` (head-split) out, lse, dq, dk and dv against the
+Pallas forward and backward bodies in interpret mode for head_dim >= 32
+and the public jnp function for 16, at the same seeded numpy inputs.
 
 Tolerances, float32: 1e-5 absolute on out and lse (values of magnitude
 ~1, summed over up to 56 keys in another block order: ~1e-7) and on the
@@ -163,14 +163,24 @@ def test_kernel_widths_are_not_padded(fake_kernels, d):
 ])
 def test_heads_wider_than_128_raise_on_the_kernel_routes(fake_kernels, fn,
                                                          shape, extra):
-    """Heads wider than the widest kernel (256) raise: head_dim 320 raises
-    `MXNetError` naming the width before any kernel; the plain versions on
-    the CPU compute it.  (Widths 129 to 255 are padded to the head-256
-    kernels: `test_torch_flash_256.py`.)"""
-    x = torch.zeros(shape)
-    with pytest.raises(MXNetError, match="head_dim up to 256.*got 320"):
-        fn(x, x, x, *extra, causal=True)
-    assert fake_kernels == []
+    """Heads wider than 256 no longer raise: the kernel routes take head_dim
+    320, zero-padded to the wide kernels' 384 and counted on the route's
+    ``padded_calls``, and the result is the plain versions' (the name is
+    the test's from when 320 was refused; widths 129 to 255 are padded to
+    the head-256 kernels, `test_torch_flash_256.py`; the wide widths
+    against the JAX package, `test_torch_flash_wide.py`)."""
+    rng = np.random.RandomState(320)
+    x = torch.from_numpy((0.5 * rng.randn(*shape)).astype(np.float32))
+    before = _calls()
+    got = fn(x, x, x, *extra, causal=True)
+    heads = (1, 2, 24, 384)
+    assert [c[:3] for c in fake_kernels] == [
+        ("fwd", "hsd" if fn is tfa.flash_attention else "bsd_loop", heads)]
+    moved = {k: n - before[k] for k, n in _calls().items() if n != before[k]}
+    assert moved == {(fn.__name__, "launches"): 1,
+                     (fn.__name__, "padded_calls"): 1}
     plain = (tfa.flash_attention_plain if fn is tfa.flash_attention
              else tfa.flash_attention_bsd_plain)
-    assert plain(x, x, x, *extra, causal=True).shape == shape
+    want = plain(x, x, x, *extra, causal=True)
+    assert got.shape == want.shape == shape
+    assert float((got - want).abs().max()) <= ATOL
