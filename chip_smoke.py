@@ -274,7 +274,27 @@ Phases, each of which fails the run with a non-zero exit:
    migrated ones with the fault-free tokens, one failover, a respawn,
    the tail served, then a drain of replica0 under load with no failure;
    tokens/s of both runs, and exact LayerNorm and flash launches (2L + 1
-   LayerNorm per program, L flash per slot prefill, warmups included).
+   LayerNorm per program, L flash per slot prefill, warmups included);
+24. speculative and megastep serving: GPT-2 small in f32 on the paged
+   engine, phase 3's 16 prompts (32-768 tokens, 32 new, four of them
+   sampled at T=0.8 and top_k 40) served plain, with speculation (the
+   n-gram drafter at k=4; the model drafter self-drafting at k=4, twice,
+   bit for bit; and under ``MXNET_CHAOS=draft_junk:0.5``), with megastep
+   m=4 and m=8, and with speculation and megastep m=4 together: each
+   mode's tokens equal plain's request by request under the 1e-3 margin
+   rule, self-drafting accepts at least 0.9 of its proposals, no block
+   leaks after `drain`, and the LayerNorm launches are exactly 2L + 1 per
+   prefill chunk, decode step, verify, megastep step, draft step and
+   draft prefill chunk; tokens/s, TTFT median and p99, LayerNorm launches
+   per generated token, accept rates and peak memory of each; one
+   profiled decode step of a full batch of 8 against one megastep (m=4):
+   wall, device busy and idle share; then `stream()` and ``on_token`` on
+   4 requests of a megastep engine on its own thread, and two megastep
+   replicas under `ReplicaRouter` with ``engine_crash:3:replica0`` and
+   every request streamed: each stream equal to its ``on_token`` calls
+   and to ``result()``, no token delivered twice across the failover,
+   the tokens plain's under the margin rule, exact launches (the dead
+   replica's megastep in flight at the crash included).
 
 It prints each phase's seconds, a ``kernels`` JSON line (launches,
 errors, times, bounds; the float32 flash forward's and backward's routes
@@ -290,6 +310,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import gc
 import json
 import math
 import os
@@ -297,6 +318,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -5658,6 +5680,396 @@ def serving_faults_phase():
     return out
 
 
+# -- phase 24: speculative and megastep serving -------------------------------
+
+SPEC_K = 4
+CARD = None
+
+
+def card_name():
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them, queried once."""
+    global CARD
+    if CARD is None:
+        CARD = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip()
+    return CARD
+
+
+def spec_traffic(vocab):
+    """Phase 3's 16 prompts (the same draws: 32-768 tokens), 32 new
+    tokens each, greedy but for four sampled at T=0.8, top_k 40."""
+    rng = np.random.RandomState(0)
+    lens = rng.randint(32, 769, size=16)
+    out = []
+    for i, n in enumerate(lens):
+        prompt = rng.randint(0, vocab, size=int(n)).tolist()
+        kw = dict(max_new_tokens=32, seed=i)
+        if i % 4 == 1:
+            kw.update(temperature=0.8, top_k=40)
+        out.append((prompt, kw))
+    return out
+
+
+def draft_counts(engine):
+    """A model drafter's (steps, prefill chunks) so far; (0, 0) for none."""
+    d = engine._drafter
+    return (getattr(d, "steps", 0), getattr(d, "prefill_chunks", 0))
+
+
+def programs_run(engine, drafted=(0, 0)):
+    """The programs ``engine`` ran, each 2L + 1 LayerNorm launches: its
+    prefill chunks, decode steps, verifies and megastep steps, and its
+    drafter's steps and prefill chunks since ``drafted``."""
+    st = engine.stats
+    steps, chunks = draft_counts(engine)
+    return (st["prefill_chunks"] + st["decode_steps"] + st["verify_steps"]
+            + st["megasteps"] * engine._mega_m + steps - drafted[0]
+            + chunks - drafted[1])
+
+
+def accept_rate(stats):
+    return stats["spec_accepted"] / stats["spec_proposed"] \
+        if stats["spec_proposed"] else None
+
+
+def serve_mode(label, model, params, requests, kw, fault=None):
+    """One engine of ``kw`` serving ``requests`` to the end (counts set to
+    0 after its warmup) under ``MXNET_CHAOS=fault``, then drained: its
+    requests and numbers, with the LayerNorm launches held to
+    `programs_run`'s count."""
+    engine = ServingEngine(model, params, max_batch=8, **kw)
+    t0 = time.perf_counter()
+    warm = engine.warmup()
+    warm_s = time.perf_counter() - t0
+    drafted = draft_counts(engine)
+    with pinned(**({"MXNET_CHAOS": fault} if fault else {})):
+        mx.chaos.reset()
+        reqs, res = serve(engine, requests)
+    mx.chaos.reset()
+    stragglers = engine.drain()
+    st = res["stats"] = dict(engine.stats)
+    res.update(
+        label=label, warmup=warm, warmup_s=warm_s,
+        leaked_blocks=engine.leaked_blocks(),
+        expected_layer_norm=(2 * model.num_layers + 1)
+        * programs_run(engine, drafted),
+        layer_norm_per_token=res["launches"]["layer_norm"]
+        / res["generated_tokens"],
+        accept_rate=accept_rate(st), chaos=fault)
+    log("%s (%s): %d tokens in %.3f s = %.1f tok/s, ttft median %.1f ms p99 "
+        "%.1f ms, LayerNorm launches %d (expected %d) = %.2f a generated "
+        "token, accept rate %s (%d of %d; %d verifies, %d junk rounds), "
+        "%d decode steps, %d megasteps (%d tokens, %d retired on the "
+        "card), host_frac %s, max_memory_allocated %d B, leaked blocks %d"
+        % (label, card_name(), res["generated_tokens"], res["wall_s"],
+           res["tokens_per_s"], res["ttft_ms_median"], res["ttft_ms_p99"],
+           res["launches"]["layer_norm"], res["expected_layer_norm"],
+           res["layer_norm_per_token"],
+           "none" if res["accept_rate"] is None
+           else "%.4f" % res["accept_rate"], st["spec_accepted"],
+           st["spec_proposed"], st["verify_steps"], st["spec_junk_rounds"],
+           st["decode_steps"], st["megasteps"], st["megastep_tokens"],
+           st["ingraph_retired"],
+           "%.4f" % (st["host_s"] / st["wall_s"]) if st["wall_s"] else None,
+           res["max_memory_allocated"], res["leaked_blocks"]))
+    others = {k: n for k, n in res["launches"].items()
+              if k != "layer_norm" and n}
+    if stragglers or res["leaked_blocks"] or others or \
+            res["launches"]["layer_norm"] != res["expected_layer_norm"]:
+        raise SystemExit("%s: stragglers %d, leaked %d, LayerNorm %d "
+                         "(expected %d), other launches %s"
+                         % (label, len(stragglers), res["leaked_blocks"],
+                            res["launches"]["layer_norm"],
+                            res["expected_layer_norm"], others))
+    del engine
+    gc.collect()   # a drafter and its engine point at each other
+    torch.cuda.empty_cache()
+    return reqs, res
+
+
+def step_profile(model, params, label, kw):
+    """Scheduler steps of a full batch of 8 (64-token prompts): three
+    timed on the host clock (ms a generated token), then one under the
+    profiler (wall, device busy, idle share, tokens, device ops)."""
+    engine = ServingEngine(model, params, max_batch=8, **kw)
+    engine.warmup()
+    rng = np.random.RandomState(2)
+    for _ in range(8):
+        engine.submit(rng.randint(0, model.vocab_size, size=64).tolist(),
+                      max_new_tokens=40)
+    for _ in range(3):
+        engine.step()
+    if len(engine._active) != 8:
+        raise SystemExit("%s: the profiled batch did not fill" % label)
+    torch.cuda.synchronize()
+    tokens = engine.stats["tokens"]
+    t0 = time.perf_counter()
+    for _ in range(3):
+        engine.step()
+    torch.cuda.synchronize()
+    timed_ms = 1e3 * (time.perf_counter() - t0) / (engine.stats["tokens"]
+                                                    - tokens)
+    tokens = engine.stats["tokens"]
+    wall, busy, device, _ = profiled(engine.step)
+    tokens = engine.stats["tokens"] - tokens
+    engine.run_until_idle(timeout=120)
+    res = {"ms_per_token": timed_ms,
+           "wall_ms": 1e3 * wall, "device_busy_ms": 1e3 * busy,
+           "device_idle_share": 1 - busy / wall if busy else None,
+           "tokens": tokens, "device_ops": sum(n for _, n, _ in device),
+           "wall_ms_per_token": 1e3 * wall / tokens,
+           "top_device_ops_ms": device[:6]}
+    log("steps, %s (%s): %.3f ms a generated token over 3 steps; one "
+        "profiled: %.3f ms wall, device busy %.3f ms (idle share %s), %d "
+        "tokens (%.3f ms a token), %d device ops; top device ops (name, "
+        "count, ms): %s"
+        % (label, card_name(), timed_ms, res["wall_ms"], res["device_busy_ms"],
+           "not measured" if res["device_idle_share"] is None
+           else "%.3f" % res["device_idle_share"], tokens,
+           res["wall_ms_per_token"], res["device_ops"], device[:6]))
+    del engine
+    gc.collect()   # a drafter and its engine point at each other
+    torch.cuda.empty_cache()
+    return res
+
+
+def sync_free_check(model, params):
+    """A megastep (m=4) and a self-draft round (k=4) over 8 sampled rows
+    enqueue under ``torch.cuda.set_sync_debug_mode("error")``: no host
+    sync between their steps (the one fetch comes after)."""
+    engine = ServingEngine(model, params, max_batch=8, spec=True,
+                           spec_drafter="model", spec_k=SPEC_K,
+                           megastep=True, megastep_steps=4)
+    engine.warmup()
+    token, pos, tables = engine._decode_inputs(8, [], [])
+    left = engine._put(np.full((8,), 4, np.int64))
+    eos = engine._put(np.full((8,), -1, np.int64))
+    reqs = [mx.serving.ServeRequest([1], 4, temperature=0.8, top_k=40,
+                                    seed=i) for i in range(8)]
+    samp = engine._samp_device(reqs, 8)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grid = engine._megastep(token, pos, left, eos, tables, samp)
+        drafts = engine._drafter._draft(token, pos, tables, samp)
+        host, done = engine._to_host(grid)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    grid = engine._fetch(host, done)
+    drafts = drafts.cpu().numpy()
+    ok = grid.shape == (8, 4) and drafts.shape == (8, SPEC_K) and \
+        (grid >= 0).all() and (drafts >= 0).all()
+    log("no host sync (%s): a megastep m=4 and a draft round k=4 over 8 "
+        "sampled rows enqueued under set_sync_debug_mode('error'); grid "
+        "%s, drafts %s" % (card_name(), grid.shape, drafts.shape))
+    if not ok:
+        raise SystemExit("the sync-free megastep or draft gave %s, %s"
+                         % (grid, drafts))
+    del engine
+    gc.collect()   # a drafter and its engine point at each other
+    torch.cuda.empty_cache()
+    return True
+
+
+def consume(reqs):
+    """Start a thread per request that collects its `stream()`."""
+    got = [[] for _ in reqs]
+
+    def run(r, out):
+        for t in r.stream(timeout=300):
+            out.append(t)
+    threads = [threading.Thread(target=run, args=(r, g), daemon=True)
+               for r, g in zip(reqs, got)]
+    for t in threads:
+        t.start()
+    return threads, got
+
+
+def check_streams(label, reqs, streamed, seen):
+    """Each request's stream equals its ``on_token`` calls and its
+    ``result()``: every token once, in order."""
+    for r, a, b in zip(reqs, streamed, seen):
+        if not (a == b == r.result(timeout=1)):
+            raise SystemExit("%s: request %d streamed %d, on_token %d, "
+                             "result %d tokens" % (label, r.id, len(a),
+                                                   len(b), len(r.tokens)))
+
+
+def stream_path(model, params, requests):
+    """Four requests on a megastep engine's own thread, each streamed
+    and called back."""
+    engine = ServingEngine(model, params, max_batch=8, megastep=True,
+                           megastep_steps=4)
+    engine.warmup()
+    engine.start()
+    seen = [[] for _ in range(4)]
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, on_token=seen[i].append, **kw)
+            for i, (p, kw) in enumerate(requests[:4])]
+    threads, streamed = consume(reqs)
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    if engine.drain():
+        raise SystemExit("stream: drain left stragglers")
+    check_streams("stream", reqs, streamed, seen)
+    res = {"requests": 4, "tokens": sum(len(s) for s in streamed),
+           "wall_s": wall, "leaked_blocks": engine.leaked_blocks()}
+    log("stream (%s): 4 requests on the engine's thread, %d tokens "
+        "streamed in %.3f s, each equal to its on_token calls and result(); "
+        "leaked blocks %d" % (card_name(), res["tokens"], wall,
+                              res["leaked_blocks"]))
+    if res["leaked_blocks"]:
+        raise SystemExit("stream: leaked blocks")
+    return reqs, res
+
+
+def stream_failover_path(model, params, requests):
+    """Two megastep replicas (m=4) under `ReplicaRouter`, every request
+    submitted through it with ``on_token`` and streamed, replica0 killed
+    at its 3rd decode-bearing step with a megastep in flight."""
+    fleet = [ServingEngine(model, params, max_batch=8, megastep=True,
+                           megastep_steps=4, name="replica%d" % i)
+             for i in range(2)]
+    for e in fleet:
+        e.warmup()
+    router = ReplicaRouter(fleet, respawn=False)
+    mx.telemetry.reset()
+    seen = [[] for _ in requests]
+    with pinned(MXNET_CHAOS="engine_crash:3:replica0"):
+        mx.chaos.reset()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        router.start()
+        try:
+            reqs = [router.submit(p, on_token=seen[i].append, **kw)
+                    for i, (p, kw) in enumerate(requests)]
+            threads, streamed = consume(reqs)
+            for t in threads:
+                t.join(timeout=300)
+            wall = time.perf_counter() - t0
+        finally:
+            router.stop()
+        torch.cuda.synchronize()
+    mx.chaos.reset()
+    launches = read_counts()
+    counters = {k: v for k, v in mx.telemetry.registry()._counters.items()
+                if k.startswith("serve.") and ".replica" not in k}
+    failed = [type(r.error).__name__ for r in reqs if r.error is not None]
+    if failed or not fleet[0]._dead:
+        raise SystemExit("stream failover: failed %s, replica0 dead %s"
+                         % (failed, fleet[0]._dead))
+    check_streams("stream failover", reqs, streamed, seen)
+    # the dead replica's last megastep launched and was never fetched
+    programs = sum(programs_run(e) for e in fleet) + fleet[0]._mega_m
+    expected = (2 * model.num_layers + 1) * programs
+    res = {"requests": len(reqs), "tokens": sum(len(s) for s in streamed),
+           "wall_s": wall, "counters": counters, "launches": launches,
+           "expected_layer_norm": expected,
+           "leaked_blocks": fleet[1].leaked_blocks()}
+    res["tokens_per_s"] = res["tokens"] / wall
+    log("stream failover (%s): %d requests through ReplicaRouter, replica0 "
+        "killed mid-megastep; %d tokens streamed in %.3f s = %.1f tok/s, "
+        "each stream equal to its on_token calls and result(); counters "
+        "%s; LayerNorm launches %d (expected %d); leaked blocks %d"
+        % (card_name(), len(reqs), res["tokens"], wall, res["tokens_per_s"],
+           counters, launches["layer_norm"], expected,
+           res["leaked_blocks"]))
+    if counters.get("serve.failovers") != 1 or \
+            counters.get("serve.migrated", 0) < 1 or \
+            launches["layer_norm"] != expected or res["leaked_blocks"]:
+        raise SystemExit("stream failover: counters %s, LayerNorm %d "
+                         "(expected %d), leaked %d"
+                         % (counters, launches["layer_norm"], expected,
+                            res["leaked_blocks"]))
+    return reqs, res
+
+
+SPEC_MODES = [
+    ("plain", {}, None),
+    ("spec ngram k=4", dict(spec=True, spec_drafter="ngram",
+                            spec_k=SPEC_K), None),
+    ("spec model k=4", dict(spec=True, spec_drafter="model",
+                            spec_k=SPEC_K), None),
+    ("spec model k=4, again", dict(spec=True, spec_drafter="model",
+                                   spec_k=SPEC_K), None),
+    ("spec model k=4, draft_junk:0.5", dict(spec=True, spec_drafter="model",
+                                            spec_k=SPEC_K), "draft_junk:0.5"),
+    ("megastep m=4", dict(megastep=True, megastep_steps=4), None),
+    ("megastep m=8", dict(megastep=True, megastep_steps=8), None),
+    ("spec ngram k=4 + megastep m=4", dict(
+        spec=True, spec_drafter="ngram", spec_k=SPEC_K, megastep=True,
+        megastep_steps=4), None),
+]
+
+
+def spec_megastep_phase():
+    """Phase 24 on GPT-2 small in float32."""
+    model = TransformerKVModel(**GPT2)
+    params = model.params_from_jax(
+        model.init_params(np.random.RandomState(0)), "cuda")
+    requests = spec_traffic(model.vocab_size)
+    runs, out = {}, {"card": card_name()}
+    for label, kw, fault in SPEC_MODES:
+        runs[label], out[label] = serve_mode(label, model, params, requests,
+                                             kw, fault)
+    plain = runs["plain"]
+    for label, _, _ in SPEC_MODES[1:]:
+        out[label]["parted"] = same_tokens(label + " vs plain", model,
+                                           params, requests, plain,
+                                           runs[label])
+    a, b = (runs["spec model k=4"], runs["spec model k=4, again"])
+    again = [out[k]["stats"] for k in ("spec model k=4",
+                                       "spec model k=4, again")]
+    keys = ("spec_accepted", "spec_proposed", "verify_steps")
+    identical = [x.tokens for x in a] == [y.tokens for y in b] and \
+        all(again[0][k] == again[1][k] for k in keys)
+    rates = {k: out[k]["accept_rate"] for k in (
+        "spec ngram k=4", "spec model k=4",
+        "spec model k=4, draft_junk:0.5", "spec ngram k=4 + megastep m=4")}
+    log("accept rates (%s): %s; self-draft bit for bit across two runs: %s"
+        % (card_name(), rates, identical))
+    if not identical:
+        raise SystemExit("the model drafter differs between two runs")
+    if not rates["spec model k=4"] >= 0.9:
+        raise SystemExit("self-drafting accepts %.4f < 0.9 of its proposals"
+                         % rates["spec model k=4"])
+    if not out["spec model k=4, draft_junk:0.5"]["stats"][
+            "spec_junk_rounds"]:
+        raise SystemExit("draft_junk:0.5 corrupted no round")
+    if not out["spec ngram k=4 + megastep m=4"]["stats"]["megasteps"]:
+        raise SystemExit("speculation with megastep ran no megastep")
+    out["accept_rates"] = rates
+    out["self_draft_identical"] = identical
+    out["sync_free"] = sync_free_check(model, params)
+    out["profile"] = {
+        "plain decode step": step_profile(model, params, "plain decode", {}),
+        "megastep m=4": step_profile(model, params, "megastep m=4",
+                                     dict(megastep=True, megastep_steps=4))}
+    sreqs, out["stream"] = stream_path(model, params, requests)
+    out["stream"]["parted"] = same_tokens(
+        "stream vs plain", model, params, requests[:4], plain[:4], sreqs)
+    freqs, out["stream_failover"] = stream_failover_path(model, params,
+                                                         requests)
+    out["stream_failover"]["parted"] = same_tokens(
+        "stream failover vs plain", model, params, requests, plain, freqs)
+    launches = {}
+    for label, _, _ in SPEC_MODES:
+        for k, n in out[label]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    for k, n in out["stream_failover"]["launches"].items():
+        launches[k] += n
+    out["launches"] = launches
+    del params
+    gc.collect()   # the router and its engines point at each other
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernels_line(cases, paths, f32_paths, wide_paths):
     """One entry per ported TPU function: launches on each path, and the
     error and times of its check at the training shape, in bf16; then one
@@ -5771,10 +6183,7 @@ def main():
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+    card = card_name()
     log("card: %s" % card)
     log("python %s, torch %s, CUDA %s, devices %d"
         % (sys.version.split()[0], torch.__version__, torch.version.cuda,
@@ -5956,6 +6365,9 @@ def main():
         cases += wide_kernel_checks()
         wide = wide_paths()
         faults = dict(faults, serving=serving_faults_phase())
+
+    with phase("speculative and megastep serving"):
+        spec = spec_megastep_phase()
     crash = faults["serving"]["failover"]["engine_crash"]
     # the LM's LayerNorm launches join the LayerNorm rows; its float32
     # flash launches the float32 flash rows
@@ -5986,7 +6398,10 @@ def main():
         "train_wide_bhsd": wide["bhsd"]["launches"],
         "serving_failover_f32": {
             k: (n if k.startswith("layer_norm") else 0)
-            for k, n in crash["launches"].items()}}, {
+            for k, n in crash["launches"].items()},
+        "serving_spec_megastep_f32": {
+            k: (n if k.startswith("layer_norm") else 0)
+            for k, n in spec["launches"].items()}}, {
         "slot": slot["launches"],
         "train_bhsd_f32": hsd32["launches"],
         "train_fused_f32": fused32["launches"],
@@ -6004,7 +6419,8 @@ def main():
         "gradients_head256": head256["gradients"]["launches"],
         "slot_head256_f32": head256["serving"]["launches"],
         "gradients_wide": wide["gradients"]["launches"],
-        "serving_failover_f32": crash["launches"]}, {
+        "serving_failover_f32": crash["launches"],
+        "serving_spec_megastep_f32": spec["launches"]}, {
         torch.bfloat16: {"train_wide_bhsd": wide["bhsd"]["launches"]},
         torch.float32: {"gradients_wide": wide["gradients"]["launches"]}})
     idle = [e["name"] for e in kernels if not e["launches"]]
@@ -6037,7 +6453,7 @@ def main():
          "bucketing": bucketing, "fault_tolerance": faults,
          "image_records": records, "head256": head256,
          "remat": remat_runs, "memcost": memcost, "wide": wide,
-         "kernels": kernels},
+         "spec_megastep": spec, "kernels": kernels},
         indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

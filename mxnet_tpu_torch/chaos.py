@@ -24,6 +24,10 @@ random state, and the hooks of the sites the port has::
                           is denied as if the pool were empty
     prefix_evict:P        with probability P a serving step evicts the
                           LRU parked prefix-cache block
+    draft_junk:P          with probability P a speculative-decoding
+                          round's draft proposals are corrupted, the
+                          same way each time, before the verify: the
+                          tokens must not change, only the accept rate
 
 `optimizer.Optimizer.update_multi` calls `grad_poison` once a call, so
 ``nan_grad:N`` drives the nonfinite-gradient guard
@@ -32,14 +36,14 @@ random state, and the hooks of the sites the port has::
 sites.
 
 The other clauses of the grammar (``rpc_drop``, ``rpc_delay``,
-``server_crash``, and the serving and gateway clauses ``draft_junk``,
-``spill_fail``, ``handoff_fail``, ``restore_slow``, ``scale_corrupt``,
+``server_crash``, and the serving and gateway clauses ``spill_fail``,
+``handoff_fail``, ``restore_slow``, ``scale_corrupt``,
 ``client_disconnect``, ``slow_consumer``, ``conn_flood``) are parsed as
 the JAX package parses them, and then refused with `MXNetError` naming
-the clause: their sites (the parameter server, speculative decoding, the
-host tier, disaggregated serving, quantization, the gateway) are not in
-the port, and a spec the port would ignore in part would inject fewer
-faults than it says.
+the clause: their sites (the parameter server, the host tier,
+disaggregated serving, quantization, the gateway) are not in the port,
+and a spec the port would ignore in part would inject fewer faults than
+it says.
 
 Draws come from a ``numpy.random.RandomState`` seeded with
 ``MXNET_CHAOS_SEED`` (default 0) mixed with the process role and rank
@@ -64,12 +68,12 @@ from .base import MXNetError
 __all__ = ["ChaosError", "ChaosEngineCrash", "enabled", "spec", "reset",
            "grad_poison", "serve_decode_slow", "serve_engine_crash",
            "serve_launch_error", "serve_queue_flood", "serve_block_exhaust",
-           "serve_prefix_evict"]
+           "serve_prefix_evict", "serve_draft_junk"]
 
 # clauses whose injection site the port has
 _PORTED = frozenset(("nan_grad", "decode_slow", "engine_crash",
                      "launch_error", "queue_flood", "block_exhaust",
-                     "prefix_evict"))
+                     "prefix_evict", "draft_junk"))
 
 
 class ChaosError(OSError):
@@ -318,6 +322,19 @@ def serve_prefix_evict():
     with s.lock:
         return bool(s.rng_for("prefix_evict").random_sample()
                     < s.prefix_evict)
+
+
+def serve_draft_junk():
+    """True when the current speculative-decoding round's proposals
+    should be corrupted (`draft_junk:P`): the verify accepts only tokens
+    the target itself picks, so the output stays, at a lower accept
+    rate."""
+    s = spec()
+    if s is None or s.draft_junk <= 0:
+        return False
+    with s.lock:
+        return bool(s.rng_for("draft_junk").random_sample()
+                    < s.draft_junk)
 
 
 def serve_queue_flood():

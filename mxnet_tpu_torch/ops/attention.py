@@ -7,8 +7,10 @@ Ports of `mxnet_tpu/ops/attention.py`:
   on (B, S, E) ones), and the `LayerNorm` op over the LayerNorm kernels;
   both differentiate through the kernels' backward passes;
 * the serving helpers `decode_attention`, `gather_paged_kv`,
-  `paged_decode_attention` and `chunk_attention`.  The JAX package wrote
-  no Pallas kernel for these (XLA fuses them), so they stay torch ops.
+  `paged_decode_attention`, `chunk_attention` and speculative decoding's
+  `verify_attention`, and the `DecodeAttention` op over
+  `decode_attention`.  The JAX package wrote no Pallas kernel for these
+  (XLA fuses them), so they stay torch ops.
 
 The ops call the kernel functions through this module's globals, so a
 caller can swap in their plain versions (`chip_smoke.py` does, for its
@@ -28,7 +30,7 @@ from .pallas_kernels.layer_norm import layer_norm
 from .registry import OpDef, Param, register
 
 __all__ = ["decode_attention", "gather_paged_kv", "paged_decode_attention",
-           "chunk_attention"]
+           "chunk_attention", "verify_attention"]
 
 
 class DotProductAttention(OpDef):
@@ -221,3 +223,89 @@ def chunk_attention(q, k_cache, v_cache, start, num_heads, *, scale=None):
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhcs,bshd->bchd", p, vh)
     return out.reshape(b, c, e).to(q.dtype)
+
+
+def verify_attention(q, k_cache, v_cache, start, length, num_heads, *,
+                     scale=None):
+    """Length-masked multi-query attention, speculative decoding's verify:
+    a c-token chunk at absolute positions start .. start+c-1 attends to
+    the cached prefix and, causally, to itself, but only the first
+    ``length[b]`` chunk tokens of a row are real.  Chunk keys past them
+    are masked for every query; a query's own position stays visible, so
+    a query past ``length`` keeps a finite softmax (its output is never
+    used).  ``length == c`` is `chunk_attention`.
+
+    q: (b, c, e); k_cache/v_cache: (b, S, e) with the chunk's rows already
+    written; start, length: (b,) int, 1 <= length <= c.  Returns (b, c, e)
+    in q's dtype."""
+    b, c, e = q.shape
+    s = k_cache.shape[1]
+    hd = _head_dim(e, num_heads, "verify_attention")
+    if scale is None:
+        scale = 1.0 / float(hd) ** 0.5
+    qh = q.reshape(b, c, num_heads, hd).float()
+    kh = k_cache.reshape(b, s, num_heads, hd).float()
+    start = start.long()
+    cols = torch.arange(s, device=q.device)
+    written = cols[None, :] < (start + c)[:, None]           # (b, s)
+    vh = torch.where(written[:, :, None, None],
+                     v_cache.reshape(b, s, num_heads, hd).float(), 0.0)
+    scores = torch.einsum("bchd,bshd->bhcs", qh, kh) * scale
+    qpos = start[:, None] + torch.arange(c, device=q.device)[None, :]
+    j = cols[None, None, :]
+    causal = j <= qpos[:, :, None]                           # (b, c, s)
+    real = (j < (start + length.long())[:, None, None]) | \
+        (j == qpos[:, :, None])
+    scores = torch.where((causal & real)[:, None], scores, float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhcs,bshd->bchd", p, vh)
+    return out.reshape(b, c, e).to(q.dtype)
+
+
+class DecodeAttention(OpDef):
+    """`decode_attention` as an op of the registry, so a KV-cache decode
+    graph can be written as a symbol: query (batch, embed), key and value
+    caches (batch, S_max, embed), pos (batch,)."""
+
+    name = "DecodeAttention"
+    params = {
+        "num_heads": Param(int, required=True),
+        "scale": Param(float, default=None),
+    }
+
+    def list_arguments(self, params):
+        return ["query", "key_cache", "value_cache", "pos"]
+
+    def infer_shape(self, params, in_shapes):
+        q, kc, vc, pos = in_shapes
+        if kc is None and vc is not None:
+            kc = vc
+        if vc is None and kc is not None:
+            vc = kc
+        for name, shp, rank in (("query", q, 2), ("key_cache", kc, 3),
+                                ("value_cache", vc, 3), ("pos", pos, 1)):
+            if shp is not None and len(shp) != rank:
+                raise MXNetError(
+                    "DecodeAttention: %s must be rank %d, got %s"
+                    % (name, rank, shp))
+        if kc is not None and vc is not None and kc != vc:
+            raise MXNetError(
+                "DecodeAttention: key_cache %s and value_cache %s must "
+                "match" % (kc, vc))
+        if q is not None and kc is not None and (
+                q[0] != kc[0] or q[-1] != kc[-1]):
+            raise MXNetError(
+                "DecodeAttention: query %s and key_cache %s must agree on "
+                "(batch, embed)" % (q, kc))
+        out = tuple(q) if q is not None else None
+        if q is not None and pos is None:
+            pos = (q[0],)
+        return [q, kc, vc, pos], [out], []
+
+    def apply(self, octx, params, inputs, aux):
+        q, kc, vc, pos = inputs
+        return [decode_attention(q, kc, vc, pos.long(), params["num_heads"],
+                                 scale=params["scale"])], []
+
+
+register(DecodeAttention)

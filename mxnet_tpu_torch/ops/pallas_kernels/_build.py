@@ -33,8 +33,8 @@ import torch
 
 from ...base import MXNetError
 
-__all__ = ["KERNELS", "build", "build_log", "load", "check",
-           "check_current_device"]
+__all__ = ["KERNELS", "KernelBuildError", "build", "build_log", "load",
+           "check", "check_current_device"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -50,11 +50,17 @@ _lock = threading.Lock()
 _libs = {}
 
 
+class KernelBuildError(MXNetError):
+    """A kernel source did not build (or nvcc is missing): never a
+    launch fault that a caller may absorb."""
+
+
 def _nvcc():
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise MXNetError("nvcc not found: the port's CUDA kernels build at "
-                         "first use and need the CUDA toolkit")
+        raise KernelBuildError("nvcc not found: the port's CUDA kernels "
+                               "build at first use and need the CUDA "
+                               "toolkit")
     return path
 
 
@@ -100,8 +106,8 @@ def build(names=KERNELS):
             failed.append(name)
     if failed:
         tails = ["%s:\n%s" % (n, build_log(n)[-3000:]) for n in failed]
-        raise MXNetError("nvcc failed for %s\n%s" % (failed,
-                                                     "\n".join(tails)))
+        raise KernelBuildError("nvcc failed for %s\n%s"
+                               % (failed, "\n".join(tails)))
     return took
 
 

@@ -111,10 +111,12 @@ def uniform_from_bits(bits, minval, maxval):
     midpoint (none in 4M draws of the tests)."""
     floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     floats = floats - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
-    scaled = floats.double() * (hi - lo).double() + lo.double()
-    return torch.maximum(scaled.float(), lo)
+    # lo and hi - lo in float32, as Python floats (exact): no tensor made
+    # from a host value, so no copy to the card and no sync
+    lo = np.float32(minval)
+    span = float(np.float32(maxval) - lo)
+    scaled = floats.double() * span + float(lo)
+    return scaled.float().clamp_min(float(lo))
 
 
 def _mul32(a, b):

@@ -14,7 +14,11 @@ same cache layouts, the same programs.
   tables, with `chunk_attention` / `paged_decode_attention`;
 * ``copy_block`` copies one block of the pool to another, the prefix
   cache's copy-on-write (plain indexing, as the JAX one is a gather and
-  a scatter outside any Pallas kernel).
+  a scatter outside any Pallas kernel);
+* ``verify_paged`` scores a speculative draft run, k+1 tokens a row at
+  arbitrary positions, over the paged pool with `verify_attention`;
+* ``decode_megastep`` runs m steps of ``decode_paged`` with per-row
+  active masks, so a row that finishes mid-run retires on the device.
 
 The token embedding is the JAX model's ``jnp.take``
 (`ops.indexing.take_rows`): a token outside [-V, V) embeds as a NaN row,
@@ -31,8 +35,8 @@ two has left the cache half-written, and `cache_lost` reads the mark (the
 JAX `cache_lost` asks whether a failed launch consumed the donated
 buffer).  Parameters are a ``{name: tensor}``
 dict; `params_from_jax` carries a JAX parameter dict (numpy arrays)
-across with a check of every name and shape.  The quantized, MoE,
-megastep, verify and sharding methods wait for a later slice.
+across with a check of every name and shape.  The quantized, MoE and
+sharding methods wait for a later slice (``moe_tape`` is refused).
 """
 from __future__ import annotations
 
@@ -43,7 +47,8 @@ import torch.nn.functional as F
 from ..base import MXNetError
 from ..context import resolve
 from ..ops.attention import (chunk_attention, decode_attention,
-                             gather_paged_kv, paged_decode_attention)
+                             gather_paged_kv, paged_decode_attention,
+                             verify_attention)
 from ..ops.indexing import take_rows
 from ..ops.pallas_kernels.flash_attention import flash_attention
 from ..ops.pallas_kernels.layer_norm import layer_norm
@@ -350,3 +355,100 @@ class TransformerKVModel:
             hn = self._ln(params, x, p + "ln2")
             x = x + self._ffn(params, hn, p)
         return self._head(params, x), self._unmark(pool)
+
+    def decode_megastep(self, params, pool, token, pos, left, eos, tables,
+                        steps, pick, moe_tape=None):
+        """``steps`` generation steps of the `decode_paged` body, enqueued
+        back to back with no host sync: per-row masks and picks stay on
+        the device, so a row that finishes (EOS, its budget, the cache
+        depth) retires mid-run and its remaining steps run at the dead
+        position one past its table's coverage, which `decode_paged`
+        redirects to the trash block.
+
+        token, pos: (b,) int, each row's current token and its position;
+        left: (b,) int, tokens the row may still emit (<= 0: inactive from
+        the start, as padding rows); eos: (b,) int, the row's EOS id or
+        -1; steps: the run length m; pick: ``pick(logits, newpos) -> (b,)
+        int``, the engine's sampling tail, given the carried position + 1
+        each step, so the run draws what m single steps would.
+
+        Returns ``(toks (b, steps) int64, pool)``: ``toks[r, j]`` is the
+        j-th token row r emitted, or -2 where the row had retired (or was
+        never active) when step j ran."""
+        if moe_tape is not None:
+            raise MXNetError("decode_megastep: MoE (moe_tape) is not "
+                             "ported yet (ROADMAP.md queue 1)")
+        bs = pool.shape[3]
+        dead = tables.shape[1] * bs
+        tok = token.long()
+        p = pos.long()
+        lf = left.long()
+        eos = eos.long()
+        act = lf > 0
+        emits = []
+        for _ in range(int(steps)):
+            logits, pool = self.decode_paged(params, pool, tok,
+                                             torch.where(act, p, dead),
+                                             tables)
+            picked = pick(logits, p + 1).long()
+            p2 = torch.where(act, p + 1, p)
+            lf2 = torch.where(act, lf - 1, lf)
+            tok = torch.where(act, picked, tok)
+            # the host's stop rules on the state after the advance: the
+            # finishing token is emitted, then the row is inactive
+            fin = ((eos >= 0) & (picked == eos)) | (lf2 <= 0) | \
+                (p2 >= self.seq_len)
+            emits.append(torch.where(act, picked, -2))
+            act = act & ~fin
+            p, lf = p2, lf2
+        return torch.stack(emits, dim=1), pool
+
+    def verify_paged(self, params, pool, tokens, pos, length, tables,
+                     moe_tape=None):
+        """Speculative decoding's verify: a whole draft run scored in one
+        pass over the paged pool, updated in place.
+
+        tokens: (b, c) int, column 0 each row's last emitted token and
+        columns 1.. its draft, fed at pos .. pos+c-1; pos: (b,) int;
+        length: (b,) int, real fed tokens per row (fewer at the cache end;
+        1 on padding rows); tables: (b, m) int, whose blocks covering the
+        fed span the row owns alone.  The span's K/V is written before
+        attending, by (block, offset) per position; positions past the
+        table's coverage go to the trash block.  Returns (logits (b, c,
+        vocab) at every fed position, pool)."""
+        if moe_tape is not None:
+            raise MXNetError("verify_paged: MoE (moe_tape) is not ported "
+                             "yet (ROADMAP.md queue 1)")
+        b, c = tokens.shape
+        h, e = self.num_heads, self.num_embed
+        bs = pool.shape[3]
+        m = tables.shape[1]
+        pos = pos.long()
+        tables = tables.long()
+        positions = pos[:, None] + torch.arange(c, device=tables.device)
+        ent = positions // bs                                  # (b, c)
+        blk = torch.gather(tables, 1, ent.clamp(max=m - 1))
+        blk = torch.where(ent < m, blk, 0)
+        off = positions % bs
+        x = take_rows(params["embed_weight"], tokens) + \
+            params["pos_embed_weight"][0][positions.clamp(
+                max=self.seq_len - 1)]
+        for i in range(self.num_layers):
+            p = "layer%d_" % i
+            hf = self._ln(params, x, p + "ln1").reshape(-1, e)
+            q = self._proj(params, hf, p + "q").reshape(b, c, e)
+            k = self._proj(params, hf, p + "k").reshape(b, c, e)
+            v = self._proj(params, hf, p + "v").reshape(b, c, e)
+            self._mark(pool)
+            pool[i, 0, blk, off] = k.to(pool.dtype)
+            pool[i, 1, blk, off] = v.to(pool.dtype)
+            kc = gather_paged_kv(pool[i, 0], tables)
+            vc = gather_paged_kv(pool[i, 1], tables)
+            attn = verify_attention(q, kc, vc, pos, length, h)
+            x = x + self._proj(params, attn.reshape(-1, e),
+                               p + "attn_out").reshape(b, c, e)
+            hn = self._ln(params, x, p + "ln2")
+            x = x + self._ffn(params, hn.reshape(-1, e), p).reshape(b, c, e)
+        logits = self._head(params, x.reshape(-1, e)).reshape(
+            b, c, self.vocab_size)
+        return logits, self._unmark(pool)

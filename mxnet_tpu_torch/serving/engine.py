@@ -91,14 +91,37 @@ argmax alone, which is the same result.  PyTorch runs eagerly, so
 ``warmup`` runs each bucket's program once (the kernels build and load,
 cuBLAS initialises) instead of compiling it.
 
+Speculative decoding (``spec=True`` or ``MXNET_SERVE_SPEC=1``, paged
+only): a drafter (`spec.NgramDrafter` or `spec.ModelDrafter`,
+``spec_drafter`` / ``MXNET_SERVE_SPEC_DRAFTER``) proposes ``spec_k``
+tokens a row (``MXNET_SERVE_SPEC_K``, 4), one `verify_paged` pass scores
+them, and the row keeps the drafts equal to the target's own
+request-keyed picks and the target's next token, then gives back the
+blocks past what it kept (`_rewind_blocks`).  The tokens are plain
+decode's; only the number of launches a token changes.  With no real
+draft in the batch a round runs the plain program (the megastep, when
+that is on too).  Megastep decode (``megastep=True`` or
+``MXNET_SERVE_MEGASTEP=1``, paged only) runs ``megastep_steps``
+(``MXNET_SERVE_MEGASTEP_STEPS``, 4) decode steps in one round, with
+per-row stop masks on the device and one fetch; the round's host sweep
+(deadlines, prefill chunks, admission) runs while it executes, and the
+fetch waits on a CUDA event behind a non-blocking copy into pinned
+memory.  Where the JAX package runs the m steps (and a model drafter's
+k+1 steps) as one `lax.scan` launch, the port enqueues them back to back
+with no host sync between.  ``submit(on_token=fn)`` and
+`ServeRequest.stream` deliver each token once, in order, after every
+iteration; preemption and journal migration never re-deliver or skip
+one.  Decode-loop clocks (``wall_s``, ``host_s``, ``hidden_s``,
+``fetch_wait_s`` in `stats`) feed the ``serve.<name>.host_frac`` gauge.
+
 What the JAX engine has beyond this waits for later slices: the host
-tier and sessions, speculative and megastep decoding, streaming,
-quantization, MoE, sharded replicas (`ReplicaRouter.from_mesh`),
-disaggregated prefill and decode (router roles and handoffs), the
-gateway and autoscaling, and tracing (the JAX engine's `tracing.dump`
-and `tracing.phase` calls have no counterpart here).  Their keywords are
-not accepted, and an ``MXNET_CHAOS`` spec with a clause of theirs raises
-at construction (`chaos`).  A prompt token outside
+tier and sessions, quantization, MoE, sharded replicas
+(`ReplicaRouter.from_mesh`), disaggregated prefill and decode (router
+roles and handoffs), the gateway and autoscaling, and tracing (the JAX
+engine's `tracing.dump`, `tracing.phase` and `tracing.add_span` calls
+have no counterpart here).  Their keywords are not accepted, and an
+``MXNET_CHAOS`` spec with a clause of theirs raises at construction
+(`chaos`).  A prompt token outside
 [-V, V) embeds as NaN, as in the JAX engine, and its request decodes
 token 0 (the first NaN's index) while the scheduler goes on.
 """
@@ -124,6 +147,7 @@ from .errors import (ServeBlocksExhausted, ServeCacheInvalidated,
 from .journal import RequestJournal, journal_enabled
 from .paged import TRASH_BLOCK, BlockAllocator, PrefixCache
 from .sampling import argmax, sample_tokens
+from .spec import make_drafter
 
 __all__ = ["ServeRequest", "ServingEngine", "ReplicaRouter"]
 
@@ -152,7 +176,8 @@ class ServeRequest:
     what a request samples.  Once ``t_submit + deadline_ms`` passes, the
     scheduler retires the request at its next iteration with
     `ServeDeadlineExceeded`, queued or running; ``cancel()`` retires it
-    the same way with `ServeCancelled`."""
+    the same way with `ServeCancelled`.  `stream` yields the tokens as
+    the scheduler publishes them."""
 
     _ids = [0]
     _ids_lock = threading.Lock()
@@ -194,6 +219,13 @@ class ServeRequest:
         #                           from another one until it advances
         #                           min_progress tokens past it
         self._migrated = False    # journal migration pending its replay
+        # streaming: `stream()` iterators wait on this condition, and
+        # `_published` is the scheduler's delivery mark into `tokens`.
+        # No resume path truncates or re-appends `tokens`, so positions
+        # below the mark are final and new ones only appear above it
+        self._stream_cond = threading.Condition()
+        self._published = 0
+        self._on_token = None     # submit(on_token=...)'s callback
 
     @property
     def done(self):
@@ -226,6 +258,51 @@ class ServeRequest:
             raise cls(msg if tag in msg else "%s: %s" % (tag, msg))
         return list(self.tokens)
 
+    def stream(self, timeout=None):
+        """Iterate the generated tokens as the scheduler publishes them:
+        each once, in order, after every iteration that produced it (a
+        megastep or a verify round may publish several at once).
+        Preemption and journal migration replay context, never output,
+        so the iterator neither repeats nor skips a token.  It ends when
+        the request finishes; a failed request raises its typed error
+        after yielding what was delivered.  ``timeout`` bounds each wait
+        for the next token (`ServeTimeout`), not the whole stream.  Any
+        number of iterators each get the whole stream."""
+        cursor = 0
+        while True:
+            with self._stream_cond:
+                while len(self.tokens) <= cursor and not self._done.is_set():
+                    if not self._stream_cond.wait(timeout):
+                        raise ServeTimeout(
+                            "ServeRequest %d: stream timed out after %ss"
+                            % (self.id, timeout))
+                batch = list(self.tokens[cursor:])
+            for t in batch:
+                cursor += 1
+                yield int(t)
+            if self._done.is_set() and cursor >= len(self.tokens):
+                if self.error is not None:
+                    self.result(timeout=0.001)  # raises the typed error
+                return
+
+    def _publish(self):
+        """The scheduler's delivery point: wake `stream` iterators and
+        call ``on_token`` for the tokens appended since the last call.
+        A consumer's exception never reaches the scheduler."""
+        with self._stream_cond:
+            n = len(self.tokens)
+            if n <= self._published:
+                return
+            lo, self._published = self._published, n
+            self._stream_cond.notify_all()
+        cb = self._on_token
+        if cb is not None:
+            for t in self.tokens[lo:n]:
+                try:
+                    cb(int(t))
+                except Exception:  # noqa: BLE001 -- a consumer's bug
+                    pass
+
     @property
     def ttft_ms(self):
         return None if self.t_first is None else \
@@ -241,9 +318,14 @@ class ServeRequest:
         and engine death funnels through here."""
         if self._done.is_set():
             return
+        # deliver first: the retiring iteration may have appended a last
+        # token not yet published
+        self._publish()
         self.error = error
         self.t_done = time.perf_counter()
         self._done.set()
+        with self._stream_cond:
+            self._stream_cond.notify_all()
 
 
 class _Seq:
@@ -296,7 +378,11 @@ class ServingEngine:
     ``MXNET_SERVE_PREFIX_POOL`` (-1, no cap), ``MXNET_SERVE_MIN_PROGRESS``
     (4) and ``MXNET_SERVE_THRASH_TRIP`` (8; 0 never trips).
     ``MXNET_SERVE_LAUNCH_RETRIES`` (3) bounds the consecutive scoped
-    decode failures before the engine dies.
+    decode failures before the engine dies.  Speculative and megastep
+    decoding, left at None, read ``MXNET_SERVE_SPEC`` (off),
+    ``MXNET_SERVE_SPEC_K`` (4), ``MXNET_SERVE_SPEC_DRAFTER`` (ngram),
+    ``MXNET_SERVE_MEGASTEP`` (off) and ``MXNET_SERVE_MEGASTEP_STEPS`` (4);
+    both need the paged cache.
     """
 
     def __init__(self, model, params, ctx=None, max_batch=8,
@@ -305,7 +391,9 @@ class ServingEngine:
                  n_blocks=None, chunk_prefill=True, sampling=True,
                  name="replica0", queue_max=None, overload=None,
                  deadline_ms=None, prefix=None, prefix_pool=None,
-                 min_progress=None, thrash_trip=None):
+                 spec=None, spec_k=None, spec_drafter=None,
+                 min_progress=None, thrash_trip=None, megastep=None,
+                 megastep_steps=None):
         chaos.spec()  # a clause the port cannot inject raises here
         self.model = model
         self.name = name
@@ -395,6 +483,40 @@ class ServingEngine:
             # slot max_batch is the trash slot padding rows write into
             self._cache = model.init_cache(self.max_batch + 1,
                                            device=self.device)
+        # speculative decoding (off by default)
+        self._spec = _env_flag("MXNET_SERVE_SPEC", "0") if spec is None \
+            else bool(spec)
+        self._spec_k = int(os.environ.get("MXNET_SERVE_SPEC_K", "4")
+                           if spec_k is None else spec_k)
+        self._drafter_arg = spec_drafter
+        self._drafter = None
+        if self._spec:
+            if not self._paged:
+                raise MXNetError(
+                    "ServingEngine: speculative decoding needs the paged "
+                    "cache (MXNET_SERVE_SPEC=1 with paged=False)")
+            if self._spec_k < 1:
+                raise MXNetError("ServingEngine: MXNET_SERVE_SPEC_K must "
+                                 "be >= 1, got %d" % self._spec_k)
+        # megastep decode (off by default): m decode steps a launch round,
+        # finished rows parked on the trash block, which only paging has
+        mega_on = _env_flag("MXNET_SERVE_MEGASTEP", "0") if megastep \
+            is None else bool(megastep)
+        self._mega_m = 0
+        if mega_on:
+            if not self._paged:
+                raise MXNetError(
+                    "ServingEngine: megastep decode needs the paged cache "
+                    "(MXNET_SERVE_MEGASTEP=1 with paged=False): a finished "
+                    "row runs on at the trash block, which only the paged "
+                    "cache has")
+            self._mega_m = int(
+                os.environ.get("MXNET_SERVE_MEGASTEP_STEPS", "4")
+                if megastep_steps is None else megastep_steps)
+            if self._mega_m < 1:
+                raise MXNetError(
+                    "ServingEngine: MXNET_SERVE_MEGASTEP_STEPS must be "
+                    ">= 1, got %d" % self._mega_m)
         # the per-replica telemetry names: engines share one registry
         self._gauge = "serve.%s." % self.name
         self._queue = deque()
@@ -441,31 +563,67 @@ class ServingEngine:
                       "cow_copies": 0, "prefix_evictions": 0,
                       # anti-thrash, and migrated requests replayed here
                       "stalls": 0, "thrash_trips": 0, "replays": 0,
+                      # speculative decoding (0s when off)
+                      "verify_steps": 0, "spec_proposed": 0,
+                      "spec_accepted": 0, "spec_rollbacks": 0,
+                      "spec_junk_rounds": 0,
+                      # megastep decode (0s when off) and the decode
+                      # loop's clocks: hidden_s spans launch to fetch
+                      # complete, host_s the rest of a decoding
+                      # iteration's wall (host work no launch hid)
+                      "megasteps": 0, "megastep_tokens": 0,
+                      "ingraph_retired": 0, "wall_s": 0.0, "host_s": 0.0,
+                      "hidden_s": 0.0, "fetch_wait_s": 0.0,
                       # the JAX engine's telemetry counters
                       "shed": 0, "expired": 0, "cancelled": 0,
                       "degraded": 0, "block_waits": 0, "preempted": 0,
                       "stalled": 0, "drained": 0}
+        if self._spec:
+            self._drafter = make_drafter(
+                os.environ.get("MXNET_SERVE_SPEC_DRAFTER", "ngram")
+                if spec_drafter is None else spec_drafter)
+            self._drafter.bind(self)
 
     # -- device staging ----------------------------------------------------
     def _put(self, a):
-        return torch.as_tensor(a, device=self.device)
+        """``a`` on the engine's device.  To a card the copy goes through
+        pinned memory without a host sync, so staging never waits for
+        the launches already queued (a megastep in flight)."""
+        if self.device.type != "cuda":
+            return torch.as_tensor(a, device=self.device)
+        return torch.as_tensor(a).pin_memory().to(self.device,
+                                                  non_blocking=True)
+
+    def _samp_device(self, reqs, b):
+        """The sampling tensors (temperature, top_k, top_p, seed) of
+        ``reqs`` padded to ``b`` greedy rows, on the device; () when
+        every row is greedy (the argmax alone is the same result)."""
+        if not (self._sampling and any(r.temperature > 0 for r in reqs)):
+            return ()
+        temp = np.zeros((b,), np.float32)
+        top_k = np.zeros((b,), np.int64)
+        top_p = np.ones((b,), np.float32)
+        seed = np.zeros((b,), np.int64)
+        for i, r in enumerate(reqs):
+            temp[i], top_k[i], top_p[i], seed[i] = (r.temperature, r.top_k,
+                                                    r.top_p, r.seed)
+        return tuple(self._put(a) for a in (temp, top_k, top_p, seed))
+
+    def _pick_dev(self, logits, samp, newpos):
+        """Token ids of (b, V) ``logits`` on the device, no host sync:
+        argmax, or `sample_tokens` with ``samp`` at the (b,) positions
+        ``newpos`` the tokens will occupy."""
+        if not samp:
+            return argmax(logits)
+        return sample_tokens(logits, *samp, newpos)
 
     def _pick(self, logits, reqs, newpos):
-        """Host token ids for the first len(reqs) rows of ``logits``:
-        argmax when every row is greedy, else `sample_tokens`."""
-        logits = logits[:len(reqs)]
-        if self._sampling and any(r.temperature > 0 for r in reqs):
-            toks = sample_tokens(
-                logits,
-                self._put(np.array([r.temperature for r in reqs],
-                                   np.float32)),
-                self._put(np.array([r.top_k for r in reqs], np.int64)),
-                self._put(np.array([r.top_p for r in reqs], np.float32)),
-                self._put(np.array([r.seed for r in reqs], np.int64)),
-                self._put(np.asarray(newpos, np.int64)))
-        else:
-            toks = argmax(logits)
-        return toks.tolist()
+        """Host token ids for the first len(reqs) rows of ``logits``
+        (`_pick_dev`, then one fetch)."""
+        n = len(reqs)
+        samp = self._samp_device(reqs, n)
+        pos = self._put(np.asarray(newpos, np.int64)) if samp else None
+        return self._pick_dev(logits[:n], samp, pos).tolist()
 
     # -- programs ----------------------------------------------------------
     def _table(self, rows, blocks):
@@ -528,11 +686,58 @@ class ServingEngine:
         logits, _ = program(self._params, self._cache, token, pos, where)
         return logits
 
+    def _verify(self, tokens, pos, length, tables, samp):
+        """The verify program: score a draft run (`verify_paged`), pick
+        the target's token at every fed position (column j's token will
+        occupy pos + j + 1, the key sequential decode would have used)
+        and count the leading drafts equal to those picks.  Returns (b,
+        c + 1) on the device: the picks, then the count."""
+        logits, _ = self.model.verify_paged(self._params, self._cache,
+                                            tokens, pos, length, tables)
+        b, c, v = logits.shape
+        newpos = pos.long()[:, None] + 1 + \
+            torch.arange(c, device=logits.device)[None, :]
+        samp_c = tuple(a.repeat_interleave(c) for a in samp)
+        picked = self._pick_dev(logits.reshape(b * c, v), samp_c,
+                                newpos.reshape(-1)).reshape(b, c)
+        match = (picked[:, :-1] == tokens[:, 1:].long()).long()
+        acc = torch.cumprod(match, dim=1).sum(dim=1)
+        return torch.cat([picked, acc[:, None]], dim=1)
+
+    def _megastep(self, token, pos, left, eos, tables, samp):
+        """The megastep program: ``_mega_m`` decode steps enqueued back to
+        back (`decode_megastep`); returns the (b, m) token grid on the
+        device."""
+        toks, _ = self.model.decode_megastep(
+            self._params, self._cache, token, pos, left, eos, tables,
+            self._mega_m, lambda logits, newpos: self._pick_dev(
+                logits, samp, newpos))
+        return toks
+
+    def _to_host(self, t):
+        """Start ``t``'s copy to the host: (pinned host tensor, CUDA
+        event) on a card, (t, None) on the CPU.  `_fetch` waits."""
+        if t.device.type != "cuda":
+            return t, None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(t.device))
+        return host, done
+
+    @staticmethod
+    def _fetch(host, done):
+        """`_to_host`'s result as numpy, once its copy has landed."""
+        if done is not None:
+            done.synchronize()
+        return host.numpy()
+
     def warmup(self):
         """Run every bucket's program once against the trash slot / trash
-        block (and, with the prefix cache, the block copy), so kernels
-        build and load, and libraries initialise, before the first
-        request."""
+        block (and, with the prefix cache, the block copy; with
+        speculation the verify and the drafter's programs; with megastep
+        the megastep), so kernels build and load, and libraries
+        initialise, before the first request."""
         for s in self.prefill_buckets:
             if self._paged:
                 logits = self._prefill_chunk(
@@ -550,13 +755,29 @@ class ServingEngine:
             sample_tokens(torch.zeros((1, self.model.vocab_size),
                                       device=self.device),
                           one, zero, one, zero, zero).tolist()
+        if self._spec:
+            c = self._spec_k + 1
+            for b in self.decode_buckets:
+                _, pos, tables = self._decode_inputs(b, [], [])
+                self._verify(self._put(np.zeros((b, c), np.int64)), pos,
+                             self._put(np.ones((b,), np.int64)), tables,
+                             ()).tolist()
+            self._drafter.warmup()
+        if self._mega_m:
+            for b in self.decode_buckets:
+                token, pos, tables = self._decode_inputs(b, [], [])
+                self._megastep(token, pos, pos, pos - 1, tables, ()).tolist()
         if self._prefix is not None:
             self.model.copy_block(self._cache, TRASH_BLOCK, TRASH_BLOCK)
         return {"prefill": list(self.prefill_buckets),
                 "decode": list(self.decode_buckets),
                 "cache": "paged" if self._paged else "slot",
                 "block_size": self.block_size, "n_blocks": self.n_blocks,
-                "prefix": self._prefix is not None}
+                "prefix": self._prefix is not None,
+                "spec": None if not self._spec else
+                {"k": self._spec_k, "drafter": self._drafter.name},
+                "megastep": None if not self._mega_m else
+                {"m": self._mega_m}}
 
     def respawn(self, name=None):
         """A replacement engine for this (dead) replica: the same device,
@@ -576,12 +797,21 @@ class ServingEngine:
             queue_max=self._queue_max, overload=self._overload,
             deadline_ms=self._deadline_ms_default,
             prefix=self._prefix is not None, prefix_pool=self._prefix_pool,
-            min_progress=self._min_progress, thrash_trip=self._thrash_trip)
+            spec=self._spec, spec_k=self._spec_k,
+            spec_drafter=self._drafter_arg if self._drafter_arg is not None
+            else (self._drafter.name if self._drafter is not None
+                  else None),
+            min_progress=self._min_progress, thrash_trip=self._thrash_trip,
+            megastep=bool(self._mega_m),
+            megastep_steps=self._mega_m or None)
 
     # -- submission and admission control ----------------------------------
     def submit(self, prompt, max_new_tokens=None, eos_id=None,
                deadline_ms=None, temperature=0.0, top_k=0, top_p=1.0,
-               seed=None, _count_shed=True):
+               seed=None, on_token=None, _count_shed=True):
+        """Queue a request; returns its `ServeRequest`.  ``on_token(t)``,
+        if given, is called on the scheduler's thread with each generated
+        token, once, in order."""
         if max_new_tokens is None:
             max_new_tokens = self.max_new_default
         elif int(max_new_tokens) < 1:
@@ -596,6 +826,7 @@ class ServingEngine:
                            self.eos_id if eos_id is None else eos_id,
                            deadline_ms=deadline_ms, temperature=temperature,
                            top_k=top_k, top_p=top_p, seed=seed)
+        req._on_token = on_token
         if not (self._paged and self._chunk_prefill) and \
                 len(req.prompt) > self.prefill_buckets[-1]:
             raise MXNetError(
@@ -832,6 +1063,8 @@ class ServingEngine:
             self._alloc.reset()
             self._cache = self.model.init_block_pool(
                 self.n_blocks, self.block_size, device=self.device)
+            if self._drafter is not None:
+                self._drafter.on_cache_rebuild()
             self._block_gauges()
         else:
             self._cache = self.model.init_cache(self.max_batch + 1,
@@ -902,6 +1135,7 @@ class ServingEngine:
             self._retire(slot, seq, enter=False)
         else:
             self._active[slot] = seq
+        req._publish()
         return True
 
     # -- block lifetime ----------------------------------------------------
@@ -1071,6 +1305,10 @@ class ServingEngine:
             else:
                 last, pos, n_new = req._resume[1:]
                 req._resume = None
+                if self._drafter is not None and n_new:
+                    # the replayed generation seeds the drafter, so its
+                    # accept rate holds from the first round on
+                    self._drafter.on_resume(list(tokens) + [last])
             seq = _Seq(req, last, pos, blocks=blocks, ctx=list(tokens[:pos]))
             seq.n_new = n_new
             self._active[row] = seq
@@ -1127,6 +1365,9 @@ class ServingEngine:
         except Exception as e:  # noqa: BLE001 -- scoped in _launch_failed
             self._launch_failed(e, req, lambda: self._drop_prefill(pf))
             return
+        if self._drafter is not None:
+            # the draft cache prefills in lockstep, over the same operands
+            self._drafter.on_prefill_chunk(*inputs)
         pf.done += chunk
         self.stats["prefill_chunks"] += 1
         self.stats["prefill_tokens"] += chunk
@@ -1151,6 +1392,8 @@ class ServingEngine:
             req._resume = None
             seq = _Seq(req, last, pos, blocks=blocks, ctx=pf.tokens)
             seq.n_new = n_new
+            if self._drafter is not None and n_new:
+                self._drafter.on_resume(list(pf.tokens) + [last])
             self._active[pf.row] = seq
             return
         req.t_first = time.perf_counter()
@@ -1162,21 +1405,28 @@ class ServingEngine:
             self._retire(pf.row, seq, enter=False)
         else:
             self._active[pf.row] = seq
+        req._publish()
 
     # -- growth, copy-on-write and preemption ------------------------------
     def _grow_active(self):
         """Before a decode step every active row must own, exclusively,
-        the block its write position lands in: a row past its last block
-        grows by one, and a row about to write into a block that is
-        shared or registered gets a private copy first (copy-on-write),
-        so the cached original keeps serving its other readers.  A denied
-        allocation preempts or stalls the row (`_grow_alloc`)."""
+        the blocks its writes land in: a row past its last block grows,
+        and a row about to write into a block that is shared or
+        registered gets a private copy first (copy-on-write), so the
+        cached original keeps serving its other readers.  A step writes
+        one position, a verify k+1 (the fed token and k drafts), a
+        megastep up to m, all before the host sees any of them, so the
+        whole span is covered up front.  A denied allocation preempts or
+        stalls the row (`_grow_alloc`)."""
+        span = self._spec_k + 1 if self._spec else 1
+        if self._mega_m:
+            span = max(span, self._mega_m)
         self._stalled.clear()
         oldest = self._oldest_inflight()
         for row, seq in list(self._active.items()):
             if row not in self._active:
                 continue  # preempted as an earlier row's victim
-            last_write = min(seq.pos + 1, self.model.seq_len) - 1
+            last_write = min(seq.pos + span, self.model.seq_len) - 1
             need = last_write // self.block_size + 1
             if need > len(seq.blocks):
                 got = self._grow_alloc(row, seq, need - len(seq.blocks),
@@ -1329,6 +1579,9 @@ class ServingEngine:
                 if s is seq:
                     self._preempt(row, seq)
             return True
+        if self._drafter is not None:
+            # the draft rows live at the same (block, offset) coordinates
+            self._drafter.on_cow(src, dst)
         seq.blocks[idx] = dst
         self._drop_refs([src])
         self.stats["cow_copies"] += 1
@@ -1374,6 +1627,10 @@ class ServingEngine:
         if enter:
             del self._active[row]
         self._free.append(row)
+        if self._drafter is not None and seq.ctx is not None:
+            # a finished stream is an exact oracle for the next identical
+            # request (deterministic decoding)
+            self._drafter.on_retire(seq.ctx + [seq.last])
         self._release_blocks(seq)
         seq.req._finish()
         self.stats["completed"] += 1
@@ -1455,8 +1712,8 @@ class ServingEngine:
 
     def _decode_plain(self):
         """One single-token decode launch over the active rows that are
-        not stalled.  A failed launch goes through
-        `_handle_launch_failure`."""
+        not stalled (also speculation's round when no row has a real
+        draft).  A failed launch goes through `_handle_launch_failure`."""
         rows = [r for r in self._active if r not in self._stalled]
         n = len(rows)
         if n == 0:
@@ -1467,10 +1724,12 @@ class ServingEngine:
         b = self._bucket_for(n, self.decode_buckets)
         seqs = [self._active[r] for r in rows]
         inputs = self._decode_inputs(b, seqs, rows)
+        t_launch = time.perf_counter()
         try:
             if chaos.serve_launch_error():
                 raise chaos.ChaosError("chaos: injected decode launch error")
             logits = self._decode(*inputs)
+            t_fetch = time.perf_counter()
             nxt = self._pick(logits, [s.req for s in seqs],
                              [s.pos + 1 for s in seqs])
         except Exception as e:  # noqa: BLE001 -- scoped below
@@ -1478,6 +1737,9 @@ class ServingEngine:
             # retries next iteration; escalates after N in a row
             self._handle_launch_failure(e, "decode")
             return
+        now = time.perf_counter()
+        self.stats["fetch_wait_s"] += now - t_fetch
+        self.stats["hidden_s"] += now - t_launch
         self._launch_fails = 0
         self.stats["decode_steps"] += 1
         self.stats["decode_rows"] += n
@@ -1488,8 +1750,14 @@ class ServingEngine:
         telemetry.inc("serve.decode_padded", b - n)
         telemetry.set_gauge(self._gauge + "batch_occupancy", n / float(b))
         for row, seq, t in zip(rows, seqs, nxt):
-            if self._advance_one(seq, t):
+            finished = self._advance_one(seq, t)
+            if not finished and self._drafter is not None \
+                    and seq.ctx is not None:
+                # a plain round still feeds a learning drafter
+                self._drafter.observe(seq.ctx + [seq.last], 1)
+            if finished:
                 self._retire(row, seq)
+            seq.req._publish()
 
     def _handle_launch_failure(self, e, what):
         """The decode failure ladder: a dead device raises `_EngineFatal`,
@@ -1523,24 +1791,43 @@ class ServingEngine:
                 pass  # shed: the pressure the clause probes
 
     def step(self):
-        """One scheduler iteration: inject chaos's faults, sweep deadlines
-        and cancellations, advance mid-stream prefills, admit while there
-        is room, grow (and copy) blocks, then one decode step over the
-        active set.  Returns the number of sequences still in flight
-        (0 = idle)."""
+        """One scheduler iteration (`_step`, or with megastep and no
+        speculation `_step_mega`), timed for the ``host_frac`` gauge: of
+        the wall time of the iterations that decoded, the share outside
+        any launch-to-fetch span, host work no launch hid.  Returns the
+        number of sequences still in flight (0 = idle)."""
+        t0 = time.perf_counter()
+        h0 = self.stats["hidden_s"]
+        if self._mega_m and not self._spec:
+            n = self._step_mega()
+        else:
+            n = self._step()
+        dh = self.stats["hidden_s"] - h0
+        if dh > 0:
+            wall = time.perf_counter() - t0
+            self.stats["wall_s"] += wall
+            self.stats["host_s"] += max(0.0, wall - dh)
+            telemetry.set_gauge(
+                self._gauge + "host_frac",
+                round(self.stats["host_s"] / self.stats["wall_s"], 4))
+        return n
+
+    def _chaos_step(self):
+        """Chaos's per-iteration faults: the queue flood and, with the
+        prefix cache, `prefix_evict` (the LRU parked block goes as if
+        allocation pressure claimed it)."""
         self.last_beat = time.monotonic()
         if chaos.enabled():
             self._inject_flood()
             if self._prefix is not None and chaos.serve_prefix_evict():
-                # `prefix_evict` chaos: the LRU parked block goes as if
-                # allocation pressure claimed it
                 evicted = self._prefix.evict(1)
                 if evicted:
                     self._alloc.reclaim(evicted)
                     self._count_evictions(len(evicted))
-        self._sweep()
-        if self._paged:
-            self._advance_prefills()
+
+    def _admit_queued(self):
+        """Admit queued requests while a row is free; then the active
+        set's gauges."""
         while self._free:
             with self._qlock:
                 req = self._queue.popleft() if self._queue else None
@@ -1562,22 +1849,299 @@ class ServingEngine:
         with self._qlock:
             telemetry.set_gauge(self._gauge + "queue_depth",
                                 len(self._queue))
-        if self._paged:
-            self._grow_active()
-            self._block_gauges(full=True)
+
+    def _count_active(self):
         n = len(self._active)
         self.stats["max_concurrent"] = max(self.stats["max_concurrent"], n)
         telemetry.set_gauge(self._gauge + "active", n)
-        if n:
-            if chaos.enabled():
-                if chaos.serve_engine_crash(self.name):
-                    raise chaos.ChaosEngineCrash(
-                        "chaos: engine_crash killed replica %s" % self.name)
-                ms = chaos.serve_decode_slow()
-                if ms:
-                    time.sleep(ms / 1e3)
-            self._decode_plain()
+        return n
+
+    def _chaos_decode(self):
+        """Chaos's faults at a decode-bearing iteration: `engine_crash`
+        (a dead device) and `decode_slow`."""
+        if chaos.enabled():
+            if chaos.serve_engine_crash(self.name):
+                raise chaos.ChaosEngineCrash(
+                    "chaos: engine_crash killed replica %s" % self.name)
+            ms = chaos.serve_decode_slow()
+            if ms:
+                time.sleep(ms / 1e3)
+
+    def _step(self):
+        """Inject chaos's faults, sweep deadlines and cancellations,
+        advance mid-stream prefills, admit while there is room, grow (and
+        copy) blocks, then one decode step (or speculation round) over
+        the active set."""
+        self._chaos_step()
+        self._sweep()
+        if self._paged:
+            self._advance_prefills()
+        self._admit_queued()
+        if self._paged:
+            self._grow_active()
+            self._block_gauges(full=True)
+        if self._count_active():
+            self._chaos_decode()
+            if self._spec:
+                self._decode_spec()
+            else:
+                self._decode_plain()
         return len(self._active) + len(self._prefilling)
+
+    # -- megastep decode -----------------------------------------------------
+    def _step_mega(self):
+        """One megastep iteration: grow the active rows' blocks over the
+        m-span, launch the megastep, then run the host sweep (deadlines,
+        prefill chunks, admission) while it executes, and only then wait
+        for its token grid.  The card runs one stream in order, so a
+        prefill queued in the window runs after the megastep's writes;
+        `_finish_mega` skips a row swept or preempted in the window (its
+        tokens in flight drop, and a replay resumes from the position
+        before the megastep)."""
+        self._chaos_step()
+        inflight = None
+        if self._active:
+            self._grow_active()
+            self._block_gauges(full=True)
+            inflight = self._launch_mega()
+        self._sweep()
+        self._advance_prefills()
+        self._admit_queued()
+        self._count_active()
+        if inflight is not None:
+            # a crash here kills the replica with the megastep in flight:
+            # its tokens were never fetched, so no request holds them
+            self._chaos_decode()
+            self._finish_mega(inflight)
+        elif self._active:
+            time.sleep(0.001)   # every row is stalled on a denial
+        return len(self._active) + len(self._prefilling)
+
+    def _launch_mega(self):
+        """Launch one megastep over the active rows that are not stalled
+        and start the copy of its token grid to the host, without
+        waiting.  Returns the in-flight handle, or None when nothing
+        launched (every row stalled, or the launch failed and took the
+        retry ladder)."""
+        rows = [r for r in self._active if r not in self._stalled]
+        n = len(rows)
+        if n == 0:
+            return None
+        b = self._bucket_for(n, self.decode_buckets)
+        seqs = [self._active[r] for r in rows]
+        token, pos, tables = self._decode_inputs(b, seqs, rows)
+        left = np.zeros((b,), np.int64)
+        eos = np.full((b,), -1, np.int64)
+        for i, seq in enumerate(seqs):
+            left[i] = max(0, seq.req.max_new_tokens - seq.n_new)
+            if seq.req.eos_id is not None:
+                eos[i] = int(seq.req.eos_id)
+        samp = self._samp_device([s.req for s in seqs], b)
+        t_launch = time.perf_counter()
+        try:
+            if chaos.serve_launch_error():
+                raise chaos.ChaosError(
+                    "chaos: injected megastep launch error")
+            grid = self._megastep(token, pos, self._put(left),
+                                  self._put(eos), tables, samp)
+            host, done = self._to_host(grid)
+        except Exception as e:  # noqa: BLE001 -- scoped below
+            self._handle_launch_failure(e, "megastep")
+            return None
+        self._launch_fails = 0
+        return rows, seqs, host, done, n, b, t_launch
+
+    def _finish_mega(self, inflight):
+        """Wait for a megastep's (b, m) token grid and walk it row by row
+        through `_advance_one`, the bookkeeping plain decode and
+        speculation use.  A -2 is a row that had retired on the device
+        (or was launched finished)."""
+        rows, seqs, host, done, n, b, t_launch = inflight
+        t_fetch = time.perf_counter()
+        try:
+            out = self._fetch(host, done)   # the megastep's one fetch
+        except Exception as e:  # noqa: BLE001 -- an asynchronous fault
+            self._handle_launch_failure(e, "megastep")
+            return
+        now = time.perf_counter()
+        self.stats["fetch_wait_s"] += now - t_fetch
+        # the launch-to-fetch span: host work inside it ran while the
+        # megastep executed
+        self.stats["hidden_s"] += now - t_launch
+        m = self._mega_m
+        self.stats["megasteps"] += 1
+        self.stats["decode_rows"] += n
+        self.stats["decode_padded"] += b - n
+        telemetry.inc("serve.megasteps")
+        telemetry.inc("serve.decode_padded", b - n)
+        telemetry.set_gauge(self._gauge + "batch_occupancy", n / float(b))
+        emitted = retired = 0
+        for i, (row, seq) in enumerate(zip(rows, seqs)):
+            if self._active.get(row) is not seq:
+                continue  # swept, preempted or vacated in the window
+            adv = 0
+            finished = False
+            for j in range(m):
+                t = int(out[i, j])
+                if t == -2:
+                    break
+                finished = self._advance_one(seq, t)
+                adv += 1
+                if finished:
+                    break
+            emitted += adv
+            if finished:
+                retired += 1   # its stop rule fired on the device
+                self._retire(row, seq)
+            elif adv and self._drafter is not None \
+                    and seq.ctx is not None:
+                self._drafter.observe(seq.ctx + [seq.last], adv)
+            seq.req._publish()
+        self.stats["tokens"] += emitted
+        self.stats["megastep_tokens"] += emitted
+        self.stats["ingraph_retired"] += retired
+        telemetry.inc("serve.tokens", emitted)
+        telemetry.inc("serve.megastep_tokens", emitted)
+        if retired:
+            telemetry.inc("serve.ingraph_retired", retired)
+
+    def _decode_mega(self):
+        """A megastep launched and fetched at once: speculation's round
+        when no row has a real draft and megastep is on too."""
+        inflight = self._launch_mega()
+        if inflight is None:
+            if self._active:
+                time.sleep(0.001)
+            return
+        self._finish_mega(inflight)
+
+    # -- speculative decoding ------------------------------------------------
+    def _rewind_blocks(self, seq):
+        """Give back the blocks past the accepted frontier: the row keeps
+        those covering its cached rows 0..pos-1, and every block beyond
+        (rejected drafts' rows) goes through `_drop_refs`, which drops
+        exactly this row's one reference.  A tail block another request
+        shares keeps its other holder, and one the prefix index
+        registered parks, so a rewind never frees a block someone still
+        reads."""
+        keep = max(1, self._alloc.blocks_for(seq.pos))
+        if len(seq.blocks) <= keep:
+            return
+        tail = seq.blocks[keep:]
+        del seq.blocks[keep:]
+        self._drop_refs(tail)
+        self.stats["spec_rollbacks"] += len(tail)
+        self._count("spec.rollbacks", len(tail))
+        self._block_gauges()
+
+    def _decode_spec(self):
+        """One draft, verify and accept round over the active rows that
+        are not stalled.  The drafter proposes k tokens a row; one verify
+        feeds [last, d_1..d_k] at pos..pos+k (the span `_grow_active`
+        covered) and returns the target's pick at each position and the
+        count of leading drafts equal to them.  The accepted drafts and
+        the target's next token then go one at a time through
+        `_advance_one`, so stopping and prefix registration are plain
+        decode's; the rows past the kept ones hold garbage the next round
+        overwrites before attending, and their blocks rewind."""
+        rows = [r for r in self._active if r not in self._stalled]
+        n = len(rows)
+        if n == 0:
+            time.sleep(0.001)  # every row stalled: retry next iteration
+            return
+        b = self._bucket_for(n, self.decode_buckets)
+        k = self._spec_k
+        c = k + 1
+        seqs = [self._active[r] for r in rows]
+        token = np.zeros((b, c), np.int64)
+        pos = np.zeros((b,), np.int64)
+        length = np.ones((b,), np.int64)
+        tables = np.full((b, self._n_table), TRASH_BLOCK, np.int64)
+        for i, seq in enumerate(seqs):
+            token[i, 0] = seq.last
+            pos[i] = seq.pos
+            length[i] = min(c, self.model.seq_len - seq.pos)
+            tables[i, :len(seq.blocks)] = seq.blocks
+        pos_d = self._put(pos)
+        tables_d = self._put(tables)
+        samp = self._samp_device([s.req for s in seqs], b)
+        tok0 = token[:, 0].copy()
+        dev = (self._put(tok0), pos_d, tables_d) \
+            if self._drafter.needs_device else None
+        drafts = self._drafter.propose(seqs, k, b, host=(tok0, pos, tables),
+                                       dev=dev, samp=samp)
+        if isinstance(drafts, tuple):
+            drafts, confident = drafts
+            if not np.asarray(confident)[:n].any():
+                # no real draft anywhere: a verify could only advance one
+                # token a row, so run the cheaper plain round
+                if self._mega_m:
+                    return self._decode_mega()
+                return self._decode_plain()
+        if chaos.enabled() and chaos.serve_draft_junk():
+            # `draft_junk:P`: corrupt the round's proposals, the same way
+            # each time; the tokens must hold, the accept rate drops
+            drafts = (np.asarray(drafts, np.int64) + 1
+                      + np.arange(k, dtype=np.int64)[None]) \
+                % self.model.vocab_size
+            self.stats["spec_junk_rounds"] += 1
+            telemetry.inc("serve.chaos_draft_junk")
+        token[:, 1:] = np.asarray(drafts, np.int64)[:b]
+        t_launch = time.perf_counter()
+        try:
+            if chaos.serve_launch_error():
+                raise chaos.ChaosError("chaos: injected verify launch "
+                                       "error")
+            out = self._verify(self._put(token), pos_d, self._put(length),
+                               tables_d, samp)
+            t_fetch = time.perf_counter()
+            out = out.cpu().numpy()   # (b, k + 2): the picks, the count
+        except Exception as e:  # noqa: BLE001 -- scoped below
+            self._handle_launch_failure(e, "verify")
+            return
+        self._launch_fails = 0
+        now = time.perf_counter()
+        self.stats["fetch_wait_s"] += now - t_fetch
+        self.stats["hidden_s"] += now - t_launch
+        self.stats["verify_steps"] += 1
+        self.stats["decode_rows"] += n
+        self.stats["decode_padded"] += b - n
+        telemetry.inc("serve.verify_steps")
+        telemetry.inc("serve.decode_padded", b - n)
+        telemetry.set_gauge(self._gauge + "batch_occupancy", n / float(b))
+        emitted = 0
+        for i, (row, seq) in enumerate(zip(rows, seqs)):
+            n_new0 = seq.n_new
+            # drafts past the row's span (clipped at the cache end) went
+            # to the trash block and are never emitted
+            n_acc = min(int(out[i, c]), int(length[i]) - 1)
+            self.stats["spec_proposed"] += k
+            self._count("spec.proposed", k)
+            finished = False
+            for j in range(n_acc + 1):
+                emitted += 1
+                if self._advance_one(seq, int(out[i, j])):
+                    finished = True
+                    break
+            self.stats["spec_accepted"] += n_acc
+            if n_acc:
+                self._count("spec.accepted", n_acc)
+            if finished:
+                self._retire(row, seq)
+            else:
+                # a learning drafter sees this row's fresh tokens now, so
+                # a concurrent twin drafts off them next round
+                self._drafter.observe(seq.ctx + [seq.last],
+                                      seq.n_new - n_new0)
+                self._rewind_blocks(seq)
+            seq.req._publish()
+        self.stats["tokens"] += emitted
+        telemetry.inc("serve.tokens", emitted)
+        if self.stats["spec_proposed"]:
+            telemetry.set_gauge(
+                self._gauge + "spec_accept_rate",
+                round(self.stats["spec_accepted"]
+                      / float(self.stats["spec_proposed"]), 4))
 
     # -- the scheduler thread and the engine's lifetime ----------------------
     def start(self):

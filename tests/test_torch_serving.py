@@ -105,8 +105,7 @@ def test_entry_points_run_on_cuda_unless_asked(models, params):
 
 
 @pytest.mark.parametrize("kw", [
-    {"spec": True}, {"quant": "int8"}, {"megastep": 4}, {"tier": True},
-    {"kv_quant": "int8"}])
+    {"quant": "int8"}, {"tier": True}, {"kv_quant": "int8"}])
 def test_later_slice_keywords_are_refused(models, params, kw):
     _, tm = models
     with pytest.raises(TypeError):

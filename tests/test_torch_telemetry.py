@@ -226,7 +226,7 @@ def test_module_fit_counters_match_jax(monkeypatch):
 
 
 @pytest.mark.parametrize("clause", ["rpc_drop:0.1", "server_crash:3",
-                                    "draft_junk:0.5", "handoff_fail:0.2",
+                                    "spill_fail:0.2", "handoff_fail:0.2",
                                     "conn_flood:1:4"])
 def test_unported_chaos_clauses_raise(monkeypatch, clause):
     monkeypatch.setenv("MXNET_CHAOS", "nan_grad:2," + clause)

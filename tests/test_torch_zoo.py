@@ -48,8 +48,7 @@ PK = {"jax": jmx, "torch": tmx}
 ZOO = {"jax": jmodels, "torch": tmx.models}
 # the JAX package's ops the port does not hold yet, and the queue of
 # ROADMAP.md that takes each
-WAITING = {"DecodeAttention": "queue 4 (serving)",
-           "TorchModule": "queue 6 (torch_bridge.py)",
+WAITING = {"TorchModule": "queue 6 (torch_bridge.py)",
            "TorchCriterion": "queue 6 (torch_bridge.py)"}
 BAR = 1e-4
 
