@@ -294,7 +294,36 @@ Phases, each of which fails the run with a non-zero exit:
    every request streamed: each stream equal to its ``on_token`` calls
    and to ``result()``, no token delivered twice across the failover,
    the tokens plain's under the margin rule, exact launches (the dead
-   replica's megastep in flight at the crash included).
+   replica's megastep in flight at the crash included);
+25. the host tier, sessions and quantization: GPT-2 small in f32 on the
+   paged engine (block size 16), phase 4b's shared-prefix requests in
+   rounds (the first alone, 7 together, 4 unrelated 992-token prompts
+   one by one that evict what they parked, then the 9th alone and the
+   last 7 together) through a 193-block pool with the host tier, the
+   same pool without it, a 1024-block pool that never evicts, and the
+   tier under ``MXNET_CHAOS=spill_fail:0.5``: the tier's tokens equal the
+   roomy pool's bit for bit, the prompt's 32 blocks are on the host after
+   the fillers and, restored, hold the bytes they held, fewer prefill
+   tokens than without the tier, the other runs' tokens under the 1e-3
+   margin rule, no block leaked on the card or the host; one restore
+   copy (32 blocks from pinned memory) timed alone and staged before a
+   decode step of 8 rows (the share of it under the decode); 4 sessions
+   x 3 turns, on
+   the card and through the tier, each turn's tokens those of an engine
+   without a prefix cache given the whole history (margin rule), each
+   follow-up prefilling at most its new tokens and the history's partial
+   blocks; phase 3's 16 prompts in f32 and with weights int8 and K/V
+   int8, weights int8, weights fp8 and K/V int8 alone: each quantized
+   mode's kernel path teacher-forced against its own plain-LayerNorm path
+   within 1e-3 (greedy tokens its argmax within 1e-3), `parity_report`
+   against the f32 model, the int8 modes within the JAX gate (relative
+   logit error <= 0.05, token match >= 0.75) and fp8's reported beside
+   it, ``allow_tf32`` off; int8 blocks at the
+   f32 pool's bytes; then ``MXNET_CHAOS=scale_corrupt:0.3`` on weights
+   and K/V int8: only `ServeQuantError` failures, the survivors the clean
+   tokens (margin rule), the engine alive; every run's LayerNorm launches
+   exactly 2L + 1 per prefill chunk and decode step (a restore launches
+   none); tokens/s, TTFT median and p99 and peak memory of each run.
 
 It prints each phase's seconds, a ``kernels`` JSON line (launches,
 errors, times, bounds; the float32 flash forward's and backward's routes
@@ -5611,10 +5640,16 @@ def router_run(model, params, requests, spec=None, respawn=False,
     launches = read_counts()
     counters = {k: v for k, v in mx.telemetry.registry()._counters.items()
                 if k.startswith("serve.")}
+    # a migration replays only what the journal holds: a request moved
+    # before its first token re-dispatches from the prompt (its event's
+    # pos is 0), no replay
+    replaying = sum(1 for e in mx.telemetry.registry().events("serve_migrate")
+                    if e.get("pos"))
     warmed = [e for e in seen if e not in fleet]
     return {"requests": reqs, "tail": tail, "drained": drained,
             "wall_s": wall, "tokens": sum(len(r.tokens) for r in reqs),
-            "counters": counters, "launches": launches,
+            "counters": counters, "replaying_migrations": replaying,
+            "launches": launches,
             "expected": expected_launches(seen, warmed, model.num_layers),
             "replicas_seen": len(seen),
             "leaked_blocks": [e.leaked_blocks() for e in router.engines]}
@@ -5657,8 +5692,9 @@ def failover_path(model, params):
     c = crash["counters"]
     if c.get("serve.failovers") != 1 or c.get("serve.respawns", 0) < 1 or \
             c.get("serve.migrated", 0) < 1 or \
-            c.get("serve.replays") != c.get("serve.migrated"):
-        raise SystemExit("failover: counters %s" % c)
+            c.get("serve.replays") != crash["replaying_migrations"]:
+        raise SystemExit("failover: counters %s, migrations with tokens "
+                         "to replay %d" % (c, crash["replaying_migrations"]))
     out["parted"] = same_tokens("failover migrated vs fault-free", model,
                                 params, requests, clean["requests"],
                                 crash["requests"])
@@ -6070,6 +6106,618 @@ def spec_megastep_phase():
     return out
 
 
+# -- phase 25: the host tier, sessions and quantization ---------------------
+
+# the tight pool of the tier runs: the trash block, the shared prompt and
+# one wave's 8 requests at the longest suffix (18 blocks each), with 16 to
+# spare; FILLER_LEN-token prompts (63 blocks with their 16 new tokens)
+# served one by one through it evict everything a wave parked
+TIER_BLOCKS = 1 + SYSTEM_LEN // 16 + 8 * 18 + 16
+FILLER_LEN = 992
+FILLERS = 4
+# the roomy pool, which never evicts in these runs
+ROOMY_BLOCKS = 1024
+TIER_HOST_BLOCKS = 1024
+# the quantized modes of (c), each beside the f32 engine
+QUANT_MODES = [
+    ("w8 kv8", dict(quant="int8", kv_quant="int8")),
+    ("w8", dict(quant="int8", kv_quant="0")),
+    ("fp8", dict(quant="fp8", kv_quant="0")),
+    ("kv8", dict(quant="0", kv_quant="int8")),
+]
+# the JAX package's parity gate (tests/test_serve_quant.py, for int8
+# weights and K/V): the first decision's logit error relative to the
+# oracle's largest logit, and the greedy streams' mean leading agreement.
+# The int8 modes are held to it; fp8 weights (3 mantissa bits, up to
+# 2**-4 of each weight) are measured and reported beside it, as the JAX
+# package gates no fp8 run either
+PARITY_REL_MAX = 0.05
+PARITY_MATCH_MIN = 0.75
+SESSIONS = 4
+TURNS = 3
+
+
+def tier_rounds(vocab):
+    """The tier runs' traffic as rounds, each served to the end before
+    the next: phase 4b's first shared-prefix request alone (its prefill
+    registers the 512-token prompt), its next 7 together, FILLERS long
+    unrelated prompts one by one (they evict, and with a tier spill,
+    everything the first wave parked), then request 8 alone (a host hit:
+    the prompt restored) and the last 7 together (device hits, the last
+    the prompt alone: a full-cover bootstrap)."""
+    system, requests = prefix_traffic(vocab)
+    rng = np.random.RandomState(25)
+    fillers = [(rng.randint(0, vocab, size=FILLER_LEN).tolist(),
+                dict(max_new_tokens=16, seed=200 + i)) for i in range(FILLERS)]
+    return system, requests, ([requests[:1], requests[1:8]]
+                              + [[f] for f in fillers]
+                              + [requests[8:9], requests[9:]])
+
+
+def serve_rounds(engine, rounds, after=None):
+    """Serve ``rounds`` in order (counts set to 0 first), ``after(i)``
+    called after round i; the requests of every round, and the numbers."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    reqs = []
+    t0 = time.perf_counter()
+    for i, rnd in enumerate(rounds):
+        got = [engine.submit(p, **kw) for p, kw in rnd]
+        engine.run_until_idle(timeout=600)
+        reqs.extend(got)
+        if after is not None:
+            after(i)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    if not all(r.done for r in reqs):
+        raise SystemExit("not every request finished")
+    outs = [r.result(1) for r in reqs]
+    ttft = sorted(r.ttft_ms for r in reqs)
+    gen = sum(len(o) for o in outs)
+    return reqs, {
+        "requests": len(reqs), "generated_tokens": gen, "wall_s": wall,
+        "tokens_per_s": gen / wall, "ttft_ms_median": statistics.median(ttft),
+        "ttft_ms_p99": float(np.percentile(ttft, 99)), "launches": launches,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "stats": dict(engine.stats)}
+
+
+def exact_launches(label, engine, res, model):
+    """LayerNorm launches exactly 2L + 1 per program the engine ran, and
+    no other kernel: a restore scatter launches none."""
+    want = (2 * model.num_layers + 1) * programs_run(engine)
+    others = {k: n for k, n in res["launches"].items()
+              if k != "layer_norm" and n}
+    res["expected_layer_norm"] = want
+    res["leaked_blocks"] = engine.leaked_blocks()
+    res["leaked_host_blocks"] = engine.leaked_host_blocks()
+    if res["launches"]["layer_norm"] != want or others or \
+            res["leaked_blocks"] or res["leaked_host_blocks"]:
+        raise SystemExit("%s: LayerNorm %d (expected %d), other launches %s, "
+                         "leaked blocks %d, host %d"
+                         % (label, res["launches"]["layer_norm"], want,
+                            others, res["leaked_blocks"],
+                            res["leaked_host_blocks"]))
+
+
+def block_bytes(engine, blocks):
+    """The pool rows of ``blocks`` (every layer, K and V) on the host."""
+    idx = torch.tensor(blocks, device="cuda")
+    data = engine.model.slice_block(engine._cache, idx)
+    leaves = data if isinstance(data, tuple) else (data,)
+    return [t.cpu() for t in leaves]
+
+
+def tier_run(label, model, params, rounds, system, kw, fault=None):
+    """One engine of ``kw`` through the tier rounds under
+    ``MXNET_CHAOS=fault``; with a tier, the prompt's blocks are read
+    after the first wave, must be on the host after the fillers and, once
+    restored, must hold the bytes they held."""
+    engine = ServingEngine(model, params, max_batch=8, restore_ahead=8,
+                           host_blocks=TIER_HOST_BLOCKS, **kw)
+    engine.warmup()
+    seen = {}
+    # the host time of every spill (the eviction hook, the copy and the
+    # tier's bookkeeping), read by nothing but this record
+    spills = {"calls": 0, "s": 0.0}
+    hook = engine._prefix.spill_hook
+
+    def timed_spill(*args):
+        t0 = time.perf_counter()
+        try:
+            return hook(*args)
+        finally:
+            spills["s"] += time.perf_counter() - t0
+            spills["calls"] += 1
+
+    if hook is not None:
+        engine._prefix.spill_hook = timed_spill
+
+    def after(i):
+        # a lookup moves the matched blocks up the LRU: only at these three
+        if engine._tier is None or i not in (1, 1 + FILLERS,
+                                             len(rounds) - 1):
+            return
+        dev, host = engine._prefix.lookup_plan(system)
+        if i == 1:
+            seen["blocks"] = block_bytes(engine, dev)
+            seen["n"] = len(dev)
+        elif i == 1 + FILLERS:
+            seen["after_fillers"] = (len(dev), len(host))
+        elif i == len(rounds) - 1:
+            seen["restored_equal"] = len(dev) == seen["n"] and all(
+                torch.equal(a, b) for a, b in zip(
+                    block_bytes(engine, dev), seen["blocks"]))
+
+    with pinned(**({"MXNET_CHAOS": fault} if fault else {})):
+        mx.chaos.reset()
+        reqs, res = serve_rounds(engine, rounds, after)
+    mx.chaos.reset()
+    if engine.drain():
+        raise SystemExit("%s: drain left stragglers" % label)
+    exact_launches(label, engine, res, model)
+    res["tier_blocks"] = {k: v for k, v in seen.items() if k != "blocks"}
+    res["spill_calls"] = spills["calls"]
+    res["spill_host_ms"] = 1e3 * spills["s"]
+    waits = list(mx.telemetry.registry()._hists.get(
+        "serve.restore_wait_ms", []))
+    res["restore_wait_ms"] = (statistics.median(waits) if waits else None)
+    st = res["stats"]
+    log("tier %s (%s): %d tokens in %.3f s = %.1f tok/s, ttft median %.1f "
+        "ms p99 %.1f ms, prefill_tokens %d, spilled %d, restored %d (%d "
+        "tokens), spill_fails %d, prefix_hits %d, preemptions %d, "
+        "max_memory_allocated %d B, prompt blocks %s; %d spill calls took "
+        "%.3f ms of host time"
+        % (label, card_name(), res["generated_tokens"], res["wall_s"],
+           res["tokens_per_s"], res["ttft_ms_median"], res["ttft_ms_p99"],
+           st["prefill_tokens"], st["spilled"], st["restored"],
+           st["restored_tokens"], st["spill_fails"], st["prefix_hits"],
+           st["preemptions"], res["max_memory_allocated"],
+           res["tier_blocks"], res["spill_calls"], res["spill_host_ms"]))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return reqs, res
+
+
+def restore_copy_check(model, params):
+    """A 32-block run (the shared prompt, f32) staged from pinned memory
+    by the engine's own restore copy (`_stage_run`): its ms and GB/s
+    alone; then staged as the engine stages it, just before a decode step
+    of 8 rows at 600-token contexts: the share of the copy's time on the
+    card that ran while the decode did (events on both streams, from one
+    origin)."""
+    engine = ServingEngine(model, params, max_batch=8, tier=True)
+    engine.warmup()
+    kb = SYSTEM_LEN // 16
+    data = model.block_run_placeholder(kb, 16, pin=True)
+    data.normal_()
+    nbytes = data.numel() * data.element_size()
+    token = engine._put(np.zeros((8,), np.int64))
+    pos = engine._put(np.full((8,), 600, np.int64))
+    blocks = [list(range(1 + 40 * i, 41 + 40 * i)) for i in range(8)]
+    tables = engine._table(8, blocks)
+    main = torch.cuda.current_stream()
+
+    def copy_only():
+        staged, ready = engine._stage_run(data)
+        engine._await_staged(staged, ready)
+
+    def decode_only():
+        engine._decode(token, pos, tables)
+
+    times = {}
+    for name, fn in (("copy", copy_only), ("decode", decode_only)):
+        fn()
+        runs = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+            start.record(main)
+            fn()
+            end.record(main)
+            end.synchronize()
+            runs.append(start.elapsed_time(end))
+        times[name] = statistics.median(runs)
+    shares = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        origin, d0, d1 = (torch.cuda.Event(True) for _ in range(3))
+        origin.record(main)
+        staged, ready = engine._stage_run(data)
+        # behind the copy on the side stream (`ready` does not time)
+        copied = torch.cuda.Event(True)
+        copied.record(engine._side)
+        d0.record(main)
+        engine._decode(token, pos, tables)
+        d1.record(main)
+        engine._await_staged(staged, ready)
+        torch.cuda.synchronize()
+        # the copy starts at the origin (its stream waits on an idle main)
+        c1 = origin.elapsed_time(copied)
+        a, b = origin.elapsed_time(d0), origin.elapsed_time(d1)
+        shares.append(max(0.0, min(c1, b) - max(0.0, a)) / c1)
+    res = {"bytes": nbytes, "copy_ms": times["copy"],
+           "copy_gb_s": nbytes / times["copy"] / 1e6,
+           "decode_ms": times["decode"],
+           "overlap": statistics.median(shares)}
+    log("restore copy (%s): %d B (32 blocks, f32) in %.3f ms = %.2f GB/s "
+        "from pinned memory; a decode step of 8 rows %.3f ms; staged just "
+        "before it, %.2f of the copy's time ran under the decode"
+        % (card_name(), nbytes, res["copy_ms"], res["copy_gb_s"],
+           res["decode_ms"], res["overlap"]))
+    del engine
+    torch.cuda.empty_cache()
+    return res
+
+
+def spill_cost_check(model, n=64):
+    """What one spill's host time is made of, outside any engine: a fresh
+    page-locked allocation of one block (every layer, K and V, f32), and
+    a non-blocking copy of a pool block into a page-locked slot already
+    held, with its event; the median host ms of ``n`` each.  Run before
+    any engine of the phase, so no freed page-locked block of this size
+    is cached yet."""
+    pool = model.init_block_pool(n + 1, 16, "cuda")
+    shape, dtype = pool[:, :, 0].shape, pool.dtype
+    held, alloc, copy = [], [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        held.append(torch.empty(shape, dtype=dtype, pin_memory=True))
+        alloc.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    for b, dst in enumerate(held, 1):
+        t0 = time.perf_counter()
+        dst.copy_(pool[:, :, b], non_blocking=True)
+        torch.cuda.Event().record()
+        copy.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    res = {"block_bytes": held[0].numel() * held[0].element_size(),
+           "alloc_ms_median": statistics.median(alloc),
+           "copy_ms_median": statistics.median(copy),
+           "alloc_ms_sum": sum(alloc), "copy_ms_sum": sum(copy)}
+    log("spill cost (%s): %d B a block; a fresh page-locked allocation "
+        "%.3f ms host median (%d: %.1f ms), a non-blocking copy into a "
+        "held page-locked slot %.3f ms host median (%d: %.1f ms)"
+        % (card_name(), res["block_bytes"], res["alloc_ms_median"], n,
+           res["alloc_ms_sum"], res["copy_ms_median"], n,
+           res["copy_ms_sum"]))
+    del held, pool
+    torch.cuda.empty_cache()
+    return res
+
+
+def tier_part(model, params):
+    """(a): the tight pool with the tier, without it, the roomy pool, and
+    the tier under ``spill_fail:0.5``."""
+    system, requests, rounds = tier_rounds(model.vocab_size)
+    order = [r for rnd in rounds for r in rnd]
+    runs, out = {}, {"spill_cost": spill_cost_check(model)}
+    for label, kw, fault in (
+            ("on", dict(n_blocks=TIER_BLOCKS, tier=True), None),
+            ("off", dict(n_blocks=TIER_BLOCKS, tier=False), None),
+            ("roomy", dict(n_blocks=ROOMY_BLOCKS, tier=False), None),
+            ("on, spill_fail:0.5", dict(n_blocks=TIER_BLOCKS, tier=True),
+             "spill_fail:0.5")):
+        runs[label], out[label] = tier_run(label, model, params, rounds,
+                                           system, kw, fault)
+    on, off, roomy, sf = (out[k]["stats"] for k in runs)
+    bitwise = [r.tokens for r in runs["on"]] == \
+        [r.tokens for r in runs["roomy"]]
+    checks = {
+        "tier tokens = roomy tokens, bit for bit": bitwise,
+        "prompt blocks on the host after the fillers":
+            out["on"]["tier_blocks"].get("after_fillers")
+            == (0, SYSTEM_LEN // 16),
+        "restored bytes = spilled bytes":
+            bool(out["on"]["tier_blocks"].get("restored_equal")),
+        "spilled >= 1": on["spilled"] >= 1,
+        "restored >= 1": on["restored"] >= 1,
+        "prefill_tokens below tier off": on["prefill_tokens"]
+        < off["prefill_tokens"],
+        "roomy never evicts": roomy["prefix_evictions"] == 0,
+        "no preemption": not (on["preemptions"] or off["preemptions"]
+                              or roomy["preemptions"]),
+        "spill_fail hit a spill": sf["spill_fails"] >= 1}
+    log("tier checks (%s): %s" % (card_name(), checks))
+    if not all(checks.values()):
+        raise SystemExit("tier checks failed: %s" % checks)
+    out["parted_off"] = same_tokens("tier off vs roomy", model, params,
+                                    order, runs["roomy"], runs["off"])
+    out["parted_spill_fail"] = same_tokens(
+        "tier on spill_fail:0.5 vs on", model, params, order, runs["on"],
+        runs["on, spill_fail:0.5"])
+    out["checks"] = checks
+    out["restore_copy"] = restore_copy_check(model, params)
+    launches = {}
+    for label in runs:
+        for k, n in out[label]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    out["launches"] = launches
+    return out
+
+
+def session_turns(vocab):
+    """4 sessions x 3 turns of 48-96 new tokens each, 16 generated."""
+    rng = np.random.RandomState(26)
+    return [[(rng.randint(0, vocab, size=int(rng.randint(48, 97))).tolist(),
+              dict(max_new_tokens=16, seed=300 + 10 * s + t))
+             for t in range(TURNS)] for s in range(SESSIONS)]
+
+
+def session_run(label, model, params, turns, through_tier):
+    """The sessions' turns, each turn of the 4 together; between turns
+    ``through_tier`` evicts every parked block (to the host tier).  Each
+    follow-up prefills at most its new tokens and the history's partial
+    blocks."""
+    engine = ServingEngine(model, params, max_batch=8, tier=True,
+                           host_blocks=TIER_HOST_BLOCKS,
+                           restore_ahead=SESSIONS)
+    engine.warmup()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    reqs = []
+    bound_ok = True
+    t0 = time.perf_counter()
+    for t in range(TURNS):
+        before = engine.stats["prefill_tokens"]
+        got = [engine.submit(turns[s][t][0], session="s%d" % s,
+                             **turns[s][t][1]) for s in range(SESSIONS)]
+        engine.run_until_idle(timeout=600)
+        for r in got:
+            r.result(1)
+        reqs.append(got)
+        fresh = engine.stats["prefill_tokens"] - before
+        if t and fresh > sum(len(turns[s][t][0]) + 2 * 16 - 1
+                             for s in range(SESSIONS)):
+            bound_ok = False
+        if through_tier:
+            engine._alloc.reclaim(engine._prefix.evict(
+                engine._alloc.capacity))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = {"stats": dict(engine.stats), "launches": read_counts(),
+           "wall_s": wall, "suffix_only": bound_ok,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    if engine.drain():
+        raise SystemExit("sessions %s: drain left stragglers" % label)
+    exact_launches("sessions " + label, engine, res, model)
+    st = res["stats"]
+    log("sessions %s (%s): %d turns in %.3f s, session_hits %d, "
+        "session_turns %d, prefill_tokens %d, prefix_tokens %d, spilled %d, "
+        "restored %d, suffix-only prefill %s"
+        % (label, card_name(), SESSIONS * TURNS, wall, st["session_hits"],
+           st["session_turns"], st["prefill_tokens"], st["prefix_tokens"],
+           st["spilled"], st["restored"], bound_ok))
+    ok = bound_ok and st["session_hits"] == SESSIONS * (TURNS - 1) and \
+        st["session_turns"] == SESSIONS * TURNS and \
+        (st["restored"] > 0 if through_tier else True)
+    if not ok:
+        raise SystemExit("sessions %s failed: %s" % (label, st))
+    del engine
+    torch.cuda.empty_cache()
+    return reqs, res
+
+
+def session_part(model, params):
+    """(b): each turn's tokens against a fresh engine (no prefix cache)
+    given the whole history, under the 1e-3 margin rule."""
+    turns = session_turns(model.vocab_size)
+    out = {}
+    fresh = ServingEngine(model, params, max_batch=8, prefix=False)
+    fresh.warmup()
+    for label, through in (("on the card", False), ("through the tier",
+                                                    True)):
+        reqs, out[label] = session_run(label, model, params, turns, through)
+        parted = []
+        for t in range(TURNS):
+            want = [fresh.submit(r.prompt, **turns[s][t][1])
+                    for s, r in enumerate(reqs[t])]
+            fresh.run_until_idle(timeout=600)
+            parted += same_tokens(
+                "session turn %d %s vs fresh" % (t + 1, label), model,
+                params, [(r.prompt, turns[s][t][1])
+                         for s, r in enumerate(reqs[t])], want, reqs[t])
+        out[label]["parted"] = parted
+    del fresh
+    torch.cuda.empty_cache()
+    return out
+
+
+def quant_logit_check(label, qmodel, qparams, reqs):
+    """The quantized model's kernel path against its own plain-LayerNorm
+    path, teacher-forced on two served greedy requests: logits within
+    LOGIT_TOL, and each greedy token the plain path's argmax within it."""
+    out = []
+    for r in [r for r in reqs if r.temperature == 0][:2]:
+        got = teacher_forced_kernel_logits(qmodel, qparams, r.prompt,
+                                           r.tokens, 16)
+        with plain_kernels():
+            ref = teacher_forced_kernel_logits(qmodel, qparams, r.prompt,
+                                               r.tokens, 16)
+        err = float((got - ref).abs().max())
+        picked = ref.gather(1, torch.tensor(r.tokens,
+                                            device=ref.device)[:, None])
+        gap = float((ref.max(dim=1).values - picked[:, 0]).max())
+        log("%s logits request %d (prompt %d, %d positions): kernel path "
+            "vs plain-LayerNorm path err %.3e (tol %.0e), greedy argmax gap "
+            "%.2e" % (label, r.id, len(r.prompt), len(r.tokens), err,
+                      LOGIT_TOL, gap))
+        if not (err <= LOGIT_TOL and gap <= LOGIT_TOL):
+            raise SystemExit("%s: the kernel path parts from the plain "
+                             "path" % label)
+        out.append({"request": r.id, "max_abs_err": err, "argmax_gap": gap})
+    return out
+
+
+def bytes_apart(a, b):
+    """How many bytes two tensors differ in (fp8 and f32 alike); all of
+    them when their dtypes or shapes differ."""
+    a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return max(a.nbytes, b.nbytes, 1)
+    return int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
+
+
+def codec_on_card_check(model, params, qmodel, qparams):
+    """The card's quantized weights, and one pool block's K/V rows
+    quantized on the card (int8 and fp8), bit for bit what the same codec
+    gives on the CPU, which the CPU tests hold bit-equal to the JAX
+    package's: a wrong cast, clamp or rounding on the card fails here."""
+    qd = qparams
+    qc = qmodel.quantize_params({k: v.cpu() for k, v in params.items()})
+    out = {"weights": sum(bytes_apart(qd[k], qc[k]) for k in qc)
+           if sorted(qd) == sorted(qc) else -1}
+    g = torch.Generator().manual_seed(25)
+    rows = 3 * torch.randn((model.num_layers, 2, 16, model.num_embed),
+                           generator=g)
+    rows[0, 0, 3] = 0                      # a zero row takes scale 1
+    for spec in ("int8", "fp8"):
+        q_card, s_card = mx.quant.quantize_rows(rows.cuda(), spec)
+        q_cpu, s_cpu = mx.quant.quantize_rows(rows, spec)
+        out["kv rows " + spec] = bytes_apart(q_card, q_cpu) + \
+            bytes_apart(s_card, s_cpu)
+    return out
+
+
+def pool_block_bytes(model, kv_quant):
+    """Bytes of one pool block (every layer, K and V) under ``kv_quant``."""
+    pool = model.with_quant(None, kv_quant).init_block_pool(1, 16, "cuda")
+    leaves = pool if isinstance(pool, tuple) else (pool,)
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def scale_corrupt_run(model, params, requests, clean):
+    """(d): ``scale_corrupt:0.3`` on weights int8 with KV int8: the
+    requests the logit gate tripped twice fail with `ServeQuantError`,
+    every other one gets the fault-free tokens (margin rule), the engine
+    lives on and nothing leaks."""
+    engine = ServingEngine(model, params, max_batch=8, quant="int8",
+                           kv_quant="int8")
+    engine.warmup()
+    with pinned(MXNET_CHAOS="scale_corrupt:0.3"):
+        mx.chaos.reset()
+        reset_counts()
+        reqs = [engine.submit(p, **kw) for p, kw in requests]
+        engine.run_until_idle(timeout=600)
+        res = {"launches": read_counts()}
+    mx.chaos.reset()
+    failed, kinds, done = [], set(), []
+    for i, r in enumerate(reqs):
+        try:
+            r.result(1)
+            done.append(i)
+        except Exception as e:  # typed failures are the point here
+            failed.append(i)
+            kinds.add(type(e).__name__)
+    res["stats"] = st = dict(engine.stats)
+    if engine.drain():
+        raise SystemExit("scale_corrupt: drain left stragglers")
+    exact_launches("scale_corrupt:0.3", engine, res, model)
+    res.update(failed=failed, error_types=sorted(kinds),
+               alive=engine._dead is None)
+    res["parted"] = same_tokens(
+        "scale_corrupt:0.3 survivors vs clean", model, params,
+        [requests[i] for i in done], [clean[i] for i in done],
+        [reqs[i] for i in done])
+    log("scale_corrupt:0.3 (%s): %d of %d requests failed (%s), %d scale "
+        "corruptions, %d gate trips, engine alive %s"
+        % (card_name(), len(failed), len(reqs), sorted(kinds),
+           st["scale_corrupts"], st["quant_trips"], res["alive"]))
+    if kinds - {"ServeQuantError"} or not st["scale_corrupts"] or \
+            not st["quant_trips"] or not res["alive"]:
+        raise SystemExit("scale_corrupt: %s" % res)
+    del engine
+    torch.cuda.empty_cache()
+    return res
+
+
+def quant_part(model, params):
+    """(c) and (d): the f32 engine and each quantized mode on phase 3's
+    16 prompts, in one process."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("allow_tf32 is on: the scaled matmuls would run "
+                         "in TF32")
+    requests = spec_traffic(model.vocab_size)
+    out = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    plain_reqs, out["f32"] = serve_mode("f32", model, params, requests, {})
+    prompts = [p[:64] for p, _ in requests[:4]]
+    for label, kw in QUANT_MODES:
+        reqs, res = serve_mode(label, model, params, requests, kw)
+        qmodel = model.with_quant(kw["quant"], kw["kv_quant"])
+        qparams = qmodel.quantize_params(params)
+        res["logit_checks"] = quant_logit_check(label, qmodel, qparams, reqs)
+        res["bytes_apart_cpu"] = codec_on_card_check(model, params, qmodel,
+                                                    qparams)
+        log("%s codec on the card vs the CPU (%s), bytes apart (0: bit "
+            "for bit): %s" % (label, card_name(), res["bytes_apart_cpu"]))
+        if any(res["bytes_apart_cpu"].values()):
+            raise SystemExit("%s: the card's codec parts from the CPU's"
+                             % label)
+        rep = mx.quant.parity_report(model, params, qmodel, qparams, prompts,
+                                     max_new=8, block_size=16)
+        res["parity"] = {k: rep[k] for k in ("logit_err_max",
+                                             "logit_err_rel",
+                                             "token_match_rate")}
+        res["weight_bytes"] = sum(t.numel() * t.element_size()
+                                  for t in qparams.values())
+        gated = kw["quant"] != "fp8"
+        res["parity"]["gated"] = gated
+        log("%s parity vs f32 (%s): %s (%s: rel <= %.2f, match >= %.2f)"
+            % (label, card_name(), res["parity"],
+               "gate" if gated else "reported beside the int8 gate",
+               PARITY_REL_MAX, PARITY_MATCH_MIN))
+        if not np.isfinite(rep["logit_err_max"]) or gated and not (
+                rep["logit_err_rel"] <= PARITY_REL_MAX
+                and rep["token_match_rate"] >= PARITY_MATCH_MIN):
+            raise SystemExit("%s fails the parity gate" % label)
+        out[label] = res
+        if label == "w8 kv8":
+            clean = reqs
+        del qparams
+    f32_block = pool_block_bytes(model, None)
+    int8_block = pool_block_bytes(model, "int8")
+    # the default engine's pool: (max_batch + 1) rows of the cache depth
+    f32_pool = f32_block * (8 + 1) * -(-model.seq_len // 16)
+    out["pool"] = {"f32_block_bytes": f32_block,
+                   "int8_block_bytes": int8_block,
+                   "f32_pool_bytes": f32_pool,
+                   "n_blocks_f32": f32_pool // f32_block,
+                   "n_blocks_int8_at_equal_bytes": f32_pool // int8_block}
+    log("pool at equal bytes (%s): %s" % (card_name(), out["pool"]))
+    out["scale_corrupt"] = scale_corrupt_run(model, params, requests, clean)
+    launches = {}
+    for label in ["f32"] + [m for m, _ in QUANT_MODES] + ["scale_corrupt"]:
+        for k, n in out[label]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    out["launches"] = launches
+    return out
+
+
+def tier_session_quant_phase():
+    """Phase 25 on GPT-2 small in float32."""
+    model = TransformerKVModel(**GPT2)
+    params = model.params_from_jax(
+        model.init_params(np.random.RandomState(0)), "cuda")
+    out = {"card": card_name(), "tier": tier_part(model, params),
+           "sessions": session_part(model, params),
+           "quant": quant_part(model, params)}
+    launches = {}
+    for part in ("tier", "quant"):
+        for k, n in out[part]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    for res in out["sessions"].values():
+        for k, n in res["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    out["launches"] = launches
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernels_line(cases, paths, f32_paths, wide_paths):
     """One entry per ported TPU function: launches on each path, and the
     error and times of its check at the training shape, in bf16; then one
@@ -6368,6 +7016,8 @@ def main():
 
     with phase("speculative and megastep serving"):
         spec = spec_megastep_phase()
+    with phase("host tier, sessions and quantization"):
+        tiers = tier_session_quant_phase()
     crash = faults["serving"]["failover"]["engine_crash"]
     # the LM's LayerNorm launches join the LayerNorm rows; its float32
     # flash launches the float32 flash rows
@@ -6401,7 +7051,10 @@ def main():
             for k, n in crash["launches"].items()},
         "serving_spec_megastep_f32": {
             k: (n if k.startswith("layer_norm") else 0)
-            for k, n in spec["launches"].items()}}, {
+            for k, n in spec["launches"].items()},
+        "serving_tier_session_quant_f32": {
+            k: (n if k.startswith("layer_norm") else 0)
+            for k, n in tiers["launches"].items()}}, {
         "slot": slot["launches"],
         "train_bhsd_f32": hsd32["launches"],
         "train_fused_f32": fused32["launches"],
@@ -6420,7 +7073,8 @@ def main():
         "slot_head256_f32": head256["serving"]["launches"],
         "gradients_wide": wide["gradients"]["launches"],
         "serving_failover_f32": crash["launches"],
-        "serving_spec_megastep_f32": spec["launches"]}, {
+        "serving_spec_megastep_f32": spec["launches"],
+        "serving_tier_session_quant_f32": tiers["launches"]}, {
         torch.bfloat16: {"train_wide_bhsd": wide["bhsd"]["launches"]},
         torch.float32: {"gradients_wide": wide["gradients"]["launches"]}})
     idle = [e["name"] for e in kernels if not e["launches"]]
@@ -6453,7 +7107,8 @@ def main():
          "bucketing": bucketing, "fault_tolerance": faults,
          "image_records": records, "head256": head256,
          "remat": remat_runs, "memcost": memcost, "wide": wide,
-         "spec_megastep": spec, "kernels": kernels},
+         "spec_megastep": spec, "tier_session_quant": tiers,
+         "kernels": kernels},
         indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

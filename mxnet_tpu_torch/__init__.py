@@ -5,7 +5,8 @@ names where that helps a reader find the counterpart, and imports
 neither JAX nor anything of `mxnet_tpu`.  It serves and trains:
 
 * serving the transformer LM (`serving.ServingEngine` over
-  `serving.TransformerKVModel`);
+  `serving.TransformerKVModel`), with the host-DRAM block tier,
+  sessions, and `quant`'s int8/fp8 weights and int8 K/V pool;
 * training it: `models.get_transformer_lm` builds the symbol graph
   (`symbol`, the ops of `ops`), `executor._build_graph_fn` runs it, and
   `parallel.SPMDTrainer` steps forward, backward and the optimizer update
@@ -110,6 +111,7 @@ from . import executor, executor_manager, checkpoint, model, monitor
 from . import telemetry, chaos, storage, resource
 from . import engine, recordio, image
 from . import serving
+from . import quant
 from . import module
 from . import module as mod
 from .attribute import AttrScope

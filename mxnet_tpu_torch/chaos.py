@@ -28,6 +28,13 @@ random state, and the hooks of the sites the port has::
                           round's draft proposals are corrupted, the
                           same way each time, before the verify: the
                           tokens must not change, only the accept rate
+    spill_fail:P          with probability P a host-tier spill fails: the
+                          evicted block is forgotten, as without a tier
+    restore_slow:P:MS     with probability P a host-to-device restore
+                          sleeps MS ms before its pool write
+    scale_corrupt:P       with probability P a serving step NaNs one held
+                          block's int8 K/V scales (KV quant only): the
+                          logit gate must fail the requests typed
 
 `optimizer.Optimizer.update_multi` calls `grad_poison` once a call, so
 ``nan_grad:N`` drives the nonfinite-gradient guard
@@ -36,12 +43,11 @@ random state, and the hooks of the sites the port has::
 sites.
 
 The other clauses of the grammar (``rpc_drop``, ``rpc_delay``,
-``server_crash``, and the serving and gateway clauses ``spill_fail``,
-``handoff_fail``, ``restore_slow``, ``scale_corrupt``,
+``server_crash``, and the serving and gateway clauses ``handoff_fail``,
 ``client_disconnect``, ``slow_consumer``, ``conn_flood``) are parsed as
 the JAX package parses them, and then refused with `MXNetError` naming
-the clause: their sites (the parameter server, the host tier,
-disaggregated serving, quantization, the gateway) are not in the port,
+the clause: their sites (the parameter server, disaggregated serving,
+the gateway) are not in the port,
 and a spec the port would ignore in part would inject fewer faults than
 it says.
 
@@ -68,12 +74,14 @@ from .base import MXNetError
 __all__ = ["ChaosError", "ChaosEngineCrash", "enabled", "spec", "reset",
            "grad_poison", "serve_decode_slow", "serve_engine_crash",
            "serve_launch_error", "serve_queue_flood", "serve_block_exhaust",
-           "serve_prefix_evict", "serve_draft_junk"]
+           "serve_prefix_evict", "serve_draft_junk", "serve_spill_fail",
+           "serve_restore_slow", "serve_scale_corrupt"]
 
 # clauses whose injection site the port has
 _PORTED = frozenset(("nan_grad", "decode_slow", "engine_crash",
                      "launch_error", "queue_flood", "block_exhaust",
-                     "prefix_evict", "draft_junk"))
+                     "prefix_evict", "draft_junk", "spill_fail",
+                     "restore_slow", "scale_corrupt"))
 
 
 class ChaosError(OSError):
@@ -335,6 +343,45 @@ def serve_draft_junk():
     with s.lock:
         return bool(s.rng_for("draft_junk").random_sample()
                     < s.draft_junk)
+
+
+def serve_spill_fail():
+    """True when the current host-tier spill should fail (`spill_fail:P`):
+    the evicted block's K/V is forgotten instead of spilled, so a flaky
+    copy path costs only prefill recomputes."""
+    s = spec()
+    if s is None or s.spill_fail <= 0:
+        return False
+    with s.lock:
+        return bool(s.rng_for("spill_fail").random_sample()
+                    < s.spill_fail)
+
+
+def serve_restore_slow():
+    """Milliseconds to stall the current host-to-device restore before
+    its pool write, or None (`restore_slow:P:MS`)."""
+    s = spec()
+    if s is None or s.restore_slow[0] <= 0:
+        return None
+    p, ms = s.restore_slow
+    with s.lock:
+        if s.rng_for("restore_slow").random_sample() < p:
+            return ms
+    return None
+
+
+def serve_scale_corrupt():
+    """A uniform draw u in [0, 1) when the current serving step should
+    corrupt one held block's K/V quantization scales (`scale_corrupt:P`),
+    else None; the engine maps u onto its sorted held blocks."""
+    s = spec()
+    if s is None or s.scale_corrupt <= 0:
+        return None
+    with s.lock:
+        rng = s.rng_for("scale_corrupt")
+        if rng.random_sample() < s.scale_corrupt:
+            return float(rng.random_sample())
+    return None
 
 
 def serve_queue_flood():

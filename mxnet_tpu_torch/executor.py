@@ -439,7 +439,8 @@ class Executor:
         if group2ctx and any(Context(c) != self._ctx
                              for c in group2ctx.values()):
             raise _later("group2ctx over more than one device "
-                         "(model-parallel placement)", "ROADMAP queue 5")
+                         "(model-parallel placement)",
+                         "ROADMAP.md queue 1, item 3")
         self._group2ctx = dict(group2ctx or {})
         self._arg_names = symbol.list_arguments()
         self._aux_names = symbol.list_auxiliary_states()

@@ -15,7 +15,7 @@ Pushes and pulls count ``kvstore.push_calls``/``push_bytes`` and
 ``kvstore.pull_calls``/``pull_bytes`` in `telemetry`.
 
 The ``dist_*`` types (the parameter server of `parallel/dist.py`) raise:
-they come with ROADMAP queue 5.
+they come with ROADMAP.md queue 1, item 3.
 """
 from __future__ import annotations
 
@@ -150,7 +150,7 @@ def create(name="local"):
     if name in ("dist_sync", "dist_async", "dist"):
         raise MXNetError(
             "KVStore %r (the distributed parameter server) is not ported "
-            "yet (ROADMAP queue 5)" % name)
+            "yet (ROADMAP.md queue 1, item 3)" % name)
     if name not in _LOCAL:
         raise MXNetError("unknown KVStore type %r" % name)
     return KVStore(name)

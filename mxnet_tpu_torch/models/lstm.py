@@ -5,8 +5,8 @@ layers pinned to devices via `ctx_group` AttrScope).
 As `mxnet_tpu/models/lstm.py` builds it: one explicitly unrolled graph per
 (bucket) length, the gates of each step one sum of two products (i2h +
 h2h).  The ``ctx_group`` attributes are kept; the port's `Executor`
-refuses ``group2ctx`` over more than one device (ROADMAP queue 5), so the
-model-parallel variant runs on one device.
+refuses ``group2ctx`` over more than one device (ROADMAP.md queue 1,
+item 3), so the model-parallel variant runs on one device.
 """
 from __future__ import annotations
 

@@ -29,7 +29,8 @@ from .pallas_kernels.flash_attention import (flash_attention,
 from .pallas_kernels.layer_norm import layer_norm
 from .registry import OpDef, Param, register
 
-__all__ = ["decode_attention", "gather_paged_kv", "paged_decode_attention",
+__all__ = ["decode_attention", "gather_paged_kv", "gather_paged_scales",
+           "paged_decode_attention",
            "chunk_attention", "verify_attention"]
 
 
@@ -186,6 +187,19 @@ def gather_paged_kv(pool, block_tables):
     b, m = block_tables.shape
     _, bs, e = pool.shape
     return pool[block_tables.long()].reshape(b, m * bs, e)
+
+
+def gather_paged_scales(scales, block_tables):
+    """Per-row dequantization scales from one layer's paged scale pool,
+    the int8-KV companion of `gather_paged_kv`.
+
+    scales: (n_blocks, block_size) f32, one layer's K (or V) per-row
+    scales, indexed like the int8 pool; block_tables: (b, m) int.
+    Returns (b, m * block_size): multiply onto the gathered int8 rows
+    (``kc.float() * sc[..., None]``) before the attention math; position
+    masking hides the same tail rows as ever."""
+    b, m = block_tables.shape
+    return scales[block_tables.long()].reshape(b, m * scales.shape[1])
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, pos, num_heads,

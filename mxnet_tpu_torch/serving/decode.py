@@ -11,14 +11,33 @@ same cache layouts, the same programs.
   (num_layers, 2, n_slots, S_max, embed);
 * ``prefill_paged`` / ``decode_paged`` do the same over the paged block
   pool (num_layers, 2, n_blocks, block_size, embed) through int32 block
-  tables, with `chunk_attention` / `paged_decode_attention`;
+  tables, with `chunk_attention` / `decode_attention` over the gathered
+  (under KV quant, dequantized) context;
 * ``copy_block`` copies one block of the pool to another, the prefix
   cache's copy-on-write (plain indexing, as the JAX one is a gather and
   a scatter outside any Pallas kernel);
 * ``verify_paged`` scores a speculative draft run, k+1 tokens a row at
   arbitrary positions, over the paged pool with `verify_attention`;
 * ``decode_megastep`` runs m steps of ``decode_paged`` with per-row
-  active masks, so a row that finishes mid-run retires on the device.
+  active masks, so a row that finishes mid-run retires on the device;
+* ``slice_block`` / ``write_block`` read one block out for a host-tier
+  spill and scatter a staged run of blocks back in (the restore).
+
+Quantization (`mxnet_tpu_torch.quant`), both off by default:
+
+* ``quant`` (weights, int8 or fp8): `quantize_params` replaces every 2-D
+  matmul weight by its 1-byte storage under the same name, with the
+  per-output-channel f32 scales beside it as ``<name>_qscale``, and every
+  program runs scaled matmuls, ``y = (x @ W_q.T) * scale`` in f32 then
+  the downcast (a plain product, never in TF32); the embedding gathers
+  1-byte rows and scales each by its entry's scale;
+* ``kv_quant`` (paged pool, int8): the pool becomes the pair ``(int8
+  pool (L, 2, n_blocks, bs, E), f32 scales (L, 2, n_blocks, bs))``,
+  quantized on write at every scatter (prefill chunks, decode rows,
+  verify spans, megastep steps, `copy_block`, `write_block`) and
+  dequantized at every gather, one scale per cached token row.  Scales
+  are indexed by block, so sharing, copy-on-write, spill and restore
+  carry them beside the rows.
 
 The token embedding is the JAX model's ``jnp.take``
 (`ops.indexing.take_rows`): a token outside [-V, V) embeds as a NaN row,
@@ -35,10 +54,12 @@ two has left the cache half-written, and `cache_lost` reads the mark (the
 JAX `cache_lost` asks whether a failed launch consumed the donated
 buffer).  Parameters are a ``{name: tensor}``
 dict; `params_from_jax` carries a JAX parameter dict (numpy arrays)
-across with a check of every name and shape.  The quantized, MoE and
-sharding methods wait for a later slice (``moe_tape`` is refused).
+across with a check of every name and shape.  The MoE and sharding
+methods wait for a later slice (``moe_tape`` is refused).
 """
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -47,11 +68,13 @@ import torch.nn.functional as F
 from ..base import MXNetError
 from ..context import resolve
 from ..ops.attention import (chunk_attention, decode_attention,
-                             gather_paged_kv, paged_decode_attention,
+                             gather_paged_kv, gather_paged_scales,
                              verify_attention)
-from ..ops.indexing import take_rows
+from ..ops.indexing import as_index, in_range, take_rows
 from ..ops.pallas_kernels.flash_attention import flash_attention
 from ..ops.pallas_kernels.layer_norm import layer_norm
+from ..quant.codec import quantize, quantize_rows
+from ..quant.codec import resolve as quant_resolve
 
 __all__ = ["TransformerKVModel"]
 
@@ -60,13 +83,14 @@ class TransformerKVModel:
     """Prefill/decode programs for one transformer-LM geometry.
 
     Mirrors the JAX `TransformerKVModel(vocab_size, seq_len, num_layers,
-    num_heads, num_embed, num_ffn_hidden, use_bias)`; ``seq_len`` is the
-    maximum context (cache depth S_max) and ``dtype`` a torch dtype.
+    num_heads, num_embed, num_ffn_hidden, use_bias, quant, kv_quant)`;
+    ``seq_len`` is the maximum context (cache depth S_max) and ``dtype`` a
+    torch dtype.
     """
 
     def __init__(self, vocab_size, seq_len, num_layers=2, num_heads=4,
                  num_embed=128, num_ffn_hidden=None, use_bias=True,
-                 eps=1e-5, dtype=torch.float32):
+                 eps=1e-5, dtype=torch.float32, quant=None, kv_quant=None):
         if num_embed % num_heads != 0:
             raise MXNetError("num_embed must be divisible by num_heads")
         self.vocab_size = int(vocab_size)
@@ -78,17 +102,36 @@ class TransformerKVModel:
         self.use_bias = bool(use_bias)
         self.eps = float(eps)
         self.dtype = dtype
+        # post-training quantization specs (None: full precision)
+        self.quant = quant_resolve(quant)
+        self.kv_quant = quant_resolve(kv_quant)
+
+    def with_quant(self, quant, kv_quant):
+        """A shallow copy of this geometry with the given quantization
+        specs (self when they are already these), so one model object
+        serves a quantized engine and its full-precision oracle side by
+        side."""
+        quant = quant_resolve(quant)
+        kv_quant = quant_resolve(kv_quant)
+        if quant == self.quant and kv_quant == self.kv_quant:
+            return self
+        m = copy.copy(self)
+        m.quant = quant
+        m.kv_quant = kv_quant
+        return m
 
     # -- the write mark ----------------------------------------------------
+    # A paged pool under KV quant is the (pool, scales) pair; the mark
+    # rides on the pool tensor.
     @staticmethod
     def _mark(cache):
         """Set the write mark: ``cache`` is about to be written in place."""
-        cache._mxt_writing = True
+        (cache[0] if isinstance(cache, tuple) else cache)._mxt_writing = True
 
     @staticmethod
     def _unmark(cache):
         """Clear the write mark: the program writing ``cache`` returned."""
-        cache._mxt_writing = False
+        (cache[0] if isinstance(cache, tuple) else cache)._mxt_writing = False
         return cache
 
     @staticmethod
@@ -97,7 +140,8 @@ class TransformerKVModel:
         it returned, leaving rows half-written: the engine's probe for a
         lost cache (the JAX one: a failed launch consumed the donated
         buffer)."""
-        return bool(getattr(cache, "_mxt_writing", False))
+        t = cache[0] if isinstance(cache, tuple) else cache
+        return bool(getattr(t, "_mxt_writing", False))
 
     # -- parameters --------------------------------------------------------
     def param_shapes(self):
@@ -148,25 +192,77 @@ class TransformerKVModel:
             raise MXNetError(
                 "TransformerKVModel: params missing %s" % missing)
 
+    def _quant_weight_names(self):
+        """The matmul weights weight quant applies to: every 2-D
+        projection, the embedding and the head (per-channel scales need a
+        channel axis).  LayerNorm gammas and betas, biases and the
+        positional table stay full precision."""
+        names = ["embed_weight", "pred_weight"]
+        for i in range(self.num_layers):
+            p = "layer%d_" % i
+            names += [p + s + "_weight" for s in ("q", "k", "v", "attn_out",
+                                                  "ffn1", "ffn2")]
+        return names
+
+    def quantize_params(self, params):
+        """Quantize the matmul weights once at load: each becomes its
+        int8/fp8 storage under the same name, with the per-output-channel
+        f32 scales beside it as ``<name>_qscale`` (the programs take the
+        scaled matmul wherever that key exists).  Numpy or torch values
+        alike; idempotent: an already quantized dict passes through."""
+        if self.quant is None:
+            return params
+        if any(k.endswith("_qscale") for k in params):
+            return params
+        out = dict(params)
+        for name in self._quant_weight_names():
+            q, scale = quantize(out[name], self.quant, axis=0)
+            out[name] = q
+            out[name + "_qscale"] = scale
+        return out
+
     def params_from_jax(self, params, device=None, dtype=None):
         """``{name: tensor}`` on ``device`` (default ``cuda:0``) in ``dtype``
         (default the model's) from a JAX parameter dict of numpy arrays.
         Names and (out, in) layouts are the same in both packages, so this
-        is a copy; it raises on a missing, extra or misshapen entry."""
+        is a copy; it raises on a missing, extra or misshapen entry.  A
+        dict that `quantize_params` quantized carries across as it is:
+        1-byte weights keep their storage (an fp8 array as its bits) and
+        ``<name>_qscale`` stays f32."""
         device = resolve(device)
         dtype = self.dtype if dtype is None else dtype
         shapes = self.param_shapes()
+        if any(k.endswith("_qscale") for k in params):
+            shapes.update({n + "_qscale": shapes[n][:1]
+                           for n in self._quant_weight_names()})
         extra = sorted(set(params) - set(shapes))
         if extra:
             raise MXNetError("TransformerKVModel: unknown params %s" % extra)
-        self.check_params(params)
+        missing = [n for n in shapes if n not in params]
+        if missing:
+            raise MXNetError(
+                "TransformerKVModel: params missing %s" % missing)
         out = {}
         for name, shape in shapes.items():
-            a = np.asarray(params[name], dtype=np.float32)
-            if a.shape != shape:
+            a = params[name]
+            if isinstance(a, torch.Tensor):
+                t = a
+            elif np.asarray(a).dtype == np.int8:
+                t = torch.from_numpy(np.array(a))
+            elif np.asarray(a).dtype.name == "float8_e4m3fn":
+                t = torch.from_numpy(np.array(a).view(np.uint8)).view(
+                    torch.float8_e4m3fn)
+            else:
+                t = torch.from_numpy(np.asarray(a, dtype=np.float32))
+            if tuple(t.shape) != shape:
                 raise MXNetError("TransformerKVModel: %s has shape %s, want %s"
-                                 % (name, a.shape, shape))
-            out[name] = torch.from_numpy(a).to(device=device, dtype=dtype)
+                                 % (name, tuple(t.shape), shape))
+            if t.dtype in (torch.int8, torch.float8_e4m3fn):
+                out[name] = t.to(device=device)
+            elif name.endswith("_qscale"):
+                out[name] = t.to(device=device, dtype=torch.float32)
+            else:
+                out[name] = t.to(device=device, dtype=dtype)
         return out
 
     def init_cache(self, n_slots, device=None):
@@ -176,16 +272,112 @@ class TransformerKVModel:
                            device=resolve(device))
 
     def init_block_pool(self, n_blocks, block_size, device=None):
-        """Zeroed paged pool (num_layers, 2, n_blocks, block_size, embed);
-        block 0 is the trash block."""
-        return torch.zeros((self.num_layers, 2, int(n_blocks),
-                            int(block_size), self.num_embed),
-                           dtype=self.dtype, device=resolve(device))
+        """Zeroed paged pool (num_layers, 2, n_blocks, block_size, embed),
+        or under KV quant the pair of that pool in int8 and its per-row
+        f32 scales (num_layers, 2, n_blocks, block_size); block 0 is the
+        trash block."""
+        shape = (self.num_layers, 2, int(n_blocks), int(block_size),
+                 self.num_embed)
+        device = resolve(device)
+        if self.kv_quant is None:
+            return torch.zeros(shape, dtype=self.dtype, device=device)
+        return (torch.zeros(shape, dtype=self.kv_quant.dtype, device=device),
+                torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+
+    def block_run_placeholder(self, k, block_size, pin=False):
+        """Zeroed host staging buffers for a ``k``-block run, the restore's
+        transfer payload: one (num_layers, 2, k, block_size, embed) tensor,
+        or the (int8 data, f32 scales) pair under KV quant.  ``pin``
+        allocates page-locked memory, for a non-blocking copy to a card."""
+        shape = (self.num_layers, 2, int(k), int(block_size),
+                 self.num_embed)
+        if self.kv_quant is None:
+            return torch.zeros(shape, dtype=self.dtype, pin_memory=pin)
+        return (torch.zeros(shape, dtype=self.kv_quant.dtype, pin_memory=pin),
+                torch.zeros(shape[:-1], dtype=torch.float32, pin_memory=pin))
+
+    def slice_block(self, cache, block):
+        """One block's rows, every layer, K and V: the spill payload (views
+        into the pool), or the (int8 data, scales) pair under KV quant, so
+        a spill never dequantizes."""
+        pool, scales = self._pool_parts(cache)
+        if scales is None:
+            return pool[:, :, block]
+        return pool[:, :, block], scales[:, :, block]
+
+    def write_block(self, cache, dst, data):
+        """Scatter a staged run of blocks, every layer, K and V, into the
+        pool at blocks ``dst`` ((k,) int tensor on the pool's device), in
+        place: the host-tier restore.  ``data`` is the (num_layers, 2, k,
+        block_size, embed) tensor, or the (int8 data, scales) pair under
+        KV quant; padding entries of ``dst`` point at the trash block.
+        Sets the write mark like every in-place write.  Returns the
+        pool."""
+        pool, scales = self._pool_parts(cache)
+        dst = dst.long()
+        self._mark(cache)
+        if scales is None:
+            pool[:, :, dst] = data.to(pool.dtype)
+        else:
+            pool[:, :, dst] = data[0].to(pool.dtype)
+            scales[:, :, dst] = data[1].to(torch.float32)
+        return self._unmark(cache)
 
     # -- shared pieces -----------------------------------------------------
+    def _pool_parts(self, cache):
+        """``(pool, None)`` at full precision, ``(int8 pool, f32 scales)``
+        under KV quant."""
+        if self.kv_quant is not None:
+            return cache
+        return cache, None
+
+    def _write_rows(self, pool, scales, idx, rows):
+        """``pool[idx] = rows``, quantized per row under KV quant (its
+        scales to ``scales[idx]``): every scatter into the paged pool."""
+        if scales is None:
+            pool[idx] = rows.to(pool.dtype)
+        else:
+            q, sc = quantize_rows(rows, self.kv_quant)
+            pool[idx] = q
+            scales[idx] = sc
+
+    def _gather_ctx(self, pool, scales, layer, which, tables):
+        """One layer's K (or V) context through the block tables,
+        dequantized (f32 rows times their gathered scales) under KV
+        quant."""
+        ctx = gather_paged_kv(pool[layer, which], tables)
+        if scales is None:
+            return ctx
+        sc = gather_paged_scales(scales[layer, which], tables)
+        return ctx.float() * sc[..., None]
+
     def _proj(self, params, x, name):
-        return F.linear(x, params[name + "_weight"],
-                        params.get(name + "_bias") if self.use_bias else None)
+        qs = params.get(name + "_weight_qscale")
+        if qs is None:
+            return F.linear(x, params[name + "_weight"],
+                            params.get(name + "_bias") if self.use_bias
+                            else None)
+        # the scaled matmul: the 1-byte weight upcast, an f32 product,
+        # the per-output-channel scale on the f32 result, then the
+        # downcast, as the JAX package orders it
+        y = (torch.matmul(x.float(), params[name + "_weight"].float().t())
+             * qs).to(x.dtype)
+        if self.use_bias:
+            y = y + params[name + "_bias"]
+        return y
+
+    def _embed(self, params, tokens):
+        """The token embedding, ``jnp.take``'s NaN rows for ids outside
+        [-V, V) included; under weight quant the gathered 1-byte rows
+        scale by their entry's scale."""
+        qs = params.get("embed_weight_qscale")
+        if qs is None:
+            return take_rows(params["embed_weight"], tokens)
+        wrapped, valid = in_range(as_index(tokens), self.vocab_size)
+        rows = params["embed_weight"][wrapped].float() * qs[wrapped][..., None]
+        return torch.where(valid[..., None], rows,
+                           torch.full((), float("nan"), device=rows.device)
+                           ).to(self.dtype)
 
     def _ffn(self, params, h2, p):
         f = F.gelu(self._proj(params, h2, p + "ffn1"), approximate="tanh")
@@ -207,7 +399,7 @@ class TransformerKVModel:
         row's last real token, kv (num_layers, 2, b, s, embed))."""
         b, s = tokens.shape
         h, e = self.num_heads, self.num_embed
-        x = take_rows(params["embed_weight"], tokens) + \
+        x = self._embed(params, tokens) + \
             params["pos_embed_weight"][0, :s]
         kv = []
         for i in range(self.num_layers):
@@ -247,7 +439,7 @@ class TransformerKVModel:
         the engine's trash slot).  Returns (logits (b, vocab), cache)."""
         pos = pos.long()
         slots = slots.long()
-        x = take_rows(params["embed_weight"], token) + \
+        x = self._embed(params, token) + \
             params["pos_embed_weight"][0][pos]
         for i in range(self.num_layers):
             p = "layer%d_" % i
@@ -274,6 +466,8 @@ class TransformerKVModel:
         absolute start (block-aligned).  length: (b,) int, real tokens in
         this chunk.  tables: (b, m) int block tables covering the chunk.
         Returns (logits of each row's last real chunk token, pool)."""
+        cache = pool
+        pool, scales = self._pool_parts(cache)
         b, c = tokens.shape
         h, e = self.num_heads, self.num_embed
         bs = pool.shape[3]
@@ -289,7 +483,7 @@ class TransformerKVModel:
         # a short final chunk's padding can run past seq_len: clamp its
         # (never attended) positions into the table
         positions = start[:, None] + torch.arange(c, device=tables.device)
-        x = take_rows(params["embed_weight"], tokens) + \
+        x = self._embed(params, tokens) + \
             params["pos_embed_weight"][0][positions.clamp(max=self.seq_len - 1)]
         for i in range(self.num_layers):
             p = "layer%d_" % i
@@ -299,30 +493,37 @@ class TransformerKVModel:
             v = self._proj(params, hf, p + "v").reshape(b, c, e)
             # write the chunk's rows into their blocks, then gather the
             # whole context so the chunk attends to itself too
-            self._mark(pool)
-            pool[i, 0, blk] = k.reshape(b, nb, bs, e).to(pool.dtype)
-            pool[i, 1, blk] = v.reshape(b, nb, bs, e).to(pool.dtype)
-            kc = gather_paged_kv(pool[i, 0], tables)
-            vc = gather_paged_kv(pool[i, 1], tables)
+            self._mark(cache)
+            self._write_rows(pool, scales, (i, 0, blk),
+                             k.reshape(b, nb, bs, e))
+            self._write_rows(pool, scales, (i, 1, blk),
+                             v.reshape(b, nb, bs, e))
+            kc = self._gather_ctx(pool, scales, i, 0, tables)
+            vc = self._gather_ctx(pool, scales, i, 1, tables)
             attn = chunk_attention(q, kc, vc, start, h)
             x = x + self._proj(params, attn.reshape(-1, e),
                                p + "attn_out").reshape(b, c, e)
             hn = self._ln(params, x, p + "ln2")
             x = x + self._ffn(params, hn.reshape(-1, e), p).reshape(b, c, e)
         last = x[torch.arange(b, device=x.device), length.long() - 1]
-        return self._head(params, last), self._unmark(pool)
+        return self._head(params, last), self._unmark(cache)
 
     def copy_block(self, pool, src, dst):
         """Copy one block's cached rows, every layer, K and V, from block
         ``src`` to block ``dst`` (ints or (1,) int tensors) in place: the
         copy-on-write body, so a writer about to touch a shared block
         gets a private copy and the original keeps serving its other
-        readers.  Returns the pool."""
+        readers.  Under KV quant the per-row scales copy with the rows, so
+        the copy dequantizes as its original does.  Returns the pool."""
+        cache = pool
+        pool, scales = self._pool_parts(cache)
         src = torch.as_tensor(src, device=pool.device).long().reshape(-1)
         dst = torch.as_tensor(dst, device=pool.device).long().reshape(-1)
-        self._mark(pool)
+        self._mark(cache)
         pool[:, :, dst] = pool[:, :, src]
-        return self._unmark(pool)
+        if scales is not None:
+            scales[:, :, dst] = scales[:, :, src]
+        return self._unmark(cache)
 
     def decode_paged(self, params, pool, token, pos, tables):
         """One generation step over the paged pool, updated in place.
@@ -330,6 +531,8 @@ class TransformerKVModel:
         token, pos: (b,) int; tables: (b, m) int (padding rows are all
         trash with pos 0, so their writes land in the trash block).
         Returns (logits (b, vocab), pool)."""
+        cache = pool
+        pool, scales = self._pool_parts(cache)
         bs = pool.shape[3]
         m = tables.shape[1]
         pos = pos.long()
@@ -338,7 +541,7 @@ class TransformerKVModel:
         blk = torch.gather(tables, 1, ent.clamp(max=m - 1)[:, None])[:, 0]
         blk = torch.where(ent < m, blk, 0)
         off = pos % bs
-        x = take_rows(params["embed_weight"], token) + \
+        x = self._embed(params, token) + \
             params["pos_embed_weight"][0][pos.clamp(max=self.seq_len - 1)]
         for i in range(self.num_layers):
             p = "layer%d_" % i
@@ -346,15 +549,17 @@ class TransformerKVModel:
             q = self._proj(params, hn, p + "q")
             k = self._proj(params, hn, p + "k")
             v = self._proj(params, hn, p + "v")
-            self._mark(pool)
-            pool[i, 0, blk, off] = k.to(pool.dtype)
-            pool[i, 1, blk, off] = v.to(pool.dtype)
-            attn = paged_decode_attention(q, pool[i, 0], pool[i, 1], tables,
-                                          pos, self.num_heads)
+            self._mark(cache)
+            self._write_rows(pool, scales, (i, 0, blk, off), k)
+            self._write_rows(pool, scales, (i, 1, blk, off), v)
+            attn = decode_attention(
+                q, self._gather_ctx(pool, scales, i, 0, tables),
+                self._gather_ctx(pool, scales, i, 1, tables), pos,
+                self.num_heads)
             x = x + self._proj(params, attn, p + "attn_out")
             hn = self._ln(params, x, p + "ln2")
             x = x + self._ffn(params, hn, p)
-        return self._head(params, x), self._unmark(pool)
+        return self._head(params, x), self._unmark(cache)
 
     def decode_megastep(self, params, pool, token, pos, left, eos, tables,
                         steps, pick, moe_tape=None):
@@ -378,7 +583,7 @@ class TransformerKVModel:
         if moe_tape is not None:
             raise MXNetError("decode_megastep: MoE (moe_tape) is not "
                              "ported yet (ROADMAP.md queue 1)")
-        bs = pool.shape[3]
+        bs = self._pool_parts(pool)[0].shape[3]
         dead = tables.shape[1] * bs
         tok = token.long()
         p = pos.long()
@@ -419,6 +624,8 @@ class TransformerKVModel:
         if moe_tape is not None:
             raise MXNetError("verify_paged: MoE (moe_tape) is not ported "
                              "yet (ROADMAP.md queue 1)")
+        cache = pool
+        pool, scales = self._pool_parts(cache)
         b, c = tokens.shape
         h, e = self.num_heads, self.num_embed
         bs = pool.shape[3]
@@ -430,7 +637,7 @@ class TransformerKVModel:
         blk = torch.gather(tables, 1, ent.clamp(max=m - 1))
         blk = torch.where(ent < m, blk, 0)
         off = positions % bs
-        x = take_rows(params["embed_weight"], tokens) + \
+        x = self._embed(params, tokens) + \
             params["pos_embed_weight"][0][positions.clamp(
                 max=self.seq_len - 1)]
         for i in range(self.num_layers):
@@ -439,11 +646,11 @@ class TransformerKVModel:
             q = self._proj(params, hf, p + "q").reshape(b, c, e)
             k = self._proj(params, hf, p + "k").reshape(b, c, e)
             v = self._proj(params, hf, p + "v").reshape(b, c, e)
-            self._mark(pool)
-            pool[i, 0, blk, off] = k.to(pool.dtype)
-            pool[i, 1, blk, off] = v.to(pool.dtype)
-            kc = gather_paged_kv(pool[i, 0], tables)
-            vc = gather_paged_kv(pool[i, 1], tables)
+            self._mark(cache)
+            self._write_rows(pool, scales, (i, 0, blk, off), k)
+            self._write_rows(pool, scales, (i, 1, blk, off), v)
+            kc = self._gather_ctx(pool, scales, i, 0, tables)
+            vc = self._gather_ctx(pool, scales, i, 1, tables)
             attn = verify_attention(q, kc, vc, pos, length, h)
             x = x + self._proj(params, attn.reshape(-1, e),
                                p + "attn_out").reshape(b, c, e)
@@ -451,4 +658,4 @@ class TransformerKVModel:
             x = x + self._ffn(params, hn.reshape(-1, e), p).reshape(b, c, e)
         logits = self._head(params, x.reshape(-1, e)).reshape(
             b, c, self.vocab_size)
-        return logits, self._unmark(pool)
+        return logits, self._unmark(cache)

@@ -114,12 +114,46 @@ iteration; preemption and journal migration never re-deliver or skip
 one.  Decode-loop clocks (``wall_s``, ``host_s``, ``hidden_s``,
 ``fetch_wait_s`` in `stats`) feed the ``serve.<name>.host_frac`` gauge.
 
-What the JAX engine has beyond this waits for later slices: the host
-tier and sessions, quantization, MoE, sharded replicas
-(`ReplicaRouter.from_mesh`), disaggregated prefill and decode (router
-roles and handoffs), the gateway and autoscaling, and tracing (the JAX
-engine's `tracing.dump`, `tracing.phase` and `tracing.add_span` calls
-have no counterpart here).  Their keywords are not accepted, and an
+Memory tiering (``tier=True`` or ``MXNET_SERVE_TIER=1``, paged with the
+prefix cache only): a parked block the prefix LRU evicts spills to a
+bounded host pool (`tiers.HostBlockTier`, ``host_blocks`` /
+``MXNET_SERVE_HOST_BLOCKS``, 256) instead of being forgotten, by a
+non-blocking copy on the pool's stream, so it lands before any later
+write to the freed block.  An admission whose prefix match runs onto
+host-resident blocks allocates fresh blocks, packs the run into one
+pinned buffer and copies it to the card on a side stream behind an
+event (at most ``restore_ahead`` / ``MXNET_SERVE_RESTORE_AHEAD``, 2,
+restores in flight; past that it admits on the device match alone);
+the next iteration's scatter (`TransformerKVModel.write_block`, which
+sets the write mark) waits on the event and the request proceeds as if
+the run had stayed on the card.  ``MXNET_SERVE_TIER=0`` (the default) is
+the engine without a tier.  Sessions: ``submit(session=key)`` prepends
+the key's stored history (the last completed turn's prompt and tokens),
+so the prefix lookup reattaches its blocks, on the card or through the
+tier, and only the new suffix prefills; a turn submitted while the
+previous one is unresolved raises, and ``MXNET_SERVE_SESSION_CAP`` (512)
+bounds the keys kept.  `ReplicaRouter` sends a session's turns to the
+replica that holds it and moves sessions off a dead or drained replica.
+
+Quantization (``quant=`` / ``MXNET_SERVE_QUANT``, int8 or fp8 weights;
+``kv_quant=`` / ``MXNET_SERVE_KV_QUANT``, an int8 paged pool, int8 by
+default whenever weight quant is on and the engine pages): the weights
+are quantized once at load (`TransformerKVModel.quantize_params`) and
+the programs run scaled matmuls and quantize-on-write.  With either on,
+every token pick goes through a logit gate on the device: a row whose
+logits are nonfinite or above ``MXNET_SERVE_QUANT_LOGIT_MAX`` (1e4)
+picks the sentinel -1 instead, which the engine turns into one requeue
+by exact replay (scrubbing the row's blocks from the prefix index) and,
+the second time, `ServeQuantError`: never a token the gate flagged.
+The gate reads the logits on the card, so it adds no host sync.
+Chaos's ``spill_fail``, ``restore_slow`` and ``scale_corrupt`` inject
+at the JAX engine's sites.
+
+What the JAX engine has beyond this waits for later slices: MoE, sharded
+replicas (`ReplicaRouter.from_mesh`), disaggregated prefill and decode
+(router roles and handoffs), the gateway and autoscaling, and tracing
+(the JAX engine's `tracing.dump`, `tracing.phase` and `tracing.add_span`
+calls have no counterpart here).  Their keywords are not accepted, and an
 ``MXNET_CHAOS`` spec with a clause of theirs raises at construction
 (`chaos`).  A prompt token outside
 [-V, V) embeds as NaN, as in the JAX engine, and its request decodes
@@ -132,7 +166,7 @@ import os
 import re
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 
 import numpy as np
 import torch
@@ -140,14 +174,16 @@ import torch
 from .. import chaos, telemetry
 from ..base import MXNetError
 from ..context import resolve
+from ..quant.codec import resolve as quant_resolve
 from .errors import (ServeBlocksExhausted, ServeCacheInvalidated,
                      ServeCancelled, ServeDeadlineExceeded, ServeEngineDead,
-                     ServeError, ServeOverload, ServeQuarantined,
-                     ServeTimeout)
+                     ServeError, ServeOverload, ServeQuantError,
+                     ServeQuarantined, ServeTimeout)
 from .journal import RequestJournal, journal_enabled
 from .paged import TRASH_BLOCK, BlockAllocator, PrefixCache
 from .sampling import argmax, sample_tokens
 from .spec import make_drafter
+from .tiers import HostBlockTier, pack_block_run
 
 __all__ = ["ServeRequest", "ServingEngine", "ReplicaRouter"]
 
@@ -183,7 +219,8 @@ class ServeRequest:
     _ids_lock = threading.Lock()
 
     def __init__(self, prompt, max_new_tokens, eos_id=None, deadline_ms=None,
-                 temperature=0.0, top_k=0, top_p=1.0, seed=None):
+                 temperature=0.0, top_k=0, top_p=1.0, seed=None,
+                 session=None):
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         if not prompt:
             raise MXNetError("ServeRequest: empty prompt")
@@ -193,6 +230,9 @@ class ServeRequest:
         self.prompt = prompt
         self.max_new_tokens = int(max_new_tokens)
         self.eos_id = eos_id
+        # the session key; ``prompt`` is then the stored history plus
+        # this turn's tokens
+        self.session = session
         self.temperature = float(temperature)
         self.top_k = int(top_k)
         self.top_p = float(top_p)
@@ -362,6 +402,54 @@ class _Prefill:
         self.resume = resume
 
 
+class _Restore:
+    """A tier-aware admission waiting for its host-to-device copy: the
+    prefix match covered ``done`` tokens on the card and the host-resident
+    ``nodes`` after them; fresh blocks ``dst`` (the leading fresh blocks
+    of ``blocks``, the whole table, held at ordinary refcounts) take the
+    run.  ``staged`` is the run packed into one buffer on the device,
+    copied from the pinned ``src`` on a side stream behind ``ready`` (a
+    CUDA event; None on the CPU), ``dst_d`` the destination ids padded to
+    the bucket ``kb`` with the trash block.  `_complete_restore` lands it
+    at the next iteration."""
+
+    __slots__ = ("req", "row", "tokens", "done", "blocks", "nodes",
+                 "handles", "staged", "dst_d", "dst", "kb", "t_stage",
+                 "src", "ready")
+
+    def __init__(self, req, row, tokens, blocks, done, nodes, handles,
+                 staged, dst_d, dst, kb, t_stage, src=None, ready=None):
+        self.req = req
+        self.row = row
+        self.tokens = tokens
+        self.done = done          # device-matched tokens
+        self.blocks = blocks
+        self.nodes = nodes        # host-resident _PrefixNodes, in order
+        self.handles = handles    # their host-tier handles
+        self.staged = staged
+        self.dst_d = dst_d
+        self.dst = dst
+        self.kb = kb
+        self.t_stage = t_stage
+        self.src = src            # the pinned source, held until ready
+        self.ready = ready
+
+
+class _SessionClaim:
+    """The live entry of a session between a submit passing the
+    unresolved-turn guard and its admission: never ``done``, so a racing
+    second submit of the same session raises.  Resolves to the admitted
+    request (`_session_record`) or back to ``prev`` (`_session_unclaim`,
+    the shed path)."""
+
+    __slots__ = ("prev", "id", "done")
+
+    def __init__(self, prev):
+        self.prev = prev
+        self.id = 0 if prev is None else prev.id
+        self.done = False
+
+
 class ServingEngine:
     """Single-replica continuous batcher over one device.
 
@@ -382,7 +470,12 @@ class ServingEngine:
     decoding, left at None, read ``MXNET_SERVE_SPEC`` (off),
     ``MXNET_SERVE_SPEC_K`` (4), ``MXNET_SERVE_SPEC_DRAFTER`` (ngram),
     ``MXNET_SERVE_MEGASTEP`` (off) and ``MXNET_SERVE_MEGASTEP_STEPS`` (4);
-    both need the paged cache.
+    both need the paged cache.  The tier and quantization, left at None,
+    read ``MXNET_SERVE_TIER`` (off), ``MXNET_SERVE_HOST_BLOCKS`` (256),
+    ``MXNET_SERVE_RESTORE_AHEAD`` (2), ``MXNET_SERVE_QUANT`` (off) and
+    ``MXNET_SERVE_KV_QUANT`` (int8 with weight quant on a paged engine,
+    else off); ``MXNET_SERVE_SESSION_CAP`` (512) and
+    ``MXNET_SERVE_QUANT_LOGIT_MAX`` (1e4) are read at construction.
     """
 
     def __init__(self, model, params, ctx=None, max_batch=8,
@@ -393,11 +486,35 @@ class ServingEngine:
                  deadline_ms=None, prefix=None, prefix_pool=None,
                  spec=None, spec_k=None, spec_drafter=None,
                  min_progress=None, thrash_trip=None, megastep=None,
-                 megastep_steps=None):
+                 megastep_steps=None, tier=None, host_blocks=None,
+                 restore_ahead=None, quant=None, kv_quant=None):
         chaos.spec()  # a clause the port cannot inject raises here
-        self.model = model
         self.name = name
         self.device = resolve(ctx)
+        self._paged = bool(paged)
+        # post-training quantization: weights quantized once at load,
+        # the paged pool int8 by default whenever weight quant is on
+        self._quant = quant_resolve(
+            os.environ.get("MXNET_SERVE_QUANT", "0") if quant is None
+            else quant)
+        kvq = os.environ.get("MXNET_SERVE_KV_QUANT", "") \
+            if kv_quant is None else kv_quant
+        if kvq in ("", None):
+            kvq = "int8" if (self._quant is not None
+                             and self._paged) else "0"
+        self._kv_quant = quant_resolve(kvq)
+        if self._kv_quant is not None and not self._paged:
+            raise MXNetError(
+                "ServingEngine: quantized KV blocks need the paged cache "
+                "(MXNET_SERVE_KV_QUANT set with paged=False)")
+        self._quant_gate = (self._quant is not None
+                            or self._kv_quant is not None)
+        self._quant_logit_max = float(os.environ.get(
+            "MXNET_SERVE_QUANT_LOGIT_MAX", "1e4"))
+        self.model = model = model.with_quant(self._quant, self._kv_quant)
+        if self._quant is not None:
+            # idempotent: a respawn passes already quantized params
+            params = model.quantize_params(params)
         if all(isinstance(v, torch.Tensor) for v in params.values()):
             model.check_params(params)
             self._params = {k: v.to(self.device) for k, v in params.items()}
@@ -437,10 +554,16 @@ class ServingEngine:
         self._deadline_ms_default = dl if dl > 0 else None
         self._launch_retries = max(1, int(os.environ.get(
             "MXNET_SERVE_LAUNCH_RETRIES", "3")))
-        self._paged = bool(paged)
         self._sampling = bool(sampling)
         self._prefix = None
         self._prefix_pool = -1
+        self._tier = None
+        self._host_blocks = 0
+        self._restore_ahead = 0
+        self._restoring = {}      # row -> _Restore (insertion-ordered)
+        self._side = None         # the restores' copy stream on a card
+        self._landed_src = []     # (event, pinned source) of landed
+        #                           restores whose copy may still run
         if self._paged:
             self._chunk_prefill = bool(chunk_prefill)
             bs = 0 if block_size is None else int(block_size)
@@ -472,9 +595,33 @@ class ServingEngine:
             self._prefix_pool = int(
                 os.environ.get("MXNET_SERVE_PREFIX_POOL", "-1")
                 if prefix_pool is None else prefix_pool)
-            if _env_flag("MXNET_SERVE_PREFIX") if prefix is None \
-                    else bool(prefix):
-                self._prefix = PrefixCache(bs, self._prefix_pool)
+            prefix_on = _env_flag("MXNET_SERVE_PREFIX") if prefix is None \
+                else bool(prefix)
+            # the host-DRAM tier rides the prefix index (without it there
+            # is nothing to spill), so prefix off forces it off
+            tier_on = (_env_flag("MXNET_SERVE_TIER", "0") if tier is None
+                       else bool(tier)) and prefix_on
+            self._host_blocks = int(
+                os.environ.get("MXNET_SERVE_HOST_BLOCKS", "256")
+                if host_blocks is None else host_blocks)
+            self._restore_ahead = int(
+                os.environ.get("MXNET_SERVE_RESTORE_AHEAD", "2")
+                if restore_ahead is None else restore_ahead)
+            if tier_on and self._host_blocks > 0:
+                # one block of the pool's layout sizes the tier's slots
+                self._tier = HostBlockTier(
+                    self._host_blocks, self.model.slice_block(
+                        self.model.init_block_pool(1, bs, "cpu"), 0),
+                    pin=self.device.type == "cuda")
+                if self.device.type == "cuda":
+                    self._side = torch.cuda.Stream(self.device)
+            if prefix_on:
+                self._prefix = PrefixCache(
+                    bs, self._prefix_pool,
+                    spill_hook=self._spill_block if self._tier is not None
+                    else None,
+                    host_drop_hook=self._host_dropped
+                    if self._tier is not None else None)
         else:
             self._chunk_prefill = False
             self.block_size = None
@@ -550,6 +697,13 @@ class ServingEngine:
         self._preempts_since_retire = 0
         self._storm = False       # preemption storm: degrade admissions
         self._count_lock = threading.Lock()
+        # sessions: key -> (full history of the last completed turn, its
+        # live request or claim), LRU-capped.  The caller's submit and the
+        # scheduler's retire both touch it, under _slock
+        self._sessions = OrderedDict()
+        self._session_cap = max(1, int(os.environ.get(
+            "MXNET_SERVE_SESSION_CAP", "512")))
+        self._slock = threading.Lock()
         self.stats = {"decode_steps": 0, "decode_rows": 0,
                       "decode_padded": 0, "prefills": 0, "completed": 0,
                       "tokens": 0, "prefill_chunks": 0, "prefill_tokens": 0,
@@ -574,6 +728,12 @@ class ServingEngine:
                       "megasteps": 0, "megastep_tokens": 0,
                       "ingraph_retired": 0, "wall_s": 0.0, "host_s": 0.0,
                       "hidden_s": 0.0, "fetch_wait_s": 0.0,
+                      # memory tiering and sessions (0s when off)
+                      "spilled": 0, "restored": 0, "restored_tokens": 0,
+                      "spill_fails": 0, "restore_fails": 0,
+                      "session_hits": 0, "session_turns": 0,
+                      # quantization (0s when off)
+                      "quant_trips": 0, "scale_corrupts": 0,
                       # the JAX engine's telemetry counters
                       "shed": 0, "expired": 0, "cancelled": 0,
                       "degraded": 0, "block_waits": 0, "preempted": 0,
@@ -612,10 +772,26 @@ class ServingEngine:
     def _pick_dev(self, logits, samp, newpos):
         """Token ids of (b, V) ``logits`` on the device, no host sync:
         argmax, or `sample_tokens` with ``samp`` at the (b,) positions
-        ``newpos`` the tokens will occupy."""
+        ``newpos`` the tokens will occupy; through the quantization logit
+        gate when quantization is on."""
         if not samp:
-            return argmax(logits)
-        return sample_tokens(logits, *samp, newpos)
+            picked = argmax(logits)
+        else:
+            picked = sample_tokens(logits, *samp, newpos)
+        return self._quant_guard(logits, picked)
+
+    def _quant_guard(self, logits, picked):
+        """The quantization logit gate: with quant on, a row whose logits
+        are nonfinite or larger than ``MXNET_SERVE_QUANT_LOGIT_MAX``
+        (corrupted scales, a quantization blow-up) picks the sentinel -1,
+        which the scheduler turns into a requeue or `ServeQuantError`
+        (`_quant_trip_req`), never a token.  On the device, before the
+        one fetch the pick already had."""
+        if not self._quant_gate:
+            return picked
+        bad = ~torch.isfinite(logits).all(dim=-1) | \
+            (logits.abs().amax(dim=-1) > self._quant_logit_max)
+        return torch.where(bad, torch.full_like(picked, -1), picked)
 
     def _pick(self, logits, reqs, newpos):
         """Host token ids for the first len(reqs) rows of ``logits``
@@ -769,15 +945,29 @@ class ServingEngine:
                 self._megastep(token, pos, pos, pos - 1, tables, ()).tolist()
         if self._prefix is not None:
             self.model.copy_block(self._cache, TRASH_BLOCK, TRASH_BLOCK)
+        if self._tier is not None:
+            staged, ready = self._stage_run(self.model.block_run_placeholder(
+                1, self.block_size, pin=self._side is not None))
+            self._await_staged(staged, ready)
+            self.model.write_block(self._cache, self._put(
+                np.full((1,), TRASH_BLOCK, np.int64)), staged)
         return {"prefill": list(self.prefill_buckets),
                 "decode": list(self.decode_buckets),
                 "cache": "paged" if self._paged else "slot",
                 "block_size": self.block_size, "n_blocks": self.n_blocks,
                 "prefix": self._prefix is not None,
+                "tier": None if self._tier is None else
+                {"host_blocks": self._tier.capacity,
+                 "restore_ahead": self._restore_ahead},
                 "spec": None if not self._spec else
                 {"k": self._spec_k, "drafter": self._drafter.name},
                 "megastep": None if not self._mega_m else
-                {"m": self._mega_m}}
+                {"m": self._mega_m},
+                "quant": None if not self._quant_gate else
+                {"weights": None if self._quant is None
+                 else self._quant.name,
+                 "kv": None if self._kv_quant is None
+                 else self._kv_quant.name}}
 
     def respawn(self, name=None):
         """A replacement engine for this (dead) replica: the same device,
@@ -803,15 +993,111 @@ class ServingEngine:
                   else None),
             min_progress=self._min_progress, thrash_trip=self._thrash_trip,
             megastep=bool(self._mega_m),
-            megastep_steps=self._mega_m or None)
+            megastep_steps=self._mega_m or None,
+            tier=self._tier is not None, host_blocks=self._host_blocks,
+            restore_ahead=self._restore_ahead,
+            quant=self._quant if self._quant is not None else "0",
+            kv_quant=self._kv_quant if self._kv_quant is not None else "0")
+
+    # -- sessions ------------------------------------------------------------
+    def has_session(self, key):
+        """Whether this engine holds session ``key``'s history (the
+        router's affinity signal: the K/V is likely still here, on the
+        card or in the host tier)."""
+        with self._slock:
+            return key in self._sessions
+
+    def _session_prompt(self, key, prompt):
+        """Session ``key``'s stored history followed by this turn's
+        ``prompt`` (unchanged for a first turn).  A turn submitted while
+        the previous one is unresolved raises.  Passing the guard claims
+        the turn under the lock (a `_SessionClaim` becomes the live
+        entry), so of two racing submits the second raises; `submit`
+        resolves the claim (`_session_record` on admission,
+        `_session_unclaim` when admission sheds or raises)."""
+        with self._slock:
+            ent = self._sessions.get(key)
+            if ent is None:
+                return prompt
+            hist, prev = ent
+            if prev is not None and not prev.done:
+                raise MXNetError(
+                    "ServingEngine %s: session %r has an unresolved turn "
+                    "(request %d) — wait for its result before submitting "
+                    "the next turn" % (self.name, key, prev.id))
+            self._sessions[key] = (hist, _SessionClaim(prev))
+            self._sessions.move_to_end(key)
+            hist = list(hist)
+        return hist + [int(t) for t in np.asarray(prompt).reshape(-1)]
+
+    def _session_record(self, key, req):
+        """The claimed turn was admitted: the request becomes the
+        session's live entry (history advances only at
+        `_session_store`).  Follow-up hits count here, at admission, so a
+        shed submit never counts one."""
+        with self._slock:
+            ent = self._sessions.get(key)
+            hist = ent[0] if ent is not None else []
+            self._sessions[key] = (hist, req)
+            self._sessions.move_to_end(key)
+            self.stats["session_turns"] += 1
+            if hist:
+                self.stats["session_hits"] += 1
+            self._trim_sessions_locked()
+        if hist:
+            self._count("session_hits")
+
+    def _session_unclaim(self, key):
+        """Admission shed or raised after the claim: the previous turn is
+        the live entry again, so the conversation stays retryable."""
+        with self._slock:
+            ent = self._sessions.get(key)
+            if ent is not None and isinstance(ent[1], _SessionClaim):
+                self._sessions[key] = (ent[0], ent[1].prev)
+
+    def _session_store(self, req):
+        """A session turn completed: its full history (the expanded
+        prompt and every generated token) is what the next turn builds
+        on.  The K/V needs no copy: its full blocks are in the prefix
+        index, park at release and spill under pressure.  Runs on the
+        scheduler thread before `_finish` sets done, so the guard never
+        admits a follow-up against a missing history."""
+        with self._slock:
+            self._sessions[req.session] = (
+                list(req.prompt) + [int(t) for t in req.tokens], req)
+            self._sessions.move_to_end(req.session)
+            self._trim_sessions_locked()
+
+    def _trim_sessions_locked(self):
+        """Hold ``MXNET_SERVE_SESSION_CAP`` (the caller holds `_slock`)."""
+        while len(self._sessions) > self._session_cap:
+            self._sessions.popitem(last=False)
 
     # -- submission and admission control ----------------------------------
     def submit(self, prompt, max_new_tokens=None, eos_id=None,
                deadline_ms=None, temperature=0.0, top_k=0, top_p=1.0,
-               seed=None, on_token=None, _count_shed=True):
+               seed=None, session=None, on_token=None, _count_shed=True):
         """Queue a request; returns its `ServeRequest`.  ``on_token(t)``,
         if given, is called on the scheduler's thread with each generated
-        token, once, in order."""
+        token, once, in order.  ``session`` continues that conversation:
+        its stored history goes before ``prompt``."""
+        if session is None:
+            return self._submit(prompt, max_new_tokens, eos_id, deadline_ms,
+                                temperature, top_k, top_p, seed, None,
+                                on_token, _count_shed)
+        prompt = self._session_prompt(session, prompt)  # claims the turn
+        try:
+            return self._submit(prompt, max_new_tokens, eos_id, deadline_ms,
+                                temperature, top_k, top_p, seed, session,
+                                on_token, _count_shed)
+        except BaseException:
+            # refused after the claim: the session is as it was
+            self._session_unclaim(session)
+            raise
+
+    def _submit(self, prompt, max_new_tokens, eos_id, deadline_ms,
+                temperature, top_k, top_p, seed, session, on_token,
+                _count_shed):
         if max_new_tokens is None:
             max_new_tokens = self.max_new_default
         elif int(max_new_tokens) < 1:
@@ -825,7 +1111,8 @@ class ServingEngine:
         req = ServeRequest(prompt, max_new_tokens,
                            self.eos_id if eos_id is None else eos_id,
                            deadline_ms=deadline_ms, temperature=temperature,
-                           top_k=top_k, top_p=top_p, seed=seed)
+                           top_k=top_k, top_p=top_p, seed=seed,
+                           session=session)
         req._on_token = on_token
         if not (self._paged and self._chunk_prefill) and \
                 len(req.prompt) > self.prefill_buckets[-1]:
@@ -857,6 +1144,9 @@ class ServingEngine:
             self._enqueue_blocking(req)
         else:
             self._enqueue(req, count_shed_global=_count_shed)
+        if session is not None:
+            # only an admitted request becomes the session's live turn
+            self._session_record(session, req)
         # counted at the submit door only: failover re-dispatch and chaos
         # floods reuse _enqueue but are not new offered requests
         telemetry.inc("serve.requests")
@@ -970,7 +1260,8 @@ class ServingEngine:
         """Queued + mid-admission + prefilling + running requests."""
         with self._qlock:
             return len(self._queue) + self._admitting + \
-                len(self._prefilling) + len(self._active)
+                len(self._prefilling) + len(self._restoring) + \
+                len(self._active)
 
     # -- scheduling --------------------------------------------------------
     def _bucket_for(self, n, buckets):
@@ -1058,8 +1349,21 @@ class ServingEngine:
                 pf.blocks = None
                 self._requeue_once(pf.req, "prefill lost to a cache rebuild "
                                    "twice: %s", reason)
+            for row, rs in list(self._restoring.items()):
+                # a staged restore's target blocks died with the pool:
+                # the same one retry as a mid-stream prefill
+                del self._restoring[row]
+                self._free.append(row)
+                rs.blocks = None
+                self._release_src(rs)
+                self._requeue_once(rs.req, "restore lost to a cache rebuild "
+                                   "twice: %s", reason)
             if self._prefix is not None:
                 self._prefix.clear()  # the pool its nodes point at is gone
+            if self._tier is not None:
+                # the host copies are unreachable without the index
+                self._tier.clear()
+                telemetry.set_gauge(self._gauge + "host_blocks_used", 0)
             self._alloc.reset()
             self._cache = self.model.init_block_pool(
                 self.n_blocks, self.block_size, device=self.device)
@@ -1120,6 +1424,13 @@ class ServingEngine:
             first = self._pick(logits, [req], [plen])[0]
         except Exception as e:  # noqa: BLE001 -- scoped in _launch_failed
             self._launch_failed(e, req, lambda: self._free.append(slot))
+            return True
+        if first < 0:
+            # the quantization gate (no token emitted yet: the retry
+            # replays the whole prompt; the slot cache has no blocks or
+            # index to scrub)
+            self._free.append(slot)
+            self._quant_trip_req(req, "prefill")
             return True
         telemetry.observe("serve.queue_age_ms",
                           1e3 * (time.perf_counter() - req.t_submit))
@@ -1191,6 +1502,118 @@ class ServingEngine:
         return self._alloc.capacity - self._alloc.free_blocks - \
             self._alloc.used_blocks - parked
 
+    def leaked_host_blocks(self):
+        """Host-tier blocks no prefix node references: 0 whenever the
+        scheduler is quiet (every tier entry belongs to exactly one radix
+        node; a staged restore holds device copies, not handles)."""
+        if self._tier is None:
+            return 0
+        return self._tier.used - self._prefix.host_count
+
+    # -- the host-DRAM tier ------------------------------------------------
+    def _spill_block(self, block, tokens, node):
+        """`PrefixCache` eviction hook: copy the evicted block's K/V to
+        the host tier so the prefix survives below the card.  Returns the
+        host handle, or None (`spill_fail` chaos, or a failed copy), upon
+        which the cache detaches the node as an engine without a tier
+        would.  On a card the tier copies non-blocking into its
+        page-locked slab on the pool's stream, so the copy runs before any
+        later write to the freed block, and the tier waits on its event
+        before a read."""
+        if self._tier is None:
+            return None
+        if chaos.enabled() and chaos.serve_spill_fail():
+            self.stats["spill_fails"] += 1
+            self._count("spill_fails")
+            return None
+        try:
+            handle, evicted = self._tier.put(
+                self.model.slice_block(self._cache, block))
+        except Exception as e:  # noqa: BLE001 -- degrade, never escalate
+            self.stats["spill_fails"] += 1
+            self._count("spill_fails")
+            telemetry.record_event("serve_spill_failed", replica=self.name,
+                                   block=int(block), error=str(e)[:200])
+            return None
+        for h in evicted:
+            # the tier's own LRU forgot its oldest blocks: detach them
+            for orphan in self._prefix.drop_host(h):
+                self._tier.free(orphan)
+        self.stats["spilled"] += 1
+        self._count("spilled")
+        telemetry.set_gauge(self._gauge + "host_blocks_used",
+                            self._tier.used)
+        return handle
+
+    def _host_dropped(self, handle):
+        """`PrefixCache` host-drop hook: the index dropped its reference,
+        so the tier drops the block."""
+        if self._tier is not None:
+            self._tier.free(handle)
+            telemetry.set_gauge(self._gauge + "host_blocks_used",
+                                self._tier.used)
+
+    def _drop_host_node(self, node):
+        """Drop one host-resident node and its host subtree from the
+        index and the tier: after a failed restore the retry takes the
+        prefill road instead of the same restore."""
+        if node.tier != "host":
+            return
+        handle = node.block
+        orphans = self._prefix.drop_host(handle)
+        self._tier.free(handle)
+        for h in orphans:
+            self._tier.free(h)
+        telemetry.set_gauge(self._gauge + "host_blocks_used",
+                            self._tier.used)
+
+    def _restore_buckets(self):
+        """Power-of-two restore run lengths up to the table width."""
+        out, k = [], 1
+        while k < self._n_table:
+            out.append(k)
+            k *= 2
+        return out + [self._n_table]
+
+    def _restore_bucket(self, n):
+        for k in self._restore_buckets():
+            if k >= n:
+                return k
+        raise MXNetError(
+            "ServingEngine %s: restore run %d exceeds the table width %d"
+            % (self.name, n, self._n_table))
+
+    def _stage_run(self, data):
+        """Start a packed block run's copy to the device: on a card a
+        non-blocking copy from pinned memory on the side stream, behind
+        an event the landing scatter waits on (so it overlaps the
+        current iteration's launches); on the CPU a plain copy.  Returns
+        (staged, ready)."""
+        leaves = data if isinstance(data, tuple) else (data,)
+        if self._side is None:
+            staged = tuple(t.to(self.device) for t in leaves)
+            return (staged if isinstance(data, tuple) else staged[0]), None
+        main = torch.cuda.current_stream(self.device)
+        self._side.wait_stream(main)
+        with torch.cuda.stream(self._side):
+            staged = tuple(t.to(self.device, non_blocking=True)
+                           for t in leaves)
+            ready = torch.cuda.Event()
+            ready.record(self._side)
+        return (staged if isinstance(data, tuple) else staged[0]), ready
+
+    def _await_staged(self, staged, ready):
+        """Order the pool's stream behind a staged run's copy: it waits on
+        the copy's event on the device (no host sync), and the staged
+        tensors, allocated on the side stream, are marked as used on this
+        one so the allocator does not hand their memory out early."""
+        if ready is None:
+            return
+        main = torch.cuda.current_stream(self.device)
+        main.wait_event(ready)
+        for t in (staged if isinstance(staged, tuple) else (staged,)):
+            t.record_stream(main)
+
     def _register_prefix(self, tokens, blocks, n_tokens):
         """Register a sequence's full blocks in the prefix index, eagerly:
         a concurrent request may share them while the writer still
@@ -1218,7 +1641,8 @@ class ServingEngine:
         bs = self.block_size
         filled = {}
         for holder, n in [(s.blocks, s.pos) for s in self._active.values()] \
-                + [(p.blocks, p.done) for p in self._prefilling.values()]:
+                + [(p.blocks, p.done) for p in self._prefilling.values()] \
+                + [(r.blocks, r.done) for r in self._restoring.values()]:
             if holder is None:
                 continue
             for i, b in enumerate(holder):
@@ -1245,7 +1669,20 @@ class ServingEngine:
         request at the front."""
         row = self._free.pop()
         tokens = req.prompt if req._resume is None else req._resume[0]
-        shared = [] if self._prefix is None else self._prefix.lookup(tokens)
+        if self._prefix is None:
+            shared, host_nodes = [], []
+        else:
+            shared, host_nodes = self._prefix.lookup_plan(tokens)
+            if host_nodes and (self._tier is None or len(self._restoring)
+                               >= self._restore_ahead):
+                # no restore slot: the miss path never waits behind a
+                # restore, so admit on the device match alone; the host
+                # blocks are touched so a prefix that keeps matching
+                # cannot age out of the host LRU unused
+                if self._tier is not None:
+                    for node in host_nodes:
+                        self._tier.touch(node.block)
+                host_nodes = []
         matched = len(shared) * self.block_size
         # acquire before allocating: live refs pin the matched blocks, so
         # the allocation's eviction under pressure cannot reclaim them
@@ -1262,9 +1699,23 @@ class ServingEngine:
             with self._qlock:
                 self._queue.appendleft(req)
             return False
+        # stage the host run's copy (restore, then acquire): packed into
+        # one buffer, copied now under this iteration's launches, landed
+        # next iteration (_advance_restores).  A handle the tier forgot in
+        # the window cuts the run short: coverage must be contiguous
+        t_stage = time.perf_counter()
+        nodes, handles, arrs, dst = [], [], [], []
+        for node in host_nodes:
+            arr = self._tier.get(node.block)
+            if arr is None:
+                break
+            nodes.append(node)
+            handles.append(node.block)
+            arrs.append(arr)
+            dst.append(fresh[len(nodes) - 1])
         # hits count only for admissions that land: a denied one retries
-        # its lookup every iteration
-        if self._prefix is not None:
+        # its lookup every iteration, and a restore counts at its landing
+        if self._prefix is not None and not nodes:
             self.stats["prefix_lookup_tokens"] += len(tokens)
             if matched:
                 self._count_prefix_hit(matched)
@@ -1276,6 +1727,18 @@ class ServingEngine:
             req._migrated = False
             self.stats["replays"] += 1
             self._count("replays")
+        if nodes:
+            kb = self._restore_bucket(len(nodes))
+            data = pack_block_run(self.model, self.block_size, arrs, kb,
+                                  pin=self._side is not None)
+            dsts = np.full((kb,), TRASH_BLOCK, np.int64)
+            dsts[:len(dst)] = dst
+            staged, ready = self._stage_run(data)
+            self._restoring[row] = _Restore(
+                req, row, list(tokens), blocks, matched, nodes, handles,
+                staged, self._put(dsts), dst, kb, t_stage, src=data,
+                ready=ready)
+            return True
         self._enter_decode_or_prefill(req, row, list(tokens), blocks, matched)
         return True
 
@@ -1332,6 +1795,117 @@ class ServingEngine:
         for pf in list(self._prefilling.values()):
             if self._prefilling.get(pf.row) is pf:
                 self._advance_chunk(pf)
+
+    # -- host-tier restore landing -------------------------------------------
+    def _drop_restore(self, rs):
+        """Remove a staged restore: its row and blocks go back (the staged
+        copy never joined the pool); the caller resolves the request."""
+        self._restoring.pop(rs.row, None)
+        self._free.append(rs.row)
+        self._release_blocks(rs)
+        self._release_src(rs)
+
+    def _release_src(self, rs):
+        """Let go of a restore's pinned source once its copy has passed:
+        until then it waits in `_landed_src`, pruned at every release."""
+        if rs.ready is not None:
+            self._landed_src = [(e, t) for e, t in self._landed_src
+                                if not e.query()]
+            self._landed_src.append((rs.ready, rs.src))
+        rs.src = rs.ready = None
+
+    def _advance_restores(self):
+        """Land every restore staged in an earlier iteration (its copy
+        rode under that iteration's launches).  Runs before the prefill
+        chunks, so a restore with an uncached suffix advances its first
+        chunk in this same iteration."""
+        for rs in list(self._restoring.values()):
+            if self._restoring.get(rs.row) is rs:
+                self._complete_restore(rs)
+
+    def _complete_restore(self, rs):
+        """Scatter one staged restore into the pool and route the
+        admission on.  Failure scoping as at a prefill chunk: a dead
+        device is fatal; a half-written pool (the scatter's write mark)
+        rebuilds, requeueing every staged restore; a scoped fault drops
+        the host entries involved and requeues the request, whose retry
+        prefills what the restore would have copied.  Never a hang, never
+        a leak in either tier."""
+        req = rs.req
+        ms = chaos.serve_restore_slow()
+        if ms:
+            time.sleep(ms / 1e3)
+        try:
+            if chaos.serve_launch_error():
+                raise chaos.ChaosError(
+                    "chaos: injected restore launch error")
+            self._await_staged(rs.staged, rs.ready)
+            self._write_restore(rs)
+        except Exception as e:
+            kind = self._classify_failure(e)
+            if kind == "device":
+                self._drop_restore(rs)
+                req._finish(error=ServeEngineDead(
+                    "restore launch failed: %s" % str(e)[:400]))
+                raise _EngineFatal("restore launch failed: %s" % e) from e
+            if kind == "cache":
+                self._rebuild_cache("restore launch failed: %s" % e)
+                return
+            self.stats["restore_fails"] += 1
+            self._count("restore_fails")
+            telemetry.record_event("serve_restore_failed", replica=self.name,
+                                   request=req.id, error=str(e)[:200])
+            self._drop_restore(rs)
+            for node in rs.nodes:
+                self._drop_host_node(node)
+            with self._qlock:
+                self._queue.appendleft(req)
+            return
+        # landed: the nodes flip back to device residency (keeping their
+        # host copies); one upgraded or dropped in the window leaves its
+        # restored block the sequence's own
+        for node, handle, dstb in zip(rs.nodes, rs.handles, rs.dst):
+            self._prefix.restore_landed(node, handle, dstb)
+        n_host = len(rs.nodes)
+        covered = rs.done + n_host * self.block_size
+        self.stats["prefix_lookup_tokens"] += len(rs.tokens)
+        self._count_prefix_hit(covered)
+        self.stats["restored"] += n_host
+        self._count("restored", n_host)
+        self.stats["restored_tokens"] += n_host * self.block_size
+        telemetry.observe("serve.restore_wait_ms",
+                          1e3 * (time.perf_counter() - rs.t_stage))
+        telemetry.set_gauge(self._gauge + "host_blocks_used",
+                            self._tier.used)
+        del self._restoring[rs.row]
+        self._release_src(rs)
+        if self._drafter is not None and self._drafter.mirrors_pool:
+            # the drafter's mirrored pool follows: draft-prefill the span
+            # the target just got back as bytes
+            self._drafter_restore_span(rs.tokens, rs.blocks, rs.done,
+                                       covered)
+        self._enter_decode_or_prefill(req, rs.row, rs.tokens, rs.blocks,
+                                      covered)
+
+    def _drafter_restore_span(self, tokens, blocks, start, end):
+        """Feed a restored block-aligned span to the drafter as prefill
+        chunks of the engine's bucket shapes."""
+        pos = start
+        largest = self.prefill_buckets[-1]
+        while pos < end:
+            remaining = end - pos
+            bucket = largest if remaining > largest else \
+                self._bucket_for(remaining, self.prefill_buckets)
+            chunk = min(remaining, bucket)
+            self._drafter.on_restore_span(*self._chunk_inputs(
+                tokens[pos:pos + chunk], bucket, pos, blocks))
+            pos += chunk
+
+    def _write_restore(self, rs):
+        """The restore's scatter (`TransformerKVModel.write_block`): the
+        staged run into its destination blocks, the trash block taking
+        the bucket's padding."""
+        self.model.write_block(self._cache, rs.dst_d, rs.staged)
 
     def _advance_chunk(self, pf):
         """Launch one prefill chunk; the last one moves the sequence to
@@ -1395,6 +1969,16 @@ class ServingEngine:
             if self._drafter is not None and n_new:
                 self._drafter.on_resume(list(pf.tokens) + [last])
             self._active[pf.row] = seq
+            return
+        if first < 0:
+            # the quantization gate on the prompt's final chunk: scrub the
+            # blocks it read (a shared prefix with bad scales must not be
+            # acquired again by the retry), release them, requeue once
+            self._free.append(pf.row)
+            self._scrub_quant(blocks)
+            self._drop_refs(blocks)
+            self._block_gauges()
+            self._quant_trip_req(req, "prefill")
             return
         req.t_first = time.perf_counter()
         req.tokens.append(first)
@@ -1589,18 +2173,67 @@ class ServingEngine:
         self._block_gauges()
         return True
 
-    def _vacate_row(self, row, seq):
+    def _vacate_row(self, row, seq, capture_resume=True):
         """Take an active row out for a later exact replay: leave the
         decode set, free the row, capture ``(ctx, last, pos, n_new)``
         (the cache holds rows [0, pos), exactly ``ctx``) and release the
-        blocks once."""
+        blocks once.  The one core of preemption and of a quantization
+        gate trip (`_quant_trip_seq`)."""
         del self._active[row]
         self._free.append(row)
         req = seq.req
-        req._resume = (list(seq.ctx), seq.last, seq.pos, seq.n_new)
-        req._preempt_n_new = seq.n_new
+        if capture_resume:
+            req._resume = (list(seq.ctx), seq.last, seq.pos, seq.n_new)
+            req._preempt_n_new = seq.n_new
         self._release_blocks(seq)
         return req
+
+    # -- quantization gate trips ------------------------------------------
+    def _scrub_quant(self, blocks):
+        """A tripped row's blocks may include shared prefix blocks whose
+        scales are bad: detach them and their subtrees from the prefix
+        index, so no later lookup acquires them again, and reclaim those
+        that were parked.  The retry prefills fresh blocks."""
+        if self._prefix is None or not blocks:
+            return
+        freed = self._prefix.invalidate(blocks)
+        if freed:
+            self._alloc.reclaim(freed)
+            self._count_evictions(len(freed))
+
+    def _quant_trip_req(self, req, where, requeue=True):
+        """The gate tripped for ``req`` (its program picked -1): count,
+        then requeue once for a clean retry; the second trip, or a path
+        with no exact replay (a slot-cache row mid-generation), fails it
+        with `ServeQuantError`.  Never a token the gate flagged."""
+        self.stats["quant_trips"] += 1
+        self._count("quant.trips")
+        telemetry.record_event("serve_quant_trip", replica=self.name,
+                               request=req.id, where=where)
+        if requeue and req._requeues < 1:
+            req._requeues += 1
+            with self._qlock:
+                self._queue.appendleft(req)
+        else:
+            req._finish(error=ServeQuantError(
+                "ServeRequest %d: quantization logit gate tripped (%s) — "
+                "nonfinite or out-of-range logits under quantized "
+                "weights/KV (corrupted scales?); the request was retried "
+                "once and is quarantined rather than emitting unverified "
+                "tokens" % (req.id, where)))
+
+    def _quant_trip_seq(self, row, seq, where="decode"):
+        """A trip on an active row: leave the decode set, scrub the row's
+        blocks from the prefix index, release them once and requeue by
+        exact replay (the tokens already emitted passed the gate).  A
+        slot-cache row has no replay, so it fails at once."""
+        replayable = self._paged and seq.blocks is not None
+        if replayable:
+            self._scrub_quant(seq.blocks)
+        req = self._vacate_row(row, seq,
+                               capture_resume=replayable
+                               and seq.req._requeues < 1)
+        self._quant_trip_req(req, where, requeue=replayable)
 
     def _preempt(self, row, seq):
         """Vacate a row and requeue its request at the front."""
@@ -1632,6 +2265,11 @@ class ServingEngine:
             # request (deterministic decoding)
             self._drafter.on_retire(seq.ctx + [seq.last])
         self._release_blocks(seq)
+        if seq.req.session is not None:
+            # the turn's full history is the session's context now; its
+            # registered blocks just parked, so the follow-up is a prefix
+            # hit, on the card or through the tier
+            self._session_store(seq.req)
         seq.req._finish()
         self.stats["completed"] += 1
         # a completion proves the pool drains: reset the storm detector
@@ -1690,6 +2328,12 @@ class ServingEngine:
             if r._cancelled or r.expired(now):
                 dropped.append(r)
                 self._drop_prefill(pf)
+        for rs in list(self._restoring.values()):
+            # a deadline passing mid-restore resolves like any holder's
+            r = rs.req
+            if r._cancelled or r.expired(now):
+                dropped.append(r)
+                self._drop_restore(rs)
         for r in dropped:
             self._finish_dropped(r, now)
 
@@ -1750,6 +2394,10 @@ class ServingEngine:
         telemetry.inc("serve.decode_padded", b - n)
         telemetry.set_gauge(self._gauge + "batch_occupancy", n / float(b))
         for row, seq, t in zip(rows, seqs, nxt):
+            if t < 0:
+                # the quantization gate: never emit the flagged token
+                self._quant_trip_seq(row, seq)
+                continue
             finished = self._advance_one(seq, t)
             if not finished and self._drafter is not None \
                     and seq.ctx is not None:
@@ -1813,17 +2461,36 @@ class ServingEngine:
         return n
 
     def _chaos_step(self):
-        """Chaos's per-iteration faults: the queue flood and, with the
-        prefix cache, `prefix_evict` (the LRU parked block goes as if
-        allocation pressure claimed it)."""
+        """Chaos's per-iteration faults: the queue flood, under KV quant
+        `scale_corrupt`, and with the prefix cache `prefix_evict` (the LRU
+        parked block goes as if allocation pressure claimed it)."""
         self.last_beat = time.monotonic()
         if chaos.enabled():
             self._inject_flood()
+            if self._kv_quant is not None:
+                u = chaos.serve_scale_corrupt()
+                if u is not None:
+                    self._corrupt_scales(u)
             if self._prefix is not None and chaos.serve_prefix_evict():
                 evicted = self._prefix.evict(1)
                 if evicted:
                     self._alloc.reclaim(evicted)
                     self._count_evictions(len(evicted))
+
+    def _corrupt_scales(self, u):
+        """`scale_corrupt:P` chaos: NaN one held block's per-row K/V scales
+        in the pool (the draw ``u`` picks it from the sorted held blocks),
+        so every launch that reads the block dequantizes NaN and the
+        logit gate must turn the step into a requeue or `ServeQuantError`."""
+        held = sorted(self._alloc._ref)
+        if not held:
+            return
+        blk = held[int(u * len(held)) % len(held)]
+        self._cache[1][:, :, blk] = float("nan")
+        self.stats["scale_corrupts"] += 1
+        self._count("quant.scale_corrupts")
+        telemetry.record_event("serve_scale_corrupt", replica=self.name,
+                               block=int(blk))
 
     def _admit_queued(self):
         """Admit queued requests while a row is free; then the active
@@ -1875,6 +2542,9 @@ class ServingEngine:
         self._chaos_step()
         self._sweep()
         if self._paged:
+            # restores staged last iteration first: their copies rode
+            # under its launches
+            self._advance_restores()
             self._advance_prefills()
         self._admit_queued()
         if self._paged:
@@ -1886,7 +2556,8 @@ class ServingEngine:
                 self._decode_spec()
             else:
                 self._decode_plain()
-        return len(self._active) + len(self._prefilling)
+        return len(self._active) + len(self._prefilling) + \
+            len(self._restoring)
 
     # -- megastep decode -----------------------------------------------------
     def _step_mega(self):
@@ -1905,6 +2576,7 @@ class ServingEngine:
             self._block_gauges(full=True)
             inflight = self._launch_mega()
         self._sweep()
+        self._advance_restores()
         self._advance_prefills()
         self._admit_queued()
         self._count_active()
@@ -1915,7 +2587,8 @@ class ServingEngine:
             self._finish_mega(inflight)
         elif self._active:
             time.sleep(0.001)   # every row is stalled on a denial
-        return len(self._active) + len(self._prefilling)
+        return len(self._active) + len(self._prefilling) + \
+            len(self._restoring)
 
     def _launch_mega(self):
         """Launch one megastep over the active rows that are not stalled
@@ -1980,17 +2653,23 @@ class ServingEngine:
             if self._active.get(row) is not seq:
                 continue  # swept, preempted or vacated in the window
             adv = 0
-            finished = False
+            finished = tripped = False
             for j in range(m):
                 t = int(out[i, j])
                 if t == -2:
+                    break
+                if t < 0:
+                    tripped = True
                     break
                 finished = self._advance_one(seq, t)
                 adv += 1
                 if finished:
                     break
             emitted += adv
-            if finished:
+            if tripped:
+                # the quantization gate: never emit the flagged token
+                self._quant_trip_seq(row, seq, "megastep")
+            elif finished:
                 retired += 1   # its stop rule fired on the device
                 self._retire(row, seq)
             elif adv and self._drafter is not None \
@@ -2117,16 +2796,29 @@ class ServingEngine:
             n_acc = min(int(out[i, c]), int(length[i]) - 1)
             self.stats["spec_proposed"] += k
             self._count("spec.proposed", k)
-            finished = False
+            finished = tripped = False
+            acc_emitted = 0
             for j in range(n_acc + 1):
+                t = int(out[i, j])
+                if t < 0:
+                    # the quantization gate: the tokens before the flagged
+                    # position passed it; the row requeues from here
+                    tripped = True
+                    break
                 emitted += 1
-                if self._advance_one(seq, int(out[i, j])):
+                if j < n_acc:
+                    acc_emitted += 1
+                if self._advance_one(seq, t):
                     finished = True
                     break
-            self.stats["spec_accepted"] += n_acc
-            if n_acc:
-                self._count("spec.accepted", n_acc)
-            if finished:
+            # a trip discards the tail: count only drafts that were emitted
+            n_counted = acc_emitted if tripped else n_acc
+            self.stats["spec_accepted"] += n_counted
+            if n_counted:
+                self._count("spec.accepted", n_counted)
+            if tripped:
+                self._quant_trip_seq(row, seq, "verify")
+            elif finished:
                 self._retire(row, seq)
             else:
                 # a learning drafter sees this row's fresh tokens now, so
@@ -2217,6 +2909,9 @@ class ServingEngine:
             self._free.append(pf.row)
             self._release_blocks(pf)
             inflight.append(pf.req)
+        for rs in list(self._restoring.values()):
+            self._drop_restore(rs)
+            inflight.append(rs.req)
         return inflight
 
     def _join_thread(self):
@@ -2358,8 +3053,6 @@ _SHARDED = ("sharded replicas (ROADMAP.md queue 1, item 2: "
             "`param_shardings`, `kv_shardings` with torch.distributed)")
 _DISAGG = ("disaggregated prefill/decode (ROADMAP.md queue 1, item 2: "
            "`handoff.py`)")
-_SESSIONS = ("sessions (ROADMAP.md queue 1, item 2: the host tier and "
-             "sessions, `tiers.py`)")
 
 
 class ReplicaRouter:
@@ -2378,9 +3071,12 @@ class ReplicaRouter:
     same way, and a replacement takes its place.  The JAX router's
     replacement warms from a shared AOT cache and compiles nothing; the
     port compiles nothing in the first place, so a replacement's warmup
-    only runs each program once.  Not ported: `from_mesh` (sharded
-    replicas), roles and handoffs (``disagg``) and the migration of
-    sessions, each raising `MXNetError` that names its ROADMAP item.
+    only runs each program once.  A session's follow-up turn goes to a
+    replica that holds the session (`ServingEngine.has_session`), and
+    `drain` moves the drained replica's sessions with it
+    (`_migrate_sessions`).  Not ported: `from_mesh` (sharded replicas)
+    and roles and handoffs (``disagg``), each raising `MXNetError` that
+    names its ROADMAP item.
     """
 
     _MONITOR_PERIOD = 0.2
@@ -2565,13 +3261,11 @@ class ReplicaRouter:
         `ServeRequest`, entered in the journal."""
         if self._stopped:
             raise ServeEngineDead("ReplicaRouter: router stopped")
-        if kw.get("session") is not None:
-            raise MXNetError("ReplicaRouter.submit: %s are not ported yet"
-                             % _SESSIONS)
         with self._lock:
             fleet = len(self.engines)
         telemetry.set_gauge("serve.replicas", fleet)
         last_err = None
+        session = kw.get("session")
         # two rounds: a replica dying (or respawning) between the snapshot
         # and the submit re-routes instead of failing the request
         for _ in range(2):
@@ -2580,6 +3274,13 @@ class ReplicaRouter:
                 break
             shed = 0
             order = sorted(live, key=lambda e: e.depth())
+            if session is not None:
+                # affinity: a follow-up turn goes only to replicas holding
+                # the session (its K/V is there); with none alive it
+                # starts afresh, least-depth
+                holders = [e for e in live if e.has_session(session)]
+                if holders:
+                    order = sorted(holders, key=lambda e: e.depth())
             for eng in order:
                 try:
                     req = eng.submit(prompt, _count_shed=False, **kw)
@@ -2639,11 +3340,15 @@ class ReplicaRouter:
         err = ServeEngineDead(
             "ServingEngine %s: drained for restart with no live replica "
             "to migrate to" % eng.name)
+        moved = {}   # id(request) -> the engine its replay landed on
         for req in stragglers:
             if req.done:
                 continue
             try:
-                if self._migrate(req, exclude=eng):
+                target = self._migrate(req, exclude=eng)
+                if target:
+                    if isinstance(target, ServingEngine):
+                        moved[id(req)] = target
                     continue
                 # no journal (or no paged survivor): a straggler with no
                 # generated tokens needs no replay, so it redispatches
@@ -2677,10 +3382,50 @@ class ReplicaRouter:
                 if fresh is not None and self._monitor is not None \
                         and self._monitor.is_alive():
                     fresh.start()
+        # the drained replica's sessions move with it (after the swap, so
+        # a straggler's session follows its new engine)
+        self._migrate_sessions(eng, moved, dest=fresh)
         return fresh
 
-    def _migrate_sessions(self, *args, **kw):
-        raise MXNetError("ReplicaRouter: %s are not ported yet" % _SESSIONS)
+    def _migrate_sessions(self, eng, moved, dest=None):
+        """Move stopped ``eng``'s sessions to the fleet: one whose live
+        turn migrated as a straggler follows that turn's engine, every
+        other (resolved turn, claim, first-turn record) goes to ``dest``
+        (the drain's replacement) or the least-deep live survivor.
+        Returns how many moved."""
+        with eng._slock:
+            sessions = list(eng._sessions.items())
+            eng._sessions.clear()
+        if not sessions:
+            return 0
+        live = self._live_engines(exclude=eng)
+        n = 0
+        for key, (hist, ent) in sessions:
+            if isinstance(ent, _SessionClaim):
+                # an unadmitted claim: the conversation retries from the
+                # previous resolved turn
+                ent = ent.prev
+            target = None
+            if isinstance(ent, ServeRequest) and not ent.done:
+                target = moved.get(id(ent))
+            if target is None:
+                target = dest
+            if target is None and live:
+                target = min(live, key=lambda e: e.depth())
+            if target is None:
+                continue   # nowhere to go: the history dies with eng
+            with target._slock:
+                if key in target._sessions:
+                    continue   # the target's own copy wins
+                target._sessions[key] = (hist, ent)
+                target._sessions.move_to_end(key)
+                target._trim_sessions_locked()
+            n += 1
+        if n:
+            telemetry.inc("serve.sessions_migrated", n)
+            telemetry.record_event("serve_sessions_migrated",
+                                   replica=eng.name, n=n)
+        return n
 
     def _next_name(self):
         """A fresh replicaN name (the caller holds ``_lock``)."""

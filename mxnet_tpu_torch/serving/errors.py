@@ -1,5 +1,4 @@
-"""Typed serving errors: the part of `mxnet_tpu/serving/errors.py` that
-this port raises.
+"""Typed serving errors: a port of `mxnet_tpu/serving/errors.py`.
 
 Every way a `ServeRequest` can fail resolves to exactly one subclass of
 `ServeError`, itself an `MXNetError`, so a client can branch on what went
@@ -9,15 +8,13 @@ death) instead of matching message strings.  The scopes:
 * request-scoped: `ServeOverload`, `ServeDeadlineExceeded`,
   `ServeCancelled`, `ServeTimeout` (a client-side wait, nothing wrong on
   the server), `ServeBlocksExhausted` (at submit), `ServeQuarantined` (a
-  request that poisoned its own launch);
+  request that poisoned its own launch), `ServeQuantError` (the
+  quantization logit gate tripped twice);
 * cache-scoped: `ServeCacheInvalidated` (a failed launch left the K/V
   cache half-written: every admitted sequence lost its context, the
   engine rebuilt the cache and went on serving its queue);
 * engine-scoped: `ServeEngineDead` (the scheduler died, or the engine
   was stopped or is draining).
-
-The quantization error belongs to the quantization slice, which is not
-ported.
 """
 from __future__ import annotations
 
@@ -25,7 +22,8 @@ from ..base import MXNetError
 
 __all__ = ["ServeError", "ServeTimeout", "ServeOverload",
            "ServeDeadlineExceeded", "ServeCancelled", "ServeQuarantined",
-           "ServeBlocksExhausted", "ServeCacheInvalidated", "ServeEngineDead"]
+           "ServeBlocksExhausted", "ServeQuantError", "ServeCacheInvalidated",
+           "ServeEngineDead"]
 
 
 class ServeError(MXNetError):
@@ -66,6 +64,14 @@ class ServeBlocksExhausted(ServeError):
     depth) exceeds the pool's usable blocks.  Raised at `submit`;
     transient pressure is not this error (the request queues, or a
     running one is preempted and replayed)."""
+
+
+class ServeQuantError(ServeError):
+    """The quantization logit gate tripped twice for this request:
+    nonfinite or out-of-range logits under quantized weights or K/V
+    (corrupted per-block scales, or a quantization blow-up).  The request
+    was retried once over freshly quantized context and then
+    quarantined: the engine never emits a token the gate flagged."""
 
 
 class ServeCacheInvalidated(ServeError):

@@ -18,8 +18,19 @@ prefills only the uncached suffix.  A registered block whose refcount
 drops to zero does not go back to the free list: it PARKS in an LRU
 pool and is evicted (leaves before roots) only under allocation
 pressure or past ``pool_cap``, so a hot system prompt survives between
-requests.  The JAX package's host-DRAM tier below the index (spill,
-restore) is not ported: an evicted block is simply forgotten.
+requests.
+
+The index reaches below the pool into the host-DRAM tier
+(`tiers.HostBlockTier`, ``MXNET_SERVE_TIER``): when the LRU evicts a
+parked block, the engine's ``spill_hook`` may copy its K/V to the host,
+and the node converts to host residency (``tier == "host"``, ``block``
+the host handle) instead of detaching.  Host-resident nodes only ever
+hang below device-resident ones, so `lookup_plan`'s tier-aware match is
+a device run followed by a host run, which the engine restores before
+the request proceeds (`restore_landed` flips a node back).  A host copy
+stays valid after a restore (a registered block is never written again),
+so re-evicting that node costs no second copy.  `invalidate` detaches a
+node and its subtree (the quantization scrub after a logit-gate trip).
 
 Allocation order is the JAX one, so both engines hand out the same
 block ids, evict the same blocks and park the same ones.
@@ -206,89 +217,156 @@ class BlockAllocator:
 
 
 class _PrefixNode:
-    """One cached full-block token run: ``key`` is the exact block_size-
-    token tuple, ``block`` the device block holding its K/V, and the
-    parent chain spells the whole prefix."""
+    """One cached full-block token run: `key` is the exact block_size-
+    token tuple, `block` the physical location of its K/V — a device
+    block id while ``tier == "dev"``, a host-tier handle while
+    ``tier == "host"`` — and the parent chain spells the whole prefix.
+    ``host`` (dev-resident nodes only) remembers a still-valid host
+    copy from an earlier spill/restore cycle, so re-evicting this node
+    costs no second device→host transfer."""
 
-    __slots__ = ("key", "block", "parent", "children")
+    __slots__ = ("key", "block", "parent", "children", "tier", "host")
 
     def __init__(self, key, block, parent):
         self.key = key
         self.block = block
         self.parent = parent
         self.children = {}
+        self.tier = "dev"
+        self.host = None
 
 
 class PrefixCache:
     """Block-aligned radix index over cached K/V prefixes.
 
-    Keys are the exact token tuples of FULL blocks, never hashes: a hash
-    collision would alias one prompt's K/V into another's attention.
-    Only full blocks take part, since a partly written block's tail is
-    garbage.
+    Keys are the exact token tuples of FULL blocks (no lossy hashing:
+    a hash collision would silently alias one prompt's K/V into
+    another's attention — dict equality on the tuple makes the match
+    exact; Python hashes the tuple internally for the walk).  Only full
+    blocks participate: a partially-written block's tail is garbage, so
+    it can never be shared.
 
-    The engine `insert`s a sequence's blocks as they fill (eagerly, so a
-    concurrent request can share a block its writer still holds; the
-    writer's copy-on-write guards the block it writes), `lookup`s the
+    Lifecycle: the engine `insert`s a sequence's blocks as they FILL
+    (eagerly — a concurrent request can share a block its writer still
+    holds, which is where copy-on-write earns its keep), `lookup`s the
     longest cached prefix at admission, `park`s registered blocks whose
-    refcount reaches zero, and `evict`s parked blocks, oldest first with
-    leaves before roots, only under allocation pressure or past
-    ``pool_cap`` (< 0: no cap).
+    refcount hits zero, and `evict`s parked blocks — oldest-first with
+    leaf preference, so a prefix's tail dies before its root — only
+    under allocation pressure (or past ``pool_cap``).
+
+    Tiering hooks (both optional; without them this is the single-tier
+    cache):
+
+    * ``spill_hook(block, tokens, node)`` fires when the LRU evicts a
+      parked device block, with the block id, the node's full token
+      path, and the node itself — the structured eviction metadata any
+      observer needs.  Returning a host-tier handle converts the node
+      to host residency (the prefix stays findable); returning None
+      detaches it exactly as before.  The evicted DEVICE block is
+      returned to the caller for reclaim either way.
+    * ``host_drop_hook(handle)`` fires whenever the cache drops its own
+      reference to a host handle (node detach/orphan paths), so the
+      owner can free the host storage.
     """
 
-    def __init__(self, block_size, pool_cap=-1):
+    def __init__(self, block_size, pool_cap=-1, spill_hook=None,
+                 host_drop_hook=None):
         self.block_size = int(block_size)
-        self.pool_cap = int(pool_cap)
-        self.clear()
+        self.pool_cap = int(pool_cap)     # parked blocks retained; < 0 = all
+        self.spill_hook = spill_hook
+        self.host_drop_hook = host_drop_hook
+        self._root = _PrefixNode(None, None, None)
+        self._by_block = {}               # device block -> node
+        self._by_host = {}                # host handle -> node
+        self._parked = OrderedDict()      # block -> node, oldest first
 
     @property
     def cached_blocks(self):
-        """Registered blocks (live + parked)."""
+        """Registered DEVICE blocks (live + parked)."""
         return len(self._by_block)
+
+    @property
+    def host_count(self):
+        """Host-tier handles this index references (host-resident nodes
+        plus retained host copies of device-resident ones) — must equal
+        the tier's own `used` count, or someone leaked."""
+        return len(self._by_host)
 
     @property
     def parked_count(self):
         """Refcount-0 blocks retained for reuse (the LRU pool)."""
         return len(self._parked)
 
+    def _path_tokens(self, node):
+        """The full token path root→``node`` (the exact tokens whose
+        K/V the node's block holds) — the eviction hook's metadata."""
+        keys = []
+        while node is not self._root:
+            keys.append(node.key)
+            node = node.parent
+        out = []
+        for k in reversed(keys):
+            out.extend(k)
+        return out
+
     def _key(self, tokens, i):
         bs = self.block_size
         return tuple(int(t) for t in tokens[i * bs:(i + 1) * bs])
 
     def lookup_plan(self, tokens):
-        """``(blocks, [])``: the block ids of the longest cached
-        full-block prefix of ``tokens``, and the host-resident run that
-        would follow them, always empty here (no host tier).  Moves the
-        matched parked path to the most-recent end of the eviction
-        order.  The caller must `acquire` the blocks before anything
-        that could evict (a parked match stays parked until acquired)."""
-        blocks = []
+        """The tier-aware match: ``(dev_blocks, host_nodes)`` — the
+        longest cached FULL-block prefix of ``tokens`` split into its
+        leading device-resident run (block ids, acquire-ready) and the
+        host-resident run that follows (nodes, each carrying its host
+        handle in ``.block`` — the engine's restore-then-acquire plan).
+        Host under device is the only legal stacking (spills are
+        bottom-up), so the walk flips exactly once; a device node BELOW
+        a host one would mean the invariant broke — the walk stops
+        there rather than hand out an unreachable plan.  Touches the
+        matched parked path so hot prefixes move to the MRU end of the
+        eviction order (recency IS the `_parked` OrderedDict order).
+        The caller must `acquire` the device run before any operation
+        that could evict (a parked match is still parked until
+        acquired)."""
+        dev, host = [], []
         node = self._root
+        last_dev = self._root
         for i in range(len(tokens) // self.block_size):
             child = node.children.get(self._key(tokens, i))
             if child is None:
                 break
-            blocks.append(child.block)
+            if child.tier == "host":
+                host.append(child)
+            elif host:
+                break
+            else:
+                dev.append(child.block)
+                last_dev = child
             node = child
-        while node is not self._root:
-            if node.block in self._parked:
-                self._parked.move_to_end(node.block)
-            node = node.parent
-        return blocks, []
+        n = last_dev
+        while n is not self._root:
+            if n.block in self._parked:
+                self._parked.move_to_end(n.block)
+            n = n.parent
+        return dev, host
 
     def lookup(self, tokens):
-        """Block ids of the longest cached full-block prefix of
-        ``tokens``."""
+        """Device block ids of the longest cached FULL-block prefix of
+        ``tokens`` (the tier-blind view; tier-aware callers use
+        `lookup_plan`)."""
         return self.lookup_plan(tokens)[0]
 
     def insert(self, tokens, blocks, n_full):
-        """Register the first ``n_full`` blocks of a sequence (its full
+        """Register the first ``n_full`` blocks of a sequence (its FULL
         blocks) along the tree path of ``tokens``.  A run already cached
-        under another block keeps the existing copy (the walk goes on
-        through it, so deeper runs still register); a run cached under
-        the same block is a no-op; a block already registered elsewhere
-        stops the walk (one block, one tree position).  Returns the
-        number of newly registered blocks."""
+        under a DIFFERENT physical device block keeps the existing copy
+        (the walk continues through it, so deeper runs still register);
+        a run already cached under the SAME block is a no-op.  A run
+        cached only on the HOST tier is UPGRADED: the node repoints at
+        the freshly prefilled device block and retains the host copy as
+        a free re-spill (prefill of the same tokens under the same
+        weights is deterministic, so the two copies are bit-identical).
+        Returns the number of newly registered device blocks."""
         node = self._root
         added = 0
         for i in range(min(int(n_full), len(blocks))):
@@ -297,9 +375,20 @@ class PrefixCache:
             if child is None:
                 b = blocks[i]
                 if b in self._by_block:
+                    # this physical block already backs another run (it
+                    # must not appear at two tree positions); stop here
                     break
                 child = _PrefixNode(key, b, node)
                 node.children[key] = child
+                self._by_block[b] = child
+                added += 1
+            elif child.tier == "host":
+                b = blocks[i]
+                if b in self._by_block:
+                    break
+                child.host = child.block
+                child.tier = "dev"
+                child.block = b
                 self._by_block[b] = child
                 added += 1
             node = child
@@ -309,10 +398,10 @@ class PrefixCache:
         return block in self._by_block
 
     def park(self, block):
-        """A registered block's refcount reached zero: retain it in the
-        LRU pool.  Returns the blocks evicted to honour ``pool_cap`` (the
-        caller reclaims them), or None for an unregistered block (the
-        caller frees it directly)."""
+        """A registered block's refcount hit zero: retain it in the LRU
+        pool instead of freeing.  Returns the blocks evicted to honor
+        ``pool_cap`` (the caller reclaims them); [] for an unregistered
+        block — the caller frees it directly."""
         node = self._by_block.get(block)
         if node is None:
             return None
@@ -325,58 +414,154 @@ class PrefixCache:
         return evicted
 
     def unpark(self, blocks):
-        """Blocks re-acquired through a prefix hit leave the LRU pool."""
+        """Blocks re-acquired through a prefix hit leave the LRU pool
+        (they are live again; `acquire` holds the refcount)."""
         for b in blocks:
             self._parked.pop(b, None)
 
     def _evict_one(self):
-        """Evict the oldest parked leaf.  A parked node's children are
-        parked too (a live child would mean a live holder of the whole
-        prefix), so a parked leaf exists whenever the pool is non-empty;
-        taking leaves first keeps prefix roots, the shareable part, alive
-        longest.  Returns the evicted block ids."""
+        """Evict the oldest parked DEVICE leaf (a parked node's device
+        children are always parked too — a live child would imply a
+        live holder of the whole prefix — so device leaves exist
+        whenever the pool is non-empty; preferring them keeps prefix
+        ROOTS, the shareable part, alive longest; already-spilled host
+        children hang below without pinning their parent).  With a
+        ``spill_hook``, the node converts to host residency instead of
+        detaching — eviction ORDER over device blocks is identical
+        either way (regression-tested), only the node's afterlife
+        differs."""
         for b, node in self._parked.items():
-            if not node.children:
+            if not any(c.tier == "dev" for c in node.children.values()):
                 del self._parked[b]
-                self._detach(node)
-                return [b]
-        # unreachable while the parked-subtree invariant holds: take the
-        # oldest anyway, with its whole subtree, rather than loop
+                return [b] + self._spill_or_detach(node)
+        # unreachable while the parked-subtree invariant holds; take the
+        # oldest anyway (detaching orphans its subtree: unregistered,
+        # parked descendants evicted with it) rather than looping
         b, node = next(iter(self._parked.items()))
         return self._drop_subtree(node)
 
-    def _detach(self, node):
+    def _spill_or_detach(self, node):
+        """A parked device node lost its block to eviction: convert it
+        to host residency when a host copy exists (retained from an
+        earlier cycle, or minted right now by the spill hook), detach
+        it — dropping any orphaned host descendants — otherwise.
+        Returns the parked device blocks detached with it (none while
+        the parked-subtree invariant holds: an evictable node's
+        children are all host)."""
+        handle = node.host
+        if handle is None and self.spill_hook is not None:
+            handle = self.spill_hook(node.block, self._path_tokens(node),
+                                     node)
+        if handle is None:
+            return self._drop_subtree(node)
         self._by_block.pop(node.block, None)
+        node.block = handle
+        node.tier = "host"
+        node.host = None
+        self._by_host[handle] = node
+        return []
+
+    def _drop_host_handle(self, handle):
+        if handle is not None:
+            self._by_host.pop(handle, None)
+            if self.host_drop_hook is not None:
+                self.host_drop_hook(handle)
+
+    def drop_host(self, handle):
+        """The host TIER evicted ``handle`` (its storage is already
+        gone): detach the index's view of it.  A retained host copy of
+        a device-resident node just loses the shortcut; a host-resident
+        node detaches with its (host) subtree.  Returns the ORPHANED
+        descendant handles for the caller to free from the tier —
+        no ``host_drop_hook`` reentry from this path, the tier
+        initiated it."""
+        node = self._by_host.pop(handle, None)
+        if node is None:
+            return []
+        if node.tier == "dev":
+            node.host = None
+            return []
+        orphans = []
+        self._detach(node)
+        stack = list(node.children.values())
+        node.children = {}
+        while stack:
+            d = stack.pop()
+            if d.tier == "host":
+                self._by_host.pop(d.block, None)
+                orphans.append(d.block)
+            else:  # dev under host: invariant breach — scrub defensively
+                self._by_block.pop(d.block, None)
+                self._parked.pop(d.block, None)
+            stack.extend(d.children.values())
+            d.children = {}
+        return orphans
+
+    def restore_landed(self, node, handle, dev_block):
+        """A restore staged against host ``handle`` finished writing
+        ``dev_block``: flip the node back to device residency, keep the
+        host copy as a free re-spill.  Returns False when the node was
+        upgraded or dropped in the transfer window (the restored block
+        stays the sequence's private property — correct either way, the
+        bytes came from the tier, not the tree)."""
+        if self._by_host.get(handle) is not node or node.tier != "host" \
+                or dev_block in self._by_block:
+            return False
+        node.tier = "dev"
+        node.block = dev_block
+        node.host = handle
+        self._by_block[dev_block] = node
+        return True
+
+    def _detach(self, node):
+        if node.tier == "dev":
+            self._by_block.pop(node.block, None)
+        else:
+            self._by_host.pop(node.block, None)
         if node.parent is not None:
             node.parent.children.pop(node.key, None)
         node.parent = None
 
-    def _drop_subtree(self, node):
-        """Detach ``node`` and unregister its subtree (a child run's K/V
-        means something only under its parent's context); returns the
-        parked blocks among them, now unreferenced."""
-        self._detach(node)
-        out = []
-        stack = [node]
-        while stack:
-            d = stack.pop()
-            self._by_block.pop(d.block, None)
-            if self._parked.pop(d.block, None) is not None:
-                out.append(d.block)
-            stack.extend(d.children.values())
-            d.children = {}
-        return out
-
     def invalidate(self, blocks):
-        """Unregister the nodes backing ``blocks`` and their subtrees.
-        Live holders keep their table entries (refcounts are the
-        allocator's business); the runs just stop being findable.
-        Returns the parked blocks detached, for the caller to reclaim."""
+        """Detach the nodes backing ``blocks`` (and their entire
+        subtrees — a child run's K/V is only meaningful under its
+        parent's context) from the index: the integrity-scrub path
+        (quantization scale corruption tripping the serving logit
+        gate).  Live holders keep their own table entries — refcounts
+        are the allocator's business — the runs just stop being
+        findable, so no future lookup can re-acquire them.  Host copies
+        under detached nodes drop through ``host_drop_hook``.  Returns
+        the PARKED device blocks that were detached (refcount 0,
+        unreferenced now): the caller reclaims them."""
         out = []
         for b in blocks:
             node = self._by_block.get(b)
             if node is not None:
                 out.extend(self._drop_subtree(node))
+        return out
+
+    def _drop_subtree(self, node):
+        """Detach ``node`` and unregister its subtree (a child run's K/V
+        means something only under its parent's context): host-resident
+        nodes and retained host copies drop through
+        ``host_drop_hook``.  Returns the parked device blocks among
+        them, now unreferenced, for the caller to reclaim."""
+        self._detach(node)
+        out = []
+        stack = [node]
+        while stack:
+            d = stack.pop()
+            if d.tier == "host":
+                self._by_host.pop(d.block, None)
+                self._drop_host_handle(d.block)
+            else:
+                self._by_block.pop(d.block, None)
+                self._drop_host_handle(d.host)
+                d.host = None
+                if self._parked.pop(d.block, None) is not None:
+                    out.append(d.block)
+            stack.extend(d.children.values())
+            d.children = {}
         return out
 
     def evict(self, n):
@@ -388,7 +573,11 @@ class PrefixCache:
         return out
 
     def clear(self):
-        """Drop every cached prefix."""
+        """Drop every cached prefix (the pool-rebuild recovery path:
+        the device blocks the tree points at no longer exist).  Host
+        references drop too — the owner clears the tier itself (one
+        `HostBlockTier.clear`, not a hook storm)."""
         self._root = _PrefixNode(None, None, None)
-        self._by_block = {}               # block -> node
-        self._parked = OrderedDict()      # block -> node, oldest first
+        self._by_block.clear()
+        self._by_host.clear()
+        self._parked.clear()

@@ -33,8 +33,13 @@ does not build, which is not a launch fault at all: both raise.
 The engine drives the lifecycle: `bind` at construction, `warmup` in
 `ServingEngine.warmup`, `on_prefill_chunk` after every target prefill
 chunk (the draft cache prefills in lockstep), `on_cow` after a target
-copy-on-write, `on_cache_rebuild` when the target pool is rebuilt,
-`on_retire`, `observe` and `on_resume` for a learning drafter.
+copy-on-write, `on_restore_span` after a host-tier restore landed a span
+of the target pool without a prefill (a drafter that ``mirrors_pool``
+prefills it through its own model), `on_cache_rebuild` when the target
+pool is rebuilt, `on_retire`, `observe` and `on_resume` for a learning
+drafter.  A draft pool quantizes as the target's does (the engine's
+``quant`` and ``kv_quant`` specs), so quantization alone never moves
+the accept rate.
 """
 from __future__ import annotations
 
@@ -89,6 +94,15 @@ class Drafter:
 
     def on_prefill_chunk(self, toks_d, start_d, length_d, table_d):
         """A target prefill chunk ran with these (device) operands."""
+
+    # whether the drafter keeps a pool mirroring the target's block ids,
+    # which must follow a host-tier restore (`on_restore_span`)
+    mirrors_pool = False
+
+    def on_restore_span(self, toks_d, start_d, length_d, table_d):
+        """A host-tier restore landed this block-aligned span of the
+        target pool without a prefill; a pool-mirroring drafter derives
+        its own rows for it (draft state: accept rate, never output)."""
 
     def on_cow(self, src, dst):
         """The target copied block ``src`` to ``dst`` (copy-on-write)."""
@@ -216,6 +230,7 @@ class ModelDrafter(Drafter):
 
     name = "model"
     needs_device = True
+    mirrors_pool = True
 
     def __init__(self, model=None, params=None):
         super().__init__()
@@ -230,11 +245,19 @@ class ModelDrafter(Drafter):
         super().bind(engine)
         if self.model is None:
             self.model = engine.model
+        else:
+            # the draft pool quantizes as the target's does
+            self.model = self.model.with_quant(engine.model.quant,
+                                               engine.model.kv_quant)
         if self.model.vocab_size != engine.model.vocab_size:
             raise MXNetError(
                 "ModelDrafter: draft vocab %d != target vocab %d"
                 % (self.model.vocab_size, engine.model.vocab_size))
         params = engine._params if self.params is None else self.params
+        if self.model.quant is not None:
+            # idempotent: self-drafting shares the engine's quantized
+            # parameters
+            params = self.model.quantize_params(params)
         if all(isinstance(v, torch.Tensor) for v in params.values()):
             self.model.check_params(params)
             self._dparams = {k: v.to(engine.device)
@@ -313,6 +336,11 @@ class ModelDrafter(Drafter):
             self.prefill_chunks += 1
         except Exception as exc:  # noqa: BLE001 -- scoped in _degrade
             self._degrade("prefill", exc)
+
+    def on_restore_span(self, toks_d, start_d, length_d, table_d):
+        # the target got the span back as bytes; the draft pool prefills
+        # the same tokens through the draft model
+        self.on_prefill_chunk(toks_d, start_d, length_d, table_d)
 
     def on_cow(self, src, dst):
         try:

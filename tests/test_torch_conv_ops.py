@@ -35,6 +35,8 @@ from mxnet_tpu.ops import registry as jreg
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import nn as tnn
 from mxnet_tpu_torch.ops import registry as treg
+from test_torch_kernels import _one_thread  # noqa: F401
+
 
 ATOL, RTOL = 1e-5, 1e-6
 # convolutions and BatchNorm's gradients: sums of up to a few hundred terms

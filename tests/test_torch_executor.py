@@ -32,6 +32,8 @@ from mxnet_tpu_torch import random as trandom
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.executor import _build_graph_fn
 from mxnet_tpu_torch.ops import registry as treg
+from test_torch_kernels import _one_thread  # noqa: F401
+
 
 PK = {"jax": jmx, "torch": tmx}
 RTOL, ATOL = 1e-4, 1e-5

@@ -30,6 +30,8 @@ from mxnet_tpu_torch.ops.pallas_kernels import flash_attention as tfa
 from test_torch_flash_routes import clean_pins, fake_kernels  # noqa: F401
 from test_torch_flash_widths import (B, H, NAMES, Q_OFF, SQ, _calls,
                                      _heads, _port, _reference, _to_bsd)
+from test_torch_kernels import _one_thread  # noqa: F401
+
 
 REL = 1e-4
 

@@ -35,7 +35,8 @@ import jax.numpy as jnp
 from mxnet_tpu.ops.pallas_kernels import flash_attention_mod as jfa
 from mxnet_tpu_torch.ops.pallas_kernels import _build
 from mxnet_tpu_torch.ops.pallas_kernels import flash_attention as tfa
-from test_torch_kernels import fake_toolchain  # noqa: F401
+from test_torch_kernels import _one_thread, fake_toolchain  # noqa: F401
+
 
 REL_TOL = 7e-3  # chip_smoke.py's REL_TOL[bfloat16]
 BLOCK = 128     # the Pallas kernels' tiles here

@@ -45,7 +45,7 @@ from mxnet_tpu_torch.ops.pallas_kernels import _build
 from mxnet_tpu_torch.ops.pallas_kernels import flash_attention as tfa
 from test_torch_flash_bwd_bf16 import _bwd_inputs, _counts
 from test_torch_flash_bwd_bf16 import fake_lib  # noqa: F401
-from test_torch_kernels import fake_toolchain  # noqa: F401
+from test_torch_kernels import _one_thread, fake_toolchain  # noqa: F401
 
 TOL_3XTF32 = 1e-5  # of the largest reference gradient
 
@@ -139,16 +139,6 @@ def _model_bwd(q, k, v, g, lse, delta, q_off, k_off, scale, causal, terms):
                   terms)
     return (_tiled(ds, k, 32, terms), _tiled(ds.T, q, tile, terms),
             _tiled(p.T, g, tile, terms))
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """The models run thousands of tiny products, which a pool of threads
-    only slows."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _operands(b, h, sq, skv, d, seed):

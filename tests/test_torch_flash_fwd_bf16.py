@@ -36,7 +36,8 @@ import jax.numpy as jnp
 from mxnet_tpu.ops.pallas_kernels import flash_attention_mod as jfa
 from mxnet_tpu_torch.ops.pallas_kernels import _build
 from mxnet_tpu_torch.ops.pallas_kernels import flash_attention as tfa
-from test_torch_kernels import fake_toolchain  # noqa: F401
+from test_torch_kernels import _one_thread, fake_toolchain  # noqa: F401
+
 
 REL_TOL = 7e-3  # chip_smoke.py's REL_TOL[bfloat16]
 LSE_ATOL = 1e-5  # float32 in both, of magnitude < 10: ex2 vs exp and the

@@ -44,23 +44,13 @@ from mxnet_tpu_torch.ops.pallas_kernels import _build
 from mxnet_tpu_torch.ops.pallas_kernels import flash_attention as tfa
 from test_torch_flash_bwd_f32 import _tc
 from test_torch_flash_fwd_bf16 import _launches, fake_lib  # noqa: F401
-from test_torch_kernels import fake_toolchain  # noqa: F401
+from test_torch_kernels import _one_thread, fake_toolchain  # noqa: F401
 
 TOL_3XTF32 = 1e-5  # of the largest reference value
 KEYS = 32          # the kernel's key tile
 BLOCK = 128        # the Pallas kernels' tiles here
 LOG2E = np.float32(math.log2(math.e))
 LN2 = np.float32(math.log(2.0))
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """The models run thousands of tiny products, which a pool of threads
-    only slows."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture()

@@ -64,6 +64,8 @@ from mxnet_tpu.parallel import SPMDTrainer as JaxTrainer, make_mesh
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import attention as tattn
 from mxnet_tpu_torch.ops.pallas_kernels import flash_attention as tfa
+from test_torch_kernels import _one_thread  # noqa: F401
+
 
 ATOL = 2e-5
 GRAD_RTOL = 1e-4

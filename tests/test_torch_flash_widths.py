@@ -35,6 +35,8 @@ from mxnet_tpu.ops.pallas_kernels import flash_attention_mod as jfa
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops.pallas_kernels import flash_attention as tfa
 from test_torch_flash_routes import clean_pins, fake_kernels  # noqa: F401
+from test_torch_kernels import _one_thread  # noqa: F401
+
 
 ATOL = 1e-5
 # causal, Sq != Skv, an offset: every query sees a key

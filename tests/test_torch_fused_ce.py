@@ -34,6 +34,8 @@ from mxnet_tpu.ops.pallas_kernels import fused_ce_mod as jfc
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import loss as tloss
 from mxnet_tpu_torch.ops.pallas_kernels import fused_ce as tfc
+from test_torch_kernels import _one_thread  # noqa: F401
+
 
 ATOL = 1e-5
 BF16_RTOL = 2 ** -7

@@ -45,7 +45,8 @@ from mxnet_tpu.ops.pallas_kernels import fused_ce_mod as jfc
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops.pallas_kernels import _build
 from mxnet_tpu_torch.ops.pallas_kernels import fused_ce as tfc
-from test_torch_kernels import fake_toolchain  # noqa: F401
+from test_torch_kernels import _one_thread, fake_toolchain  # noqa: F401
+
 
 REL_TOL = 7e-3    # chip_smoke.py's REL_TOL[bfloat16], of max |ref|
 F32_TOL = 1e-4    # chip_smoke.py's REL_TOL[float32]: nll, lse, the pick

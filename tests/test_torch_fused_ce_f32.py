@@ -42,7 +42,7 @@ import jax.numpy as jnp
 from mxnet_tpu.ops.pallas_kernels import fused_ce_mod as jfc
 from mxnet_tpu_torch.ops.pallas_kernels import _build
 from mxnet_tpu_torch.ops.pallas_kernels import fused_ce as tfc
-from test_torch_flash_bwd_f32 import _one_thread  # noqa: F401
+from test_torch_kernels import _one_thread  # noqa: F401
 from test_torch_flash_bwd_f32 import _rz_add, _split, _tc, _tiled
 from test_torch_fused_ce_bf16 import _WRAPPERS, _call_all
 from test_torch_fused_ce_bf16 import fake_lib  # noqa: F401

@@ -231,7 +231,7 @@ def test_kvstore_errors():
     with pytest.raises(MXNetError):
         kv.pull(0)
     for bad in ("dist_sync", "dist_async", "dist"):
-        with pytest.raises(MXNetError, match="queue 5"):
+        with pytest.raises(MXNetError, match="queue 1, item 3"):
             tmx.kv.create(bad)
     with pytest.raises(MXNetError):
         tmx.kv.create("nosuch")

@@ -36,6 +36,20 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops.pallas_kernels import flash_attention as tfa
 from mxnet_tpu_torch.ops.pallas_kernels import layer_norm as tln
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Torch on one intra-op thread for the whole module: the port's
+    tests run many small ops, and the OpenMP team's spinning costs most
+    when the suite's workers share the machine.  Other modules take it
+    by name (``from test_torch_kernels import _one_thread``).  Restored
+    for the worker's next file."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = 1e-5
 GRAD_ATOL = 1e-4
 

@@ -23,6 +23,8 @@ import pytest
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
+from test_torch_kernels import _one_thread  # noqa: F401
+
 
 PK = {"jax": jmx, "torch": tmx}
 RTOL, ATOL = 1e-4, 1e-5

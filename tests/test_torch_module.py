@@ -41,6 +41,8 @@ import mxnet_tpu_torch as tmx
 from mxnet_tpu import models as jmodels
 from mxnet_tpu.parallel import make_mesh
 from mxnet_tpu_torch.base import MXNetError
+from test_torch_kernels import _one_thread  # noqa: F401
+
 
 PK = {"jax": jmx, "torch": tmx}
 N, DIM, K, BATCH = 80, 32, 4, 16

@@ -31,6 +31,8 @@ import pytest
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
+from test_torch_kernels import _one_thread  # noqa: F401
+
 
 PK = {"jax": jmx, "torch": tmx}
 G1 = np.full((8,), 0.5, np.float32)

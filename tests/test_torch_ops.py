@@ -25,6 +25,8 @@ import mxnet_tpu.ops  # noqa: F401  (registers the JAX package's ops)
 from mxnet_tpu.ops import registry as jreg
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import registry as treg
+from test_torch_kernels import _one_thread  # noqa: F401
+
 
 ATOL = 1e-5
 

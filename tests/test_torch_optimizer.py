@@ -26,6 +26,8 @@ import torch
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch.base import MXNetError
+from test_torch_kernels import _one_thread  # noqa: F401
+
 
 SHAPES = [(4, 3), (5,), (2, 3, 2)]
 NAMES = {0: "fc_weight", 1: "fc_bias", 2: "conv_weight"}

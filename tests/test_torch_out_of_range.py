@@ -33,6 +33,8 @@ from mxnet_tpu.serving import TransformerKVModel as JModel
 from mxnet_tpu_torch.ops import registry as treg
 from mxnet_tpu_torch.ops.indexing import pick, take_rows
 from mxnet_tpu_torch.serving import ServingEngine, TransformerKVModel
+from test_torch_kernels import _one_thread  # noqa: F401
+
 
 ATOL = 1e-6
 IDX = np.array([[0, 3, 7, 9], [-1, 2, 8, 1]])

@@ -26,6 +26,9 @@ import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import io as io_mod
 from mxnet_tpu_torch.base import MXNetError
+import torch
+from test_torch_kernels import _one_thread  # noqa: F401
+
 
 PK = {"jax": jmx, "torch": tmx}
 

@@ -38,6 +38,8 @@ from mxnet_tpu_torch import remat
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops.pallas_kernels import flash_attention as tfa
 from mxnet_tpu_torch.symbol import _topo_order as t_topo
+from test_torch_kernels import _one_thread  # noqa: F401
+
 
 PK = {"jax": jmx, "torch": tmx}
 PINS = ("MXNET_BACKWARD_DO_MIRROR", "MXNET_BACKWARD_MIRROR_POLICY",

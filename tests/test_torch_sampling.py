@@ -15,6 +15,8 @@ import jax.numpy as jnp
 
 from mxnet_tpu.serving.sampling import sample_tokens as jax_sample_tokens
 from mxnet_tpu_torch.serving import sampling as ts
+from test_torch_kernels import _one_thread  # noqa: F401
+
 
 SEEDS_POS = [(0, 0), (1, 5), (7, 31), (12345, 1000), (2 ** 31 - 1, 4095)]
 

@@ -31,6 +31,8 @@ from mxnet_tpu_torch.context import resolve
 from mxnet_tpu_torch.serving import (TRASH_BLOCK, BlockAllocator,
                                      ServeBlocksExhausted, ServingEngine,
                                      TransformerKVModel, pool_bytes)
+from test_torch_kernels import _one_thread  # noqa: F401
+
 
 V, S, L, H, E = 61, 32, 2, 2, 32
 ATOL = 2e-5
@@ -107,9 +109,29 @@ def test_entry_points_run_on_cuda_unless_asked(models, params):
 @pytest.mark.parametrize("kw", [
     {"quant": "int8"}, {"tier": True}, {"kv_quant": "int8"}])
 def test_later_slice_keywords_are_refused(models, params, kw):
-    _, tm = models
-    with pytest.raises(TypeError):
-        ServingEngine(tm, params, ctx="cpu", **kw)
+    """The keywords of the quantization and host-tier slice, refused
+    before it, now build an engine: the same prompts through it and the
+    JAX engine of the same keywords give the same tokens and `stats` (the
+    JAX engine's keys, but disaggregated serving's) and report the same
+    settings at warmup."""
+    jm, tm = models
+    wparams = jm.init_params(np.random.RandomState(7), scale=0.5)
+    common = dict(max_batch=2, prefill_buckets=[8, 16], max_new_tokens=5,
+                  block_size=4, n_blocks=20, **kw)
+    teng = ServingEngine(tm, wparams, ctx="cpu", **common)
+    jeng = JServingEngine(jm, wparams, sampling=False, **common)
+    tw, jw = teng.warmup(), jeng.warmup()
+    assert (tw["quant"], tw["tier"]) == (jw["quant"], jw["tier"])
+    outs = []
+    for eng in (jeng, teng):
+        reqs = [eng.submit(p) for p in _prompts((12, 7, 12), 5)]
+        eng.run_until_idle(timeout=120)
+        outs.append([r.result(1) for r in reqs])
+    assert outs[1] == outs[0]
+    for key, got in teng.stats.items():
+        if key in jeng.stats and not key.endswith("_s"):
+            assert got == jeng.stats[key], key
+    assert teng.leaked_blocks() == 0
 
 
 @pytest.mark.parametrize("kw,attr,want", [

@@ -31,6 +31,7 @@ from mxnet_tpu_torch.serving import (ServeCancelled, ServeDeadlineExceeded,
 from test_torch_serving_prefix import (_fresh_telemetry, _pair,  # noqa: F401
                                        _prompt, margins, models, same_stats,
                                        wparams)
+from test_torch_kernels import _one_thread  # noqa: F401
 
 
 def both(models, params, teng, jeng, drive, leaked=True):

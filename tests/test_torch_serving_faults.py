@@ -46,6 +46,8 @@ from mxnet_tpu_torch.serving import (ServeCacheInvalidated, ServeEngineDead,
 from test_torch_serving_prefix import (_AOT, _fresh_telemetry,  # noqa: F401
                                        margins, models, same_stats,
                                        wparams)
+from test_torch_kernels import _one_thread  # noqa: F401
+
 
 V = 61
 

@@ -44,22 +44,12 @@ from mxnet_tpu_torch.serving import (ReplicaRouter, ServeCancelled,
 from mxnet_tpu_torch.serving.sampling import argmax, sample_tokens
 
 from test_torch_serving_prefix import margins, models, wparams  # noqa: F401
+from test_torch_kernels import _one_thread  # noqa: F401
 
 V, S, L, H, E = 61, 32, 2, 2, 32
 TOL = 1e-5
 KW = dict(max_batch=4, decode_buckets=[4], prefill_buckets=[16],
           max_new_tokens=8)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """The engines run many tiny torch ops: one intra-op thread keeps
-    them off the OpenMP team, whose spinning costs most when the suite's
-    workers share the machine.  Restored for the worker's next file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

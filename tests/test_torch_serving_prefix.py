@@ -31,6 +31,8 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.serving import (TRASH_BLOCK, BlockAllocator,
                                      PrefixCache, ServingEngine,
                                      TransformerKVModel)
+from test_torch_kernels import _one_thread  # noqa: F401
+
 
 V, S, L, H, E = 61, 32, 2, 2, 32
 MARGIN = 1e-3

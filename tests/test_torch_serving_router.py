@@ -38,6 +38,8 @@ from mxnet_tpu_torch.serving import (ReplicaRouter, RequestJournal,
 
 from test_torch_serving_prefix import (_AOT, _fresh_telemetry,  # noqa: F401
                                        margins, models, wparams)
+from test_torch_kernels import _one_thread  # noqa: F401
+
 
 V = 61
 KW = dict(prefill_buckets=[8, 16])
@@ -417,9 +419,12 @@ def test_unported_router_parts_name_their_roadmap_item(models, wparams,
         ReplicaRouter(engines)
     monkeypatch.delenv("MXNET_SERVE_DISAGG")
     router = ReplicaRouter(engines)
-    with pytest.raises(MXNetError, match="sessions"):
-        router.submit([1, 2], session="chat")
-    with pytest.raises(MXNetError, match="sessions"):
-        router._migrate_sessions(engines[0], {})
+    # sessions are ported: a session turn is served, and a stopped
+    # replica's sessions have nowhere to go without a survivor
+    req = router.submit([1, 2], session="chat", max_new_tokens=2)
+    router.run_until_idle(timeout=60)
+    assert req.result(1) and engines[0].has_session("chat")
+    assert router._migrate_sessions(engines[0], {}) == 0
+    assert not engines[0].has_session("chat")
     with pytest.raises(MXNetError, match="no replica named"):
         router.drain("replica9")

@@ -48,6 +48,7 @@ from mxnet_tpu_torch.serving.spec import (ModelDrafter, NgramDrafter,
                                           make_drafter)
 
 from test_torch_serving_prefix import margins, models, wparams  # noqa: F401
+from test_torch_kernels import _one_thread  # noqa: F401
 
 V, S, L, H, E = 61, 32, 2, 2, 32
 TOL = 1e-5
@@ -58,17 +59,6 @@ SAMPLED = [(0.9, 8, 1.0, 11), (0.0, 0, 1.0, 5), (1.2, 0, 0.9, 3),
 # the JAX function compiled once per shape (eagerly, every primitive
 # compiles on its own)
 jverify = jax.jit(jverify_attention, static_argnums=5)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """The engines run many tiny torch ops: one intra-op thread keeps
-    them off the OpenMP team, whose spinning costs most when the suite's
-    workers share the machine.  Restored for the worker's next file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

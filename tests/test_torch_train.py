@@ -45,6 +45,8 @@ import mxnet_tpu_torch as tmx
 from mxnet_tpu import models as jmodels
 from mxnet_tpu.parallel import SPMDTrainer as JaxTrainer, make_mesh
 from mxnet_tpu_torch.base import MXNetError
+from test_torch_kernels import _one_thread  # noqa: F401
+
 
 V, S, L, H, E = 61, 32, 2, 2, 32
 B = 4

@@ -43,6 +43,8 @@ from mxnet_tpu import symbol as jsym
 from mxnet_tpu.ops import registry as jreg
 from mxnet_tpu_torch import symbol as tsym
 from mxnet_tpu_torch.ops import registry as treg
+from test_torch_kernels import _one_thread  # noqa: F401
+
 
 PK = {"jax": jmx, "torch": tmx}
 ZOO = {"jax": jmodels, "torch": tmx.models}
@@ -146,13 +148,13 @@ def test_zoo_model_infers_the_jax_shapes_and_cross_loads(name):
 
 def test_model_parallel_lstm_keeps_its_groups_and_refuses_two_devices():
     """The ``ctx_group`` attributes survive; binding them over two devices
-    waits for ROADMAP queue 5, one device runs."""
+    waits for ROADMAP.md queue 1, item 3, one device runs."""
     net = tmx.models.lstm_unroll(2, 3, 20, 8, 8, 20,
                                  ctx_groups=["layer0", "layer1"])
     groups = {a.get("ctx_group") for a in net.attr_dict().values()}
     assert groups == {"embed", "decode", "layer0", "layer1"}
     shapes = dict(data=(2, 3), softmax_label=(2, 3), **_lstm_states(2, 8))
-    with pytest.raises(tmx.MXNetError, match="queue 5"):
+    with pytest.raises(tmx.MXNetError, match="queue 1, item 3"):
         net.simple_bind(ctx=tmx.cpu(0), group2ctx={"layer0": tmx.cpu(0),
                                                    "layer1": tmx.gpu(0)},
                         **shapes)

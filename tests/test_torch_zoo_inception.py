@@ -16,6 +16,7 @@ It ends in a fixed 8x8 average pool, so it runs at its published 299
 pixels, batch 1.
 """
 from test_torch_zoo import net_matches_jax
+from test_torch_kernels import _one_thread  # noqa: F401
 
 
 def test_inception_v3_forward_backward_matches_the_jax_executor():

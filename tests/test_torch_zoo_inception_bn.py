@@ -16,6 +16,7 @@ It runs at its default small-image stem (28 pixels), batch 2, so its
 BatchNorms see a batch.
 """
 from test_torch_zoo import net_matches_jax
+from test_torch_kernels import _one_thread  # noqa: F401
 
 
 def test_inception_bn_forward_backward_matches_the_jax_executor():

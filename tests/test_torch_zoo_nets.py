@@ -20,6 +20,8 @@ pool), batch 1.
 import pytest
 
 from test_torch_zoo import net_matches_jax, no_dropout  # noqa: F401
+from test_torch_kernels import _one_thread  # noqa: F401
+
 
 NETS = {
     "googlenet": (lambda m: m.get_googlenet(num_classes=10),

@@ -14,6 +14,7 @@ BatchNorms see 2x2 maps, and its own float32 and float64 weight
 gradients part by up to ~0.27 of their largest (seed 0).
 """
 from test_torch_zoo import net_matches_jax
+from test_torch_kernels import _one_thread  # noqa: F401
 
 
 def test_resnet50_forward_backward_matches_the_jax_executor():

@@ -24,6 +24,8 @@ import numpy as np
 import mxnet_tpu_torch as tmx
 from mxnet_tpu import models as jmodels
 from mxnet_tpu.parallel import SPMDTrainer as JaxTrainer, make_mesh
+from test_torch_kernels import _one_thread  # noqa: F401
+
 
 B = 4
 SHAPES = {"data": (B, 3, 32, 32), "softmax_label": (B,)}
