@@ -323,7 +323,31 @@ Phases, each of which fails the run with a non-zero exit:
    and K/V int8: only `ServeQuantError` failures, the survivors the clean
    tokens (margin rule), the engine alive; every run's LayerNorm launches
    exactly 2L + 1 per prefill chunk and decode step (a restore launches
-   none); tokens/s, TTFT median and p99 and peak memory of each run.
+   none); tokens/s, TTFT median and p99 and peak memory of each run;
+26. MoE, the disaggregated fleet and the gateway: (a) GPT-2 small's
+   widths with Switch-Base-8's 8 experts, top-1 in every layer (0.56 G
+   parameters, f32, drawn on the card from seed 0), phase 3's 16 prompts
+   on the paged engine, with megastep m=4, with the n-gram drafter at k=4
+   and on the slot engine: each mode's tokens the paged run's under the
+   1e-3 margin rule, the kernel path teacher-forced within 1e-3 of the
+   plain-LayerNorm path, `expert_load()` summing to L x the rows its
+   launches routed and equal to its gauges, exactly 2L + 1 LayerNorm a
+   program and L flash a slot prefill, no block leaked, and a MoE
+   megastep, its count's copy and the scheduler's drain under
+   ``set_sync_debug_mode("error")``; tokens/s, TTFT and peak memory
+   beside dense GPT-2 small on the same prompts; (b) two GPT-2 small
+   replicas on the card, colocated and then prefill + decode: the same
+   tokens (margin rule), 16 handoffs, no prefill chunk on the decode
+   replica, the first two landings read back from the pool byte for
+   byte against their tickets' packed runs; under
+   ``MXNET_CHAOS=handoff_fail:0.5`` every request the fault-free tokens
+   by exact replay; a decode replica added (sharing the parameters) and
+   removed under load with none failed; handoffs, bytes, the handoff
+   wait's p50 and p99 and tokens/s against colocated; (c) the gateway on
+   127.0.0.1, port 0, over (b)'s fleet: 4 SSE streams equal to their
+   requests' ``result()``, a client that hangs up after one token has
+   its request cancelled and no block leaked; TTFB p50 beside the
+   engine's TTFT.
 
 It prints each phase's seconds, a ``kernels`` JSON line (launches,
 errors, times, bounds; the float32 flash forward's and backward's routes
@@ -344,6 +368,7 @@ import json
 import math
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -6718,6 +6743,541 @@ def tier_session_quant_phase():
     return out
 
 
+# -- phase 26: MoE serving, the disaggregated fleet and the gateway ---------
+
+# Switch-Base-8's expert count and top-1 router (Fedus, Zoph and Shazeer
+# 2021, "Switch Transformers") on GPT-2 small's widths, every layer MoE
+MOE_EXPERTS = 8
+MOE_MODES = [
+    ("moe paged", {}),
+    ("moe megastep m=4", dict(megastep=True, megastep_steps=4)),
+    ("moe ngram k=4", dict(spec=True, spec_drafter="ngram", spec_k=SPEC_K)),
+    ("moe slot", dict(paged=False)),
+]
+GATEWAY_REQUESTS = 4
+
+
+def card_params(model, seed):
+    """Random float32 weights for ``model`` drawn on the card from
+    ``seed`` by the JAX package's rule (gammas 1, betas and biases 0, the
+    rest N(0, 0.02)): the MoE model's 2.1 GB would take longer to draw on
+    the host than the phase has."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    out = {}
+    for name, shape in model.param_shapes().items():
+        if name.endswith("_gamma"):
+            out[name] = torch.ones(shape, device="cuda")
+        elif name.endswith(("_beta", "_bias")):
+            out[name] = torch.zeros(shape, device="cuda")
+        else:
+            out[name] = torch.randn(shape, generator=g, device="cuda") * 0.02
+    return out
+
+
+def count_rows(engine):
+    """Wrap ``engine``'s programs to count the rows each launch routes
+    (its bucket's rows, padding included): what the MoE tape must sum to,
+    layer by layer.  Call after warmup."""
+    rows = [0]
+    m = engine._mega_m
+    per = {"_prefill_chunk": 1, "_prefill_slot": 1, "_decode": 1,
+           "_verify": 1, "_megastep": m}
+    for name, k in per.items():
+        fn = getattr(engine, name)
+
+        def run(*a, _fn=fn, _k=k, **kw):
+            rows[0] += _k * a[0].numel()
+            return _fn(*a, **kw)
+        setattr(engine, name, run)
+    return rows
+
+
+def expert_gauges(engine):
+    reg = mx.telemetry.registry()
+    return [reg.gauge("%sexpert_load.%d" % (engine._gauge, i)).value
+            for i in range(engine.model.moe_experts)]
+
+
+def moe_serve(label, model, params, requests, kw):
+    """One MoE engine of ``kw`` serving ``requests`` to the end: its
+    requests and numbers, held to `expert_load` = L x the rows its
+    launches routed, the gauges = `expert_load`, exactly 2L + 1
+    LayerNorm a program and L flash a slot prefill, nothing leaked."""
+    engine = ServingEngine(model, params, max_batch=8, **kw)
+    engine.warmup()
+    rows = count_rows(engine)
+    reqs, res = serve(engine, requests)
+    load = engine.expert_load()
+    gauges = expert_gauges(engine)
+    stragglers = engine.drain()
+    st = engine.stats
+    L = model.num_layers
+    programs = programs_run(engine) + (0 if engine._paged
+                                       else st["prefills"])
+    want = {"layer_norm": (2 * L + 1) * programs,
+            "flash_attention": 0 if engine._paged else L * st["prefills"]}
+    got = {k: res["launches"][k] for k in want}
+    others = {k: n for k, n in res["launches"].items()
+              if k not in want and n}
+    res.update(label=label, expert_load=load.tolist(), gauges=gauges,
+               rows_routed=rows[0], expected=want,
+               leaked_blocks=engine.leaked_blocks())
+    log("%s (%s): %d tokens in %.3f s = %.1f tok/s, ttft median %.1f ms p99 "
+        "%.1f ms, max_memory_allocated %d B, expert load %s (sum %d = L x "
+        "%d routed rows), launches %s (expected %s), %d decode steps, %d "
+        "megasteps, %d verifies, leaked blocks %d"
+        % (label, card_name(), res["generated_tokens"], res["wall_s"],
+           res["tokens_per_s"], res["ttft_ms_median"], res["ttft_ms_p99"],
+           res["max_memory_allocated"], res["expert_load"], int(load.sum()),
+           rows[0], got, want, st["decode_steps"], st["megasteps"],
+           st["verify_steps"], res["leaked_blocks"]))
+    if int(load.sum()) != L * rows[0] or gauges != load.tolist():
+        raise SystemExit("%s: expert load %s (sum %d), L x routed rows %d, "
+                         "gauges %s" % (label, load.tolist(), load.sum(),
+                                        L * rows[0], gauges))
+    if got != want or others or stragglers or res["leaked_blocks"]:
+        raise SystemExit("%s: launches %s (expected %s), other launches %s, "
+                         "stragglers %d, leaked %d"
+                         % (label, got, want, others, len(stragglers),
+                            res["leaked_blocks"]))
+    del engine
+    torch.cuda.empty_cache()
+    return reqs, res
+
+
+def moe_sync_free_check(model, params):
+    """A MoE megastep (m=4) over 8 sampled rows, its routing count's copy
+    and the scheduler's drain of the counts enqueue under
+    ``torch.cuda.set_sync_debug_mode("error")``; the count, waited for
+    after, is L x 8 rows x 4 steps."""
+    engine = ServingEngine(model, params, max_batch=8, megastep=True,
+                           megastep_steps=4)
+    engine.warmup()
+    token, pos, tables = engine._decode_inputs(8, [], [])
+    left = engine._put(np.full((8,), 4, np.int64))
+    eos = engine._put(np.full((8,), -1, np.int64))
+    reqs = [mx.serving.ServeRequest([1], 4, temperature=0.8, top_k=40,
+                                    seed=i) for i in range(8)]
+    samp = engine._samp_device(reqs, 8)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grid = engine._megastep(token, pos, left, eos, tables, samp)
+        host, done = engine._to_host(grid)
+        engine._drain_moe()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    grid = engine._fetch(host, done)
+    load = engine.expert_load()
+    want = model.num_layers * 8 * 4
+    log("no host sync, MoE (%s): a megastep m=4 over 8 sampled rows, its "
+        "count and the drain enqueued under set_sync_debug_mode('error'); "
+        "grid %s, expert load %s (sum %d, want %d)"
+        % (card_name(), grid.shape, load.tolist(), load.sum(), want))
+    if grid.shape != (8, 4) or not (grid >= 0).all() or load.sum() != want:
+        raise SystemExit("the sync-free MoE megastep gave %s, load %s"
+                         % (grid, load))
+    del engine
+    torch.cuda.empty_cache()
+    return {"grid": list(grid.shape), "expert_load": load.tolist()}
+
+
+def moe_part(requests):
+    """(a): the MoE model through every mode, beside dense GPT-2 small."""
+    model = TransformerKVModel(moe_experts=MOE_EXPERTS, **GPT2)
+    params = card_params(model, 0)
+    n_params = sum(p.numel() for p in params.values())
+    n_bank = sum(p.numel() for k, p in params.items() if "moe_w" in k)
+    out = {"params": n_params, "expert_bank_params": n_bank,
+           "weight_bytes": sum(p.numel() * p.element_size()
+                               for p in params.values())}
+    log("MoE model (%s): GPT-2 small widths, %d experts top-1 every layer: "
+        "%d parameters (%d in the expert banks), %d B in float32"
+        % (card_name(), MOE_EXPERTS, n_params, n_bank, out["weight_bytes"]))
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("allow_tf32 is on: the MoE einsums would run in "
+                         "TF32")
+    runs, launches = {}, {}
+    for label, kw in MOE_MODES:
+        runs[label], out[label] = moe_serve(label, model, params, requests,
+                                            kw)
+        for k, n in out[label]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    plain = runs["moe paged"]
+    for label, _ in MOE_MODES[1:]:
+        out[label]["parted"] = same_tokens(label + " vs moe paged", model,
+                                           params, requests, plain,
+                                           runs[label])
+    # the plain-LayerNorm path, teacher-forced (no count: launches of the
+    # check are not the path's)
+    out["logit_checks"] = logit_check(model, params, plain[:2], 16)
+    out["sync_free"] = moe_sync_free_check(model, params)
+    out["launches"] = launches
+    del params, runs, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_router(router, requests, timeout=600):
+    """Submit every (prompt, kwargs) through a started router and wait for
+    each: (requests, wall seconds, generated tokens)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [router.submit(p, **kw) for p, kw in requests]
+    for r in reqs:
+        try:
+            r.result(timeout=timeout)
+        except mx.serving.ServeError as e:
+            raise SystemExit("request %d failed: %s" % (r.id, e))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gen = sum(len(r.tokens) for r in reqs)
+    return reqs, wall, gen
+
+
+def fleet(model, params, disagg, names=("replica0", "replica1")):
+    engines = [ServingEngine(model, params, max_batch=8, name=n)
+               for n in names]
+    router = ReplicaRouter(engines, respawn=False, disagg=disagg,
+                           prefill_replicas=1 if disagg else None)
+    router.warmup()
+    return engines, router
+
+
+def fleet_numbers(label, engines, reqs, wall, gen, launches):
+    ttft = sorted(r.ttft_ms for r in reqs)
+    hist = sorted(mx.telemetry.registry()._hists.get(
+        "serve.handoff_wait_ms", []))
+    res = {"label": label, "generated_tokens": gen, "wall_s": wall,
+           "tokens_per_s": gen / wall,
+           "ttft_ms_median": statistics.median(ttft),
+           "ttft_ms_p99": float(np.percentile(ttft, 99)),
+           "handoffs": sum(e.stats["handoffs"] for e in engines),
+           "handoffs_in": sum(e.stats["handoffs_in"] for e in engines),
+           "handoff_fails": sum(e.stats["handoff_fails"] for e in engines),
+           "handoff_bytes": mx.telemetry.registry().counter(
+               "serve.handoff_bytes").value,
+           "handoff_wait_ms_p50": float(np.percentile(hist, 50))
+           if hist else None,
+           "handoff_wait_ms_p99": float(np.percentile(hist, 99))
+           if hist else None,
+           "prefill_chunks": [e.stats["prefill_chunks"] for e in engines],
+           "leaked_blocks": [e.leaked_blocks() for e in engines],
+           "launches": launches,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    log("%s (%s): %d tokens in %.3f s = %.1f tok/s, ttft median %.1f ms p99 "
+        "%.1f ms, handoffs %d out / %d in (%d failed), %d B, handoff wait "
+        "p50 %s ms p99 %s ms, prefill chunks by replica %s, leaked %s"
+        % (label, card_name(), gen, wall, res["tokens_per_s"],
+           res["ttft_ms_median"], res["ttft_ms_p99"], res["handoffs"],
+           res["handoffs_in"], res["handoff_fails"], res["handoff_bytes"],
+           res["handoff_wait_ms_p50"], res["handoff_wait_ms_p99"],
+           res["prefill_chunks"], res["leaked_blocks"]))
+    if any(res["leaked_blocks"]):
+        raise SystemExit("%s leaked blocks %s" % (label,
+                                                  res["leaked_blocks"]))
+    return res
+
+
+def landing_bytes_probe(engine, n=2):
+    """Wrap a decode replica's landing: for its first ``n`` tickets, the
+    landed blocks read back from the pool against the ticket's packed
+    host run, byte for byte."""
+    seen = []
+    land = engine._complete_landing
+
+    def check(ld):
+        t = ld.ticket
+        land(ld)
+        if len(seen) < n and engine._active.get(ld.row) is not None:
+            blocks = torch.tensor(ld.blocks[:t.k], device="cuda")
+            got = engine._cache[:, :, blocks].cpu()
+            seen.append({"request": t.req.id, "blocks": t.k, "pos": t.pos,
+                         "nbytes": int(got.nbytes),
+                         "equal": bool(torch.equal(got,
+                                                   t.data[:, :, :t.k]))})
+    engine._complete_landing = check
+    return seen
+
+
+def sse(port, obj, timeout=120, hangup_after=None):
+    """POST /v1/generate and read its event stream: (status, tokens, [DONE]
+    seen, ms to the first token frame)."""
+    body = json.dumps(obj).encode()
+    t0 = time.perf_counter()
+    s = socket.create_connection(("127.0.0.1", port), timeout=timeout)
+    s.settimeout(timeout)
+    first = None
+    try:
+        s.sendall(b"POST /v1/generate HTTP/1.1\r\nHost: t\r\n"
+                  b"Content-Length: %d\r\n\r\n%s" % (len(body), body))
+        buf, toks, done, status = b"", [], False, None
+        while True:
+            while b"\n" in buf:
+                line, _, buf = buf.partition(b"\n")
+                line = line.strip()
+                if status is None and line.startswith(b"HTTP/1.1"):
+                    status = int(line.split()[1])
+                elif line == b"data: [DONE]":
+                    done = True
+                elif line.startswith(b"data: "):
+                    payload = json.loads(line[6:])
+                    if "token" in payload:
+                        if first is None:
+                            first = 1e3 * (time.perf_counter() - t0)
+                        toks.append(payload["token"])
+                if hangup_after is not None and len(toks) >= hangup_after:
+                    s.shutdown(socket.SHUT_RDWR)
+                    return status, toks, done, first
+            d = s.recv(65536)
+            if not d:
+                return status, toks, done, first
+            buf += d
+    finally:
+        s.close()
+
+
+def gateway_part(router, requests):
+    """(c): the gateway on 127.0.0.1, port 0, over a started fleet: each
+    of 4 SSE streams equals its request's `result()`, and a client that
+    hangs up after one token has its request cancelled and its blocks
+    freed."""
+    submitted = []
+    submit = router.submit
+
+    def recording(prompt, **kw):
+        req = submit(prompt, **kw)
+        submitted.append(req)
+        return req
+    router.submit = recording
+    cancelled = threading.Event()
+
+    def tap(ev):
+        if ev.get("kind") == "serve_gateway_cancel":
+            cancelled.set()
+    mx.telemetry.add_event_tap(tap)
+    with pinned(MXNET_SERVE_GATEWAY="1"):
+        gw = mx.serving.ServeGateway(router, host="127.0.0.1", port=0)
+    gw.start()
+    try:
+        got = [None] * GATEWAY_REQUESTS
+
+        def client(i):
+            p, kw = requests[i]
+            got[i] = sse(gw.port, {"prompt": p,
+                                   "max_new_tokens": kw["max_new_tokens"]})
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(GATEWAY_REQUESTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if any(t.is_alive() for t in threads) or None in got:
+            raise SystemExit("a gateway client did not finish")
+        by_prompt = {tuple(r.prompt): r for r in submitted}
+        streams_equal = all(
+            g[0] == 200 and g[2] and g[1] == by_prompt[tuple(
+                requests[i][0])].result(timeout=60)
+            for i, g in enumerate(got))
+        ttfb = sorted(g[3] for g in got)
+        engine_ttft = statistics.median(
+            by_prompt[tuple(requests[i][0])].ttft_ms
+            for i in range(GATEWAY_REQUESTS))
+        hang = sse(gw.port, {"prompt": requests[4][0],
+                             "max_new_tokens": 512}, hangup_after=1)
+        if not cancelled.wait(timeout=120):
+            raise SystemExit("the hung-up client's request was not "
+                             "cancelled")
+        victim = submitted[-1]
+        try:
+            victim.result(timeout=120)
+        except mx.serving.ServeCancelled:
+            pass
+        router.run_until_idle(timeout=120)
+        leaked = [e.leaked_blocks() for e in router.engines]
+    finally:
+        gw.stop()
+        mx.telemetry.remove_event_tap(tap)
+        router.submit = submit
+    hist = sorted(mx.telemetry.registry()._hists.get(
+        "serve.gateway.ttfb_ms", []))
+    res = {"streams_equal": streams_equal, "client_ttfb_ms": ttfb,
+           "client_ttfb_ms_p50": statistics.median(ttfb),
+           "engine_ttft_ms_median": engine_ttft,
+           "gateway_ttfb_ms_p50": statistics.median(hist) if hist else None,
+           "hangup_tokens": len(hang[1]),
+           "hangup_cancelled": type(victim.error).__name__,
+           "hangup_generated": len(victim.tokens), "leaked_blocks": leaked}
+    log("gateway (%s): %d SSE streams equal to result(): %s, ttfb p50 %.1f "
+        "ms at the client (%s ms by the gateway; the engine's ttft median "
+        "%.1f ms); a hang-up after %d token cancelled (%s after %d tokens), "
+        "leaked blocks %s"
+        % (card_name(), GATEWAY_REQUESTS, streams_equal,
+           res["client_ttfb_ms_p50"], res["gateway_ttfb_ms_p50"],
+           engine_ttft,
+           res["hangup_tokens"], res["hangup_cancelled"],
+           res["hangup_generated"], leaked))
+    if not streams_equal or res["hangup_cancelled"] != "ServeCancelled" \
+            or any(leaked):
+        raise SystemExit("gateway: streams equal %s, hang-up %s, leaked %s"
+                         % (streams_equal, res["hangup_cancelled"], leaked))
+    return res
+
+
+def disagg_part(requests):
+    """(b) and (c): GPT-2 small as a prefill and a decode replica on the
+    card against two colocated replicas, under ``handoff_fail:0.5``, with
+    a decode replica added and removed under load, then the gateway."""
+    model = TransformerKVModel(**GPT2)
+    params = card_params(model, 0)
+    out = {"card": card_name()}
+    launches, last = {}, {}
+
+    def counted(run):
+        """``run()``, its kernel launches in ``last`` and the phase's."""
+        reset_counts()
+        res = run()
+        last.clear()
+        last.update(read_counts())
+        for k, n in last.items():
+            launches[k] = launches.get(k, 0) + n
+        return res
+
+    mx.telemetry.reset()
+    engines, router = fleet(model, params, disagg=False)
+    router.start()
+    try:
+        colo, wall, gen = counted(lambda: run_router(router, requests))
+    finally:
+        router.stop()
+    out["colocated"] = fleet_numbers("colocated x2", engines, colo, wall,
+                                     gen, dict(last))
+    del engines, router
+    torch.cuda.empty_cache()
+
+    mx.telemetry.reset()
+    torch.cuda.reset_peak_memory_stats()
+    engines, router = fleet(model, params, disagg=True)
+    probe = landing_bytes_probe(engines[1])
+    router.start()
+    try:
+        dis, wall, gen = counted(lambda: run_router(router, requests))
+    finally:
+        router.stop()
+    res = out["disaggregated"] = fleet_numbers(
+        "disaggregated 1+1", engines, dis, wall, gen, dict(last))
+    res["landing_bytes"] = probe
+    res["parted"] = same_tokens("disaggregated vs colocated", model, params,
+                                requests, colo, dis)
+    log("handoff landings read back (%s): %s" % (card_name(), probe))
+    if res["handoffs"] != len(requests) or res["prefill_chunks"][1] or \
+            len(probe) < 2 or not all(p["equal"] for p in probe):
+        raise SystemExit("disaggregated: %d handoffs, decode replica "
+                         "prefill chunks %d, landed bytes %s"
+                         % (res["handoffs"], res["prefill_chunks"][1],
+                            probe))
+    del engines, router
+    torch.cuda.empty_cache()
+
+    mx.telemetry.reset()
+    engines, router = fleet(model, params, disagg=True)
+    with pinned(MXNET_CHAOS="handoff_fail:0.5"):
+        mx.chaos.reset()
+        router.start()
+        try:
+            lossy, wall, gen = counted(lambda: run_router(router, requests))
+        finally:
+            router.stop()
+    mx.chaos.reset()
+    res = out["handoff_fail"] = fleet_numbers(
+        "disaggregated, handoff_fail:0.5", engines, lossy, wall, gen,
+        dict(last))
+    res["parted"] = same_tokens("handoff_fail:0.5 vs fault-free", model,
+                                params, requests, dis, lossy)
+    if not res["handoff_fails"] or res["handoff_fails"] + \
+            res["handoffs"] != len(requests):
+        raise SystemExit("handoff_fail:0.5: %d failed, %d handed off"
+                         % (res["handoff_fails"], res["handoffs"]))
+    del engines, router
+    torch.cuda.empty_cache()
+
+    mx.telemetry.reset()
+    engines, router = fleet(model, params, disagg=True)
+    router.start()
+    try:
+        def scale():
+            reqs = [router.submit(p, **kw) for p, kw in requests]
+            added = router.add_replica(role="decode")
+            gone = router.remove_replica(role="decode")
+            failed = 0
+            for r in reqs:
+                try:
+                    r.result(timeout=600)
+                except mx.serving.ServeError:
+                    failed += 1
+            return reqs, added, gone, failed
+        scaled, added, gone, failed = counted(scale)
+        out["scale"] = {
+            "added": added.name, "removed": gone, "failed": failed,
+            "roles": [e.role for e in router.engines],
+            "shares_params": all(
+                added._params[k] is engines[0]._params[k]
+                for k in added._params),
+            "leaked_blocks": [e.leaked_blocks() for e in router.engines]}
+        out["scale"]["parted"] = same_tokens(
+            "decode replica added and removed vs colocated", model, params,
+            requests, colo, scaled)
+        log("scale (%s): added %s (parameters shared: %s), removed %s under "
+            "load, %d failed, roles %s, leaked %s"
+            % (card_name(), added.name, out["scale"]["shares_params"], gone,
+               failed, out["scale"]["roles"],
+               out["scale"]["leaked_blocks"]))
+        if failed or any(out["scale"]["leaked_blocks"]) or \
+                not out["scale"]["shares_params"]:
+            raise SystemExit("scale under load: %s" % out["scale"])
+        out["gateway"] = counted(lambda: gateway_part(router, requests))
+    finally:
+        router.stop()
+    out["launches"] = launches
+    del engines, router, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_disagg_gateway_phase():
+    """Phase 26: MoE serving at GPT-2 small's widths with Switch-Base-8's
+    experts, then GPT-2 small disaggregated, scaled and behind the
+    gateway."""
+    requests = spec_traffic(GPT2["vocab_size"])
+    out = {"card": card_name(), "moe": moe_part(requests)}
+    dense = TransformerKVModel(**GPT2)
+    dparams = card_params(dense, 0)
+    engine = ServingEngine(dense, dparams, max_batch=8)
+    engine.warmup()
+    _, dres = serve(engine, requests)
+    out["dense paged"] = dres
+    del engine, dparams
+    torch.cuda.empty_cache()
+    moe = out["moe"]["moe paged"]
+    log("MoE vs dense GPT-2 small, paged (%s): %.1f vs %.1f tok/s, ttft "
+        "median %.1f vs %.1f ms, p99 %.1f vs %.1f ms, peak memory %d vs %d B; "
+        "expert load %s"
+        % (card_name(), moe["tokens_per_s"], dres["tokens_per_s"],
+           moe["ttft_ms_median"], dres["ttft_ms_median"], moe["ttft_ms_p99"],
+           dres["ttft_ms_p99"], moe["max_memory_allocated"],
+           dres["max_memory_allocated"], moe["expert_load"]))
+    out["disagg"] = disagg_part(requests)
+    launches = {}
+    for part in (out["moe"], out["disagg"], dres):
+        for k, n in part["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    out["launches"] = launches
+    return out
+
+
 def kernels_line(cases, paths, f32_paths, wide_paths):
     """One entry per ported TPU function: launches on each path, and the
     error and times of its check at the training shape, in bf16; then one
@@ -7018,6 +7578,8 @@ def main():
         spec = spec_megastep_phase()
     with phase("host tier, sessions and quantization"):
         tiers = tier_session_quant_phase()
+    with phase("MoE, disaggregated fleet and gateway"):
+        moe = moe_disagg_gateway_phase()
     crash = faults["serving"]["failover"]["engine_crash"]
     # the LM's LayerNorm launches join the LayerNorm rows; its float32
     # flash launches the float32 flash rows
@@ -7054,7 +7616,10 @@ def main():
             for k, n in spec["launches"].items()},
         "serving_tier_session_quant_f32": {
             k: (n if k.startswith("layer_norm") else 0)
-            for k, n in tiers["launches"].items()}}, {
+            for k, n in tiers["launches"].items()},
+        "serving_moe_disagg_gateway_f32": {
+            k: (n if k.startswith("layer_norm") else 0)
+            for k, n in moe["launches"].items()}}, {
         "slot": slot["launches"],
         "train_bhsd_f32": hsd32["launches"],
         "train_fused_f32": fused32["launches"],
@@ -7074,7 +7639,8 @@ def main():
         "gradients_wide": wide["gradients"]["launches"],
         "serving_failover_f32": crash["launches"],
         "serving_spec_megastep_f32": spec["launches"],
-        "serving_tier_session_quant_f32": tiers["launches"]}, {
+        "serving_tier_session_quant_f32": tiers["launches"],
+        "serving_moe_disagg_gateway_f32": moe["launches"]}, {
         torch.bfloat16: {"train_wide_bhsd": wide["bhsd"]["launches"]},
         torch.float32: {"gradients_wide": wide["gradients"]["launches"]}})
     idle = [e["name"] for e in kernels if not e["launches"]]
@@ -7108,6 +7674,7 @@ def main():
          "image_records": records, "head256": head256,
          "remat": remat_runs, "memcost": memcost, "wide": wide,
          "spec_megastep": spec, "tier_session_quant": tiers,
+         "moe_disagg_gateway": moe,
          "kernels": kernels},
         indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

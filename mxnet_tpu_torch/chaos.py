@@ -35,21 +35,30 @@ random state, and the hooks of the sites the port has::
     scale_corrupt:P       with probability P a serving step NaNs one held
                           block's int8 K/V scales (KV quant only): the
                           logit gate must fail the requests typed
+    handoff_fail:P        with probability P a disaggregated prefill-to-
+                          decode handoff dies before it ships: the
+                          request takes the journal's exact replay
+    client_disconnect:P   with probability P a gateway client hangs up
+                          after the first streamed token: the gateway
+                          cancels its request, whose blocks go back
+    slow_consumer:P:MS    with probability P a gateway stream's consumer
+                          stalls MS ms a frame: past the send buffer's
+                          watermark that request cancels, typed
+    conn_flood:RATE[:TOTAL]  each gateway connection injects RATE
+                          synthetic connections (TOTAL cap, default 256)
+                          against the connection cap
 
 `optimizer.Optimizer.update_multi` calls `grad_poison` once a call, so
 ``nan_grad:N`` drives the nonfinite-gradient guard
 (``MXNET_NONFINITE_GUARD``) and the lr backoff end to end;
-`serving.ServingEngine` calls the ``serve_*`` hooks at the JAX engine's
-sites.
+`serving.ServingEngine` and `serving.ServeGateway` call the ``serve_*``
+hooks at the JAX package's sites.
 
-The other clauses of the grammar (``rpc_drop``, ``rpc_delay``,
-``server_crash``, and the serving and gateway clauses ``handoff_fail``,
-``client_disconnect``, ``slow_consumer``, ``conn_flood``) are parsed as
-the JAX package parses them, and then refused with `MXNetError` naming
-the clause: their sites (the parameter server, disaggregated serving,
-the gateway) are not in the port,
-and a spec the port would ignore in part would inject fewer faults than
-it says.
+The parameter server's clauses (``rpc_drop``, ``rpc_delay``,
+``server_crash``) are parsed as the JAX package parses them, and then
+refused with `MXNetError` naming the clause: the port has no parameter
+server, and a spec the port would ignore in part would inject fewer
+faults than it says.
 
 Draws come from a ``numpy.random.RandomState`` seeded with
 ``MXNET_CHAOS_SEED`` (default 0) mixed with the process role and rank
@@ -75,13 +84,16 @@ __all__ = ["ChaosError", "ChaosEngineCrash", "enabled", "spec", "reset",
            "grad_poison", "serve_decode_slow", "serve_engine_crash",
            "serve_launch_error", "serve_queue_flood", "serve_block_exhaust",
            "serve_prefix_evict", "serve_draft_junk", "serve_spill_fail",
-           "serve_restore_slow", "serve_scale_corrupt"]
+           "serve_handoff_fail", "serve_restore_slow", "serve_scale_corrupt",
+           "serve_client_disconnect", "serve_slow_consumer",
+           "serve_conn_flood"]
 
 # clauses whose injection site the port has
 _PORTED = frozenset(("nan_grad", "decode_slow", "engine_crash",
                      "launch_error", "queue_flood", "block_exhaust",
                      "prefix_evict", "draft_junk", "spill_fail",
-                     "restore_slow", "scale_corrupt"))
+                     "handoff_fail", "restore_slow", "scale_corrupt",
+                     "client_disconnect", "slow_consumer", "conn_flood"))
 
 
 class ChaosError(OSError):
@@ -196,6 +208,7 @@ class _Spec:
         self.fused_update_calls = 0
         self.engine_steps = {}            # replica name -> decode steps
         self.flooded = 0                  # synthetic requests injected
+        self.conn_flooded = 0             # synthetic connections injected
         self._clause_rng = {}
         self.lock = threading.Lock()
 
@@ -357,6 +370,18 @@ def serve_spill_fail():
                     < s.spill_fail)
 
 
+def serve_handoff_fail():
+    """True when the current disaggregated handoff should die before it
+    ships (`handoff_fail:P`): the request falls back to the journal's
+    exact replay on a survivor."""
+    s = spec()
+    if s is None or s.handoff_fail <= 0:
+        return False
+    with s.lock:
+        return bool(s.rng_for("handoff_fail").random_sample()
+                    < s.handoff_fail)
+
+
 def serve_restore_slow():
     """Milliseconds to stall the current host-to-device restore before
     its pool write, or None (`restore_slow:P:MS`)."""
@@ -397,4 +422,48 @@ def serve_queue_flood():
         if n <= 0:
             return 0
         s.flooded += n
+    return n
+
+
+# -- the gateway's hooks ------------------------------------------------------
+
+
+def serve_client_disconnect():
+    """True when the current gateway stream should act as if its client
+    hung up after the first frame (`client_disconnect:P`): the gateway
+    cancels the request, whose blocks go back at the next sweep."""
+    s = spec()
+    if s is None or s.client_disconnect <= 0:
+        return False
+    with s.lock:
+        return bool(s.rng_for("client_disconnect").random_sample()
+                    < s.client_disconnect)
+
+
+def serve_slow_consumer():
+    """Milliseconds the current gateway stream's consumer stalls a frame
+    (`slow_consumer:P:MS`), or None."""
+    s = spec()
+    if s is None or s.slow_consumer[0] <= 0:
+        return None
+    p, ms = s.slow_consumer
+    with s.lock:
+        if s.rng_for("slow_consumer").random_sample() < p:
+            return ms
+    return None
+
+
+def serve_conn_flood():
+    """Synthetic connections the current gateway connection injects
+    against the connection cap (`conn_flood:RATE[:TOTAL]`); 0 when the
+    clause is absent or its TOTAL is spent."""
+    s = spec()
+    if s is None or s.conn_flood is None:
+        return 0
+    rate, total = s.conn_flood
+    with s.lock:
+        n = min(rate, total - s.conn_flooded)
+        if n <= 0:
+            return 0
+        s.conn_flooded += n
     return n

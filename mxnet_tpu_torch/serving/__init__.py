@@ -7,11 +7,19 @@ resolves every request with its tokens or a typed `ServeError`;
 `ReplicaRouter` dispatches over several engines and fails a dead
 replica's requests over through the `RequestJournal`; `spec` holds
 speculative decoding's drafters; `tiers.HostBlockTier` is the host-DRAM
-tier under the paged pool.  See `engine` for what this port covers and
-what waits for later slices.
+tier under the paged pool.  A model with ``moe_experts`` serves a top-1
+routed mixture of experts and reports its routing
+(`ServingEngine.expert_load`); `handoff` is the disaggregated fleet's
+prefill-to-decode transfer (``ReplicaRouter(disagg=True)``);
+`autoscale.AutoScaler` resizes a fleet off its load and
+`gateway.ServeGateway` serves it over HTTP with server-sent events.  See
+`engine` for what this port covers and what waits for the next slice.
 """
+from .autoscale import AutoScaler, autoscale_enabled
 from .decode import TransformerKVModel
 from .engine import ReplicaRouter, ServeRequest, ServingEngine
+from .gateway import ServeGateway, gateway_enabled, http_status
+from .handoff import HandoffTicket, disagg_enabled
 from .errors import (ServeBlocksExhausted, ServeCacheInvalidated,
                      ServeCancelled, ServeDeadlineExceeded, ServeEngineDead,
                      ServeError, ServeOverload, ServeQuantError,
@@ -23,7 +31,10 @@ from .spec import Drafter, ModelDrafter, NgramDrafter, make_drafter
 from .tiers import HostBlockTier, pack_block_run
 
 __all__ = ["TransformerKVModel", "ServeRequest", "ServingEngine",
-           "ReplicaRouter", "RequestJournal", "journal_enabled",
+           "ReplicaRouter", "HandoffTicket", "disagg_enabled",
+           "ServeGateway", "gateway_enabled", "http_status",
+           "AutoScaler", "autoscale_enabled",
+           "RequestJournal", "journal_enabled",
            "ServeError", "ServeTimeout", "ServeOverload",
            "ServeDeadlineExceeded", "ServeCancelled", "ServeQuarantined",
            "ServeBlocksExhausted", "ServeQuantError", "ServeCacheInvalidated",

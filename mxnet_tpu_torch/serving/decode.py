@@ -54,8 +54,16 @@ two has left the cache half-written, and `cache_lost` reads the mark (the
 JAX `cache_lost` asks whether a failed launch consumed the donated
 buffer).  Parameters are a ``{name: tensor}``
 dict; `params_from_jax` carries a JAX parameter dict (numpy arrays)
-across with a check of every name and shape.  The MoE and sharding
-methods wait for a later slice (``moe_tape`` is refused).
+across with a check of every name and shape.
+
+MoE (``moe_experts=E > 0``): every layer's dense FFN becomes a top-1
+routed mixture of E expert FFNs (`_ffn`), dispatched densely as in the
+JAX package, so a row's result never depends on its batch.  Every
+program takes ``moe_tape``, a list that collects the per-expert routed
+row counts of each layer (padding rows included); `decode_megastep`
+appends one count summed over its steps and layers.  The sharding
+methods (`param_shardings`, `kv_shardings`) wait for the sharded
+replicas of ROADMAP.md queue 1, item 2.
 """
 from __future__ import annotations
 
@@ -83,14 +91,15 @@ class TransformerKVModel:
     """Prefill/decode programs for one transformer-LM geometry.
 
     Mirrors the JAX `TransformerKVModel(vocab_size, seq_len, num_layers,
-    num_heads, num_embed, num_ffn_hidden, use_bias, quant, kv_quant)`;
-    ``seq_len`` is the maximum context (cache depth S_max) and ``dtype`` a
-    torch dtype.
+    num_heads, num_embed, num_ffn_hidden, use_bias, quant, kv_quant,
+    moe_experts)`; ``seq_len`` is the maximum context (cache depth S_max)
+    and ``dtype`` a torch dtype.
     """
 
     def __init__(self, vocab_size, seq_len, num_layers=2, num_heads=4,
                  num_embed=128, num_ffn_hidden=None, use_bias=True,
-                 eps=1e-5, dtype=torch.float32, quant=None, kv_quant=None):
+                 eps=1e-5, dtype=torch.float32, quant=None, kv_quant=None,
+                 moe_experts=0):
         if num_embed % num_heads != 0:
             raise MXNetError("num_embed must be divisible by num_heads")
         self.vocab_size = int(vocab_size)
@@ -100,6 +109,9 @@ class TransformerKVModel:
         self.num_embed = int(num_embed)
         self.num_ffn_hidden = int(num_ffn_hidden or 4 * num_embed)
         self.use_bias = bool(use_bias)
+        # > 0: every layer's FFN is a top-1 routed mixture of this many
+        # biasless expert FFNs (`_ffn`)
+        self.moe_experts = int(moe_experts or 0)
         self.eps = float(eps)
         self.dtype = dtype
         # post-training quantization specs (None: full precision)
@@ -163,12 +175,20 @@ class TransformerKVModel:
             shapes[p + "ln1_beta"] = (e,)
             shapes[p + "ln2_gamma"] = (e,)
             shapes[p + "ln2_beta"] = (e,)
-            for proj, (nh, nin) in [("q", (e, e)), ("k", (e, e)),
-                                    ("v", (e, e)), ("attn_out", (e, e)),
-                                    ("ffn1", (f, e)), ("ffn2", (e, f))]:
+            projs = [("q", (e, e)), ("k", (e, e)), ("v", (e, e)),
+                     ("attn_out", (e, e))]
+            if not self.moe_experts:
+                projs += [("ffn1", (f, e)), ("ffn2", (e, f))]
+            for proj, (nh, nin) in projs:
                 shapes[p + proj + "_weight"] = (nh, nin)
                 if self.use_bias:
                     shapes[p + proj + "_bias"] = (nh,)
+            if self.moe_experts:
+                # the router and the expert banks, every expert's FFN
+                # stacked on axis 0
+                shapes[p + "moe_router_weight"] = (e, self.moe_experts)
+                shapes[p + "moe_w1"] = (self.moe_experts, e, f)
+                shapes[p + "moe_w2"] = (self.moe_experts, f, e)
         return shapes
 
     def init_params(self, rng=None, scale=0.02):
@@ -196,12 +216,15 @@ class TransformerKVModel:
         """The matmul weights weight quant applies to: every 2-D
         projection, the embedding and the head (per-channel scales need a
         channel axis).  LayerNorm gammas and betas, biases and the
-        positional table stay full precision."""
+        positional table stay full precision, and so do an MoE model's
+        router and (E, ., .) expert banks, as in the JAX package."""
         names = ["embed_weight", "pred_weight"]
+        projs = ("q", "k", "v", "attn_out")
+        if not self.moe_experts:
+            projs = projs + ("ffn1", "ffn2")
         for i in range(self.num_layers):
             p = "layer%d_" % i
-            names += [p + s + "_weight" for s in ("q", "k", "v", "attn_out",
-                                                  "ffn1", "ffn2")]
+            names += [p + s + "_weight" for s in projs]
         return names
 
     def quantize_params(self, params):
@@ -220,6 +243,15 @@ class TransformerKVModel:
             out[name] = q
             out[name + "_qscale"] = scale
         return out
+
+    def param_shardings(self, *args, **kw):
+        raise MXNetError("TransformerKVModel.param_shardings: sharded "
+                         "replicas are not ported yet (ROADMAP.md queue 1, "
+                         "item 2)")
+
+    def kv_shardings(self, *args, **kw):
+        raise MXNetError("TransformerKVModel.kv_shardings: sharded replicas "
+                         "are not ported yet (ROADMAP.md queue 1, item 2)")
 
     def params_from_jax(self, params, device=None, dtype=None):
         """``{name: tensor}`` on ``device`` (default ``cuda:0``) in ``dtype``
@@ -379,9 +411,35 @@ class TransformerKVModel:
                            torch.full((), float("nan"), device=rows.device)
                            ).to(self.dtype)
 
-    def _ffn(self, params, h2, p):
-        f = F.gelu(self._proj(params, h2, p + "ffn1"), approximate="tanh")
-        return self._proj(params, f, p + "ffn2")
+    def _ffn(self, params, h2, p, tape=None):
+        """Layer ``p``'s FFN over flattened (n, e) rows: gelu(ffn1) then
+        ffn2, or with ``moe_experts`` a top-1 routed mixture of expert
+        FFNs, the JAX package's `_ffn` step for step.  The router runs in
+        f32 with a softmax; the gate is the top probability and the
+        one-hot its argmax (the first index on a tie, in both packages).
+        Dispatch is dense: every row runs every expert (gelu, tanh form)
+        and the one-hot gate keeps the winner's output, so a row's result
+        is one expert's FFN whatever the rest of the batch routed.  All
+        of it in f32 (plain products, never TF32), cast back to the
+        activation dtype.  ``tape`` (a list or None) collects this
+        layer's (E,) routed row counts, padding rows included."""
+        if not self.moe_experts:
+            f = F.gelu(self._proj(params, h2, p + "ffn1"), approximate="tanh")
+            return self._proj(params, f, p + "ffn2")
+        x = h2.float()
+        probs = torch.softmax(
+            x @ params[p + "moe_router_weight"].float(), dim=-1)  # (n, E)
+        gate = probs.amax(dim=-1)
+        onehot = F.one_hot(probs.argmax(dim=-1),
+                           self.moe_experts).to(torch.float32)
+        if tape is not None:
+            tape.append(onehot.sum(dim=0).to(torch.int32))
+        hb = F.gelu(torch.einsum("nd,edf->nef", x,
+                                 params[p + "moe_w1"].float()),
+                    approximate="tanh")                         # (n, E, f)
+        y = torch.einsum("nef,efd->ned", hb, params[p + "moe_w2"].float())
+        return torch.einsum("ned,ne->nd", y,
+                            onehot * gate[:, None]).to(h2.dtype)
 
     def _ln(self, params, x, name):
         return layer_norm(x, params[name + "_gamma"], params[name + "_beta"],
@@ -391,12 +449,14 @@ class TransformerKVModel:
         return self._proj(params, self._ln(params, x, "final_ln"), "pred")
 
     # -- prefill -----------------------------------------------------------
-    def prefill(self, params, tokens, length):
+    def prefill(self, params, tokens, length, moe_tape=None):
         """Forward the right-padded prompt.
 
         tokens: (b, s) int, rows padded past ``length``; length: (b,) int,
         real tokens per row (>= 1).  Returns (logits (b, vocab) of each
-        row's last real token, kv (num_layers, 2, b, s, embed))."""
+        row's last real token, kv (num_layers, 2, b, s, embed)).
+        ``moe_tape`` collects an MoE model's routed counts, a layer an
+        entry."""
         b, s = tokens.shape
         h, e = self.num_heads, self.num_embed
         x = self._embed(params, tokens) + \
@@ -417,7 +477,8 @@ class TransformerKVModel:
             attn = attn.transpose(1, 2).reshape(-1, e)
             x = x + self._proj(params, attn, p + "attn_out").reshape(b, s, e)
             hn = self._ln(params, x, p + "ln2")
-            x = x + self._ffn(params, hn.reshape(-1, e), p).reshape(b, s, e)
+            x = x + self._ffn(params, hn.reshape(-1, e), p,
+                              moe_tape).reshape(b, s, e)
         last = x[torch.arange(b, device=x.device), length.long() - 1]
         return self._head(params, last), torch.stack(kv)
 
@@ -431,7 +492,7 @@ class TransformerKVModel:
         return self._unmark(cache)
 
     # -- decode ------------------------------------------------------------
-    def decode(self, params, cache, token, pos, slots):
+    def decode(self, params, cache, token, pos, slots, moe_tape=None):
         """One generation step over the slot cache, updated in place.
 
         token, pos, slots: (b,) int — each row's current token, the
@@ -454,11 +515,12 @@ class TransformerKVModel:
                                     pos, self.num_heads)
             x = x + self._proj(params, attn, p + "attn_out")
             hn = self._ln(params, x, p + "ln2")
-            x = x + self._ffn(params, hn, p)
+            x = x + self._ffn(params, hn, p, moe_tape)
         return self._head(params, x), self._unmark(cache)
 
     # -- paged cache -------------------------------------------------------
-    def prefill_paged(self, params, pool, tokens, start, length, tables):
+    def prefill_paged(self, params, pool, tokens, start, length, tables,
+                      moe_tape=None):
         """One chunked-prefill step over the paged pool, updated in place.
 
         tokens: (b, c) int, a prompt chunk padded past ``length``; c is a
@@ -504,7 +566,8 @@ class TransformerKVModel:
             x = x + self._proj(params, attn.reshape(-1, e),
                                p + "attn_out").reshape(b, c, e)
             hn = self._ln(params, x, p + "ln2")
-            x = x + self._ffn(params, hn.reshape(-1, e), p).reshape(b, c, e)
+            x = x + self._ffn(params, hn.reshape(-1, e), p,
+                              moe_tape).reshape(b, c, e)
         last = x[torch.arange(b, device=x.device), length.long() - 1]
         return self._head(params, last), self._unmark(cache)
 
@@ -525,7 +588,7 @@ class TransformerKVModel:
             scales[:, :, dst] = scales[:, :, src]
         return self._unmark(cache)
 
-    def decode_paged(self, params, pool, token, pos, tables):
+    def decode_paged(self, params, pool, token, pos, tables, moe_tape=None):
         """One generation step over the paged pool, updated in place.
 
         token, pos: (b,) int; tables: (b, m) int (padding rows are all
@@ -558,7 +621,7 @@ class TransformerKVModel:
                 self.num_heads)
             x = x + self._proj(params, attn, p + "attn_out")
             hn = self._ln(params, x, p + "ln2")
-            x = x + self._ffn(params, hn, p)
+            x = x + self._ffn(params, hn, p, moe_tape)
         return self._head(params, x), self._unmark(cache)
 
     def decode_megastep(self, params, pool, token, pos, left, eos, tables,
@@ -579,10 +642,12 @@ class TransformerKVModel:
 
         Returns ``(toks (b, steps) int64, pool)``: ``toks[r, j]`` is the
         j-th token row r emitted, or -2 where the row had retired (or was
-        never active) when step j ran."""
-        if moe_tape is not None:
-            raise MXNetError("decode_megastep: MoE (moe_tape) is not "
-                             "ported yet (ROADMAP.md queue 1)")
+        never active) when step j ran.  An MoE model appends ONE entry to
+        ``moe_tape``: the (E,) counts summed over the steps and layers,
+        rows no longer active counted at the dead position, as the JAX
+        scan's carry counts them."""
+        want = bool(self.moe_experts) and moe_tape is not None
+        cnt = None
         bs = self._pool_parts(pool)[0].shape[3]
         dead = tables.shape[1] * bs
         tok = token.long()
@@ -592,9 +657,13 @@ class TransformerKVModel:
         act = lf > 0
         emits = []
         for _ in range(int(steps)):
+            tape = [] if want else None
             logits, pool = self.decode_paged(params, pool, tok,
                                              torch.where(act, p, dead),
-                                             tables)
+                                             tables, moe_tape=tape)
+            if want:
+                step_cnt = torch.stack(tape).sum(dim=0)
+                cnt = step_cnt if cnt is None else cnt + step_cnt
             picked = pick(logits, p + 1).long()
             p2 = torch.where(act, p + 1, p)
             lf2 = torch.where(act, lf - 1, lf)
@@ -606,6 +675,8 @@ class TransformerKVModel:
             emits.append(torch.where(act, picked, -2))
             act = act & ~fin
             p, lf = p2, lf2
+        if want:
+            moe_tape.append(cnt)
         return torch.stack(emits, dim=1), pool
 
     def verify_paged(self, params, pool, tokens, pos, length, tables,
@@ -621,9 +692,6 @@ class TransformerKVModel:
         attending, by (block, offset) per position; positions past the
         table's coverage go to the trash block.  Returns (logits (b, c,
         vocab) at every fed position, pool)."""
-        if moe_tape is not None:
-            raise MXNetError("verify_paged: MoE (moe_tape) is not ported "
-                             "yet (ROADMAP.md queue 1)")
         cache = pool
         pool, scales = self._pool_parts(cache)
         b, c = tokens.shape
@@ -655,7 +723,8 @@ class TransformerKVModel:
             x = x + self._proj(params, attn.reshape(-1, e),
                                p + "attn_out").reshape(b, c, e)
             hn = self._ln(params, x, p + "ln2")
-            x = x + self._ffn(params, hn.reshape(-1, e), p).reshape(b, c, e)
+            x = x + self._ffn(params, hn.reshape(-1, e), p,
+                              moe_tape).reshape(b, c, e)
         logits = self._head(params, x.reshape(-1, e)).reshape(
             b, c, self.vocab_size)
         return logits, self._unmark(cache)

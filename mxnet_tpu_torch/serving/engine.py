@@ -149,13 +149,27 @@ The gate reads the logits on the card, so it adds no host sync.
 Chaos's ``spill_fail``, ``restore_slow`` and ``scale_corrupt`` inject
 at the JAX engine's sites.
 
-What the JAX engine has beyond this waits for later slices: MoE, sharded
-replicas (`ReplicaRouter.from_mesh`), disaggregated prefill and decode
-(router roles and handoffs), the gateway and autoscaling, and tracing
-(the JAX engine's `tracing.dump`, `tracing.phase` and `tracing.add_span`
-calls have no counterpart here).  Their keywords are not accepted, and an
-``MXNET_CHAOS`` spec with a clause of theirs raises at construction
-(`chaos`).  A prompt token outside
+MoE: with a model of ``moe_experts > 0`` every program records its
+per-expert routed row counts, padding rows included, as one (E,) row on
+the card a launch; a non-blocking copy takes it to pinned memory, the
+scheduler folds the landed copies each iteration without waiting
+(`_drain_moe`), the ``serve.<name>.expert_load.<i>`` gauges follow, and
+`expert_load()` waits for all of them.  The model drafter counts nothing.
+
+Disaggregated prefill and decode (`handoff`): under a `ReplicaRouter`
+built with ``disagg`` a prefill replica packs a prefilled sequence's
+blocks into a `HandoffTicket` (`_maybe_handoff`) and a decode replica
+lands it as a restore (`receive_handoff`, `_stage_handoffs`,
+`_complete_landing`); a failed transfer takes the journal's exact replay
+(``handoff_fail`` is the chaos clause).  `autoscale.AutoScaler` resizes a
+fleet through `ReplicaRouter.add_replica` / `remove_replica`, and
+`gateway.ServeGateway` serves a fleet over HTTP with server-sent events.
+
+What the JAX engine has beyond this waits for the next slice: sharded
+replicas (`ReplicaRouter.from_mesh`, `param_shardings`) and request
+tracing (the JAX engine's `tracing.dump`, `tracing.phase` and
+`tracing.add_span` calls have no counterpart here); ``from_mesh`` raises
+naming its ROADMAP.md item.  A prompt token outside
 [-V, V) embeds as NaN, as in the JAX engine, and its request decodes
 token 0 (the first NaN's index) while the scheduler goes on.
 """
@@ -175,6 +189,7 @@ from .. import chaos, telemetry
 from ..base import MXNetError
 from ..context import resolve
 from ..quant.codec import resolve as quant_resolve
+from .handoff import HandoffLanding, HandoffTicket, disagg_enabled
 from .errors import (ServeBlocksExhausted, ServeCacheInvalidated,
                      ServeCancelled, ServeDeadlineExceeded, ServeEngineDead,
                      ServeError, ServeOverload, ServeQuantError,
@@ -259,6 +274,9 @@ class ServeRequest:
         #                           from another one until it advances
         #                           min_progress tokens past it
         self._migrated = False    # journal migration pending its replay
+        self._no_handoff = False  # its one handoff failed: the replay
+        #                           decodes wherever it lands (roles are
+        #                           dispatch policy, not a capability)
         # streaming: `stream()` iterators wait on this condition, and
         # `_published` is the scheduler's delivery mark into `tokens`.
         # No resume path truncates or re-appends `tokens`, so positions
@@ -520,6 +538,15 @@ class ServingEngine:
             self._params = {k: v.to(self.device) for k, v in params.items()}
         else:
             self._params = model.params_from_jax(params, self.device)
+        # per-expert routing telemetry (serve.<name>.expert_load.<i>): an
+        # MoE program's launch leaves one (E,) count on the device, copied
+        # to pinned memory behind an event; `_drain_moe` folds the copies
+        # that have landed into the host total, so the scheduler never
+        # waits on a count
+        self._moe = bool(getattr(model, "moe_experts", 0))
+        self._moe_pending = []    # (host tensor, event or None) a launch
+        self._moe_load = (np.zeros((model.moe_experts,), np.int64)
+                          if self._moe else None)
         self.max_batch = int(max_batch)
         if self.max_batch < 1:
             raise MXNetError("ServingEngine: max_batch must be >= 1")
@@ -561,7 +588,8 @@ class ServingEngine:
         self._host_blocks = 0
         self._restore_ahead = 0
         self._restoring = {}      # row -> _Restore (insertion-ordered)
-        self._side = None         # the restores' copy stream on a card
+        self._side = None         # the restores' and landings' copy
+        #                           stream on a card
         self._landed_src = []     # (event, pinned source) of landed
         #                           restores whose copy may still run
         if self._paged:
@@ -613,8 +641,9 @@ class ServingEngine:
                     self._host_blocks, self.model.slice_block(
                         self.model.init_block_pool(1, bs, "cpu"), 0),
                     pin=self.device.type == "cuda")
-                if self.device.type == "cuda":
-                    self._side = torch.cuda.Stream(self.device)
+            if self.device.type == "cuda":
+                # host-to-card copies of restores and handoff landings
+                self._side = torch.cuda.Stream(self.device)
             if prefix_on:
                 self._prefix = PrefixCache(
                     bs, self._prefix_pool,
@@ -680,6 +709,16 @@ class ServingEngine:
         self._dead = None         # scheduler-fatal error message, if any
         self._on_death = None     # router failover hook:
         #                           fn(engine, pending, inflight, msg)
+        # disaggregated prefill/decode: a router sets the role and the
+        # hooks before warmup (a decode replica warms the landing's
+        # scatter); None is the colocated engine
+        self.role = None          # None | "prefill" | "decode"
+        self._handoff_sink = None      # router: fn(ticket), stages it on
+        #                                a live decode replica or raises
+        self._handoff_fallback = None  # router: fn(req) -> bool, the
+        #                                journal's exact replay
+        self._handoff_inbox = deque()  # tickets received, not yet staged
+        self._landing = {}        # row -> HandoffLanding (insertion-ordered)
         self._launch_fails = 0    # consecutive decode launch failures
         self.last_beat = time.monotonic()  # scheduler heartbeat
         # anti-thrash preemption: a resumed sequence is exempt from another
@@ -734,6 +773,8 @@ class ServingEngine:
                       "session_hits": 0, "session_turns": 0,
                       # quantization (0s when off)
                       "quant_trips": 0, "scale_corrupts": 0,
+                      # disaggregated prefill/decode (0s when off)
+                      "handoffs": 0, "handoffs_in": 0, "handoff_fails": 0,
                       # the JAX engine's telemetry counters
                       "shed": 0, "expired": 0, "cancelled": 0,
                       "degraded": 0, "block_waits": 0, "preempted": 0,
@@ -820,8 +861,11 @@ class ServingEngine:
     def _prefill_slot(self, toks, length, slot):
         """The slot-cache prefill program: forward, write the K/V into
         ``slot``, return the last real token's logits."""
-        logits, kv = self.model.prefill(self._params, toks, length)
+        tape = [] if self._moe else None
+        logits, kv = self.model.prefill(self._params, toks, length,
+                                        moe_tape=tape)
         self.model.write_prefill(self._cache, kv, length, slot)
+        self._moe_out(tape)
         return logits
 
     def _chunk_inputs(self, chunk, bucket, start, blocks):
@@ -834,8 +878,11 @@ class ServingEngine:
 
     def _prefill_chunk(self, toks, start, length, table):
         """The paged prefill program over one chunk."""
+        tape = [] if self._moe else None
         logits, _ = self.model.prefill_paged(self._params, self._cache, toks,
-                                             start, length, table)
+                                             start, length, table,
+                                             moe_tape=tape)
+        self._moe_out(tape)
         return logits
 
     def _decode_inputs(self, b, seqs, slots):
@@ -859,7 +906,10 @@ class ServingEngine:
         slot ids on the slot cache."""
         program = self.model.decode_paged if self._paged \
             else self.model.decode
-        logits, _ = program(self._params, self._cache, token, pos, where)
+        tape = [] if self._moe else None
+        logits, _ = program(self._params, self._cache, token, pos, where,
+                            moe_tape=tape)
+        self._moe_out(tape)
         return logits
 
     def _verify(self, tokens, pos, length, tables, samp):
@@ -868,8 +918,11 @@ class ServingEngine:
         occupy pos + j + 1, the key sequential decode would have used)
         and count the leading drafts equal to those picks.  Returns (b,
         c + 1) on the device: the picks, then the count."""
+        tape = [] if self._moe else None
         logits, _ = self.model.verify_paged(self._params, self._cache,
-                                            tokens, pos, length, tables)
+                                            tokens, pos, length, tables,
+                                            moe_tape=tape)
+        self._moe_out(tape)
         b, c, v = logits.shape
         newpos = pos.long()[:, None] + 1 + \
             torch.arange(c, device=logits.device)[None, :]
@@ -884,11 +937,57 @@ class ServingEngine:
         """The megastep program: ``_mega_m`` decode steps enqueued back to
         back (`decode_megastep`); returns the (b, m) token grid on the
         device."""
+        tape = [] if self._moe else None
         toks, _ = self.model.decode_megastep(
             self._params, self._cache, token, pos, left, eos, tables,
             self._mega_m, lambda logits, newpos: self._pick_dev(
-                logits, samp, newpos))
+                logits, samp, newpos), moe_tape=tape)
+        self._moe_out(tape)
         return toks
+
+    # -- MoE routing telemetry -----------------------------------------------
+    def _moe_out(self, tape):
+        """Record an MoE launch's routed-row counts: the tape's entries
+        summed into ONE (E,) row on the device, whose copy to the host
+        starts now without a wait (the JAX engine's extra program output,
+        diverted by `_unpack`).  A dense model records nothing."""
+        if not self._moe or not tape:
+            return
+        self._moe_pending.append(self._to_host(torch.stack(tape).sum(dim=0)))
+
+    def _drain_moe(self, keep_last=True):
+        """Fold pending launch counts into the host total and publish the
+        ``serve.<name>.expert_load.<i>`` gauges.  ``keep_last`` (the
+        scheduler's call, once an iteration) folds only the counts whose
+        copy has landed, in launch order, and never waits, so a launch
+        still in flight (a megastep) keeps its overlap; False waits for
+        every one."""
+        if not self._moe:
+            return
+        pend = self._moe_pending
+        n = 0
+        for host, done in pend:
+            if done is not None:
+                if keep_last and not done.query():
+                    break
+                if not keep_last:
+                    done.synchronize()
+            self._moe_load += host.numpy().astype(np.int64)
+            n += 1
+        if n == 0:
+            return
+        del pend[:n]
+        for i, v in enumerate(self._moe_load):
+            telemetry.set_gauge(self._gauge + "expert_load.%s" % i, int(v))
+
+    def expert_load(self):
+        """The cumulative per-expert routed row counts (padding rows
+        included) as a host array, or None for a dense model.  Waits for
+        every pending count: a report surface, not a scheduler call."""
+        if not self._moe:
+            return None
+        self._drain_moe(keep_last=False)
+        return self._moe_load.copy()
 
     def _to_host(self, t):
         """Start ``t``'s copy to the host: (pinned host tensor, CUDA
@@ -945,12 +1044,23 @@ class ServingEngine:
                 self._megastep(token, pos, pos, pos - 1, tables, ()).tolist()
         if self._prefix is not None:
             self.model.copy_block(self._cache, TRASH_BLOCK, TRASH_BLOCK)
-        if self._tier is not None:
+        if self._tier is not None or (self._paged and self.role == "decode"):
+            # the restore's scatter, which a decode replica's handoff
+            # landings take too
             staged, ready = self._stage_run(self.model.block_run_placeholder(
                 1, self.block_size, pin=self._side is not None))
             self._await_staged(staged, ready)
             self.model.write_block(self._cache, self._put(
                 np.full((1,), TRASH_BLOCK, np.int64)), staged)
+        # the JAX engine compiles its programs without running them: its
+        # pool starts zeroed and its routing counts at zero.  Warmup wrote
+        # only the trash block (or slot), which a finished row's megastep
+        # steps read: zero the cache again, so they route as the JAX
+        # engine's do, and drop warmup's counts
+        for t in (self._cache if isinstance(self._cache, tuple)
+                  else (self._cache,)):
+            t.zero_()
+        self._moe_pending.clear()
         return {"prefill": list(self.prefill_buckets),
                 "decode": list(self.decode_buckets),
                 "cache": "paged" if self._paged else "slot",
@@ -1261,7 +1371,8 @@ class ServingEngine:
         with self._qlock:
             return len(self._queue) + self._admitting + \
                 len(self._prefilling) + len(self._restoring) + \
-                len(self._active)
+                len(self._active) + len(self._landing) + \
+                len(self._handoff_inbox)
 
     # -- scheduling --------------------------------------------------------
     def _bucket_for(self, n, buckets):
@@ -1358,6 +1469,15 @@ class ServingEngine:
                 self._release_src(rs)
                 self._requeue_once(rs.req, "restore lost to a cache rebuild "
                                    "twice: %s", reason)
+            for row, ld in list(self._landing.items()):
+                # a staged landing's target blocks died with the pool: the
+                # request takes the journal's exact replay
+                del self._landing[row]
+                self._free.append(row)
+                ld.blocks = None
+                self._release_src(ld)
+                self._handoff_lost(ld.ticket.req, "handoff landing lost to "
+                                   "a cache rebuild: %s" % reason[:200])
             if self._prefix is not None:
                 self._prefix.clear()  # the pool its nodes point at is gone
             if self._tier is not None:
@@ -1583,18 +1703,21 @@ class ServingEngine:
             "ServingEngine %s: restore run %d exceeds the table width %d"
             % (self.name, n, self._n_table))
 
-    def _stage_run(self, data):
+    def _stage_run(self, data, after=None):
         """Start a packed block run's copy to the device: on a card a
         non-blocking copy from pinned memory on the side stream, behind
         an event the landing scatter waits on (so it overlaps the
-        current iteration's launches); on the CPU a plain copy.  Returns
-        (staged, ready)."""
+        current iteration's launches); on the CPU a plain copy.  ``after``
+        is an event the copy must wait for (a handoff's device-to-host
+        copy into ``data``).  Returns (staged, ready)."""
         leaves = data if isinstance(data, tuple) else (data,)
         if self._side is None:
             staged = tuple(t.to(self.device) for t in leaves)
             return (staged if isinstance(data, tuple) else staged[0]), None
         main = torch.cuda.current_stream(self.device)
         self._side.wait_stream(main)
+        if after is not None:
+            self._side.wait_event(after)
         with torch.cuda.stream(self._side):
             staged = tuple(t.to(self.device, non_blocking=True)
                            for t in leaves)
@@ -1642,7 +1765,9 @@ class ServingEngine:
         filled = {}
         for holder, n in [(s.blocks, s.pos) for s in self._active.values()] \
                 + [(p.blocks, p.done) for p in self._prefilling.values()] \
-                + [(r.blocks, r.done) for r in self._restoring.values()]:
+                + [(r.blocks, r.done) for r in self._restoring.values()] \
+                + [(ld.blocks, ld.ticket.pos)
+                   for ld in self._landing.values()]:
             if holder is None:
                 continue
             for i, b in enumerate(holder):
@@ -1768,10 +1893,13 @@ class ServingEngine:
             else:
                 last, pos, n_new = req._resume[1:]
                 req._resume = None
-                if self._drafter is not None and n_new:
-                    # the replayed generation seeds the drafter, so its
-                    # accept rate holds from the first round on
-                    self._drafter.on_resume(list(tokens) + [last])
+            if self._maybe_handoff(req, row, tokens, blocks, last, pos,
+                                   n_new):
+                return
+            if self._drafter is not None and n_new:
+                # the replayed generation seeds the drafter, so its
+                # accept rate holds from the first round on
+                self._drafter.on_resume(list(tokens) + [last])
             seq = _Seq(req, last, pos, blocks=blocks, ctx=list(tokens[:pos]))
             seq.n_new = n_new
             self._active[row] = seq
@@ -1964,6 +2092,9 @@ class ServingEngine:
             # preemption interrupted (nothing is sampled again)
             last, pos, n_new = pf.resume
             req._resume = None
+            if self._maybe_handoff(req, pf.row, pf.tokens, blocks, last, pos,
+                                   n_new):
+                return
             seq = _Seq(req, last, pos, blocks=blocks, ctx=pf.tokens)
             seq.n_new = n_new
             if self._drafter is not None and n_new:
@@ -1987,9 +2118,221 @@ class ServingEngine:
         seq = _Seq(req, first, total, blocks=blocks, ctx=pf.tokens)
         if self._seq_finished(seq, first):
             self._retire(pf.row, seq, enter=False)
-        else:
+        elif not self._maybe_handoff(req, pf.row, pf.tokens, blocks, first,
+                                     total, 1):
             self._active[pf.row] = seq
+        # the first token publishes from the source, once; the decode side
+        # resumes at n_new 1
         req._publish()
+
+    # -- disaggregated prefill/decode handoff --------------------------------
+    def _pack_run(self, blocks, kb):
+        """The handoff's pack: the pool rows of ``blocks`` (every layer, K
+        and V, and under KV quant their scales), gathered on the device
+        into one run padded with the trash block to ``kb`` blocks, copied
+        into one pinned host buffer (`block_run_placeholder`), non-blocking
+        on a card.  The gather is queued on the pool's stream after the
+        prefill's last write and before any later one, so the blocks may
+        go back to the allocator at once.  Returns (host run, the event
+        its copy is behind, None on the CPU)."""
+        idx = self._put(np.asarray(list(blocks) + [TRASH_BLOCK]
+                                   * (kb - len(blocks)), np.int64))
+        pool, scales = self.model._pool_parts(self._cache)
+        run = pool[:, :, idx] if scales is None else \
+            (pool[:, :, idx], scales[:, :, idx])
+        if self.device.type != "cuda":
+            return run, None
+        data = self.model.block_run_placeholder(kb, self.block_size, pin=True)
+        for h, d in zip(data if isinstance(data, tuple) else (data,),
+                        run if isinstance(run, tuple) else (run,)):
+            h.copy_(d, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        return data, ready
+
+    def _maybe_handoff(self, req, row, tokens, blocks, last, pos, n_new):
+        """On a prefill replica, retire a sequence whose context is cached
+        into a handoff instead of decoding it: pack its block run, hand a
+        `HandoffTicket` to the router's sink and free the row and blocks
+        here.  True when the sequence was consumed (handed off, or failed
+        over to the journal's replay): the caller must not decode it.  A
+        colocated engine (role None) returns False at once."""
+        if self._handoff_sink is None or self.role != "prefill" \
+                or not self._paged or req._no_handoff or pos <= 0:
+            return False
+        t_pack = time.perf_counter()  # the handoff's wait opens here
+        try:
+            if chaos.enabled() and chaos.serve_handoff_fail():
+                raise chaos.ChaosError(
+                    "chaos: injected handoff transfer death")
+            k = (pos + self.block_size - 1) // self.block_size
+            kb = self._restore_bucket(k)
+            data, ready = self._pack_run(blocks[:k], kb)
+            ticket = HandoffTicket(req, list(tokens[:pos]), last, pos, n_new,
+                                   data, k, kb, self.name, t_start=t_pack,
+                                   ready=ready)
+        except Exception as e:  # noqa: BLE001 -- degrade to replay
+            self._free.append(row)
+            self._drop_refs(blocks)
+            self._block_gauges()
+            self._handoff_lost(req, "handoff pack failed: %s" % e)
+            return True
+        # the source is done with the sequence whatever happens next: the
+        # run is on its way to the host and the resume tuple in the ticket
+        self._free.append(row)
+        self._drop_refs(blocks)
+        self._block_gauges()
+        try:
+            self._handoff_sink(ticket)
+        except Exception as e:  # noqa: BLE001 -- no live decode replica
+            self._handoff_lost(req, "handoff dispatch failed: %s" % e)
+            return True
+        self.stats["handoffs"] += 1
+        self._count("handoffs")
+        telemetry.inc("serve.handoff_bytes", ticket.nbytes)
+        return True
+
+    def _handoff_lost(self, req, msg):
+        """A handoff died (pack, dispatch, chaos, a dead target, a cache
+        rebuild under a staged landing): count it and hand the request to
+        the router's exact replay; only when that road is closed too does
+        it fail, typed."""
+        self.stats["handoff_fails"] += 1
+        self._count("handoff_fails")
+        telemetry.record_event("serve_handoff_fail", replica=self.name,
+                               request=req.id, error=str(msg)[:200])
+        ok = False
+        if self._handoff_fallback is not None:
+            try:
+                ok = self._handoff_fallback(req)
+            except Exception:  # noqa: BLE001 -- fall through to typed
+                ok = False
+        if not ok and not req.done:
+            req._finish(error=ServeEngineDead(
+                "handoff failed with no replay road: %s" % str(msg)[:300]))
+
+    def receive_handoff(self, ticket):
+        """Accept one ticket into this decode replica's inbox (any
+        thread).  Raises `ServeEngineDead` on a dead, draining or stopped
+        replica, so the router redirects the ticket instead of racing
+        the admission close."""
+        if not self._paged:
+            raise MXNetError("receive_handoff: paged serving only")
+        with self._qlock:
+            self._check_alive_locked()
+            self._handoff_inbox.append(ticket)
+        self._wake.set()
+
+    def _stage_handoffs(self):
+        """Stage received tickets (scheduler thread): take a row and fresh
+        blocks and start the run's copy to the card, which rides under
+        this iteration's launches; `_advance_landings` lands it next
+        iteration.  A denied allocation leaves the ticket queued."""
+        while self._free:
+            with self._qlock:
+                if not self._handoff_inbox:
+                    return
+                ticket = self._handoff_inbox.popleft()
+            req = ticket.req
+            if req.done:
+                continue
+            row = self._free.pop()
+            fresh = self._alloc_blocks(self._alloc.blocks_for(ticket.pos + 1))
+            if fresh is None:
+                self._free.append(row)
+                self.stats["alloc_denied"] += 1
+                self._count("alloc_denied")
+                with self._qlock:
+                    self._handoff_inbox.appendleft(ticket)
+                return
+            dsts = np.full((ticket.kb,), TRASH_BLOCK, np.int64)
+            dsts[:ticket.k] = fresh[:ticket.k]
+            staged, ready = self._stage_run(ticket.data, after=ticket.ready)
+            self._landing[row] = HandoffLanding(ticket, row, fresh, staged,
+                                                self._put(dsts), ready=ready)
+            self._block_gauges()
+
+    def _drop_landing(self, ld):
+        """Remove a staged landing: its row and blocks go back; the caller
+        resolves the request."""
+        self._landing.pop(ld.row, None)
+        self._free.append(ld.row)
+        self._release_blocks(ld)
+        self._release_src(ld)
+
+    def _advance_landings(self):
+        """Land every handoff staged in an earlier iteration."""
+        for ld in list(self._landing.values()):
+            if self._landing.get(ld.row) is ld:
+                self._complete_landing(ld)
+
+    def _complete_landing(self, ld):
+        """Scatter one staged run into its blocks (the restore's
+        `write_block`), register the context's full blocks in this
+        replica's prefix index and enter decode at the ticket's resume
+        tuple.  Failure scoping as at a restore: a dead device is fatal,
+        a half-written pool rebuilds, a scoped fault drops the run and
+        falls back to the journal's replay."""
+        t = ld.ticket
+        req = t.req
+        try:
+            if chaos.serve_launch_error():
+                raise chaos.ChaosError(
+                    "chaos: injected handoff landing launch error")
+            self._await_staged(ld.staged, ld.ready)
+            self.model.write_block(self._cache, ld.dst_d, ld.staged)
+        except Exception as e:
+            kind = self._classify_failure(e)
+            if kind == "device":
+                self._drop_landing(ld)
+                req._finish(error=ServeEngineDead(
+                    "handoff landing failed: %s" % str(e)[:400]))
+                raise _EngineFatal("handoff landing failed: %s" % e) from e
+            if kind == "cache":
+                self._rebuild_cache("handoff landing failed: %s" % e)
+                return
+            self._drop_landing(ld)
+            self._handoff_lost(req, "handoff landing failed: %s" % e)
+            return
+        # the context's full blocks publish here, where decode happens (a
+        # session's follow-up turn shares them)
+        self._register_prefix(t.ctx, ld.blocks, t.pos)
+        self.stats["handoffs_in"] += 1
+        self._count("handoffs_in")
+        telemetry.observe("serve.handoff_wait_ms",
+                          1e3 * (time.perf_counter() - t.t_start))
+        del self._landing[ld.row]
+        self._release_src(ld)
+        if self._drafter is not None and t.n_new:
+            self._drafter.on_resume(list(t.ctx) + [t.last])
+        seq = _Seq(req, t.last, t.pos, blocks=ld.blocks, ctx=list(t.ctx))
+        seq.n_new = t.n_new
+        self._active[ld.row] = seq
+        self._block_gauges()
+
+    def _pending_work(self):
+        """Admitted work not yet decoding: mid-stream prefills, staged
+        restores and landings, received tickets.  A scheduler iteration
+        is idle only when these and the active set are empty."""
+        return len(self._prefilling) + len(self._restoring) + \
+            len(self._landing) + len(self._handoff_inbox)
+
+    def decode_depth(self):
+        """Decode load for the router's handoff targeting: active rows and
+        the handoffs this replica owes (staged or in its inbox)."""
+        with self._qlock:
+            return len(self._active) + len(self._landing) + \
+                len(self._handoff_inbox)
+
+    def prefill_backlog(self):
+        """Prompt tokens queued or mid-stream here: the dispatch key of
+        prefill replicas (queue depth alone starves short prompts behind a
+        storm).  A load signal read without the scheduler's state lock."""
+        with self._qlock:
+            t = sum(len(r.prompt) for r in self._queue)
+            for pf in list(self._prefilling.values()):
+                t += max(0, len(pf.tokens) - pf.done)
+        return t
 
     # -- growth, copy-on-write and preemption ------------------------------
     def _grow_active(self):
@@ -2334,6 +2677,21 @@ class ServingEngine:
             if r._cancelled or r.expired(now):
                 dropped.append(r)
                 self._drop_restore(rs)
+        for ld in list(self._landing.values()):
+            r = ld.ticket.req
+            if r._cancelled or r.expired(now):
+                dropped.append(r)
+                self._drop_landing(ld)
+        with self._qlock:
+            if any(t.req._cancelled or t.req.expired(now)
+                   for t in self._handoff_inbox):
+                keep = deque()
+                for t in self._handoff_inbox:
+                    if t.req._cancelled or t.req.expired(now):
+                        dropped.append(t.req)
+                    else:
+                        keep.append(t)
+                self._handoff_inbox = keep
         for r in dropped:
             self._finish_dropped(r, now)
 
@@ -2446,6 +2804,8 @@ class ServingEngine:
         number of sequences still in flight (0 = idle)."""
         t0 = time.perf_counter()
         h0 = self.stats["hidden_s"]
+        # the expert counts whose copy has landed go to the gauges
+        self._drain_moe()
         if self._mega_m and not self._spec:
             n = self._step_mega()
         else:
@@ -2542,10 +2902,12 @@ class ServingEngine:
         self._chaos_step()
         self._sweep()
         if self._paged:
-            # restores staged last iteration first: their copies rode
-            # under its launches
+            # restores and handoff landings staged last iteration first:
+            # their copies rode under its launches
             self._advance_restores()
+            self._advance_landings()
             self._advance_prefills()
+            self._stage_handoffs()
         self._admit_queued()
         if self._paged:
             self._grow_active()
@@ -2556,8 +2918,7 @@ class ServingEngine:
                 self._decode_spec()
             else:
                 self._decode_plain()
-        return len(self._active) + len(self._prefilling) + \
-            len(self._restoring)
+        return len(self._active) + self._pending_work()
 
     # -- megastep decode -----------------------------------------------------
     def _step_mega(self):
@@ -2577,7 +2938,9 @@ class ServingEngine:
             inflight = self._launch_mega()
         self._sweep()
         self._advance_restores()
+        self._advance_landings()
         self._advance_prefills()
+        self._stage_handoffs()
         self._admit_queued()
         self._count_active()
         if inflight is not None:
@@ -2587,8 +2950,7 @@ class ServingEngine:
             self._finish_mega(inflight)
         elif self._active:
             time.sleep(0.001)   # every row is stalled on a denial
-        return len(self._active) + len(self._prefilling) + \
-            len(self._restoring)
+        return len(self._active) + self._pending_work()
 
     def _launch_mega(self):
         """Launch one megastep over the active rows that are not stalled
@@ -2864,7 +3226,7 @@ class ServingEngine:
                 # between leaves the event set
                 self._wake.clear()
                 with self._qlock:
-                    queued = bool(self._queue)
+                    queued = bool(self._queue) or bool(self._handoff_inbox)
                 if not queued and not self._stopped.is_set():
                     self._wake.wait(0.05)
 
@@ -2912,6 +3274,14 @@ class ServingEngine:
         for rs in list(self._restoring.values()):
             self._drop_restore(rs)
             inflight.append(rs.req)
+        for ld in list(self._landing.values()):
+            # a staged landing dies with this replica: the request joins
+            # the failover walk and migrates by exact replay
+            self._drop_landing(ld)
+            inflight.append(ld.ticket.req)
+        with self._qlock:
+            while self._handoff_inbox:
+                inflight.append(self._handoff_inbox.popleft().req)
         return inflight
 
     def _join_thread(self):
@@ -3051,8 +3421,6 @@ def _default_prefill_buckets(seq_len):
 # ROADMAP.md item that brings it
 _SHARDED = ("sharded replicas (ROADMAP.md queue 1, item 2: "
             "`param_shardings`, `kv_shardings` with torch.distributed)")
-_DISAGG = ("disaggregated prefill/decode (ROADMAP.md queue 1, item 2: "
-           "`handoff.py`)")
 
 
 class ReplicaRouter:
@@ -3074,9 +3442,17 @@ class ReplicaRouter:
     only runs each program once.  A session's follow-up turn goes to a
     replica that holds the session (`ServingEngine.has_session`), and
     `drain` moves the drained replica's sessions with it
-    (`_migrate_sessions`).  Not ported: `from_mesh` (sharded replicas)
-    and roles and handoffs (``disagg``), each raising `MXNetError` that
-    names its ROADMAP item.
+    (`_migrate_sessions`).
+
+    ``disagg`` (or ``MXNET_SERVE_DISAGG=1``, with at least two paged
+    replicas) gives the first ``prefill_replicas``
+    (``MXNET_SERVE_PREFILL_REPLICAS``, 0: a quarter, at least one) the
+    prefill role and the rest the decode role (`handoff`): a request
+    enters through the prefill replica with the least prompt backlog,
+    and its handoff goes to the live decode replica with the least
+    decode depth.  A session's follow-up turn goes to the decode replica
+    that holds it.  Not ported: `from_mesh` (sharded replicas), which
+    raises `MXNetError` naming its ROADMAP item.
     """
 
     _MONITOR_PERIOD = 0.2
@@ -3086,9 +3462,6 @@ class ReplicaRouter:
                  prefill_replicas=None):
         if not engines:
             raise MXNetError("ReplicaRouter: need at least one engine")
-        if disagg or prefill_replicas or (disagg is None and _env_flag(
-                "MXNET_SERVE_DISAGG", "0")):
-            raise MXNetError("ReplicaRouter: %s is not ported yet" % _DISAGG)
         self.engines = list(engines)
         self._lock = threading.Lock()
         if respawn is None:
@@ -3101,12 +3474,47 @@ class ReplicaRouter:
         self._monitor = None
         self._mon_stop = threading.Event()
         self._breaker = {}   # replica name -> (fails, next_try monotonic)
-        for e in self.engines:
-            self._wire(e)
+        # disaggregated prefill/decode: the first prefill_replicas engines
+        # take the prefill role, the rest decode; off, no roles at all
+        if disagg is None:
+            disagg = disagg_enabled()
+        self._disagg = bool(disagg) and len(self.engines) >= 2
+        n = len(self.engines)
+        if self._disagg:
+            if not all(e._paged for e in self.engines):
+                raise MXNetError(
+                    "ReplicaRouter: MXNET_SERVE_DISAGG needs paged=True on "
+                    "every replica (the handoff is a paged block-run "
+                    "transfer)")
+            p = int(os.environ.get("MXNET_SERVE_PREFILL_REPLICAS", "0")
+                    if prefill_replicas is None else prefill_replicas)
+            if p <= 0:
+                p = max(1, n // 4)
+            if p >= n:
+                raise MXNetError(
+                    "ReplicaRouter: MXNET_SERVE_PREFILL_REPLICAS=%d leaves "
+                    "no decode replica among %d" % (p, n))
+            self._n_prefill = p
+        for i, e in enumerate(self.engines):
+            self._wire(e, self._role_for(i))
 
-    def _wire(self, engine):
-        """Attach one engine to this router: its death hook."""
+    def _role_for(self, i):
+        if not self._disagg:
+            return None
+        return "prefill" if i < self._n_prefill else "decode"
+
+    def _wire(self, engine, role):
+        """Attach one engine to this router, before its warmup: the death
+        hook, the role and, with a role, the handoff sink and the replay
+        fallback (a decode replica warms the landing's scatter)."""
         engine._on_death = self._handle_death
+        engine.role = role
+        if role is not None:
+            engine._handoff_sink = self._dispatch_handoff
+            engine._handoff_fallback = \
+                lambda req, _e=engine: self._handoff_replay(req, source=_e)
+        telemetry.set_gauge("serve.%s.role" % engine.name,
+                            {"prefill": 1, "decode": 2}.get(role, 0))
 
     @classmethod
     def from_mesh(cls, *args, **kw):
@@ -3209,6 +3617,52 @@ class ReplicaRouter:
             return True
         return False
 
+    # -- disaggregated handoff routing -------------------------------------
+    def _dispatch_handoff(self, ticket):
+        """Stage a ticket on the live decode replica with the least decode
+        depth (runs on the source's scheduler thread); dead, stopped and
+        draining replicas are fenced out, and `receive_handoff` checks
+        again under the target's lock.  Raises `ServeEngineDead` when no
+        decode replica takes it: the source then falls back to replay."""
+        last = None
+        targets = [e for e in self._live_engines() if e.role == "decode"]
+        for eng in sorted(targets, key=lambda e: e.decode_depth()):
+            try:
+                eng.receive_handoff(ticket)
+            except ServeError as e:
+                last = e
+                continue  # died or started draining in the window
+            telemetry.record_event(
+                "serve_handoff", request=ticket.req.id, source=ticket.src,
+                target=eng.name, blocks=ticket.k, nbytes=ticket.nbytes)
+            return True
+        raise ServeEngineDead(
+            "ReplicaRouter: no live decode replica for handoff (%s)" % last)
+
+    def _handoff_replay(self, req, source=None):
+        """A failed handoff's fallback: the journal's exact replay on a
+        survivor, the road an engine death takes.  ``_no_handoff`` pins
+        the retry to plain decode (a replay that handed off again could
+        bounce forever); the last resort is the source itself, since a
+        prefill replica decoding one stray request beats failing it."""
+        req._no_handoff = True
+        if req.done:
+            return True
+        ok = False
+        if self._migrate(req, exclude=source):
+            ok = True
+        elif not req.tokens and self._redispatch(req, exclude=source):
+            ok = True
+        elif source is not None and \
+                (self._migrate(req) or
+                 (not req.tokens and self._redispatch(req))):
+            ok = True
+        if ok:
+            telemetry.inc("serve.replays_from_handoff")
+            if self.journal is not None:
+                self.journal.handoff_replays += 1
+        return ok
+
     def _monitor_loop(self):
         """Replica health: the heartbeat-age gauges, and the respawn of
         dead replicas behind a capped exponential backoff."""
@@ -3236,7 +3690,7 @@ class ReplicaRouter:
                     fails + 1, now + min(0.05 * (2 ** fails), 5.0))
                 try:
                     fresh = e.respawn()
-                    self._wire(fresh)
+                    self._wire(fresh, e.role)  # the role, before warmup
                     fresh.warmup()
                     fresh.start()
                 except Exception as ex:  # noqa: BLE001
@@ -3274,13 +3728,28 @@ class ReplicaRouter:
                 break
             shed = 0
             order = sorted(live, key=lambda e: e.depth())
+            if self._disagg:
+                # a fresh request enters through a prefill replica, by
+                # prompt backlog; its handoff picks the decode replica
+                pre = [e for e in live if e.role == "prefill"]
+                if pre:
+                    order = sorted(pre, key=lambda e: e.prefill_backlog())
+                telemetry.set_gauge("serve.prefill_depth",
+                                    sum(e.depth() for e in pre))
+                telemetry.set_gauge(
+                    "serve.decode_depth",
+                    sum(e.decode_depth() for e in live
+                        if e.role == "decode"))
             if session is not None:
                 # affinity: a follow-up turn goes only to replicas holding
                 # the session (its K/V is there); with none alive it
-                # starts afresh, least-depth
+                # starts afresh.  Disaggregated, the decode replica that
+                # served the last turn holds the history (the prefill
+                # source keeps only a resolved claim)
                 holders = [e for e in live if e.has_session(session)]
                 if holders:
-                    order = sorted(holders, key=lambda e: e.depth())
+                    dec = [e for e in holders if e.role == "decode"]
+                    order = sorted(dec or holders, key=lambda e: e.depth())
             for eng in order:
                 try:
                     req = eng.submit(prompt, _count_shed=False, **kw)
@@ -3362,7 +3831,7 @@ class ReplicaRouter:
         if respawn and not self._stopped:
             try:
                 fresh = eng.respawn()
-                self._wire(fresh)
+                self._wire(fresh, eng.role)  # the role, before warmup
                 fresh.warmup()
             except Exception as ex:  # noqa: BLE001
                 # do not leave the fleet a replica short: mark the drained
@@ -3436,11 +3905,12 @@ class ReplicaRouter:
         return "replica%d" % idx
 
     def add_replica(self, role=None, name=None, template=None):
-        """Grow the fleet by one replica templated off a live one (the
-        parameters shared), warmed and started.  Returns it."""
-        if role is not None:
-            raise MXNetError("ReplicaRouter.add_replica: %s is not ported "
-                             "yet" % _DISAGG)
+        """Grow the fleet by one replica templated off a live one, warmed
+        and started: the autoscaler's scale-up.  The new engine shares the
+        template's parameter tensors (the same storage, no copy), and the
+        port builds no program, so its warmup only runs each bucket once.
+        Disaggregated, ``role`` picks its pool (decode by default).
+        Returns it."""
         if self._stopped:
             raise MXNetError("ReplicaRouter: router stopped")
         with self._lock:
@@ -3453,45 +3923,55 @@ class ReplicaRouter:
                                  "template a scale-up from")
             if name is None:
                 name = self._next_name()
+        if self._disagg and role is None:
+            role = "decode"
         fresh = template.respawn(name=name)
-        self._wire(fresh)
+        self._wire(fresh, role if self._disagg else None)
         fresh.warmup()
         with self._lock:
             self.engines.append(fresh)
+            if self._disagg and role == "prefill":
+                self._n_prefill += 1
             fleet = len(self.engines)
         fresh.start()
         telemetry.set_gauge("serve.replicas", fleet)
         return fresh
 
     def remove_replica(self, replica=None, deadline_ms=None, role=None):
-        """Shrink the fleet by one replica: `drain` it (its stragglers
-        migrate), then drop it.  With no ``replica`` the least-loaded
-        live one goes.  Refuses to remove the last replica.  Returns the
-        removed engine's name."""
-        if role is not None:
-            raise MXNetError("ReplicaRouter.remove_replica: %s is not "
-                             "ported yet" % _DISAGG)
+        """Shrink the fleet by one replica, the autoscaler's scale-down:
+        `drain` it (its stragglers and sessions migrate), then drop it.
+        With no ``replica`` the least-loaded live one (of ``role``, when
+        given) goes.  Refuses to remove the last replica, or disaggregated
+        the last of its role.  Returns the removed engine's name."""
         with self._lock:
             engines = list(self.engines)
         if replica is None:
             pool = [e for e in engines if e._dead is None
                     and not e._stopped.is_set() and not e._draining]
+            if role is not None:
+                pool = [e for e in pool if e.role == role]
             if not pool:
-                raise MXNetError("ReplicaRouter: no removable replica")
+                raise MXNetError("ReplicaRouter: no removable replica%s"
+                                 % (" with role %r" % role if role else ""))
             eng = min(pool, key=lambda e: e.depth())
         else:
             eng = self._resolve_engine(replica)
         with self._lock:
-            if not [e for e in self.engines if e is not eng]:
+            peers = [e for e in self.engines if e is not eng
+                     and (not self._disagg or e.role == eng.role)]
+            if not peers:
                 raise MXNetError(
                     "ReplicaRouter: refusing to remove %s: it is the last "
-                    "replica" % eng.name)
+                    "%sreplica" % (eng.name, "%s " % eng.role
+                                   if self._disagg else ""))
         self.drain(eng, deadline_ms=deadline_ms, respawn=False)
         with self._lock:
             try:
                 self.engines.remove(eng)
             except ValueError:
                 pass   # raced with a concurrent removal
+            if self._disagg and eng.role == "prefill":
+                self._n_prefill = max(1, self._n_prefill - 1)
             fleet = len(self.engines)
         telemetry.set_gauge("serve.replicas", fleet)
         return eng.name

@@ -43,6 +43,7 @@ from mxnet_tpu_torch.serving import (ReplicaRouter, ServeCancelled,
                                      ServeTimeout, ServingEngine)
 from mxnet_tpu_torch.serving.sampling import argmax, sample_tokens
 
+from test_torch_serving_moe import megastep_tapes
 from test_torch_serving_prefix import margins, models, wparams  # noqa: F401
 from test_torch_kernels import _one_thread  # noqa: F401
 
@@ -278,9 +279,11 @@ def test_megastep_refusals(models, wparams):
         _engine(models, wparams, megastep=True, paged=False)
     with pytest.raises(MXNetError, match="MEGASTEP_STEPS"):
         _mega(models, wparams, m=0)
-    with pytest.raises(MXNetError, match="MoE"):
-        models[1].decode_megastep(None, None, None, None, None, None, None,
-                                  1, None, moe_tape=[])
+    # MoE is ported: a megastep's tape is one count summed over its steps
+    # and layers, the JAX scan carry's
+    jt, tt = megastep_tapes()
+    assert len(tt) == len(jt) == 1
+    assert tt[0].tolist() == np.asarray(jt[0]).tolist()
 
 
 def test_megastep_respawn_carries_config(models, wparams):

@@ -409,15 +409,21 @@ def test_add_and_remove_replicas(models, wparams):
 
 def test_unported_router_parts_name_their_roadmap_item(models, wparams,
                                                        monkeypatch):
-    engines = _engines(models, wparams, False, n=1)
     with pytest.raises(MXNetError, match="ROADMAP.md queue 1"):
         ReplicaRouter.from_mesh(models[1], wparams)
-    with pytest.raises(MXNetError, match="ROADMAP.md queue 1.*handoff"):
-        ReplicaRouter(engines, disagg=True)
+    for method in (models[1].param_shardings, models[1].kv_shardings):
+        with pytest.raises(MXNetError, match="ROADMAP.md queue 1"):
+            method(None)
+    # disaggregation is ported: the keyword and the env switch build roles
+    pair = _engines(models, wparams, False, n=2)
+    ReplicaRouter(pair, disagg=True)
+    assert [e.role for e in pair] == ["prefill", "decode"]
+    pair = _engines(models, wparams, False, n=2)
     monkeypatch.setenv("MXNET_SERVE_DISAGG", "1")
-    with pytest.raises(MXNetError, match="disaggregated"):
-        ReplicaRouter(engines)
+    ReplicaRouter(pair)
+    assert [e.role for e in pair] == ["prefill", "decode"]
     monkeypatch.delenv("MXNET_SERVE_DISAGG")
+    engines = _engines(models, wparams, False, n=1)
     router = ReplicaRouter(engines)
     # sessions are ported: a session turn is served, and a stopped
     # replica's sessions have nowhere to go without a survivor

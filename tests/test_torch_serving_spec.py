@@ -47,6 +47,7 @@ from mxnet_tpu_torch.serving import (TRASH_BLOCK, ServingEngine,
 from mxnet_tpu_torch.serving.spec import (ModelDrafter, NgramDrafter,
                                           make_drafter)
 
+from test_torch_serving_moe import verify_tapes
 from test_torch_serving_prefix import margins, models, wparams  # noqa: F401
 from test_torch_kernels import _one_thread  # noqa: F401
 
@@ -245,9 +246,10 @@ def test_verify_paged_matches_jax_and_sequential_decode(models, wparams):
             torch.tensor([6 + j]), torch.from_numpy(tables[:1]))
         _close(tl[0, j], lg[0])
     assert not tm.cache_lost(tpool)
-    with pytest.raises(MXNetError, match="MoE"):
-        tm.verify_paged(tp, tpool, *(torch.from_numpy(a) for a in args),
-                        moe_tape=[])
+    # MoE is ported: a verify's tape is a count a layer, the JAX one's
+    jt, tt = verify_tapes()
+    assert len(tt) == len(jt) == L
+    assert [a.tolist() for a in tt] == [np.asarray(a).tolist() for a in jt]
 
 
 # -- parity, determinism, batch composition -------------------------------------

@@ -226,9 +226,9 @@ def test_module_fit_counters_match_jax(monkeypatch):
 
 
 @pytest.mark.parametrize("clause", ["rpc_drop:0.1", "server_crash:3",
-                                    "client_disconnect:0.2",
-                                    "handoff_fail:0.2",
-                                    "conn_flood:1:4"])
+                                    "rpc_delay:0.2:30",
+                                    "rpc_drop:0.5",
+                                    "server_crash:2:1"])
 def test_unported_chaos_clauses_raise(monkeypatch, clause):
     monkeypatch.setenv("MXNET_CHAOS", "nan_grad:2," + clause)
     assert jmx.chaos.spec() is not None  # the JAX package takes it
