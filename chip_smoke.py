@@ -347,7 +347,34 @@ Phases, each of which fails the run with a non-zero exit:
    127.0.0.1, port 0, over (b)'s fleet: 4 SSE streams equal to their
    requests' ``result()``, a client that hangs up after one token has
    its request cancelled and no block leaked; TTFB p50 beside the
-   engine's TTFT.
+   engine's TTFT;
+27. sub-mesh replicas and request tracing: (a) GPT-2 small in f32 at
+   V 50257 unsharded and as 2 shards on ``[cuda:0, cuda:0]`` (heads and
+   FFN split, the odd vocabulary replicated), paged, slot and with int8
+   weights and K/V, and at nanoGPT's padded V 50304 unsharded and as 4
+   shards (embedding and head split by vocabulary too), paged and slot,
+   phase 3's 16 requests each: tokens the unsharded engine's under the
+   1e-3 margin rule, the paged shards' kernel path teacher-forced within
+   1e-3 of the unsharded plain-LayerNorm path, exactly 2L + 1 LayerNorm a
+   program and L flash a slot prefill per shard's heads, per-device bytes
+   below the unsharded engine's with the total conserved, no block
+   leaked; (b) phase 26's MoE model unsharded and as 4 shards (2 experts
+   each): tokens under the margin rule and, where all agree, the expert
+   load equal; (c) `ReplicaRouter.from_mesh(devices_per_replica=2,
+   n_replicas=2)` over four entries of the card under
+   ``engine_crash:3:replica0``: every request the fault-free tokens
+   (margin rule), a flight-recorder dump of the dead replica, the
+   respawn at its width; (d) tracing on, off, on, off over phase 3's
+   requests: the same tokens, launches and host syncs, and the host
+   time of every tracing call; a prefill and a decode replica unsharded
+   and as 2-shard replicas, every trace across both, the handoff bytes
+   equal; the gateway over the sharded pair with its ``gateway_send``
+   spans; one traced megastep iteration (``ServingEngine.step``) under
+   ``set_sync_debug_mode("error")``, its ``host_sweep`` and ``megastep``
+   spans the engine's; the records written to
+   ``chiprun_out/trace_phase27.jsonl`` and rendered by
+   ``tools/trace_report.py``; tokens/s, TTFT, memory footprint and peak
+   memory of every run.
 
 It prints each phase's seconds, a ``kernels`` JSON line (launches,
 errors, times, bounds; the float32 flash forward's and backward's routes
@@ -396,6 +423,7 @@ from mxnet_tpu_torch.ops.pallas_kernels.layer_norm import (
     layer_norm_bwd, layer_norm_fwd, layer_norm_plain)
 from mxnet_tpu_torch.serving import (ReplicaRouter, ServingEngine,
                                      TransformerKVModel, pool_bytes)
+from mxnet_tpu_torch.parallel.mesh import make_mesh, submeshes
 from mxnet_tpu_torch.serving import decode as decode_mod
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32 on the
@@ -1874,11 +1902,13 @@ def serve(engine, requests):
         "card_after": state, "stats": dict(engine.stats)}
 
 
-def teacher_forced_kernel_logits(model, params, prompt, gen, block_size):
+def teacher_forced_kernel_logits(model, params, prompt, gen, block_size,
+                                 dev=None):
     """Logits at each generated position through the engine's own kind
     of launches: one paged prefill chunk over the prompt, then one paged
-    decode per generated token (kernels on)."""
-    dev = params["embed_weight"].device
+    decode per generated token (kernels on).  ``dev`` defaults to the
+    parameters' device (a sub-mesh model's shards name their own)."""
+    dev = params["embed_weight"].device if dev is None else dev
     n_table = -(-model.seq_len // block_size)
     pool = model.init_block_pool(n_table + 1, block_size, device=dev)
     table = torch.arange(1, n_table + 1, device=dev)[None, :]
@@ -7278,6 +7308,545 @@ def moe_disagg_gateway_phase():
     return out
 
 
+# -- phase 27: sub-mesh serving replicas and request tracing ---------------
+
+# nanoGPT's padded GPT-2 vocabulary: 50304 = 2^7 x 393 splits 2 and 4 ways,
+# where GPT-2's own 50257 (odd) keeps the embedding and the head
+# replicated
+PADDED_VOCAB = 50304
+SHARD_LOGIT_REQUESTS = 2
+
+
+def phase3_traffic(vocab):
+    """Phase 3's 16 requests (32-768-token prompts, 32 new tokens, odd
+    ones sampled at T=0.8, top_k 50, top_p 0.95), drawn for ``vocab``."""
+    rng = np.random.RandomState(0)
+    out = []
+    for i, n in enumerate(rng.randint(32, 769, size=16)):
+        prompt = rng.randint(0, vocab, size=int(n)).tolist()
+        kw = dict(max_new_tokens=32, seed=i)
+        if i % 2:
+            kw.update(temperature=0.8, top_k=50, top_p=0.95)
+        out.append((prompt, kw))
+    return out
+
+
+def card_group(k):
+    """A k-shard group on the one card: ``[cuda:0] * k``."""
+    return submeshes([torch.device("cuda", 0)] * k, k)[0]
+
+
+def shard_serve(label, model, params, requests, shards, kw):
+    """One engine of ``kw`` over ``shards`` entries of the card (1: the
+    unsharded engine) serving ``requests`` to the end: its requests and
+    numbers, with its memory accounting, exactly 2L LayerNorm a program
+    per distinct device of the group plus the final one (per distinct
+    device before a vocab-split head) and, on the slot cache, L
+    flash launches a prefill per attention unit (a shard's heads), no
+    block leaked."""
+    ctx = None if shards == 1 else card_group(shards)
+    engine = ServingEngine(model, params, ctx=ctx, max_batch=8, **kw)
+    t0 = time.perf_counter()
+    engine.warmup()
+    warm_s = time.perf_counter() - t0
+    mf = engine.memory_footprint()
+    reqs, res = serve(engine, requests)
+    stragglers = engine.drain()
+    st = engine.stats
+    L = model.num_layers
+    plan = engine.model.plan
+    devs, units = len(plan.devs), len(plan.units)
+    # the final LayerNorm runs per distinct device only before a
+    # vocab-split head
+    final = devs if plan.groups["vocab"] else 1
+    programs = programs_run(engine) + (0 if engine._paged
+                                       else st["prefills"])
+    want = {"layer_norm": (2 * L * devs + final) * programs,
+            "flash_attention": 0 if engine._paged
+            else L * units * st["prefills"]}
+    got = {k: res["launches"].get(k, 0) for k in want}
+    others = {k: n for k, n in res["launches"].items()
+              if k not in want and n}
+    res.update(label=label, shards=shards, warmup_s=warm_s,
+               memory_footprint=mf, expected=want,
+               groups=plan.groups,
+               attention_units=units,
+               leaked_blocks=engine.leaked_blocks() if engine._paged else 0)
+    log("%s (%s): %d tokens in %.3f s = %.1f tok/s, ttft median %.1f ms p99 "
+        "%.1f ms, memory_footprint total %d B, per device (by shard "
+        "position) %d B, per shard %s, physical %s, max_memory_allocated "
+        "%d B, split groups %s, launches %s (expected %s)"
+        % (label, card_name(), res["generated_tokens"], res["wall_s"],
+           res["tokens_per_s"], res["ttft_ms_median"], res["ttft_ms_p99"],
+           mf["total_bytes"], mf["per_device_bytes"], mf["per_shard_bytes"],
+           mf["physical_device_bytes"], res["max_memory_allocated"],
+           res["groups"], got, want))
+    if got != want or others or stragglers or res["leaked_blocks"]:
+        raise SystemExit("%s: launches %s (expected %s), other launches %s, "
+                         "stragglers %d, leaked %d"
+                         % (label, got, want, others, len(stragglers),
+                            res["leaked_blocks"]))
+    return engine, reqs, res
+
+
+def shard_logit_check(label, engine, model, params, reqs):
+    """A sub-mesh engine's kernel path, teacher-forced through its
+    partitioned paged programs, against the unsharded plain-LayerNorm
+    path on the same tokens: within LOGIT_TOL."""
+    out = []
+    for r in reqs[:SHARD_LOGIT_REQUESTS]:
+        ref = reference_logits(model, params, r.prompt, r.tokens)
+        got = teacher_forced_kernel_logits(engine.model, engine._params,
+                                           r.prompt, r.tokens,
+                                           engine.block_size,
+                                           dev=engine.device)
+        err = float((got - ref).abs().max())
+        out.append({"request": r.id, "positions": len(r.tokens),
+                    "max_abs_err": err, "tol": LOGIT_TOL})
+        log("%s logits, request %d (%d positions): sharded kernel path vs "
+            "unsharded plain f32 err %.3e (tol %.0e)"
+            % (label, r.id, len(r.tokens), err, LOGIT_TOL))
+        if not err <= LOGIT_TOL:
+            raise SystemExit("%s: sharded logits disagree with the plain "
+                             "path" % label)
+    return out
+
+
+def add_launches(total, launches):
+    for k, n in launches.items():
+        total[k] = total.get(k, 0) + n
+
+
+def dense_shard_part(vocab, shard_counts, launches):
+    """(a): GPT-2 small at ``vocab`` unsharded and at each shard count,
+    paged and slot (and w8 + kv8 at 2 shards for V 50257): tokens equal
+    under the 1e-3 margin rule, the kernel path within 1e-3 of the plain
+    one, per-device bytes below the unsharded engine's with the total
+    conserved."""
+    model = TransformerKVModel(**dict(GPT2, vocab_size=vocab))
+    params = card_params(model, 0)
+    requests = phase3_traffic(vocab)
+    out = {}
+    modes = [("paged", {}), ("slot", dict(paged=False))]
+    if 2 in shard_counts:
+        modes.append(("w8+kv8", dict(quant="int8", kv_quant="int8")))
+    for mode, kw in modes:
+        quant = "quant" in kw
+        # the margin rule's plain path: the quantized model's own
+        ref_model = model.with_quant("int8", "int8") if quant else model
+        ref_params = ref_model.quantize_params(params) if quant else params
+        base_engine, base, out["%s 1 shard" % mode] = shard_serve(
+            "V %d %s, 1 shard" % (vocab, mode), model, params, requests, 1,
+            kw)
+        add_launches(launches, out["%s 1 shard" % mode]["launches"])
+        one = out["%s 1 shard" % mode]["memory_footprint"]
+        del base_engine
+        for k in shard_counts:
+            key = "%s %d shards" % (mode, k)
+            engine, reqs, out[key] = shard_serve(
+                "V %d %s, %d shards" % (vocab, mode, k), model, params,
+                requests, k, kw)
+            add_launches(launches, out[key]["launches"])
+            mf = out[key]["memory_footprint"]
+            if mf["total_bytes"] != one["total_bytes"] or \
+                    not mf["per_device_bytes"] < one["per_device_bytes"] \
+                    or mf["devices"] != k:
+                raise SystemExit("%s: memory footprint %s against the "
+                                 "unsharded %s" % (key, mf, one))
+            out[key]["parted"] = same_tokens(
+                key + " vs 1 shard", ref_model, ref_params, requests, base,
+                reqs)
+            if mode == "paged":
+                out[key]["logit_checks"] = shard_logit_check(
+                    "V %d %d shards" % (vocab, k), engine, model, params,
+                    reqs)
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_routing(model, params, seqs, dev):
+    """Per-expert routed rows of ``seqs`` teacher-forced through one paged
+    prefill each (whole blocks of real tokens: no padding row, no trash
+    block), every layer summed."""
+    total = None
+    for seq in seqs:
+        n = min(16 * (len(seq) // 16), model.seq_len)
+        if n == 0:
+            continue
+        pool = model.init_block_pool(n // 16 + 1, 16, device=dev)
+        table = torch.arange(1, n // 16 + 1, device=dev)[None, :]
+        zero = torch.zeros((1,), dtype=torch.long, device=dev)
+        tape = []
+        model.prefill_paged(params, pool, torch.tensor([seq[:n]], device=dev),
+                            zero, zero + n, table, moe_tape=tape)
+        cnt = torch.stack(tape).sum(dim=0)
+        total = cnt if total is None else total + cnt
+    return total.tolist()
+
+
+def moe_shard_part(launches):
+    """(b): GPT-2 small's widths with 8 experts top-1, unsharded (twice)
+    and over 4 shards (2 experts each): tokens under the margin rule, the
+    engines' routed totals equal, and the routing of the requests' real
+    rows, teacher-forced through both models, equal expert by expert.
+    The engines' per-expert loads are logged beside: they count padding
+    rows, whose context is the trash block that duplicate-index writes
+    fill in any order on the card."""
+    model = TransformerKVModel(moe_experts=MOE_EXPERTS, **GPT2)
+    params = card_params(model, 0)
+    requests = phase3_traffic(model.vocab_size)
+    out = {}
+    runs = {}
+    sharded = None
+    for key, k in (("1 shard", 1), ("1 shard, again", 1), ("4 shards", 4)):
+        engine, runs[key], res = shard_serve(
+            "MoE paged, %s" % key, model, params, requests, k, {})
+        add_launches(launches, res["launches"])
+        res["expert_load"] = engine.expert_load().tolist()
+        out[key] = res
+        if k == 4:
+            sharded = engine
+        del engine
+        torch.cuda.empty_cache()
+    parted = same_tokens("MoE 4 shards vs 1 shard", model, params, requests,
+                         runs["1 shard"], runs["4 shards"])
+    loads = {k: out[k]["expert_load"] for k in out}
+    seqs = [r.prompt + r.tokens for r in runs["1 shard"][:4]]
+    want = moe_routing(model, params, seqs, torch.device("cuda", 0))
+    got = moe_routing(sharded.model, sharded._params, seqs,
+                      torch.device("cuda", 0))
+    out.update(parted=parted, engine_loads=loads,
+               routing_unsharded=want, routing_4_shards=got)
+    log("MoE expert load (%s): engines (padding rows included) unsharded "
+        "%s, again %s, 4 shards %s; real rows of 4 requests teacher-forced: "
+        "unsharded %s, 4 shards %s, equal %s"
+        % (card_name(), loads["1 shard"], loads["1 shard, again"],
+           loads["4 shards"], want, got, want == got))
+    if want != got or len({sum(v) for v in loads.values()}) != 1:
+        raise SystemExit("MoE: routing %s vs %s, engine totals %s"
+                         % (want, got, [sum(v) for v in loads.values()]))
+    del params, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_shard_part(model, params, requests, want, launches, records):
+    """(c): `from_mesh(devices_per_replica=2, n_replicas=2)` over four
+    entries of the card under ``engine_crash:3:replica0``: every request
+    resolves with the fault-free tokens (margin rule), a flight-recorder
+    dump names the dead replica, the respawn keeps its group."""
+    grid = make_mesh((4,), ("model",),
+                     devices=[torch.device("cuda", 0)] * 4)
+    router = ReplicaRouter.from_mesh(model, params, mesh=grid,
+                                     devices_per_replica=2, n_replicas=2,
+                                     respawn=True, max_batch=8)
+    widths = [e._mesh.devices.shape[0] for e in router.engines]
+    router.warmup()
+    with pinned(MXNET_CHAOS="engine_crash:3:replica0"):
+        mx.chaos.reset()
+        router.start()
+        try:
+            reset_counts()
+            reqs, wall, gen = run_router(router, requests)
+            add_launches(launches, read_counts())
+        finally:
+            router.stop()
+    mx.chaos.reset()
+    dumps = [r for r in records if r.get("type") == "flight_recorder"
+             and r.get("reason") == "scheduler_death"]
+    live = [e for e in router.engines if e._dead is None]
+    res = {"widths": widths, "wall_s": wall, "generated_tokens": gen,
+           "tokens_per_s": gen / wall,
+           "failovers": mx.telemetry.registry().counter(
+               "serve.failovers").value,
+           "dumps": [(d["replica"], d["n"]) for d in dumps],
+           "live_widths": [e._mesh.devices.shape[0] for e in live
+                           if e._mesh is not None]}
+    res["parted"] = same_tokens("from_mesh 2x2 under engine_crash vs 1 shard",
+                                model, params, requests, want, reqs)
+    log("from_mesh fleet (%s): replicas of %s shards, %d tokens in %.3f s = "
+        "%.1f tok/s under engine_crash:3:replica0, failovers %d, "
+        "flight-recorder dumps %s, live replicas' widths %s"
+        % (card_name(), widths, gen, wall, res["tokens_per_s"],
+           res["failovers"], res["dumps"], res["live_widths"]))
+    if widths != [2, 2] or not res["failovers"] or not any(
+            d[0] == "replica0" and d[1] > 0 for d in res["dumps"]) or \
+            any(w != 2 for w in res["live_widths"]):
+        raise SystemExit("from_mesh fleet: %s" % res)
+    del router
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def count_syncs(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: its
+    result and the synchronizing CUDA operations it made (the engine's
+    host syncs: each fetch of picked tokens)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+# the `mx.tracing` functions the serving stack calls
+TRACE_SITES = ("open_trace", "phase", "add_span", "on_finish", "context",
+               "adopt", "dump")
+
+
+@contextlib.contextmanager
+def timed_tracing(acc):
+    """Every call the serving stack makes into `mx.tracing` timed on the
+    host's clock while the block runs: their seconds and their number
+    summed into ``acc`` (the telemetry tap that feeds the flight
+    recorder is not among them)."""
+    saved = {n: getattr(mx.tracing, n) for n in TRACE_SITES}
+
+    def wrap(fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc["s"] += time.perf_counter() - t0
+                acc["calls"] += 1
+        return timed
+    for n, fn in saved.items():
+        setattr(mx.tracing, n, wrap(fn))
+    try:
+        yield acc
+    finally:
+        for n, fn in saved.items():
+            setattr(mx.tracing, n, fn)
+
+
+def tracing_on_off(model, params, requests, launches):
+    """(d): phase 3's requests through the default engine with tracing
+    on, off, on, off in one process, after one untraced run whose
+    requests are the phase's fault-free reference (a process's first
+    serve makes one synchronizing call the later ones do not): the same
+    tokens bit for bit, the same LayerNorm and flash launches, the same
+    host syncs."""
+    runs, first = [], None
+    for on in (False, True, False, True, False):
+        with pinned(MXNET_SERVE_TRACING="1" if on else "0"):
+            mx.tracing.reset()
+            engine = ServingEngine(model, params, max_batch=8)
+            engine.warmup()
+            acc = {"s": 0.0, "calls": 0}
+            with timed_tracing(acc):
+                (reqs, res), syncs = count_syncs(
+                    lambda: serve(engine, requests))
+            add_launches(launches, res["launches"])
+            if first is None:
+                first = reqs
+                continue
+            runs.append({"tracing": on, "tokens": [r.tokens for r in reqs],
+                         "tokens_per_s": res["tokens_per_s"],
+                         "ttft_ms_median": res["ttft_ms_median"],
+                         "launches": res["launches"], "syncs": syncs,
+                         "tracing_calls": acc["calls"],
+                         "tracing_host_s": acc["s"],
+                         "tracing_host_share": acc["s"] / res["wall_s"]})
+            del engine
+    mx.tracing.reset()
+    same = [r.tokens for r in first] == runs[0]["tokens"] and all(
+        r["tokens"] == runs[0]["tokens"]
+        and r["launches"] == runs[0]["launches"]
+        and r["syncs"] == runs[0]["syncs"] for r in runs)
+    log("tracing on/off/on/off (%s): tok/s %s, ttft median %s ms, "
+        "LayerNorm launches %s, host syncs %s; tracing calls %s, their "
+        "host seconds %s, share of the serve's wall %s; tokens, launches "
+        "and syncs equal: %s"
+        % (card_name(), [r["tokens_per_s"] for r in runs],
+           [r["ttft_ms_median"] for r in runs],
+           [r["launches"]["layer_norm"] for r in runs],
+           [r["syncs"] for r in runs], [r["tracing_calls"] for r in runs],
+           [r["tracing_host_s"] for r in runs],
+           [r["tracing_host_share"] for r in runs], same))
+    if not same:
+        raise SystemExit("tracing changed the tokens, the launches or the "
+                         "host syncs")
+    for r in runs:
+        del r["tokens"]
+    return runs, first
+
+
+def disagg_shard_part(model, params, requests, want, launches, records):
+    """(d): a prefill and a decode replica, unsharded and as 2-shard
+    sub-mesh replicas, traced: every request one trace across both
+    replicas, the handoff bytes equal to the unsharded pair's, tokens
+    under the margin rule; then the gateway over the sharded pair, each
+    SSE stream closing a ``gateway_send`` span."""
+    out = {}
+    fleets = {}
+    for label, ctxs in (("unsharded", [None, None]),
+                        ("2 shards", [card_group(2), card_group(2)])):
+        before = mx.telemetry.registry().counter("serve.handoff_bytes").value
+        engines = [ServingEngine(model, params, ctx=c, max_batch=8,
+                                 name="%s%d" % ("replica" if i == 0 else
+                                                "decode", i))
+                   for i, c in enumerate(ctxs)]
+        router = ReplicaRouter(engines, respawn=False, disagg=True,
+                               prefill_replicas=1)
+        router.warmup()
+        router.start()
+        reset_counts()
+        reqs, wall, gen = run_router(router, requests)
+        add_launches(launches, read_counts())
+        nbytes = mx.telemetry.registry().counter(
+            "serve.handoff_bytes").value - before
+        ids = {r.id for r in reqs}
+        spans = mx.tracing.spans(records)
+        crossed = sum(1 for t in ids if {s["replica"] for s in spans.get(
+            t, ())} >= {e.name for e in engines})
+        out[label] = {"handoffs": engines[0].stats["handoffs"],
+                      "handoff_bytes": nbytes, "wall_s": wall,
+                      "tokens_per_s": gen / wall, "traces_across": crossed,
+                      "parted": same_tokens(
+                          "disagg %s vs 1 shard" % label, model, params,
+                          requests, want, reqs)}
+        log("disagg %s (%s): %d handoffs, %d B, %d tokens in %.3f s = %.1f "
+            "tok/s, %d of %d traces across both replicas"
+            % (label, card_name(), out[label]["handoffs"], nbytes, gen, wall,
+               gen / wall, crossed, len(reqs)))
+        if out[label]["handoffs"] != len(requests) or crossed != len(reqs):
+            raise SystemExit("disagg %s: %s" % (label, out[label]))
+        fleets[label] = router
+    if out["2 shards"]["handoff_bytes"] != out["unsharded"]["handoff_bytes"]:
+        raise SystemExit("the sharded pair handed off %d B, the unsharded "
+                         "%d B" % (out["2 shards"]["handoff_bytes"],
+                                   out["unsharded"]["handoff_bytes"]))
+    fleets["unsharded"].stop()
+    n_send = sum(1 for r in records if r.get("phase") == "gateway_send")
+    out["gateway"] = gateway_part(fleets["2 shards"], requests)
+    fleets["2 shards"].stop()
+    sends = [r for r in records if r.get("phase") == "gateway_send"]
+    out["gateway"]["gateway_send_spans"] = len(sends) - n_send
+    if len(sends) - n_send < GATEWAY_REQUESTS:
+        raise SystemExit("the gateway closed %d gateway_send spans"
+                         % (len(sends) - n_send))
+    del fleets
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def traced_megastep_sync_free(model, params, records):
+    """A megastep engine with tracing on: 8 sampled rows admitted, then
+    one scheduler iteration (`ServingEngine.step`: growth, the megastep
+    launch and its token-grid copy, the host sweep and its
+    ``host_sweep`` span, the event wait and the ``megastep`` span) under
+    ``set_sync_debug_mode("error")``.  The spans must come from that
+    iteration, on the engine's replica."""
+    engine = ServingEngine(model, params, max_batch=8,
+                           megastep=True, megastep_steps=4,
+                           name="traced_mega")
+    engine.warmup()
+    rng = np.random.RandomState(3)
+    reqs = [engine.submit(rng.randint(0, model.vocab_size, 16).tolist(),
+                          max_new_tokens=16, temperature=0.8, top_k=40,
+                          seed=i) for i in range(8)]
+    while len(engine._active) < 8 or engine._pending_work():
+        engine.step()
+    torch.cuda.synchronize()
+
+    def mine():
+        return [r["phase"] for r in records if r.get("type") == "span"
+                and r.get("replica") == engine.name and r.get("trace") == 0]
+    n0 = len(mine())
+    mega0 = engine.stats["megasteps"]
+    errs0 = engine.stats.get("launch_errors", 0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    spans = mine()[n0:]
+    iteration = {"megasteps": engine.stats["megasteps"] - mega0,
+                 "launch_errors": engine.stats.get("launch_errors", 0)
+                 - errs0, "spans": spans}
+    engine.run_until_idle(timeout=120)
+    ok = iteration["megasteps"] == 1 and iteration["launch_errors"] == 0 \
+        and sorted(spans) == ["host_sweep", "megastep"] \
+        and all(len(r.tokens) == 16 for r in reqs)
+    log("no host sync, traced (%s): one engine.step() of megastep m=4 over "
+        "8 sampled rows under set_sync_debug_mode('error'): %s"
+        % (card_name(), iteration))
+    if not ok:
+        raise SystemExit("the traced megastep: %s, tokens %s"
+                         % (iteration, [len(r.tokens) for r in reqs]))
+    del engine
+    torch.cuda.empty_cache()
+    return iteration
+
+
+def sharded_tracing_phase():
+    """Phase 27: sub-mesh serving replicas and request tracing on GPT-2
+    small in float32."""
+    out = {"card": card_name()}
+    launches = {}
+    out["dense 50257"] = dense_shard_part(GPT2["vocab_size"], (2,), launches)
+    out["dense 50304"] = dense_shard_part(PADDED_VOCAB, (4,), launches)
+    out["moe"] = moe_shard_part(launches)
+    model = TransformerKVModel(**GPT2)
+    params = card_params(model, 0)
+    requests = phase3_traffic(model.vocab_size)
+    path = Path("chiprun_out") / "trace_phase27.jsonl"
+    path.parent.mkdir(exist_ok=True)
+    if path.exists():
+        path.unlink()
+    mem = mx.telemetry.add_sink(mx.telemetry.MemorySink())
+    jsonl = mx.telemetry.add_sink(mx.telemetry.JsonlSink(str(path)))
+    try:
+        # the first traced run's requests are the fault-free reference
+        out["tracing"], want = tracing_on_off(model, params, requests,
+                                              launches)
+        mx.tracing.reset()
+        out["fleet"] = fleet_shard_part(model, params, requests, want,
+                                        launches, mem.records)
+        out["disagg"] = disagg_shard_part(model, params, requests, want,
+                                          launches, mem.records)
+        out["sync_free"] = traced_megastep_sync_free(model, params,
+                                                     mem.records)
+    finally:
+        mx.telemetry.remove_sink(mem)
+        mx.telemetry.remove_sink(jsonl)
+        mx.tracing.reset()
+    kinds = {}
+    for r in mem.records:
+        kinds[r.get("type")] = kinds.get(r.get("type"), 0) + 1
+    chrome = Path("chiprun_out") / "trace_phase27_chrome.json"
+    rep = subprocess.run([sys.executable, "tools/trace_report.py", str(path),
+                          "--chrome", str(chrome)], capture_output=True,
+                         text=True, timeout=300)
+    out["trace_report"] = {"rc": rep.returncode, "records": kinds,
+                           "bytes": path.stat().st_size,
+                           "head": rep.stdout[:2000]}
+    log("trace records (%s): %s, %d B of JSONL; tools/trace_report.py rc %d:"
+        "\n%s" % (card_name(), kinds, out["trace_report"]["bytes"],
+                  rep.returncode, rep.stdout[:1500]))
+    if rep.returncode != 0 or "queue_wait" not in rep.stdout or \
+            not json.loads(chrome.read_text()):
+        raise SystemExit("tools/trace_report.py failed: %s" % rep.stderr)
+    out["launches"] = launches
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernels_line(cases, paths, f32_paths, wide_paths):
     """One entry per ported TPU function: launches on each path, and the
     error and times of its check at the training shape, in bf16; then one
@@ -7580,6 +8149,8 @@ def main():
         tiers = tier_session_quant_phase()
     with phase("MoE, disaggregated fleet and gateway"):
         moe = moe_disagg_gateway_phase()
+    with phase("sub-mesh replicas and request tracing"):
+        sharded = sharded_tracing_phase()
     crash = faults["serving"]["failover"]["engine_crash"]
     # the LM's LayerNorm launches join the LayerNorm rows; its float32
     # flash launches the float32 flash rows
@@ -7619,7 +8190,10 @@ def main():
             for k, n in tiers["launches"].items()},
         "serving_moe_disagg_gateway_f32": {
             k: (n if k.startswith("layer_norm") else 0)
-            for k, n in moe["launches"].items()}}, {
+            for k, n in moe["launches"].items()},
+        "serving_sharded_tracing_f32": {
+            k: (n if k.startswith("layer_norm") else 0)
+            for k, n in sharded["launches"].items()}}, {
         "slot": slot["launches"],
         "train_bhsd_f32": hsd32["launches"],
         "train_fused_f32": fused32["launches"],
@@ -7640,7 +8214,8 @@ def main():
         "serving_failover_f32": crash["launches"],
         "serving_spec_megastep_f32": spec["launches"],
         "serving_tier_session_quant_f32": tiers["launches"],
-        "serving_moe_disagg_gateway_f32": moe["launches"]}, {
+        "serving_moe_disagg_gateway_f32": moe["launches"],
+        "serving_sharded_tracing_f32": sharded["launches"]}, {
         torch.bfloat16: {"train_wide_bhsd": wide["bhsd"]["launches"]},
         torch.float32: {"gradients_wide": wide["gradients"]["launches"]}})
     idle = [e["name"] for e in kernels if not e["launches"]]
@@ -7674,7 +8249,7 @@ def main():
          "image_records": records, "head256": head256,
          "remat": remat_runs, "memcost": memcost, "wide": wide,
          "spec_megastep": spec, "tier_session_quant": tiers,
-         "moe_disagg_gateway": moe,
+         "moe_disagg_gateway": moe, "sharded_tracing": sharded,
          "kernels": kernels},
         indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

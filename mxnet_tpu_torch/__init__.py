@@ -108,7 +108,7 @@ from . import ndarray as nd
 from . import lr_scheduler, metric, callback, io, kvstore
 from . import kvstore as kv
 from . import executor, executor_manager, checkpoint, model, monitor
-from . import telemetry, chaos, storage, resource
+from . import telemetry, chaos, storage, resource, tracing
 from . import engine, recordio, image
 from . import serving
 from . import quant

@@ -31,8 +31,8 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["QuantSpec", "resolve", "fp8_supported", "quantize",
-           "dequantize", "quantize_rows", "encode_wire", "decode_wire",
-           "wire_nbytes", "WIRE_GROUP"]
+           "dequantize", "quantize_rows", "row_amax", "encode_wire",
+           "decode_wire", "wire_nbytes", "WIRE_GROUP"]
 
 _OFF = ("", "0", "none", "off", "false", "no", "bf16", "fp32")
 
@@ -157,16 +157,27 @@ def quantize(x, spec, axis=0):
     return _cast_q(x / scale.reshape(shape), spec), scale
 
 
-def quantize_rows(x, spec):
+def row_amax(x):
+    """The per-row amax `quantize_rows` scales by: ``|x|`` maxed over the
+    last axis, in f32."""
+    x = _f32(x)
+    return _amax(x, (x.ndim - 1,))
+
+
+def quantize_rows(x, spec, amax=None):
     """Per-row symmetric quantization: one f32 scale per index of every
     leading axis, amax over the last axis only.  Returns ``(q, scale)``,
     ``scale`` shaped ``x.shape[:-1]``: the K/V pool's layout, where each
-    cached token row carries its own scale."""
+    cached token row carries its own scale.  ``amax`` overrides the row's
+    own: a sub-mesh replica quantizes each shard's slice of a row by the
+    max of every shard's `row_amax`, the whole row's."""
     spec = resolve(spec)
     if spec is None:
         raise MXNetError("quantize_rows: spec resolved to None (quant off)")
     x = _f32(x)
-    scale = _scale_from_amax(_amax(x, (x.ndim - 1,)), spec.qmax)
+    if amax is None:
+        amax = _amax(x, (x.ndim - 1,))
+    scale = _scale_from_amax(amax, spec.qmax)
     return _cast_q(x / scale[..., None], spec), scale
 
 

@@ -12,8 +12,10 @@ routed mixture of experts and reports its routing
 (`ServingEngine.expert_load`); `handoff` is the disaggregated fleet's
 prefill-to-decode transfer (``ReplicaRouter(disagg=True)``);
 `autoscale.AutoScaler` resizes a fleet off its load and
-`gateway.ServeGateway` serves it over HTTP with server-sent events.  See
-`engine` for what this port covers and what waits for the next slice.
+`gateway.ServeGateway` serves it over HTTP with server-sent events.
+``ServingEngine(ctx=mesh)`` is a sub-mesh replica (`sharded`), and
+`ReplicaRouter.from_mesh` a fleet of them.  See `engine` for what this
+port covers.
 """
 from .autoscale import AutoScaler, autoscale_enabled
 from .decode import TransformerKVModel
@@ -27,6 +29,7 @@ from .errors import (ServeBlocksExhausted, ServeCacheInvalidated,
 from .journal import RequestJournal, journal_enabled
 from .paged import TRASH_BLOCK, BlockAllocator, PrefixCache, pool_bytes
 from .sampling import sample_tokens
+from .sharded import ShardedKVModel
 from .spec import Drafter, ModelDrafter, NgramDrafter, make_drafter
 from .tiers import HostBlockTier, pack_block_run
 
@@ -41,4 +44,4 @@ __all__ = ["TransformerKVModel", "ServeRequest", "ServingEngine",
            "ServeEngineDead", "HostBlockTier", "pack_block_run",
            "BlockAllocator", "PrefixCache", "TRASH_BLOCK", "pool_bytes",
            "sample_tokens", "Drafter", "NgramDrafter", "ModelDrafter",
-           "make_drafter"]
+           "make_drafter", "ShardedKVModel"]

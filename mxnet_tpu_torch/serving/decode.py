@@ -61,9 +61,15 @@ routed mixture of E expert FFNs (`_ffn`), dispatched densely as in the
 JAX package, so a row's result never depends on its batch.  Every
 program takes ``moe_tape``, a list that collects the per-expert routed
 row counts of each layer (padding rows included); `decode_megastep`
-appends one count summed over its steps and layers.  The sharding
-methods (`param_shardings`, `kv_shardings`) wait for the sharded
-replicas of ROADMAP.md queue 1, item 2.
+appends one count summed over its steps and layers.
+
+Sub-mesh replicas: `param_shardings` and `kv_shardings` give the JAX
+package's split rules as plain descriptors (the axis a tensor splits on,
+or None), and `shard_params` cuts a parameter dict into per-shard dicts.
+Every program is written once, over the model's `ShardPlan`: the
+unsharded model is the one-shard plan (one device, one attention unit of
+full width, every group replicated), and `sharded.ShardedKVModel` swaps
+in a k-shard plan with its own parameter and buffer layouts.
 """
 from __future__ import annotations
 
@@ -81,10 +87,48 @@ from ..ops.attention import (chunk_attention, decode_attention,
 from ..ops.indexing import as_index, in_range, take_rows
 from ..ops.pallas_kernels.flash_attention import flash_attention
 from ..ops.pallas_kernels.layer_norm import layer_norm
-from ..quant.codec import quantize, quantize_rows
+from ..parallel.mesh import _device
+from ..quant.codec import quantize, quantize_rows, row_amax
 from ..quant.codec import resolve as quant_resolve
 
 __all__ = ["TransformerKVModel"]
+
+
+class ShardPlan:
+    """Where a k-way shard axis puts a model's work.
+
+    ``devices`` is each shard's device, in shard order; ``devs`` the
+    distinct devices in order of first appearance (``home``, shard 0's, is
+    first); ``groups`` which weight groups split (`TransformerKVModel.
+    shard_groups`); ``units`` the attention units, each ``(device, lo,
+    hi, shard)``: the embed columns [lo, hi) of one shard's heads when the
+    heads split, else one whole-width unit per distinct device fed by the
+    first shard there.  ``ShardPlan(model)`` is the unsharded model's
+    one-shard plan, keyed by None: the device its tensors lie on."""
+
+    def __init__(self, model, devices=(None,)):
+        self.devices = [None if d is None else _device(d) for d in devices]
+        self.k = len(self.devices)
+        if self.k < 1:
+            raise MXNetError("ShardPlan: no devices")
+        self.devs = []
+        self.first = {}
+        for s, d in enumerate(self.devices):
+            if d not in self.first:
+                self.first[d] = s
+                self.devs.append(d)
+        self.home = self.devs[0]
+        self.groups = model.shard_groups(self.k)
+        e = model.num_embed
+        if self.groups["heads"]:
+            w = e // self.k
+            self.units = [(d, s * w, (s + 1) * w, s)
+                          for s, d in enumerate(self.devices)]
+        else:
+            self.units = [(d, 0, e, self.first[d]) for d in self.devs]
+
+    def signature(self):
+        return (self.k, tuple(str(d) for d in self.devices))
 
 
 class TransformerKVModel:
@@ -117,6 +161,9 @@ class TransformerKVModel:
         # post-training quantization specs (None: full precision)
         self.quant = quant_resolve(quant)
         self.kv_quant = quant_resolve(kv_quant)
+        # where the programs' work goes: one shard, unless a sub-mesh
+        # replica swaps in its own (`sharded.ShardedKVModel`)
+        self.plan = ShardPlan(self)
 
     def with_quant(self, quant, kv_quant):
         """A shallow copy of this geometry with the given quantization
@@ -244,14 +291,91 @@ class TransformerKVModel:
             out[name + "_qscale"] = scale
         return out
 
-    def param_shardings(self, *args, **kw):
-        raise MXNetError("TransformerKVModel.param_shardings: sharded "
-                         "replicas are not ported yet (ROADMAP.md queue 1, "
-                         "item 2)")
+    # -- sub-mesh sharding rules -------------------------------------------
+    def shard_groups(self, k):
+        """Which weight groups a k-way shard axis splits: ``heads`` (q/k/v
+        by whole heads, attn_out by the matching rows, and the K/V cache),
+        ``ffn`` (ffn1 by columns, ffn2 by rows), ``vocab`` (the embedding
+        and the pred head) and ``experts`` (MoE banks).  A group splits
+        only when k > 1 divides it; the rest is replicated."""
+        k = int(k)
+        return {"heads": k > 1 and self.num_heads % k == 0,
+                "ffn": (k > 1 and not self.moe_experts
+                        and self.num_ffn_hidden % k == 0),
+                "vocab": k > 1 and self.vocab_size % k == 0,
+                "experts": (k > 1 and self.moe_experts > 0
+                            and self.moe_experts % k == 0)}
 
-    def kv_shardings(self, *args, **kw):
-        raise MXNetError("TransformerKVModel.kv_shardings: sharded replicas "
-                         "are not ported yet (ROADMAP.md queue 1, item 2)")
+    def param_shardings(self, mesh, axis="model"):
+        """``{name: split axis or None}`` for a sub-mesh serving replica,
+        the JAX package's rules as plain descriptors: q/k/v/ffn1 weights
+        and biases split on axis 0 (columns of the output), attn_out/ffn2
+        weights on axis 1 (rows, their biases replicated: they add after
+        the reduction), the embedding, the pred head and its bias by
+        vocabulary (axis 0), MoE banks on the expert axis (0) with the
+        router replicated, LayerNorm and ``pos_embed`` replicated, and
+        ``<name>_qscale`` following its weight's axis 0.  A dimension the
+        shard count does not divide stays replicated.  One deliberate
+        difference: q/k/v/attn_out split by whole heads only
+        (``num_heads % k == 0``); else attention is replicated."""
+        g = self.shard_groups(mesh.shape[axis])
+        out = {}
+        for name in self.param_shapes():
+            ax = None
+            if name.endswith(("moe_w1", "moe_w2")):
+                ax = 0 if g["experts"] else None
+            elif name.endswith("moe_router_weight"):
+                ax = None
+            elif name in ("embed_weight", "pred_weight", "pred_bias"):
+                ax = 0 if g["vocab"] else None
+            elif name.endswith(("q_weight", "k_weight", "v_weight",
+                                "q_bias", "k_bias", "v_bias")):
+                ax = 0 if g["heads"] else None
+            elif name.endswith("attn_out_weight"):
+                ax = 1 if g["heads"] else None
+            elif name.endswith(("ffn1_weight", "ffn1_bias")):
+                ax = 0 if g["ffn"] else None
+            elif name.endswith("ffn2_weight"):
+                ax = 1 if g["ffn"] else None
+            out[name] = ax
+        if self.quant is not None:
+            for w in self._quant_weight_names():
+                out[w + "_qscale"] = 0 if out[w] == 0 else None
+        return out
+
+    def kv_shardings(self, mesh, axis="model"):
+        """(pool, scales) descriptors of the K/V buffers: the paged pool
+        (L, 2, n_blocks, bs, E) and the slot cache split on the embed axis
+        (4) by whole heads, so block tables stay replica-global, and the
+        KV-quant row scales replicated; both replicated when the heads do
+        not split."""
+        heads = self.shard_groups(mesh.shape[axis])["heads"]
+        return (4 if heads else None), None
+
+    def shard_params(self, params, mesh, axis="model"):
+        """Cut a parameter dict (tensors, or a JAX dict of numpy arrays)
+        into a `sharded.ShardedParams` by `param_shardings`: each split
+        tensor's slice a fresh tensor on its shard's device, each
+        replicated one a single copy per distinct device."""
+        from .sharded import ShardedParams, _new_like
+        plan = ShardPlan(self, mesh.axis_devices(axis))
+        axes = self.param_shardings(mesh, axis)
+        if all(isinstance(v, torch.Tensor) for v in params.values()):
+            self.check_params(params)
+        else:
+            params = self.params_from_jax(params, plan.home)
+        shards = [{} for _ in range(plan.k)]
+        for name, t in params.items():
+            ax = axes.get(name)
+            if ax is None:
+                copies = {d: t.to(d) for d in plan.devs}
+                for s, d in enumerate(plan.devices):
+                    shards[s][name] = copies[d]
+                continue
+            n = t.shape[ax] // plan.k
+            for s, d in enumerate(plan.devices):
+                shards[s][name] = _new_like(t.narrow(ax, s * n, n), d)
+        return ShardedParams(shards, plan, axes)
 
     def params_from_jax(self, params, device=None, dtype=None):
         """``{name: tensor}`` on ``device`` (default ``cuda:0``) in ``dtype``
@@ -363,16 +487,6 @@ class TransformerKVModel:
             return cache
         return cache, None
 
-    def _write_rows(self, pool, scales, idx, rows):
-        """``pool[idx] = rows``, quantized per row under KV quant (its
-        scales to ``scales[idx]``): every scatter into the paged pool."""
-        if scales is None:
-            pool[idx] = rows.to(pool.dtype)
-        else:
-            q, sc = quantize_rows(rows, self.kv_quant)
-            pool[idx] = q
-            scales[idx] = sc
-
     def _gather_ctx(self, pool, scales, layer, which, tables):
         """One layer's K (or V) context through the block tables,
         dequantized (f32 rows times their gathered scales) under KV
@@ -448,39 +562,281 @@ class TransformerKVModel:
     def _head(self, params, x):
         return self._proj(params, self._ln(params, x, "final_ln"), "pred")
 
+    # -- the programs' steps over the shard plan ----------------------------
+    # A value of the residual stream is ``{device: tensor}``, one per
+    # distinct device of the plan; ``pv`` is `_views` of the parameters.
+    # The one-shard plan takes every replicated branch, which is the
+    # unsharded model's arithmetic op for op.
+    def _views(self, params):
+        """``({device: dict}, [dict per shard])``: the dict whose
+        replicated entries serve each distinct device, and each shard's
+        own (its slices).  The one-shard plan's both hold ``params``."""
+        return {None: params}, [params]
+
+    def _unit_pools(self, cache):
+        """Each attention unit's K/V buffer, and under KV quant the row
+        scales per distinct device (else None)."""
+        pool, scales = self._pool_parts(cache)
+        return [pool], (None if scales is None else {None: scales})
+
+    def _pack_kv(self, kv):
+        """A slot prefill's K/V as `write_prefill` takes it: the one
+        unit's (L, 2, b, s, embed)."""
+        return kv[0]
+
+    def _rep(self, t):
+        """``t`` (on shard 0's device) as one tensor per distinct
+        device."""
+        devs = self.plan.devs
+        if len(devs) == 1:
+            return {devs[0]: t}
+        return {d: (t if t.device == d else t.to(d)) for d in devs}
+
+    def _reduce(self, parts):
+        """The sum of the shards' partial results, in shard order, as one
+        tensor per distinct device: on the shards' device when they share
+        one, else on shard 0's, copied back."""
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + (p if p.device == total.device
+                             else p.to(total.device))
+        return self._rep(total)
+
+    def _flat(self, x):
+        return {d: t.reshape(-1, self.num_embed) for d, t in x.items()}
+
+    def _ln_r(self, pv, x, name):
+        return {d: self._ln(pv[0][d], x[d], name) for d in self.plan.devs}
+
+    def _row_partial(self, p, x, name):
+        """One shard's share of a row-split projection: its rows of the
+        weight times its slice of the input, no bias, no scale (both apply
+        after the reduction); f32 under weight quant."""
+        w = p[name + "_weight"]
+        if p.get(name + "_weight_qscale") is None:
+            return F.linear(x, w)
+        return torch.matmul(x.float(), w.float().t())
+
+    def _row_finish(self, p, y, name, dtype):
+        qs = p.get(name + "_weight_qscale")
+        if qs is not None:
+            y = (y * qs).to(dtype)
+        if self.use_bias:
+            y = y + p[name + "_bias"]
+        return y
+
+    def _embed_r(self, pv, tokens):
+        """The token embedding per distinct device: replicated, or the
+        vocab-split masked lookup and its reduction (``jnp.take``'s NaN
+        rows for ids outside [-V, V) kept)."""
+        g = self.plan
+        pd, ps = pv
+        tok = self._rep(tokens)
+        if not g.groups["vocab"]:
+            return {d: self._embed(pd[d], tok[d]) for d in g.devs}
+        n = self.vocab_size // g.k
+        parts = []
+        for s, d in enumerate(g.devices):
+            p = ps[s]
+            wrapped, _ = in_range(as_index(tok[d]), self.vocab_size)
+            local = wrapped - s * n
+            mine = (local >= 0) & (local < n)
+            idx = local.clamp(0, n - 1)
+            rows = p["embed_weight"][idx]
+            qs = p.get("embed_weight_qscale")
+            if qs is not None:
+                rows = rows.float() * qs[idx][..., None]
+            parts.append(torch.where(mine[..., None], rows,
+                                     torch.zeros((), dtype=rows.dtype,
+                                                 device=rows.device)))
+        tot = self._reduce(parts)
+        out = {}
+        for d in g.devs:
+            _, valid = in_range(as_index(tok[d]), self.vocab_size)
+            out[d] = torch.where(valid[..., None], tot[d],
+                                 torch.full((), float("nan"),
+                                            dtype=tot[d].dtype,
+                                            device=tot[d].device)
+                                 ).to(self.dtype)
+        return out
+
+    def _input(self, pv, tokens, positions):
+        """Embedding plus the positional rows at ``positions`` (on shard
+        0's device), per distinct device."""
+        x = self._embed_r(pv, tokens)
+        pr = self._rep(positions)
+        return {d: x[d] + pv[0][d]["pos_embed_weight"][0][pr[d]]
+                for d in self.plan.devs}
+
+    def _qkv(self, pv, hn, p, shape):
+        """Every unit's q, k, v from the normed input, each reshaped to
+        ``shape + (e_u,)``."""
+        out = []
+        for d, lo, hi, src in self.plan.units:
+            pu = pv[1][src]
+            out.append(tuple(
+                self._proj(pu, hn[d], p + w).reshape(shape + (hi - lo,))
+                for w in ("q", "k", "v")))
+        return out
+
+    def _unit_heads(self, u):
+        _, lo, hi, _ = self.plan.units[u]
+        return self.num_heads * (hi - lo) // self.num_embed
+
+    def _attn_out(self, pv, x, attn, p):
+        """``x + attn_out(attn)`` per distinct device: the row-split
+        projection reduced over the shards, or replicated when the heads
+        do not split (``attn`` holds one unit per distinct device)."""
+        g = self.plan
+        pd, ps = pv
+        name = p + "attn_out"
+        if g.groups["heads"]:
+            parts = [self._row_partial(ps[src], a, name)
+                     for a, (_, _, _, src) in zip(attn, g.units)]
+            y = self._reduce(parts)
+            return {d: x[d] + self._row_finish(
+                pd[d], y[d], name, attn[0].dtype).reshape(x[d].shape)
+                for d in g.devs}
+        return {d: x[d] + self._proj(pd[d], attn[j], name).reshape(
+            x[d].shape) for j, d in enumerate(g.devs)}
+
+    def _ffn_r(self, pv, hn, p, tape=None):
+        """Layer ``p``'s FFN over flattened (n, e) rows per distinct
+        device: column/row split and reduced, MoE expert-parallel (the
+        router replicated, each shard's gated experts reduced: one nonzero
+        term per row plus exact zeros), or replicated."""
+        g = self.plan
+        pd, ps = pv
+        home = g.home
+        if self.moe_experts and g.groups["experts"]:
+            route = {}
+            for d in g.devs:
+                x = hn[d].float()
+                probs = torch.softmax(
+                    x @ pd[d][p + "moe_router_weight"].float(), dim=-1)
+                gate = probs.amax(dim=-1)
+                onehot = F.one_hot(probs.argmax(dim=-1),
+                                   self.moe_experts).to(torch.float32)
+                if tape is not None and d == home:
+                    tape.append(onehot.sum(dim=0).to(torch.int32))
+                route[d] = (x, onehot * gate[:, None])
+            ne = self.moe_experts // g.k
+            parts = []
+            for s, d in enumerate(g.devices):
+                x, wg = route[d]
+                hb = F.gelu(torch.einsum("nd,edf->nef", x,
+                                         ps[s][p + "moe_w1"].float()),
+                            approximate="tanh")
+                y = torch.einsum("nef,efd->ned", hb,
+                                 ps[s][p + "moe_w2"].float())
+                parts.append(torch.einsum("ned,ne->nd", y,
+                                          wg[:, s * ne:(s + 1) * ne]))
+            tot = self._reduce(parts)
+            return {d: tot[d].to(hn[d].dtype) for d in g.devs}
+        if self.moe_experts or not g.groups["ffn"]:
+            return {d: self._ffn(pd[d], hn[d], p,
+                                 tape if d == home else None)
+                    for d in g.devs}
+        parts = []
+        for s, d in enumerate(g.devices):
+            f = F.gelu(self._proj(ps[s], hn[d], p + "ffn1"),
+                       approximate="tanh")
+            parts.append(self._row_partial(ps[s], f, p + "ffn2"))
+        y = self._reduce(parts)
+        return {d: self._row_finish(pd[d], y[d], p + "ffn2", hn[d].dtype)
+                for d in g.devs}
+
+    def _ffn_block(self, pv, x, p, tape):
+        """``x + ffn(ln2(x))`` per distinct device."""
+        f = self._ffn_r(pv, self._flat(self._ln_r(pv, x, p + "ln2")), p,
+                        tape)
+        return {d: x[d] + f[d].reshape(x[d].shape) for d in self.plan.devs}
+
+    def _head_r(self, pv, x):
+        """The final LayerNorm and the head: replicated, on shard 0's
+        device; or split by vocabulary, the LayerNorm per distinct device
+        and the logits concatenated on shard 0's device."""
+        g = self.plan
+        if not g.groups["vocab"]:
+            return self._head(pv[0][g.home], x[g.home])
+        hn = self._ln_r(pv, x, "final_ln")
+        return torch.cat([
+            self._proj(pv[1][s], hn[d], "pred").to(hn[g.home].device)
+            for s, d in enumerate(g.devices)], dim=-1)
+
+    def _last(self, x, length):
+        """Each row's last real position, per distinct device."""
+        b = length.shape[0]
+        idx = self._rep(length.long() - 1)
+        return {d: t[torch.arange(b, device=t.device), idx[d]]
+                for d, t in x.items()}
+
+    def _write_units(self, pools, scales, idx, rows):
+        """``pool[idx] = rows`` for every unit (``idx`` per distinct
+        device): every scatter into the paged pool.  Under KV quant each
+        row quantizes by the whole embed row's amax (the max over the
+        units when the heads split), its scales written once per distinct
+        device."""
+        g = self.plan
+        if scales is None:
+            for u, (d, _, _, _) in enumerate(g.units):
+                pools[u][idx[d]] = rows[u].to(pools[u].dtype)
+            return
+        amax = None
+        if g.groups["heads"]:
+            for r in rows:
+                m = row_amax(r)
+                amax = m if amax is None else torch.maximum(
+                    amax, m if m.device == amax.device else m.to(amax.device))
+            amax = self._rep(amax)
+        sc = {}
+        for u, (d, _, _, _) in enumerate(g.units):
+            q, sc[d] = quantize_rows(rows[u], self.kv_quant,
+                                     amax=None if amax is None else amax[d])
+            pools[u][idx[d]] = q
+        for d, t in scales.items():
+            t[idx[d]] = sc[d]
+
+    def _ctx(self, pools, scales, u, layer, which, tables):
+        """Unit ``u``'s K (or V) context of one layer."""
+        d = self.plan.units[u][0]
+        return self._gather_ctx(pools[u], None if scales is None
+                                else scales[d], layer, which, tables)
+
     # -- prefill -----------------------------------------------------------
     def prefill(self, params, tokens, length, moe_tape=None):
         """Forward the right-padded prompt.
 
         tokens: (b, s) int, rows padded past ``length``; length: (b,) int,
         real tokens per row (>= 1).  Returns (logits (b, vocab) of each
-        row's last real token, kv (num_layers, 2, b, s, embed)).
+        row's last real token, kv (num_layers, 2, b, s, embed); a
+        sub-mesh replica's per unit, each its heads' columns).
         ``moe_tape`` collects an MoE model's routed counts, a layer an
-        entry."""
+        entry.  Each attention unit runs the flash kernel on its heads."""
+        g = self.plan
+        pv = self._views(params)
         b, s = tokens.shape
-        h, e = self.num_heads, self.num_embed
-        x = self._embed(params, tokens) + \
-            params["pos_embed_weight"][0, :s]
-        kv = []
+        hd = self.num_embed // self.num_heads
+        x = self._input(pv, tokens, torch.arange(s, device=tokens.device))
+        kv = [[] for _ in g.units]
         for i in range(self.num_layers):
             p = "layer%d_" % i
-            hf = self._ln(params, x, p + "ln1").reshape(-1, e)
-            q = self._proj(params, hf, p + "q").reshape(b, s, e)
-            k = self._proj(params, hf, p + "k").reshape(b, s, e)
-            v = self._proj(params, hf, p + "v").reshape(b, s, e)
-            kv.append(torch.stack([k, v]))
+            hf = self._flat(self._ln_r(pv, x, p + "ln1"))
+            attn = []
+            for u, (q, k, v) in enumerate(self._qkv(pv, hf, p, (b, s))):
+                kv[u].append(torch.stack([k, v]))
+                hu = self._unit_heads(u)
 
-            # (b, s, e) -> (b, h, s, hd) as a view: the kernel takes strides
-            def heads(t):
-                return t.reshape(b, s, h, e // h).transpose(1, 2)
-            attn = flash_attention(heads(q), heads(k), heads(v), causal=True)
-            attn = attn.transpose(1, 2).reshape(-1, e)
-            x = x + self._proj(params, attn, p + "attn_out").reshape(b, s, e)
-            hn = self._ln(params, x, p + "ln2")
-            x = x + self._ffn(params, hn.reshape(-1, e), p,
-                              moe_tape).reshape(b, s, e)
-        last = x[torch.arange(b, device=x.device), length.long() - 1]
-        return self._head(params, last), torch.stack(kv)
+                # (b, s, e_u) -> (b, h_u, s, hd) as a view: the kernel
+                # takes strides
+                def heads(t):
+                    return t.reshape(b, s, hu, hd).transpose(1, 2)
+                a = flash_attention(heads(q), heads(k), heads(v), causal=True)
+                attn.append(a.transpose(1, 2).reshape(b * s, -1))
+            x = self._attn_out(pv, x, attn, p)
+            x = self._ffn_block(pv, x, p, moe_tape)
+        return (self._head_r(pv, self._last(x, length)),
+                self._pack_kv([torch.stack(k) for k in kv]))
 
     def write_prefill(self, cache, kv, length, slots):
         """Write a prefill's (num_layers, 2, b, s, embed) K/V into the slot
@@ -498,25 +854,30 @@ class TransformerKVModel:
         token, pos, slots: (b,) int — each row's current token, the
         position it occupies and its cache slot (padding rows point at
         the engine's trash slot).  Returns (logits (b, vocab), cache)."""
+        g = self.plan
+        pv = self._views(params)
+        pools, _ = self._unit_pools(cache)
         pos = pos.long()
-        slots = slots.long()
-        x = self._embed(params, token) + \
-            params["pos_embed_weight"][0][pos]
+        pr = self._rep(pos)
+        sl = self._rep(slots.long())
+        b = token.shape[0]
+        x = self._input(pv, token, pos)
         for i in range(self.num_layers):
             p = "layer%d_" % i
-            hn = self._ln(params, x, p + "ln1")
-            q = self._proj(params, hn, p + "q")
-            k = self._proj(params, hn, p + "k")
-            v = self._proj(params, hn, p + "v")
+            hn = self._ln_r(pv, x, p + "ln1")
+            attn = []
             self._mark(cache)
-            cache[i, 0, slots, pos] = k.to(cache.dtype)
-            cache[i, 1, slots, pos] = v.to(cache.dtype)
-            attn = decode_attention(q, cache[i, 0][slots], cache[i, 1][slots],
-                                    pos, self.num_heads)
-            x = x + self._proj(params, attn, p + "attn_out")
-            hn = self._ln(params, x, p + "ln2")
-            x = x + self._ffn(params, hn, p, moe_tape)
-        return self._head(params, x), self._unmark(cache)
+            for u, (q, k, v) in enumerate(self._qkv(pv, hn, p, (b,))):
+                d = g.units[u][0]
+                c = pools[u]
+                c[i, 0, sl[d], pr[d]] = k.to(c.dtype)
+                c[i, 1, sl[d], pr[d]] = v.to(c.dtype)
+                attn.append(decode_attention(q, c[i, 0][sl[d]],
+                                             c[i, 1][sl[d]], pr[d],
+                                             self._unit_heads(u)))
+            x = self._attn_out(pv, x, attn, p)
+            x = self._ffn_block(pv, x, p, moe_tape)
+        return self._head_r(pv, x), self._unmark(cache)
 
     # -- paged cache -------------------------------------------------------
     def prefill_paged(self, params, pool, tokens, start, length, tables,
@@ -529,10 +890,11 @@ class TransformerKVModel:
         this chunk.  tables: (b, m) int block tables covering the chunk.
         Returns (logits of each row's last real chunk token, pool)."""
         cache = pool
-        pool, scales = self._pool_parts(cache)
+        g = self.plan
+        pv = self._views(params)
+        pools, scales = self._unit_pools(cache)
         b, c = tokens.shape
-        h, e = self.num_heads, self.num_embed
-        bs = pool.shape[3]
+        bs = pools[0].shape[3]
         m = tables.shape[1]
         start = start.long()
         tables = tables.long()
@@ -541,35 +903,36 @@ class TransformerKVModel:
         # chunk's padding) go to the trash block explicitly
         ent = start[:, None] // bs + torch.arange(nb, device=tables.device)
         blk = torch.gather(tables, 1, ent.clamp(max=m - 1))
-        blk = torch.where(ent < m, blk, 0)                     # (b, nb)
+        blk = self._rep(torch.where(ent < m, blk, 0))           # (b, nb)
         # a short final chunk's padding can run past seq_len: clamp its
         # (never attended) positions into the table
         positions = start[:, None] + torch.arange(c, device=tables.device)
-        x = self._embed(params, tokens) + \
-            params["pos_embed_weight"][0][positions.clamp(max=self.seq_len - 1)]
+        x = self._input(pv, tokens, positions.clamp(max=self.seq_len - 1))
+        tr = self._rep(tables)
+        sr = self._rep(start)
         for i in range(self.num_layers):
             p = "layer%d_" % i
-            hf = self._ln(params, x, p + "ln1").reshape(-1, e)
-            q = self._proj(params, hf, p + "q").reshape(b, c, e)
-            k = self._proj(params, hf, p + "k").reshape(b, c, e)
-            v = self._proj(params, hf, p + "v").reshape(b, c, e)
+            hf = self._flat(self._ln_r(pv, x, p + "ln1"))
+            qkv = self._qkv(pv, hf, p, (b, c))
             # write the chunk's rows into their blocks, then gather the
             # whole context so the chunk attends to itself too
             self._mark(cache)
-            self._write_rows(pool, scales, (i, 0, blk),
-                             k.reshape(b, nb, bs, e))
-            self._write_rows(pool, scales, (i, 1, blk),
-                             v.reshape(b, nb, bs, e))
-            kc = self._gather_ctx(pool, scales, i, 0, tables)
-            vc = self._gather_ctx(pool, scales, i, 1, tables)
-            attn = chunk_attention(q, kc, vc, start, h)
-            x = x + self._proj(params, attn.reshape(-1, e),
-                               p + "attn_out").reshape(b, c, e)
-            hn = self._ln(params, x, p + "ln2")
-            x = x + self._ffn(params, hn.reshape(-1, e), p,
-                              moe_tape).reshape(b, c, e)
-        last = x[torch.arange(b, device=x.device), length.long() - 1]
-        return self._head(params, last), self._unmark(cache)
+            for which in (0, 1):
+                self._write_units(
+                    pools, scales, {d: (i, which, blk[d]) for d in g.devs},
+                    [t[1 + which].reshape(b, nb, bs, -1) for t in qkv])
+            attn = []
+            for u, (q, _, _) in enumerate(qkv):
+                d = g.units[u][0]
+                a = chunk_attention(
+                    q, self._ctx(pools, scales, u, i, 0, tr[d]),
+                    self._ctx(pools, scales, u, i, 1, tr[d]), sr[d],
+                    self._unit_heads(u))
+                attn.append(a.reshape(b * c, -1))
+            x = self._attn_out(pv, x, attn, p)
+            x = self._ffn_block(pv, x, p, moe_tape)
+        return (self._head_r(pv, self._last(x, length)),
+                self._unmark(cache))
 
     def copy_block(self, pool, src, dst):
         """Copy one block's cached rows, every layer, K and V, from block
@@ -588,6 +951,24 @@ class TransformerKVModel:
             scales[:, :, dst] = scales[:, :, src]
         return self._unmark(cache)
 
+    def gather_blocks(self, cache, idx):
+        """The rows of blocks ``idx`` ((n,) int tensor on the pool's
+        device), every layer, K and V, as one run (and their scales under
+        KV quant): the handoff's pack."""
+        pool, scales = self._pool_parts(cache)
+        if scales is None:
+            return pool[:, :, idx]
+        return pool[:, :, idx], scales[:, :, idx]
+
+    @staticmethod
+    def cache_leaves(cache):
+        """The tensors of a cache or pool value."""
+        return list(cache) if isinstance(cache, tuple) else [cache]
+
+    def poison_scales(self, cache, block):
+        """NaN one block's per-row K/V scales (``scale_corrupt`` chaos)."""
+        cache[1][:, :, block] = float("nan")
+
     def decode_paged(self, params, pool, token, pos, tables, moe_tape=None):
         """One generation step over the paged pool, updated in place.
 
@@ -595,34 +976,41 @@ class TransformerKVModel:
         trash with pos 0, so their writes land in the trash block).
         Returns (logits (b, vocab), pool)."""
         cache = pool
-        pool, scales = self._pool_parts(cache)
-        bs = pool.shape[3]
+        g = self.plan
+        pv = self._views(params)
+        pools, scales = self._unit_pools(cache)
+        bs = pools[0].shape[3]
         m = tables.shape[1]
         pos = pos.long()
         tables = tables.long()
         ent = pos // bs
         blk = torch.gather(tables, 1, ent.clamp(max=m - 1)[:, None])[:, 0]
-        blk = torch.where(ent < m, blk, 0)
-        off = pos % bs
-        x = self._embed(params, token) + \
-            params["pos_embed_weight"][0][pos.clamp(max=self.seq_len - 1)]
+        blk = self._rep(torch.where(ent < m, blk, 0))
+        off = self._rep(pos % bs)
+        b = token.shape[0]
+        x = self._input(pv, token, pos.clamp(max=self.seq_len - 1))
+        tr = self._rep(tables)
+        pr = self._rep(pos)
         for i in range(self.num_layers):
             p = "layer%d_" % i
-            hn = self._ln(params, x, p + "ln1")
-            q = self._proj(params, hn, p + "q")
-            k = self._proj(params, hn, p + "k")
-            v = self._proj(params, hn, p + "v")
+            hn = self._ln_r(pv, x, p + "ln1")
+            qkv = self._qkv(pv, hn, p, (b,))
             self._mark(cache)
-            self._write_rows(pool, scales, (i, 0, blk, off), k)
-            self._write_rows(pool, scales, (i, 1, blk, off), v)
-            attn = decode_attention(
-                q, self._gather_ctx(pool, scales, i, 0, tables),
-                self._gather_ctx(pool, scales, i, 1, tables), pos,
-                self.num_heads)
-            x = x + self._proj(params, attn, p + "attn_out")
-            hn = self._ln(params, x, p + "ln2")
-            x = x + self._ffn(params, hn, p, moe_tape)
-        return self._head(params, x), self._unmark(cache)
+            for which in (0, 1):
+                self._write_units(
+                    pools, scales,
+                    {d: (i, which, blk[d], off[d]) for d in g.devs},
+                    [t[1 + which] for t in qkv])
+            attn = []
+            for u, (q, _, _) in enumerate(qkv):
+                d = g.units[u][0]
+                attn.append(decode_attention(
+                    q, self._ctx(pools, scales, u, i, 0, tr[d]),
+                    self._ctx(pools, scales, u, i, 1, tr[d]), pr[d],
+                    self._unit_heads(u)))
+            x = self._attn_out(pv, x, attn, p)
+            x = self._ffn_block(pv, x, p, moe_tape)
+        return self._head_r(pv, x), self._unmark(cache)
 
     def decode_megastep(self, params, pool, token, pos, left, eos, tables,
                         steps, pick, moe_tape=None):
@@ -693,38 +1081,43 @@ class TransformerKVModel:
         table's coverage go to the trash block.  Returns (logits (b, c,
         vocab) at every fed position, pool)."""
         cache = pool
-        pool, scales = self._pool_parts(cache)
+        g = self.plan
+        pv = self._views(params)
+        pools, scales = self._unit_pools(cache)
         b, c = tokens.shape
-        h, e = self.num_heads, self.num_embed
-        bs = pool.shape[3]
+        bs = pools[0].shape[3]
         m = tables.shape[1]
         pos = pos.long()
         tables = tables.long()
         positions = pos[:, None] + torch.arange(c, device=tables.device)
         ent = positions // bs                                  # (b, c)
         blk = torch.gather(tables, 1, ent.clamp(max=m - 1))
-        blk = torch.where(ent < m, blk, 0)
-        off = positions % bs
-        x = self._embed(params, tokens) + \
-            params["pos_embed_weight"][0][positions.clamp(
-                max=self.seq_len - 1)]
+        blk = self._rep(torch.where(ent < m, blk, 0))
+        off = self._rep(positions % bs)
+        x = self._input(pv, tokens, positions.clamp(max=self.seq_len - 1))
+        tr = self._rep(tables)
+        pr = self._rep(pos)
+        lr = self._rep(length)
         for i in range(self.num_layers):
             p = "layer%d_" % i
-            hf = self._ln(params, x, p + "ln1").reshape(-1, e)
-            q = self._proj(params, hf, p + "q").reshape(b, c, e)
-            k = self._proj(params, hf, p + "k").reshape(b, c, e)
-            v = self._proj(params, hf, p + "v").reshape(b, c, e)
+            hf = self._flat(self._ln_r(pv, x, p + "ln1"))
+            qkv = self._qkv(pv, hf, p, (b, c))
             self._mark(cache)
-            self._write_rows(pool, scales, (i, 0, blk, off), k)
-            self._write_rows(pool, scales, (i, 1, blk, off), v)
-            kc = self._gather_ctx(pool, scales, i, 0, tables)
-            vc = self._gather_ctx(pool, scales, i, 1, tables)
-            attn = verify_attention(q, kc, vc, pos, length, h)
-            x = x + self._proj(params, attn.reshape(-1, e),
-                               p + "attn_out").reshape(b, c, e)
-            hn = self._ln(params, x, p + "ln2")
-            x = x + self._ffn(params, hn.reshape(-1, e), p,
-                              moe_tape).reshape(b, c, e)
-        logits = self._head(params, x.reshape(-1, e)).reshape(
+            for which in (0, 1):
+                self._write_units(
+                    pools, scales,
+                    {d: (i, which, blk[d], off[d]) for d in g.devs},
+                    [t[1 + which] for t in qkv])
+            attn = []
+            for u, (q, _, _) in enumerate(qkv):
+                d = g.units[u][0]
+                a = verify_attention(
+                    q, self._ctx(pools, scales, u, i, 0, tr[d]),
+                    self._ctx(pools, scales, u, i, 1, tr[d]), pr[d], lr[d],
+                    self._unit_heads(u))
+                attn.append(a.reshape(b * c, -1))
+            x = self._attn_out(pv, x, attn, p)
+            x = self._ffn_block(pv, x, p, moe_tape)
+        logits = self._head_r(pv, self._flat(x)).reshape(
             b, c, self.vocab_size)
         return logits, self._unmark(cache)

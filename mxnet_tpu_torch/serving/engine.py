@@ -165,11 +165,25 @@ lands it as a restore (`receive_handoff`, `_stage_handoffs`,
 fleet through `ReplicaRouter.add_replica` / `remove_replica`, and
 `gateway.ServeGateway` serves a fleet over HTTP with server-sent events.
 
-What the JAX engine has beyond this waits for the next slice: sharded
-replicas (`ReplicaRouter.from_mesh`, `param_shardings`) and request
-tracing (the JAX engine's `tracing.dump`, `tracing.phase` and
-`tracing.add_span` calls have no counterpart here); ``from_mesh`` raises
-naming its ROADMAP.md item.  A prompt token outside
+Sub-mesh replicas (``ctx=`` a `parallel.mesh.Mesh`): one engine shards
+its parameters and K/V buffers over the devices of one mesh axis
+(``MXNET_SERVE_SHARDED_AXIS``, "model") and runs the partitioned programs
+of `sharded.ShardedKVModel` from one host thread; block tables, the
+allocator, the prefix cache and all scheduling stay replica-global, so
+the router, failover, the journal, drain and respawn treat it as one
+replica.  ``MXNET_SERVE_SHARDED=0`` degrades a Mesh ctx to its first
+device.  `memory_footprint` reports the JAX engine's accounting, and
+`ReplicaRouter.from_mesh` builds a fleet of such replicas.
+
+Request tracing (`mxnet_tpu_torch.tracing`, on unless
+``MXNET_SERVE_TRACING=0``): the JAX engine's spans at its call sites, a
+root ``request`` span per request closed at `ServeRequest._finish`,
+interval phases that tile submit to done, the prefill-chunk and handoff
+leaves, the replica-scoped ``megastep``, ``host_sweep`` and
+``spec_round`` spans from the scheduler's existing stamps, and a
+flight-recorder dump on a quarantine, a cache rebuild, a failed handoff
+and scheduler death.  Host clocks only: tracing adds no launch and no
+sync.  A prompt token outside
 [-V, V) embeds as NaN, as in the JAX engine, and its request decodes
 token 0 (the first NaN's index) while the scheduler goes on.
 """
@@ -185,9 +199,10 @@ from collections import OrderedDict, deque
 import numpy as np
 import torch
 
-from .. import chaos, telemetry
+from .. import chaos, telemetry, tracing
 from ..base import MXNetError
 from ..context import resolve
+from ..parallel.mesh import Mesh, submeshes
 from ..quant.codec import resolve as quant_resolve
 from .handoff import HandoffLanding, HandoffTicket, disagg_enabled
 from .errors import (ServeBlocksExhausted, ServeCacheInvalidated,
@@ -197,6 +212,7 @@ from .errors import (ServeBlocksExhausted, ServeCacheInvalidated,
 from .journal import RequestJournal, journal_enabled
 from .paged import TRASH_BLOCK, BlockAllocator, PrefixCache
 from .sampling import argmax, sample_tokens
+from .sharded import ShardedKVModel, ShardedParams
 from .spec import make_drafter
 from .tiers import HostBlockTier, pack_block_run
 
@@ -384,6 +400,9 @@ class ServeRequest:
         self._done.set()
         with self._stream_cond:
             self._stream_cond.notify_all()
+        # every resolution funnels through here exactly once: close the
+        # request's trace and fold its phases into serve.attr.*
+        tracing.on_finish(self)
 
 
 class _Seq:
@@ -475,7 +494,9 @@ class ServingEngine:
     params: ``{name: tensor}`` (moved to ``ctx``) or a JAX parameter dict
             of numpy arrays (carried across by `params_from_jax`).
     ctx:    the device, ``cuda:0`` by default; ``"cpu"`` runs the plain
-            versions of the kernels.
+            versions of the kernels; a `Mesh` makes a sub-mesh replica
+            over one of its axes (``MXNET_SERVE_SHARDED``,
+            ``MXNET_SERVE_SHARDED_AXIS``).
     The other keywords and their defaults are the JAX engine's.  Those of
     the request contract and the prefix cache, left at None, read the
     JAX engine's pins: ``MXNET_SERVE_QUEUE_MAX`` (0, unbounded),
@@ -508,6 +529,21 @@ class ServingEngine:
                  restore_ahead=None, quant=None, kv_quant=None):
         chaos.spec()  # a clause the port cannot inject raises here
         self.name = name
+        # a sub-mesh replica: a Mesh ctx shards the params and the K/V
+        # buffers over one axis (`sharded.ShardedKVModel`) while every
+        # host-side structure stays replica-global, so the router treats
+        # it as one replica.  MXNET_SERVE_SHARDED=0 degrades the mesh to
+        # its first device
+        self._mesh = None
+        self._mesh_axis = None
+        self._kv_shard = None
+        if isinstance(ctx, Mesh):
+            if _env_flag("MXNET_SERVE_SHARDED"):
+                self._mesh = ctx
+                ax = os.environ.get("MXNET_SERVE_SHARDED_AXIS", "model")
+                self._mesh_axis = ax if ax in ctx.axis_names \
+                    else ctx.axis_names[0]
+            ctx = ctx.devices.reshape(-1)[0]
         self.device = resolve(ctx)
         self._paged = bool(paged)
         # post-training quantization: weights quantized once at load,
@@ -530,10 +566,21 @@ class ServingEngine:
         self._quant_logit_max = float(os.environ.get(
             "MXNET_SERVE_QUANT_LOGIT_MAX", "1e4"))
         self.model = model = model.with_quant(self._quant, self._kv_quant)
-        if self._quant is not None:
+        self._base_model = model  # what a respawn builds from
+        sharded_in = isinstance(params, ShardedParams)
+        if self._quant is not None and not sharded_in:
             # idempotent: a respawn passes already quantized params
             params = model.quantize_params(params)
-        if all(isinstance(v, torch.Tensor) for v in params.values()):
+        if self._mesh is not None:
+            self._kv_shard = model.kv_shardings(self._mesh, self._mesh_axis)
+            self.model = model = ShardedKVModel(model, self._mesh,
+                                                self._mesh_axis)
+            # a respawn passes the dead replica's shards: no bytes move
+            self._params = model.shard_params(params)
+        elif sharded_in:
+            raise MXNetError("ServingEngine: sharded parameters need a Mesh "
+                             "ctx (MXNET_SERVE_SHARDED=0 wants a dict)")
+        elif all(isinstance(v, torch.Tensor) for v in params.values()):
             model.check_params(params)
             self._params = {k: v.to(self.device) for k, v in params.items()}
         else:
@@ -637,9 +684,12 @@ class ServingEngine:
                 if restore_ahead is None else restore_ahead)
             if tier_on and self._host_blocks > 0:
                 # one block of the pool's layout sizes the tier's slots
+                # (the unsharded layout, a sub-mesh replica's spills too)
+                tmpl = model.block_run_placeholder(1, bs)
                 self._tier = HostBlockTier(
-                    self._host_blocks, self.model.slice_block(
-                        self.model.init_block_pool(1, bs, "cpu"), 0),
+                    self._host_blocks,
+                    tuple(t[:, :, 0] for t in tmpl)
+                    if isinstance(tmpl, tuple) else tmpl[:, :, 0],
                     pin=self.device.type == "cuda")
             if self.device.type == "cuda":
                 # host-to-card copies of restores and handoff landings
@@ -989,6 +1039,24 @@ class ServingEngine:
         self._drain_moe(keep_last=False)
         return self._moe_load.copy()
 
+    def memory_footprint(self):
+        """Device-memory accounting of the params and the K/V buffers, the
+        JAX engine's keys: ``total_bytes`` (the whole replica),
+        ``per_device_bytes`` (the largest share one device of the group
+        holds, counted by shard position, so it shrinks with the shard
+        count on one card too) and ``devices`` (shard positions; 1 for an
+        unsharded engine).  Beside them ``per_shard_bytes`` and
+        ``physical_device_bytes``: the bytes each distinct device really
+        holds (shards that share a card add up there)."""
+        if self._mesh is not None:
+            return self.model.footprint(self._params, self._cache)
+        total = sum(t.numel() * t.element_size() for t in
+                    list(self._params.values())
+                    + self.model.cache_leaves(self._cache))
+        return {"total_bytes": int(total), "per_device_bytes": int(total),
+                "devices": 1, "per_shard_bytes": [int(total)],
+                "physical_device_bytes": {str(self.device): int(total)}}
+
     def _to_host(self, t):
         """Start ``t``'s copy to the host: (pinned host tensor, CUDA
         event) on a card, (t, None) on the CPU.  `_fetch` waits."""
@@ -1057,8 +1125,7 @@ class ServingEngine:
         # only the trash block (or slot), which a finished row's megastep
         # steps read: zero the cache again, so they route as the JAX
         # engine's do, and drop warmup's counts
-        for t in (self._cache if isinstance(self._cache, tuple)
-                  else (self._cache,)):
+        for t in self.model.cache_leaves(self._cache):
             t.zero_()
         self._moe_pending.clear()
         return {"prefill": list(self.prefill_buckets),
@@ -1085,7 +1152,8 @@ class ServingEngine:
         copy), a fresh K/V cache and scheduler state.  ``name`` names a
         new replica templated off this one instead."""
         return ServingEngine(
-            self.model, self._params, ctx=self.device,
+            self._base_model, self._params,
+            ctx=self.device if self._mesh is None else self._mesh,
             max_batch=self.max_batch,
             decode_buckets=list(self.decode_buckets),
             prefill_buckets=list(self.prefill_buckets),
@@ -1313,6 +1381,11 @@ class ServingEngine:
         req._waker = self._wake.set
         self._wake.set()
         telemetry.set_gauge(self._gauge + "queue_depth", depth)
+        # every enqueue (submit, redispatch, migration, handoff replay)
+        # opens the trace (idempotent: a requeued request keeps its root
+        # and its t_submit) and flips its interval phase to queue_wait
+        tracing.open_trace(req.id, self.name, t=req.t_submit)
+        tracing.phase(req.id, "queue_wait", self.name, depth=depth)
         return req
 
     def _enqueue(self, req, count_shed_global=True):
@@ -1427,6 +1500,7 @@ class ServingEngine:
         self._count("quarantined")
         telemetry.record_event("serve_quarantine", replica=self.name,
                                request=req.id, error=msg[:200])
+        tracing.dump(self.name, "quarantine", request=req.id)
         req._finish(error=ServeQuarantined(msg[:500]))
 
     def _requeue_once(self, req, what, reason):
@@ -1437,6 +1511,8 @@ class ServingEngine:
             req._requeues += 1
             with self._qlock:
                 self._queue.appendleft(req)
+            tracing.phase(req.id, "queue_wait", self.name,
+                          requeue="cache_rebuild")
         else:
             self._quarantine(req, what % reason[:200])
 
@@ -1496,6 +1572,7 @@ class ServingEngine:
         self._count("cache_rebuilds")
         telemetry.record_event("serve_cache_rebuild", replica=self.name,
                                reason=reason[:200])
+        tracing.dump(self.name, "cache_rebuild", detail=reason[:200])
 
     def _launch_failed(self, e, req, cleanup):
         """The prefill failure ladder of a launch that raised: a dead
@@ -1530,6 +1607,7 @@ class ServingEngine:
             return self._admit_one_paged(req)
         slot = self._free.pop()
         plen = len(req.prompt)
+        tracing.phase(req.id, "prefill", self.name, prompt_len=plen)
         try:
             inputs = self._slot_inputs(req.prompt, slot)
             if chaos.serve_launch_error():
@@ -1565,6 +1643,7 @@ class ServingEngine:
         if self._seq_finished(seq, first):
             self._retire(slot, seq, enter=False)
         else:
+            tracing.phase(req.id, "decode", self.name, pos=plen)
             self._active[slot] = seq
         req._publish()
         return True
@@ -1863,6 +1942,8 @@ class ServingEngine:
                 req, row, list(tokens), blocks, matched, nodes, handles,
                 staged, self._put(dsts), dst, kb, t_stage, src=data,
                 ready=ready)
+            tracing.phase(req.id, "restore_wait", self.name, t=t_stage,
+                          blocks=len(nodes))
             return True
         self._enter_decode_or_prefill(req, row, list(tokens), blocks, matched)
         return True
@@ -1902,8 +1983,15 @@ class ServingEngine:
                 self._drafter.on_resume(list(tokens) + [last])
             seq = _Seq(req, last, pos, blocks=blocks, ctx=list(tokens[:pos]))
             seq.n_new = n_new
+            tracing.phase(req.id, "decode", self.name, pos=pos,
+                          bootstrap=True)
             self._active[row] = seq
             return
+        # a resumed admission re-prefills context it already generated
+        # once: attributed as `replay`, not `prefill`
+        tracing.phase(req.id,
+                      "replay" if req._resume is not None else "prefill",
+                      self.name, covered=covered, total=len(tokens))
         pf = _Prefill(req, row, tokens, blocks,
                       resume=None if req._resume is None
                       else req._resume[1:])
@@ -1988,6 +2076,8 @@ class ServingEngine:
                 self._drop_host_node(node)
             with self._qlock:
                 self._queue.appendleft(req)
+            tracing.phase(req.id, "queue_wait", self.name,
+                          requeue="restore_failed")
             return
         # landed: the nodes flip back to device residency (keeping their
         # host copies); one upgraded or dropped in the window leaves its
@@ -2061,6 +2151,7 @@ class ServingEngine:
             self._drop_prefill(pf)
             self._quarantine(req, "prefill setup failed: %s" % e)
             return
+        t_chunk = time.perf_counter()
         try:
             logits = self._prefill_chunk(*inputs)
             first = self._pick(logits, [req], [total])[0] if final else None
@@ -2074,6 +2165,9 @@ class ServingEngine:
         self.stats["prefill_chunks"] += 1
         self.stats["prefill_tokens"] += chunk
         telemetry.inc("serve.prefill_chunks")
+        tracing.add_span(req.id, "prefill_chunk", self.name, t_chunk,
+                         time.perf_counter(), start=pf.done - chunk,
+                         tokens=chunk)
         # publish the newly full blocks (``done`` counts real tokens only,
         # so a block whose tail holds the bucket's padding stays private)
         self._register_prefix(pf.tokens, pf.blocks, pf.done)
@@ -2099,6 +2193,8 @@ class ServingEngine:
             seq.n_new = n_new
             if self._drafter is not None and n_new:
                 self._drafter.on_resume(list(pf.tokens) + [last])
+            tracing.phase(req.id, "decode", self.name, pos=pos,
+                          resumed=True)
             self._active[pf.row] = seq
             return
         if first < 0:
@@ -2120,6 +2216,7 @@ class ServingEngine:
             self._retire(pf.row, seq, enter=False)
         elif not self._maybe_handoff(req, pf.row, pf.tokens, blocks, first,
                                      total, 1):
+            tracing.phase(req.id, "decode", self.name, pos=total)
             self._active[pf.row] = seq
         # the first token publishes from the source, once; the decode side
         # resumes at n_new 1
@@ -2137,9 +2234,7 @@ class ServingEngine:
         its copy is behind, None on the CPU)."""
         idx = self._put(np.asarray(list(blocks) + [TRASH_BLOCK]
                                    * (kb - len(blocks)), np.int64))
-        pool, scales = self.model._pool_parts(self._cache)
-        run = pool[:, :, idx] if scales is None else \
-            (pool[:, :, idx], scales[:, :, idx])
+        run = self.model.gather_blocks(self._cache, idx)
         if self.device.type != "cuda":
             return run, None
         data = self.model.block_run_placeholder(kb, self.block_size, pin=True)
@@ -2171,6 +2266,11 @@ class ServingEngine:
             ticket = HandoffTicket(req, list(tokens[:pos]), last, pos, n_new,
                                    data, k, kb, self.name, t_start=t_pack,
                                    ready=ready)
+            ctx = tracing.context(req.id)
+            if ctx is not None:
+                # the ticket carries (trace id, root span id) across the
+                # role boundary; the decode side adopts it at receive
+                ticket.trace, ticket.parent = ctx
         except Exception as e:  # noqa: BLE001 -- degrade to replay
             self._free.append(row)
             self._drop_refs(blocks)
@@ -2182,6 +2282,13 @@ class ServingEngine:
         self._free.append(row)
         self._drop_refs(blocks)
         self._block_gauges()
+        # handoff_wait opens at the pack's start: the attributed wait
+        # covers pack, transfer and landing, as serve.handoff_wait_ms does
+        tracing.phase(req.id, "handoff_wait", self.name, t=t_pack,
+                      blocks=ticket.k, nbytes=ticket.nbytes)
+        tracing.add_span(req.id, "handoff_pack", self.name, t_pack,
+                         time.perf_counter(), blocks=ticket.k,
+                         nbytes=ticket.nbytes)
         try:
             self._handoff_sink(ticket)
         except Exception as e:  # noqa: BLE001 -- no live decode replica
@@ -2201,6 +2308,8 @@ class ServingEngine:
         self._count("handoff_fails")
         telemetry.record_event("serve_handoff_fail", replica=self.name,
                                request=req.id, error=str(msg)[:200])
+        tracing.dump(self.name, "handoff_fail", request=req.id,
+                     error=str(msg)[:200])
         ok = False
         if self._handoff_fallback is not None:
             try:
@@ -2218,6 +2327,9 @@ class ServingEngine:
         the admission close."""
         if not self._paged:
             raise MXNetError("receive_handoff: paged serving only")
+        # adopt the carried trace context before queueing: this replica's
+        # spans parent under the root the prefill side opened
+        tracing.adopt(ticket.trace, ticket.parent, replica=self.name)
         with self._qlock:
             self._check_alive_locked()
             self._handoff_inbox.append(ticket)
@@ -2275,6 +2387,7 @@ class ServingEngine:
         falls back to the journal's replay."""
         t = ld.ticket
         req = t.req
+        t_land = time.perf_counter()
         try:
             if chaos.serve_launch_error():
                 raise chaos.ChaosError(
@@ -2299,8 +2412,12 @@ class ServingEngine:
         self._register_prefix(t.ctx, ld.blocks, t.pos)
         self.stats["handoffs_in"] += 1
         self._count("handoffs_in")
-        telemetry.observe("serve.handoff_wait_ms",
-                          1e3 * (time.perf_counter() - t.t_start))
+        now = time.perf_counter()
+        telemetry.observe("serve.handoff_wait_ms", 1e3 * (now - t.t_start))
+        tracing.add_span(req.id, "handoff_land", self.name, t_land, now,
+                         blocks=t.k, src=t.src)
+        tracing.phase(req.id, "decode", self.name, pos=t.pos,
+                      handoff=t.src)
         del self._landing[ld.row]
         self._release_src(ld)
         if self._drafter is not None and t.n_new:
@@ -2462,6 +2579,8 @@ class ServingEngine:
                                request=req.id, pos=pf.done, prefill=True)
         with self._qlock:
             self._queue.appendleft(req)
+        tracing.phase(req.id, "queue_wait", self.name, requeue="preempt",
+                      pos=pf.done)
 
     def _stall(self, row):
         """Sit ``row`` out of this decode step: its blocks and context
@@ -2557,6 +2676,8 @@ class ServingEngine:
             req._requeues += 1
             with self._qlock:
                 self._queue.appendleft(req)
+            tracing.phase(req.id, "queue_wait", self.name,
+                          requeue="quant_trip")
         else:
             req._finish(error=ServeQuantError(
                 "ServeRequest %d: quantization logit gate tripped (%s) — "
@@ -2588,6 +2709,8 @@ class ServingEngine:
                                request=req.id, pos=seq.pos)
         with self._qlock:
             self._queue.appendleft(req)
+        tracing.phase(req.id, "queue_wait", self.name, requeue="preempt",
+                      pos=seq.pos)
 
     # -- retirement ----------------------------------------------------------
     def _seq_finished(self, seq, token):
@@ -2846,7 +2969,7 @@ class ServingEngine:
         if not held:
             return
         blk = held[int(u * len(held)) % len(held)]
-        self._cache[1][:, :, blk] = float("nan")
+        self.model.poison_scales(self._cache, blk)
         self.stats["scale_corrupts"] += 1
         self._count("quant.scale_corrupts")
         telemetry.record_event("serve_scale_corrupt", replica=self.name,
@@ -2936,6 +3059,8 @@ class ServingEngine:
             self._grow_active()
             self._block_gauges(full=True)
             inflight = self._launch_mega()
+        # the overlap window: host work the card no longer waits on
+        t_sweep = time.perf_counter()
         self._sweep()
         self._advance_restores()
         self._advance_landings()
@@ -2947,6 +3072,9 @@ class ServingEngine:
             # a crash here kills the replica with the megastep in flight:
             # its tokens were never fetched, so no request holds them
             self._chaos_decode()
+            # the replica-scoped host-sweep span
+            tracing.add_span(0, "host_sweep", self.name, t_sweep,
+                             time.perf_counter())
             self._finish_mega(inflight)
         elif self._active:
             time.sleep(0.001)   # every row is stalled on a denial
@@ -3003,6 +3131,8 @@ class ServingEngine:
         # the launch-to-fetch span: host work inside it ran while the
         # megastep executed
         self.stats["hidden_s"] += now - t_launch
+        tracing.add_span(0, "megastep", self.name, t_launch, now,
+                         rows=n, bucket=b, m=self._mega_m)
         m = self._mega_m
         self.stats["megasteps"] += 1
         self.stats["decode_rows"] += n
@@ -3144,6 +3274,8 @@ class ServingEngine:
         now = time.perf_counter()
         self.stats["fetch_wait_s"] += now - t_fetch
         self.stats["hidden_s"] += now - t_launch
+        tracing.add_span(0, "spec_round", self.name, t_launch, now,
+                         rows=n, bucket=b, k=self._spec_k)
         self.stats["verify_steps"] += 1
         self.stats["decode_rows"] += n
         self.stats["decode_padded"] += b - n
@@ -3239,6 +3371,8 @@ class ServingEngine:
         fail with `ServeEngineDead`."""
         err = ServeEngineDead("ServingEngine %s: scheduler died: %s"
                               % (self.name, msg))
+        # the postmortem first, while the ring holds the death's lead-up
+        tracing.dump(self.name, "scheduler_death", error=msg[:200])
         inflight = self._sweep_inflight()
         with self._qlock:
             # mark dead and drain atomically: _enqueue checks _dead under
@@ -3417,17 +3551,11 @@ def _default_prefill_buckets(seq_len):
     return sorted(set(out))
 
 
-# what a router keyword or method of the JAX package's waits on, by the
-# ROADMAP.md item that brings it
-_SHARDED = ("sharded replicas (ROADMAP.md queue 1, item 2: "
-            "`param_shardings`, `kv_shardings` with torch.distributed)")
-
-
 class ReplicaRouter:
     """Least-depth dispatch over engine replicas, with health monitoring,
     failover and respawn: the port of `mxnet_tpu/serving/engine.py`
     `ReplicaRouter`, on replicas that are whole engines (each on one
-    device; on one card, all on the same one).
+    device or one sub-mesh; on one card, all on the same one).
 
     When a replica's scheduler dies, its admitted in-flight requests
     migrate to survivors by exact replay through the request journal
@@ -3451,8 +3579,8 @@ class ReplicaRouter:
     enters through the prefill replica with the least prompt backlog,
     and its handoff goes to the live decode replica with the least
     decode depth.  A session's follow-up turn goes to the decode replica
-    that holds it.  Not ported: `from_mesh` (sharded replicas), which
-    raises `MXNetError` naming its ROADMAP item.
+    that holds it.  `from_mesh` builds the fleet over a mesh's devices,
+    one replica a device or one sub-mesh replica a group of them.
     """
 
     _MONITOR_PERIOD = 0.2
@@ -3517,9 +3645,35 @@ class ReplicaRouter:
                             {"prefill": 1, "decode": 2}.get(role, 0))
 
     @classmethod
-    def from_mesh(cls, *args, **kw):
-        raise MXNetError("ReplicaRouter.from_mesh: %s is not ported yet"
-                         % _SHARDED)
+    def from_mesh(cls, model, params, mesh=None, n_replicas=None,
+                  devices_per_replica=None, respawn=None, journal=None,
+                  disagg=None, prefill_replicas=None, **kw):
+        """A router over the devices of ``mesh`` (default: every visible
+        CUDA device, one entry each).  ``devices_per_replica`` (or
+        ``MXNET_SERVE_SHARDED_DEVICES``, 1) groups consecutive devices
+        into sub-mesh replicas, each one sharded engine (a remainder that
+        cannot fill a group is dropped); with 1 every device is its own
+        replica.  ``n_replicas`` keeps the first ones; the other keywords
+        go to every `ServingEngine`."""
+        if mesh is not None:
+            devices = list(mesh.devices.reshape(-1))
+        elif torch.cuda.is_available() and torch.cuda.device_count():
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        else:
+            raise MXNetError(
+                "ReplicaRouter.from_mesh: no CUDA device; the port serves "
+                "on the card by default, pass a CPU mesh to run on the CPU")
+        k = int(os.environ.get("MXNET_SERVE_SHARDED_DEVICES", "1")
+                if devices_per_replica is None else devices_per_replica)
+        ctxs = submeshes(devices, k) if k > 1 else devices
+        if n_replicas is not None:
+            ctxs = ctxs[:int(n_replicas)]
+        engines = [ServingEngine(model, params, ctx=c, name="replica%d" % i,
+                                 **kw)
+                   for i, c in enumerate(ctxs)]
+        return cls(engines, respawn=respawn, journal=journal,
+                   disagg=disagg, prefill_replicas=prefill_replicas)
 
     def warmup(self):
         return [e.warmup() for e in self.engines]

@@ -37,7 +37,7 @@ import os
 import threading
 import time
 
-from .. import chaos, telemetry
+from .. import chaos, telemetry, tracing
 from ..base import MXNetError
 from .errors import (ServeBlocksExhausted, ServeCancelled,
                      ServeDeadlineExceeded, ServeEngineDead, ServeError,
@@ -417,12 +417,12 @@ class ServeGateway:
                 return
             writer.write(b"data: [DONE]\n\n")
             await writer.drain()
+            t1 = time.perf_counter()
             ttfb = None if t_first is None else 1e3 * (t_first - t0)
             if ttfb is not None:
                 telemetry.observe("serve.gateway.ttfb_ms", ttfb)
-            # the JAX gateway records a "gateway_send" span from the
-            # submit to here; it waits for request tracing (`tracing.py`,
-            # ROADMAP.md queue 1, item 2)
+            tracing.add_span(req.id, "gateway_send", "gateway", t0, t1,
+                             ttfb_ms=ttfb, n_tokens=len(req.tokens))
         finally:
             watcher.cancel()
             if not req.done:

@@ -75,9 +75,9 @@ class HandoffTicket:
         # spans pack, transfer and landing
         self.t_start = time.perf_counter() if t_start is None else t_start
         self.ready = ready
-        # the trace context the JAX ticket carries across the role
-        # boundary; None until request tracing (`tracing.py`, ROADMAP.md
-        # queue 1, item 2) is ported
+        # the trace context (trace id, root span id) carried across the
+        # role boundary: set from `tracing.context` at the pack, adopted
+        # at `ServingEngine.receive_handoff`
         self.trace = None
         self.parent = None
 

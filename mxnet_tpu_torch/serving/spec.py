@@ -51,6 +51,7 @@ import torch
 from .. import chaos, telemetry
 from ..base import MXNetError
 from ..ops.pallas_kernels._build import KernelBuildError
+from .sharded import ShardedParams
 
 __all__ = ["Drafter", "NgramDrafter", "ModelDrafter", "make_drafter"]
 
@@ -254,6 +255,11 @@ class ModelDrafter(Drafter):
                 "ModelDrafter: draft vocab %d != target vocab %d"
                 % (self.model.vocab_size, engine.model.vocab_size))
         params = engine._params if self.params is None else self.params
+        if isinstance(params, ShardedParams):
+            # self-drafting on a sub-mesh replica: the target's shards
+            self._dparams = params
+            self._init_pool()
+            return
         if self.model.quant is not None:
             # idempotent: self-drafting shares the engine's quantized
             # parameters

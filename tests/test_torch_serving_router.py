@@ -20,6 +20,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from mxnet_tpu import chaos as jchaos
 from mxnet_tpu import telemetry as jtelemetry
@@ -31,6 +32,7 @@ from mxnet_tpu.serving import ServingEngine as JServingEngine
 from mxnet_tpu_torch import chaos as tchaos
 from mxnet_tpu_torch import telemetry as ttelemetry
 from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.parallel.mesh import make_mesh
 from mxnet_tpu_torch.serving import (ReplicaRouter, RequestJournal,
                                      ServeEngineDead, ServeError,
                                      ServeRequest, ServeTimeout,
@@ -409,11 +411,21 @@ def test_add_and_remove_replicas(models, wparams):
 
 def test_unported_router_parts_name_their_roadmap_item(models, wparams,
                                                        monkeypatch):
-    with pytest.raises(MXNetError, match="ROADMAP.md queue 1"):
-        ReplicaRouter.from_mesh(models[1], wparams)
-    for method in (models[1].param_shardings, models[1].kv_shardings):
-        with pytest.raises(MXNetError, match="ROADMAP.md queue 1"):
-            method(None)
+    # sharded replicas are ported: from_mesh builds a fleet over a mesh
+    # (one replica an entry, or sub-mesh replicas), the shard rules
+    # answer; with no card and no mesh from_mesh refuses
+    mesh = make_mesh((2,), ("model",), devices=["cpu"] * 2)
+    router = ReplicaRouter.from_mesh(models[1], wparams, mesh=mesh, **KW)
+    assert [e.name for e in router.engines] == ["replica0", "replica1"]
+    router = ReplicaRouter.from_mesh(models[1], wparams, mesh=mesh,
+                                     devices_per_replica=2, **KW)
+    assert len(router.engines) == 1
+    assert router.engines[0]._mesh.devices.shape == (2,)
+    assert models[1].param_shardings(mesh)["layer0_q_weight"] == 0
+    assert models[1].kv_shardings(mesh) == (4, None)
+    if not torch.cuda.is_available():
+        with pytest.raises(MXNetError, match="no CUDA device"):
+            ReplicaRouter.from_mesh(models[1], wparams)
     # disaggregation is ported: the keyword and the env switch build roles
     pair = _engines(models, wparams, False, n=2)
     ReplicaRouter(pair, disagg=True)

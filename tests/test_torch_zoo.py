@@ -205,14 +205,15 @@ def _values(net_arg_shapes, ints, classes, seed):
     return vals
 
 
-def _run_both(build, shapes, vals, dtype):
-    """One training forward and backward of ``build(models)`` in both
-    packages' `Executor` on the CPU from ``vals``, every argument in
-    ``dtype`` (float64: the JAX package under ``jax.enable_x64``):
-    {package: (outputs, {name: gradient}, {name: aux state})} as
-    float64 numpy."""
+def _run_both(build, shapes, vals, dtype, packages=tuple(PK)):
+    """One training forward and backward of ``build(models)`` in each of
+    ``packages``' `Executor` (both by default) on the CPU from ``vals``,
+    every argument in ``dtype`` (float64: the JAX package under
+    ``jax.enable_x64``): {package: (outputs, {name: gradient}, {name: aux
+    state})} as float64 numpy."""
     res = {}
-    for k, mx in PK.items():
+    for k in packages:
+        mx = PK[k]
         net = build(ZOO[k])
         types = {n: dtype for n in net.list_arguments()}
         with jax.enable_x64(dtype == np.float64):
@@ -233,7 +234,7 @@ def _run_both(build, shapes, vals, dtype):
 
 
 def fwd_bwd_against_jax(build, shapes, ints=(), seed=0, classes=None,
-                        spread=False):
+                        spread=False, spread_from=tuple(PK)):
     """Bind ``build(models)`` in both packages on the CPU, fill arguments
     and aux states from ``seed`` (inputs named in ``ints`` as integer ids
     below ``classes``, labels likewise), run one training forward and
@@ -247,10 +248,14 @@ def fwd_bwd_against_jax(build, shapes, ints=(), seed=0, classes=None,
     With ``spread`` the bar is the largest of that, twice the network's
     rounding spread in the same units, and twice the array's own
     rounding spread.  An array's spread is the larger distance between
-    either package's float32 run and its own float64 run (the JAX package
-    under ``jax.enable_x64``); the network's is the largest relative
-    spread over its outputs and aux states, for those, and over its
-    gradients, for the gradients.
+    the float32 run and the float64 run of each package of
+    ``spread_from`` (both by default; the JAX package under
+    ``jax.enable_x64``); the network's is the largest relative spread
+    over its outputs and aux states, for those, and over its gradients,
+    for the gradients.  A network whose spreads from the port's runs
+    alone are no larger than from both, array by array and network-wide,
+    takes ``spread_from=("torch",)``: the same bar or a tighter one,
+    without the JAX package's float64 compile.
     Two float32 runs of a large network part where a ReLU input lies
     within rounding of zero, and a deep BatchNorm network at
     initialization amplifies rounding through its backward (the
@@ -269,7 +274,8 @@ def fwd_bwd_against_jax(build, shapes, ints=(), seed=0, classes=None,
                               aux_shapes)), ints, classes, seed)
     runs = {np.float32: _run_both(build, shapes, vals, np.float32)}
     if spread:
-        runs[np.float64] = _run_both(build, shapes, vals, np.float64)
+        runs[np.float64] = _run_both(build, shapes, vals, np.float64,
+                                     spread_from)
     top = max(np.abs(g).max() for g in runs[np.float32]["jax"][1].values())
     # (kind, name, pick) of every array compared
     arrays = [("fwd", "output %d" % i, lambda r, i=i: r[0][i])
@@ -288,7 +294,7 @@ def fwd_bwd_against_jax(build, shapes, ints=(), seed=0, classes=None,
         for kind, what, pick in arrays:
             own[what] = max(np.abs(pick(runs[np.float32][k])
                                    - pick(runs[np.float64][k])).max()
-                            for k in PK)
+                            for k in spread_from)
             m = np.abs(pick(runs[np.float32]["jax"])).max()
             # an array that rounding alone moves by half its size is
             # noise (a bias before a BatchNorm): held to its own spread
@@ -302,10 +308,11 @@ def fwd_bwd_against_jax(build, shapes, ints=(), seed=0, classes=None,
     return spreads, where
 
 
-def net_matches_jax(name, build, shapes, classes):
+def net_matches_jax(name, build, shapes, classes, spread_from=tuple(PK)):
     """`fwd_bwd_against_jax` with the rounding spread, printing it (-s)."""
     spreads, where = fwd_bwd_against_jax(build, shapes, classes=classes,
-                                         spread=True)
+                                         spread=True,
+                                         spread_from=spread_from)
     print("%s: rounding spread %s at %s" % (name, spreads, where))
 
 

@@ -7,8 +7,10 @@ The bar (`tests/test_torch_zoo.py`'s `fwd_bwd_against_jax` with its
 spread): every output, gradient and aux state within 1e-4 of its own
 largest magnitude (float32 on both sides, summed in another order), or,
 where larger, twice the rounding spread, the distance rounding alone
-puts between each package's float32 run and its own float64 run (the
-JAX package under ``jax.enable_x64``).  GoogLeNet holds millions of ReLU
+puts between the port's float32 run and its float64 run.  The JAX
+package's own float32-to-float64 distance widens no bar here: with it
+the spreads are the same (googlenet bwd 0.0102, fcn8s 1.6e-6, seed 0),
+so its float64 compile is not run.  GoogLeNet holds millions of ReLU
 inputs; at seed 0 one lies at 5.6e-7 in the port's float32 run and
 -1.8e-6 in float64, which moves its first layers' gradients by ~1e-2 of
 their largest.
@@ -33,4 +35,4 @@ NETS = {
 
 @pytest.mark.parametrize("name", sorted(NETS))
 def test_net_forward_backward_matches_the_jax_executor(name, no_dropout):
-    net_matches_jax(name, *NETS[name])
+    net_matches_jax(name, *NETS[name], spread_from=("torch",))
